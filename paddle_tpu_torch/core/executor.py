@@ -1,0 +1,292 @@
+"""Scope + Executor: run programs on one device, op by op.
+
+Mirror of ``paddle_tpu/core/executor.py``. The JAX package lowers a whole
+block to one jitted XLA step, donating mutable state so updates land in
+place. Here the block runs eagerly (``core/lowering.py``) against the
+scope's device tensors:
+
+- parameters and other persistable state live in the `Scope` as tensors
+  on the place's device;
+- a persistable output that aliases an input (the paged KV cache's
+  ``KCacheOut`` -> ``KCache``) is updated in place by its op and written
+  back as the same tensor, so a decode step never copies the cache;
+- `prepare()` resolves the per-program work once (which scope vars a
+  step reads and writes) and returns a `PreparedProgram` whose `run(feed)`
+  is the fast path.
+
+`CPUPlace()` runs on the host; `CUDAPlace(i)` on card i. An `Executor()`
+without a place means `CUDAPlace(0)`, which raises when no card is
+visible: nothing falls back to the host silently.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from . import ir, registry, types
+from .. import flags as _flags
+from .lowering import run_block
+
+
+# ---------------------------------------------------------------------------
+# Places (reference: platform/place.h)
+# ---------------------------------------------------------------------------
+
+class Place:
+    def torch_device(self) -> torch.device:
+        raise NotImplementedError
+
+
+class CPUPlace(Place):
+    def torch_device(self) -> torch.device:
+        return torch.device("cpu")
+
+    def __repr__(self):
+        return "CPUPlace()"
+
+
+class CUDAPlace(Place):
+    """One NVIDIA card. Raises at construction when there is none."""
+
+    def __init__(self, device_id: int = 0):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"CUDAPlace({device_id}): no CUDA device is visible "
+                f"(torch.cuda.is_available() is False) — pass CPUPlace() "
+                f"to run on the host")
+        if not 0 <= device_id < torch.cuda.device_count():
+            raise RuntimeError(
+                f"CUDAPlace({device_id}): only "
+                f"{torch.cuda.device_count()} CUDA device(s) visible")
+        self.device_id = int(device_id)
+
+    def torch_device(self) -> torch.device:
+        return torch.device("cuda", self.device_id)
+
+    def __repr__(self):
+        return f"CUDAPlace({self.device_id})"
+
+
+class Scope:
+    """Name -> tensor holder with lookup through a parent scope
+    (reference scope.h:39)."""
+
+    _uid_counter = itertools.count()
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self._vars: Dict[str, Any] = {}
+        self._parent = parent
+        self._uid = next(Scope._uid_counter)
+
+    def var(self, name: str):
+        """The variable in THIS scope only, or None."""
+        return self._vars.get(name)
+
+    def find_var(self, name: str):
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s._vars:
+                return s._vars[name]
+            s = s._parent
+        return None
+
+    def set_var(self, name: str, value):
+        self._vars[name] = value
+
+    def has_var(self, name: str) -> bool:
+        return self.find_var(name) is not None
+
+    def local_var_names(self) -> List[str]:
+        return list(self._vars)
+
+
+_global_scope = Scope()
+
+
+def global_scope() -> Scope:
+    return _global_scope
+
+
+def as_tensor(value, device, dtype: Optional[str] = None) -> torch.Tensor:
+    """A feed or scope value as a tensor on `device`, cast to `dtype`
+    (the IR dtype string) when it is a numeric value of another type —
+    the reference DataFeeder's implicit cast."""
+    if isinstance(value, torch.Tensor):
+        t = value
+    else:
+        arr = np.asarray(value)
+        if dtype is not None and arr.dtype.kind in "fiub" \
+                and arr.dtype != types.np_dtype(dtype):
+            arr = arr.astype(types.np_dtype(dtype))
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:     # a tensor may be updated in place
+            arr = arr.copy()
+        t = torch.from_numpy(arr)
+    if dtype is not None and t.dtype != types.torch_dtype(dtype):
+        t = t.to(types.torch_dtype(dtype))
+    return t.to(device)
+
+
+class _StepPlan:
+    """Which scope vars a (program, feed-name set) step reads and which
+    persistable vars it writes — resolved once per prepared handle."""
+
+    def __init__(self, program: ir.Program, feed_names, scope: Scope):
+        block = program.global_block()
+        produced = set(feed_names)
+        read: List[str] = []
+        written: List[str] = []
+        for op in block.ops:
+            for n in op.input_arg_names:
+                if n != registry.EMPTY_VAR and n not in produced \
+                        and n not in read:
+                    read.append(n)
+            for n in op.output_arg_names:
+                if n == registry.EMPTY_VAR:
+                    continue
+                produced.add(n)
+                v = block._find_var_recursive(n)
+                if v is not None and v.persistable and n not in written:
+                    written.append(n)
+        missing = [n for n in read if not scope.has_var(n)]
+        if missing:
+            missing_data = [n for n in missing
+                            if (v := block._find_var_recursive(n))
+                            is not None and v.is_data]
+            if missing_data:
+                raise RuntimeError(
+                    f"input variables {missing_data} were not fed — pass "
+                    f"them in `feed={{...}}`")
+            raise RuntimeError(
+                f"variables {missing} are read by the program but not "
+                f"initialized in the scope — run the startup program first")
+        self.read = read
+        self.written = written
+
+
+class PreparedProgram:
+    """Bound fast-path handle from `Executor.prepare()` (reference
+    Executor::Prepare / RunPreparedContext, executor.cc:294-366). Each
+    `run(feed)` converts the feeds onto the device, gathers the state it
+    reads from the scope, runs the block, and writes persistable outputs
+    back."""
+
+    def __init__(self, executor: "Executor", program: ir.Program,
+                 fetch_list, scope: Scope):
+        self._exe = executor
+        self.program = program
+        self.fetch_names = [f.name if isinstance(f, ir.Variable) else str(f)
+                            for f in (fetch_list or [])]
+        self.scope = scope
+        self.device = executor.place.torch_device()
+        self._block = program.global_block()
+        self._program_version = program._version
+        self._plans: Dict[frozenset, _StepPlan] = {}
+
+    def run(self, feed: Optional[Dict[str, Any]] = None,
+            return_numpy: bool = True):
+        program = self.program
+        if program._version != self._program_version:
+            raise RuntimeError(
+                "program was mutated after prepare(); prepare() it again "
+                "(Executor.run() re-prepares automatically)")
+        feed = feed or {}
+        feeds = {}
+        for name, val in feed.items():
+            var = self._block.vars.get(name)
+            feeds[name] = as_tensor(val, self.device,
+                                    var.dtype if var is not None else None)
+        key = frozenset(feeds)
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = _StepPlan(program, key, self.scope)
+        env = {}
+        for n in plan.read:
+            val = self.scope.find_var(n)
+            if not isinstance(val, torch.Tensor) or val.device != self.device:
+                # a host value set into the scope (numpy, or a tensor on
+                # another device) moves to the device once, for good
+                var = self._block._find_var_recursive(n)
+                val = as_tensor(val, self.device,
+                                var.dtype if var is not None else None)
+                self.scope.set_var(n, val)
+            env[n] = val
+        env.update(feeds)
+        seed = program.random_seed if program.random_seed is not None else 0
+        with torch.no_grad():
+            run_block(program, 0, env, self.device, seed,
+                      self._exe._count_run(program._uid),
+                      _flags.get_flag("check_nan_inf"))
+        for n in plan.written:
+            val = env.get(n)
+            if val is not None and self.scope.find_var(n) is not val:
+                self.scope.set_var(n, val)
+        fetches = []
+        for n in self.fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch target {n!r} was not computed")
+            fetches.append(env[n])
+        if return_numpy:
+            fetches = [f.cpu().numpy() for f in fetches]
+        return fetches
+
+
+# run()'s PreparedProgram memo cap (a handle pins its scope)
+_MAX_PREPARED_HANDLES = 64
+
+
+class Executor:
+    """Program runner (reference executor.py:224)."""
+
+    def __init__(self, place: Optional[Place] = None):
+        self.place = place if place is not None else CUDAPlace(0)
+        self._prepared: Dict[tuple, PreparedProgram] = {}
+        self._run_counts: Dict[int, int] = {}  # program uid -> runs so far
+
+    def _count_run(self, uid: int) -> int:
+        """Per-program run counter: a seeded startup re-initializes
+        identically whatever else this executor ran."""
+        n = self._run_counts.get(uid, 0)
+        self._run_counts[uid] = n + 1
+        return n
+
+    def prepare(self, program: Optional[ir.Program] = None,
+                fetch_list: Optional[Sequence[Union[str, ir.Variable]]] = None,
+                scope: Optional[Scope] = None) -> PreparedProgram:
+        program = program or ir.default_main_program()
+        scope = scope or global_scope()
+        return PreparedProgram(self, program, fetch_list, scope)
+
+    def run(self, program: Optional[ir.Program] = None,
+            feed: Optional[Dict[str, Any]] = None,
+            fetch_list: Optional[Sequence[Union[str, ir.Variable]]] = None,
+            scope: Optional[Scope] = None, return_numpy: bool = True):
+        program = program or ir.default_main_program()
+        scope = scope or global_scope()
+        fetch_names = tuple(f.name if isinstance(f, ir.Variable) else str(f)
+                            for f in (fetch_list or ()))
+        key = (program._uid, program._version, fetch_names, scope._uid)
+        prepared = self._prepared.get(key)
+        if prepared is None:
+            prepared = PreparedProgram(self, program, fetch_names, scope)
+            if len(self._prepared) >= _MAX_PREPARED_HANDLES:
+                self._prepared.pop(next(iter(self._prepared)))
+            self._prepared[key] = prepared
+        return prepared.run(feed, return_numpy=return_numpy)
+
+    def close(self):
+        self._prepared.clear()
+
+
+def fetch_var(name: str, scope: Optional[Scope] = None,
+              return_numpy: bool = True):
+    """Read a variable's current value from a scope."""
+    scope = scope or global_scope()
+    val = scope.find_var(name)
+    if val is None:
+        raise KeyError(f"fetch_var: variable {name!r} not found in scope")
+    return val.cpu().numpy() if return_numpy else val
