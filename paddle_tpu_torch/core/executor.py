@@ -8,8 +8,13 @@ scope's device tensors:
 - parameters and other persistable state live in the `Scope` as tensors
   on the place's device;
 - a persistable output that aliases an input (the paged KV cache's
-  ``KCacheOut`` -> ``KCache``) is updated in place by its op and written
-  back as the same tensor, so a decode step never copies the cache;
+  ``KCacheOut`` -> ``KCache``, Adam's ``ParamOut``/``Moment1Out``/... ->
+  ``Param``/``Moment1``/...) is updated in place by its op and written
+  back as the same tensor, so neither a decode step nor an optimizer
+  step copies its state, and no stale copy outlives the step;
+- a training program (grad ops from ``core/backward.py`` and update ops)
+  runs through the same `PreparedProgram.run`: its grad ops recompute
+  their forward rules under autograd (``core/lowering.py``);
 - `prepare()` resolves the per-program work once (which scope vars a
   step reads and writes) and returns a `PreparedProgram` whose `run(feed)`
   is the fast path.
@@ -240,9 +245,14 @@ _MAX_PREPARED_HANDLES = 64
 
 
 class Executor:
-    """Program runner (reference executor.py:224)."""
+    """Program runner (reference executor.py:224). `amp=True` (bf16 mixed
+    precision in the JAX package) is not ported yet and raises."""
 
-    def __init__(self, place: Optional[Place] = None):
+    def __init__(self, place: Optional[Place] = None, amp: bool = False):
+        if amp:
+            raise NotImplementedError(
+                "Executor(amp=True): bf16 mixed precision is not ported to "
+                "paddle_tpu_torch yet (it needs the bf16 kernels); run fp32")
         self.place = place if place is not None else CUDAPlace(0)
         self._prepared: Dict[tuple, PreparedProgram] = {}
         self._run_counts: Dict[int, int] = {}  # program uid -> runs so far

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import inspect
 import json
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -29,6 +29,8 @@ DIM_SENTINEL = 8191
 DIM_SENTINEL_ALT = 7919
 
 EMPTY_VAR = "@EMPTY@"
+GRAD_OP_SUFFIX = "_grad"
+FWD_OP_ATTR = "__fwd_op__"  # grad ops carry the forward OpDesc dict here
 
 
 class OpDef:
@@ -36,6 +38,7 @@ class OpDef:
         self.type = type
         self.lower = lower
         self.needs_rng = needs_rng
+        self.grad_lower: Optional[Callable] = None
         # parameter names of the rule (minus ctx) = input slot names
         params = list(inspect.signature(lower).parameters.values())[1:]
         self.input_slots = [p.name for p in params]
@@ -53,6 +56,24 @@ def register_op(type: str, needs_rng: bool = False):
         if type in _REGISTRY:
             raise ValueError(f"op {type!r} already registered")
         _REGISTRY[type] = OpDef(type, fn, needs_rng)
+        return fn
+
+    return deco
+
+
+def register_grad(type: str):
+    """Register a hand-written grad rule for op `type`, in place of the
+    generic one (the forward rule recomputed under autograd,
+    ``core/lowering.py``). Signature:
+    ``grad(ctx, ins: dict, out_grads: dict) -> {input_slot: grad}``;
+    ``ctx.fwd_outs`` holds the forward op's outputs."""
+
+    def deco(fn):
+        if type not in _REGISTRY:
+            raise ValueError(
+                f"register_grad({type!r}): forward op {type!r} is not "
+                f"registered — register_op must run first")
+        _REGISTRY[type].grad_lower = fn
         return fn
 
     return deco
@@ -76,15 +97,26 @@ class LoweringContext:
     """Per-op context handed to rules.
 
     `device` is where creation ops (fill_constant, gaussian_random) put
-    their output; `generator` is the op's own `torch.Generator` for random
-    ops (None otherwise)."""
+    their output. A random op gets `seed`, a host integer derived from
+    (program seed, run, op index): kernels and counter-hash dropout take
+    it as it is, so no random number is ever read back from the card.
+    `generator` is a `torch.Generator` on `device` seeded from it, made
+    on first use (None for an op without a seed, and in meta runs)."""
 
-    def __init__(self, attrs: Dict[str, Any], device, generator=None,
-                 op=None):
+    def __init__(self, attrs: Dict[str, Any], device, seed=None, op=None):
         self.attrs = attrs
         self.device = torch.device(device)
-        self.generator = generator
+        self.seed = seed
         self.op = op
+        self._generator = None
+
+    @property
+    def generator(self):
+        if self._generator is None and self.seed is not None \
+                and self.device.type != "meta":
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(self.seed)
+        return self._generator
 
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
@@ -127,7 +159,8 @@ def _eval_meta(opdef, attrs, ins_by_slot, sentinel):
                                 dtype=types.torch_dtype(dtype), device="meta")
                     for shape, dtype in pairs]
              for slot, pairs in ins_by_slot.items()}
-    return call_rule(opdef, LoweringContext(attrs, "meta"), metas)
+    ctx = LoweringContext(attrs, "meta", seed=0 if opdef.needs_rng else None)
+    return call_rule(opdef, ctx, metas)
 
 
 # (op_type, attrs json, input signature) -> inferred result: model

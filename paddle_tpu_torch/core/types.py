@@ -53,6 +53,8 @@ _ALIASES = {
 
 _FROM_TORCH = {v: k for k, v in _TORCH.items()}
 
+FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
 def canonical_dtype(dtype) -> str:
     """Normalize a dtype (str / np.dtype / torch.dtype) to its canonical
     string."""
@@ -77,3 +79,7 @@ def np_dtype(dtype) -> np.dtype:
     if name == "bfloat16":
         raise ValueError("numpy has no bfloat16; keep bfloat16 data in torch")
     return np.dtype(name)
+
+
+def is_float_dtype(dtype) -> bool:
+    return canonical_dtype(dtype) in FLOAT_DTYPES

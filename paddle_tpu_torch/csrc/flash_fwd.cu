@@ -25,23 +25,32 @@
 //   warp shuffles (xor offsets 8..1 stay inside a half-warp);
 // - causal: K tiles wholly above the diagonal are skipped, the diagonal
 //   tile is masked; a ragged T is handled by masking columns >= T and not
-//   writing rows >= T, so T needs no padding to a multiple of 64 or 128.
+//   writing rows >= T, so T needs no padding to a multiple of 64 or 128;
+// - attention-weight dropout (training): the TPU kernel re-seeds its PRNG
+//   per (bh, q-tile, k-tile), which Hopper cannot reproduce. Here a
+//   counter hash keys every weight on (seed, bh, query row, key column)
+//   (flash_common.cuh), so the mask depends on no tile size and the dQ and
+//   dK/dV kernels (flash_bwd.cu) regenerate it bit for bit. As in the TPU
+//   kernel, p is dropped and scaled after the row sum l is updated, so l
+//   counts the undropped weights. Dropout is a template flag: at rate 0
+//   (thresh == 0, the serving path) the launch takes the instantiation
+//   without it, the same code as before dropout existed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // query rows per block
-constexpr int BN = 64;        // key rows per inner-loop tile
-constexpr int NTHREADS = 256;
-constexpr float NEG_INF = -1e30f;  // the JAX package's masked-score value
+using namespace ptt_flash;
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int T, float sm_scale, int causal) {
+                 float* __restrict__ lse, int T, float sm_scale, int causal,
+                 uint32_t seed, uint32_t thresh, float drop_scale) {
   constexpr int DP = D + 1;   // padded row stride of Q and K tiles
   constexpr int PP = BN + 1;  // padded row stride of the P tile
   constexpr int DC = D / 16;  // accumulator columns per thread
@@ -56,6 +65,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = tid >> 4;
   const int q0 = blockIdx.x * BM;
   const size_t base = (size_t)blockIdx.y * T * D;
+  uint32_t rkey[4];
+  if (DROP) {
+    const uint32_t bk = bh_key(seed, blockIdx.y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rkey[i] = row_key(bk, q0 + ty + 16 * i);
+  }
 
   // Q tile -> shared, float4 loads along each row, zeros past T
   for (int i = tid; i < BM * D / 4; i += NTHREADS) {
@@ -136,8 +151,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        float p = expf(s[i][j] - m_new);
         rs += p;
+        if (DROP) p = keep(rkey[i], k0 + tx + 16 * j, thresh) ? p * drop_scale : 0.f;
         Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
       }
 #pragma unroll
@@ -186,24 +202,29 @@ constexpr size_t smem_bytes() {
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lse, int bh, int T, float sm_scale, int causal,
+                   uint32_t seed, uint32_t thresh, float drop_scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
+  auto kernel = thresh ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T + BM - 1) / BM, bh);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, lse, T,
-                                                        sm_scale, causal);
+  kernel<<<grid, NTHREADS, smem, stream>>>(
+      q, k, v, o, lse, T, sm_scale, causal, seed, thresh, drop_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: [bh, T, d] float32, contiguous; lse: [bh, T] float32.
+// Dropout keeps a weight when its hash >= thresh (thresh = rate * 2^32;
+// 0 = no dropout) and scales it by drop_scale = 1 / (1 - rate).
 // Returns a cudaError_t (0 on success); d must be 32, 64 or 128.
 extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int bh, int T, int d,
-                                 float sm_scale, int causal, int device,
+                                 float sm_scale, int causal, uint32_t seed,
+                                 uint32_t thresh, float drop_scale, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -214,9 +235,12 @@ extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return (int)launch<32>(qf, kf, vf, of, lf, bh, T, sm_scale, causal, s);
-    case 64: return (int)launch<64>(qf, kf, vf, of, lf, bh, T, sm_scale, causal, s);
-    case 128: return (int)launch<128>(qf, kf, vf, of, lf, bh, T, sm_scale, causal, s);
+    case 32: return (int)launch<32>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
+                                       seed, thresh, drop_scale, s);
+    case 64: return (int)launch<64>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
+                                       seed, thresh, drop_scale, s);
+    case 128: return (int)launch<128>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
+                                       seed, thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,10 @@
 """Parameter initializers appended as startup-program ops (the slice's
-subset of ``paddle_tpu/initializer.py``: Constant and Normal)."""
+subset of ``paddle_tpu/initializer.py``: Constant, Uniform, Normal,
+Xavier, and the global defaults Xavier for weights and 0 for biases)."""
 
 from __future__ import annotations
+
+import math
 
 
 class Initializer:
@@ -19,6 +22,17 @@ class ConstantInitializer(Initializer):
                                "value": float(self.value)})
 
 
+class UniformInitializer(Initializer):
+    def __init__(self, low=-1.0, high=1.0, seed=0):
+        self.low, self.high, self.seed = low, high, seed
+
+    def __call__(self, var, block):
+        block.append_op("uniform_random", outputs={"Out": [var.name]},
+                        attrs={"shape": list(var.shape), "dtype": var.dtype,
+                               "min": float(self.low), "max": float(self.high),
+                               "seed": self.seed})
+
+
 class NormalInitializer(Initializer):
     def __init__(self, loc=0.0, scale=1.0, seed=0):
         self.loc, self.scale, self.seed = loc, scale, seed
@@ -30,5 +44,44 @@ class NormalInitializer(Initializer):
                                "std": float(self.scale), "seed": self.seed})
 
 
+def _fan_in_out(var):
+    shape = var.shape
+    if len(shape) == 2:
+        fan_in, fan_out = shape[0], shape[1]
+    elif len(shape) >= 3:
+        receptive = math.prod(shape[2:])
+        fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
+    else:
+        fan_in = fan_out = math.prod(shape)
+    return fan_in, fan_out
+
+
+class XavierInitializer(Initializer):
+    def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
+        self.uniform, self.fan_in, self.fan_out, self.seed = (
+            uniform, fan_in, fan_out, seed)
+
+    def __call__(self, var, block):
+        fi, fo = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
 Constant = ConstantInitializer
+Uniform = UniformInitializer
 Normal = NormalInitializer
+Xavier = XavierInitializer
+
+
+def _global_weight_initializer():
+    return XavierInitializer()
+
+
+def _global_bias_initializer():
+    return ConstantInitializer(0.0)

@@ -8,6 +8,7 @@ the op registry (the rules themselves, on meta tensors).
 
 from __future__ import annotations
 
+from . import initializer as init
 from . import unique_name
 from .core import ir, registry
 from .param_attr import ParamAttr
@@ -32,8 +33,16 @@ class LayerHelper:
     def block(self) -> ir.Block:
         return self.main_program.current_block()
 
+    @property
+    def bias_attr(self):
+        battr = self.kwargs.get("bias_attr")
+        if battr is False:
+            return False
+        return ParamAttr._to_attr(battr)
+
     # -- variable creation ----------------------------------------------
-    def create_parameter(self, attr, shape, dtype, default_initializer=None,
+    def create_parameter(self, attr, shape, dtype, is_bias=False,
+                         default_initializer=None,
                          stop_gradient=False) -> ir.Parameter:
         attr = ParamAttr._to_attr(attr)
         name = attr.name or unique_name.generate(f"{self.name}.w")
@@ -42,9 +51,8 @@ class LayerHelper:
             return gb.vars[name]
         initializer = attr.initializer or default_initializer
         if initializer is None:
-            raise ValueError(
-                f"parameter {name!r}: pass an initializer (the JAX "
-                f"package's Xavier/constant defaults are not ported yet)")
+            initializer = (init._global_bias_initializer() if is_bias
+                           else init._global_weight_initializer())
         param = gb.create_parameter(
             name, shape, dtype, trainable=attr.trainable,
             regularizer=attr.regularizer, gradient_clip=attr.gradient_clip,
@@ -64,6 +72,13 @@ class LayerHelper:
             name=unique_name.generate(f"{self.name}.tmp"),
             shape=(), dtype=dtype, stop_gradient=stop_gradient)
 
+    def set_variable_initializer(self, var, initializer):
+        sb = self.startup_program.global_block()
+        if var.name not in sb.vars:
+            svar = sb.create_var(name=var.name, shape=var.shape,
+                                 dtype=var.dtype, persistable=True)
+            initializer(svar, sb)
+
     # -- op creation with shape inference --------------------------------
     def append_op(self, type: str, inputs=None, outputs=None,
                   attrs=None) -> ir.Operator:
@@ -80,6 +95,8 @@ class LayerHelper:
                           for n in names]
                    for slot, names in op.inputs.items()}
             result = registry.infer_op_shapes(op.type, op.attrs, ins)
+        except NotImplementedError:
+            raise
         except Exception:
             return  # runtime shapes remain authoritative
         for slot, names in op.outputs.items():
@@ -88,3 +105,17 @@ class LayerHelper:
                 if v is not None and not v.shape:
                     v.shape = shape
                     v.dtype = dtype
+
+    # -- activation sugar -------------------------------------------------
+    def append_activation(self, input_var: ir.Variable) -> ir.Variable:
+        act = self.kwargs.get("act")
+        if act is None:
+            return input_var
+        if isinstance(act, str):
+            act = {"type": act}
+        act_type = act.pop("type")
+        out = self.create_variable_for_type_inference(dtype=input_var.dtype)
+        self.append_op(act_type, inputs={"X": [input_var.name]},
+                       outputs={"Out": [out.name]}, attrs=act)
+        out.lod_level = input_var.lod_level
+        return out

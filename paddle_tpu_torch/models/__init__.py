@@ -1,3 +1,3 @@
-"""Models of the slice."""
+"""Models of the slices: tiny_lm (serving) and the Transformer (training)."""
 
-from . import tiny_lm  # noqa: F401
+from . import tiny_lm, transformer  # noqa: F401

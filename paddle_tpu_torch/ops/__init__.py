@@ -1,3 +1,4 @@
-"""Op rules of the slice. Importing this package registers them."""
+"""Op rules of the slices. Importing this package registers them."""
 
-from . import math, paged_attention, tensor  # noqa: F401
+from . import (flash_attention, loss, math, nn, optimizer_ops,  # noqa: F401
+               paged_attention, tensor)

@@ -1,13 +1,14 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``paddle_tpu_torch/csrc/*.cu``: plain C entry points, no
-PyTorch headers. At first use each source is compiled by its own `nvcc`
-process (all started together) for ``sm_90a``, and the objects are linked
-into one shared library under ``paddle_tpu_torch/_build/`` (listed in
-.gitignore), named by a hash of the sources and flags so an edited source
-never loads a stale build. The library is loaded with `ctypes`: pointers
-and the stream travel as `c_void_p`, and every entry returns a
-`cudaError_t` that `check()` turns into an exception.
+The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the header the flash
+kernels share, ``flash_common.cuh``): plain C entry points, no PyTorch
+headers. At first use each source is compiled by its own `nvcc` process
+(all started together) for ``sm_90a``, and the objects are linked into one
+shared library under ``paddle_tpu_torch/_build/`` (listed in .gitignore),
+named by a hash of the sources, header and flags so an edited source never
+loads a stale build. The library is loaded with `ctypes`: pointers and the
+stream travel as `c_void_p`, and every entry returns a `cudaError_t` that
+`check()` turns into an exception.
 
 Nothing here runs at import: a host without `nvcc` or a card imports this
 module fine and only fails when a kernel is asked for.
@@ -31,14 +32,15 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd.cu", "paged_decode.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu")
+HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# gridDim.y limit: both kernels put a batch-like extent (B*H, slots) there
+# gridDim.y limit: every kernel puts a batch-like extent (B*H, slots) there
 MAX_GRID_Y = 65535
 
-launches = {"flash_fwd": 0, "paged_decode": 0}
+launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "paged_decode": 0}
 _launch_lock = threading.Lock()   # engines of two models launch from two threads
 
 
@@ -86,7 +88,7 @@ def _nvcc() -> str:
 
 def _build() -> BuildInfo:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
     tag = h.hexdigest()[:16]
@@ -131,9 +133,16 @@ def _build() -> BuildInfo:
 
 
 def _declare(lib):
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ptt_flash_fwd_f32.argtypes = [P, P, P, P, P, I, I, I, F, I, I, P]
+    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    lib.ptt_flash_fwd_f32.argtypes = [P, P, P, P, P, I, I, I, F, I, U, U, F,
+                                      I, P]
     lib.ptt_flash_fwd_f32.restype = I
+    lib.ptt_flash_dq_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, U, U,
+                                     F, I, P]
+    lib.ptt_flash_dq_f32.restype = I
+    lib.ptt_flash_dkv_f32.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F, I, U,
+                                      U, F, I, P]
+    lib.ptt_flash_dkv_f32.restype = I
     lib.ptt_paged_decode_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F,
                                          I, P]
     lib.ptt_paged_decode_f32.restype = I

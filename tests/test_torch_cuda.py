@@ -1,5 +1,6 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-PyTorch versions, and a small generation on the card against the host.
+PyTorch versions, a small generation on the card against the host, and
+two training steps of a one-layer Transformer-base on the card.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -20,6 +21,10 @@ from paddle_tpu_torch.ops import paged_attention as pa
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4  # f32 summation order + expf
+# backward kernels vs their plain version: dQ, dK and dV are sums over T
+# of products of f32 terms that are themselves sums over D, taken in
+# another order than cuBLAS takes the plain version's (full f32, TF32 off)
+BWD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -27,6 +32,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -133,5 +139,142 @@ def test_generation_on_card_equals_host_and_runs_both_kernels(dev, tmp_path):
         if name == "card":
             assert launched["flash_fwd"] > 0 and launched["paged_decode"] > 0
         else:
-            assert launched == {"flash_fwd": 0, "paged_decode": 0}
+            assert not any(launched.values()), launched
     assert out["card"] == out["host"]
+
+
+# ---------------------------------------------------------------------------
+# training: the dropout forward and the backward kernels
+# ---------------------------------------------------------------------------
+
+def _qkv(dev, B, H, T, D, seed, n=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, H, T, D, device=dev, generator=g)
+            for _ in range(n)]
+
+
+TRAIN_CASES = [
+    (2, 8, 256, 64, False, 0.1), (2, 8, 256, 64, True, 0.1),
+    (2, 8, 256, 64, True, 0.0), (1, 2, 200, 64, True, 0.1),
+    (2, 3, 77, 32, False, 0.1), (1, 2, 130, 128, True, 0.1),
+    (1, 1, 1, 64, False, 0.0)]
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,rate", TRAIN_CASES)
+def test_flash_dropout_forward_matches_plain(dev, B, H, T, D, causal, rate):
+    q, k, v = _qkv(dev, B, H, T, D, seed=T + D)
+    sm = D ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed=77)
+    torch.testing.assert_close(
+        out, fa._attention_reference(q, k, v, causal, sm, rate, 77),
+        atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,rate", TRAIN_CASES)
+def test_flash_backward_kernels_match_plain(dev, B, H, T, D, causal, rate):
+    q, k, v, do = _qkv(dev, B, H, T, D, seed=3 * T + D, n=4)
+    sm = D ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed=5)
+    native.reset_launches()
+    got = fa._flash_backward(q, k, v, out, lse, do, causal, sm, rate, 5)
+    assert (native.launches["flash_dq"], native.launches["flash_dkv"]) \
+        == (1, 1)
+    ref = fa._flash_backward_reference(q, k, v, out, lse, do, causal, sm,
+                                       rate, 5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        torch.testing.assert_close(a, b, atol=BWD_TOL, rtol=BWD_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_autograd_function_runs_the_three_kernels(dev):
+    q, k, v, do = _qkv(dev, 2, 2, 128, 64, seed=1, n=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    native.reset_launches()
+    out = fa.flash_attention(*leaves, True, 0.125, 0.1, 9)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert {n: native.launches[n] for n in ("flash_fwd", "flash_dq",
+                                            "flash_dkv")} == \
+        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    lse = fa._lse_reference(q, k, True, 0.125)
+    for a, b in zip(grads, fa._flash_backward_reference(
+            q, k, v, out.detach(), lse, do, True, 0.125, 0.1, 9)):
+        torch.testing.assert_close(a, b, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.parametrize("T", [32, 128])
+def test_kernels_drop_exactly_the_plain_mask(dev, T):
+    """With T == D, identity matrices expose each kernel's mask: the
+    forward's out with V = I, dQ with K = I and delta = 0, and dV with
+    dO = I are zero exactly where a weight was dropped (every undropped
+    weight is > 0, the scores being finite and unmasked)."""
+    B, H, D, rate, seed = 1, 3, T, 0.5, 4242
+    q, k, v, do = _qkv(dev, B, H, T, D, seed=T, n=4)
+    eye = torch.eye(T, device=dev).expand(B, H, T, T).contiguous()
+    dropped = ~fa._attention_keep(seed, B * H, T, T, rate, dev).reshape(
+        B, H, T, T)
+    assert 0.4 < dropped.float().mean().item() < 0.6
+    out, lse = fa._flash_forward(q, k, eye, False, 0.1, rate, seed)
+    assert torch.equal(out == 0, dropped)
+    zero = torch.zeros(B, H, T, device=dev)
+    dq = fa._flash_dq(q, eye, v, do, lse, zero, False, 0.1, rate, seed)
+    assert torch.equal(dq == 0, dropped)
+    _, dv = fa._flash_dkv(q, k, v, eye, lse, zero, False, 0.1, rate, seed)
+    assert torch.equal(dv == 0, dropped.transpose(-1, -2))
+
+
+def _nan_padded(t):
+    """A copy of `t` whose storage continues with NaN past its end."""
+    buf = torch.full((t.numel() + 4096,), float("nan"), device=t.device)
+    buf[:t.numel()] = t.reshape(-1)
+    return buf[:t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("T,causal", [(200, True), (77, False)])
+def test_kernels_never_read_past_T(dev, T, causal):
+    B, H, D, rate = 1, 2, 64, 0.1
+    q, k, v, do = _qkv(dev, B, H, T, D, seed=T, n=4)
+    sm = D ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, 3)
+    delta = (do * out).sum(-1)
+    clean = (out, lse, fa._flash_dq(q, k, v, do, lse, delta, causal, sm,
+                                    rate, 3),
+             *fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, 3))
+    pq, pk, pv, pdo, plse, pdelta = map(_nan_padded,
+                                        (q, k, v, do, lse, delta))
+    pout, plse2 = fa._flash_forward(pq, pk, pv, causal, sm, rate, 3)
+    padded = (pout, plse2, fa._flash_dq(pq, pk, pv, pdo, plse, pdelta,
+                                        causal, sm, rate, 3),
+              *fa._flash_dkv(pq, pk, pv, pdo, plse, pdelta, causal, sm,
+                             rate, 3))
+    for a, b in zip(clean, padded):
+        assert torch.isfinite(b).all()
+        assert torch.equal(a, b)
+
+
+def test_train_base_one_layer_two_steps_on_card(dev):
+    """Transformer-base widths at one layer, batch 2: two Adam steps on
+    the card, each launching the forward kernel twice per attention (the
+    forward op and its grad op's recompute) and each backward kernel
+    once; 3 attentions a layer."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import transformer
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(n_layer=1, dropout_rate=0.1)
+        optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {n: rng.randint(0, 30000, (2, 256)).astype(np.int64)
+            for n in ("src_word", "trg_word", "lbl_word")}
+    for _ in range(2):
+        native.reset_launches()
+        loss, = exe.run(main, feed=feed, fetch_list=[fetches["loss"]],
+                        scope=scope)
+        assert np.isfinite(loss).all()
+        assert {n: native.launches[n] for n in ("flash_fwd", "flash_dq",
+                                                "flash_dkv")} == \
+            {"flash_fwd": 6, "flash_dq": 3, "flash_dkv": 3}

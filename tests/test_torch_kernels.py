@@ -54,9 +54,13 @@ def test_flash_wrapper_paths_without_a_card():
     meta = fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"), True,
                               0.25)
     assert meta.device.type == "meta" and meta.shape == q.shape
-    assert native.launches["flash_fwd"] == 0
-    with pytest.raises(NotImplementedError, match="dropout"):
-        fa.flash_attention(q, q, q, True, 0.25, dropout_rate=0.1)
+    # attention-weight dropout on the host: the plain version, with the
+    # kernels' mask (tests/test_torch_train.py checks the mask itself)
+    dropped = fa.flash_attention(q, q, q, True, 0.25, dropout_rate=0.1,
+                                 seed=3)
+    torch.testing.assert_close(
+        dropped, fa._attention_reference(q, q, q, True, 0.25, 0.1, 3))
+    assert not any(native.launches.values())
 
 
 def test_kernel_wrappers_refuse_grids_past_the_y_limit():
@@ -69,7 +73,13 @@ def test_kernel_wrappers_refuse_grids_past_the_y_limit():
     with pytest.raises(ValueError, match="y limit"):
         pa._paged_attention_cuda(q, c, c, torch.zeros(n, 1, dtype=torch.int32),
                                  torch.zeros(n, dtype=torch.int32), 1.0)
-    assert native.launches == {"flash_fwd": 0, "paged_decode": 0}
+    q = torch.empty(n, 1, 1, 32)
+    lse = torch.empty(n, 1, 1)
+    with pytest.raises(ValueError, match="y limit"):
+        fa._flash_dq(q, q, q, q, lse, lse, True, 1.0)
+    with pytest.raises(ValueError, match="y limit"):
+        fa._flash_dkv(q, q, q, q, lse, lse, True, 1.0)
+    assert not any(native.launches.values())
 
 
 def _random_cache(rng, S=4, H=2, Dh=8, BS=4, max_b=4):

@@ -319,7 +319,19 @@ import os, pkgutil, sys, tempfile, importlib
 import paddle_tpu_torch as ptt
 for m in pkgutil.walk_packages(ptt.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
-from paddle_tpu_torch.models import tiny_lm
+from paddle_tpu_torch import optimizer
+from paddle_tpu_torch.models import tiny_lm, transformer
+main, startup = ptt.Program(), ptt.Program()
+with ptt.program_guard(main, startup), ptt.unique_name.guard():
+    _, fetches = transformer.build(src_vocab_size=16, trg_vocab_size=16,
+                                   seq_len=8, n_layer=1, n_head=2,
+                                   d_model=32, d_inner=32)
+    optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+exe = ptt.Executor(ptt.CPUPlace())
+scope = ptt.Scope()
+exe.run(startup, scope=scope)
+feed = {n: [[1, 2, 3, 4, 5, 6, 7, 8]] for n in ("src_word", "trg_word", "lbl_word")}
+assert exe.run(main, feed=feed, fetch_list=[fetches["loss"]], scope=scope)[0] > 0
 with tempfile.TemporaryDirectory() as t:
     d = os.path.join(t, "lm")
     tiny_lm.save_tiny_lm(d, prefill_seq_rungs=(8,), max_context=16)
@@ -361,7 +373,8 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")]
     files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "tools", "torch_serve_profile.py")]
+              os.path.join(REPO, "tools", "torch_serve_profile.py"),
+              os.path.join(REPO, "tools", "torch_train_profile.py")]
     assert len(files) > 20
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}
