@@ -8,8 +8,9 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of ``paddle_tpu_torch/csrc`` (flash forward,
-   flash backward, paged decode) and print the build time and the
-   compiler's register / shared-memory report;
+   flash backward, paged decode over float32 and over int8 caches,
+   dropout) and print the build time and the compiler's register /
+   shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (max error vs tolerance, kernel ms, plain ms,
    the least time the card could take, and where one PyTorch call
@@ -18,24 +19,41 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    dropout and the dQ and dK/dV kernels at the training shapes (B 32,
    H 8, T 256, D 64, causal and not, rate 0 and 0.1, and a ragged T 200);
    the dropout mask of all three exactly equal to the plain version's;
-   the paged decode kernel;
+   the paged decode kernel; the int8 paged decode kernel at S 32, H 8,
+   Dh 64, block 16, seq_lens spread over 0..1024, dead blocks' scales
+   poisoned; the dropout kernel at [32, 256, 512] and [32, 256, 2048],
+   rate 0.1, forward (with `Mask`) and on a `dy`, bit for bit;
 4. serve-base: save the tiny_lm (vocab 30000, d_model 512, 8 heads, 6
    layers, 8 slots, block 16, context 1024) from a seed, serve it with
    `InferenceServer(CUDAPlace(0))`, send 8 concurrent generate requests
    (prompts of 40..500 tokens, 32 new tokens each), check that each
    kernel was launched 6 times per prefill step / decode step, and that
    the tokens equal a `CPUPlace()` run of the same dir;
+4b. serve-base-int8: the same model saved with `kv_dtype="int8"`, its
+   cache sized from serve-base's float32 byte budget (2050 blocks, 32
+   slots), 32 concurrent requests: the int8 decode kernel launched 6
+   times per decode step and the float32 one not at all, tokens equal to
+   a `CPUPlace()` run of the same dir. The longest request, and any
+   whose tokens differ, is replayed on both teacher-forced on the host's
+   tokens: logits within Q8_LOGIT_TOL, int8 caches apart by rounding
+   flips only, differing picks a near-tie (see Q8_LOGIT_TOL below);
 5. train-base: build Transformer-base (`models/transformer.py`: vocab
    30000, seq 256, 6 layers, 8 heads, d_model 512, d_inner 2048, dropout
    0.1, fused attention) with `Adam(1e-3)`, run its startup with
    `Executor(CUDAPlace(0))` and take 10 steps on one fixed batch of
    32 x 256 tokens: losses finite and falling, and per step 36 flash
    forward launches (18 attentions, each run again by its grad op), 18 dQ
-   and 18 dK/dV launches; print step ms, tokens/s and peak memory;
-6. train parity: the same model at dropout 0, batch 2, from one startup
-   state loaded into a `CUDAPlace(0)` and a `CPUPlace()` executor: 3
-   steps, losses equal within LOSS_RTOL;
-7. print one JSON line with every kernel's numbers.
+   and 18 dK/dV launches; print step ms, tokens/s and peak memory. Then
+   the same again under ``FLAGS_dropout_impl=pallas``: every dropout op
+   that passes the gate launches the dropout kernel in its forward and in
+   its grad; both readings side by side;
+6. train parity: the same model at batch 2, from one startup state loaded
+   into a `CUDAPlace(0)` and a `CPUPlace()` executor, 3 steps, losses
+   equal within LOSS_RTOL: at dropout 0, and at dropout 0.1 under
+   ``FLAGS_dropout_impl=pallas`` (the dropout kernel's and the flash
+   kernels' masks are their plain versions');
+7. print one JSON line with every kernel's numbers, and write the runs'
+   numbers to ``chiprun_out/chip_smoke_train.json``.
 
 Float32 matrix products run in full float32 (TF32 off, set below).
 
@@ -47,6 +65,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -72,6 +91,22 @@ SERVE_BASE = dict(vocab=30000, d_model=512, n_heads=8, n_layers=6,
                   prefill_rows=(1, 2, 4), prefill_seq_rungs=(128, 256, 512),
                   kv_dtype="fp32")
 N_REQUESTS, NEW_TOKENS = 8, 32
+# serve-base-int8: serve-base's widths with the int8 KV residency; its
+# cache is sized from serve-base's float32 byte budget, which seats 32
+# slots at the full context
+INT8_SLOTS = INT8_REQUESTS = 32
+# Card vs host over an int8 cache. The card's GEMMs sum in another order
+# than the host's, so a K/V value within ~1e-6 of a rounding boundary takes
+# the neighbouring int8 bin on one side: the two caches differ by one bin
+# in a small share of their values, where float32 caches differ by ~1e-6.
+# A greedy pick at a near-tie can then differ. The longest request, and
+# every request whose tokens differ, is replayed on both teacher-forced on
+# the host's tokens: the logits must agree within this (the float32 path's
+# LOGIT_TOL; on an H100 a 500-token request read 2e-7, with 43 of 3.3 M
+# cached values one bin apart), and where tokens differ the host's logits
+# of the two picks at the first differing step must lie within twice this.
+Q8_LOGIT_TOL = LOGIT_TOL
+Q8_MAX_BIN_DIFF = 2     # a flip, and a flip carried through a requantize
 TRAIN_BASE = dict(src_vocab_size=30000, trg_vocab_size=30000, seq_len=256,
                   n_layer=6, n_head=8, d_model=512, d_inner=2048,
                   dropout_rate=0.1, fused_attention=True)
@@ -297,13 +332,112 @@ def check_paged(torch, pa, flush, S=8, H=8, Dh=64, BS=16, max_ctx=1024):
                 >= flops / PEAK_F32_FLOPS else "operations")
 
 
-def prompts_for(vocab, lens=None):
-    """Random prompts from SEED; by default serve-base's traffic, prompts
-    of 40..500 tokens."""
+def check_paged_q8(torch, pa, flush, S=INT8_SLOTS, H=8, Dh=64, BS=16,
+                   max_ctx=1024, NB=2050):
+    """The int8 paged case at serve-base-int8's shapes: seq_lens spread
+    over 0..max_ctx (one 0, one full), random int8 caches with random
+    positive scales, block tables from a shuffled pool. What a slot must
+    not read is poisoned: table entries past ceil(seq_len / BS) point at
+    block 0, and the scale of every block that no live entry names is
+    NaN."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 5)
+    max_b = max_ctx // BS
+    seq = np.linspace(0, max_ctx, S).astype(np.int32)
+    pool = rng.permutation(np.arange(1, NB)).astype(np.int32)
+    bt = np.zeros((S, max_b), np.int32)
+    live, used = [], 0
+    for s in range(S):
+        n = -(-int(seq[s]) // BS)
+        bt[s, :n] = pool[used: used + n]
+        live.extend(bt[s, :n].tolist())
+        used += n
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    kc, vc = (torch.randint(-127, 128, (NB, BS, H, Dh), device="cuda",
+                            generator=g, dtype=torch.int8) for _ in range(2))
+    ks = torch.full((NB,), float("nan"), device="cuda")
+    vs = torch.full((NB,), float("nan"), device="cuda")
+    lb = torch.tensor(live, dtype=torch.long, device="cuda")
+    ks[lb] = torch.empty(len(live), device="cuda").uniform_(
+        0.002, 0.03, generator=g)
+    vs[lb] = torch.empty(len(live), device="cuda").uniform_(
+        0.002, 0.03, generator=g)
+    q = torch.randn(S, H, Dh, device="cuda", generator=g)
+    btt = torch.from_numpy(bt).cuda()
+    sl = torch.from_numpy(seq).cuda()
+    sm = Dh ** -0.5
+    args = (q, kc, vc, ks, vs, btt, sl, sm)
+    out = pa._paged_attention_q8_cuda(*args)
+    ref = pa.paged_attention_q8_reference(*args)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("paged_decode_q8 read a dead block or its scale")
+    if bool(out[0].abs().max() != 0):
+        raise AssertionError("paged_decode_q8: seq_len 0 slot is not zeros")
+    err = float((out - ref).abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"paged_decode_q8: max error {err} > {TOL}")
+    ms = time_ms(torch, lambda: pa._paged_attention_q8_cuda(*args), flush)
+    plain = time_ms(torch, lambda: pa.paged_attention_q8_reference(*args),
+                    flush)
+    total = int(seq.sum())
+    # int8 K and V rows, the live table entries with their two scales, the
+    # seq_lens, q in and out out
+    nbytes = total * H * Dh * 2 * 1.0 + len(live) * (4 + 2 * 4) + 4 * S \
+        + 2 * S * H * Dh * 4
+    flops = 4.0 * total * H * Dh
+    bound, by = _bound(flops, nbytes)
+    return dict(S=S, total=total, seq_min=int(seq.min()),
+                seq_max=int(seq.max()), err=err, ms=ms, plain_ms=plain,
+                library_ms=None, bound_ms=bound, bound_by=by)
+
+
+def check_dropout_kernel(torch, dk, flush, shape, rate=0.1):
+    """The dropout kernel at one of the train path's shapes: the forward
+    (Out and Mask in one pass) and the backward's launch on a `dy` (no
+    Mask), each equal to the plain version bit for bit; times of both, of
+    the plain version and of `torch.nn.functional.dropout`."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + shape[-1])
+    x = torch.randn(*shape, device="cuda", generator=g)
+    dy = torch.randn(*shape, device="cuda", generator=g)
+    seed = ATTN_SEED
+    out, mask = dk.dropout_forward(x, seed, rate, want_mask=True)
+    dx, _ = dk.dropout_forward(dy, seed, rate)
+    ref_out, ref_mask = dk.dropout_reference(x, seed, rate)
+    ref_dx, _ = dk.dropout_reference(dy, seed, rate)
+    torch.cuda.synchronize()
+    for name, a, b in (("Out", out, ref_out), ("Mask", mask, ref_mask),
+                       ("dX", dx, ref_dx)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(
+                f"dropout {tuple(shape)} rate {rate}: {name} differs from "
+                f"the plain version's in "
+                f"{int((a.view(torch.int32) != b.view(torch.int32)).sum())} "
+                f"elements")
+    n = x.numel()
+    res = dict(shape=list(shape), rate=rate, err=0.0,
+               kept=float(mask.mean()))
+    res["fwd_ms"] = time_ms(torch, lambda: dk.dropout_forward(
+        x, seed, rate, want_mask=True), flush)
+    res["bwd_ms"] = time_ms(torch, lambda: dk.dropout_forward(dy, seed, rate),
+                            flush)
+    res["plain_ms"] = time_ms(torch, lambda: dk.dropout_reference(
+        x, seed, rate), flush)
+    res["library_ms"] = time_ms(torch, lambda: torch.nn.functional.dropout(
+        x, rate, training=True), flush)
+    # about 20 integer operations an element, against 12 (8) bytes
+    res["fwd_bound_ms"], res["fwd_bound_by"] = _bound(0.0, 12.0 * n)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(0.0, 8.0 * n)
+    return res
+
+
+def prompts_for(vocab, lens=None, n=N_REQUESTS):
+    """Random prompts from SEED; by default serve-base's traffic, `n`
+    prompts of 40..500 tokens."""
     import numpy as np
     rng = np.random.RandomState(SEED)
     if lens is None:
-        lens = np.linspace(40, 500, N_REQUESTS).astype(int)
+        lens = np.linspace(40, 500, n).astype(int)
     return [rng.randint(0, vocab, size=int(n)).tolist() for n in lens]
 
 
@@ -311,6 +445,213 @@ def serve_all(srv, name, prompts, timeout):
     futs = [srv.submit_generate(name, p, max_new_tokens=NEW_TOKENS)
             for p in prompts]
     return [f.result(timeout=timeout) for f in futs]
+
+
+def teacher_forced(ver, prompt, forced, slots):
+    """Replay one request on an idle server with the generated tokens
+    given: a prefill of `prompt` into blocks 1.. of slot 0, then one
+    decode step per token of `forced` but the last. Returns the logits
+    that picked each of the len(forced) tokens, [len(forced), vocab], and
+    the sequence's K/V residency per cache var (the int8 values of its
+    written positions, the scales of their blocks)."""
+    import numpy as np
+    sig = ver.decode.signature
+    bs, max_b = sig["block_size"], sig["max_blocks_per_seq"]
+    n_blocks = -(-(len(prompt) + len(forced)) // bs)
+    table = np.zeros((max_b,), np.int32)
+    table[:n_blocks] = np.arange(1, n_blocks + 1)
+    rung = min(r for r in sig["prefill_seq_rungs"] if r >= len(prompt))
+    tokens = np.zeros((1, rung), np.int64)
+    tokens[0, :len(prompt)] = prompt
+    logits = [ver.prepared.run({
+        "tokens": tokens, "block_tables": table[None, :],
+        "seq_lens": np.array([len(prompt)], np.int32)})[0][0]]
+    bt = np.zeros((slots, max_b), np.int32)
+    bt[0] = table
+    for i, tok in enumerate(forced[:-1]):
+        step_tokens = np.zeros((slots, 1), np.int64)
+        step_tokens[0, 0] = tok
+        seq = np.zeros((slots,), np.int32)
+        seq[0] = len(prompt) + i + 1
+        logits.append(ver.decode.prepared.run({
+            "tokens": step_tokens, "block_tables": bt, "seq_lens": seq})[0][0])
+    # the positions written: the prompt and every forced token but the last
+    # (what lies past them in the last block is an earlier sequence's)
+    n_written = len(prompt) + len(forced) - 1
+    blocks = slice(1, -(-n_written // bs) + 1)
+    resident = {}
+    for cname, sname in sig["scale_vars"].items():
+        values = ver.scope.find_var(cname)[blocks].cpu().numpy()
+        resident[cname] = (
+            values.reshape((-1,) + values.shape[2:])[:n_written].astype(
+                np.int32),
+            ver.scope.find_var(sname)[blocks].cpu().numpy())
+    return np.stack(logits), resident
+
+
+def compare_teacher_forced(i, prompt, card_tokens, host_tokens, ver, hver,
+                           slots):
+    """Replay request `i` on the card and on the host, both teacher-forced
+    on the host's tokens, and hold the two to what int8 rounding flips can
+    explain: logits within Q8_LOGIT_TOL, block scales equal to summation
+    order, int8 values at most Q8_MAX_BIN_DIFF bins apart. Where the card
+    generated other tokens than the host, the host's logits of the two
+    picks at the first differing step must be a near-tie. Raises
+    otherwise; returns a one-line account."""
+    import numpy as np
+    card_logits, card_kv = teacher_forced(ver, prompt, host_tokens, slots)
+    host_logits, host_kv = teacher_forced(hver, prompt, host_tokens, slots)
+    if host_logits.argmax(-1).tolist() != list(host_tokens):
+        raise AssertionError(f"request {i}: the host's teacher-forced replay "
+                             f"does not reproduce its own tokens")
+    err = float(np.abs(card_logits - host_logits).max())
+    bin_diff, differing, n = 0, 0, 0
+    for cname in card_kv:
+        (cq, cs), (hq, hs) = card_kv[cname], host_kv[cname]
+        bin_diff = max(bin_diff, int(np.abs(cq - hq).max()))
+        differing += int((cq != hq).sum())
+        n += cq.size
+        if not np.allclose(cs, hs, rtol=1e-4, atol=0):
+            raise AssertionError(f"request {i}: block scales of {cname} "
+                                 f"differ between card and host beyond "
+                                 f"summation order")
+    account = (f"request {i} ({len(prompt)}-token prompt) teacher-forced on "
+               f"the host's tokens: logits max_abs_err {err:.3g} (tol "
+               f"{Q8_LOGIT_TOL}); int8 residency differs in {differing} of "
+               f"{n} values, by at most {bin_diff} bin(s)")
+    ok = err <= Q8_LOGIT_TOL and bin_diff <= Q8_MAX_BIN_DIFF
+    if list(card_tokens) != list(host_tokens):
+        step = next(k for k, (a, b) in enumerate(zip(card_tokens,
+                                                     host_tokens)) if a != b)
+        gap = float(host_logits[step, host_tokens[step]]
+                    - host_logits[step, card_tokens[step]])
+        account += (f"; first differing token at step {step} (card "
+                    f"{card_tokens[step]}, host {host_tokens[step]}), host "
+                    f"logit gap between the two picks {gap:.3g}")
+        ok = ok and 0 <= gap <= 2 * Q8_LOGIT_TOL
+    if not ok:
+        raise AssertionError("card and host int8 generations differ by more "
+                             "than rounding flips: " + account)
+    return account
+
+
+def save_serve_int8(ptt, tiny_lm, tmp):
+    """Save serve-base-int8 under `tmp`: serve-base's widths and weights
+    with the int8 KV residency, INT8_SLOTS slots, and as many blocks as
+    serve-base's float32 cache bytes afford. Returns (dir, signature,
+    cache bytes, the float32 budget in bytes)."""
+    fp_sig = tiny_lm.default_signature(**SERVE_BASE)
+    budget = fp_sig["num_blocks"] * ptt.serve.block_residency_nbytes(fp_sig)
+    kw = dict(SERVE_BASE, kv_dtype="int8", max_slots=INT8_SLOTS)
+    num_blocks = 1 + ptt.serve.blocks_for_budget(
+        tiny_lm.default_signature(**kw), budget)
+    mdir = os.path.join(tmp, "serve_base_int8")
+    sig = tiny_lm.save_tiny_lm(mdir, seed=WEIGHT_SEED, num_blocks=num_blocks,
+                               **kw)
+    cache_bytes = num_blocks * ptt.serve.block_residency_nbytes(sig)
+    seats = (num_blocks - 1) // sig["max_blocks_per_seq"]
+    log(f"serve-base-int8: {num_blocks} blocks of "
+        f"{ptt.serve.block_residency_nbytes(sig)} B = {cache_bytes} B of "
+        f"cache ({seats} full contexts) inside serve-base's "
+        f"{fp_sig['num_blocks']} blocks of "
+        f"{ptt.serve.block_residency_nbytes(fp_sig)} B = {budget} B "
+        f"({(fp_sig['num_blocks'] - 1) // fp_sig['max_blocks_per_seq']} "
+        f"full contexts)")
+    if cache_bytes > budget or seats < INT8_SLOTS:
+        raise AssertionError("the int8 cache does not seat its slots inside "
+                             "the float32 budget")
+    return mdir, sig, cache_bytes, budget
+
+
+def run_serve_int8(torch, ptt, native, tiny_lm, tmp, card, fp32_tokens):
+    """serve-base-int8 on the card and on the host; returns the numbers.
+    `fp32_tokens`: the float32 serve-base run's tokens for the same
+    prompts."""
+    mdir, sig, cache_bytes, budget = save_serve_int8(ptt, tiny_lm, tmp)
+    prompts = prompts_for(sig["vocab"], n=INT8_REQUESTS)
+    n_layers = sig["n_layers"]
+    srv = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+    host = ptt.serve.InferenceServer(ptt.CPUPlace())
+    try:
+        t0 = time.perf_counter()
+        ver = srv.add_model("lm8", mdir)
+        torch.cuda.synchronize()
+        log(f"int8 load + verify + warm on the card: "
+            f"{time.perf_counter() - t0:.2f} s")
+        for cname in sig["cache_vars"]:
+            if ver.scope.find_var(cname).dtype != torch.int8:
+                raise AssertionError(f"{cname} is not resident as int8")
+        before = srv.stats()["models"]["lm8"]
+        native.reset_launches()
+        t0 = time.perf_counter()
+        results = serve_all(srv, "lm8", prompts, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(native.launches)
+        after = srv.stats()["models"]["lm8"]
+        n_prefill = after["prefill_steps"] - before["prefill_steps"]
+        n_decode = after["steps"] - before["steps"]
+        requants = after["kv_requant_events"] - before["kv_requant_events"]
+        log(f"served {INT8_REQUESTS} requests over the int8 cache: "
+            f"{n_prefill} prefill steps, {n_decode} decode steps, "
+            f"{requants} requantize events, launches {launches}")
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_fwd=n_layers * n_prefill,
+                    paged_decode_q8=n_layers * n_decode)
+        if launches != want or n_prefill < 1 or n_decode < 1:
+            raise AssertionError(f"serve-base-int8 launches {launches}, "
+                                 f"expected {want}")
+        for p, r in zip(prompts, results):
+            if len(r.tokens) != NEW_TOKENS or r.finish_reason != "length" \
+                    or not all(0 <= t < sig["vocab"] for t in r.tokens):
+                raise AssertionError(f"bad generation for a {len(p)}-token "
+                                     f"prompt: {r}")
+        ttft = sorted(r.ttft_us / 1e3 for r in results)
+        gen_tokens = sum(len(r.tokens) for r in results)
+        log(f"serve-base-int8 on the card [{card}]: TTFT median "
+            f"{ttft[len(ttft) // 2]:.1f} ms max {ttft[-1]:.1f} ms; "
+            f"{gen_tokens} tokens in {wall:.3f} s = "
+            f"{gen_tokens / wall:.1f} tokens/s; decode steps {n_decode} "
+            f"({(wall * 1e3) / max(n_decode, 1):.2f} ms/step incl. prefills)")
+
+        t0 = time.perf_counter()
+        hver = host.add_model("lm8_host", mdir, warm=False)
+        host_results = serve_all(host, "lm8_host", prompts, timeout=900)
+        host_requants = host.stats()["models"]["lm8_host"]["kv_requant_events"]
+        log(f"int8 host reference run: {time.perf_counter() - t0:.1f} s, "
+            f"{host_requants} requantize events")
+        differing = [i for i, (a, b) in enumerate(zip(results, host_results))
+                     if a.tokens != b.tokens]
+        # the longest prompt always, and every request whose tokens differ
+        for i in sorted({INT8_REQUESTS - 1, *differing}):
+            log("  " + compare_teacher_forced(
+                i, prompts[i], results[i].tokens, host_results[i].tokens,
+                ver, hver, INT8_SLOTS))
+    finally:
+        srv.close()
+        host.close()
+    if differing:
+        log(f"tokens equal to the host run for "
+            f"{INT8_REQUESTS - len(differing)} of {INT8_REQUESTS} requests; "
+            f"{len(differing)} differ at a near-tie moved by int8 rounding "
+            f"flips (above)")
+    else:
+        log(f"tokens equal to the host run for all {INT8_REQUESTS} requests")
+    same_fp32 = sum(r.tokens == t for r, t in zip(results, fp32_tokens))
+    first_fp32 = sum(r.tokens[0] == t[0] for r, t in zip(results, fp32_tokens))
+    log(f"int8 vs float32 residency: {same_fp32} of {INT8_REQUESTS} requests "
+        f"generate the float32 run's tokens ({first_fp32} of "
+        f"{INT8_REQUESTS} first tokens, which prefill computes exactly)")
+    if first_fp32 != INT8_REQUESTS:
+        raise AssertionError("an int8 request's first token differs from the "
+                             "float32 run's: prefill attends over exact K/V")
+    return dict(launches=launches, n_prefill=n_prefill, n_decode=n_decode,
+                requants=requants, host_requants=host_requants,
+                ttft_ms_median=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
+                tokens_per_s=gen_tokens / wall, wall_s=wall,
+                cache_bytes=cache_bytes, budget_bytes=budget,
+                num_blocks=sig["num_blocks"], host_token_mismatches=len(differing),
+                equal_to_fp32=same_fp32)
 
 
 def prefill_logits(ver, prompt, rung):
@@ -348,72 +689,114 @@ def train_batch(batch):
             for n in ("src_word", "trg_word", "lbl_word")}
 
 
-def run_train_base(torch, ptt, native):
-    """TRAIN_STEPS steps of train-base on the card; returns the numbers,
-    with the launch counts of exactly those steps."""
+def gated_dropout_ops(program):
+    """The training-mode `dropout` ops of `program` that pass the dropout
+    kernel's gate (upscale_in_train, 0 < rate < 1, minor dim a multiple of
+    128), counted from the Program itself."""
+    block = program.global_block()
+    n = 0
+    for op in block.ops:
+        if op.type != "dropout" or op.attrs.get("is_test", False):
+            continue
+        shape = block.var(op.inputs["X"][0]).shape
+        if op.attrs.get("dropout_implementation") == "upscale_in_train" \
+                and 0.0 < op.attrs.get("dropout_prob", 0.5) < 1.0 \
+                and shape and shape[-1] % 128 == 0:
+            n += 1
+    return n
+
+
+def run_train_base(torch, ptt, native, impl):
+    """TRAIN_STEPS steps of train-base on the card with
+    ``FLAGS_dropout_impl`` at `impl`; returns the numbers, with the launch
+    counts of exactly those steps."""
     import numpy as np
     main, startup, loss = build_train(ptt)
+    n_gated = gated_dropout_ops(main)
     scope = ptt.Scope()
     exe = ptt.Executor(ptt.CUDAPlace(0))
     exe.run(startup, scope=scope)
     feed = train_batch(TRAIN_BATCH)
+    # an earlier phase's executor and its prepared programs refer to each
+    # other: collect them, or their scope's tensors count towards this peak
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
-    native.reset_launches()
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(np.asarray(out).reshape(-1)[0]))
-    launches = dict(native.launches)
+    ptt.flags.set_flag("dropout_impl", impl)
+    try:
+        native.reset_launches()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out).reshape(-1)[0]))
+        launches = dict(native.launches)
+    finally:
+        ptt.flags.set_flag("dropout_impl", "auto")
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train-base losses not finite: {losses}")
+        raise AssertionError(f"train-base ({impl}) losses not finite: "
+                             f"{losses}")
     if not max(losses[-3:]) < min(losses[:3]):
-        raise AssertionError(f"train-base loss did not fall: {losses}")
+        raise AssertionError(f"train-base ({impl}) loss did not fall: "
+                             f"{losses}")
     n_attn = 3 * TRAIN_BASE["n_layer"]
-    want = {"flash_fwd": 2 * n_attn * TRAIN_STEPS,
-            "flash_dq": n_attn * TRAIN_STEPS,
-            "flash_dkv": n_attn * TRAIN_STEPS, "paged_decode": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=2 * n_attn * TRAIN_STEPS,
+                flash_dq=n_attn * TRAIN_STEPS, flash_dkv=n_attn * TRAIN_STEPS)
+    if impl == "pallas":        # the forward and the grad of every gated op
+        if n_gated < 1:
+            raise AssertionError("no dropout op of train-base passes the gate")
+        want["dropout"] = 2 * n_gated * TRAIN_STEPS
     if launches != want:
-        raise AssertionError(f"train-base launches {launches}, expected "
-                             f"{want}")
+        raise AssertionError(f"train-base ({impl}) launches {launches}, "
+                             f"expected {want}")
     last = sorted(step_ms[-5:])
     med = last[len(last) // 2]
-    return dict(losses=losses, step_ms=step_ms, step_ms_median=med,
+    return dict(impl=impl, losses=losses, step_ms=step_ms, step_ms_median=med,
                 tokens_per_s=TRAIN_BATCH * TRAIN_BASE["seq_len"] / med * 1e3,
-                peak_bytes=peak, launches=launches)
+                peak_bytes=peak, launches=launches, gated_dropout_ops=n_gated)
 
 
-def run_train_parity(torch, ptt):
+def run_train_parity(torch, ptt, dropout_rate, impl):
     """The same startup state, as numpy, on the card and on the host:
-    PARITY_STEPS steps of train-base at dropout 0; returns both losses."""
+    PARITY_STEPS steps of train-base at `dropout_rate` with
+    ``FLAGS_dropout_impl`` at `impl`; returns both losses."""
     import numpy as np
     from paddle_tpu_torch.core.executor import fetch_var
-    main, startup, loss = build_train(ptt, dropout_rate=0.0)
+    main, startup, loss = build_train(ptt, dropout_rate=dropout_rate)
     scope0 = ptt.Scope()
     ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope0)
     arrays = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
     del scope0
     feed = train_batch(PARITY_BATCH)
     losses = {}
-    for name, place in (("card", ptt.CUDAPlace(0)), ("host", ptt.CPUPlace())):
-        scope = ptt.io.state_from_numpy(arrays, place)
-        exe = ptt.Executor(place)
-        losses[name] = [float(np.asarray(exe.run(
-            main, feed=feed, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0])
-            for _ in range(PARITY_STEPS)]
-        del scope
+    ptt.flags.set_flag("dropout_impl", impl)
+    try:
+        for name, place in (("card", ptt.CUDAPlace(0)),
+                            ("host", ptt.CPUPlace())):
+            scope = ptt.io.state_from_numpy(arrays, place)
+            exe = ptt.Executor(place)
+            losses[name] = [float(np.asarray(exe.run(
+                main, feed=feed, fetch_list=[loss],
+                scope=scope)[0]).reshape(-1)[0])
+                for _ in range(PARITY_STEPS)]
+            del scope
+    finally:
+        ptt.flags.set_flag("dropout_impl", "auto")
     torch.cuda.empty_cache()
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
                                                   losses["host"]))
     if not rel <= LOSS_RTOL:
-        raise AssertionError(f"train parity: card losses {losses['card']} vs "
-                             f"host {losses['host']}: relative error {rel} > "
+        raise AssertionError(f"train parity (dropout {dropout_rate}, {impl}): "
+                             f"card losses {losses['card']} vs host "
+                             f"{losses['host']}: relative error {rel} > "
                              f"{LOSS_RTOL}")
-    return dict(losses=losses, rel_err=rel)
+    return dict(losses=losses, rel_err=rel, dropout_rate=dropout_rate,
+                impl=impl)
 
 
 def main() -> int:
@@ -425,6 +808,7 @@ def main() -> int:
     try:
         import paddle_tpu_torch as ptt
         from paddle_tpu_torch.models import tiny_lm
+        from paddle_tpu_torch.ops import dropout_kernel as dk
         from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.ops import native
         from paddle_tpu_torch.ops import paged_attention as pa
@@ -480,6 +864,24 @@ def main() -> int:
         f"max_abs_err {paged['err']:.3g} (tol {TOL}) kernel {paged['ms']:.4f} ms "
         f"plain {paged['plain_ms']:.4f} ms bound {paged['bound_ms']:.4f} ms "
         f"({paged['bound_by']}) [{card}]")
+    paged_q8 = check_paged_q8(torch, pa, flush)
+    log(f"paged_decode_q8 S={paged_q8['S']} H=8 Dh=64 BS=16 seq_lens "
+        f"{paged_q8['seq_min']}..{paged_q8['seq_max']} (sum "
+        f"{paged_q8['total']}), dead blocks' scales NaN: max_abs_err "
+        f"{paged_q8['err']:.3g} (tol {TOL}) kernel {paged_q8['ms']:.4f} ms "
+        f"plain {paged_q8['plain_ms']:.4f} ms bound "
+        f"{paged_q8['bound_ms']:.4f} ms ({paged_q8['bound_by']}) [{card}]")
+    drop_cases = [check_dropout_kernel(torch, dk, flush, shape)
+                  for shape in ((TRAIN_BATCH, 256, 512),
+                                (TRAIN_BATCH, 256, 2048))]
+    for c in drop_cases:
+        log(f"dropout {c['shape']} rate {c['rate']} f32, Out, Mask and dX "
+            f"equal to the plain version's bit for bit ({c['kept']:.4f} "
+            f"kept): forward with Mask {c['fwd_ms']:.4f} ms (bound "
+            f"{c['fwd_bound_ms']:.4f} ms, {c['fwd_bound_by']}), on dy "
+            f"{c['bwd_ms']:.4f} ms (bound {c['bwd_bound_ms']:.4f} ms), plain "
+            f"{c['plain_ms']:.4f} ms, F.dropout {c['library_ms']:.4f} ms "
+            f"[{card}]")
     train_cases = [check_train_kernels(torch, fa, flush, TRAIN_BATCH, 8, T, 64,
                                        causal, rate)
                    for T, causal, rate in ((256, False, 0.1), (256, True, 0.1),
@@ -531,6 +933,11 @@ def main() -> int:
                                      f"{launches}")
             after = srv.stats()["models"]["lm"]
             card_logits = prefill_logits(ver, prompts[0], 128)
+            # what the float32 residency generates for the int8 phase's
+            # prompts (outside the counted and timed window)
+            fp32_tokens = [r.tokens for r in serve_all(
+                srv, "lm", prompts_for(sig["vocab"], n=INT8_REQUESTS),
+                timeout=600)]
         finally:
             srv.close()
         n_prefill = after["prefill_steps"] - before["prefill_steps"]
@@ -585,28 +992,47 @@ def main() -> int:
         log(f"tokens equal to the host run for all {N_REQUESTS} requests; "
             f"prefill logits max_abs_err {logit_err:.3g} (tol {LOGIT_TOL})")
 
-    # 5. train-base on the card
-    t0 = time.perf_counter()
-    train = run_train_base(torch, ptt, native)
-    log(f"train-base: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x "
-        f"{TRAIN_BASE['seq_len']} in {time.perf_counter() - t0:.1f} s (build "
-        f"and startup included); losses "
-        f"{[round(x, 4) for x in train['losses']]}")
-    log(f"train-base on the card [{card}]: step {train['step_ms_median']:.1f} ms "
-        f"(median of the last 5; all: "
-        f"{[round(x, 1) for x in train['step_ms']]}), "
-        f"{train['tokens_per_s']:.0f} tokens/s, peak memory "
-        f"{train['peak_bytes'] / 2**30:.2f} GiB "
-        f"(torch.cuda.max_memory_allocated), launches {train['launches']} "
-        f"over {TRAIN_STEPS} steps")
+        # 4b. the int8 residency
+        serve8 = run_serve_int8(torch, ptt, native, tiny_lm, tmp, card,
+                                fp32_tokens)
+
+    # 5. train-base on the card, with the bits dropout and with the kernel
+    trains = {}
+    for impl in ("auto", "pallas"):
+        t0 = time.perf_counter()
+        trains[impl] = train = run_train_base(torch, ptt, native, impl)
+        log(f"train-base (dropout_impl={impl}): {TRAIN_STEPS} steps of batch "
+            f"{TRAIN_BATCH} x {TRAIN_BASE['seq_len']} in "
+            f"{time.perf_counter() - t0:.1f} s (build and startup included); "
+            f"losses {[round(x, 4) for x in train['losses']]}")
+        log(f"train-base (dropout_impl={impl}) on the card [{card}]: step "
+            f"{train['step_ms_median']:.1f} ms (median of the last 5; all: "
+            f"{[round(x, 1) for x in train['step_ms']]}), "
+            f"{train['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{train['peak_bytes'] / 2**30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated), launches "
+            f"{train['launches']} over {TRAIN_STEPS} steps "
+            f"({train['gated_dropout_ops']} dropout ops pass the gate)")
+    train = trains["auto"]
+    log(f"train-base, dropout_impl pallas against auto [{card}]: step "
+        f"{trains['pallas']['step_ms_median']:.1f} vs "
+        f"{train['step_ms_median']:.1f} ms, "
+        f"{trains['pallas']['tokens_per_s']:.0f} vs "
+        f"{train['tokens_per_s']:.0f} tokens/s, peak "
+        f"{trains['pallas']['peak_bytes'] / 2**30:.2f} vs "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB")
 
     # 6. train parity, card vs host
-    t0 = time.perf_counter()
-    parity = run_train_parity(torch, ptt)
-    log(f"train parity at dropout 0, batch {PARITY_BATCH}: card "
-        f"{parity['losses']['card']} host {parity['losses']['host']}, max "
-        f"relative error {parity['rel_err']:.3g} (tol {LOSS_RTOL}); "
-        f"{time.perf_counter() - t0:.1f} s")
+    parities = []
+    for rate, impl in ((0.0, "auto"), (TRAIN_BASE["dropout_rate"], "pallas")):
+        t0 = time.perf_counter()
+        parity = run_train_parity(torch, ptt, rate, impl)
+        parities.append(parity)
+        log(f"train parity at dropout {rate} (dropout_impl={impl}), batch "
+            f"{PARITY_BATCH}: card {parity['losses']['card']} host "
+            f"{parity['losses']['host']}, max relative error "
+            f"{parity['rel_err']:.3g} (tol {LOSS_RTOL}); "
+            f"{time.perf_counter() - t0:.1f} s")
 
     # 7. the kernels line: flash_fwd's headline numbers at the train path's
     # shape, its serving case beside them
@@ -620,7 +1046,10 @@ def main() -> int:
          "replaces": "paddle_tpu/ops/pallas_attention.py:152",
          "launches": train["launches"]["flash_fwd"],
          "launches_by_path": {"train": train["launches"]["flash_fwd"],
-                              "serve": launches["flash_fwd"]},
+                              "train_pallas":
+                                  trains["pallas"]["launches"]["flash_fwd"],
+                              "serve": launches["flash_fwd"],
+                              "serve_int8": serve8["launches"]["flash_fwd"]},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]),
          "ms": head["fwd_ms"], "plain_ms": head["fwd_plain_ms"],
@@ -658,8 +1087,39 @@ def main() -> int:
          "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
          "library_ms": None,
          "shape": f"S=8 H=8 Dh=64 BS=16 seq_lens={paged['seq_lens']} f32"},
+        {"name": "paged_decode_q8", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/paged_decode_q8.cu",
+         "replaces": "paddle_tpu/ops/paged_attention.py:421",
+         "launches": serve8["launches"]["paged_decode_q8"],
+         "max_abs_err": paged_q8["err"],
+         "ms": paged_q8["ms"], "plain_ms": paged_q8["plain_ms"],
+         "bound_ms": paged_q8["bound_ms"], "bound_by": paged_q8["bound_by"],
+         "library_ms": None,
+         "shape": f"S={paged_q8['S']} H=8 Dh=64 BS=16 seq_lens "
+                  f"{paged_q8['seq_min']}..{paged_q8['seq_max']} (sum "
+                  f"{paged_q8['total']}) int8 cache, f32 scales"},
+        {"name": "dropout", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/dropout.cu",
+         "replaces": "paddle_tpu/ops/pallas_dropout.py:42",
+         "launches": trains["pallas"]["launches"]["dropout"],
+         "max_abs_err": max(c["err"] for c in drop_cases),
+         "ms": drop_cases[0]["fwd_ms"], "plain_ms": drop_cases[0]["plain_ms"],
+         "bound_ms": drop_cases[0]["fwd_bound_ms"],
+         "bound_by": drop_cases[0]["fwd_bound_by"],
+         "library_ms": drop_cases[0]["library_ms"],
+         "shape": f"{drop_cases[0]['shape']} f32 rate 0.1, forward with Mask",
+         "cases": drop_cases,
+         "note": "max_abs_err 0: Out, Mask and dX equal the plain version's "
+                 "bit for bit; library_ms is torch.nn.functional.dropout"},
     ]
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    total_s = time.perf_counter() - t_start
+    log(f"total {total_s:.1f} s")
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_train.json"), "w") as f:
+        json.dump({"card": card, "total_s": total_s, "train": trains,
+                   "parity": parities, "serve_int8": serve8,
+                   "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,113 @@
+// Upscale-in-train dropout with the mask made in the kernel, for sm_90a.
+//
+// Replaces paddle_tpu/ops/pallas_dropout.py::_dropout_kernel (launched by
+// _run, wrapped by dropout_tpu): out = keep ? x * 1/(1 - rate) : 0, the
+// keep bits drawn in the kernel and never stored, so the backward pass is
+// the same kernel on dy with the same seed.
+//
+// What bounds it on the H100: one read and one write of the tensor, 8
+// bytes an element (12 when the op's Mask output is written too), for
+// about 20 integer operations, so it is bound by memory bandwidth
+// (3.35 TB/s).
+//
+// Design:
+// - the TPU kernel reseeds a hardware generator per (seed, tile); this
+//   card has none, so the bits are a counter hash of (seed, linear element
+//   index), tile-free by construction: the mask does not depend on the
+//   grid, the vector width or the tensor's shape, and the plain PyTorch
+//   version (ops/dropout_kernel.py::dropout_reference) regenerates it bit
+//   for bit. With the 64-bit index split into words (hi, lo):
+//     key  = fmix32(seed ^ hi * 0x9E3779B9)
+//     bits = fmix32(key ^ lo * 0x85EBCA77)
+//   (fmix32 of flash_common.cuh), and an element is kept when the full
+//   32-bit word bits >= thresh, thresh = rate * 2^32;
+// - grid-stride over 16-byte vectors (four elements share hi, since a
+//   vector starts at a multiple of four), a scalar loop for the tail and
+//   for pointers that are not 16-byte aligned;
+// - the op's Mask output (1.0 kept, 0.0 dropped) is written in the same
+//   pass through an optional pointer, never by a second launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using ptt_flash::fmix32;
+
+constexpr int NTHREADS = 256;
+constexpr int BLOCKS_PER_SM = 8;
+
+__device__ __forceinline__ uint32_t index_key(uint32_t seed, uint32_t hi) {
+  return fmix32(seed ^ (hi * 0x9E3779B9u));
+}
+
+__device__ __forceinline__ bool keep(uint32_t key, uint32_t lo,
+                                     uint32_t thresh) {
+  return fmix32(key ^ (lo * 0x85EBCA77u)) >= thresh;
+}
+
+template <bool MASK>
+__global__ void __launch_bounds__(NTHREADS)
+dropout_kernel(const float* __restrict__ x, float* __restrict__ out,
+               float* __restrict__ mask, size_t n, size_t nvec, uint32_t seed,
+               uint32_t thresh, float inv) {
+  const size_t stride = (size_t)gridDim.x * NTHREADS;
+  const size_t first = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
+  for (size_t v = first; v < nvec; v += stride) {
+    const size_t i = v * 4;
+    const uint32_t key = index_key(seed, (uint32_t)(i >> 32));
+    const uint32_t lo = (uint32_t)i;
+    const float4 xv = __ldg(reinterpret_cast<const float4*>(x) + v);
+    const bool k0 = keep(key, lo, thresh);
+    const bool k1 = keep(key, lo + 1u, thresh);
+    const bool k2 = keep(key, lo + 2u, thresh);
+    const bool k3 = keep(key, lo + 3u, thresh);
+    reinterpret_cast<float4*>(out)[v] =
+        make_float4(k0 ? xv.x * inv : 0.f, k1 ? xv.y * inv : 0.f,
+                    k2 ? xv.z * inv : 0.f, k3 ? xv.w * inv : 0.f);
+    if (MASK)
+      reinterpret_cast<float4*>(mask)[v] = make_float4(
+          k0 ? 1.f : 0.f, k1 ? 1.f : 0.f, k2 ? 1.f : 0.f, k3 ? 1.f : 0.f);
+  }
+  for (size_t i = nvec * 4 + first; i < n; i += stride) {
+    const bool k = keep(index_key(seed, (uint32_t)(i >> 32)), (uint32_t)i, thresh);
+    out[i] = k ? x[i] * inv : 0.f;
+    if (MASK) mask[i] = k ? 1.f : 0.f;
+  }
+}
+
+}  // namespace
+
+// x, out, mask: n contiguous float32 elements; mask may be null (no Mask
+// output wanted). keep when hash(seed, index) >= thresh; kept elements are
+// multiplied by inv. Returns a cudaError_t (0 on success).
+extern "C" int ptt_dropout_f32(const void* x, void* out, void* mask,
+                               unsigned long long n, uint32_t seed,
+                               uint32_t thresh, float inv, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return (int)cudaSuccess;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned = ((uintptr_t)x | (uintptr_t)out | (uintptr_t)mask) % 16 == 0;
+  const size_t nvec = aligned ? (size_t)n / 4 : 0;
+  const size_t work = nvec ? nvec : (size_t)n;
+  size_t blocks = (work + NTHREADS - 1) / NTHREADS;
+  const size_t cap = (size_t)sms * BLOCKS_PER_SM;
+  if (blocks > cap) blocks = cap;
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  float* mf = static_cast<float*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mf != nullptr)
+    dropout_kernel<true><<<(unsigned)blocks, NTHREADS, 0, s>>>(
+        xf, of, mf, (size_t)n, nvec, seed, thresh, inv);
+  else
+    dropout_kernel<false><<<(unsigned)blocks, NTHREADS, 0, s>>>(
+        xf, of, mf, (size_t)n, nvec, seed, thresh, inv);
+  return cudaGetLastError();
+}

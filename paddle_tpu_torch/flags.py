@@ -16,6 +16,12 @@ from typing import Any, Dict
 _DEFS: Dict[str, tuple] = {
     # name: (default, type)
     "check_nan_inf": (False, bool),   # reference FLAGS_check_nan_inf
+    # dropout lowering: "auto"/"xla" = the counter-hash bits path of
+    # ops/nn.py (the default); "pallas" (the JAX package's name for its
+    # hand-written kernel, kept so one setting means the same in both
+    # packages) forces the hand-written kernel of ops/dropout_kernel.py on
+    # eligible tensors for A/B measurement
+    "dropout_impl": ("auto", str),
 }
 
 _FLAGS: Dict[str, Any] = {}
@@ -31,7 +37,13 @@ def _init():
     for name, (default, typ) in _DEFS.items():
         env = os.environ.get(f"PADDLE_TPU_{name.upper()}",
                              os.environ.get(f"FLAGS_{name}"))
-        _FLAGS[name] = _coerce(env, typ) if env is not None else default
+        val = _coerce(env, typ) if env is not None else default
+        if name in _CHOICES and env is not None:
+            val = str(val).lower()
+            if val not in _CHOICES[name]:
+                raise ValueError(f"flag {name!r} must be one of "
+                                 f"{_CHOICES[name]}, got {val!r}")
+        _FLAGS[name] = val
 
 
 def get_flag(name: str):
@@ -40,9 +52,21 @@ def get_flag(name: str):
     return _FLAGS[name]
 
 
+# enumerated string flags: value must be one of the choices (a typo like
+# dropout_impl=palas would otherwise silently select the default path)
+_CHOICES: Dict[str, tuple] = {
+    "dropout_impl": ("auto", "pallas", "xla"),
+}
+
+
 def set_flag(name: str, value):
     if name not in _FLAGS:
         raise KeyError(f"unknown flag {name!r}; known: {sorted(_FLAGS)}")
+    if name in _CHOICES:
+        value = str(value).lower()
+        if value not in _CHOICES[name]:
+            raise ValueError(
+                f"flag {name!r} must be one of {_CHOICES[name]}, got {value!r}")
     _FLAGS[name] = value
 
 

@@ -15,7 +15,9 @@ decode-step signature in MANIFEST.json.
 Architecture per layer: residual attention + 2x relu MLP, no positional
 embedding. Sampling is greedy argmax on the host.
 
-The int8 KV residency (`kv_dtype="int8"`) is not ported yet.
+`kv_dtype="int8"` builds the int8 KV residency: int8 cache vars, one
+float32 scale var per cache var and one shared requant counter, read and
+written by the ``*_q8`` attention ops.
 """
 
 from __future__ import annotations
@@ -57,17 +59,23 @@ def default_signature(vocab=32, d_model=16, n_heads=2, n_layers=2,
                       prefill_seq_rungs=(8, 16), eos_token=None,
                       kv_dtype="fp32") -> Dict:
     """The decode-step signature recorded in MANIFEST.json — everything
-    a registry needs to materialize the cache and warm both programs."""
+    a registry needs to materialize the cache and warm both programs.
+
+    `kv_dtype="int8"` switches the cache residency to the int8-quantized
+    layout: int8 cache arrays plus a per-block float32 scale var per
+    cache var (`scale_vars` maps cache var -> scale var) and one shared
+    [1] int32 requant-event counter (`requant_var`) the serve engine
+    meters."""
     max_bps = -(-max_context // block_size)
     if num_blocks is None:
         # worst case: every slot at max context, plus the trash block
         num_blocks = 1 + max_slots * max_bps
-    if kv_dtype != "fp32":
-        raise ValueError(f"kv_dtype must be 'fp32' (the int8 residency is "
-                         f"not ported yet), got {kv_dtype!r}")
+    if kv_dtype not in ("fp32", "int8"):
+        raise ValueError(f"kv_dtype must be 'fp32' or 'int8', "
+                         f"got {kv_dtype!r}")
     cache_vars = [f"lm_kv_{kv}_{i}{ir.KV_CACHE_SUFFIX}"
                   for i in range(n_layers) for kv in ("k", "v")]
-    return {
+    sig = {
         "vocab": int(vocab), "d_model": int(d_model),
         "num_heads": int(n_heads), "head_dim": int(d_model // n_heads),
         "n_layers": int(n_layers), "max_slots": int(max_slots),
@@ -80,20 +88,55 @@ def default_signature(vocab=32, d_model=16, n_heads=2, n_layers=2,
         "decode_feeds": ["tokens", "block_tables", "seq_lens"],
         "kv_dtype": str(kv_dtype),
     }
+    if kv_dtype == "int8":
+        sig["scale_vars"] = {c: _scale_var_name(c) for c in cache_vars}
+        sig["requant_var"] = f"lm_kv_requant{ir.KV_CACHE_SUFFIX}"
+    return sig
+
+
+def _scale_var_name(cache_var: str) -> str:
+    """Per-block scale var of an int8 cache var — keeps the @KV_CACHE
+    suffix so io._is_persistable skips it from serialization exactly
+    like the cache arrays (the registry materializes zeros)."""
+    base = cache_var[: -len(ir.KV_CACHE_SUFFIX)] \
+        if cache_var.endswith(ir.KV_CACHE_SUFFIX) else cache_var
+    return f"{base}_scale{ir.KV_CACHE_SUFFIX}"
 
 
 def _cache_vars(block, sig, layer: int):
     shape = (sig["num_blocks"], sig["block_size"], sig["num_heads"],
              sig["head_dim"])
+    dtype = "int8" if sig.get("kv_dtype") == "int8" else DTYPE
     out = []
     for kv in ("k", "v"):
         name = f"lm_kv_{kv}_{layer}{ir.KV_CACHE_SUFFIX}"
         if name in block.vars:
             out.append(block.vars[name])
         else:
-            out.append(block.create_var(name=name, shape=shape, dtype=DTYPE,
+            out.append(block.create_var(name=name, shape=shape, dtype=dtype,
                                         persistable=True,
                                         stop_gradient=True))
+    return out
+
+
+def _q8_side_vars(block, sig, kc, vc):
+    """The int8 layout's sidecar vars: per-block scales for this layer's
+    K and V caches plus the shared requant counter."""
+    out = []
+    for cache in (kc, vc):
+        name = sig["scale_vars"][cache.name]
+        if name in block.vars:
+            out.append(block.vars[name])
+        else:
+            out.append(block.create_var(
+                name=name, shape=(sig["num_blocks"],), dtype=DTYPE,
+                persistable=True, stop_gradient=True))
+    rq = sig["requant_var"]
+    if rq in block.vars:
+        out.append(block.vars[rq])
+    else:
+        out.append(block.create_var(name=rq, shape=(1,), dtype="int32",
+                                    persistable=True, stop_gradient=True))
     return out
 
 
@@ -114,6 +157,7 @@ def _body(tokens, block_tables, seq_lens, sig, phase: str):
                      attrs={"padding_idx": -1, "is_sparse": False,
                             "is_distributed": False})
     sm_scale = 1.0 / math.sqrt(sig["head_dim"])
+    q8 = sig.get("kv_dtype") == "int8"
     for i in range(sig["n_layers"]):
         kc, vc = _cache_vars(block, sig, i)
         q = layers_nn.matmul(h, _param(f"lm_l{i}_wq", (d, d), std))
@@ -121,15 +165,23 @@ def _body(tokens, block_tables, seq_lens, sig, phase: str):
         v = layers_nn.matmul(h, _param(f"lm_l{i}_wv", (d, d), std))
         attn = helper.create_variable_for_type_inference(DTYPE)
         op_type = ("prefill_attention" if phase == "prefill"
-                   else "paged_attention")
+                   else "paged_attention") + ("_q8" if q8 else "")
+        inputs = {"Q": [q.name], "K": [k.name], "V": [v.name],
+                  "KCache": [kc.name], "VCache": [vc.name],
+                  "BlockTables": [block_tables.name],
+                  "SeqLens": [seq_lens.name]}
+        outputs = {"Out": [attn.name], "KCacheOut": [kc.name],
+                   "VCacheOut": [vc.name]}
+        if q8:
+            ks, vs, rq = _q8_side_vars(block, sig, kc, vc)
+            inputs.update({"KScale": [ks.name], "VScale": [vs.name]})
+            outputs.update({"KScaleOut": [ks.name],
+                            "VScaleOut": [vs.name]})
+            if phase != "prefill":
+                inputs["RequantCount"] = [rq.name]
+                outputs["RequantCountOut"] = [rq.name]
         helper.append_op(
-            op_type,
-            inputs={"Q": [q.name], "K": [k.name], "V": [v.name],
-                    "KCache": [kc.name], "VCache": [vc.name],
-                    "BlockTables": [block_tables.name],
-                    "SeqLens": [seq_lens.name]},
-            outputs={"Out": [attn.name], "KCacheOut": [kc.name],
-                     "VCacheOut": [vc.name]},
+            op_type, inputs=inputs, outputs=outputs,
             attrs={"num_heads": H, "sm_scale": sm_scale})
         h = _add(h, layers_nn.matmul(
             attn, _param(f"lm_l{i}_wo", (d, d), std)))

@@ -32,7 +32,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
+           "paged_decode_q8.cu", "dropout.cu")
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # gridDim.y limit: every kernel puts a batch-like extent (B*H, slots) there
 MAX_GRID_Y = 65535
 
-launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "paged_decode": 0}
+launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "paged_decode": 0,
+            "paged_decode_q8": 0, "dropout": 0}
 _launch_lock = threading.Lock()   # engines of two models launch from two threads
 
 
@@ -146,6 +148,11 @@ def _declare(lib):
     lib.ptt_paged_decode_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F,
                                          I, P]
     lib.ptt_paged_decode_f32.restype = I
+    lib.ptt_paged_decode_q8.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                        F, I, P]
+    lib.ptt_paged_decode_q8.restype = I
+    lib.ptt_dropout_f32.argtypes = [P, P, P, ctypes.c_uint64, U, U, F, I, P]
+    lib.ptt_dropout_f32.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p
 
@@ -173,7 +180,7 @@ def check(err: int, what: str):
 
 def check_operand(t, name: str, dtype, device, shape=None):
     """Validate one kernel operand: device, dtype, shape, contiguity and
-    16-byte alignment (the kernels load float4)."""
+    16-byte alignment (the kernels load 16-byte vectors)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

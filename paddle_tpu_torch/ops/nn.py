@@ -7,10 +7,17 @@ decides keep at 1/256 resolution, bit for bit the JAX package's bits for
 the same seed words. The JAX package computes it
 in XLA, outside any Pallas kernel; here it is plain PyTorch integer math
 (int64 holding uint32 values, every product reduced mod 2**32 by
-`_mul32`). Its hand-written kernel (``ops/pallas_dropout.py``, reached
-only with ``FLAGS_dropout_impl=pallas``) is not ported yet.
+`_mul32`). With ``FLAGS_dropout_impl=pallas`` an op that passes the JAX
+package's gate (`upscale_in_train`, 0 < rate < 1, minor dim a multiple of
+128) runs the hand-written kernel of ``ops/dropout_kernel.py`` instead,
+in its forward (writing `Mask` in the same pass) and again, on `dOut`
+with the forward's seed, in its grad, which does not read `Mask`. On a
+CPU tensor that path runs the kernel's plain version, where the JAX
+package falls back to the bits path (the TPU's generator cannot run on a
+CPU): under the flag the two packages' masks differ on the host as they
+do on the devices.
 
-The grad does not hash again. XLA drops the JAX package's `Mask` output
+On the bits path the grad does not hash again. XLA drops the JAX package's `Mask` output
 when nothing reads it, so its grad regenerates the bits; an eager
 interpreter computes `Mask` in the forward and keeps it to the end of the
 step anyway, so `_dropout_grad` selects by it: the hash, a few dozen
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import flags as _flags
 from ..core.registry import register_grad, register_op
 
 M32 = 0xFFFFFFFF
@@ -108,14 +116,30 @@ def _dropout(ctx, X):
     if p >= 1.0:
         # degenerate: drop everything (upscale would divide by zero)
         return {"Out": torch.zeros_like(X), "Mask": torch.zeros_like(X)}
+    if _takes_kernel(X, p, impl):
+        from . import dropout_kernel
+        out, mask = dropout_kernel.dropout_forward(
+            X, seed32(ctx.seed), float(p), want_mask=True)
+        return {"Out": out, "Mask": mask}
     scale = 1.0 if impl != "upscale_in_train" else 1.0 / (1.0 - p)
     out, keep = _bits_dropout(X, seed32(ctx.seed), float(p), float(scale))
     return {"Out": out, "Mask": keep.to(X.dtype)}
 
 
+def _takes_kernel(x, p, impl) -> bool:
+    """Path choice of a training-mode dropout op: the hand-written kernel
+    only when the flag asks for it and the JAX package's gate passes."""
+    if _flags.get_flag("dropout_impl") != "pallas" \
+            or impl != "upscale_in_train":
+        return False
+    from . import dropout_kernel
+    return dropout_kernel.supports(x, p)
+
+
 @register_grad("dropout")
 def _dropout_grad(ctx, ins, out_grads):
-    """dX from dOut through the forward's own keep mask."""
+    """dX from dOut: the kernel again on the kernel path, else through
+    the forward's own keep mask."""
     g = out_grads.get("Out", [None])[0]
     X = ins["X"][0]
     if g is None:
@@ -126,6 +150,10 @@ def _dropout_grad(ctx, ins, out_grads):
         return {"X": g if impl == "upscale_in_train" else g * (1.0 - p)}
     if p >= 1.0:
         return {"X": torch.zeros_like(g)}
+    if _takes_kernel(g, p, impl):
+        from . import dropout_kernel
+        return {"X": dropout_kernel.dropout_forward(
+            g, seed32(ctx.seed), float(p))[0]}
     scale = 1.0 if impl != "upscale_in_train" else 1.0 / (1.0 - p)
     keep = ctx.fwd_outs["Mask"][0] != 0
     return {"X": torch.where(keep, g * scale,

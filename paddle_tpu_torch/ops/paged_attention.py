@@ -1,4 +1,5 @@
-"""Ragged paged attention over a block-allocated KV cache (fp32 residency).
+"""Ragged paged attention over a block-allocated KV cache (fp32 and int8
+residency).
 
 Counterpart of ``paddle_tpu/ops/paged_attention.py``; the layout and the
 contract are the JAX package's:
@@ -21,6 +22,27 @@ the buffers: a functional copy here would move the whole cache (about
 kernel of ``csrc/paged_decode.cu`` on a card (it replaces
 ``_paged_decode_kernel``), `paged_attention_reference` on the host, an
 empty output for meta tensors.
+
+The int8 residency (`kv_dtype="int8"`): the cache tensors are int8 with
+one float32 scale per block ([NB], separate K and V scales), value =
+int8 * scale[block], symmetric +-127 bins.
+
+- prefill OWNS its blocks: the write SETS each written block's scale to
+  its group abs-max / 127 (a recycled block's stale scale is overwritten,
+  never consulted);
+- decode append GROWS a block: the first token written into a block sets
+  its scale fresh; a later token may RAISE it (never lower), in which case
+  the block's resident int8 values are requantized by old / new and the
+  event is counted (`RequantCountOut`, metered by the serve engine as
+  ``serve_kv_requant_events_total``);
+- attention DEQUANTIZES at the read: Q and the in-flight K/V stay float32
+  (prefill's own attention runs on the exact K/V, only RESIDENCY is
+  quantized), so the first generated token is exact and quantization error
+  enters through decode-step history reads only.
+
+`paged_attention_q8` dispatches like `paged_attention`: the kernel of
+``csrc/paged_decode_q8.cu`` on a card (it replaces
+``_paged_decode_kernel_q8``), `paged_attention_q8_reference` on the host.
 """
 
 from __future__ import annotations
@@ -161,6 +183,180 @@ def paged_attention(q, k_cache, v_cache, block_tables, seq_lens,
 
 
 # ---------------------------------------------------------------------------
+# int8 residency: cache writes, in place
+# ---------------------------------------------------------------------------
+
+_Q8_BINS = 127.0
+
+
+def _q8_append_one(cache, scale, new, block_tables, seq_lens):
+    """Append one token's values per slot into an int8 cache, in place.
+    `new`: [S, H, Dh] float32. Returns (cache, scale, n_requant), the
+    count a [] int32 tensor on the cache's device.
+
+    Two ordered writes: first every slot's whole block is rewritten,
+    requantized by old / new where its scale grew and by ratio 1 (an exact
+    identity) elsewhere, then the token lands at its offset. Inactive
+    slots all target the trash block 0 with ratio 1, so the duplicate
+    indices of the block rewrite and of the scale write carry equal
+    values; only the trash block's token row is written by several slots,
+    and no read ever sees it."""
+    bs = cache.shape[1]
+    seq = seq_lens.long()
+    pos = (seq - 1).clamp_min(0)
+    blk = torch.gather(block_tables.long(), 1, (pos // bs)[:, None])[:, 0]
+    active = seq > 0
+    blk = torch.where(active, blk, torch.zeros_like(blk))
+    off = torch.where(active, pos % bs, torch.zeros_like(pos))
+    first = (pos % bs) == 0            # first token written into the block
+    tok = new.float()
+    needed = tok.abs().amax(dim=(1, 2)) / _Q8_BINS                # [S]
+    old = scale[blk]                                              # [S]
+    base = torch.where(first, torch.zeros_like(old), old)
+    s_new = torch.maximum(base, needed)
+    requant = active & ~first & (needed > old)
+    ratio = torch.where(requant, old / s_new.clamp_min(1e-30),
+                        torch.ones_like(old))
+    # torch.round rounds half to even, as jnp.rint does
+    adj = torch.round(cache[blk].float() * ratio[:, None, None, None])
+    cache.index_put_((blk,), adj.to(cache.dtype))
+    safe = torch.where(s_new > 0, s_new, torch.ones_like(s_new))
+    q = torch.round((tok / safe[:, None, None]).clamp(-_Q8_BINS, _Q8_BINS))
+    cache.index_put_((blk, off), q.to(cache.dtype))
+    scale.index_put_((blk,), torch.where(active, s_new, old))
+    return cache, scale, requant.sum().to(torch.int32)
+
+
+def _q8_prefill_write_one(cache, scale, x, block_tables, seq_lens):
+    """Scatter a padded prompt's values ([B, T, H, Dh]) into an int8
+    cache, in place, setting each written block's scale to its group
+    abs-max / 127. Positions at or past the row's seq_len quantize to 0
+    and land in the trash block 0."""
+    bs = cache.shape[1]
+    B, T = x.shape[0], x.shape[1]
+    n_ord = -(-T // bs)
+    t = torch.arange(T, device=x.device)
+    seq = seq_lens.long()
+    valid = t[None, :] < seq[:, None]                             # [B, T]
+    tables = block_tables.long()
+    blk = torch.gather(tables, 1, (t // bs)[None, :].expand(B, T))
+    blk = torch.where(valid, blk, torch.zeros_like(blk))
+    off = (t % bs)[None, :].expand(B, T)
+    xm = torch.where(valid[:, :, None, None], x.float(),
+                     torch.zeros((), dtype=torch.float32, device=x.device))
+    pad = n_ord * bs - T
+    xp = torch.nn.functional.pad(xm, (0, 0, 0, 0, 0, pad)) if pad else xm
+    grp = xp.reshape(B, n_ord, bs, x.shape[2], x.shape[3])
+    needed = grp.abs().amax(dim=(2, 3, 4)) / _Q8_BINS             # [B, n_ord]
+    safe = torch.where(needed > 0, needed, torch.ones_like(needed))
+    per_pos = safe.repeat_interleave(bs, dim=1)[:, :T]            # [B, T]
+    q = torch.round((xm / per_pos[:, :, None, None])
+                    .clamp(-_Q8_BINS, _Q8_BINS))
+    cache.index_put_((blk.reshape(-1), off.reshape(-1)),
+                     q.reshape((B * T,) + x.shape[2:]).to(cache.dtype))
+    # overwrite the scale of every block that received a valid position
+    # (prefill owns the block); rows/ordinals past seq_len redirect to
+    # trash block 0 where they rewrite its existing scale
+    has = (torch.arange(n_ord, device=x.device)[None, :] * bs) < seq[:, None]
+    blk_sc = torch.where(has, tables[:, :n_ord],
+                         torch.zeros_like(tables[:, :n_ord]))
+    scale.index_put_((blk_sc.reshape(-1),),
+                     torch.where(has, needed, scale[blk_sc]).reshape(-1))
+    return cache, scale
+
+
+# ---------------------------------------------------------------------------
+# int8 residency: the decode read
+# ---------------------------------------------------------------------------
+
+def paged_attention_q8_reference(q, k_cache, v_cache, k_scale, v_scale,
+                                 block_tables, seq_lens, sm_scale):
+    """Plain version of the quantized decode read: gather int8 blocks
+    through the table, dequantize by per-block scale, then the same
+    masked softmax as `paged_attention_reference`. Dead table entries
+    point anywhere (their positions are masked), so a non-finite scale
+    there must not reach the sums: dead positions dequantize to 0."""
+    S, H, Dh = q.shape
+    nb, bs = k_cache.shape[0], k_cache.shape[1]
+    T = block_tables.shape[1] * bs
+    tables = block_tables.long()
+    flat = (tables[:, :, None] * bs
+            + torch.arange(bs, device=q.device)[None, None, :]).reshape(S, T)
+    seq = seq_lens.long()
+    mask = torch.arange(T, device=q.device)[None, :] < seq[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    ks = torch.where(mask, k_scale[tables].repeat_interleave(bs, dim=1), zero)
+    vs = torch.where(mask, v_scale[tables].repeat_interleave(bs, dim=1), zero)
+    k = k_cache.reshape(nb * bs, H, Dh)[flat].float() * ks[:, :, None, None]
+    v = v_cache.reshape(nb * bs, H, Dh)[flat].float() * vs[:, :, None, None]
+    s = torch.einsum("shd,sthd->sht", q.float(), k) * sm_scale
+    s = s.masked_fill(~mask[:, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("sht,sthd->shd", p, v) / l.clamp_min(1e-20)
+    o = torch.where((seq > 0)[:, None, None], o, torch.zeros_like(o))
+    return o.to(q.dtype)
+
+
+def _paged_attention_q8_cuda(q, k_cache, v_cache, k_scale, v_scale,
+                             block_tables, seq_lens, sm_scale):
+    S, H, Dh = q.shape
+    NB, BS = k_cache.shape[0], k_cache.shape[1]
+    if Dh not in _HEAD_DIMS:
+        raise ValueError(f"int8 paged decode kernel takes head dim "
+                         f"{_HEAD_DIMS}, got {Dh}")
+    if S > native.MAX_GRID_Y:
+        raise ValueError(f"int8 paged decode kernel: {S} slots exceed the "
+                         f"grid's y limit {native.MAX_GRID_Y}")
+    dev = q.device
+    max_b = block_tables.shape[1] if block_tables.ndim == 2 else -1
+    native.check_operand(q, "q", torch.float32, dev)
+    native.check_operand(k_cache, "k_cache", torch.int8, dev,
+                         (NB, BS, H, Dh))
+    native.check_operand(v_cache, "v_cache", torch.int8, dev,
+                         (NB, BS, H, Dh))
+    native.check_operand(k_scale, "k_scale", torch.float32, dev, (NB,))
+    native.check_operand(v_scale, "v_scale", torch.float32, dev, (NB,))
+    native.check_operand(block_tables, "block_tables", torch.int32, dev,
+                         (S, max_b))
+    native.check_operand(seq_lens, "seq_lens", torch.int32, dev, (S,))
+    out = torch.empty_like(q)
+    if S == 0:
+        return out
+    lib = native.lib()
+    err = lib.ptt_paged_decode_q8(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        S, H, Dh, BS, max_b, float(sm_scale),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check(err, "paged_decode_q8 launch")
+    native.count_launch("paged_decode_q8")
+    return out
+
+
+def paged_attention_q8(q, k_cache, v_cache, k_scale, v_scale, block_tables,
+                       seq_lens, sm_scale=None):
+    """Quantized-residency decode read for one token per slot: the kernel
+    on a card, the plain version on the host."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        return _paged_attention_q8_cuda(q, k_cache, v_cache, k_scale,
+                                        v_scale, block_tables, seq_lens,
+                                        sm_scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return paged_attention_q8_reference(q, k_cache, v_cache, k_scale,
+                                            v_scale, block_tables, seq_lens,
+                                            sm_scale)
+    raise ValueError(f"paged_attention_q8: no path for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
 # registered ops (the decode/prefill program building blocks)
 # ---------------------------------------------------------------------------
 
@@ -207,6 +403,62 @@ def _prefill_attention_op(ctx, Q, K, V, KCache, VCache, BlockTables,
     kc, vc = kv_cache_prefill_write(KCache, VCache, k4, v4, bt, seq)
     return {"Out": out.transpose(1, 2).reshape(B, T, D),
             "KCacheOut": kc, "VCacheOut": vc}
+
+
+@register_op("paged_attention_q8")
+def _paged_attention_q8_op(ctx, Q, K, V, KCache, VCache, KScale, VScale,
+                           RequantCount, BlockTables, SeqLens):
+    """One decode step over int8 caches. Same contract as paged_attention
+    plus the per-block scale vars ([num_blocks] f32, updated in place
+    alongside their cache) and a [1] int32 requant-event counter the
+    serve engine meters."""
+    H = int(ctx.attr("num_heads", 1))
+    S, D = Q.shape
+    Dh = D // H
+    sm_scale = float(ctx.attr("sm_scale", 1.0 / math.sqrt(Dh)))
+    seq = SeqLens.to(torch.int32)
+    bt = BlockTables.to(torch.int32)
+    kc, ks, n_k = _q8_append_one(KCache, KScale, K.reshape(S, H, Dh), bt, seq)
+    vc, vs, n_v = _q8_append_one(VCache, VScale, V.reshape(S, H, Dh), bt, seq)
+    out = paged_attention_q8(Q.reshape(S, H, Dh).contiguous(), kc, vc, ks, vs,
+                             bt.contiguous(), seq.contiguous(), sm_scale)
+    return {"Out": out.reshape(S, D), "KCacheOut": kc, "VCacheOut": vc,
+            "KScaleOut": ks, "VScaleOut": vs,
+            "RequantCountOut": RequantCount + (n_k + n_v)}
+
+
+@register_op("prefill_attention_q8")
+def _prefill_attention_q8_op(ctx, Q, K, V, KCache, VCache, KScale, VScale,
+                             BlockTables, SeqLens):
+    """Prompt phase over int8 caches: attention runs on the exact K/V in
+    flight (prefill logits, and therefore the first token, are those of
+    the fp32 cache), quantization happens only at the residency write. No
+    requant counter: prefill always owns the blocks it writes.
+
+    Build-time shape inference runs this rule on meta tensors with a
+    stand-in length for the dynamic T, longer than the block table is
+    wide, and the residency write then refuses its shapes, exactly as in
+    the JAX package: `Out` keeps no build-time shape in either, so both
+    save the same Program."""
+    H = int(ctx.attr("num_heads", 1))
+    B, T, D = Q.shape
+    Dh = D // H
+    sm_scale = float(ctx.attr("sm_scale", 1.0 / math.sqrt(Dh)))
+    seq = SeqLens.to(torch.int32)
+    bt = BlockTables.to(torch.int32)
+    k4 = K.reshape(B, T, H, Dh)
+    v4 = V.reshape(B, T, H, Dh)
+
+    def heads_first(x):
+        return x.transpose(1, 2).contiguous()
+
+    out = flash_attention(heads_first(Q.reshape(B, T, H, Dh)),
+                          heads_first(k4), heads_first(v4), True, sm_scale)
+    kc, ks = _q8_prefill_write_one(KCache, KScale, k4, bt, seq)
+    vc, vs = _q8_prefill_write_one(VCache, VScale, v4, bt, seq)
+    return {"Out": out.transpose(1, 2).reshape(B, T, D),
+            "KCacheOut": kc, "VCacheOut": vc,
+            "KScaleOut": ks, "VScaleOut": vs}
 
 
 @register_op("gather_last_token")

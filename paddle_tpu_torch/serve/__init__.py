@@ -13,6 +13,7 @@ from .decode import (DecodeEngine, GenerationResult,  # noqa: F401
 from .errors import (BadRequestError, CacheExhaustedError,  # noqa: F401
                      DeadlineExceededError, ModelNotFoundError,
                      ModelUnavailableError, QueueFullError, ServeError)
-from .kvcache import PagedKVCache  # noqa: F401
+from .kvcache import (PagedKVCache, block_residency_nbytes,  # noqa: F401
+                      blocks_for_budget)
 from .registry import ModelRegistry, ModelVersion  # noqa: F401
 from .server import InferenceServer, ServeConfig  # noqa: F401

@@ -22,8 +22,12 @@ and comparable token for token. KV capacity is reserved worst-case at
 admission (serve/kvcache.py).
 
 The engine thread launches the device work of every step, on that
-thread's current CUDA stream. KV export/import between replicas, the
-int8 residency, tracing spans and hot swap are not ported yet.
+thread's current CUDA stream. Over an int8 cache (signature
+`kv_dtype="int8"`) the decode step counts whole-block requantize events
+in a [1] int32 scope var on the device; the engine reads it once a step
+and publishes the delta as ``serve_kv_requant_events_total``. KV
+export/import between replicas (and with it requantize-on-admit),
+tracing spans and hot swap are not ported yet.
 """
 
 from __future__ import annotations
@@ -130,6 +134,12 @@ class DecodeEngine:
                                     admission=admission)
         self._cond = self._sched.cond
         self._closed = False
+        # engine thread only; the engine serves the one version it was
+        # built on, so a new version is a new engine and a fresh count
+        self._requant_seen = 0
+        self._m_requant = _metrics.counter(
+            "serve_kv_requant_events_total",
+            "int8 KV whole-block requantize events, per model")
         self._m_requests = _metrics.counter(
             "serve_generate_requests_total",
             "generative requests by outcome")
@@ -227,6 +237,7 @@ class DecodeEngine:
             "steps": self._m_steps.value(model=self._name),
             "prefill_steps": prefill["count"] if prefill else 0,
             "avg_ttft_us": round(ttft["mean"], 1) if ttft else 0.0,
+            "kv_requant_events": self._m_requant.value(model=self._name),
             "kv": {"blocks_in_use": kv.in_use(),
                    "blocks_capacity": kv.capacity},
         }
@@ -350,6 +361,20 @@ class DecodeEngine:
                 state.req.stream._push(tok)
             self._maybe_finish(slot, state, tok, sig)
 
+    def _sample_requant(self, sig):
+        """Meter int8 whole-block requantize events: the decode step
+        increments the [1] int32 requant var on the device; the engine
+        reads it (one int a step, beside the logits the step already
+        copies) and publishes the delta. Engine thread only."""
+        rq = sig.get("requant_var")
+        if rq is None:
+            return
+        val = int(self._ver.scope.find_var(rq)[0])
+        if val > self._requant_seen:
+            self._m_requant.inc(val - self._requant_seen,
+                                model=self._name)
+        self._requant_seen = val
+
     # -- decode ------------------------------------------------------------
 
     def _decode_step(self):
@@ -376,6 +401,7 @@ class DecodeEngine:
             (time.perf_counter() - t0) * 1e6, model=self._name)
         self._m_steps.inc(model=self._name)
         self._m_occupancy.observe(len(live), model=self._name)
+        self._sample_requant(sig)
         now = time.monotonic()
         for i, s in live:
             s.ctx_len += 1

@@ -40,6 +40,29 @@ from ..observe import metrics as _metrics
 from .errors import CacheExhaustedError
 
 
+def block_residency_nbytes(sig: dict) -> int:
+    """Device bytes one cache block costs across every cache var of a
+    decode signature — the unit the capacity planner divides a byte
+    budget by. The int8 residency pays 1 byte per position plus one
+    float32 per-block scale per cache var, against 4 bytes per position
+    for fp32: at the tiny LM's (block_size 4, 2 heads, head_dim 8)
+    geometry that is 68 against 256 bytes, so ~3.8x more blocks (and
+    therefore concurrent sequences) per card at a fixed budget."""
+    per_pos = int(sig["block_size"]) * int(sig["num_heads"]) \
+        * int(sig["head_dim"])
+    n_caches = len(sig["cache_vars"])
+    if sig.get("kv_dtype") == "int8":
+        return n_caches * (per_pos + 4)    # int8 values + f32 block scale
+    return n_caches * per_pos * 4
+
+
+def blocks_for_budget(sig: dict, budget_bytes: int) -> int:
+    """Allocatable blocks (excluding the trash block) a device byte
+    budget affords under `sig`'s residency layout."""
+    per_block = block_residency_nbytes(sig)
+    return max(int(budget_bytes) // per_block - 1, 0)
+
+
 class PagedKVCache:
     """Host-side allocator for one model version's paged KV cache."""
 

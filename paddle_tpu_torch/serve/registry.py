@@ -9,7 +9,8 @@ registry turns the dir into a `ModelVersion`:
 1. the dir is sha256-verified against its MANIFEST.json and its params
    are loaded into a fresh scope on the executor's device;
 2. the KV cache vars, which are never saved, are materialized as zeros on
-   the device at the shape the signature declares;
+   the device at the shape and type the signature declares (float32, or
+   int8 with its per-block scale vars and the requant counter);
 3. the prefill program is run once at every ladder rung and the decode
    program once, so the kernels are built and launched before traffic.
 
@@ -132,23 +133,29 @@ class ModelRegistry:
                 f"model dir {dirname} has no decode signature in its "
                 f"manifest: only generative models are served by this "
                 f"package yet")
-        if sig.get("kv_dtype", "fp32") != "fp32":
-            raise BadRequestError(
-                f"model dir {dirname}: kv_dtype {sig['kv_dtype']!r} is not "
-                f"ported yet (fp32 only)")
         fp = _fingerprint(dirname)
         scope = Scope()
         program, feed_names, fetch_vars = _io.load_inference_model(
             dirname, self._exe, scope=scope, verify=True)
         spec = feed_spec(program, feed_names)
         # the KV cache is never saved: zeros of the declared shape, made
-        # on the device
+        # on the device. The int8 residency adds its per-block scale vars
+        # and the shared requant counter, all named by the signature
         shape = (sig["num_blocks"], sig["block_size"], sig["num_heads"],
                  sig["head_dim"])
         device = self._exe.place.torch_device()
+        cache_dtype = torch.int8 if sig.get("kv_dtype") == "int8" \
+            else torch.float32
         for cname in sig["cache_vars"]:
-            scope.set_var(cname, torch.zeros(shape, dtype=torch.float32,
+            scope.set_var(cname, torch.zeros(shape, dtype=cache_dtype,
                                              device=device))
+        for sname in (sig.get("scale_vars") or {}).values():
+            scope.set_var(sname, torch.zeros((sig["num_blocks"],),
+                                             dtype=torch.float32,
+                                             device=device))
+        if sig.get("requant_var"):
+            scope.set_var(sig["requant_var"],
+                          torch.zeros((1,), dtype=torch.int32, device=device))
         prepared = self._exe.prepare(program, fetch_list=fetch_vars,
                                      scope=scope)
         decode = self._load_decode(name, dirname, scope, sig,

@@ -1,6 +1,7 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-PyTorch versions, a small generation on the card against the host, and
-two training steps of a one-layer Transformer-base on the card.
+PyTorch versions, small generations (fp32 and int8 cache) on the card
+against the host, and training steps of a one-layer Transformer-base on
+the card, with the bits dropout and with the flag-selected dropout kernel.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as ptt
+from paddle_tpu_torch.ops import dropout_kernel as dk
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import native
 from paddle_tpu_torch.ops import paged_attention as pa
@@ -278,3 +280,252 @@ def test_train_base_one_layer_two_steps_on_card(dev):
         assert {n: native.launches[n] for n in ("flash_fwd", "flash_dq",
                                                 "flash_dkv")} == \
             {"flash_fwd": 6, "flash_dq": 3, "flash_dkv": 3}
+
+
+# ---------------------------------------------------------------------------
+# int8 KV residency: the quantized decode read
+# ---------------------------------------------------------------------------
+
+def _q8_case(dev, S, H, Dh, BS, max_b, seq, seed):
+    """Random int8 caches and positive scales; block tables from a shuffled
+    pool. Everything a slot must not read is poisoned: table entries past
+    ceil(seq_len / BS) point at block 0, and the scale of every block that
+    no live entry names (block 0 included) is NaN."""
+    rng = np.random.RandomState(seed)
+    NB = 1 + S * max_b
+    pool = rng.permutation(np.arange(1, NB)).astype(np.int32)
+    bt = np.zeros((S, max_b), np.int32)
+    live = set()
+    for s in range(S):
+        n = -(-int(seq[s]) // BS)
+        bt[s, :n] = pool[s * max_b: s * max_b + n]
+        live |= set(bt[s, :n].tolist())
+    kc = rng.randint(-127, 128, size=(NB, BS, H, Dh)).astype(np.int8)
+    vc = rng.randint(-127, 128, size=(NB, BS, H, Dh)).astype(np.int8)
+    ks = rng.uniform(0.002, 0.03, size=NB).astype(np.float32)
+    vs = rng.uniform(0.002, 0.03, size=NB).astype(np.float32)
+    dead = [b for b in range(NB) if b not in live]
+    ks[dead] = np.nan
+    vs[dead] = np.nan
+    q = rng.randn(S, H, Dh).astype(np.float32)
+    return [torch.from_numpy(x).to(dev)
+            for x in (q, kc, vc, ks, vs, bt, np.asarray(seq, np.int32))]
+
+
+def _spread(S, full):
+    """S seq_lens over [0, full], with one 0 and one `full` when S > 1."""
+    if S == 1:
+        return [full]
+    return [0, full] + [int(x) for x in
+                        np.linspace(1, full - 1, S - 2).astype(int)]
+
+
+@pytest.mark.parametrize("S", [1, 32])
+@pytest.mark.parametrize("BS", [8, 16, 32])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_paged_q8_kernel_matches_plain_and_reads_only_live_blocks(
+        dev, Dh, BS, S):
+    max_b = 6
+    seq = _spread(S, max_b * BS)
+    args = _q8_case(dev, S, 4, Dh, BS, max_b, seq, seed=Dh + BS + S)
+    sm = Dh ** -0.5
+    native.reset_launches()
+    out = pa.paged_attention_q8(*args, sm)
+    assert native.launches["paged_decode_q8"] == 1
+    assert torch.isfinite(out).all(), "kernel read a dead block or scale"
+    ref = pa.paged_attention_q8_reference(*args, sm)
+    torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+    for s in range(S):
+        if seq[s] == 0:
+            assert bool((out[s] == 0).all())
+
+
+def test_paged_q8_kernel_walks_a_table_longer_than_one_staging_chunk(dev):
+    """max_b 150 at block 4: three chunks of staged table entries, the
+    last one partial."""
+    seq = [600, 0, 257, 1, 599]
+    args = _q8_case(dev, 5, 2, 64, 4, 150, seq, seed=31)
+    out = pa.paged_attention_q8(*args, 0.125)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out, pa.paged_attention_q8_reference(*args, 0.125), atol=TOL,
+        rtol=TOL)
+
+
+def test_paged_q8_kernel_clamps_seq_len_to_the_table_row(dev):
+    q, kc, vc, ks, vs, bt, sl = _q8_case(dev, 2, 2, 64, 4, 3, [12, 12], 9)
+    out = pa.paged_attention_q8(q, kc, vc, ks, vs, bt, sl + 5)
+    torch.testing.assert_close(
+        out, pa.paged_attention_q8(q, kc, vc, ks, vs, bt, sl), atol=0, rtol=0)
+
+
+def test_paged_q8_wrapper_raises_instead_of_falling_back(dev):
+    q, kc, vc, ks, vs, bt, sl = _q8_case(dev, 2, 2, 64, 4, 3, [12, 5], 3)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.paged_attention_q8(q, kc.float(), vc, ks, vs, bt, sl)
+    with pytest.raises(ValueError, match="shape"):
+        pa.paged_attention_q8(q, kc, vc, ks[:-1], vs, bt, sl)
+    with pytest.raises(ValueError, match="is on"):
+        pa.paged_attention_q8(q, kc, vc, ks.cpu(), vs, bt, sl)
+
+
+def test_int8_generation_on_card_equals_host_and_runs_the_q8_kernel(
+        dev, tmp_path):
+    from paddle_tpu_torch.models import tiny_lm
+    mdir = str(tmp_path / "lm8")
+    sig = tiny_lm.save_tiny_lm(mdir, vocab=64, d_model=64, n_heads=2,
+                               n_layers=2, max_slots=4, block_size=4,
+                               max_context=96, prefill_seq_rungs=(32, 64),
+                               kv_dtype="int8")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, sig["vocab"], size=n).tolist()
+               for n in (3, 30, 50)]
+    out, requants = {}, {}
+    for name, place in (("card8", ptt.CUDAPlace(0)),
+                        ("host8", ptt.CPUPlace())):
+        srv = ptt.serve.InferenceServer(place)
+        try:
+            srv.add_model(name, mdir)
+            native.reset_launches()
+            futs = [srv.submit_generate(name, p, max_new_tokens=6)
+                    for p in prompts]
+            out[name] = [f.result(timeout=120).tokens for f in futs]
+            launched = dict(native.launches)
+            requants[name] = srv.stats()["models"][name]["kv_requant_events"]
+        finally:
+            srv.close()
+        if name == "card8":
+            assert launched["flash_fwd"] > 0
+            assert launched["paged_decode_q8"] > 0
+            assert launched["paged_decode"] == 0
+        else:
+            assert not any(launched.values()), launched
+    assert out["card8"] == out["host8"]
+    assert requants["card8"] == requants["host8"]
+
+
+# ---------------------------------------------------------------------------
+# the flag-selected dropout kernel
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("shape", [
+    (32, 256, 512),      # the train path's shapes
+    (4, 256, 2048),
+    (3, 128),            # one block, no tail
+    (1031,),             # 257 vectors and a scalar tail of 3
+    (5, 7, 3),           # 105 elements: 26 vectors and a tail of 1
+    (2,)])               # tail only
+def test_dropout_kernel_equals_plain_bit_for_bit(dev, shape, rate):
+    g = torch.Generator(device=dev).manual_seed(len(shape) * 31 + shape[0])
+    x = torch.randn(*shape, device=dev, generator=g)
+    seed = 0xC0FFEE12
+    native.reset_launches()
+    out, mask = dk.dropout_forward(x, seed, rate, want_mask=True)
+    out_only, none = dk.dropout_forward(x, seed, rate)
+    assert native.launches["dropout"] == 2 and none is None
+    ref_out, ref_mask = dk.dropout_reference(x, seed, rate)
+    assert torch.equal(_bits(out), _bits(ref_out))
+    assert torch.equal(_bits(mask), _bits(ref_mask))
+    assert torch.equal(_bits(out_only), _bits(ref_out))
+
+
+def test_dropout_kernel_backward_is_the_kernel_on_dy(dev):
+    x = torch.randn(8, 256, 512, device=dev, requires_grad=True)
+    dy = torch.randn(8, 256, 512, device=dev)
+    native.reset_launches()
+    y = dk.dropout_kernel(x, 99, 0.1)
+    y.backward(dy)
+    assert native.launches["dropout"] == 2
+    ref_out, _ = dk.dropout_reference(x.detach(), 99, 0.1)
+    ref_dx, _ = dk.dropout_reference(dy, 99, 0.1)
+    assert torch.equal(_bits(y.detach()), _bits(ref_out))
+    assert torch.equal(_bits(x.grad), _bits(ref_dx))
+
+
+def test_dropout_kernel_takes_an_unaligned_view_by_its_scalar_loop(dev):
+    """A contiguous view that starts 4 bytes into its storage cannot be
+    read as 16-byte vectors; the mask is the same as for an aligned copy."""
+    buf = torch.randn(4 * 128 + 1, device=dev)
+    x = buf[1:].view(4, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out, mask = dk.dropout_forward(x, 5, 0.5, want_mask=True)
+    ref_out, ref_mask = dk.dropout_reference(x.clone(), 5, 0.5)
+    assert torch.equal(_bits(out), _bits(ref_out))
+    assert torch.equal(_bits(mask), _bits(ref_mask))
+
+
+def test_dropout_kernel_indexes_past_32_bits(dev):
+    """2**32 + 4099 elements (17 GB in, 17 GB out): the element index needs
+    64 bits and its high word enters the hash. Windows at the start, across
+    2**31, across 2**32 and at the end (the scalar tail) equal the plain
+    version's for the same linear indices."""
+    n = (1 << 32) + 4099
+    free, _ = torch.cuda.mem_get_info()
+    if free < 2.2 * 4 * n:
+        pytest.skip(f"needs {2.2 * 4 * n / 2**30:.0f} GiB of free device "
+                    f"memory, {free / 2**30:.0f} GiB are free")
+    x = torch.empty(n, device=dev)
+    windows = [(0, 4096), ((1 << 31) - 2048, (1 << 31) + 2048),
+               ((1 << 32) - 2048, (1 << 32) + 2048), (n - 4099, n)]
+    for a, b in windows:
+        x[a:b] = torch.randn(b - a, device=dev)
+    out, _ = dk.dropout_forward(x, 77, 0.5)
+    torch.cuda.synchronize()
+    inv = fa._drop_scale(0.5)
+    for a, b in windows:
+        keep = dk._keep_range(77, a, b, 0.5, dev)
+        want = torch.where(keep, x[a:b] * inv, torch.zeros((), device=dev))
+        assert torch.equal(_bits(out[a:b]), _bits(want)), (a, b)
+        assert 0.4 < keep.float().mean().item() < 0.6
+
+
+def test_dropout_wrapper_raises_instead_of_falling_back(dev):
+    with pytest.raises(ValueError, match="float32"):
+        dk.dropout_forward(torch.ones(4, 128, device=dev,
+                                      dtype=torch.float16), 1, 0.5)
+
+
+def test_train_one_layer_under_the_dropout_flag_on_card(dev):
+    """Transformer-base widths at one layer, batch 2, under
+    FLAGS_dropout_impl=pallas: every dropout op passes the gate and
+    launches the kernel once in its forward and once in its grad; card and
+    host take the same three steps (the kernel's mask and the flash
+    kernels' masks are their plain versions' bit for bit)."""
+    from paddle_tpu_torch import flags, optimizer
+    from paddle_tpu_torch.core.executor import fetch_var
+    from paddle_tpu_torch.models import transformer
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(n_layer=1, dropout_rate=0.1)
+        optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+    n_sites = sum(op.type == "dropout" for op in main.global_block().ops)
+    assert n_sites > 0
+    scope0 = ptt.Scope()
+    ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope0)
+    arrays = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
+    rng = np.random.RandomState(0)
+    feed = {n: rng.randint(0, 30000, (2, 256)).astype(np.int64)
+            for n in ("src_word", "trg_word", "lbl_word")}
+    flags.set_flag("dropout_impl", "pallas")
+    losses = {}
+    try:
+        for name, place in (("card", ptt.CUDAPlace(0)),
+                            ("host", ptt.CPUPlace())):
+            scope = ptt.io.state_from_numpy(arrays, place)
+            exe = ptt.Executor(place)
+            losses[name] = []
+            for _ in range(3):
+                native.reset_launches()
+                loss, = exe.run(main, feed=feed, fetch_list=[fetches["loss"]],
+                                scope=scope)
+                losses[name].append(float(np.asarray(loss).reshape(-1)[0]))
+                want = 2 * n_sites if name == "card" else 0
+                assert native.launches["dropout"] == want
+    finally:
+        flags.set_flag("dropout_impl", "auto")
+    np.testing.assert_allclose(losses["card"], losses["host"], rtol=1e-3)

@@ -338,6 +338,21 @@ with tempfile.TemporaryDirectory() as t:
     with ptt.serve.InferenceServer(ptt.CPUPlace()) as srv:
         srv.add_model("lm", d)
         assert len(srv.generate("lm", [1, 2, 3], max_new_tokens=3).tokens) == 3
+    d8 = os.path.join(t, "lm8")
+    tiny_lm.save_tiny_lm(d8, prefill_seq_rungs=(8,), max_context=16,
+                         kv_dtype="int8")
+    with ptt.serve.InferenceServer(ptt.CPUPlace()) as srv:
+        srv.add_model("lm8", d8)
+        assert len(srv.generate("lm8", [1, 2, 3], max_new_tokens=6).tokens) == 6
+ptt.flags.set_flag("dropout_impl", "pallas")
+drop = ptt.Program()
+with ptt.program_guard(drop, ptt.Program()), ptt.unique_name.guard():
+    x = ptt.layers.data("x", shape=[128], dtype="float32")
+    y = ptt.layers.dropout(x, dropout_prob=0.5,
+                           dropout_implementation="upscale_in_train")
+out, = exe.run(drop, feed={"x": [[1.0] * 128] * 4}, fetch_list=[y],
+               scope=ptt.Scope())
+assert set(out.reshape(-1).tolist()) == {0.0, 2.0}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where paddle_tpu_torch's generation time goes on one NVIDIA card.
 
-    python3 tools/torch_serve_profile.py [--out DIR]
+    python3 tools/torch_serve_profile.py [--int8] [--out DIR]
 
 Saves chip_smoke.py's serve-base tiny_lm (its SERVE_BASE, weight seed and
 prompts, imported from there), serves it with `InferenceServer(CUDAPlace(0))`
-and runs two windows, each with 8 requests submitted at once:
+and runs two windows, each with 8 requests submitted at once. With
+``--int8`` the model is chip_smoke.py's serve-base-int8 instead (the int8
+KV residency, its cache sized from serve-base's byte budget) and each
+window submits 32 requests at once:
 
 - ``mixed``: chip_smoke's traffic (prompts of 40..500 tokens, 32 new
   tokens each: prefill-heavy);
@@ -34,13 +37,18 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (N_REQUESTS, NEW_TOKENS, SERVE_BASE,  # noqa: E402
-                        WEIGHT_SEED, prompts_for)
+from chip_smoke import (INT8_REQUESTS, N_REQUESTS, NEW_TOKENS,  # noqa: E402
+                        SERVE_BASE, WEIGHT_SEED, prompts_for,
+                        save_serve_int8)
 
-WINDOWS = {
-    "mixed": dict(prompt_lens=None, new_tokens=NEW_TOKENS),
-    "decode": dict(prompt_lens=[128] * N_REQUESTS, new_tokens=256),
-}
+
+def windows(n_requests):
+    return {
+        "mixed": dict(prompt_lens=None, new_tokens=NEW_TOKENS),
+        "decode": dict(prompt_lens=[128] * n_requests, new_tokens=256),
+    }
+
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -110,21 +118,28 @@ def profile(srv, name, prompts, new_tokens, sync, trace_path):
     return res
 
 
-def serve_and_profile(place, sync):
+def serve_and_profile(place, sync, int8=False):
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import tiny_lm
     report = {}
+    n_requests = INT8_REQUESTS if int8 else N_REQUESTS
     with tempfile.TemporaryDirectory(prefix="serve_profile_") as tmp:
-        mdir = os.path.join(tmp, "serve_base")
-        sig = tiny_lm.save_tiny_lm(mdir, seed=WEIGHT_SEED, **SERVE_BASE)
-        for wl, spec in WINDOWS.items():
-            prompts = prompts_for(sig["vocab"], spec["prompt_lens"])
-            name = f"lm_{wl}"
+        if int8:
+            mdir, sig, _, _ = save_serve_int8(ptt, tiny_lm, tmp)
+        else:
+            mdir = os.path.join(tmp, "serve_base")
+            sig = tiny_lm.save_tiny_lm(mdir, seed=WEIGHT_SEED, **SERVE_BASE)
+        for wl, spec in windows(n_requests).items():
+            prompts = prompts_for(sig["vocab"], spec["prompt_lens"],
+                                  n=n_requests)
+            name = f"lm{'8' if int8 else ''}_{wl}"
             with ptt.serve.InferenceServer(place) as srv:
                 srv.add_model(name, mdir)
                 plain = run_window(srv, name, prompts, spec["new_tokens"],
                                    sync)
                 plain.update(_engine_summary(name))
+                plain["kv_requant_events"] = srv.stats()["models"][name][
+                    "kv_requant_events"]
                 traced = profile(srv, name, prompts, spec["new_tokens"], sync,
                                  os.path.join(tmp, f"trace_{wl}.json"))
             if traced.pop("tokens_out") != plain.pop("tokens_out"):
@@ -136,6 +151,9 @@ def serve_and_profile(place, sync):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--int8", action="store_true",
+                    help="profile serve-base-int8 (int8 KV residency, 32 "
+                         "requests) instead of serve-base")
     ap.add_argument("--out", help="directory for summary.json")
     args = ap.parse_args(argv)
     import torch
@@ -149,20 +167,24 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    report = serve_and_profile(ptt.CUDAPlace(0), torch.cuda.synchronize)
+    report = serve_and_profile(ptt.CUDAPlace(0), torch.cuda.synchronize,
+                               int8=args.int8)
+    config = "serve-base-int8" if args.int8 else "serve-base"
     for wl, r in report.items():
         u, t = r["untraced"], r["traced"]
-        print(f"{wl} [{card}]: {u['tokens']} tokens in {u['wall_s']:.3f} s "
+        print(f"{config} {wl} [{card}]: {u['tokens']} tokens in {u['wall_s']:.3f} s "
               f"= {u['tokens_per_s']:.1f} tokens/s, TTFT median "
               f"{u['ttft_ms_median']:.1f} ms max {u['ttft_ms_max']:.1f} ms; "
               f"decode step {u['decode_step_us']}; prefill "
-              f"{u['prefill_us']}; traced: device busy "
+              f"{u['prefill_us']}; requantize events "
+              f"{u['kv_requant_events']}; traced: device busy "
               f"{t['busy_share']:.3f} of {t['wall_s']:.3f} s, launches "
               f"{t['launches']}", flush=True)
         for k in t["by_kernel"]:
             print(f"  {k['us'] / 1e3:9.3f} ms  x{k['count']:<6d} {k['name']}")
     summary = {"card": card, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "windows": report}
+               "torch": torch.__version__, "config": config,
+               "windows": report}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "summary.json"), "w") as f:

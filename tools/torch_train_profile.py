@@ -2,12 +2,17 @@
 """Where paddle_tpu_torch's training step time goes on one NVIDIA card.
 
     python3 tools/torch_train_profile.py [--steps N] [--out DIR]
+    FLAGS_dropout_impl=pallas python3 tools/torch_train_profile.py ...
 
 Builds chip_smoke.py's train-base (its TRAIN_BASE, TRAIN_BATCH, Adam
 learning rate and fixed batch, imported from there), runs its startup
 with `Executor(CUDAPlace(0))`, takes 3 warm-up steps, then N untraced
 steps (step wall on the host clock after `torch.cuda.synchronize()`) and
-one step under `torch.profiler`. The traced step reports the device's
+one step under `torch.profiler`. The dropout path is the one the
+``dropout_impl`` flag selects (read from the environment by
+``paddle_tpu_torch/flags.py``: `auto`, the bits path, unless
+``FLAGS_dropout_impl=pallas`` asks for the hand-written kernel); the
+report names it. The traced step reports the device's
 busy share (the union of kernel and copy intervals over the traced wall),
 the device time by kernel and by kernel group (GEMMs, the flash kernels,
 int64 elementwise kernels — the dropout op's counter hash — and the rest),
@@ -81,6 +86,7 @@ def by_op_type(prof, top=16):
 
 KERNEL_GROUPS = (("flash kernels", ("flash_",)),
                  ("GEMMs", ("gemm", "xmma")),
+                 ("dropout kernel", ("dropout_kernel",)),
                  ("int64 elementwise (dropout hash)", ("<long",)))
 
 
@@ -115,6 +121,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    impl = ptt.flags.get_flag("dropout_impl")
 
     main_prog, startup, loss = build_train(ptt)
     scope = ptt.Scope()
@@ -152,7 +159,7 @@ def main(argv=None) -> int:
     ops = ops_all[:16]
     tokens = TRAIN_BATCH * TRAIN_BASE["seq_len"]
     med = sorted(walls)[len(walls) // 2]
-    print(f"train-base [{card}]: untraced step median {med:.1f} ms "
+    print(f"train-base (dropout_impl={impl}) [{card}]: untraced step median {med:.1f} ms "
           f"({[round(w, 1) for w in walls]}), {tokens / med * 1e3:.0f} "
           f"tokens/s; traced step {traced_s * 1e3:.1f} ms, device busy "
           f"{dev['busy_us'] / 1e3:.1f} ms = {dev['busy_share']:.3f}; "
@@ -169,7 +176,8 @@ def main(argv=None) -> int:
         print(f"  {r['device_us'] / 1e3:9.3f} ms device {r['host_us'] / 1e3:9.3f}"
               f" ms host  x{r['count']:<5d} {r['op']}")
     summary = {"card": card, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "batch": TRAIN_BATCH,
+               "torch": torch.__version__, "dropout_impl": impl,
+               "batch": TRAIN_BATCH,
                "tokens_per_step": tokens, "untraced_step_ms": walls,
                "traced_step_ms": traced_s * 1e3, "traced": dev,
                "by_kernel_group_us": groups,
