@@ -10,15 +10,21 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
 2. build the CUDA kernels of ``paddle_tpu_torch/csrc`` (flash forward,
    flash backward, paged decode over float32 and over int8 caches,
    dropout) and print the build time and the compiler's register /
-   shared-memory report;
+   shared-memory report; for every instantiation of the two backward
+   kernels, its registers, spills, shared memory and the count of HMMA
+   (tensor-core) instructions in ``cuobjdump -sass`` of the built library,
+   which must not be 0;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (max error vs tolerance, kernel ms, plain ms,
    the least time the card could take, and where one PyTorch call
    computes the same function, its time as a yardstick): the flash
    forward at the serving shapes; the flash forward with attention
    dropout and the dQ and dK/dV kernels at the training shapes (B 32,
-   H 8, T 256, D 64, causal and not, rate 0 and 0.1, and a ragged T 200);
-   the dropout mask of all three exactly equal to the plain version's;
+   H 8, T 256, D 64, causal and not, rate 0 and 0.1, and a ragged T 200;
+   dQ and dK/dV launched twice on the same inputs give equal bits; their
+   bounds at the 3xTF32 tensor-core rate they run at, and on the f32 CUDA
+   cores for comparison with a CUDA-core version); the dropout mask of
+   all three exactly equal to the plain version's;
    the paged decode kernel; the int8 paged decode kernel at S 32, H 8,
    Dh 64, block 16, seq_lens spread over 0..1024, dead blocks' scales
    poisoned; the dropout kernel at [32, 256, 512] and [32, 256, 2048],
@@ -68,6 +74,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -85,6 +92,9 @@ LOGIT_TOL = 1e-3    # card vs host prefill logits through 6 layers
 # a step, amplified by Adam's division by sqrt(v) for the smallest grads
 LOSS_RTOL = 1e-3
 PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12    # H100 SXM, TF32 on the tensor cores, dense
+# the flash backward kernels take each f32 product as three TF32 products
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 SERVE_BASE = dict(vocab=30000, d_model=512, n_heads=8, n_layers=6,
                   max_slots=8, block_size=16, max_context=1024,
@@ -178,9 +188,10 @@ def check_flash(torch, fa, flush, rows, T, H=8, D=64):
                 >= nbytes / PEAK_BYTES else "bytes")
 
 
-def _bound(flops, nbytes):
-    """(ms, what bounds it) for `flops` f32 operations and `nbytes`."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """(ms, what bounds it) for `flops` operations at `peak` per second
+    (f32 on the CUDA cores unless told otherwise) and `nbytes`."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                         else "bytes")
 
@@ -208,6 +219,12 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
                   float((lse - ref_lse).abs().max()))
     if not fwd_err <= TOL:
         raise AssertionError(f"flash_fwd {tag}: max error {fwd_err} > {TOL}")
+    again = (fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate, seed),
+             *fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, seed))
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{name} {tag}: two launches on the same "
+                                 f"inputs differ")
     bwd_err = {}
     for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         bwd_err[name] = float((a - b).abs().max())
@@ -240,11 +257,73 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
     bht, bhtd = B * H * T, B * H * T * D
     res["fwd_bound_ms"], res["fwd_bound_by"] = _bound(
         4.0 * bhtd * T * half, (4.0 * bhtd + bht) * 4)
-    res["dq_bound_ms"], res["dq_bound_by"] = _bound(
-        3 * 2.0 * bhtd * T * half, (5.0 * bhtd + 2 * bht) * 4)
-    res["dkv_bound_ms"], res["dkv_bound_by"] = _bound(
-        4 * 2.0 * bhtd * T * half, (6.0 * bhtd + 2 * bht) * 4)
+    # dQ: 3 products of 2 B H T^2 D, dK/dV 4; at the rate they run at and,
+    # for comparison with a CUDA-core version, on the f32 CUDA cores
+    for name, n_products, n_tensors in (("dq", 3, 5), ("dkv", 4, 6)):
+        work = (n_products * 2.0 * bhtd * T * half,
+                (n_tensors * bhtd + 2 * bht) * 4)
+        res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = _bound(
+            *work, PEAK_3XTF32_FLOPS)
+        res[f"{name}_bound_f32_ms"], _ = _bound(*work)
     return res
+
+
+def _bwd_instantiation(mangled):
+    """'flash_dq<64,drop>' for a mangled backward kernel name, else None."""
+    m = re.search(r"flash_(dq|dkv)_kernelILi(\d+)ELb([01])E", mangled)
+    if m is None:
+        return None
+    return (f"flash_{m.group(1)}<{m.group(2)},"
+            f"{'drop' if m.group(3) == '1' else 'rate0'}>")
+
+
+def backward_build_report(native):
+    """Per instantiation of the dQ and dK/dV kernels: registers and spill
+    bytes (the build's -Xptxas -v report), dynamic shared memory a block
+    (the library's own count), and the HMMA instructions in `cuobjdump
+    -sass` of the built library. Raises if one has no HMMA: the products
+    must run on the tensor cores."""
+    rep = {}
+    current = None
+    for line in native.build_info.log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = _bwd_instantiation(m.group(1))
+            if current:
+                rep[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            rep[current]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep[current]["registers"] = int(m.group(1))
+            current = None
+    cuobjdump = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", native.build_info.path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
+                                 sass, re.S):
+        inst = _bwd_instantiation(name)
+        if inst:
+            rep.setdefault(inst, {})["hmma"] = body.count("HMMA")
+    lib = native.lib()
+    for inst, r in rep.items():
+        d = int(inst.split("<")[1].split(",")[0])
+        r["smem_bytes"] = lib.ptt_flash_bwd_smem_bytes(
+            int(inst.startswith("flash_dkv")), d)
+        if not r.get("hmma"):
+            raise AssertionError(f"{inst}: no HMMA instruction in the built "
+                                 f"library: its products do not run on the "
+                                 f"tensor cores")
+    if len(rep) != 12:
+        raise AssertionError(f"expected 12 backward instantiations (dQ and "
+                             f"dK/dV x D 32/64/128 x rate 0/dropout), found "
+                             f"{sorted(rep)}")
+    return rep
 
 
 def check_dropout_mask(torch, fa, T=128, B=2, H=8, rate=0.5):
@@ -848,6 +927,12 @@ def main() -> int:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error", "==")):
             log("  " + line.strip())
+    bwd_build = backward_build_report(native)
+    for inst, r in sorted(bwd_build.items()):
+        log(f"{inst}: {r.get('registers', 'not reported')} registers, "
+            f"{r.get('spill_bytes', 'not reported')} bytes spilled, "
+            f"{r['smem_bytes']} bytes of shared memory a block, {r['hmma']} "
+            f"HMMA instructions (cuobjdump -sass)")
 
     # 3. kernels vs their plain versions
     flush = _l2_flusher(torch)
@@ -894,14 +979,15 @@ def main() -> int:
             f"{c['fwd_ms']:.4f} ms plain {c['fwd_plain_ms']:.4f} ms sdpa "
             f"{c['fwd_library_ms']:.4f} ms bound {c['fwd_bound_ms']:.4f} ms "
             f"({c['fwd_bound_by']})")
-        log(f"  flash_dq max_abs_err {c['dq_err']:.3g} (tol {BWD_TOL}*(1+|plain|)) "
-            f"kernel {c['dq_ms']:.4f} ms bound {c['dq_bound_ms']:.4f} ms "
-            f"({c['dq_bound_by']})")
-        log(f"  flash_dkv max_abs_err {c['dkv_err']:.3g} (tol {BWD_TOL}*(1+|plain|)) "
-            f"kernel {c['dkv_ms']:.4f} ms bound {c['dkv_bound_ms']:.4f} ms "
-            f"({c['dkv_bound_by']})")
-        log(f"  backward plain (dq, dk, dv) {c['bwd_plain_ms']:.4f} ms; sdpa "
-            f"backward at rate 0 (dq, dk, dv) {c['bwd_library_ms']:.4f} ms")
+        for name in ("dq", "dkv"):
+            log(f"  flash_{name} max_abs_err {c[name + '_err']:.3g} (tol "
+                f"{BWD_TOL}*(1+|plain|)), two launches bit-equal, kernel "
+                f"{c[name + '_ms']:.4f} ms bound {c[name + '_bound_ms']:.4f} "
+                f"ms ({c[name + '_bound_by']} at 3xTF32, 495/3 TFLOP/s; "
+                f"{c[name + '_bound_f32_ms']:.4f} ms on the f32 CUDA cores)")
+        log(f"  dq + dkv {c['dq_ms'] + c['dkv_ms']:.4f} ms; backward plain "
+            f"(dq, dk, dv) {c['bwd_plain_ms']:.4f} ms; sdpa backward at rate "
+            f"0 (dq, dk, dv) {c['bwd_library_ms']:.4f} ms")
     dropped = check_dropout_mask(torch, fa)
     log(f"dropout mask of flash_fwd, flash_dq and flash_dkv equal to the plain "
         f"version's bit for bit (rate 0.5, {dropped:.4f} dropped)")
@@ -1038,6 +1124,7 @@ def main() -> int:
     # shape, its serving case beside them
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
+    rate0 = train_cases[2]         # the same at rate 0, as SDPA's backward
     train_shape = (f"B={head['B']} H={head['H']} T={head['T']} D={head['D']} "
                    f"non-causal rate {head['rate']} f32")
     kernels = [
@@ -1060,24 +1147,29 @@ def main() -> int:
                    "library_ms": big["library_ms"],
                    "shape": f"rows={big['rows']} H=8 T={big['T']} D=64 "
                             f"causal f32"}},
-        {"name": "flash_dq", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "paddle_tpu/ops/pallas_attention.py:215",
-         "launches": train["launches"]["flash_dq"],
-         "max_abs_err": max(c["dq_err"] for c in train_cases),
-         "ms": head["dq_ms"], "plain_ms": head["bwd_plain_ms"],
-         "bound_ms": head["dq_bound_ms"], "bound_by": head["dq_bound_by"],
-         "library_ms": head["bwd_library_ms"], "shape": train_shape,
-         "note": "plain_ms and library_ms compute dq, dk and dv together"},
-        {"name": "flash_dkv", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "paddle_tpu/ops/pallas_attention.py:266",
-         "launches": train["launches"]["flash_dkv"],
-         "max_abs_err": max(c["dkv_err"] for c in train_cases),
-         "ms": head["dkv_ms"], "plain_ms": head["bwd_plain_ms"],
-         "bound_ms": head["dkv_bound_ms"], "bound_by": head["dkv_bound_by"],
-         "library_ms": head["bwd_library_ms"], "shape": train_shape,
-         "note": "plain_ms and library_ms compute dq, dk and dv together"},
+        *({"name": f"flash_{name}", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+           "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+           "launches": train["launches"][f"flash_{name}"],
+           "max_abs_err": max(c[f"{name}_err"] for c in train_cases),
+           "ms": head[f"{name}_ms"], "plain_ms": head["bwd_plain_ms"],
+           "bound_ms": head[f"{name}_bound_ms"],
+           "bound_by": head[f"{name}_bound_by"],
+           "bound_rate": "3xTF32 on the tensor cores, 495e12 / 3 op/s",
+           "bound_cuda_core_ms": head[f"{name}_bound_f32_ms"],
+           "library_ms": head["bwd_library_ms"], "shape": train_shape,
+           "causal_ms": train_cases[1][f"{name}_ms"],
+           "rate0": {"ms": rate0[f"{name}_ms"],
+                     "pair_ms": rate0["dq_ms"] + rate0["dkv_ms"],
+                     "library_ms": rate0["bwd_library_ms"],
+                     "bound_ms": rate0[f"{name}_bound_ms"],
+                     "bound_cuda_core_ms": rate0[f"{name}_bound_f32_ms"]},
+           "build": {k: v for k, v in bwd_build.items()
+                     if k.startswith(f"flash_{name}<64,")},
+           "note": "plain_ms and library_ms compute dq, dk and dv together; "
+                   "library_ms is SDPA's backward at rate 0, rate0 compares "
+                   "like with like"}
+          for name, line in (("dq", 215), ("dkv", 266))),
         {"name": "paged_decode", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:138",

@@ -1,4 +1,5 @@
-// FlashAttention-2 backward, float32, for sm_90a: two kernels.
+// FlashAttention-2 backward, float32, for sm_90a: two kernels on the
+// tensor cores in 3xTF32.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py::_flash_dq_kernel and
 // ::_flash_dkv_kernel (launched by _flash_backward). With S = Q K^T *
@@ -12,30 +13,55 @@
 //   dK     = dS^T Q,  dV = W_drop^T dO     (flash_dkv_kernel)
 // where W_drop = keep ? W * drop_scale : 0. The [T, T] matrices never
 // reach device memory: each kernel rebuilds its tiles of W, dW and dS
-// from Q, K, V, dO, lse and delta.
+// from Q, K, V, dO, lse and delta, as the TPU kernels do (dQ 3 products
+// of 2*T^2*D per (b, h), dK/dV 4).
 //
-// What bounds them on the H100: at the train path's shapes (T 256, D 64)
-// dQ does 3 products of 2*T^2*D per (b, h) and dK/dV 4, against reading
-// 5 (dQ) or 6 (dK/dV) [T, D] tensors: about T/2 operations per byte, so
-// both are bound by arithmetic. This first version computes on the
-// float32 CUDA cores (67 TFLOP/s peak); a wgmma/TMA bf16 path is later work.
+// What bounds them on the H100: against 5 (dQ) or 6 (dK/dV) [T, D]
+// tensors read or written, that is about T/2 operations per byte, so both
+// are bound by arithmetic. Every product runs on the tensor cores as
+// mma.sync m16n8k8 TF32 in the 3xTF32 split (mma_tf32.cuh): three TF32
+// products per fp32 product, so the ceiling is 495 / 3 = 165 TFLOP/s, not
+// the 67 TFLOP/s of the fp32 CUDA cores that the first version used.
+// One TF32 product alone keeps 11 significant bits and misses the
+// backward's 1e-4 tolerance (tests/test_torch_tf32_split.py); 3xTF32
+// keeps fp32 accuracy.
 //
-// Design (the forward's, flash_fwd.cu, turned around):
-// - dQ: grid (ceil(T/64), B*H), one block per 64-row Q tile. The Q and dO
-//   tile, and its lse and delta rows, stay in shared memory / registers; a
-//   loop over 64-row K/V tiles takes the place of the TPU kernel's
-//   sequential grid axis. 256 threads as 16 x 16, each owning 4 rows x 4
-//   columns of the 64 x 64 S and dP tiles (two register tiles); dS goes
-//   through shared memory into dQ, accumulated in registers (4 rows x D/16
-//   columns a thread) and written once.
-// - dK/dV: grid (ceil(T/64), B*H), one block per 64-row K/V tile, looping
-//   over Q tiles (from the first live one when causal). The transposed
-//   tiles W_drop^T and dS^T go through shared memory; dK and dV are
-//   accumulated in registers and written once, with no atomics, so the
-//   results repeat exactly from run to run.
+// Design. mma.sync, not wgmma: wgmma reads tf32 operands K-major from
+// shared memory only, and the transposed products (dS^T Q, W_drop^T dO)
+// would need transposed copies of Q and dO. mma.sync fragments are read
+// from shared memory by index in either orientation, and the hi/lo split
+// stays in registers.
+// - dQ: grid (ceil(T/64), B*H), 4 warps, one block per 64 query rows, 16
+//   rows a warp. Q and dO stay in shared memory; K and V tiles of BS rows
+//   stream through a two-stage cp.async ring (tile n+1 lands while tile n
+//   computes). Per tile a warp takes S = Q K^T and dP = dO V^T into
+//   accumulator fragments, turns them into dS in registers (exp, masks,
+//   dropout hash), and feeds dS straight back as the A operand of
+//   dQ += dS K: the accumulator holds columns 2t, 2t + 1 where the A
+//   fragment wants t, t + 4, so the k index is permuted and K's rows are
+//   read in the same order (acc_as_a / load_b_perm). dQ stays in
+//   registers and is written once.
+// - dK/dV: grid (ceil(T/64), B*H), one block per 64 key rows, K and V
+//   resident; Q, dO, lse and delta tiles stream through the ring from the
+//   first live query tile. A warp computes S^T = K Q^T and dP^T = V dO^T
+//   for its 16 key rows, turns them into W_drop^T and dS^T in registers
+//   and feeds them as A into dV += W_drop^T dO and dK += dS^T Q. Nothing
+//   goes through shared memory but the input tiles.
+// - Shared rows have stride D + 4 floats: rows g = 0..7 and columns
+//   t = 0..3 of every fragment load (and rows 2t, 2t + 1) fall on 32
+//   distinct banks.
+// - Streamed tiles are BS = 32 rows: at D 64 a block then takes 69 KB of
+//   shared memory and at most 168 registers a thread, and an SM holds 3
+//   blocks (12 warps), where 64-row tiles allowed 2 and ran slower on the
+//   H100. Rows >= T are zero-filled by the copy's src-size operand and
+//   never read; rows and columns >= T are masked (W = 0) and never
+//   written.
+// - S's small terms go to an accumulator of their own (mma_3xtf32_sep):
+//   W = exp(S - lse) turns an error of S into a relative error of W.
 // - causal: tiles wholly above the diagonal are skipped, the diagonal tile
-//   is masked. Any T: rows and columns >= T are masked (W = 0) and rows
-//   >= T are loaded as zeros, never read, and never written.
+//   is masked.
+// - No atomics and a fixed order of every sum: two launches on the same
+//   inputs give bit-equal outputs.
 // - dropout regenerates the forward's mask from (seed, bh, row, column),
 //   independent of tiling; it is a template flag, and rate 0 (thresh == 0)
 //   launches the instantiation without it.
@@ -44,284 +70,336 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using namespace ptt_flash;
+using namespace ptt_mma;
 
-// rows [r0, r0 + 64) of a [T, D] slice -> shared, row stride D + 1, zeros
-// past T (float4 loads along each row)
+constexpr int BWD_THREADS = 128;  // 4 warps
+constexpr int BR = 64;            // resident rows a block: 16 a warp
+constexpr int BS = 32;            // rows of a streamed tile
+
+// blocks an SM must hold at once: 3 at D <= 64 caps registers at 168
+// (no spills) and fits 3 blocks' shared memory; D = 128 needs its 255
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int T, int tid) {
-  constexpr int DP = D + 1;
-  for (int i = tid; i < BM * D / 4; i += NTHREADS) {
-    const int r = (i * 4) / D, c = (i * 4) % D;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + c);
-    float* d = dst + r * DP + c;
-    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
+constexpr int min_blocks() { return D <= 64 ? 3 : 1; }
+
+// rows [r0, r0 + ROWS) of a [T, D] slice -> shared (row stride D + 4),
+// asynchronously; rows >= T are zero-filled and not read
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
+                                          int T, int tid) {
+  constexpr int SD = D + 4;
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert((ROWS * CPR) % BWD_THREADS == 0, "tile / thread mismatch");
+#pragma unroll
+  for (int it = 0; it < ROWS * CPR / BWD_THREADS; ++it) {
+    const int i = tid + it * BWD_THREADS;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool ok = r0 + r < T;
+    cp_async16(dst + r * SD + c, src + (size_t)(ok ? r0 + r : 0) * D + c, ok);
+  }
+}
+
+// rows [r0, r0 + ROWS) of a [T] row vector -> shared, zeros past T
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0,
+                                          int T, int tid) {
+  if (tid < ROWS) {
+    const bool ok = r0 + tid < T;
+    cp_async4(dst + tid, src + (ok ? r0 + tid : 0), ok);
   }
 }
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(BWD_THREADS, min_blocks<D>())
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int T, float sm_scale, int causal,
                 uint32_t seed, uint32_t thresh, float drop_scale) {
-  constexpr int DP = D + 1;
-  constexpr int PP = BN + 1;
-  constexpr int DC = D / 16;
+  constexpr int SD = D + 4;
+  constexpr int NS = BS / 8;         // 8-key n-tiles of S, k-tiles of dQ
+  constexpr int ND = D / 8;          // 8-wide k-tiles of S, n-tiles of dQ
   extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BM * DP;
-  float* Ks = dOs + BM * DP;
-  float* Vs = Ks + BN * DP;
-  float* dSs = Vs + BN * DP;
+  float* Qs = smem;                  // [BR][SD]
+  float* dOs = Qs + BR * SD;         // [BR][SD]
+  float* Ks = dOs + BR * SD;         // [2][BS][SD]
+  float* Vs = Ks + 2 * BS * SD;      // [2][BS][SD]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BM;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BR;
   const size_t base = (size_t)blockIdx.y * T * D;
   const size_t rbase = (size_t)blockIdx.y * T;
 
-  load_tile<D>(Qs, q + base, q0, T, tid);
-  load_tile<D>(dOs, dout + base, q0, T, tid);
+  const int n_kv = (T + BS - 1) / BS;
+  const int n_tiles = causal ? min(n_kv, (q0 + BR - 1) / BS + 1) : n_kv;
 
-  float lse_r[4], delta_r[4], acc[4][DC];
-  uint32_t rkey[4];
+  load_tile<D, BR>(Qs, q + base, q0, T, tid);
+  load_tile<D, BR>(dOs, dout + base, q0, T, tid);
+  load_tile<D, BS>(Ks, k + base, 0, T, tid);
+  load_tile<D, BS>(Vs, v + base, 0, T, tid);
+  cp_async_commit();
+
+  // this thread's query rows: wr and wr + 8 of the tile
+  const int wr = 16 * warp + g;
+  const int row[2] = {q0 + wr, q0 + wr + 8};
+  float lse_r[2], delta_r[2];
+  uint32_t rkey[2];
   const uint32_t bk = DROP ? bh_key(seed, blockIdx.y) : 0u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < T ? lse[rbase + row] : 0.f;
-    delta_r[i] = row < T ? delta[rbase + row] : 0.f;
-    rkey[i] = DROP ? row_key(bk, row) : 0u;
-#pragma unroll
-    for (int jd = 0; jd < DC; ++jd) acc[i][jd] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    lse_r[h] = row[h] < T ? lse[rbase + row[h]] : 0.f;
+    delta_r[h] = row[h] < T ? delta[rbase + row[h]] : 0.f;
+    rkey[h] = DROP ? row_key(bk, row[h]) : 0u;
   }
 
-  const int n_kv = (T + BN - 1) / BN;
-  const int n_tiles = causal ? min(n_kv, (q0 + BM - 1) / BN + 1) : n_kv;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile's K/V/dS are no longer read
-    load_tile<D>(Ks, k + base, k0, T, tid);
-    load_tile<D>(Vs, v + base, k0, T, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * DP + d];
-        ov[i] = dOs[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DP + d];
-        vv[j] = Vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool live = row < T && col < T && !(causal && col > row);
-        const float w = live ? expf(s[i][j] * sm_scale - lse_r[i]) : 0.f;
-        float dw = dp[i][j];
-        if (DROP) dw = keep(rkey[i], col, thresh) ? dw * drop_scale : 0.f;
-        dSs[(ty + 16 * i) * PP + tx + 16 * j] = w * (dw - delta_r[i]) * sm_scale;
-      }
+    if (kt + 1 < n_tiles) {
+      const int st = (kt + 1) & 1;
+      load_tile<D, BS>(Ks + st * BS * SD, k + base, (kt + 1) * BS, T, tid);
+      load_tile<D, BS>(Vs + st * BS * SD, v + base, (kt + 1) * BS, T, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* Kt = Ks + (kt & 1) * BS * SD;
+    const float* Vt = Vs + (kt & 1) * BS * SD;
+    const int k0 = kt * BS;
 
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float kv[DC];
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BS keys
+    float s[NS][4], s_small[NS][4], dp[NS][4];
 #pragma unroll
-      for (int jd = 0; jd < DC; ++jd) kv[jd] = Ks[c * DP + tx + 16 * jd];
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(ty + 16 * i) * PP + c];
+      for (int e = 0; e < 4; ++e) s[j][e] = s_small[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-        for (int jd = 0; jd < DC; ++jd) acc[i][jd] = fmaf(ds, kv[jd], acc[i][jd]);
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      load_a<SD>(Qs, wr, 8 * kk + t, qh, ql);
+      load_a<SD>(dOs, wr, 8 * kk + t, oh, ol);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t bh[2], bl[2];
+        load_b_t<SD>(Kt, 8 * j + g, 8 * kk + t, bh, bl);
+        mma_3xtf32_sep(s[j], s_small[j], qh, ql, bh, bl);
+        load_b_t<SD>(Vt, 8 * j + g, 8 * kk + t, bh, bl);
+        mma_3xtf32(dp[j], oh, ol, bh, bl);
       }
     }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s_small[j][e];
+
+    // dS in place of S: element e of n-tile j is row[e >> 1], key column
+    // k0 + 8 j + 2 t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const bool live = row[h] < T && col < T && !(causal && col > row[h]);
+        const float w = live ? expf(s[j][e] * sm_scale - lse_r[h]) : 0.f;
+        float dw = dp[j][e];
+        if (DROP) dw = keep(rkey[h], col, thresh) ? dw * drop_scale : 0.f;
+        s[j][e] = w * (dw - delta_r[h]) * sm_scale;
+      }
+
+    // dQ += dS K
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      uint32_t ah[4], al[4];
+      acc_as_a(s[j], ah, al);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh[2], bl[2];
+        load_b_perm<SD>(Kt, 8 * j + 2 * t, 8 * n + g, bh, bl);
+        mma_3xtf32(acc[n], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < T) {
-      float* dst = dq + base + (size_t)row * D;
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] < T) {
+      float* dst = dq + base + (size_t)row[h] * D + 2 * t;
 #pragma unroll
-      for (int jd = 0; jd < DC; ++jd) dst[tx + 16 * jd] = acc[i][jd];
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
     }
   }
 }
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(BWD_THREADS, min_blocks<D>())
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int T,
                  float sm_scale, int causal, uint32_t seed, uint32_t thresh,
                  float drop_scale) {
-  constexpr int DP = D + 1;
-  constexpr int PP = BM + 1;
-  constexpr int DC = D / 16;
+  constexpr int SD = D + 4;
+  constexpr int NS = BS / 8;         // 8-query n-tiles of S^T, k-tiles of dK/dV
+  constexpr int ND = D / 8;          // 8-wide k-tiles of S^T, n-tiles of dK/dV
   extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BN * DP;
-  float* Qs = Vs + BN * DP;
-  float* dOs = Qs + BM * DP;
-  float* Ws = dOs + BM * DP;     // W_drop^T tile: [key row][query row]
-  float* dSs = Ws + BN * PP;     // dS^T tile
-  float* lse_s = dSs + BN * PP;
-  float* delta_s = lse_s + BM;
+  float* Ks = smem;                  // [BR][SD]
+  float* Vs = Ks + BR * SD;          // [BR][SD]
+  float* Qs = Vs + BR * SD;          // [2][BS][SD]
+  float* dOs = Qs + 2 * BS * SD;     // [2][BS][SD]
+  float* lse_s = dOs + 2 * BS * SD;  // [2][BS]
+  float* delta_s = lse_s + 2 * BS;   // [2][BS]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int k0 = blockIdx.x * BN;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BR;
   const size_t base = (size_t)blockIdx.y * T * D;
   const size_t rbase = (size_t)blockIdx.y * T;
   const uint32_t bk = DROP ? bh_key(seed, blockIdx.y) : 0u;
 
-  load_tile<D>(Ks, k + base, k0, T, tid);
-  load_tile<D>(Vs, v + base, k0, T, tid);
-
-  float dk_acc[4][DC], dv_acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jd = 0; jd < DC; ++jd) dk_acc[i][jd] = dv_acc[i][jd] = 0.f;
-
-  const int n_q = (T + BM - 1) / BM;
+  const int n_q = (T + BS - 1) / BS;
   // causal: query tiles ending before this key tile's first row see none
-  // of it; with BM == BN the first live one is this tile's own index
-  const int qt0 = causal ? k0 / BM : 0;
+  // of it; k0 is a multiple of BS
+  const int qt0 = causal ? k0 / BS : 0;
+
+  load_tile<D, BR>(Ks, k + base, k0, T, tid);
+  load_tile<D, BR>(Vs, v + base, k0, T, tid);
+  load_tile<D, BS>(Qs, q + base, qt0 * BS, T, tid);
+  load_tile<D, BS>(dOs, dout + base, qt0 * BS, T, tid);
+  load_rows<BS>(lse_s, lse + rbase, qt0 * BS, T, tid);
+  load_rows<BS>(delta_s, delta + rbase, qt0 * BS, T, tid);
+  cp_async_commit();
+
+  // this thread's key rows: wr and wr + 8 of the tile
+  const int wr = 16 * warp + g;
+  const int krow[2] = {k0 + wr, k0 + wr + 8};
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   for (int qt = qt0; qt < n_q; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();  // the previous tile's Q/dO/W/dS are no longer read
-    load_tile<D>(Qs, q + base, q0, T, tid);
-    load_tile<D>(dOs, dout + base, q0, T, tid);
-    if (tid < BM) {
-      const int row = q0 + tid;
-      lse_s[tid] = row < T ? lse[rbase + row] : 0.f;
-      delta_s[tid] = row < T ? delta[rbase + row] : 0.f;
+    const int i = qt - qt0;
+    if (qt + 1 < n_q) {
+      const int st = (i + 1) & 1;
+      const int r0 = (qt + 1) * BS;
+      load_tile<D, BS>(Qs + st * BS * SD, q + base, r0, T, tid);
+      load_tile<D, BS>(dOs + st * BS * SD, dout + base, r0, T, tid);
+      load_rows<BS>(lse_s + st * BS, lse + rbase, r0, T, tid);
+      load_rows<BS>(delta_s + st * BS, delta + rbase, r0, T, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* Qt = Qs + (i & 1) * BS * SD;
+    const float* dOt = dOs + (i & 1) * BS * SD;
+    const float* lse_t = lse_s + (i & 1) * BS;
+    const float* delta_t = delta_s + (i & 1) * BS;
+    const int q0 = qt * BS;
 
-    // S^T and dP^T tiles: this thread's key rows ty + 16 i, query rows
-    // tx + 16 j
-    float s[4][4], dp[4][4];
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows x BS
+    // queries
+    float s[NS][4], s_small[NS][4], dp[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+      for (int e = 0; e < 4; ++e) s[j][e] = s_small[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(ty + 16 * i) * DP + d];
-        vv[i] = Vs[(ty + 16 * i) * DP + d];
-      }
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      load_a<SD>(Ks, wr, 8 * kk + t, kh, kl);
+      load_a<SD>(Vs, wr, 8 * kk + t, vh, vl);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * DP + d];
-        ov[j] = dOs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qc = tx + 16 * j;
-      const int qrow = q0 + qc;
-      const uint32_t rk = DROP ? row_key(bk, qrow) : 0u;
-      const float lse_q = lse_s[qc];
-      const float delta_q = delta_s[qc];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = ty + 16 * i;
-        const int krow = k0 + kr;
-        const bool live = qrow < T && krow < T && !(causal && krow > qrow);
-        const float w = live ? expf(s[i][j] * sm_scale - lse_q) : 0.f;
-        float wd = w, dw = dp[i][j];
-        if (DROP) {
-          const bool kp = keep(rk, krow, thresh);
-          wd = kp ? w * drop_scale : 0.f;
-          dw = kp ? dw * drop_scale : 0.f;
-        }
-        Ws[kr * PP + qc] = wd;
-        dSs[kr * PP + qc] = w * (dw - delta_q) * sm_scale;
+      for (int j = 0; j < NS; ++j) {
+        uint32_t bh[2], bl[2];
+        load_b_t<SD>(Qt, 8 * j + g, 8 * kk + t, bh, bl);
+        mma_3xtf32_sep(s[j], s_small[j], kh, kl, bh, bl);
+        load_b_t<SD>(dOt, 8 * j + g, 8 * kk + t, bh, bl);
+        mma_3xtf32(dp[j], vh, vl, bh, bl);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s_small[j][e];
 
-#pragma unroll 4
-    for (int c = 0; c < BM; ++c) {
-      float qv[DC], ov[DC];
+    // W_drop^T in place of S^T, dS^T in place of dP^T: element e of n-tile
+    // j is key row krow[e >> 1], query column q0 + 8 j + 2 t + (e & 1)
 #pragma unroll
-      for (int jd = 0; jd < DC; ++jd) {
-        qv[jd] = Qs[c * DP + tx + 16 * jd];
-        ov[jd] = dOs[c * DP + tx + 16 * jd];
-      }
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float wv = Ws[(ty + 16 * i) * PP + c];
-        const float dsv = dSs[(ty + 16 * i) * PP + c];
+      for (int p = 0; p < 2; ++p) {
+        const int qc = 8 * j + 2 * t + p;
+        const int qrow = q0 + qc;
+        const uint32_t rk = DROP ? row_key(bk, qrow) : 0u;
+        const float lse_q = lse_t[qc];
+        const float delta_q = delta_t[qc];
 #pragma unroll
-        for (int jd = 0; jd < DC; ++jd) {
-          dv_acc[i][jd] = fmaf(wv, ov[jd], dv_acc[i][jd]);
-          dk_acc[i][jd] = fmaf(dsv, qv[jd], dk_acc[i][jd]);
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + p;
+          const bool live = qrow < T && krow[h] < T &&
+                            !(causal && krow[h] > qrow);
+          const float w = live ? expf(s[j][e] * sm_scale - lse_q) : 0.f;
+          float wd = w, dw = dp[j][e];
+          if (DROP) {
+            const bool kp = keep(rk, krow[h], thresh);
+            wd = kp ? w * drop_scale : 0.f;
+            dw = kp ? dw * drop_scale : 0.f;
+          }
+          s[j][e] = wd;
+          dp[j][e] = w * (dw - delta_q) * sm_scale;
         }
       }
+
+    // dV += W_drop^T dO, dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      uint32_t wh[4], wl[4], sh[4], sl[4];
+      acc_as_a(s[j], wh, wl);
+      acc_as_a(dp[j], sh, sl);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh[2], bl[2];
+        load_b_perm<SD>(dOt, 8 * j + 2 * t, 8 * n + g, bh, bl);
+        mma_3xtf32(dv_acc[n], wh, wl, bh, bl);
+        load_b_perm<SD>(Qt, 8 * j + 2 * t, 8 * n + g, bh, bl);
+        mma_3xtf32(dk_acc[n], sh, sl, bh, bl);
+      }
     }
+    __syncthreads();  // this stage is refilled by the next iteration
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row < T) {
-      float* dkr = dk + base + (size_t)row * D;
-      float* dvr = dv + base + (size_t)row * D;
+  for (int h = 0; h < 2; ++h) {
+    if (krow[h] < T) {
+      float* dkr = dk + base + (size_t)krow[h] * D + 2 * t;
+      float* dvr = dv + base + (size_t)krow[h] * D + 2 * t;
 #pragma unroll
-      for (int jd = 0; jd < DC; ++jd) {
-        dkr[tx + 16 * jd] = dk_acc[i][jd];
-        dvr[tx + 16 * jd] = dv_acc[i][jd];
+      for (int n = 0; n < ND; ++n) {
+        *reinterpret_cast<float2*>(dkr + 8 * n) =
+            make_float2(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(dvr + 8 * n) =
+            make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
       }
     }
   }
@@ -329,13 +407,12 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(2 * BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
+  return sizeof(float) * (size_t)(2 * BR + 4 * BS) * (D + 4);
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * BN * (D + 1) + 2 * BM * (D + 1) + 2 * BN * (BM + 1) + 2 * BM);
+  return dq_smem_bytes<D>() + sizeof(float) * 4 * BS;
 }
 
 template <int D>
@@ -349,8 +426,8 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BM - 1) / BM, bh);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((T + BR - 1) / BR, bh);
+  kernel<<<grid, BWD_THREADS, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, T, sm_scale, causal, seed, thresh,
       drop_scale);
   return cudaGetLastError();
@@ -367,8 +444,8 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BN - 1) / BN, bh);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((T + BR - 1) / BR, bh);
+  kernel<<<grid, BWD_THREADS, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, T, sm_scale, causal, seed, thresh,
       drop_scale);
   return cudaGetLastError();
@@ -432,5 +509,16 @@ extern "C" int ptt_flash_dkv_f32(const void* q, const void* k, const void* v,
     case 128: return (int)launch_dkv<128>(qf, kf, vf, of, lf, df, gk, gv, bh, T,
                                           sm_scale, causal, seed, thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block of the dQ (dkv == 0) or dK/dV (dkv != 0)
+// kernel takes at head dim d, in bytes; -1 for another d.
+extern "C" int ptt_flash_bwd_smem_bytes(int dkv, int d) {
+  switch (d) {
+    case 32: return (int)(dkv ? dkv_smem_bytes<32>() : dq_smem_bytes<32>());
+    case 64: return (int)(dkv ? dkv_smem_bytes<64>() : dq_smem_bytes<64>());
+    case 128: return (int)(dkv ? dkv_smem_bytes<128>() : dq_smem_bytes<128>());
+    default: return -1;
   }
 }

@@ -1,11 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the header the flash
-kernels share, ``flash_common.cuh``): plain C entry points, no PyTorch
+The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the headers
+``flash_common.cuh``, which the flash kernels share, and ``mma_tf32.cuh``,
+the backward's tensor-core helpers): plain C entry points, no PyTorch
 headers. At first use each source is compiled by its own `nvcc` process
 (all started together) for ``sm_90a``, and the objects are linked into one
 shared library under ``paddle_tpu_torch/_build/`` (listed in .gitignore),
-named by a hash of the sources, header and flags so an edited source never
+named by a hash of the sources, headers and flags so an edited source never
 loads a stale build. The library is loaded with `ctypes`: pointers and the
 stream travel as `c_void_p`, and every entry returns a `cudaError_t` that
 `check()` turns into an exception.
@@ -34,7 +35,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
            "paged_decode_q8.cu", "dropout.cu")
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "mma_tf32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,7 +61,8 @@ def reset_launches():
 class BuildInfo:
     """What the last build did: library path, wall seconds (0.0 when an
     existing build was loaded) and the compiler's output (`-Xptxas -v`
-    register and shared-memory report per kernel)."""
+    register and shared-memory report per kernel; kept beside the library,
+    so a loaded build reports it too)."""
 
     def __init__(self, path: str, seconds: float, log: str):
         self.path = path
@@ -96,8 +98,13 @@ def _build() -> BuildInfo:
     tag = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"libptt_kernels_{tag}.so")
+    log_path = so_path[:-len(".so")] + ".log"
     if os.path.isfile(so_path):
-        return BuildInfo(so_path, 0.0, "")
+        log = ""
+        if os.path.isfile(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        return BuildInfo(so_path, 0.0, log)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     # unique scratch names: two processes may build the same tag at once
@@ -126,6 +133,9 @@ def _build() -> BuildInfo:
         log.append(f"== link (exit {link.returncode})\n{link.stdout}")
         if link.returncode != 0:
             raise RuntimeError("linking the kernels failed:\n" + "\n".join(log))
+        with open(f"{stem}.log", "w") as f:
+            f.write("\n".join(log))
+        os.replace(f"{stem}.log", log_path)
         os.replace(tmp_so, so_path)
     finally:
         for obj in objs:
@@ -145,6 +155,8 @@ def _declare(lib):
     lib.ptt_flash_dkv_f32.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F, I, U,
                                       U, F, I, P]
     lib.ptt_flash_dkv_f32.restype = I
+    lib.ptt_flash_bwd_smem_bytes.argtypes = [I, I]
+    lib.ptt_flash_bwd_smem_bytes.restype = I
     lib.ptt_paged_decode_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F,
                                          I, P]
     lib.ptt_paged_decode_f32.restype = I

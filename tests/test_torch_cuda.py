@@ -25,7 +25,8 @@ pytestmark = pytest.mark.cuda
 TOL = 1e-4  # f32 summation order + expf
 # backward kernels vs their plain version: dQ, dK and dV are sums over T
 # of products of f32 terms that are themselves sums over D, taken in
-# another order than cuBLAS takes the plain version's (full f32, TF32 off)
+# another order than cuBLAS takes the plain version's (full f32, TF32 off),
+# and by the kernels in 3xTF32 (about 2^-22 relative a product)
 BWD_TOL = 1e-4
 
 
@@ -188,6 +189,62 @@ def test_flash_backward_kernels_match_plain(dev, B, H, T, D, causal, rate):
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         torch.testing.assert_close(a, b, atol=BWD_TOL, rtol=BWD_TOL,
                                    msg=lambda m: f"{name}: {m}")
+
+
+def _backward_inputs(dev, B, H, T, D, causal, rate, seed, qk_scale=1.0):
+    q, k, v, do = _qkv(dev, B, H, T, D, seed=seed, n=4)
+    q, k = q * qk_scale, k * qk_scale
+    sm = D ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed=5)
+    return q, k, v, do, out, lse, sm
+
+
+def _assert_within_bwd_tol(got, ref):
+    """|kernel - plain| <= BWD_TOL * (1 + |plain|) for dq, dk and dv."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        excess = float(((a - b).abs() - BWD_TOL * (1 + b.abs())).max())
+        assert excess <= 0, (name, float((a - b).abs().max()))
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,rate",
+                         [TRAIN_CASES[0], TRAIN_CASES[3]])
+def test_flash_backward_kernels_repeat_bit_for_bit(dev, B, H, T, D, causal,
+                                                   rate):
+    """No atomics and a fixed summation order: two launches on the same
+    inputs give the same bits."""
+    q, k, v, do, out, lse, sm = _backward_inputs(dev, B, H, T, D, causal,
+                                                 rate, seed=T + 11)
+    first = fa._flash_backward(q, k, v, out, lse, do, causal, sm, rate, 5)
+    second = fa._flash_backward(q, k, v, out, lse, do, causal, sm, rate, 5)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_on_peaked_scores(dev, causal):
+    """q and k scaled by 4: the scores spread 16 times wider, W is near
+    one-hot and dS large; the 3xTF32 products still meet the fp32
+    tolerance."""
+    args = (2, 4, 256, 64, causal, 0.1)
+    q, k, v, do, out, lse, sm = _backward_inputs(dev, *args, seed=41,
+                                                 qk_scale=4.0)
+    assert float(torch.softmax(q @ k.transpose(-1, -2) * sm, -1)
+                 .amax(-1).median()) > 0.5
+    got = fa._flash_backward(q, k, v, out, lse, do, causal, sm, 0.1, 5)
+    _assert_within_bwd_tol(got, fa._flash_backward_reference(
+        q, k, v, out, lse, do, causal, sm, 0.1, 5))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_backward_kernels_ragged_tile(dev, D, causal):
+    """T 100 is a multiple of neither the 64-row resident tile nor the
+    32- or 64-row streamed tile, for every head dim."""
+    q, k, v, do, out, lse, sm = _backward_inputs(dev, 2, 3, 100, D, causal,
+                                                 0.1, seed=D + 100)
+    got = fa._flash_backward(q, k, v, out, lse, do, causal, sm, 0.1, 5)
+    _assert_within_bwd_tol(got, fa._flash_backward_reference(
+        q, k, v, out, lse, do, causal, sm, 0.1, 5))
 
 
 def test_autograd_function_runs_the_three_kernels(dev):
