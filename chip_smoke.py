@@ -10,25 +10,28 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
 2. build the CUDA kernels of ``paddle_tpu_torch/csrc`` (flash forward,
    flash backward, paged decode over float32 and over int8 caches,
    dropout) and print the build time and the compiler's register /
-   shared-memory report; for every instantiation of the two backward
+   shared-memory report; for every instantiation of the three flash
    kernels, its registers, spills, shared memory and the count of HMMA
    (tensor-core) instructions in ``cuobjdump -sass`` of the built library,
-   which must not be 0;
+   which must not be 0 (and the forward must not spill at D <= 64);
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (max error vs tolerance, kernel ms, plain ms,
    the least time the card could take, and where one PyTorch call
    computes the same function, its time as a yardstick): the flash
    forward at the serving shapes; the flash forward with attention
    dropout and the dQ and dK/dV kernels at the training shapes (B 32,
-   H 8, T 256, D 64, causal and not, rate 0 and 0.1, and a ragged T 200;
-   dQ and dK/dV launched twice on the same inputs give equal bits; their
-   bounds at the 3xTF32 tensor-core rate they run at, and on the f32 CUDA
-   cores for comparison with a CUDA-core version); the dropout mask of
-   all three exactly equal to the plain version's;
+   H 8, T 256, D 64, causal and not, rate 0 and 0.1, and a ragged T 200);
+   the forward on peaked scores (q and k scaled by 4) and at T 200 for
+   D 32, 64 and 128, causal and not; every flash kernel launched twice on
+   the same inputs gives equal bits; their bounds at the 3xTF32
+   tensor-core rate they run at, and on the f32 CUDA cores for comparison
+   with a CUDA-core version; the dropout mask of all three exactly equal
+   to the plain version's;
    the paged decode kernel; the int8 paged decode kernel at S 32, H 8,
    Dh 64, block 16, seq_lens spread over 0..1024, dead blocks' scales
    poisoned; the dropout kernel at [32, 256, 512] and [32, 256, 2048],
-   rate 0.1, forward (with `Mask`) and on a `dy`, bit for bit;
+   rate 0.1, forward with and without `Mask` (train-base's forward writes
+   none) and on a `dy`, bit for bit;
 4. serve-base: save the tiny_lm (vocab 30000, d_model 512, 8 heads, 6
    layers, 8 slots, block 16, context 1024) from a seed, serve it with
    `InferenceServer(CUDAPlace(0))`, send 8 concurrent generate requests
@@ -52,7 +55,8 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    and 18 dK/dV launches; print step ms, tokens/s and peak memory. Then
    the same again under ``FLAGS_dropout_impl=pallas``: every dropout op
    that passes the gate launches the dropout kernel in its forward and in
-   its grad; both readings side by side;
+   its grad, and no launch writes the op's `Mask`, which nothing in the
+   step reads; both readings side by side;
 6. train parity: the same model at batch 2, from one startup state loaded
    into a `CUDAPlace(0)` and a `CPUPlace()` executor, 3 steps, losses
    equal within LOSS_RTOL: at dropout 0, and at dropout 0.1 under
@@ -93,7 +97,7 @@ LOGIT_TOL = 1e-3    # card vs host prefill logits through 6 layers
 LOSS_RTOL = 1e-3
 PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12    # H100 SXM, TF32 on the tensor cores, dense
-# the flash backward kernels take each f32 product as three TF32 products
+# the flash kernels take each f32 product as three TF32 products
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 SERVE_BASE = dict(vocab=30000, d_model=512, n_heads=8, n_layers=6,
@@ -174,6 +178,8 @@ def check_flash(torch, fa, flush, rows, T, H=8, D=64):
     err = max(float((out - ref).abs().max()), float((lse - ref_lse).abs().max()))
     if not err <= TOL:
         raise AssertionError(f"flash rows={rows} T={T}: max error {err} > {TOL}")
+    _assert_repeats(torch, f"flash_fwd rows={rows} T={T}", (out, lse),
+                    fa._flash_forward(q, k, v, True, sm))
     ms = time_ms(torch, lambda: fa._flash_forward(q, k, v, True, sm), flush)
     plain = time_ms(torch, lambda: fa._attention_reference(q, k, v, True, sm),
                     flush)
@@ -181,11 +187,51 @@ def check_flash(torch, fa, flush, rows, T, H=8, D=64):
         q, k, v, is_causal=True, scale=sm), flush)
     flops = 2.0 * rows * H * T * T * D                      # causal half
     nbytes = (4.0 * rows * H * T * D + rows * H * T) * 4     # q,k,v,o + lse
-    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound, by = _bound(flops, nbytes, PEAK_3XTF32_FLOPS)
     return dict(rows=rows, T=T, err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bound,
-                bound_by="operations" if flops / PEAK_F32_FLOPS
-                >= nbytes / PEAK_BYTES else "bytes")
+                bound_ms=bound, bound_by=by,
+                bound_cuda_core_ms=_bound(flops, nbytes)[0])
+
+
+def _assert_repeats(torch, tag, first, second):
+    """Two launches on the same inputs must give equal bits."""
+    for a, b in zip(first, second):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{tag}: two launches on the same inputs "
+                                 f"differ")
+
+
+def check_flash_forward_edges(torch, fa):
+    """The forward where its tiling and its arithmetic are pressed: peaked
+    scores (q and k scaled by 4, so W is near one-hot and S's error goes
+    through exp() at 16 times the spread) at the train shape, and a ragged
+    T 200 (a multiple of neither the 64-row query tile nor the 32-row K/V
+    tile) at D 32, 64 and 128; causal and not, rate 0.1. Each within TOL
+    on out and lse, two launches bit-equal. Returns the max errors."""
+    errs = {}
+    for name, B, T, D, scale in (("peaked", TRAIN_BATCH, 256, 64, 4.0),
+                                 ("ragged_d32", 4, 200, 32, 1.0),
+                                 ("ragged_d64", 4, 200, 64, 1.0),
+                                 ("ragged_d128", 4, 200, 128, 1.0)):
+        for causal in (False, True):
+            g = torch.Generator(device="cuda").manual_seed(SEED + 11 * D + T)
+            q, k, v = (torch.randn(B, 8, T, D, device="cuda", generator=g)
+                       for _ in range(3))
+            q, k = q * scale, k * scale
+            sm = D ** -0.5
+            out, lse = fa._flash_forward(q, k, v, causal, sm, 0.1, ATTN_SEED)
+            ref = fa._attention_reference(q, k, v, causal, sm, 0.1, ATTN_SEED)
+            ref_lse = fa._lse_reference(q, k, causal, sm)
+            torch.cuda.synchronize()
+            tag = f"flash_fwd {name} B={B} T={T} D={D} causal={causal}"
+            err = max(float((out - ref).abs().max()),
+                      float((lse - ref_lse).abs().max()))
+            if not err <= TOL:
+                raise AssertionError(f"{tag}: max error {err} > {TOL}")
+            _assert_repeats(torch, tag, (out, lse), fa._flash_forward(
+                q, k, v, causal, sm, 0.1, ATTN_SEED))
+            errs[f"{name}{'_causal' if causal else ''}"] = err
+    return errs
 
 
 def _bound(flops, nbytes, peak=PEAK_F32_FLOPS):
@@ -219,6 +265,8 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
                   float((lse - ref_lse).abs().max()))
     if not fwd_err <= TOL:
         raise AssertionError(f"flash_fwd {tag}: max error {fwd_err} > {TOL}")
+    _assert_repeats(torch, f"flash_fwd {tag}", (out, lse), fa._flash_forward(
+        q, k, v, causal, sm, rate, seed))
     again = (fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate, seed),
              *fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, seed))
     for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
@@ -255,8 +303,12 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
         lib_out, leaves, do, retain_graph=True), flush)
     half = 0.5 if causal else 1.0
     bht, bhtd = B * H * T, B * H * T * D
-    res["fwd_bound_ms"], res["fwd_bound_by"] = _bound(
-        4.0 * bhtd * T * half, (4.0 * bhtd + bht) * 4)
+    # the forward: 2 products of 2 B H T^2 D, at 3xTF32 and on the f32
+    # CUDA cores
+    fwd_work = (4.0 * bhtd * T * half, (4.0 * bhtd + bht) * 4)
+    res["fwd_bound_ms"], res["fwd_bound_by"] = _bound(*fwd_work,
+                                                      PEAK_3XTF32_FLOPS)
+    res["fwd_bound_f32_ms"], _ = _bound(*fwd_work)
     # dQ: 3 products of 2 B H T^2 D, dK/dV 4; at the rate they run at and,
     # for comparison with a CUDA-core version, on the f32 CUDA cores
     for name, n_products, n_tensors in (("dq", 3, 5), ("dkv", 4, 6)):
@@ -268,27 +320,28 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
     return res
 
 
-def _bwd_instantiation(mangled):
-    """'flash_dq<64,drop>' for a mangled backward kernel name, else None."""
-    m = re.search(r"flash_(dq|dkv)_kernelILi(\d+)ELb([01])E", mangled)
+def _flash_instantiation(mangled):
+    """'flash_dq<64,drop>' for a mangled flash kernel name, else None."""
+    m = re.search(r"flash_(fwd|dq|dkv)_kernelILi(\d+)ELb([01])E", mangled)
     if m is None:
         return None
     return (f"flash_{m.group(1)}<{m.group(2)},"
             f"{'drop' if m.group(3) == '1' else 'rate0'}>")
 
 
-def backward_build_report(native):
-    """Per instantiation of the dQ and dK/dV kernels: registers and spill
-    bytes (the build's -Xptxas -v report), dynamic shared memory a block
-    (the library's own count), and the HMMA instructions in `cuobjdump
-    -sass` of the built library. Raises if one has no HMMA: the products
-    must run on the tensor cores."""
+def flash_build_report(native):
+    """Per instantiation of the forward, dQ and dK/dV kernels: registers
+    and spill bytes (the build's -Xptxas -v report), dynamic shared memory
+    a block (the library's own count), and the HMMA instructions in
+    `cuobjdump -sass` of the built library. Raises if one has no HMMA (the
+    products must run on the tensor cores) or if the forward spills at
+    D <= 64."""
     rep = {}
     current = None
     for line in native.build_info.log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = _bwd_instantiation(m.group(1))
+            current = _flash_instantiation(m.group(1))
             if current:
                 rep[current] = {}
             continue
@@ -307,22 +360,27 @@ def backward_build_report(native):
                           check=True).stdout
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
                                  sass, re.S):
-        inst = _bwd_instantiation(name)
+        inst = _flash_instantiation(name)
         if inst:
             rep.setdefault(inst, {})["hmma"] = body.count("HMMA")
     lib = native.lib()
     for inst, r in rep.items():
         d = int(inst.split("<")[1].split(",")[0])
-        r["smem_bytes"] = lib.ptt_flash_bwd_smem_bytes(
-            int(inst.startswith("flash_dkv")), d)
+        r["smem_bytes"] = (lib.ptt_flash_fwd_smem_bytes(d)
+                           if inst.startswith("flash_fwd") else
+                           lib.ptt_flash_bwd_smem_bytes(
+                               int(inst.startswith("flash_dkv")), d))
         if not r.get("hmma"):
             raise AssertionError(f"{inst}: no HMMA instruction in the built "
                                  f"library: its products do not run on the "
                                  f"tensor cores")
-    if len(rep) != 12:
-        raise AssertionError(f"expected 12 backward instantiations (dQ and "
-                             f"dK/dV x D 32/64/128 x rate 0/dropout), found "
-                             f"{sorted(rep)}")
+        if inst.startswith("flash_fwd") and d <= 64 \
+                and r.get("spill_bytes", 0) != 0:
+            raise AssertionError(f"{inst} spills {r['spill_bytes']} bytes")
+    if len(rep) != 18:
+        raise AssertionError(f"expected 18 flash instantiations (forward, dQ "
+                             f"and dK/dV x D 32/64/128 x rate 0/dropout), "
+                             f"found {sorted(rep)}")
     return rep
 
 
@@ -473,19 +531,23 @@ def check_paged_q8(torch, pa, flush, S=INT8_SLOTS, H=8, Dh=64, BS=16,
 
 def check_dropout_kernel(torch, dk, flush, shape, rate=0.1):
     """The dropout kernel at one of the train path's shapes: the forward
-    (Out and Mask in one pass) and the backward's launch on a `dy` (no
-    Mask), each equal to the plain version bit for bit; times of both, of
-    the plain version and of `torch.nn.functional.dropout`."""
+    with Mask (Out and Mask in one pass, as a fetched Mask takes it), the
+    forward as train-base's op runs it (no Mask: nothing reads it) and the
+    backward's launch on a `dy`, each equal to the plain version bit for
+    bit; times of all three, of the plain version and of
+    `torch.nn.functional.dropout`."""
     g = torch.Generator(device="cuda").manual_seed(SEED + shape[-1])
     x = torch.randn(*shape, device="cuda", generator=g)
     dy = torch.randn(*shape, device="cuda", generator=g)
     seed = ATTN_SEED
     out, mask = dk.dropout_forward(x, seed, rate, want_mask=True)
+    op_out, _ = dk.dropout_forward(x, seed, rate)
     dx, _ = dk.dropout_forward(dy, seed, rate)
     ref_out, ref_mask = dk.dropout_reference(x, seed, rate)
     ref_dx, _ = dk.dropout_reference(dy, seed, rate)
     torch.cuda.synchronize()
     for name, a, b in (("Out", out, ref_out), ("Mask", mask, ref_mask),
+                       ("Out without Mask", op_out, ref_out),
                        ("dX", dx, ref_dx)):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(
@@ -498,13 +560,16 @@ def check_dropout_kernel(torch, dk, flush, shape, rate=0.1):
                kept=float(mask.mean()))
     res["fwd_ms"] = time_ms(torch, lambda: dk.dropout_forward(
         x, seed, rate, want_mask=True), flush)
+    res["op_ms"] = time_ms(torch, lambda: dk.dropout_forward(x, seed, rate),
+                           flush)
     res["bwd_ms"] = time_ms(torch, lambda: dk.dropout_forward(dy, seed, rate),
                             flush)
     res["plain_ms"] = time_ms(torch, lambda: dk.dropout_reference(
         x, seed, rate), flush)
     res["library_ms"] = time_ms(torch, lambda: torch.nn.functional.dropout(
         x, rate, training=True), flush)
-    # about 20 integer operations an element, against 12 (8) bytes
+    # about 20 integer operations an element, against 12 bytes with Mask,
+    # 8 without (the op's forward and the launch on dy alike)
     res["fwd_bound_ms"], res["fwd_bound_by"] = _bound(0.0, 12.0 * n)
     res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(0.0, 8.0 * n)
     return res
@@ -830,6 +895,8 @@ def run_train_base(torch, ptt, native, impl):
         if n_gated < 1:
             raise AssertionError("no dropout op of train-base passes the gate")
         want["dropout"] = 2 * n_gated * TRAIN_STEPS
+    # nothing in a step reads a dropout op's Mask: no launch writes it
+    want["dropout_mask"] = 0
     if launches != want:
         raise AssertionError(f"train-base ({impl}) launches {launches}, "
                              f"expected {want}")
@@ -927,8 +994,8 @@ def main() -> int:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error", "==")):
             log("  " + line.strip())
-    bwd_build = backward_build_report(native)
-    for inst, r in sorted(bwd_build.items()):
+    flash_build = flash_build_report(native)
+    for inst, r in sorted(flash_build.items()):
         log(f"{inst}: {r.get('registers', 'not reported')} registers, "
             f"{r.get('spill_bytes', 'not reported')} bytes spilled, "
             f"{r['smem_bytes']} bytes of shared memory a block, {r['hmma']} "
@@ -941,9 +1008,15 @@ def main() -> int:
     flash_cases.append(check_flash(torch, fa, flush, 3, 200))   # ragged T
     for c in flash_cases:
         log(f"flash_fwd rows={c['rows']} T={c['T']} H=8 D=64 causal: "
-            f"max_abs_err {c['err']:.3g} (tol {TOL}) kernel {c['ms']:.4f} ms "
-            f"plain {c['plain_ms']:.4f} ms sdpa {c['library_ms']:.4f} ms "
-            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}) [{card}]")
+            f"max_abs_err {c['err']:.3g} (tol {TOL}), two launches bit-equal, "
+            f"kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms sdpa "
+            f"{c['library_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']} at 3xTF32; {c['bound_cuda_core_ms']:.4f} ms on "
+            f"the f32 CUDA cores) [{card}]")
+    fwd_edges = check_flash_forward_edges(torch, fa)
+    log(f"flash_fwd on peaked scores and at T 200 for D 32/64/128, causal and "
+        f"not, rate 0.1: max_abs_err {fwd_edges} (tol {TOL}), two launches "
+        f"bit-equal")
     paged = check_paged(torch, pa, flush)
     log(f"paged_decode S=8 H=8 Dh=64 BS=16 seq_lens={paged['seq_lens']}: "
         f"max_abs_err {paged['err']:.3g} (tol {TOL}) kernel {paged['ms']:.4f} ms "
@@ -962,7 +1035,9 @@ def main() -> int:
     for c in drop_cases:
         log(f"dropout {c['shape']} rate {c['rate']} f32, Out, Mask and dX "
             f"equal to the plain version's bit for bit ({c['kept']:.4f} "
-            f"kept): forward with Mask {c['fwd_ms']:.4f} ms (bound "
+            f"kept): forward as train-base runs it (no Mask) "
+            f"{c['op_ms']:.4f} ms (bound {c['bwd_bound_ms']:.4f} ms, "
+            f"{c['bwd_bound_by']}), with Mask {c['fwd_ms']:.4f} ms (bound "
             f"{c['fwd_bound_ms']:.4f} ms, {c['fwd_bound_by']}), on dy "
             f"{c['bwd_ms']:.4f} ms (bound {c['bwd_bound_ms']:.4f} ms), plain "
             f"{c['plain_ms']:.4f} ms, F.dropout {c['library_ms']:.4f} ms "
@@ -975,10 +1050,11 @@ def main() -> int:
     for c in train_cases:
         log(f"train kernels B={c['B']} H={c['H']} T={c['T']} D={c['D']} "
             f"causal={c['causal']} rate={c['rate']} [{card}]:")
-        log(f"  flash_fwd max_abs_err {c['fwd_err']:.3g} (tol {TOL}) kernel "
-            f"{c['fwd_ms']:.4f} ms plain {c['fwd_plain_ms']:.4f} ms sdpa "
-            f"{c['fwd_library_ms']:.4f} ms bound {c['fwd_bound_ms']:.4f} ms "
-            f"({c['fwd_bound_by']})")
+        log(f"  flash_fwd max_abs_err {c['fwd_err']:.3g} (tol {TOL}), two "
+            f"launches bit-equal, kernel {c['fwd_ms']:.4f} ms plain "
+            f"{c['fwd_plain_ms']:.4f} ms sdpa {c['fwd_library_ms']:.4f} ms "
+            f"bound {c['fwd_bound_ms']:.4f} ms ({c['fwd_bound_by']} at "
+            f"3xTF32; {c['fwd_bound_f32_ms']:.4f} ms on the f32 CUDA cores)")
         for name in ("dq", "dkv"):
             log(f"  flash_{name} max_abs_err {c[name + '_err']:.3g} (tol "
                 f"{BWD_TOL}*(1+|plain|)), two launches bit-equal, kernel "
@@ -1098,7 +1174,8 @@ def main() -> int:
             f"{train['peak_bytes'] / 2**30:.2f} GiB "
             f"(torch.cuda.max_memory_allocated), launches "
             f"{train['launches']} over {TRAIN_STEPS} steps "
-            f"({train['gated_dropout_ops']} dropout ops pass the gate)")
+            f"({train['gated_dropout_ops']} dropout ops pass the gate; "
+            f"{train['launches']['dropout_mask']} launches wrote a Mask)")
     train = trains["auto"]
     log(f"train-base, dropout_impl pallas against auto [{card}]: step "
         f"{trains['pallas']['step_ms_median']:.1f} vs "
@@ -1124,6 +1201,7 @@ def main() -> int:
     # shape, its serving case beside them
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
+    causal_head = train_cases[1]   # the same, causal
     rate0 = train_cases[2]         # the same at rate 0, as SDPA's backward
     train_shape = (f"B={head['B']} H={head['H']} T={head['T']} D={head['D']} "
                    f"non-causal rate {head['rate']} f32")
@@ -1138,12 +1216,20 @@ def main() -> int:
                               "serve": launches["flash_fwd"],
                               "serve_int8": serve8["launches"]["flash_fwd"]},
          "max_abs_err": max([c["err"] for c in flash_cases]
-                            + [c["fwd_err"] for c in train_cases]),
+                            + [c["fwd_err"] for c in train_cases]
+                            + list(fwd_edges.values())),
          "ms": head["fwd_ms"], "plain_ms": head["fwd_plain_ms"],
          "bound_ms": head["fwd_bound_ms"], "bound_by": head["fwd_bound_by"],
+         "bound_rate": "3xTF32 on the tensor cores, 495e12 / 3 op/s",
+         "bound_cuda_core_ms": head["fwd_bound_f32_ms"],
          "library_ms": head["fwd_library_ms"], "shape": train_shape,
+         "causal_ms": causal_head["fwd_ms"],
+         "causal_library_ms": causal_head["fwd_library_ms"],
+         "build": {k: v for k, v in flash_build.items()
+                   if k.startswith("flash_fwd<64,")},
          "serve": {"ms": big["ms"], "plain_ms": big["plain_ms"],
                    "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+                   "bound_cuda_core_ms": big["bound_cuda_core_ms"],
                    "library_ms": big["library_ms"],
                    "shape": f"rows={big['rows']} H=8 T={big['T']} D=64 "
                             f"causal f32"}},
@@ -1164,7 +1250,7 @@ def main() -> int:
                      "library_ms": rate0["bwd_library_ms"],
                      "bound_ms": rate0[f"{name}_bound_ms"],
                      "bound_cuda_core_ms": rate0[f"{name}_bound_f32_ms"]},
-           "build": {k: v for k, v in bwd_build.items()
+           "build": {k: v for k, v in flash_build.items()
                      if k.startswith(f"flash_{name}<64,")},
            "note": "plain_ms and library_ms compute dq, dk and dv together; "
                    "library_ms is SDPA's backward at rate 0, rate0 compares "
@@ -1194,6 +1280,8 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/dropout.cu",
          "replaces": "paddle_tpu/ops/pallas_dropout.py:42",
          "launches": trains["pallas"]["launches"]["dropout"],
+         "mask_writes": trains["pallas"]["launches"]["dropout_mask"],
+         "op_ms": drop_cases[0]["op_ms"],
          "max_abs_err": max(c["err"] for c in drop_cases),
          "ms": drop_cases[0]["fwd_ms"], "plain_ms": drop_cases[0]["plain_ms"],
          "bound_ms": drop_cases[0]["fwd_bound_ms"],
@@ -1202,7 +1290,9 @@ def main() -> int:
          "shape": f"{drop_cases[0]['shape']} f32 rate 0.1, forward with Mask",
          "cases": drop_cases,
          "note": "max_abs_err 0: Out, Mask and dX equal the plain version's "
-                 "bit for bit; library_ms is torch.nn.functional.dropout"},
+                 "bit for bit; library_ms is torch.nn.functional.dropout; "
+                 "ms writes Mask as a fetched Mask makes it, op_ms is the "
+                 "launch train-base's forward makes (no Mask)"},
     ]
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")

@@ -137,15 +137,21 @@ def as_tensor(value, device, dtype: Optional[str] = None) -> torch.Tensor:
 
 
 class _StepPlan:
-    """Which scope vars a (program, feed-name set) step reads and which
-    persistable vars it writes — resolved once per prepared handle."""
+    """Which scope vars a (program, feed-name set) step reads, which
+    persistable vars it writes, and which vars anything reads at all
+    (`live`: every op input, the fetches and the write-backs) — resolved
+    once per prepared handle. A rule skips an output that is not live
+    (``LoweringContext.wants``), as XLA drops an unread expression."""
 
-    def __init__(self, program: ir.Program, feed_names, scope: Scope):
+    def __init__(self, program: ir.Program, feed_names, scope: Scope,
+                 fetch_names=()):
         block = program.global_block()
         produced = set(feed_names)
         read: List[str] = []
         written: List[str] = []
+        live = set(fetch_names)
         for op in block.ops:
+            live.update(op.input_arg_names)
             for n in op.input_arg_names:
                 if n != registry.EMPTY_VAR and n not in produced \
                         and n not in read:
@@ -171,6 +177,7 @@ class _StepPlan:
                 f"initialized in the scope — run the startup program first")
         self.read = read
         self.written = written
+        self.live = frozenset(live.union(written))
 
 
 class PreparedProgram:
@@ -208,7 +215,8 @@ class PreparedProgram:
         key = frozenset(feeds)
         plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[key] = _StepPlan(program, key, self.scope)
+            plan = self._plans[key] = _StepPlan(program, key, self.scope,
+                                                self.fetch_names)
         env = {}
         for n in plan.read:
             val = self.scope.find_var(n)
@@ -225,7 +233,7 @@ class PreparedProgram:
         with torch.no_grad():
             run_block(program, 0, env, self.device, seed,
                       self._exe._count_run(program._uid),
-                      _flags.get_flag("check_nan_inf"))
+                      _flags.get_flag("check_nan_inf"), plan.live)
         for n in plan.written:
             val = env.get(n)
             if val is not None and self.scope.find_var(n) is not val:

@@ -29,7 +29,7 @@ parameters instead of the same seed.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Set
 
 import torch
 
@@ -47,9 +47,12 @@ def op_seed(seed: int, counter: int, op_idx: int) -> int:
 
 def run_block(program: ir.Program, block_idx: int, env: Dict[str, Any],
               device, seed: int = 0, counter: int = 0,
-              check_nan_inf: bool = False) -> Dict[str, Any]:
+              check_nan_inf: bool = False,
+              live: Optional[Set[str]] = None) -> Dict[str, Any]:
     """Run every op of `block_idx` on `env` (name -> tensor), mutating
-    and returning it."""
+    and returning it. `live`, when given, names the vars that something
+    reads (`LoweringContext.wants`); a forward rule may then leave an
+    output that is not in it out of `env`. None keeps every output."""
     device = torch.device(device)
     for op_idx, op in enumerate(program.blocks[block_idx].ops):
         if op.type.endswith(GRAD_OP_SUFFIX) and FWD_OP_ATTR in op.attrs:
@@ -58,7 +61,7 @@ def run_block(program: ir.Program, block_idx: int, env: Dict[str, Any],
                 for name in op.output_arg_names:
                     _check_finite(op, name, env.get(name))
             continue
-        _run_op(op, op_idx, env, device, seed, counter, check_nan_inf)
+        _run_op(op, op_idx, env, device, seed, counter, check_nan_inf, live)
     return env
 
 
@@ -89,11 +92,11 @@ def _gather_inputs(inputs: Dict[str, List[str]], env: Dict[str, Any],
 
 
 def _run_op(op: ir.Operator, op_idx: int, env: Dict[str, Any], device,
-            seed: int, counter: int, check_nan_inf: bool):
+            seed: int, counter: int, check_nan_inf: bool, live=None):
     opdef = registry.get_op_def(op.type)
     s = (op_seed(seed, counter, int(op.attrs.get("__idx__", op_idx)))
          if opdef.needs_rng else None)
-    ctx = LoweringContext(op.attrs, device, seed=s, op=op)
+    ctx = LoweringContext(op.attrs, device, seed=s, op=op, live=live)
     outs = registry.call_rule(opdef, ctx, _gather_inputs(op.inputs, env,
                                                          op.type))
     for slot, names in op.outputs.items():

@@ -101,13 +101,17 @@ class LoweringContext:
     (program seed, run, op index): kernels and counter-hash dropout take
     it as it is, so no random number is ever read back from the card.
     `generator` is a `torch.Generator` on `device` seeded from it, made
-    on first use (None for an op without a seed, and in meta runs)."""
+    on first use (None for an op without a seed, and in meta runs).
+    `live` is the set of var names that something reads after the block
+    runs an op (`wants`); None means every output is read."""
 
-    def __init__(self, attrs: Dict[str, Any], device, seed=None, op=None):
+    def __init__(self, attrs: Dict[str, Any], device, seed=None, op=None,
+                 live=None):
         self.attrs = attrs
         self.device = torch.device(device)
         self.seed = seed
         self.op = op
+        self.live = live
         self._generator = None
 
     @property
@@ -120,6 +124,19 @@ class LoweringContext:
 
     def attr(self, name: str, default=None):
         return self.attrs.get(name, default)
+
+    def wants(self, slot: str) -> bool:
+        """Whether anything reads a var of this op's output `slot`: an
+        op's input, a fetch, or a persistable write-back
+        (``core/executor.py::_StepPlan``). The JAX package computes every
+        output as an expression that XLA drops when nothing reads it; a
+        rule may skip an output that is not wanted. Only names in the
+        block's op inputs count: a hand-written grad that reads a forward
+        output through `ctx.fwd_outs` (the `dropout` bits path's `Mask`)
+        is not seen here, so such a rule keeps computing that output."""
+        if self.live is None or self.op is None:
+            return True
+        return any(n in self.live for n in self.op.outputs.get(slot, ()))
 
 
 def call_rule(opdef: OpDef, ctx: LoweringContext,

@@ -1,202 +1,337 @@
-// FlashAttention-2 forward, float32, for sm_90a.
+// FlashAttention-2 forward, float32, for sm_90a, on the tensor cores in
+// 3xTF32.
 //
 // Replaces paddle_tpu/ops/pallas_attention.py::_flash_fwd_kernel (launched
 // by _flash_forward). Computes O = softmax(Q K^T * sm_scale) V and the
-// row logsumexp over q/k/v laid out [B*H, T, D], optionally causal, without
-// ever writing the [T, T] score matrix to device memory.
+// row logsumexp over q/k/v laid out [B*H, T, D], optionally causal, with
+// optional attention-weight dropout, without ever writing the [T, T] score
+// matrix to device memory.
 //
-// What bounds it on the H100: at the prefill shapes (T 128..512, D 64) the
-// work is 2*B*H*T^2*D FMA-operations (causal half) against 4*B*H*T*D*4
-// bytes, about T/4 operations per byte, so it is bound by arithmetic.
-// This first version computes on the float32 CUDA cores (67 TFLOP/s peak),
-// not on the tensor cores: a wgmma/TMA bf16 path is later work.
+// What bounds it on the H100: 4*B*H*T^2*D operations (causal half) against
+// 4*B*H*T*D*4 bytes, about T/4 operations per byte, so it is bound by
+// arithmetic. Both products run on the tensor cores as mma.sync m16n8k8
+// TF32 in the 3xTF32 split (mma_tf32.cuh): three TF32 products per fp32
+// product, a ceiling of 495 / 3 = 165 TFLOP/s against the 67 TFLOP/s of
+// the fp32 CUDA cores that the first version used. One TF32 product keeps
+// 11 significant bits, and out or lse then misses the 1e-4 tolerance
+// (tests/test_torch_tf32_split.py).
 //
-// Design:
-// - grid (ceil(T/64), B*H): one block per 64-row Q tile of one (b, h);
-//   256 threads as a 16 x 16 grid, each owning 4 rows x 4 columns of the
-//   64 x 64 score tile (rows ty + 16*i, columns tx + 16*j);
-// - a loop over 64-row K/V tiles inside the block takes the place of the
-//   TPU kernel's sequential grid axis; the online-softmax state (row max m,
-//   row sum l, the 64 x D accumulator) stays in registers in float32;
-// - Q, K, V and the probability tile P sit in dynamic shared memory; Q and
-//   K rows are padded by one float so the column walks of Q K^T do not hit
-//   one bank, and rows of V are read by consecutive threads;
-// - row max and row sum are reduced across the 16 threads of a row with
-//   warp shuffles (xor offsets 8..1 stay inside a half-warp);
-// - causal: K tiles wholly above the diagonal are skipped, the diagonal
-//   tile is masked; a ragged T is handled by masking columns >= T and not
-//   writing rows >= T, so T needs no padding to a multiple of 64 or 128;
-// - attention-weight dropout (training): the TPU kernel re-seeds its PRNG
-//   per (bh, q-tile, k-tile), which Hopper cannot reproduce. Here a
-//   counter hash keys every weight on (seed, bh, query row, key column)
-//   (flash_common.cuh), so the mask depends on no tile size and the dQ and
-//   dK/dV kernels (flash_bwd.cu) regenerate it bit for bit. As in the TPU
-//   kernel, p is dropped and scaled after the row sum l is updated, so l
-//   counts the undropped weights. Dropout is a template flag: at rate 0
-//   (thresh == 0, the serving path) the launch takes the instantiation
-//   without it, the same code as before dropout existed.
+// Design (the backward's, flash_bwd.cu, turned around):
+// - grid (ceil(T/64), B*H), 4 warps, one block per 64 query rows, 16 rows
+//   a warp. blockIdx.x counts q-tiles from the last: under a causal mask
+//   the last q-tile walks the most K/V tiles, and it starts first.
+// - Q is split into hi/lo once per block: into registers at D <= 64, in
+//   shared memory at D 128 (whose 2 x 64 split values a thread would not
+//   hold), never again per K/V tile.
+// - K and V tiles of BS rows stream through a two-stage cp.async ring,
+//   with one __syncthreads a tile: after it, the tile has landed for every
+//   thread and every warp has finished the previous tile, whose stage the
+//   copy issued next refills while this tile computes.
+// - S = Q K^T takes the small terms in their own accumulator
+//   (mma_3xtf32_sep): S feeds exp(). The sum over d is taken in a permuted
+//   order (k slot t <-> column 2t, slot t + 4 <-> 2t + 1 of each 8-column
+//   step), the same for Q and K, so a lane reads its two K values of a
+//   fragment with one 8-byte load. Q and K rows have stride D + 8 floats,
+//   which keeps those loads free of bank conflicts.
+// - The online softmax runs per warp in registers. A row's values lie in
+//   the four lanes of one quad: its max takes two __shfl_xor_sync (1, 2) a
+//   tile; its sum is kept per lane and reduced once at the end.
+// - O += P V takes P straight from the S accumulator as the A operand
+//   (acc_as_a) and V's rows in the same permuted order (load_b_perm), so P
+//   never goes through shared memory. V rows have stride D + 4.
+// - Each warp splits the K and V values it reads into hi/lo. Splitting
+//   each streamed tile once per block into shared memory instead (a
+//   quarter of the split work, at twice the shared-memory reads and 1.7x
+//   the shared memory a block) ran no faster on an H100 at the train and
+//   serve shapes, so the split is not what bounds this loop, and the
+//   per-warp split keeps the smaller block.
+// - causal: tiles wholly above the diagonal are skipped by the block, and
+//   by a warp whose 16 rows all lie above a tile; the diagonal tile is
+//   masked. A ragged T: the copy zero-fills rows >= T (src-size 0, nothing
+//   read), columns >= T are masked and rows >= T never written.
+// - Attention-weight dropout is a template flag with the per-weight hash
+//   of flash_common.cuh, keyed on (seed, bh, query row, key column), so
+//   the dQ and dK/dV kernels regenerate the mask bit for bit. As in the
+//   TPU kernel, a weight is dropped and scaled after the row sum l takes
+//   it, so l counts the undropped weights. Rate 0 (thresh == 0, serving)
+//   launches the instantiation without it.
+// - No atomics and a fixed order of every sum: two launches on the same
+//   inputs give equal bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using namespace ptt_flash;
+using namespace ptt_mma;
+
+constexpr int FWD_THREADS = 128;  // 4 warps
+constexpr int BR = 64;            // query rows a block: 16 a warp
+// key rows of a streamed tile (64-row tiles ran slower on an H100)
+constexpr int BS = 32;
+
+// blocks an SM must hold (caps registers at 65536 / (128 n)). At 2, D 64
+// takes 168 registers, so 3 blocks fit all the same, and on an H100 it ran
+// a little faster than a bound of 3 (164 registers) at every shape timed.
+template <int D>
+constexpr int min_blocks() { return D <= 64 ? 2 : 1; }
+
+// rows [r0, r0 + ROWS) of a [T, D] slice -> shared (row stride SD),
+// asynchronously; rows >= T are zero-filled and not read. Thread tid
+// copies chunks tid, tid + 128, ... (split_tile walks the same ones).
+template <int D, int ROWS, int SD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
+                                          int T, int tid) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert((ROWS * CPR) % FWD_THREADS == 0, "tile / thread mismatch");
+#pragma unroll
+  for (int it = 0; it < ROWS * CPR / FWD_THREADS; ++it) {
+    const int i = tid + it * FWD_THREADS;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool ok = r0 + r < T;
+    cp_async16(dst + r * SD + c, src + (size_t)(ok ? r0 + r : 0) * D + c, ok);
+  }
+}
+
+// Split the chunks this thread copied with load_tile (landed: cp.async's
+// writes are visible to the thread that issued them after its wait) into
+// hi, in place, and lo; the block's next barrier shows them to every warp.
+template <int D, int ROWS, int SD>
+__device__ __forceinline__ void split_tile(float* t, uint32_t* lo, int tid) {
+  constexpr int CPR = D / 4;
+#pragma unroll
+  for (int it = 0; it < ROWS * CPR / FWD_THREADS; ++it) {
+    const int i = tid + it * FWD_THREADS;
+    const int off = (i / CPR) * SD + (i % CPR) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(t + off);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(t + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// Two values of row r at columns c, c + 1 (c even) as a fragment pair
+// under the permuted d order: fp32 in shared memory, split here ...
+template <int SD>
+__device__ __forceinline__ void load_pair(const float* t, int r, int c,
+                                          uint32_t& h0, uint32_t& l0,
+                                          uint32_t& h1, uint32_t& l1) {
+  const float2 x = *reinterpret_cast<const float2*>(t + r * SD + c);
+  split(x.x, h0, l0);
+  split(x.y, h1, l1);
+}
+
+// ... or already split (hi in place of the fp32 values, lo beside: Q at
+// D 128)
+template <int SD>
+__device__ __forceinline__ void load_pair(const uint32_t* hi, const uint32_t* lo,
+                                          int r, int c, uint32_t& h0,
+                                          uint32_t& l0, uint32_t& h1,
+                                          uint32_t& l1) {
+  const uint2 h = *reinterpret_cast<const uint2*>(hi + r * SD + c);
+  const uint2 l = *reinterpret_cast<const uint2*>(lo + r * SD + c);
+  h0 = h.x; h1 = h.y; l0 = l.x; l1 = l.y;
+}
+
+template <int D>
+constexpr size_t smem_floats() {
+  constexpr size_t q = (size_t)BR * (D + 8);
+  constexpr size_t kv = 2 * (size_t)BS * (D + 8) + 2 * (size_t)BS * (D + 4);
+  return q + kv + (D > 64 ? q : 0);
+}
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(FWD_THREADS, min_blocks<D>())
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int T, float sm_scale, int causal,
                  uint32_t seed, uint32_t thresh, float drop_scale) {
-  constexpr int DP = D + 1;   // padded row stride of Q and K tiles
-  constexpr int PP = BN + 1;  // padded row stride of the P tile
-  constexpr int DC = D / 16;  // accumulator columns per thread
+  constexpr int SK = D + 8;          // row stride of Q and K
+  constexpr int SV = D + 4;          // row stride of V
+  constexpr int NS = BS / 8;         // 8-key n-tiles of S, k-tiles of P V
+  constexpr int ND = D / 8;          // 8-wide k-tiles of S, n-tiles of O
+  constexpr bool Q_REGS = D <= 64;   // Q's split in registers
   extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * DP;
-  float* Vs = Ks + BN * DP;
-  float* Ps = Vs + BN * D;
+  float* Qs = smem;                  // [BR][SK]; at D 128 Q's hi after the split
+  float* Ks = Qs + BR * SK;          // [2][BS][SK]
+  float* Vs = Ks + 2 * BS * SK;      // [2][BS][SV]
+  uint32_t* Qlo = reinterpret_cast<uint32_t*>(Vs + 2 * BS * SV);  // D 128: [BR][SK]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BM;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;  // heaviest first
   const size_t base = (size_t)blockIdx.y * T * D;
-  uint32_t rkey[4];
+
+  const int n_kv = (T + BS - 1) / BS;
+  const int n_tiles = causal ? min(n_kv, (q0 + BR - 1) / BS + 1) : n_kv;
+
+  load_tile<D, BR, SK>(Qs, q + base, q0, T, tid);
+  load_tile<D, BS, SK>(Ks, k + base, 0, T, tid);
+  load_tile<D, BS, SV>(Vs, v + base, 0, T, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  if constexpr (!Q_REGS) split_tile<D, BR, SK>(Qs, Qlo, tid);
+  __syncthreads();
+
+  // this thread's query rows: wr and wr + 8 of the tile
+  const int wr = 16 * warp + g;
+  const int row[2] = {q0 + wr, q0 + wr + 8};
+  // causal: the last key column any of this warp's rows sees
+  const int warp_last = q0 + 16 * warp + 15;
+  uint32_t rkey[2] = {0u, 0u};
   if (DROP) {
     const uint32_t bk = bh_key(seed, blockIdx.y);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rkey[i] = row_key(bk, q0 + ty + 16 * i);
+    rkey[0] = row_key(bk, row[0]);
+    rkey[1] = row_key(bk, row[1]);
   }
 
-  // Q tile -> shared, float4 loads along each row, zeros past T
-  for (int i = tid; i < BM * D / 4; i += NTHREADS) {
-    const int r = (i * 4) / D, c = (i * 4) % D;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < T)
-      val = *reinterpret_cast<const float4*>(q + base + (size_t)(q0 + r) * D + c);
-    float* dst = Qs + r * DP + c;
-    dst[0] = val.x; dst[1] = val.y; dst[2] = val.z; dst[3] = val.w;
+  // Q's A fragments, split once: slot t <-> column 8 kk + 2t, slot t + 4
+  // <-> 8 kk + 2t + 1
+  uint32_t qh[Q_REGS ? ND : 1][4], ql[Q_REGS ? ND : 1][4];
+  if constexpr (Q_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      load_pair<SK>(Qs, wr, 8 * kk + 2 * t, qh[kk][0], ql[kk][0], qh[kk][2],
+                    ql[kk][2]);
+      load_pair<SK>(Qs, wr + 8, 8 * kk + 2 * t, qh[kk][1], ql[kk][1],
+                    qh[kk][3], ql[kk][3]);
+    }
   }
 
-  float m[4], l[4], acc[4][DC];
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};           // this lane's share of the row sums
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int jd = 0; jd < DC; ++jd) acc[i][jd] = 0.f;
-  }
-
-  const int n_kv = (T + BN - 1) / BN;
-  // causal: tiles starting past this block's last row see nothing
-  const int n_tiles = causal ? min(n_kv, (q0 + BM - 1) / BN + 1) : n_kv;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile's K/V/P are no longer read
-    for (int i = tid; i < BN * D / 4; i += NTHREADS) {
-      const int r = (i * 4) / D, c = (i * 4) % D;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (k0 + r < T) {
-        const size_t off = base + (size_t)(k0 + r) * D + c;
-        kv = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
-      float* kd = Ks + r * DP + c;
-      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-      *reinterpret_cast<float4*>(Vs + r * D + c) = vv;
+    const int st = kt & 1;
+    if (kt > 0) {
+      cp_async_wait<0>();
+      __syncthreads();
     }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    if (kt + 1 < n_tiles) {
+      const int nx = (kt + 1) & 1;
+      load_tile<D, BS, SK>(Ks + nx * BS * SK, k + base, (kt + 1) * BS, T, tid);
+      load_tile<D, BS, SV>(Vs + nx * BS * SV, v + base, (kt + 1) * BS, T, tid);
+      cp_async_commit();
     }
+    const int k0 = kt * BS;
+    if (causal && k0 > warp_last) continue;  // every row of the warp masks it
+    const float* Kt = Ks + st * BS * SK;
+    const float* Vt = Vs + st * BS * SV;
 
+    // S = Q K^T for this warp's 16 rows x BS keys
+    float s[NS][4], s_small[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = NEG_INF;
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * sm_scale;
-        if (col >= T || (causal && col > row)) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+      for (int e = 0; e < 4; ++e) s[j][e] = s_small[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[e] = qh[kk][e];
+          al[e] = ql[kk][e];
+        }
+      } else {
+        const uint32_t* Qh = reinterpret_cast<const uint32_t*>(Qs);
+        load_pair<SK>(Qh, Qlo, wr, 8 * kk + 2 * t, ah[0], al[0], ah[2], al[2]);
+        load_pair<SK>(Qh, Qlo, wr + 8, 8 * kk + 2 * t, ah[1], al[1], ah[3],
+                      al[3]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
+      for (int j = 0; j < NS; ++j) {
+        uint32_t bh[2], bl[2];
+        load_pair<SK>(Kt, 8 * j + g, 8 * kk + 2 * t, bh[0], bl[0], bh[1],
+                      bl[1]);
+        mma_3xtf32_sep(s[j], s_small[j], ah, al, bh, bl);
+      }
+    }
+
+    // online softmax: element e of n-tile j is row[e >> 1], key column
+    // k0 + 8 j + 2 t + (e & 1)
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(s[i][j] - m_new);
-        rs += p;
-        if (DROP) p = keep(rkey[i], k0 + tx + 16 * j, thresh) ? p * drop_scale : 0.f;
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        float x = (s[j][e] + s_small[j][e]) * sm_scale;
+        if (col >= T || (causal && col > row[h])) x = NEG_INF;
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = expf(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = expf(s[j][e] - m[h]);
+        rs[h] += p;
+        if (DROP)
+          p = keep(rkey[h], k0 + 8 * j + 2 * t + (e & 1), thresh)
+                  ? p * drop_scale : 0.f;
+        s[j][e] = p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
 #pragma unroll
-      for (int jd = 0; jd < DC; ++jd) acc[i][jd] *= alpha;
-    }
-    __syncthreads();
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float vv[DC];
+    // O += P V
 #pragma unroll
-      for (int jd = 0; jd < DC; ++jd) vv[jd] = Vs[c * D + tx + 16 * jd];
+    for (int j = 0; j < NS; ++j) {
+      uint32_t ah[4], al[4];
+      acc_as_a(s[j], ah, al);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty + 16 * i) * PP + c];
-#pragma unroll
-        for (int jd = 0; jd < DC; ++jd) acc[i][jd] = fmaf(p, vv[jd], acc[i][jd]);
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh[2], bl[2];
+        load_b_perm<SV>(Vt, 8 * j + 2 * t, 8 * n + g, bh, bl);
+        mma_3xtf32(acc[n], ah, al, bh, bl);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < T) {
-      const float lsafe = fmaxf(l[i], 1e-20f);
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (row[h] < T) {
+      const float lsafe = fmaxf(l[h], 1e-20f);
       const float inv = 1.f / lsafe;
-      float* dst = o + base + (size_t)row * D;
+      float* dst = o + base + (size_t)row[h] * D + 2 * t;
 #pragma unroll
-      for (int jd = 0; jd < DC; ++jd) dst[tx + 16 * jd] = acc[i][jd] * inv;
-      if (tx == 0) lse[(size_t)blockIdx.y * T + row] = m[i] + logf(lsafe);
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+      if (t == 0) lse[(size_t)blockIdx.y * T + row[h]] = m[h] + logf(lsafe);
     }
   }
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1));
 }
 
 template <int D>
@@ -204,13 +339,13 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lse, int bh, int T, float sm_scale, int causal,
                    uint32_t seed, uint32_t thresh, float drop_scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = sizeof(float) * smem_floats<D>();
   auto kernel = thresh ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BM - 1) / BM, bh);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((T + BR - 1) / BR, bh);
+  kernel<<<grid, FWD_THREADS, smem, stream>>>(
       q, k, v, o, lse, T, sm_scale, causal, seed, thresh, drop_scale);
   return cudaGetLastError();
 }
@@ -242,6 +377,17 @@ extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
     case 128: return (int)launch<128>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
                                        seed, thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block of the forward kernel takes at head dim
+// d, in bytes; -1 for another d.
+extern "C" int ptt_flash_fwd_smem_bytes(int d) {
+  switch (d) {
+    case 32: return (int)(sizeof(float) * smem_floats<32>());
+    case 64: return (int)(sizeof(float) * smem_floats<64>());
+    case 128: return (int)(sizeof(float) * smem_floats<128>());
+    default: return -1;
   }
 }
 

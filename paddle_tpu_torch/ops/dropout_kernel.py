@@ -89,6 +89,8 @@ def _dropout_cuda(x, seed: int, rate: float, want_mask: bool):
         torch.cuda.current_stream(dev).cuda_stream)
     native.check(err, "dropout launch")
     native.count_launch("dropout")
+    if want_mask:
+        native.count_launch("dropout_mask")
     return out, mask
 
 

@@ -2,7 +2,7 @@
 
 The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the headers
 ``flash_common.cuh``, which the flash kernels share, and ``mma_tf32.cuh``,
-the backward's tensor-core helpers): plain C entry points, no PyTorch
+their tensor-core helpers): plain C entry points, no PyTorch
 headers. At first use each source is compiled by its own `nvcc` process
 (all started together) for ``sm_90a``, and the objects are linked into one
 shared library under ``paddle_tpu_torch/_build/`` (listed in .gitignore),
@@ -43,7 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_GRID_Y = 65535
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "paged_decode": 0,
-            "paged_decode_q8": 0, "dropout": 0}
+            "paged_decode_q8": 0, "dropout": 0,
+            # the dropout launches among them that also wrote the op's Mask
+            "dropout_mask": 0}
 _launch_lock = threading.Lock()   # engines of two models launch from two threads
 
 
@@ -149,6 +151,8 @@ def _declare(lib):
     lib.ptt_flash_fwd_f32.argtypes = [P, P, P, P, P, I, I, I, F, I, U, U, F,
                                       I, P]
     lib.ptt_flash_fwd_f32.restype = I
+    lib.ptt_flash_fwd_smem_bytes.argtypes = [I]
+    lib.ptt_flash_fwd_smem_bytes.restype = I
     lib.ptt_flash_dq_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, U, U,
                                      F, I, P]
     lib.ptt_flash_dq_f32.restype = I

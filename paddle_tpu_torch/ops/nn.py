@@ -10,8 +10,12 @@ in XLA, outside any Pallas kernel; here it is plain PyTorch integer math
 `_mul32`). With ``FLAGS_dropout_impl=pallas`` an op that passes the JAX
 package's gate (`upscale_in_train`, 0 < rate < 1, minor dim a multiple of
 128) runs the hand-written kernel of ``ops/dropout_kernel.py`` instead,
-in its forward (writing `Mask` in the same pass) and again, on `dOut`
-with the forward's seed, in its grad, which does not read `Mask`. On a
+in its forward and again, on `dOut` with the forward's seed, in its grad,
+which does not read `Mask`. The forward writes `Mask` in the same pass
+only when something reads it (`LoweringContext.wants`: an op input, a
+fetch, a write-back); in a training step nothing does, so the kernel
+moves 8 bytes an element instead of 12, as XLA drops the JAX package's
+unread `Mask`. On a
 CPU tensor that path runs the kernel's plain version, where the JAX
 package falls back to the bits path (the TPU's generator cannot run on a
 CPU): under the flag the two packages' masks differ on the host as they
@@ -117,10 +121,13 @@ def _dropout(ctx, X):
         # degenerate: drop everything (upscale would divide by zero)
         return {"Out": torch.zeros_like(X), "Mask": torch.zeros_like(X)}
     if _takes_kernel(X, p, impl):
+        # the grad reruns the kernel on dOut and reads no Mask, so the
+        # kernel writes Mask only when an op, a fetch or a write-back does
         from . import dropout_kernel
+        want = ctx.wants("Mask")
         out, mask = dropout_kernel.dropout_forward(
-            X, seed32(ctx.seed), float(p), want_mask=True)
-        return {"Out": out, "Mask": mask}
+            X, seed32(ctx.seed), float(p), want_mask=want)
+        return {"Out": out, "Mask": mask} if want else {"Out": out}
     scale = 1.0 if impl != "upscale_in_train" else 1.0 / (1.0 - p)
     out, keep = _bits_dropout(X, seed32(ctx.seed), float(p), float(scale))
     return {"Out": out, "Mask": keep.to(X.dtype)}

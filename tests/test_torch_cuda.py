@@ -191,6 +191,52 @@ def test_flash_backward_kernels_match_plain(dev, B, H, T, D, causal, rate):
                                    msg=lambda m: f"{name}: {m}")
 
 
+@pytest.mark.parametrize("B,H,T,D,causal,rate", TRAIN_CASES)
+def test_flash_forward_repeats_bit_for_bit(dev, B, H, T, D, causal, rate):
+    """No atomics and a fixed summation order: two launches of the
+    forward on the same inputs give the same bits."""
+    q, k, v = _qkv(dev, B, H, T, D, seed=T + 2 * D)
+    sm = D ** -0.5
+    first = fa._flash_forward(q, k, v, causal, sm, rate, 21)
+    second = fa._flash_forward(q, k, v, causal, sm, rate, 21)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_on_peaked_scores(dev, causal):
+    """q and k scaled by 4: W near one-hot, the scores 16 times wider; the
+    3xTF32 scores (small terms in their own accumulator) still give out
+    and lse within the fp32 tolerance."""
+    q, k, v = _qkv(dev, 2, 4, 256, 64, seed=43)
+    q, k = q * 4.0, k * 4.0
+    sm = 64 ** -0.5
+    assert float(torch.softmax(q @ k.transpose(-1, -2) * sm, -1)
+                 .amax(-1).median()) > 0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, 0.1, 5)
+    torch.testing.assert_close(
+        out, fa._attention_reference(q, k, v, causal, sm, 0.1, 5),
+        atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_forward_ragged_tile(dev, D, causal):
+    """T 100 is a multiple of neither the 64-row query tile nor the 32-row
+    K/V tile, for every head dim (D 128 keeps Q's split in shared
+    memory)."""
+    q, k, v = _qkv(dev, 2, 3, 100, D, seed=D + 7)
+    sm = D ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, 0.1, 5)
+    torch.testing.assert_close(
+        out, fa._attention_reference(q, k, v, causal, sm, 0.1, 5),
+        atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=TOL, rtol=TOL)
+
+
 def _backward_inputs(dev, B, H, T, D, causal, rate, seed, qk_scale=1.0):
     q, k, v, do = _qkv(dev, B, H, T, D, seed=seed, n=4)
     q, k = q * qk_scale, k * qk_scale
@@ -583,6 +629,48 @@ def test_train_one_layer_under_the_dropout_flag_on_card(dev):
                 losses[name].append(float(np.asarray(loss).reshape(-1)[0]))
                 want = 2 * n_sites if name == "card" else 0
                 assert native.launches["dropout"] == want
+                # nothing reads Mask in a training step: no launch writes it
+                assert native.launches["dropout_mask"] == 0
     finally:
         flags.set_flag("dropout_impl", "auto")
     np.testing.assert_allclose(losses["card"], losses["host"], rtol=1e-3)
+
+
+def test_fetched_dropout_mask_on_card_equals_plain(dev):
+    """Under FLAGS_dropout_impl=pallas a fetched Mask is written by the
+    forward's launch, in the same pass, and equals the plain version's bit
+    for bit; without the fetch no launch writes it."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.core.lowering import op_seed
+    from paddle_tpu_torch.ops.nn import seed32
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data("x", shape=[16, 256], dtype="float32")
+        y = ptt.layers.dropout(x, dropout_prob=0.3,
+                               dropout_implementation="upscale_in_train")
+    main.random_seed = 5
+    ops = main.global_block().ops
+    idx = [o.type for o in ops].index("dropout")
+    mask = ops[idx].outputs["Mask"][0]
+    xv = np.random.RandomState(2).randn(4, 16, 256).astype(np.float32)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    flags.set_flag("dropout_impl", "pallas")
+    try:
+        native.reset_launches()
+        out, m = exe.run(main, feed={"x": xv}, fetch_list=[y.name, mask],
+                         scope=ptt.Scope())
+        assert (native.launches["dropout"],
+                native.launches["dropout_mask"]) == (1, 1)
+        native.reset_launches()
+        # a new executor: its first run draws the same op seed
+        out2, = ptt.Executor(ptt.CUDAPlace(0)).run(
+            main, feed={"x": xv}, fetch_list=[y.name], scope=ptt.Scope())
+        assert (native.launches["dropout"],
+                native.launches["dropout_mask"]) == (1, 0)
+    finally:
+        flags.set_flag("dropout_impl", "auto")
+    ref_out, ref_mask = dk.dropout_reference(
+        torch.from_numpy(xv), seed32(op_seed(5, 0, idx)), 0.3)
+    assert np.array_equal(m.view(np.int32), ref_mask.numpy().view(np.int32))
+    assert np.array_equal(out.view(np.int32), ref_out.numpy().view(np.int32))
+    assert np.array_equal(out2.view(np.int32), out.view(np.int32))

@@ -1,5 +1,5 @@
-"""Why the flash backward kernels take each fp32 product as three TF32
-products (3xTF32), pinned on the CPU.
+"""Why the flash kernels take each fp32 product as three TF32 products
+(3xTF32), pinned on the CPU.
 
 ``paddle_tpu_torch/csrc/flash_bwd.cu`` runs its seven products per tile
 on the H100's tensor cores, which multiply TF32 (10 explicit mantissa
@@ -18,7 +18,10 @@ mantissa bits), and the backward's formulas are run with every product
 done (a) as 1xTF32 and (b) as the kernel's split, each TF32 product summed
 in fp32, the small terms first. (b) must meet the tolerance against the
 port's fp32 plain version; (a) must miss it, and the test records by how
-much.
+much. The same holds for the forward (``csrc/flash_fwd.cu``): its two
+products, S = Q K^T (into exp()) and O = P V, against out and lse at the
+forward's tolerance |kernel - plain| <= 1e-4 (1 + |plain|) (``TOL`` in
+``chip_smoke.py``, atol = rtol = 1e-4 in ``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -117,4 +120,40 @@ def test_split_meets_the_backward_tolerance_where_one_tf32_product_misses(
     assert three <= 1.0
     assert one > 1.0
     # the split is far inside the tolerance, one product far outside it
+    assert one > 20 * three
+
+
+def forward(q, k, v, causal, sm, mm):
+    """The forward kernel's function (`fa._attention_reference` and
+    `fa._lse_reference`) with both products taken by `mm`: S's small terms
+    summed apart from hi_q hi_k, as the kernel's own accumulator does; P
+    dropped and scaled after its row sum, then split as the A operand of
+    P V. Returns (out, lse)."""
+    s = mm(q, k.transpose(-1, -2)) * sm
+    if causal:
+        s = s.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1),
+                          fa.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    keep = fa._keep_like(p, RATE, SEED)
+    p_drop = torch.where(keep, p * fa._drop_scale(RATE), torch.zeros(()))
+    return mm(p_drop, v) / l, (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_meets_the_forward_tolerance_where_one_tf32_product_misses(
+        causal):
+    rng = np.random.RandomState(17 + int(causal))
+    q, k, v = (torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32))
+               for _ in range(3))
+    sm = D ** -0.5
+    ref = (fa._attention_reference(q, k, v, causal, sm, RATE, SEED),
+           fa._lse_reference(q, k, causal, sm))
+    three = tolerance_ratio(forward(q, k, v, causal, sm, mm_3xtf32), ref)
+    one = tolerance_ratio(forward(q, k, v, causal, sm, mm_1xtf32), ref)
+    print(f"forward causal={causal}: 3xTF32 uses {three:.3g} of the "
+          f"tolerance, 1xTF32 {one:.3g}")
+    assert three <= 1.0
+    assert one > 1.0
     assert one > 20 * three
