@@ -13,7 +13,9 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    shared-memory report; for every instantiation of the three flash
    kernels, its registers, spills, shared memory and the count of HMMA
    (tensor-core) instructions in ``cuobjdump -sass`` of the built library,
-   which must not be 0 (and the forward must not spill at D <= 64);
+   which must not be 0 (and the forward must not spill at D <= 64); for
+   every instantiation of the two paged decode sources' split and merge
+   kernels, its registers, spills and shared memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (max error vs tolerance, kernel ms, plain ms,
    the least time the card could take, and where one PyTorch call
@@ -27,9 +29,14 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    tensor-core rate they run at, and on the f32 CUDA cores for comparison
    with a CUDA-core version; the dropout mask of all three exactly equal
    to the plain version's;
-   the paged decode kernel; the int8 paged decode kernel at S 32, H 8,
-   Dh 64, block 16, seq_lens spread over 0..1024, dead blocks' scales
-   poisoned; the dropout kernel at [32, 256, 512] and [32, 256, 2048],
+   the paged decode kernel at S 8, H 8, Dh 64, block 16, seq_lens from 0
+   to 1024, every row a slot must not read NaN; the int8 paged decode
+   kernel at S 32, seq_lens spread over 0..1024, dead blocks' scales
+   poisoned; both also at S 1, one slot at seq_len 1024 (the single long
+   request), each with its split launch (P, NSPLIT, live blocks) and two
+   launches bit-equal; beside them the floor of the timing method (one
+   launch of a one-element kernel) and each paged pair with every chunk
+   dead; the dropout kernel at [32, 256, 512] and [32, 256, 2048],
    rate 0.1, forward with and without `Mask` (train-base's forward writes
    none) and on a `dy`, bit for bit;
 4. serve-base: save the tiny_lm (vocab 30000, d_model 512, 8 heads, 6
@@ -410,15 +417,24 @@ def check_dropout_mask(torch, fa, T=128, B=2, H=8, rate=0.5):
     return float(dropped.float().mean())
 
 
-def check_paged(torch, pa, flush, S=8, H=8, Dh=64, BS=16, max_ctx=1024):
-    """The paged case: ragged seq_lens incl. 0 and the full context, block
-    tables drawn from a shuffled pool; positions a slot must not read
-    (past its seq_len, and the trash block) hold NaN."""
+def _split_numbers(P, pa, H, Dh, BS, max_b, seq):
+    """The split launch of one paged case at P positions a chunk: NSPLIT
+    (from shapes), the grid's blocks and the live ones among them (from
+    this run's seq_lens, which only this script reads on the host)."""
+    nsplit, _ = pa.decode_split_plan(len(seq), H, Dh, BS, max_b, P)
+    live = H * sum(-(-min(int(x), max_b * BS) // P) for x in seq)
+    return dict(P=P, nsplit=nsplit, grid_blocks=H * len(seq) * nsplit,
+                live_blocks=live)
+
+
+def _paged_inputs(torch, seq, H, Dh, BS, max_b, seed):
+    """A float32 paged case: block tables drawn from a shuffled pool,
+    positions a slot must not read (past its seq_len, and the trash block)
+    NaN."""
     import numpy as np
-    rng = np.random.RandomState(SEED)
-    max_b = max_ctx // BS
+    rng = np.random.RandomState(seed)
+    S = len(seq)
     NB = 1 + S * max_b
-    seq = np.array([0, 1, 17, 300, 555, 777, 1000, 1024][:S], np.int32)
     pool = rng.permutation(np.arange(1, NB)).astype(np.int32)
     bt = np.zeros((S, max_b), np.int32)
     for s in range(S):
@@ -426,7 +442,7 @@ def check_paged(torch, pa, flush, S=8, H=8, Dh=64, BS=16, max_ctx=1024):
         bt[s, :n] = pool[s * max_b: s * max_b + n]
     kc = torch.full((NB, BS, H, Dh), float("nan"), device="cuda")
     vc = torch.full((NB, BS, H, Dh), float("nan"), device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
     # data in exactly the rows the slots may read
     live_blk, live_off = [], []
     for s in range(S):
@@ -439,48 +455,65 @@ def check_paged(torch, pa, flush, S=8, H=8, Dh=64, BS=16, max_ctx=1024):
     vc[lb, lo] = torch.randn(len(live_blk), H, Dh, device="cuda", generator=g)
     q = torch.randn(S, H, Dh, device="cuda", generator=g)
     btt = torch.from_numpy(bt).cuda()
-    sl = torch.from_numpy(seq).cuda()
+    sl = torch.from_numpy(np.asarray(seq, np.int32)).cuda()
+    return q, kc, vc, btt, sl, int(sum(-(-int(x) // BS) for x in seq))
+
+
+def check_paged(torch, pa, flush, seq=(0, 1, 17, 300, 555, 777, 1000, 1024),
+                H=8, Dh=64, BS=16, max_ctx=1024, seed=SEED):
+    """One float32 paged case (by default serve-base's 8 slots at ragged
+    seq_lens, 0 and the full context among them): within TOL of the plain
+    version, finite under the NaN poison, zeros for seq_len 0, two launches
+    bit-equal; kernel and plain times, the bound, the split launch."""
+    max_b = max_ctx // BS
+    S = len(seq)
+    q, kc, vc, btt, sl, n_entries = _paged_inputs(torch, seq, H, Dh, BS,
+                                                  max_b, seed)
     sm = Dh ** -0.5
     out = pa._paged_attention_cuda(q, kc, vc, btt, sl, sm)
     # the plain version gathers whole blocks: give it the NaN-free copy
-    ref = pa.paged_attention_reference(q, torch.nan_to_num(kc),
-                                       torch.nan_to_num(vc), btt, sl, sm)
+    kz, vz = torch.nan_to_num(kc), torch.nan_to_num(vc)
+    ref = pa.paged_attention_reference(q, kz, vz, btt, sl, sm)
     torch.cuda.synchronize()
+    tag = f"paged_decode S={S}"
     if not bool(torch.isfinite(out).all()):
-        raise AssertionError("paged kernel read a position it must not")
-    if bool(out[0].abs().max() != 0):
-        raise AssertionError("paged kernel: seq_len 0 slot is not zeros")
+        raise AssertionError(f"{tag}: read a position it must not")
+    for s in range(S):
+        if seq[s] == 0 and bool(out[s].abs().max() != 0):
+            raise AssertionError(f"{tag}: seq_len 0 slot is not zeros")
     err = float((out - ref).abs().max())
     if not err <= TOL:
-        raise AssertionError(f"paged: max error {err} > {TOL}")
-    kz, vz = torch.nan_to_num(kc), torch.nan_to_num(vc)
+        raise AssertionError(f"{tag}: max error {err} > {TOL}")
+    _assert_repeats(torch, tag, (out,),
+                    (pa._paged_attention_cuda(q, kc, vc, btt, sl, sm),))
     ms = time_ms(torch, lambda: pa._paged_attention_cuda(q, kz, vz, btt, sl, sm),
                  flush)
     plain = time_ms(torch, lambda: pa.paged_attention_reference(
         q, kz, vz, btt, sl, sm), flush)
-    total = int(seq.sum())
-    nbytes = (total * H * Dh * 2 + 2 * S * H * Dh) * 4.0 \
-        + 4.0 * (S + int(sum(-(-int(x) // BS) for x in seq)))
-    flops = 4.0 * total * H * Dh
-    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    return dict(S=S, seq_lens=seq.tolist(), err=err, ms=ms, plain_ms=plain,
-                library_ms=None, bound_ms=bound,
-                bound_by="bytes" if nbytes / PEAK_BYTES
-                >= flops / PEAK_F32_FLOPS else "operations")
+    total = int(sum(seq))
+    nbytes = (total * H * Dh * 2 + 2 * S * H * Dh) * 4.0 + 4.0 * (S + n_entries)
+    bound, by = _bound(4.0 * total * H * Dh, nbytes)
+    return dict(S=S, seq_lens=list(seq), total=total, err=err, ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                split=_split_numbers(pa.DECODE_SPLIT, pa, H, Dh, BS, max_b,
+                                     seq))
 
 
 def check_paged_q8(torch, pa, flush, S=INT8_SLOTS, H=8, Dh=64, BS=16,
-                   max_ctx=1024, NB=2050):
-    """The int8 paged case at serve-base-int8's shapes: seq_lens spread
-    over 0..max_ctx (one 0, one full), random int8 caches with random
-    positive scales, block tables from a shuffled pool. What a slot must
-    not read is poisoned: table entries past ceil(seq_len / BS) point at
-    block 0, and the scale of every block that no live entry names is
-    NaN."""
+                   max_ctx=1024, NB=2050, seq=None):
+    """One int8 paged case, by default at serve-base-int8's shapes:
+    seq_lens spread over 0..max_ctx (one 0, one full), random int8 caches
+    with random positive scales, block tables from a shuffled pool. What a
+    slot must not read is poisoned: table entries past ceil(seq_len / BS)
+    point at block 0, and the scale of every block that no live entry
+    names is NaN. Within TOL of the plain version, finite, zeros for
+    seq_len 0, two launches bit-equal; times, bound, the split launch."""
     import numpy as np
     rng = np.random.RandomState(SEED + 5)
     max_b = max_ctx // BS
-    seq = np.linspace(0, max_ctx, S).astype(np.int32)
+    seq = (np.linspace(0, max_ctx, S) if seq is None else
+           np.asarray(seq)).astype(np.int32)
+    S = len(seq)
     pool = rng.permutation(np.arange(1, NB)).astype(np.int32)
     bt = np.zeros((S, max_b), np.int32)
     live, used = [], 0
@@ -507,13 +540,16 @@ def check_paged_q8(torch, pa, flush, S=INT8_SLOTS, H=8, Dh=64, BS=16,
     out = pa._paged_attention_q8_cuda(*args)
     ref = pa.paged_attention_q8_reference(*args)
     torch.cuda.synchronize()
+    tag = f"paged_decode_q8 S={S}"
     if not bool(torch.isfinite(out).all()):
-        raise AssertionError("paged_decode_q8 read a dead block or its scale")
-    if bool(out[0].abs().max() != 0):
-        raise AssertionError("paged_decode_q8: seq_len 0 slot is not zeros")
+        raise AssertionError(f"{tag}: read a dead block or its scale")
+    for s in range(S):
+        if seq[s] == 0 and bool(out[s].abs().max() != 0):
+            raise AssertionError(f"{tag}: seq_len 0 slot is not zeros")
     err = float((out - ref).abs().max())
     if not err <= TOL:
-        raise AssertionError(f"paged_decode_q8: max error {err} > {TOL}")
+        raise AssertionError(f"{tag}: max error {err} > {TOL}")
+    _assert_repeats(torch, tag, (out,), (pa._paged_attention_q8_cuda(*args),))
     ms = time_ms(torch, lambda: pa._paged_attention_q8_cuda(*args), flush)
     plain = time_ms(torch, lambda: pa.paged_attention_q8_reference(*args),
                     flush)
@@ -522,11 +558,54 @@ def check_paged_q8(torch, pa, flush, S=INT8_SLOTS, H=8, Dh=64, BS=16,
     # seq_lens, q in and out out
     nbytes = total * H * Dh * 2 * 1.0 + len(live) * (4 + 2 * 4) + 4 * S \
         + 2 * S * H * Dh * 4
-    flops = 4.0 * total * H * Dh
-    bound, by = _bound(flops, nbytes)
+    bound, by = _bound(4.0 * total * H * Dh, nbytes)
     return dict(S=S, total=total, seq_min=int(seq.min()),
                 seq_max=int(seq.max()), err=err, ms=ms, plain_ms=plain,
-                library_ms=None, bound_ms=bound, bound_by=by)
+                library_ms=None, bound_ms=bound, bound_by=by,
+                split=_split_numbers(pa.DECODE_SPLIT_Q8, pa, H, Dh, BS, max_b,
+                                     seq))
+
+
+def _paged_instantiation(src, mangled):
+    """'paged_decode.cu:paged_split_kernel<64>' for a mangled paged kernel
+    name compiled from `src`, else None."""
+    m = re.search(r"(paged_(?:q8_)?split_kernel|paged_merge_kernel)ILi(\d+)E",
+                  mangled)
+    return f"{src}:{m.group(1)}<{m.group(2)}>" if m else None
+
+
+def paged_build_report(native):
+    """Per instantiation of the two paged decode sources' split and merge
+    kernels: registers, spill bytes and static shared memory a block, from
+    the build's -Xptxas -v report. Raises unless all twelve are there."""
+    rep, src, current = {}, None, None
+    for line in native.build_info.log.splitlines():
+        m = re.match(r"== nvcc (\S+)", line)
+        if m:
+            src, current = m.group(1), None
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = _paged_instantiation(src, m.group(1))
+            if current:
+                rep[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            rep[current]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep[current]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            rep[current]["smem_bytes"] = int(sm.group(1)) if sm else 0
+            current = None
+    if len(rep) != 12:
+        raise AssertionError(f"expected 12 paged instantiations (split and "
+                             f"merge x D 32/64/128 x float32 and int8), "
+                             f"found {sorted(rep)}")
+    return rep
 
 
 def check_dropout_kernel(torch, dk, flush, shape, rate=0.1):
@@ -1000,6 +1079,11 @@ def main() -> int:
             f"{r.get('spill_bytes', 'not reported')} bytes spilled, "
             f"{r['smem_bytes']} bytes of shared memory a block, {r['hmma']} "
             f"HMMA instructions (cuobjdump -sass)")
+    paged_build = paged_build_report(native)
+    for inst, r in sorted(paged_build.items()):
+        log(f"{inst}: {r.get('registers', 'not reported')} registers, "
+            f"{r.get('spill_bytes', 'not reported')} bytes spilled, "
+            f"{r['smem_bytes']} bytes of static shared memory a block")
 
     # 3. kernels vs their plain versions
     flush = _l2_flusher(torch)
@@ -1018,17 +1102,34 @@ def main() -> int:
         f"not, rate 0.1: max_abs_err {fwd_edges} (tol {TOL}), two launches "
         f"bit-equal")
     paged = check_paged(torch, pa, flush)
-    log(f"paged_decode S=8 H=8 Dh=64 BS=16 seq_lens={paged['seq_lens']}: "
-        f"max_abs_err {paged['err']:.3g} (tol {TOL}) kernel {paged['ms']:.4f} ms "
-        f"plain {paged['plain_ms']:.4f} ms bound {paged['bound_ms']:.4f} ms "
-        f"({paged['bound_by']}) [{card}]")
+    paged_s1 = check_paged(torch, pa, flush, seq=(1024,), seed=SEED + 100)
     paged_q8 = check_paged_q8(torch, pa, flush)
-    log(f"paged_decode_q8 S={paged_q8['S']} H=8 Dh=64 BS=16 seq_lens "
-        f"{paged_q8['seq_min']}..{paged_q8['seq_max']} (sum "
-        f"{paged_q8['total']}), dead blocks' scales NaN: max_abs_err "
-        f"{paged_q8['err']:.3g} (tol {TOL}) kernel {paged_q8['ms']:.4f} ms "
-        f"plain {paged_q8['plain_ms']:.4f} ms bound "
-        f"{paged_q8['bound_ms']:.4f} ms ({paged_q8['bound_by']}) [{card}]")
+    paged_q8_s1 = check_paged_q8(torch, pa, flush, seq=(1024,))
+    # below what no time of this method goes: one launch of a one-element
+    # kernel, and each paged pair over its grid with every chunk dead
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(torch, lambda: tiny.zero_(), flush)
+    paged_dead = check_paged(torch, pa, flush, seq=(0,) * 8)
+    paged_q8_dead = check_paged_q8(torch, pa, flush, seq=(0,) * INT8_SLOTS)
+    log(f"timing floor: one launch of a one-element kernel {floor_ms:.4f} "
+        f"ms; the paged kernels with every chunk dead (seq_lens 0): "
+        f"paged_decode S=8 {paged_dead['ms']:.4f} ms "
+        f"({paged_dead['split']['grid_blocks']} split blocks), "
+        f"paged_decode_q8 S={INT8_SLOTS} {paged_q8_dead['ms']:.4f} ms "
+        f"({paged_q8_dead['split']['grid_blocks']} split blocks) [{card}]")
+    for name, c in (("paged_decode", paged), ("paged_decode", paged_s1),
+                    ("paged_decode_q8", paged_q8),
+                    ("paged_decode_q8", paged_q8_s1)):
+        sp = c["split"]
+        lens = (f"seq_lens={c['seq_lens']}" if "seq_lens" in c else
+                f"seq_lens {c['seq_min']}..{c['seq_max']}")
+        log(f"{name} S={c['S']} H=8 Dh=64 BS=16 {lens} (sum {c['total']})"
+            f"{', dead blocks scales NaN' if name.endswith('q8') else ''}: "
+            f"max_abs_err {c['err']:.3g} (tol {TOL}), two launches "
+            f"bit-equal, kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
+            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}); P {sp['P']}, "
+            f"NSPLIT {sp['nsplit']}, {sp['live_blocks']} live of "
+            f"{sp['grid_blocks']} split blocks [{card}]")
     drop_cases = [check_dropout_kernel(torch, dk, flush, shape)
                   for shape in ((TRAIN_BATCH, 256, 512),
                                 (TRAIN_BATCH, 256, 2048))]
@@ -1260,22 +1361,37 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:138",
          "launches": launches["paged_decode"],
-         "max_abs_err": paged["err"],
+         "max_abs_err": max(paged["err"], paged_s1["err"]),
          "ms": paged["ms"], "plain_ms": paged["plain_ms"],
          "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
-         "library_ms": None,
-         "shape": f"S=8 H=8 Dh=64 BS=16 seq_lens={paged['seq_lens']} f32"},
+         "library_ms": None, "split": paged["split"],
+         "shape": f"S=8 H=8 Dh=64 BS=16 seq_lens={paged['seq_lens']} "
+                  f"(sum {paged['total']}) f32",
+         "s1": {k: paged_s1[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "split", "seq_lens")},
+         "dead_grid_ms": paged_dead["ms"], "timing_floor_ms": floor_ms,
+         "build": {k: v for k, v in paged_build.items()
+                   if k.startswith("paged_decode.cu:")},
+         "note": "library_ms null: no single PyTorch call computes "
+                 "attention through a block table"},
         {"name": "paged_decode_q8", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_decode_q8.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:421",
          "launches": serve8["launches"]["paged_decode_q8"],
-         "max_abs_err": paged_q8["err"],
+         "max_abs_err": max(paged_q8["err"], paged_q8_s1["err"]),
          "ms": paged_q8["ms"], "plain_ms": paged_q8["plain_ms"],
          "bound_ms": paged_q8["bound_ms"], "bound_by": paged_q8["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "split": paged_q8["split"],
          "shape": f"S={paged_q8['S']} H=8 Dh=64 BS=16 seq_lens "
                   f"{paged_q8['seq_min']}..{paged_q8['seq_max']} (sum "
-                  f"{paged_q8['total']}) int8 cache, f32 scales"},
+                  f"{paged_q8['total']}) int8 cache, f32 scales",
+         "s1": {k: paged_q8_s1[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "split")},
+         "dead_grid_ms": paged_q8_dead["ms"], "timing_floor_ms": floor_ms,
+         "build": {k: v for k, v in paged_build.items()
+                   if k.startswith("paged_decode_q8.cu:")},
+         "note": "library_ms null: no single PyTorch call computes "
+                 "attention through a block table"},
         {"name": "dropout", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/dropout.cu",
          "replaces": "paddle_tpu/ops/pallas_dropout.py:42",

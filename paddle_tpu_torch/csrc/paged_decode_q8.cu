@@ -13,75 +13,90 @@
 // for 4 operations per byte read, so it is bound by memory bandwidth
 // (3.35 TB/s).
 //
-// Design (the TPU kernel walks a sequential (slot, block) grid with the
-// scales in scalar memory; here a block of threads owns one (slot, head)):
-// - grid (H, S), 256 threads split into groups of Dh/16 lanes. A head's
-//   row is Dh bytes, so each lane holds 16 of its values and a group reads
-//   one position's K (or V) row as Dh/16 coalesced 16-byte loads: the lane
-//   width is chosen so that every load is a full 16 bytes, which Dh 32, 64
-//   and 128 allow (2, 4 and 8 lanes a row, 128, 64 and 32 groups a block);
-// - the slot's table entries and the two scales of each entry are staged
-//   in shared memory, TABLE_CHUNK entries at a time, by one thread per
-//   entry: a scale is loaded once per block, not once per row, and entries
-//   past ceil(seq_len / BS), their blocks and their scales are never read;
-// - the groups stride over the chunk's positions; the q.k dot is summed
-//   over the raw int8 values and multiplied once by k_scale[blk] *
-//   sm_scale, and the weight of a V row is multiplied once by
-//   v_scale[blk]: the same sums as dequantizing every element, in another
-//   order;
-// - each group keeps its own online softmax (m, l, 16 accumulators per
-//   lane) in float32; the dot is reduced across the group's lanes with
-//   warp shuffles, every lane of the warp taking part in every step;
-// - the groups' partial states are merged through shared memory at the
-//   end; a slot with seq_len 0 writes exact zeros and reads nothing.
+// What held the first version back (one block per (slot, head), grid
+// (H, S)): the longest slot set the time, its blocks walking up to 32x
+// the positions of the shortest; each thread kept one 16-byte K and one
+// 16-byte V load in flight and waited on them through a shuffle reduce
+// and two expf before the next; and every 64 table entries cost a pair of
+// barriers to stage them and their scales.
+//
+// Design (paged_split.cuh has the layout and the merge; the TPU kernel
+// walks a sequential (slot, block) grid with the scales in scalar memory):
+// - grid (H, S, NSPLIT): block (h, s, j) reads chunk j, positions
+//   [j*P, (j+1)*P) of slot s (P = 128 from the wrapper, two passes), and a
+//   chunk at or past seq_len returns at once, so no block walks more than
+//   P positions. P is twice the float32 kernel's: a launched block costs
+//   time even when its chunk is dead, and an int8 chunk of 64 positions
+//   holds a quarter of the float32 one's bytes;
+// - 128 threads split into groups of Dh/8 lanes. A head's row is Dh
+//   bytes, so each lane holds 8 of its values and a group reads one
+//   position's K (or V) row as Dh/8 coalesced 8-byte loads (4, 8 and 16
+//   lanes a row at Dh 32, 64 and 128). Eight values a lane rather than
+//   sixteen halve q's and the accumulators' registers (56 against 72 at
+//   Dh 64), so more blocks fit on an SM;
+// - a pass is PASS = 64 positions: each group issues the K and V loads of
+//   its U = 64 / groups positions (2, 4 or 8) before the first dot, with
+//   the table entry and the two scales of each position. The chunk's
+//   entries and scales come through the read-only cache (a chunk spans at
+//   most P / BS + 1 entries, so the block fetches each once from memory
+//   and its other threads hit that line), in the same burst as the K/V
+//   loads: no shared staging, so no barrier stands between the table read
+//   and the first K/V load. Entries past ceil(seq_len / BS), their blocks
+//   and their scales are never read;
+// - the q.k dot is summed over the raw int8 values and multiplied once by
+//   k_scale[blk] * sm_scale, and the weight of a V row is multiplied once
+//   by v_scale[blk]: the same sums as dequantizing every element, in
+//   another order;
+// - each group keeps an online softmax (m, l, 8 accumulators per lane) in
+//   float32 over the block's passes; the dots are reduced across the
+//   group's lanes with warp shuffles in U independent chains;
+// - the groups' states are merged through shared memory into the chunk's
+//   record, which the merge kernel combines with the slot's other chunks
+//   in split order: no atomics, reruns give equal bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "paged_split.cuh"
+
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int TABLE_CHUNK = 64;    // table entries staged at a time
-constexpr int VPL = 16;            // int8 values per lane: one 16-byte load
-constexpr float NEG_INF = -1e30f;  // the JAX package's masked-score value
+using ptt_paged::NEG_INF;
+using ptt_paged::PASS;
 
-// the 16 int8 values of one 16-byte load, as floats
-__device__ __forceinline__ void unpack16(const int4& w, float (&f)[VPL]) {
-  const int words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[4 * i + 0] = (float)(int8_t)(words[i] & 0xff);
-    f[4 * i + 1] = (float)(int8_t)((words[i] >> 8) & 0xff);
-    f[4 * i + 2] = (float)(int8_t)((words[i] >> 16) & 0xff);
-    f[4 * i + 3] = (float)(int8_t)((words[i] >> 24) & 0xff);
-  }
+constexpr int NTHREADS = 128;
+constexpr int VPL = 8;             // int8 values per lane: one 8-byte load
+
+// value i (0..7) of one 8-byte load of int8, as a float
+__device__ __forceinline__ float q8_at(const int2& w, int i) {
+  const int word = i < 4 ? w.x : w.y;
+  return (float)(int8_t)((word >> (8 * (i & 3))) & 0xff);
 }
 
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
-paged_decode_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
-                       const int8_t* __restrict__ vc, const float* __restrict__ ks,
-                       const float* __restrict__ vs, const int* __restrict__ bt,
-                       const int* __restrict__ sl, float* __restrict__ out, int H,
-                       int BS, int max_b, float sm_scale) {
+paged_q8_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
+                      const int8_t* __restrict__ vc, const float* __restrict__ ks,
+                      const float* __restrict__ vs, const int* __restrict__ bt,
+                      const int* __restrict__ sl, float* __restrict__ part,
+                      int H, int BS, int max_b, int P, int nsplit,
+                      float sm_scale) {
   constexpr int LP = DH / VPL;        // lanes per position row
   constexpr int G = NTHREADS / LP;    // position groups per block
-  __shared__ float ms[G], ls[G];
-  __shared__ float accs[G][DH];
-  __shared__ int sblk[TABLE_CHUNK];
-  __shared__ float sks[TABLE_CHUNK], svs[TABLE_CHUNK];
+  constexpr int U = PASS / G;         // positions a group loads at once
+  static_assert(U * G == PASS, "a pass is PASS positions");
+  __shared__ float ms[G], ls[G], ws[G];
+  __shared__ __align__(16) float accs[G][DH];
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x;
   const int slot = blockIdx.y;
-  // a slot holds at most max_b * BS positions (the plain version's dense
-  // view); a longer seq_len must not walk past the slot's table row
-  const int seq_len = min(sl[slot], max_b * BS);
-  float* dst = out + ((size_t)slot * H + h) * DH;
-  if (seq_len <= 0) {  // inactive slot: exact zeros, nothing read
-    for (int t = tid; t < DH; t += NTHREADS) dst[t] = 0.f;
-    return;
-  }
+  const int split = blockIdx.z;
+  ptt_paged::allow_merge_launch();
+  const int seq_len = ptt_paged::live_len(sl, slot, max_b, BS);
+  const int p_begin = split * P;
+  if (p_begin >= seq_len) return;  // dead chunk: nothing read or written
+  const int p_end = min(seq_len, p_begin + P);
   const int lane = tid % LP;
   const int g = tid / LP;
   float qv[VPL];
@@ -90,7 +105,7 @@ paged_decode_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k
         q + ((size_t)slot * H + h) * DH + lane * VPL);
 #pragma unroll
     for (int i = 0; i < VPL / 4; ++i) {
-      const float4 t = qp[i];
+      const float4 t = __ldg(qp + i);
       qv[4 * i + 0] = t.x;
       qv[4 * i + 1] = t.y;
       qv[4 * i + 2] = t.z;
@@ -98,62 +113,68 @@ paged_decode_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k
     }
   }
   const int* row_bt = bt + (size_t)slot * max_b;
-  const int n_live = (seq_len + BS - 1) / BS;  // table entries in use
 
   float m = NEG_INF, l = 0.f;
   float acc[VPL];
 #pragma unroll
   for (int i = 0; i < VPL; ++i) acc[i] = 0.f;
 
-  // every bound below is uniform across the block: every thread reaches
-  // every barrier and every lane every shuffle
-  for (int j0 = 0; j0 < n_live; j0 += TABLE_CHUNK) {
-    __syncthreads();  // the previous chunk's readers are done
-    if (tid < TABLE_CHUNK && j0 + tid < n_live) {
-      const int b = __ldg(row_bt + j0 + tid);
-      sblk[tid] = b;
-      sks[tid] = __ldg(ks + b) * sm_scale;
-      svs[tid] = __ldg(vs + b);
-    }
-    __syncthreads();
-    const int p_end = min(seq_len, (j0 + TABLE_CHUNK) * BS);
-    for (int p0 = j0 * BS; p0 < p_end; p0 += G) {
-      const int p = p0 + g;
-      const bool valid = p < p_end;
-      float kf[VPL], vf[VPL];
-      float k_mul = 0.f, v_mul = 0.f;
-      if (valid) {
-        const int j = p / BS - j0;
+  // uniform trip count across the block: every lane reaches every shuffle
+  for (int p0 = p_begin; p0 < p_end; p0 += PASS) {
+    int2 kw[U], vw[U];
+    float k_mul[U], v_mul[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u * G + g;
+      kw[u] = vw[u] = make_int2(0, 0);
+      k_mul[u] = v_mul[u] = 0.f;
+      if (p < p_end) {
+        const int blk = __ldg(row_bt + p / BS);
         const size_t off =
-            (((size_t)sblk[j] * BS + (p % BS)) * H + h) * DH + lane * VPL;
-        const int4 kw = __ldg(reinterpret_cast<const int4*>(kc + off));
-        const int4 vw = __ldg(reinterpret_cast<const int4*>(vc + off));
-        unpack16(kw, kf);
-        unpack16(vw, vf);
-        k_mul = sks[j];
-        v_mul = svs[j];
-      } else {
-#pragma unroll
-        for (int i = 0; i < VPL; ++i) kf[i] = vf[i] = 0.f;
-      }
-      float sc = 0.f;
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) sc += qv[i] * kf[i];
-#pragma unroll
-      for (int o = LP / 2; o > 0; o >>= 1)
-        sc += __shfl_xor_sync(0xffffffffu, sc, o);
-      if (valid) {
-        sc *= k_mul;
-        const float m_new = fmaxf(m, sc);
-        const float alpha = expf(m - m_new);
-        const float pr = expf(sc - m_new);
-        const float pw = pr * v_mul;
-        l = l * alpha + pr;
-#pragma unroll
-        for (int i = 0; i < VPL; ++i) acc[i] = acc[i] * alpha + pw * vf[i];
-        m = m_new;
+            (((size_t)blk * BS + (p % BS)) * H + h) * DH + lane * VPL;
+        kw[u] = __ldg(reinterpret_cast<const int2*>(kc + off));
+        vw[u] = __ldg(reinterpret_cast<const int2*>(vc + off));
+        k_mul[u] = __ldg(ks + blk);
+        v_mul[u] = __ldg(vs + blk);
       }
     }
+    float sc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) s += qv[i] * q8_at(kw[u], i);
+      sc[u] = s;
+    }
+#pragma unroll
+    for (int off = LP / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], off);
+    }
+    float m_new = m;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (p0 + u * G + g < p_end) {
+        sc[u] *= k_mul[u] * sm_scale;
+        m_new = fmaxf(m_new, sc[u]);
+      }
+    }
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (p0 + u * G + g < p_end) {
+        const float pr = expf(sc[u] - m_new);
+        const float pw = pr * v_mul[u];
+        l += pr;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) acc[i] += pw * q8_at(vw[u], i);
+      }
+    }
+    m = m_new;
   }
 
   if (lane == 0) {
@@ -161,44 +182,47 @@ paged_decode_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k
     ls[g] = l;
   }
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) accs[g][lane * VPL + i] = acc[i];
+  for (int i = 0; i < VPL / 4; ++i)
+    reinterpret_cast<float4*>(&accs[g][lane * VPL])[i] =
+        make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
   __syncthreads();
-  for (int t = tid; t < DH; t += NTHREADS) {
-    float M = NEG_INF;
-    for (int gg = 0; gg < G; ++gg) M = fmaxf(M, ms[gg]);
-    float L = 0.f, o = 0.f;
-    for (int gg = 0; gg < G; ++gg) {
-      const float w = expf(ms[gg] - M);  // 0 for a group that saw nothing
-      L += ls[gg] * w;
-      o += accs[gg][t] * w;
-    }
-    dst[t] = o / fmaxf(L, 1e-20f);
-  }
+  ptt_paged::write_record<DH, G, NTHREADS>(
+      ms, ls, ws, &accs[0][0],
+      part + (((size_t)slot * H + h) * nsplit + split) * (DH + 2));
 }
 
 template <int DH>
 cudaError_t launch(const float* q, const int8_t* kc, const int8_t* vc,
                    const float* ks, const float* vs, const int* bt,
-                   const int* sl, float* out, int S, int H, int BS, int max_b,
-                   float sm_scale, cudaStream_t stream) {
-  dim3 grid(H, S);
-  paged_decode_q8_kernel<DH><<<grid, NTHREADS, 0, stream>>>(
-      q, kc, vc, ks, vs, bt, sl, out, H, BS, max_b, sm_scale);
-  return cudaGetLastError();
+                   const int* sl, float* part, float* out, int S, int H,
+                   int BS, int max_b, int P, int nsplit, float sm_scale,
+                   cudaStream_t stream) {
+  paged_q8_split_kernel<DH><<<dim3(H, S, nsplit), NTHREADS, 0, stream>>>(
+      q, kc, vc, ks, vs, bt, sl, part, H, BS, max_b, P, nsplit, sm_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return ptt_paged::launch_merge<DH>(part, sl, out, S, H, BS, max_b, P, nsplit,
+                                     stream);
 }
 
 }  // namespace
 
 // q, out: [S, H, dh] float32; k_cache, v_cache: [num_blocks, bs, H, dh]
 // int8; k_scale, v_scale: [num_blocks] float32; block_tables: [S, max_b]
-// int32; seq_lens: [S] int32; all contiguous, q and the caches 16-byte
-// aligned. Returns a cudaError_t (0 on success); dh must be 32, 64 or 128.
+// int32; seq_lens: [S] int32; partials: [S, H, nsplit, dh + 2] float32
+// workspace, nsplit = max(1, ceil(max_b * bs / split)), split a positive
+// multiple of 64; all contiguous, q 16-byte and the caches 8-byte aligned.
+// Launches the split kernel and then the merge kernel on `stream`. Returns
+// a cudaError_t (0 on success); dh must be 32, 64 or 128.
 extern "C" int ptt_paged_decode_q8(const void* q, const void* k_cache,
                                    const void* v_cache, const void* k_scale,
                                    const void* v_scale, const void* block_tables,
-                                   const void* seq_lens, void* out, int S, int H,
-                                   int dh, int bs, int max_b, float sm_scale,
-                                   int device, void* stream) {
+                                   const void* seq_lens, void* partials,
+                                   void* out, int S, int H, int dh, int bs,
+                                   int max_b, int split, int nsplit,
+                                   float sm_scale, int device, void* stream) {
+  if (!ptt_paged::split_ok(S, split, nsplit, max_b, bs))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const float* qf = static_cast<const float*>(q);
@@ -208,12 +232,13 @@ extern "C" int ptt_paged_decode_q8(const void* q, const void* k_cache,
   const float* vsf = static_cast<const float*>(v_scale);
   const int* btp = static_cast<const int*>(block_tables);
   const int* slp = static_cast<const int*>(seq_lens);
+  float* pp = static_cast<float*>(partials);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 32: return (int)launch<32>(qf, kq, vq, ksf, vsf, btp, slp, of, S, H, bs, max_b, sm_scale, s);
-    case 64: return (int)launch<64>(qf, kq, vq, ksf, vsf, btp, slp, of, S, H, bs, max_b, sm_scale, s);
-    case 128: return (int)launch<128>(qf, kq, vq, ksf, vsf, btp, slp, of, S, H, bs, max_b, sm_scale, s);
+    case 32: return (int)launch<32>(qf, kq, vq, ksf, vsf, btp, slp, pp, of, S, H, bs, max_b, split, nsplit, sm_scale, s);
+    case 64: return (int)launch<64>(qf, kq, vq, ksf, vsf, btp, slp, pp, of, S, H, bs, max_b, split, nsplit, sm_scale, s);
+    case 128: return (int)launch<128>(qf, kq, vq, ksf, vsf, btp, slp, pp, of, S, H, bs, max_b, split, nsplit, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

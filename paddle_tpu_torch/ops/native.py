@@ -1,13 +1,14 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the headers
-``flash_common.cuh``, which the flash kernels share, and ``mma_tf32.cuh``,
-their tensor-core helpers): plain C entry points, no PyTorch
-headers. At first use each source is compiled by its own `nvcc` process
-(all started together) for ``sm_90a``, and the objects are linked into one
-shared library under ``paddle_tpu_torch/_build/`` (listed in .gitignore),
-named by a hash of the sources, headers and flags so an edited source never
-loads a stale build. The library is loaded with `ctypes`: pointers and the
+``flash_common.cuh``, which the flash kernels share, ``mma_tf32.cuh``,
+their tensor-core helpers, and ``paged_split.cuh``, the split layout and
+merge kernel of both paged decode kernels): plain C entry points, no
+PyTorch headers. At first use each source is compiled by its own `nvcc`
+process (all started together) for ``sm_90a``, and the objects are linked
+into one shared library under ``paddle_tpu_torch/_build/`` (listed in
+.gitignore), named by a hash of the sources, headers and flags so an
+edited source never loads a stale build. The library is loaded with `ctypes`: pointers and the
 stream travel as `c_void_p`, and every entry returns a `cudaError_t` that
 `check()` turns into an exception.
 
@@ -35,12 +36,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
            "paged_decode_q8.cu", "dropout.cu")
-HEADERS = ("flash_common.cuh", "mma_tf32.cuh")
+HEADERS = ("flash_common.cuh", "mma_tf32.cuh", "paged_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # gridDim.y limit: every kernel puts a batch-like extent (B*H, slots) there
 MAX_GRID_Y = 65535
+# gridDim.z limit: the paged decode kernels put a slot's chunks there
+MAX_GRID_Z = 65535
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "paged_decode": 0,
             "paged_decode_q8": 0, "dropout": 0,
@@ -161,11 +164,11 @@ def _declare(lib):
     lib.ptt_flash_dkv_f32.restype = I
     lib.ptt_flash_bwd_smem_bytes.argtypes = [I, I]
     lib.ptt_flash_bwd_smem_bytes.restype = I
-    lib.ptt_paged_decode_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F,
-                                         I, P]
+    lib.ptt_paged_decode_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
+                                         I, I, F, I, P]
     lib.ptt_paged_decode_f32.restype = I
-    lib.ptt_paged_decode_q8.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                        F, I, P]
+    lib.ptt_paged_decode_q8.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                        I, I, I, F, I, P]
     lib.ptt_paged_decode_q8.restype = I
     lib.ptt_dropout_f32.argtypes = [P, P, P, ctypes.c_uint64, U, U, F, I, P]
     lib.ptt_dropout_f32.restype = I

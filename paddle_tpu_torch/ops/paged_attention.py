@@ -21,7 +21,11 @@ the buffers: a functional copy here would move the whole cache (about
 `paged_attention` dispatches like `flash_attention`: the hand-written
 kernel of ``csrc/paged_decode.cu`` on a card (it replaces
 ``_paged_decode_kernel``), `paged_attention_reference` on the host, an
-empty output for meta tensors.
+empty output for meta tensors. The kernel splits each slot's sequence into
+chunks of `DECODE_SPLIT` positions, one block per (head, slot, chunk), and
+merges the chunks in a second kernel; its launch plan
+(`decode_split_plan`) comes from shapes alone, so the wrapper reads no
+seq_lens value on the host and never synchronizes.
 
 The int8 residency (`kv_dtype="int8"`): the cache tensors are int8 with
 one float32 scale per block ([NB], separate K and V scales), value =
@@ -42,7 +46,8 @@ int8 * scale[block], symmetric +-127 bins.
 
 `paged_attention_q8` dispatches like `paged_attention`: the kernel of
 ``csrc/paged_decode_q8.cu`` on a card (it replaces
-``_paged_decode_kernel_q8``), `paged_attention_q8_reference` on the host.
+``_paged_decode_kernel_q8``, chunks of `DECODE_SPLIT_Q8` positions),
+`paged_attention_q8_reference` on the host.
 """
 
 from __future__ import annotations
@@ -130,18 +135,47 @@ def paged_attention_reference(q, k_cache, v_cache, block_tables, seq_lens,
 # the kernel
 # ---------------------------------------------------------------------------
 
+# Positions a split block reads (P), float32 and int8 cache: the kernels
+# read each slot's sequence in chunks of P, one block per (head, slot,
+# chunk), and merge the chunks' softmax states in a second kernel
+# (csrc/paged_split.cuh). Multiples of the kernels' 64-position pass; the
+# int8 chunk is twice as long, as its rows are a quarter of the bytes.
+DECODE_SPLIT = 64
+DECODE_SPLIT_Q8 = 128
+
+
+def decode_split_plan(S, H, Dh, BS, max_b, split):
+    """The split launch from shapes alone, never from seq_lens' values:
+    (NSPLIT, workspace shape). NSPLIT = ceil(max_b * BS / split), at least
+    1; the workspace [S, H, NSPLIT, Dh + 2] holds each chunk's (acc, m,
+    l) in float32."""
+    nsplit = max(1, -(-(max_b * BS) // split))
+    return nsplit, (S, H, nsplit, Dh + 2)
+
+
+def _check_split_launch(what, S, H, Dh, BS, max_b, split):
+    """Refuse what the kernels do not take: grid (H, S, NSPLIT) puts the
+    slots on y and the chunks on z. Returns `decode_split_plan`'s pair."""
+    if Dh not in _HEAD_DIMS:
+        raise ValueError(f"{what} takes head dim {_HEAD_DIMS}, got {Dh}")
+    if S > native.MAX_GRID_Y:
+        raise ValueError(f"{what}: {S} slots exceed the grid's y limit "
+                         f"{native.MAX_GRID_Y}")
+    nsplit, ws_shape = decode_split_plan(S, H, Dh, BS, max_b, split)
+    if nsplit > native.MAX_GRID_Z:
+        raise ValueError(f"{what}: {nsplit} chunks of {split} positions "
+                         f"exceed the grid's z limit {native.MAX_GRID_Z}")
+    return nsplit, ws_shape
+
+
 def _paged_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens,
                           sm_scale):
     S, H, Dh = q.shape
     NB, BS = k_cache.shape[0], k_cache.shape[1]
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(f"paged decode kernel takes head dim {_HEAD_DIMS}, "
-                         f"got {Dh}")
-    if S > native.MAX_GRID_Y:
-        raise ValueError(f"paged decode kernel: {S} slots exceed the grid's "
-                         f"y limit {native.MAX_GRID_Y}")
-    dev = q.device
     max_b = block_tables.shape[1] if block_tables.ndim == 2 else -1
+    nsplit, ws_shape = _check_split_launch("paged decode kernel", S, H, Dh,
+                                           BS, max_b, DECODE_SPLIT)
+    dev = q.device
     native.check_operand(q, "q", torch.float32, dev)
     native.check_operand(k_cache, "k_cache", torch.float32, dev,
                          (NB, BS, H, Dh))
@@ -153,11 +187,13 @@ def _paged_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens,
     out = torch.empty_like(q)
     if S == 0:
         return out
+    part = torch.empty(ws_shape, dtype=torch.float32, device=dev)
     lib = native.lib()
     err = lib.ptt_paged_decode_f32(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        S, H, Dh, BS, max_b, float(sm_scale),
+        block_tables.data_ptr(), seq_lens.data_ptr(), part.data_ptr(),
+        out.data_ptr(), S, H, Dh, BS, max_b, DECODE_SPLIT, nsplit,
+        float(sm_scale),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     native.check(err, "paged_decode launch")
@@ -299,18 +335,80 @@ def paged_attention_q8_reference(q, k_cache, v_cache, k_scale, v_scale,
     return o.to(q.dtype)
 
 
+def paged_attention_split_reference(q, k_cache, v_cache, block_tables,
+                                    seq_lens, sm_scale, k_scale=None,
+                                    v_scale=None, split=None):
+    """The split kernels' arithmetic in plain PyTorch; only the tests use
+    it. Each chunk of `split` positions gets its softmax state from the
+    plain scores (m = max, l = sum of e^(score - m), acc = the same weights
+    times V), and the live chunks (j * split < seq_len, clamped to the
+    table row) merge in split order as the merge kernel does. With
+    `k_scale`/`v_scale` the caches are int8 and dequantize per block, as in
+    `paged_attention_q8_reference`. `split` is the kernel's own
+    (DECODE_SPLIT, or DECODE_SPLIT_Q8 with scales) unless given. Positions
+    a slot must not read are zeroed before any arithmetic, as the kernels
+    never load them. Returns (out [S, H, Dh], partials [S, H, NSPLIT,
+    Dh + 2]); a dead chunk's record is zeros here and never written by the
+    kernel."""
+    S, H, Dh = q.shape
+    nb, bs = k_cache.shape[0], k_cache.shape[1]
+    max_b = block_tables.shape[1]
+    if split is None:
+        split = DECODE_SPLIT if k_scale is None else DECODE_SPLIT_Q8
+    nsplit, _ = decode_split_plan(S, H, Dh, bs, max_b, split)
+    T = max_b * bs
+    tables = block_tables.long()
+    flat = (tables[:, :, None] * bs
+            + torch.arange(bs, device=q.device)[None, None, :]).reshape(S, T)
+    seq = seq_lens.long().clamp(max=T)
+    mask = torch.arange(T, device=q.device)[None, :] < seq[:, None]  # [S, T]
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    k = k_cache.reshape(nb * bs, H, Dh)[flat].float()
+    v = v_cache.reshape(nb * bs, H, Dh)[flat].float()
+    if k_scale is not None:
+        k = k * torch.where(mask, k_scale[tables].repeat_interleave(bs, dim=1),
+                            zero)[:, :, None, None]
+        v = v * torch.where(mask, v_scale[tables].repeat_interleave(bs, dim=1),
+                            zero)[:, :, None, None]
+    k = torch.where(mask[:, :, None, None], k, zero)
+    v = torch.where(mask[:, :, None, None], v, zero)
+    pad = nsplit * split - T
+    s = torch.einsum("shd,sthd->sht", q.float(), k) * sm_scale
+    s = torch.nn.functional.pad(s.masked_fill(~mask[:, None, :], NEG_INF),
+                                (0, pad), value=NEG_INF)
+    chunk_mask = torch.nn.functional.pad(mask, (0, pad), value=False) \
+        .reshape(S, 1, nsplit, split)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    s = s.reshape(S, H, nsplit, split)
+    m = s.amax(dim=-1)                                      # [S, H, NSPLIT]
+    p = torch.where(chunk_mask, torch.exp(s - m[..., None]), zero)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("shjp,sjphd->shjd", p,
+                       v.reshape(S, nsplit, split, H, Dh))
+    live = (torch.arange(nsplit, device=q.device)[None, :] * split
+            < seq[:, None])[:, None, :].expand(S, H, nsplit)
+    M = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
+    L = torch.zeros_like(M)
+    o = torch.zeros_like(q, dtype=torch.float32)
+    for j in range(nsplit):                   # split order, as the merge
+        w = torch.where(live[..., j], torch.exp(m[..., j] - M), zero)
+        L = L + l[..., j] * w
+        o = o + acc[:, :, j] * w[..., None]
+    o = o / L.clamp_min(1e-20)[..., None]
+    o = torch.where((seq > 0)[:, None, None], o, torch.zeros_like(o))
+    part = torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+    part = torch.where(live[..., None], part, zero)
+    return o.to(q.dtype), part
+
+
 def _paged_attention_q8_cuda(q, k_cache, v_cache, k_scale, v_scale,
                              block_tables, seq_lens, sm_scale):
     S, H, Dh = q.shape
     NB, BS = k_cache.shape[0], k_cache.shape[1]
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(f"int8 paged decode kernel takes head dim "
-                         f"{_HEAD_DIMS}, got {Dh}")
-    if S > native.MAX_GRID_Y:
-        raise ValueError(f"int8 paged decode kernel: {S} slots exceed the "
-                         f"grid's y limit {native.MAX_GRID_Y}")
-    dev = q.device
     max_b = block_tables.shape[1] if block_tables.ndim == 2 else -1
+    nsplit, ws_shape = _check_split_launch("int8 paged decode kernel", S, H,
+                                           Dh, BS, max_b, DECODE_SPLIT_Q8)
+    dev = q.device
     native.check_operand(q, "q", torch.float32, dev)
     native.check_operand(k_cache, "k_cache", torch.int8, dev,
                          (NB, BS, H, Dh))
@@ -324,12 +422,14 @@ def _paged_attention_q8_cuda(q, k_cache, v_cache, k_scale, v_scale,
     out = torch.empty_like(q)
     if S == 0:
         return out
+    part = torch.empty(ws_shape, dtype=torch.float32, device=dev)
     lib = native.lib()
     err = lib.ptt_paged_decode_q8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        S, H, Dh, BS, max_b, float(sm_scale),
+        block_tables.data_ptr(), seq_lens.data_ptr(), part.data_ptr(),
+        out.data_ptr(), S, H, Dh, BS, max_b, DECODE_SPLIT_Q8, nsplit,
+        float(sm_scale),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     native.check(err, "paged_decode_q8 launch")

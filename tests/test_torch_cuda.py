@@ -508,6 +508,108 @@ def test_int8_generation_on_card_equals_host_and_runs_the_q8_kernel(
 
 
 # ---------------------------------------------------------------------------
+# the split paged decode kernels: chunk edges, widths, many slots, reruns
+# ---------------------------------------------------------------------------
+
+def _split_case(dev, kind, S, H, Dh, BS, max_b, seq, seed):
+    """(kernel arguments, the plain version's arguments): float32 caches
+    with NaN in every row a slot must not read (the plain version gets the
+    NaN-free copy), or int8 caches with every dead block's scale NaN."""
+    if kind == "q8":
+        args = _q8_case(dev, S, H, Dh, BS, max_b, seq, seed)
+        return args, args
+    q, kc, vc, bt, sl = _paged_case(dev, S, H, Dh, BS, max_b, seq, seed)
+    return ((q, kc, vc, bt, sl),
+            (q, torch.nan_to_num(kc), torch.nan_to_num(vc), bt, sl))
+
+
+def _decode(kind):
+    return pa.paged_attention_q8 if kind == "q8" else pa.paged_attention
+
+
+def _decode_reference(kind):
+    return (pa.paged_attention_q8_reference if kind == "q8"
+            else pa.paged_attention_reference)
+
+
+def _assert_split_launch(dev, kind, S, H, Dh, BS, max_b, seq, seed):
+    """The kernel against the plain version within TOL, finite under the
+    NaN poison, exact zeros for seq_len 0, one launch counted per call, and
+    a second launch on the same inputs bit-equal."""
+    args, ref_args = _split_case(dev, kind, S, H, Dh, BS, max_b, seq, seed)
+    sm = Dh ** -0.5
+    native.reset_launches()
+    out = _decode(kind)(*args, sm)
+    assert native.launches[f"paged_decode{'_q8' if kind == 'q8' else ''}"] \
+        == 1
+    assert torch.isfinite(out).all(), "kernel read what a slot must not"
+    torch.testing.assert_close(out, _decode_reference(kind)(*ref_args, sm),
+                               atol=TOL, rtol=TOL)
+    for s in range(S):
+        if seq[s] == 0:
+            assert bool((out[s] == 0).all())
+    again = _decode(kind)(*args, sm)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["f32", "q8"])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_split_kernels_at_chunk_edges(dev, kind, Dh):
+    """seq_len at P - 1, P, P + 1, 3P, the whole row and 1 (and 0), on a
+    table row of 29 blocks of 16 = 464 positions, a multiple of neither
+    P (64 over float32, 128 over int8): the last chunk is partial."""
+    P = pa.DECODE_SPLIT_Q8 if kind == "q8" else pa.DECODE_SPLIT
+    BS, max_b = 16, 29
+    seq = [P - 1, P, P + 1, 3 * P, max_b * BS, 1, 0]
+    assert (max_b * BS) % P != 0 and 3 * P < max_b * BS
+    _assert_split_launch(dev, kind, len(seq), 4, Dh, BS, max_b, seq,
+                         seed=Dh + len(kind))
+
+
+@pytest.mark.parametrize("kind", ["f32", "q8"])
+def test_split_kernels_at_256_slots(dev, kind):
+    """256 slots spread over [0, 144] positions (block 16, 9 blocks a row:
+    NSPLIT 3 over float32 and 2 over int8, the last chunk partial)."""
+    seq = _spread(256, 144)
+    _assert_split_launch(dev, kind, 256, 2, 64, 16, 9, seq, seed=256)
+
+
+@pytest.mark.parametrize("kind", ["f32", "q8"])
+def test_split_kernels_with_one_long_slot(dev, kind):
+    """One slot at the full 1024-position context: 16 chunks of P (8 over
+    int8)."""
+    _assert_split_launch(dev, kind, 1, 8, 64, 16, 64, [1024], seed=1024)
+
+
+@pytest.mark.parametrize("kind", ["f32", "q8"])
+def test_split_launches_capture_in_a_cuda_graph(dev, kind):
+    """The wrapper reads no seq_lens value on the host and never
+    synchronizes, so both launches (split and merge) capture into a CUDA
+    graph; a replay after seq_lens changed on the card reads the new
+    lengths (each no longer than before: past that lie the poisoned
+    rows and scales)."""
+    seq = [100, 0, 128, 7]
+    args, _ = _split_case(dev, kind, 4, 2, 64, 16, 8, seq, seed=4)
+    sl = args[-1]
+    fn = _decode(kind)
+    fn(*args)                                   # build, and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for lengths in (seq, [64, 0, 100, 1]):
+        sl.copy_(torch.tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        ref_args = [torch.nan_to_num(t) if t.is_floating_point() else t
+                    for t in args]
+        torch.testing.assert_close(
+            out, _decode_reference(kind)(*ref_args, 64 ** -0.5), atol=TOL,
+            rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
 # the flag-selected dropout kernel
 # ---------------------------------------------------------------------------
 
