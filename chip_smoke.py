@@ -69,6 +69,21 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    equal within LOSS_RTOL: at dropout 0, and at dropout 0.1 under
    ``FLAGS_dropout_impl=pallas`` (the dropout kernel's and the flash
    kernels' masks are their plain versions');
+6b. train-resnet50: build ResNet-50 as bench.py's headline benchmark
+   builds it (`models/resnet.py`: depth 50, 1000 classes, 224 x 224 x 3,
+   NHWC) with `Momentum(0.1, 0.9)`, run its startup with
+   `Executor(CUDAPlace(0))` and take 10 steps of batch 128 on one fixed
+   synthetic batch staged on the card, float32 with TF32 off: losses
+   finite, no launch of any kernel above (its convs, pools and batch
+   norms are cuDNN's through torch); print step ms, images/s, peak
+   memory and the step's share of its float32 bound (3 x 2 x the
+   multiply-adds an image, counted from the Program's conv and fc
+   shapes, x 128, at 67 TFLOP/s). Then card against host, 3 steps each
+   from the host's state (the comment at RESNET_PARITY_LR
+   says why): ResNet-50 at
+   batch 2 and the MNIST CNN (NCHW) at batch 16 with Adam, losses within
+   LOSS_RTOL, running stats and the other state within their stated
+   tolerances;
 7. print one JSON line with every kernel's numbers, and write the runs'
    numbers to ``chiprun_out/chip_smoke_train.json``.
 
@@ -135,6 +150,33 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 32, 10, 1e-3
 PARITY_BATCH, PARITY_STEPS = 2, 3
 DATA_SEED = 21      # the fixed training batch
 ATTN_SEED = 12345   # attention-dropout seed of the kernel checks
+# train-resnet50: the JAX package's headline benchmark as bench.py builds
+# it (bench_resnet: depth 50, 1000 classes, 224 x 224 x 3 NHWC, batch 128,
+# Momentum(0.1, 0.9)), in float32 with TF32 off
+RESNET50 = dict(class_dim=1000, depth=50, data_format="NHWC")
+RESNET_BATCH, RESNET_STEPS, RESNET_LR, RESNET_MOMENTUM = 128, 10, 0.1, 0.9
+# card vs host: ResNet-50 at batch 2, PARITY_STEPS steps on one batch at a
+# learning rate at which no loss falls below 0.1 (at 0.1 a batch of 2
+# reaches cross_entropy's clamp, -log(1e-8) = 18.42 a sample, within a few
+# steps, and relative errors say nothing there); the MNIST CNN
+# at batch 16 with Adam. Each step starts both sides from the host's state
+# after the step before. A free run would compare chaos: ResNet-50's grads
+# jump where a ReLU input or a small-variance batch norm lies within
+# rounding of its edge: on the JAX package alone (CPU, 224 x 224, batch
+# 2; tools/resnet_float32_sensitivity.py) scaling the stem's filter by
+# (1 + 1e-7) moves the third step's loss by 1.0 % at lr 1e-3 and 0.2 % at
+# 1e-4, the first step's by 2.2e-6.
+RESNET_PARITY_BATCH, RESNET_PARITY_LR = 2, 1e-3
+MNIST_PARITY_BATCH, MNIST_LR = 16, 1e-3
+# card vs host after each parity step. Running means and variances, as
+# the losses (each an average of a layer's batch statistics):
+# |card - host| <= BN_STAT_ATOL + LOSS_RTOL * |host|. Every other
+# persistable (parameters, velocities, Adam moments): relative L2 distance
+# at most STATE_L2_RTOL; a velocity is the step's grad, which moves by
+# 2.5 % (median over ResNet-50's 161; the largest 3.2 %) on the JAX
+# package alone under the perturbation above.
+BN_STAT_ATOL = 1e-4
+STATE_L2_RTOL = 0.1
 
 
 def log(*a):
@@ -1024,6 +1066,174 @@ def run_train_parity(torch, ptt, dropout_rate, impl):
                 impl=impl)
 
 
+def build_resnet(ptt, lr=RESNET_LR, **overrides):
+    """ResNet-50 (RESNET50 with `overrides`) + Momentum(lr,
+    RESNET_MOMENTUM): (main, startup, fetches)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = resnet.build(**dict(RESNET50, **overrides))
+        optimizer.Momentum(learning_rate=lr,
+                           momentum=RESNET_MOMENTUM).minimize(fetches["loss"])
+    return main, startup, fetches
+
+
+def resnet_batch(batch, seed=DATA_SEED):
+    """Synthetic images in [0, 1) and labels in [0, 1000), as bench.py
+    makes them, from `seed`."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {"image": rng.rand(batch, 224, 224, 3).astype(np.float32),
+            "label": rng.randint(0, RESNET50["class_dim"],
+                                 (batch, 1)).astype(np.int64)}
+
+
+def model_macs(program):
+    """Multiply-adds a sample of the program's forward convs and matrix
+    products, counted from their var shapes: a conv's output elements
+    times its filter's (C / groups) * kh * kw, a `mul`'s K * N."""
+    import math
+    block = program.global_block()
+    macs = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            out = block.var(op.outputs["Output"][0]).shape
+            w = block.var(op.inputs["Filter"][0]).shape
+            macs += math.prod(out[1:]) * math.prod(w[1:])
+        elif op.type == "mul":
+            x = block.var(op.inputs["X"][0]).shape
+            y = block.var(op.inputs["Y"][0]).shape
+            k = op.attrs.get("x_num_col_dims", 1)
+            macs += (math.prod(x[k:]) * math.prod(y[op.attrs.get(
+                "y_num_col_dims", 1):]) * math.prod(x[1:k]))
+    return macs
+
+
+def run_train_resnet50(torch, ptt, native):
+    """RESNET_STEPS steps of train-resnet50 on the card on one fixed batch,
+    staged on the card first (bench.py stages its batches so); returns
+    the numbers, with the launch counts of exactly those steps."""
+    import numpy as np
+    main, startup, fetches = build_resnet(ptt)
+    loss = fetches["loss"]
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in resnet_batch(RESNET_BATCH).items()}
+    macs = model_macs(main)
+    step_flop = 3 * 2 * macs * RESNET_BATCH     # forward + two backward
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    native.reset_launches()
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+    launches = dict(native.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train-resnet50 losses not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"train-resnet50 launched a kernel of the "
+                             f"attention or dropout paths: {launches}")
+    last = sorted(step_ms[-5:])
+    med = last[len(last) // 2]
+    bound_ms = step_flop / PEAK_F32_FLOPS * 1e3
+    types = [op.type for op in main.global_block().ops]
+    del scope, exe
+    return dict(losses=losses, step_ms=step_ms, step_ms_median=med,
+                images_per_s=RESNET_BATCH / med * 1e3, peak_bytes=peak,
+                launches=launches, macs_per_image=macs, step_flop=step_flop,
+                bound_ms=bound_ms, bound_share=bound_ms / med,
+                ops=len(types), ops_by_type={t: types.count(t)
+                                             for t in sorted(set(types))})
+
+
+def run_vision_parity(torch, ptt, name, main, startup, loss, feed, steps):
+    """`steps` steps of `main` on `feed`, each on the card and on the host
+    from the host's state after the step before (the first from one
+    startup state, run on the card); returns both sides' losses and the
+    largest share of its tolerance that a persistable used. Fails unless
+    every loss stays above 0.1, the card's agree with the host's within
+    LOSS_RTOL, the running stats within BN_STAT_ATOL + LOSS_RTOL * |host|
+    and every other persistable within STATE_L2_RTOL (relative L2)."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import fetch_var
+    scope0 = ptt.Scope()
+    ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope0)
+    state = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
+    del scope0
+    stats = {op.inputs[s][0] for op in main.global_block().ops
+             if op.type == "batch_norm" for s in ("Mean", "Variance")}
+    losses = {"card": [], "host": []}
+    stat_share = l2_share = 0.0
+    for _ in range(steps):
+        after = {}
+        for side, place in (("card", ptt.CUDAPlace(0)),
+                            ("host", ptt.CPUPlace())):
+            scope = ptt.io.state_from_numpy(state, place)
+            out, = ptt.Executor(place).run(main, feed=feed,
+                                           fetch_list=[loss], scope=scope)
+            losses[side].append(float(np.asarray(out).reshape(-1)[0]))
+            after[side] = {n: fetch_var(n, scope) for n in state}
+            del scope
+        for n, b in after["host"].items():
+            a = after["card"][n]
+            if n in stats:
+                stat_share = max(stat_share, float((np.abs(a - b) / (
+                    BN_STAT_ATOL + LOSS_RTOL * np.abs(b))).max()))
+            elif np.issubdtype(b.dtype, np.floating):
+                l2_share = max(l2_share, float(np.linalg.norm(a - b) / (
+                    STATE_L2_RTOL * max(np.linalg.norm(b), 1e-30))))
+        state = after["host"]
+    torch.cuda.empty_cache()
+    if not min(losses["card"] + losses["host"]) > 0.1:
+        raise AssertionError(f"{name} parity: a loss fell below 0.1, where "
+                             f"relative errors say little: {losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                  losses["host"]))
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"{name} parity: card losses {losses['card']} "
+                             f"vs host {losses['host']}: relative error "
+                             f"{rel} > {LOSS_RTOL}")
+    if not (stat_share <= 1.0 and l2_share <= 1.0):
+        raise AssertionError(f"{name} parity: running stats at {stat_share} "
+                             f"of their tolerance, other state at "
+                             f"{l2_share} of STATE_L2_RTOL")
+    return dict(losses=losses, rel_err=rel, n_stats=len(stats),
+                n_state=len(state), stat_share=stat_share,
+                l2_share=l2_share, steps=steps)
+
+
+def run_resnet50_and_mnist_parity(torch, ptt):
+    import numpy as np
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import mnist
+    main, startup, fetches = build_resnet(ptt, lr=RESNET_PARITY_LR)
+    out = {"resnet50": run_vision_parity(
+        torch, ptt, "resnet50", main, startup, fetches["loss"],
+        resnet_batch(RESNET_PARITY_BATCH), PARITY_STEPS)}
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = mnist.build()
+        optimizer.Adam(learning_rate=MNIST_LR).minimize(fetches["loss"])
+    rng = np.random.RandomState(DATA_SEED)
+    feed = {"pixel": rng.rand(MNIST_PARITY_BATCH, 1, 28, 28).astype(
+                np.float32),
+            "label": rng.randint(0, 10, (MNIST_PARITY_BATCH, 1)).astype(
+                np.int64)}
+    out["mnist"] = run_vision_parity(torch, ptt, "mnist", main, startup,
+                                     fetches["loss"], feed, PARITY_STEPS)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1298,6 +1508,38 @@ def main() -> int:
             f"{parity['rel_err']:.3g} (tol {LOSS_RTOL}); "
             f"{time.perf_counter() - t0:.1f} s")
 
+    # 6b. train-resnet50 on the card, then card vs host for ResNet-50 and
+    # the MNIST CNN
+    t0 = time.perf_counter()
+    resnet = run_train_resnet50(torch, ptt, native)
+    log(f"train-resnet50: {RESNET_STEPS} steps of batch {RESNET_BATCH} x "
+        f"224 x 224 x 3 NHWC, Momentum({RESNET_LR}, {RESNET_MOMENTUM}), "
+        f"{resnet['ops']} ops a step, in {time.perf_counter() - t0:.1f} s "
+        f"(build and startup included); losses "
+        f"{[round(x, 4) for x in resnet['losses']]}; launches "
+        f"{resnet['launches']}")
+    log(f"train-resnet50 on the card [{card}]: step "
+        f"{resnet['step_ms_median']:.1f} ms (median of the last 5; all: "
+        f"{[round(x, 1) for x in resnet['step_ms']]}), "
+        f"{resnet['images_per_s']:.1f} images/s, peak memory "
+        f"{resnet['peak_bytes'] / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); float32 bound "
+        f"{resnet['bound_ms']:.1f} ms ({resnet['step_flop'] / 1e12:.3f} "
+        f"TFLOP a step = 3 x 2 x {resnet['macs_per_image'] / 1e9:.3f} G "
+        f"multiply-adds an image x {RESNET_BATCH}, at 67 TFLOP/s), "
+        f"{resnet['bound_share']:.3f} of it")
+    t0 = time.perf_counter()
+    vision_parity = run_resnet50_and_mnist_parity(torch, ptt)
+    for name, par in vision_parity.items():
+        log(f"{name} parity, {par['steps']} steps from the host's state: "
+            f"card {par['losses']['card']} host {par['losses']['host']}, "
+            f"max relative error {par['rel_err']:.3g} (tol {LOSS_RTOL}); "
+            f"{par['n_stats']} running stats at {par['stat_share']:.3g} of "
+            f"their tolerance ({BN_STAT_ATOL} + {LOSS_RTOL} |host|), the "
+            f"other persistables at {par['l2_share']:.3g} of "
+            f"{STATE_L2_RTOL} relative L2")
+    log(f"vision parity: {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line: flash_fwd's headline numbers at the train path's
     # shape, its serving case beside them
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
@@ -1417,6 +1659,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke_train.json"), "w") as f:
         json.dump({"card": card, "total_s": total_s, "train": trains,
                    "parity": parities, "serve_int8": serve8,
+                   "train_resnet50": resnet, "vision_parity": vision_parity,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,13 @@ nor anything of ``paddle_tpu``.
 The slices so far: generative serving (the Program IR and its JSON
 format, an eager executor, the shared model-dir format, and
 ``serve.InferenceServer.generate`` over ``models/tiny_lm.py`` with its
-flash-attention prefill and paged-attention decode kernels), and training
+flash-attention prefill and paged-attention decode kernels), training
 (``append_backward``'s grad ops, ``optimizer.Adam`` and
 ``models/transformer.py``, whose attentions run the flash forward, dQ and
-dK/dV kernels, attention dropout inside them).
+dK/dV kernels, attention dropout inside them), and training the vision
+models (``models/resnet.py`` and ``models/mnist.py`` with
+``optimizer.Momentum``: conv, pool and batch norm through torch's own
+ops, cuDNN on the card).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -23,13 +26,17 @@ dK/dV kernels, attention dropout inside them).
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(fluid.default_startup_program())
     exe.run(feed=batch, fetch_list=[fetches["loss"]])
+
+    _, fetches = fluid.models.resnet.build(data_format="NHWC")
+    fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9).minimize(
+        fetches["loss"])
 """
 
 from __future__ import annotations
 
 from . import ops  # noqa: F401  (registers the op rules)
 from . import (clip, flags, initializer, io, layers, models,  # noqa: F401
-               optimizer, regularizer, serve, unique_name)
+               nets, optimizer, regularizer, serve, unique_name)
 from .core.executor import (CPUPlace, CUDAPlace, Executor, Place,  # noqa: F401
                             Scope, global_scope)
 from .core.ir import (Parameter, Program, Variable,  # noqa: F401

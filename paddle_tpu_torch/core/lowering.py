@@ -155,7 +155,8 @@ def _run_grad_op(op: ir.Operator, env: Dict[str, Any], device, seed: int,
     with torch.enable_grad():
         ins = {sl: [leaves.get(n, env.get(n)) for n in ns]
                for sl, ns in fwd_inputs.items()}
-        ctx = LoweringContext(fwd_attrs, device, seed=s, op=op)
+        ctx = LoweringContext(fwd_attrs, device, seed=s, op=op,
+                              recompute=True)
         outs = registry.call_rule(opdef, ctx, ins)
         primals, cotangents = [], []
         for slot, out_names in fwd_outputs.items():

@@ -103,15 +103,19 @@ class LoweringContext:
     `generator` is a `torch.Generator` on `device` seeded from it, made
     on first use (None for an op without a seed, and in meta runs).
     `live` is the set of var names that something reads after the block
-    runs an op (`wants`); None means every output is read."""
+    runs an op (`wants`); None means every output is read. `recompute`
+    is True when a generic grad op runs the forward rule again under
+    autograd (``core/lowering.py``): a rule that updates state in place
+    (`batch_norm`'s running stats) does so only in the forward op."""
 
     def __init__(self, attrs: Dict[str, Any], device, seed=None, op=None,
-                 live=None):
+                 live=None, recompute=False):
         self.attrs = attrs
         self.device = torch.device(device)
         self.seed = seed
         self.op = op
         self.live = live
+        self.recompute = recompute
         self._generator = None
 
     @property

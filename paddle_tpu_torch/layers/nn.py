@@ -71,6 +71,104 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """2-D convolution, NCHW or NHWC (reference nn.py:1365). `use_cudnn` is
+    accepted for API parity and ignored. Filters are stored OIHW either
+    way, initialized from N(0, sqrt(2 / (kh * kw * C)))."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = input.dtype
+    c_axis = 1 if data_format == "NCHW" else len(input.shape) - 1
+    num_channels = input.shape[c_axis]
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) \
+        else [filter_size, filter_size]
+    filter_shape = [num_filters, num_channels // groups] + list(fsize)
+    std = (2.0 / (fsize[0] * fsize[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(param_attr, filter_shape, dtype,
+                                default_initializer=init.NormalInitializer(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("conv2d",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [pre_bias.name]},
+                     attrs={"strides": _pair(stride), "paddings": _pair(padding),
+                            "dilations": _pair(dilation), "groups": groups,
+                            "data_format": data_format})
+    pre_act = _append_bias_channel(helper, pre_bias, axis=c_axis)
+    return helper.append_activation(pre_act)
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def _append_bias_channel(helper, input_var, axis=1):
+    battr = helper.bias_attr
+    if battr is False:
+        return input_var
+    size = input_var.shape[axis] if len(input_var.shape) > axis else 1
+    b = helper.create_parameter(battr, [size], input_var.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype=input_var.dtype)
+    helper.append_op("elementwise_add",
+                     inputs={"X": [input_var.name], "Y": [b.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, use_cudnn=True, ceil_mode=False,
+           exclusive=True, name=None, data_format="NCHW", adaptive=False):
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("pool2d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding),
+                            "global_pooling": global_pooling,
+                            "exclusive": exclusive, "adaptive": adaptive,
+                            "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False):
+    """Batch normalization (reference nn.py:2000). The running mean and
+    variance are non-trainable, stop-gradient parameters, and the op's
+    `MeanOut` / `VarianceOut` are those same variables."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = input.dtype
+    c_axis = 1 if data_layout == "NCHW" else len(input.shape) - 1
+    channels = input.shape[c_axis]
+    scale = helper.create_parameter(param_attr, [channels], dtype,
+                                    default_initializer=init.ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [channels], dtype, is_bias=True)
+    mean = helper.create_parameter(
+        moving_mean_name, [channels], dtype,
+        default_initializer=init.ConstantInitializer(0.0), stop_gradient=True)
+    variance = helper.create_parameter(
+        moving_variance_name, [channels], dtype,
+        default_initializer=init.ConstantInitializer(1.0), stop_gradient=True)
+    mean.trainable = False
+    variance.trainable = False
+    y = helper.create_variable_for_type_inference(dtype)
+    saved_mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("batch_norm",
+                     inputs={"X": [input.name], "Scale": [scale.name],
+                             "Bias": [bias.name], "Mean": [mean.name],
+                             "Variance": [variance.name]},
+                     outputs={"Y": [y.name], "MeanOut": [mean.name],
+                              "VarianceOut": [variance.name],
+                              "SavedMean": [saved_mean.name],
+                              "SavedVariance": [saved_var.name]},
+                     attrs={"momentum": momentum, "epsilon": epsilon,
+                            "is_test": is_test, "data_layout": data_layout})
+    return helper.append_activation(y)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
                param_attr=None, bias_attr=None, act=None, name=None):
     helper = LayerHelper("layer_norm", **locals())
@@ -107,6 +205,25 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
                      attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                             "dropout_implementation": dropout_implementation})
     out.lod_level = x.lod_level
+    return out
+
+
+def softmax(input, axis=-1, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("softmax", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    out.lod_level = input.lod_level
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("cross_entropy",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"soft_label": soft_label, "ignore_index": ignore_index})
     return out
 
 
@@ -186,6 +303,17 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
                             "transpose_Y": transpose_y,
                             "alpha": float(alpha)})
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype="int64",
+                                                        stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [values.name], "Indices": [indices.name]},
+                     attrs={"k": k})
+    return values, indices
 
 
 def relu(x, name=None):

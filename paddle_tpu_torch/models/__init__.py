@@ -1,3 +1,4 @@
-"""Models of the slices: tiny_lm (serving) and the Transformer (training)."""
+"""Models of the slices: tiny_lm (serving), the Transformer, the MNIST CNN
+and ResNet (training)."""
 
-from . import tiny_lm, transformer  # noqa: F401
+from . import mnist, resnet, tiny_lm, transformer  # noqa: F401

@@ -1,7 +1,10 @@
-"""Loss op rules (the slice's subset): `softmax_with_cross_entropy` and its
-hand-written grad.
+"""Loss and metric op rules (the slices' subset): `cross_entropy`,
+`softmax_with_cross_entropy` and its hand-written grad, `accuracy`.
 
-Mirror of ``paddle_tpu/ops/loss.py``. The forward also outputs the
+Mirror of ``paddle_tpu/ops/loss.py``. `cross_entropy` takes
+probabilities and clamps them at 1e-8, so a loss stops at -log(1e-8) =
+18.42; its grad is the generic one. `softmax_with_cross_entropy`'s
+forward also outputs the
 [rows, 1] float32 log-sum-exp (`LSE`, a hidden output the layer declares);
 the grad rebuilds the softmax as exp(logits - lse) from it, so the
 backward re-runs no [rows, V] reduction and no float32 [rows, V]
@@ -19,6 +22,37 @@ def _squeeze_label(Label):
     if Label.ndim >= 2 and Label.shape[-1] == 1:
         return Label.reshape(Label.shape[:-1])
     return Label
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx, X, Label):
+    """X is a probability distribution (post-softmax), reference
+    cross_entropy_op.cc semantics; the output keeps a trailing 1-dim. A
+    hard label equal to `ignore_index` gives a loss of 0."""
+    eps = 1e-8
+    if ctx.attr("soft_label", False):
+        return {"Y": -(Label * torch.log(X.clamp_min(eps))).sum(
+            dim=-1, keepdim=True)}
+    ids = _squeeze_label(Label).long()[..., None]
+    # an ignored id may lie outside [0, C): gather at a clamped index,
+    # then zero that row's loss
+    p = X.gather(-1, ids.clamp(0, X.shape[-1] - 1))
+    loss = -torch.log(p.clamp_min(eps))
+    return {"Y": loss.masked_fill(ids == ctx.attr("ignore_index", -100), 0.0)}
+
+
+@register_op("accuracy")
+def _accuracy(ctx, Out, Indices, Label):
+    """Top-k accuracy (reference accuracy_op.cc): a row is correct when
+    any of its `Indices` [N, k] (from top_k) is its label. `Accuracy` is
+    float32 [1], `Correct` and `Total` int32 [1]."""
+    label = _squeeze_label(Label).long()
+    n = label.shape[0]
+    correct = (Indices.long() == label[:, None]).any(dim=1).sum(
+        dtype=torch.int32).reshape(1)
+    return {"Accuracy": correct.float() / n, "Correct": correct,
+            "Total": torch.full((1,), n, dtype=torch.int32,
+                                device=Label.device)}
 
 
 @register_op("softmax_with_cross_entropy")

@@ -1,10 +1,10 @@
 """Math / elementwise / activation op rules (the slices' subset).
 
-Mirror of ``paddle_tpu/ops/math.py``: `elementwise_add`, `mul`, `matmul`,
-`scale`, `sum`, `mean`, `relu`, `cast`. Matrix products go to
-`torch.matmul`, as the JAX package leaves them to XLA; in float32 on the
-card they run in full float32 (`torch.backends.cuda.matmul.allow_tf32` is
-False by default).
+Mirror of ``paddle_tpu/ops/math.py``: `elementwise_add`, `mul`,
+`matmul`, `scale`, `sum`, `mean`, `relu`, `cast`, `softmax`, `top_k`.
+Matrix products go to `torch.matmul`, as the JAX package leaves them to
+XLA; in float32 on the card they run in full float32
+(`torch.backends.cuda.matmul.allow_tf32` is False by default).
 """
 
 from __future__ import annotations
@@ -92,3 +92,15 @@ def _sum(ctx, X):
 def _mean(ctx, X):
     return {"Out": X.mean().reshape(1)}
 
+
+@register_op("softmax")
+def _softmax(ctx, X):
+    return {"Out": torch.softmax(X, dim=ctx.attr("axis", -1))}
+
+
+@register_op("top_k")
+def _top_k(ctx, X):
+    """The k largest along the last dim, in descending order. Indices are
+    int64, the port's index dtype (``core/types.py``)."""
+    vals, idx = torch.topk(X, ctx.attr("k", 1), dim=-1)
+    return {"Out": vals, "Indices": idx}

@@ -1,6 +1,17 @@
-"""Neural-net op rules (the slice's subset): `layer_norm`, `dropout`.
+"""Neural-net op rules (the slices' subset): `conv2d`, `pool2d`,
+`batch_norm`, `layer_norm`, `dropout`.
 
-Mirror of ``paddle_tpu/ops/nn.py``. `dropout` is the JAX package's default
+Mirror of ``paddle_tpu/ops/nn.py``. The JAX package computes convs and
+pools in XLA (`lax.conv_general_dilated`, `lax.reduce_window`), outside
+any Pallas kernel; here they are torch's own (cuDNN on the card). Both
+take NCHW or NHWC. An NHWC tensor goes to torch as its NCHW view
+(`permute(0, 3, 1, 2)`, channels-last strides), which cuDNN runs without
+a copy, and the result's view back is NHWC again: only an average pool
+over windows takes a copy (`_window_pool` says why). `batch_norm`
+normalizes with the biased batch variance (the JAX package's `jnp.var`)
+and updates the running stats in place.
+
+`dropout` is the JAX package's default
 path, ``_bits_dropout``: one byte per element from a counter hash
 (murmur3's fmix32 over the element's linear index and the op's seed)
 decides keep at 1/256 resolution, bit for bit the JAX package's bits for
@@ -34,6 +45,7 @@ kernels (``ops/flash_attention.py``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .. import flags as _flags
 from ..core.registry import register_grad, register_op
@@ -90,6 +102,151 @@ def _bits_dropout(x, seed: int, p: float, scale: float):
     keep = _keep_bits(seed, x.shape, p, x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device)), keep
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _nchw(x, fmt):
+    """`x` as torch's NCHW: an NHWC tensor's view, no copy."""
+    return x if fmt == "NCHW" else x.permute(0, 3, 1, 2)
+
+
+def _from_nchw(y, fmt):
+    return y if fmt == "NCHW" else y.permute(0, 2, 3, 1)
+
+
+@register_op("conv2d")
+def _conv2d(ctx, Input, Filter, Bias=None):
+    """Conv in NCHW or NHWC (reference conv_op.cc `data_format`). Filter
+    is always stored OIHW, so parameters are layout-independent."""
+    fmt = ctx.attr("data_format", "NCHW")
+    out = _from_nchw(F.conv2d(
+        _nchw(Input, fmt), Filter, None,
+        stride=_pair(ctx.attr("strides", [1, 1])),
+        padding=_pair(ctx.attr("paddings", [0, 0])),
+        dilation=_pair(ctx.attr("dilations", [1, 1])),
+        groups=ctx.attr("groups", 1)), fmt)
+    if Bias is not None:
+        bshape = (1, -1, 1, 1) if fmt == "NCHW" else (1, 1, 1, -1)
+        out = out + Bias.reshape(bshape)
+    return {"Output": out}
+
+
+def _window_pool(x, ptype, ksize, strides, pads, exclusive):
+    """Max or average over (kh, kw) windows of NCHW `x`, padded by `pads`
+    on both sides of each spatial dim: max pads with -inf, an exclusive
+    average divides by the window's count of real elements, else by
+    kh * kw. Torch's pools take a pad of at most half the window; a wider
+    one is padded explicitly. An average pools a contiguous NCHW copy of
+    `x`: torch's CUDA avg_pool2d computes wrong grads for a channels-last
+    input (torch 2.11, CUDA 12.8, on an H100: errors of order 1 against
+    the host, `tests/test_torch_cuda.py`). ResNet's average pool is
+    global, a mean, and takes no copy."""
+    fits = all(p <= k // 2 for p, k in zip(pads, ksize))
+    if ptype == "max":
+        if fits:
+            return F.max_pool2d(x, ksize, strides, pads)
+        xp = F.pad(x, (pads[1], pads[1], pads[0], pads[0]),
+                   value=float("-inf"))
+        return F.max_pool2d(xp, ksize, strides)
+    x = x.contiguous()
+    if fits:
+        return F.avg_pool2d(x, ksize, strides, pads,
+                            count_include_pad=not exclusive,
+                            divisor_override=None if exclusive
+                            else ksize[0] * ksize[1])
+    padding = (pads[1], pads[1], pads[0], pads[0])
+    total = F.avg_pool2d(F.pad(x, padding), ksize, strides,
+                         divisor_override=1)
+    if not exclusive:
+        return total / (ksize[0] * ksize[1])
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return total / F.avg_pool2d(F.pad(ones, padding), ksize, strides,
+                                divisor_override=1)
+
+
+@register_op("pool2d")
+def _pool2d(ctx, X):
+    """Reference pool_op.cc: max or avg, global, adaptive (where the
+    output divides the input), NCHW or NHWC. `ceil_mode` is ignored, as
+    the JAX package ignores it: output sizes round down."""
+    ptype = ctx.attr("pooling_type", "max")
+    ksize = _pair(ctx.attr("ksize", [2, 2]))
+    fmt = ctx.attr("data_format", "NCHW")
+    spatial = (2, 3) if fmt == "NCHW" else (1, 2)
+    adaptive = ctx.attr("adaptive", False)
+    if ctx.attr("global_pooling", False) or adaptive:
+        oh, ow = ksize if adaptive else (1, 1)
+        h, w = X.shape[spatial[0]], X.shape[spatial[1]]
+        if adaptive and (oh < 1 or ow < 1):
+            raise ValueError(
+                "adaptive pool2d needs an explicit positive pool_size "
+                f"(the output grid); got {(oh, ow)}")
+        if (oh, ow) == (1, 1):
+            tiles, red = X, spatial
+        elif h % oh or w % ow:
+            raise NotImplementedError(
+                f"adaptive pool2d: output {(oh, ow)} must divide input "
+                f"{(h, w)} (unequal bins need ragged windows)")
+        elif fmt == "NCHW":
+            n, c = X.shape[0], X.shape[1]
+            tiles, red = X.reshape(n, c, oh, h // oh, ow, w // ow), (3, 5)
+        else:
+            n, c = X.shape[0], X.shape[3]
+            tiles, red = X.reshape(n, oh, h // oh, ow, w // ow, c), (2, 4)
+        keep = (oh, ow) == (1, 1)
+        if ptype == "max":
+            return {"Out": tiles.amax(dim=red, keepdim=keep)}
+        return {"Out": tiles.mean(dim=red, keepdim=keep)}
+    out = _window_pool(_nchw(X, fmt), ptype, ksize,
+                       _pair(ctx.attr("strides", [1, 1])),
+                       _pair(ctx.attr("paddings", [0, 0])),
+                       ctx.attr("exclusive", True))
+    return {"Out": _from_nchw(out, fmt)}
+
+
+@register_op("batch_norm")
+def _batch_norm(ctx, X, Scale, Bias, Mean, Variance):
+    """Reference batch_norm_op.cc, as the JAX package computes it: in
+    training, Y normalizes X by its batch mean and *biased* variance;
+    `SavedMean` is that mean and `SavedVariance` is rsqrt(var + eps), not
+    the variance. `MeanOut` and `VarianceOut` are the variables `Mean`
+    and `Variance` themselves (``layers/nn.py::batch_norm``): they are
+    updated in place, Mean <- momentum * Mean + (1 - momentum) * mean
+    (the same with the biased variance), and returned as the same
+    tensors, so the scope keeps its objects. A grad op's recompute of
+    this rule (``ctx.recompute``) leaves them alone: the forward op
+    updated them once. `is_test` normalizes by `Mean` and `Variance` and
+    passes them through."""
+    eps = ctx.attr("epsilon", 1e-5)
+    fmt = ctx.attr("data_layout", "NCHW")
+    shape = (1, -1) + (1,) * (X.ndim - 2) if fmt == "NCHW" \
+        else (1,) * (X.ndim - 1) + (-1,)
+    if ctx.attr("is_test", False):
+        inv = torch.rsqrt(Variance.float() + eps)
+        y = (X.float() - Mean.reshape(shape)) * inv.reshape(shape)
+        y = y * Scale.reshape(shape) + Bias.reshape(shape)
+        return {"Y": y.to(X.dtype), "MeanOut": Mean, "VarianceOut": Variance,
+                "SavedMean": Mean, "SavedVariance": inv}
+    # torch's batch norm in training mode without running stats: it
+    # normalizes by the biased variance and returns the batch mean and
+    # 1 / sqrt(var + eps) (the reference's SavedVariance)
+    x = X.float() if fmt == "NCHW" else X.float().movedim(-1, 1)
+    y, mean, inv = torch.native_batch_norm(
+        x, Scale.float(), Bias.float(), None, None, True, 0.0, eps)
+    y = y if fmt == "NCHW" else y.movedim(1, -1)
+    if not ctx.recompute:
+        m = ctx.attr("momentum", 0.9)
+        var = inv.detach().pow(-2) - eps
+        Mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+        Variance.mul_(m).add_(var, alpha=1.0 - m)
+    return {"Y": y.to(X.dtype), "MeanOut": Mean, "VarianceOut": Variance,
+            "SavedMean": mean, "SavedVariance": inv}
 
 
 @register_op("layer_norm")

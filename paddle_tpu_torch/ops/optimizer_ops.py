@@ -1,11 +1,12 @@
-"""Optimizer update op rules (the slice's subset): `adam`.
+"""Optimizer update op rules (the slices' subset): `momentum`, `adam`.
 
 Mirror of ``paddle_tpu/ops/optimizer_ops.py``. The JAX package writes
 each update as a pure function and lets XLA donate the state buffers;
-here the update is in place: `ParamOut`, `Moment1Out`, `Moment2Out` and
-the `Beta*PowOut` outputs are the input tensors themselves, updated, so a
-step never holds a second copy of the parameters or the moments (about
-1.1 GB at Transformer-base) and the scope keeps the same tensors.
+here the update is in place: `ParamOut`, `VelocityOut`, `Moment1Out`,
+`Moment2Out` and the `Beta*PowOut` outputs are the input tensors
+themselves, updated, so a step never holds a second copy of the
+parameters or their state (about 1.1 GB at Transformer-base) and the
+scope keeps the same tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +18,20 @@ from ..core.registry import register_op
 
 def _lr(LearningRate):
     return LearningRate.reshape(())
+
+
+@register_op("momentum")
+def _momentum(ctx, Param, Grad, Velocity, LearningRate):
+    """v <- mu * v + g; p <- p - lr * v, or with Nesterov
+    p <- p - (g + mu * v) * lr (reference momentum_op.h)."""
+    mu = ctx.attr("mu", 0.9)
+    lr = _lr(LearningRate)
+    Velocity.mul_(mu).add_(Grad)
+    if ctx.attr("use_nesterov", False):
+        Param.sub_((Grad + mu * Velocity) * lr)
+    else:
+        Param.sub_(lr * Velocity)
+    return {"ParamOut": Param, "VelocityOut": Velocity}
 
 
 @register_op("adam")

@@ -3,9 +3,10 @@
 The slice's subset of ``paddle_tpu/optimizer.py`` (reference
 python/paddle/fluid/optimizer.py: Optimizer base :36, accumulators,
 `minimize` :245 = append_backward + regularization + clip + update ops;
-Adam :452): the `Optimizer` base and `AdamOptimizer` (alias `Adam`),
-copied with their imports rewired, so `minimize` appends the same ops
-to the same program. The other optimizers are not ported yet.
+Adam :452): the `Optimizer` base, `MomentumOptimizer` (alias
+`Momentum`) and `AdamOptimizer` (alias `Adam`), copied with their
+imports rewired, so `minimize` appends the same ops to the same program.
+The other optimizers are not ported yet.
 """
 
 from __future__ import annotations
@@ -127,6 +128,28 @@ class Optimizer:
         return self._lr_var
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+                    "LearningRate": [self._lr_for_param(p).name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
@@ -162,4 +185,5 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

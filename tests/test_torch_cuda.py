@@ -1,7 +1,9 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
 PyTorch versions, small generations (fp32 and int8 cache) on the card
-against the host, and training steps of a one-layer Transformer-base on
-the card, with the bits dropout and with the flag-selected dropout kernel.
+against the host, training steps of a one-layer Transformer-base on
+the card, with the bits dropout and with the flag-selected dropout kernel,
+and the vision slice's conv, pool and batch-norm rules (cuDNN, NHWC) and
+a ResNet-50 step on the card against the host.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -776,3 +778,184 @@ def test_fetched_dropout_mask_on_card_equals_plain(dev):
     assert np.array_equal(m.view(np.int32), ref_mask.numpy().view(np.int32))
     assert np.array_equal(out.view(np.int32), ref_out.numpy().view(np.int32))
     assert np.array_equal(out2.view(np.int32), out.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the vision slice: conv, pool and batch norm through cuDNN in NHWC
+# ---------------------------------------------------------------------------
+
+def _rule(op_type, attrs, recompute=False, **ins):
+    from paddle_tpu_torch.core.registry import (LoweringContext, call_rule,
+                                                get_op_def)
+    dev = next(iter(ins.values())).device
+    return call_rule(get_op_def(op_type),
+                     LoweringContext(attrs, dev, recompute=recompute),
+                     {k: [v] for k, v in ins.items()})
+
+
+def _on_both(dev, op_type, attrs, outs, wrt, **ins):
+    """Run the rule on the card and on the host from the same values, with
+    the grads of `outs[0]` w.r.t. `wrt` for one random cotangent; returns
+    both (outputs + grads) lists."""
+    res = []
+    for d in (dev, torch.device("cpu")):
+        vals = {k: v.to(d).clone().requires_grad_(k in wrt)
+                for k, v in ins.items()}
+        got = _rule(op_type, attrs, **vals)
+        ys = [got[o][0] for o in outs]
+        cot = torch.from_numpy(np.random.RandomState(9).randn(
+            *ys[0].shape).astype(np.float32)).to(d)
+        grads = torch.autograd.grad(ys[0], [vals[k] for k in wrt], cot)
+        res.append(ys + list(grads))
+    return res
+
+
+def _close(a, b):
+    """Card against host: a conv's grads are sums over N * H * W
+    products, and cuDNN's algorithms (FFT, Winograd, implicit GEMM) err
+    in proportion to the sum's scale, so the absolute tolerance is TOL of
+    the tensor's largest magnitude (at least TOL)."""
+    a, b = a.detach().cpu(), b.detach()
+    torch.testing.assert_close(a, b, rtol=TOL,
+                               atol=TOL * max(1.0, float(b.abs().max())))
+
+
+def _assert_nhwc(t):
+    """An NHWC tensor laid out as NHWC: its NCHW view is channels-last,
+    so no layout copy was made on the way in or out of cuDNN."""
+    assert t.is_contiguous(), t.stride()
+    assert t.permute(0, 3, 1, 2).is_contiguous(
+        memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("stride,pad,dil,groups", [(1, 1, 1, 1), (2, 3, 1, 1),
+                                                   (2, 1, 2, 2)])
+def test_conv2d_nhwc_on_card_equals_host_without_copies(dev, stride, pad,
+                                                         dil, groups):
+    rng = np.random.RandomState(stride * 10 + pad)
+    x = torch.from_numpy(rng.randn(4, 17, 17, 32).astype(np.float32))
+    w = torch.from_numpy(rng.randn(64, 32 // groups, 3, 3).astype(
+        np.float32) * 0.1)
+    attrs = {"strides": [stride, stride], "paddings": [pad, pad],
+             "dilations": [dil, dil], "groups": groups, "data_format": "NHWC"}
+    card, host = _on_both(dev, "conv2d", attrs, ["Output"],
+                          ["Input", "Filter"], Input=x, Filter=w)
+    _assert_nhwc(card[0])
+    _assert_nhwc(card[1])           # dX
+    for a, b in zip(card, host):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("attrs", [
+    {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1]},
+    {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1], "exclusive": True},
+    {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1], "exclusive": False}])
+def test_pool2d_nhwc_on_card_equals_host(dev, attrs):
+    """Max pooling keeps NHWC without a copy; an average over windows
+    pools a contiguous NCHW copy (torch's CUDA avg_pool2d backward is
+    wrong for a channels-last input: `ops/nn.py::_window_pool`), and its
+    grads equal the host's."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(4, 28, 28, 64)
+                         .astype(np.float32))
+    card, host = _on_both(dev, "pool2d", dict(attrs, data_format="NHWC"),
+                          ["Out"], ["X"], X=x)
+    if attrs["pooling_type"] == "max":
+        _assert_nhwc(card[0])
+        _assert_nhwc(card[1])
+    for a, b in zip(card, host):
+        _close(a, b)
+
+
+def test_global_pool_nhwc_on_card_equals_host(dev):
+    x = torch.from_numpy(np.random.RandomState(4).randn(4, 7, 7, 256)
+                         .astype(np.float32))
+    card, host = _on_both(dev, "pool2d", {
+        "pooling_type": "avg", "global_pooling": True,
+        "data_format": "NHWC"}, ["Out"], ["X"], X=x)
+    assert card[0].shape == (4, 1, 1, 256)
+    for a, b in zip(card, host):
+        _close(a, b)
+
+
+def test_batch_norm_nhwc_on_card_equals_host_and_updates_once(dev):
+    """Training mode: Y, SavedMean, SavedVariance and the grads of X,
+    Scale and Bias equal the host's; the running stats are updated in
+    place by the biased variance, and a recompute leaves them alone."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy((rng.randn(8, 14, 14, 64) * 3 + 1).astype(
+        np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 64).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(64).astype(np.float32))
+    attrs = {"momentum": 0.9, "epsilon": 1e-5, "is_test": False,
+             "data_layout": "NHWC"}
+    res = []
+    for d in (dev, torch.device("cpu")):
+        mean, var = torch.zeros(64, device=d), torch.ones(64, device=d)
+        vals = {"X": x.to(d).requires_grad_(True),
+                "Scale": scale.to(d).requires_grad_(True),
+                "Bias": bias.to(d).requires_grad_(True)}
+        got = _rule("batch_norm", attrs, Mean=mean, Variance=var, **vals)
+        assert got["MeanOut"][0] is mean and got["VarianceOut"][0] is var
+        cot = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(d) \
+            if not res else res[0][-1].to(d)
+        grads = torch.autograd.grad(got["Y"][0], list(vals.values()), cot)
+        stats = (mean.clone(), var.clone())
+        _rule("batch_norm", attrs, recompute=True, Mean=mean, Variance=var,
+              **vals)
+        assert torch.equal(mean, stats[0]) and torch.equal(var, stats[1])
+        res.append([got["Y"][0], got["SavedMean"][0], got["SavedVariance"][0],
+                    *grads, mean, var, cot])
+    card, host = res
+    _assert_nhwc(card[0])
+    _assert_nhwc(card[3])           # dX
+    x64 = x.double().reshape(-1, 64)
+    torch.testing.assert_close(host[-2], (0.9 + 0.1 * x64.var(0, unbiased=False))
+                               .float(), atol=1e-5, rtol=1e-5)
+    for a, b in zip(card[:-1], host[:-1]):
+        _close(a, b)
+
+
+def test_resnet50_step_on_card_equals_host(dev):
+    """One Momentum step of ResNet-50 at 32 x 32, NHWC, batch 16 (the CPU
+    parity test's size) from one startup state on the card and on the
+    host: the loss to 1e-4 relative, the running stats to 1e-4, every
+    velocity (the step's grad) within 0.1 relative L2, as that test holds
+    the port against the JAX package (see its docstring for why), and no
+    kernel of the attention or dropout paths launched."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core.executor import fetch_var
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = resnet.build(class_dim=100, depth=50,
+                                  image_shape=(3, 32, 32), data_format="NHWC")
+        optimizer.Momentum(learning_rate=1e-3, momentum=0.9).minimize(
+            fetches["loss"])
+    scope0 = ptt.Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope0)
+    arrays = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
+    rng = np.random.RandomState(13)
+    feed = {"image": rng.rand(16, 32, 32, 3).astype(np.float32),
+            "label": rng.randint(0, 100, (16, 1)).astype(np.int64)}
+    out = {}
+    for side, place in (("card", ptt.CUDAPlace(0)), ("host", ptt.CPUPlace())):
+        scope = ptt.io.state_from_numpy(arrays, place)
+        native.reset_launches()
+        loss, = ptt.Executor(place).run(main, feed=feed,
+                                        fetch_list=[fetches["loss"]],
+                                        scope=scope)
+        assert not any(native.launches.values())
+        out[side] = (loss, {n: fetch_var(n, scope) for n in arrays})
+    assert np.isfinite(out["card"][0]).all()
+    np.testing.assert_allclose(out["card"][0], out["host"][0], rtol=1e-4)
+    stats = {op.inputs[s][0] for op in main.global_block().ops
+             if op.type == "batch_norm" for s in ("Mean", "Variance")}
+    for n in arrays:
+        a, b = out["card"][1][n], out["host"][1][n]
+        if n in stats:
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4, err_msg=n)
+        elif "velocity" in n:
+            assert np.linalg.norm(a - b) <= 0.1 * np.linalg.norm(b), n

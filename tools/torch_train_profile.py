@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Where paddle_tpu_torch's training step time goes on one NVIDIA card.
 
-    python3 tools/torch_train_profile.py [--steps N] [--out DIR]
+    python3 tools/torch_train_profile.py [--model transformer|resnet50]
+        [--steps N] [--out DIR]
     FLAGS_dropout_impl=pallas python3 tools/torch_train_profile.py ...
 
-Builds chip_smoke.py's train-base (its TRAIN_BASE, TRAIN_BATCH, Adam
-learning rate and fixed batch, imported from there), runs its startup
+Builds one of chip_smoke.py's training configurations, imported from
+there: train-base (`--model transformer`, the default: its TRAIN_BASE,
+TRAIN_BATCH, Adam learning rate and fixed batch) or train-resnet50
+(`--model resnet50`: RESNET50 at RESNET_BATCH with Momentum, its fixed
+synthetic batch staged on the card first). It runs the startup
 with `Executor(CUDAPlace(0))`, takes 3 warm-up steps, then N untraced
 steps (step wall on the host clock after `torch.cuda.synchronize()`) and
 one step under `torch.profiler`. The dropout path is the one the
@@ -14,9 +18,12 @@ one step under `torch.profiler`. The dropout path is the one the
 ``FLAGS_dropout_impl=pallas`` asks for the hand-written kernel); the
 report names it. The traced step reports the device's
 busy share (the union of kernel and copy intervals over the traced wall),
-the device time by kernel and by kernel group (GEMMs, the flash kernels,
-int64 elementwise kernels — the dropout op's counter hash — and the rest),
-and the device and host time by op type: each op and grad op of the
+the device time by kernel and by kernel group (train-base: GEMMs, the
+flash kernels, int64 elementwise kernels — the dropout op's counter hash
+— and the rest; train-resnet50: conv forward, dgrad and wgrad, batch
+norm, pooling, GEMMs, elementwise and the rest, plus the device time of
+the `momentum` ops' ranges), and the device and host time by op type:
+each op and grad op of the
 interpreter (``core/lowering.py``) runs inside a `record_function` range
 named after it, put there by this tool only. Kernels that autograd's
 engine launches from its own thread (the backward half of a generic grad
@@ -41,7 +48,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import TRAIN_BASE, TRAIN_BATCH, build_train, train_batch  # noqa: E402
+from chip_smoke import (RESNET_BATCH, TRAIN_BASE, TRAIN_BATCH,  # noqa: E402
+                        build_resnet, build_train, resnet_batch, train_batch)
 from tools.torch_serve_profile import device_breakdown  # noqa: E402
 
 
@@ -84,18 +92,37 @@ def by_op_type(prof, top=16):
     return ranked[:top]
 
 
-KERNEL_GROUPS = (("flash kernels", ("flash_",)),
-                 ("GEMMs", ("gemm", "xmma")),
-                 ("dropout kernel", ("dropout_kernel",)),
-                 ("int64 elementwise (dropout hash)", ("<long",)))
+KERNEL_GROUPS = {
+    "transformer": (("flash kernels", ("flash_",)),
+                    ("GEMMs", ("gemm", "xmma")),
+                    ("dropout kernel", ("dropout_kernel",)),
+                    ("int64 elementwise (dropout hash)", ("<long",))),
+    # cuDNN names a convolution kernel by its pass (fprop, dgrad, wgrad);
+    # its plain implicit-GEMM and Winograd kernels carry no pass in their
+    # names and count as forward. Its FFT convolutions (any pass) run
+    # complex GEMMs (cf32) between FFT kernels; its copies are the NHWC <->
+    # NCHW transposes it makes around a kernel that wants NCHW, and its
+    # filter flips and scalings
+    "resnet50": (("conv dgrad", ("dgrad",)),
+                 ("conv wgrad", ("wgrad",)),
+                 ("conv forward", ("fprop", "implicit_convolve", "winograd",
+                                   "convolve_sgemm", "convolve_common",
+                                   "conv2d")),
+                 ("conv FFT (any pass)", ("fft", "cf32")),
+                 ("cuDNN copies", ("nhwcToNchw", "nchwToNhwc", "flip_filter",
+                                   "scalePacked")),
+                 ("batch norm", ("batch_norm", "welford")),
+                 ("pooling", ("pool",)),
+                 ("GEMMs", ("gemm", "xmma", "cutlass")),
+                 ("elementwise", ("elementwise", "vectorized", "unrolled")))}
 
 
-def by_group(kernels):
-    """Device time of every kernel, summed by KERNEL_GROUPS (first match)."""
-    out = {name: 0.0 for name, _ in KERNEL_GROUPS}
+def by_group(kernels, groups):
+    """Device time of every kernel, summed by `groups` (first match)."""
+    out = {name: 0.0 for name, _ in groups}
     out["other"] = 0.0
     for k in kernels:
-        group = next((name for name, keys in KERNEL_GROUPS
+        group = next((name for name, keys in groups
                       if any(key in k["name"] for key in keys)), "other")
         out[group] += k["us"]
     return out
@@ -103,6 +130,8 @@ def by_group(kernels):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(KERNEL_GROUPS),
+                    default="transformer")
     ap.add_argument("--steps", type=int, default=5,
                     help="untraced steps timed after the warm-up")
     ap.add_argument("--out", help="directory for summary.json")
@@ -123,11 +152,21 @@ def main(argv=None) -> int:
     print(card, flush=True)
     impl = ptt.flags.get_flag("dropout_impl")
 
-    main_prog, startup, loss = build_train(ptt)
+    if args.model == "resnet50":
+        main_prog, startup, fetches = build_resnet(ptt)
+        loss = fetches["loss"]
+        feed = {k: torch.from_numpy(v).cuda()
+                for k, v in resnet_batch(RESNET_BATCH).items()}
+        name, batch, unit, per_step = ("train-resnet50", RESNET_BATCH,
+                                       "images", RESNET_BATCH)
+    else:
+        main_prog, startup, loss = build_train(ptt)
+        feed = train_batch(TRAIN_BATCH)
+        name, batch, unit, per_step = ("train-base", TRAIN_BATCH, "tokens",
+                                       TRAIN_BATCH * TRAIN_BASE["seq_len"])
     scope = ptt.Scope()
     exe = ptt.Executor(ptt.CUDAPlace(0))
     exe.run(startup, scope=scope)
-    feed = train_batch(TRAIN_BATCH)
 
     def step():
         out, = exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
@@ -153,19 +192,26 @@ def main(argv=None) -> int:
         trace = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
         dev = device_breakdown(trace, traced_s, top=None)
-    groups = by_group(dev["by_kernel"])
+    groups = by_group(dev["by_kernel"], KERNEL_GROUPS[args.model])
+    other = [k for k in dev["by_kernel"]
+             if by_group([k], KERNEL_GROUPS[args.model])["other"]][:12]
     dev["by_kernel"] = dev["by_kernel"][:16]
     ops_all = by_op_type(prof, top=None)
+    if args.model == "resnet50":
+        groups["momentum ops (their ranges)"] = sum(
+            r["device_us"] for r in ops_all if r["op"] == "momentum")
     ops = ops_all[:16]
-    tokens = TRAIN_BATCH * TRAIN_BASE["seq_len"]
     med = sorted(walls)[len(walls) // 2]
-    print(f"train-base (dropout_impl={impl}) [{card}]: untraced step median {med:.1f} ms "
-          f"({[round(w, 1) for w in walls]}), {tokens / med * 1e3:.0f} "
-          f"tokens/s; traced step {traced_s * 1e3:.1f} ms, device busy "
+    print(f"{name} (dropout_impl={impl}) [{card}]: untraced step median {med:.1f} ms "
+          f"({[round(w, 1) for w in walls]}), {per_step / med * 1e3:.1f} "
+          f"{unit}/s; traced step {traced_s * 1e3:.1f} ms, device busy "
           f"{dev['busy_us'] / 1e3:.1f} ms = {dev['busy_share']:.3f}; "
           f"launches {dict(native.launches)}", flush=True)
     print("device time by kernel group: " + ", ".join(
         f"{name} {us / 1e3:.1f} ms" for name, us in groups.items()))
+    print("the largest kernels in no group:")
+    for k in other:
+        print(f"  {k['us'] / 1e3:9.3f} ms  x{k['count']:<6d} {k['name']}")
     print("device time by kernel:")
     for k in dev["by_kernel"]:
         print(f"  {k['us'] / 1e3:9.3f} ms  x{k['count']:<6d} {k['name']}")
@@ -176,11 +222,11 @@ def main(argv=None) -> int:
         print(f"  {r['device_us'] / 1e3:9.3f} ms device {r['host_us'] / 1e3:9.3f}"
               f" ms host  x{r['count']:<5d} {r['op']}")
     summary = {"card": card, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "dropout_impl": impl,
-               "batch": TRAIN_BATCH,
-               "tokens_per_step": tokens, "untraced_step_ms": walls,
+               "torch": torch.__version__, "model": name,
+               "dropout_impl": impl, "batch": batch,
+               f"{unit}_per_step": per_step, "untraced_step_ms": walls,
                "traced_step_ms": traced_s * 1e3, "traced": dev,
-               "by_kernel_group_us": groups,
+               "by_kernel_group_us": groups, "other_kernels": other,
                "by_op_type": ops, "launches": dict(native.launches)}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
