@@ -11,7 +11,7 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    flash backward, paged decode over float32 and over int8 caches,
    dropout) and print the build time and the compiler's register /
    shared-memory report; for every instantiation of the three flash
-   kernels, its registers, spills, shared memory and the count of HMMA
+   kernels (float32 and bf16), its registers, spills, shared memory and the count of HMMA
    (tensor-core) instructions in ``cuobjdump -sass`` of the built library,
    which must not be 0 (and the forward must not spill at D <= 64); for
    every instantiation of the two paged decode sources' split and merge
@@ -39,6 +39,16 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    dead; the dropout kernel at [32, 256, 512] and [32, 256, 2048],
    rate 0.1, forward with and without `Mask` (train-base's forward writes
    none) and on a `dy`, bit for bit;
+3b. the bf16 instantiations that bf16 mixed precision launches: the
+   flash forward, dQ and dK/dV at train-base-amp's shape (B 64, H 8,
+   T 256, D 64, causal and not, rate 0.1 and 0) against their bf16 plain
+   versions (each element of O, dQ, dK, dV within BF16_ULPS bf16 ulps
+   of its plain value plus BF16_ROW_TOL of its row's largest and
+   BF16_ATOL of the tensor's, lse within LSE_TOL), two launches
+   bit-equal, their bounds at the bf16 tensor-core rate (989 TFLOP/s)
+   or in bytes, beside SDPA in bf16; their dropout masks bit for bit; the bf16 dropout kernel at
+   [64, 256, 512] and [64, 256, 2048], bit for bit against its plain
+   version, its keep bits the float32 kernel's;
 4. serve-base: save the tiny_lm (vocab 30000, d_model 512, 8 heads, 6
    layers, 8 slots, block 16, context 1024) from a seed, serve it with
    `InferenceServer(CUDAPlace(0))`, send 8 concurrent generate requests
@@ -84,10 +94,31 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    batch 2 and the MNIST CNN (NCHW) at batch 16 with Adam, losses within
    LOSS_RTOL, running stats and the other state within their stated
    tolerances;
-7. print one JSON line with every kernel's numbers, and write the runs'
-   numbers to ``chiprun_out/chip_smoke_train.json``.
+7. bf16 mixed precision, the configuration bench.py measures
+   (`Executor(CUDAPlace(0), amp=True)`): train-base-amp, 10 steps at
+   bench.py's batch 64 with the bits dropout and 4 under
+   ``FLAGS_dropout_impl=pallas``: per step the bf16 flash kernels launch
+   36 forwards, 18 dQ and 18 dK/dV, the float32 ones never; under
+   `pallas` the dropout kernel launches in bf16 at every gated site but
+   the two that no bf16 op reaches (after the embeddings), which run the
+   float32 kernel, as the JAX package runs them in float32;
+   train-resnet50-amp, 10 steps at batch 128, no kernel counter moving;
+   step ms, tokens or images a second, peak memory and the share of the
+   bf16 bound (3 x 2 x the multiply-adds model_macs counts, at 989
+   TFLOP/s); then card against host under AMP, 3 steps each from the
+   host's state: Transformer-base at batch 2 and dropout 0, ResNet-50 at
+   batch 2, each side also taking each step in float32; the card's
+   losses and state within AMP_NOISE_FACTOR times the distance bf16
+   puts between the host's own AMP and float32 steps, and the output of
+   every op of the policy's bf16 set bf16 in each AMP step (float32 in
+   each float32 one);
+8. print one JSON line with every kernel's numbers (the bf16
+   instantiations beside the float32 ones), and write the runs' numbers
+   to ``chiprun_out/chip_smoke_train.json``.
 
-Float32 matrix products run in full float32 (TF32 off, set below).
+Float32 matrix products run in full float32 (TF32 off, set below); under
+AMP an executor asks cuBLAS for float32 sums of bf16 products
+(``core/executor.py``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -177,6 +208,55 @@ MNIST_PARITY_BATCH, MNIST_LR = 16, 1e-3
 # package alone under the perturbation above.
 BN_STAT_ATOL = 1e-4
 STATE_L2_RTOL = 0.1
+# bf16 mixed precision (Executor(amp=True)), the configuration bench.py
+# measures. bf16 kernels vs their bf16 plain versions, per element: the
+# forward kernel rounds P to bf16 against its key tile's running max, the
+# plain version against the row's, so each term of P V lands up to half a
+# bf16 ulp apart, and an output sums them at its row's scale; dS and W_drop
+# round from float32 values summed in another order; and the output's own
+# rounding can fall an ulp apart. So an element may lie BF16_ULPS bf16 ulps
+# of |plain| plus BF16_ROW_TOL times its row's max |plain| (a row: one
+# query's, or one key's, D values) from the plain value, plus BF16_ATOL
+# times the tensor's max |plain| where float32 cancellation leaves the
+# plain value 0 (a causal first row's dQ: the kernel reads ~1e-6). On an
+# H100 at B 64 the largest error over its row's max was 0.0087, and the
+# largest share of this tolerance 0.47. lse is float32 from exact bf16
+# products
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 on the tensor cores, dense
+BF16_ULPS, BF16_ROW_TOL, BF16_ATOL = 1, 2.0 ** -6, 2.0 ** -16
+LSE_TOL = 1e-4
+# train-base-amp: bench.py's batch (64), at which the bf16 kernels are
+# also checked; the pallas run is shorter. Of its gated dropout ops, the
+# two right after the embeddings stay float32 under AMP (their input, an
+# embedding plus the position table, meets no op of the policy's bf16
+# set) and launch the float32 kernel, as the JAX package runs them
+TRAIN_AMP_BATCH, TRAIN_AMP_PALLAS_STEPS = 64, 4
+AMP_FLOAT32_DROPOUT_OPS = 2
+# card vs host under AMP, per step from the host's state: each bf16
+# product's output rounds to bf16 after a float32 sum taken in another
+# order on each side, so one in a few hundred outputs lands one bf16 ulp
+# (2^-8) apart, and the step carries that through every layer. How far
+# that goes depends on the model, so both are held to bf16's own effect
+# on the host: the host also takes each step in float32 from the same
+# state. The card's losses lie within AMP_NOISE_FACTOR times the host's
+# AMP-vs-float32 loss distance of the host's (or within AMP_LOSS_RTOL,
+# about 4 x the Transformer's reading): on an H100, Transformer-base at
+# batch 2 read 1.2e-5 against a host distance of 8.7e-6, ResNet-50 at
+# batch 2 (224 x 224, where batch norm sees 2 images) 1.1e-2 against
+# 2.3e-2. The loss cannot tell a card that ran float32 from one that ran
+# bf16 (the Transformer's float32 step lies 7.2e-6 from its AMP step),
+# so the output of every op of the policy's bf16 set is held to bf16 on
+# the card's AMP step (and to float32 on its float32 step). For each kind
+# of state (parameters, running stats, each optimizer slot), the largest
+# relative L2 distance between card and host lies within AMP_NOISE_FACTOR
+# times the largest between the host's AMP and float32 steps: bf16 moves a
+# grad far from its float32 value where it is a sum that cancels (the
+# JAX package's own AMP grads of a small ResNet lie 13 % from its
+# float32 ones at the median, 26 % at worst), and an Adam step flips the
+# sign of an update wherever a grad is near 0. tests/test_torch_amp.py
+# holds the port against the JAX package so (largest ratio seen: 1.5)
+AMP_LOSS_RTOL = 5e-5
+AMP_NOISE_FACTOR = 2.0
 
 
 def log(*a):
@@ -370,12 +450,14 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
 
 
 def _flash_instantiation(mangled):
-    """'flash_dq<64,drop>' for a mangled flash kernel name, else None."""
-    m = re.search(r"flash_(fwd|dq|dkv)_kernelILi(\d+)ELb([01])E", mangled)
+    """'flash_dq<64,drop>' (float32) or 'flash_dq_bf16<64,drop>' for a
+    mangled flash kernel name, else None."""
+    m = re.search(r"flash_(fwd|dq|dkv)(_bf16)?_kernelILi(\d+)ELb([01])E",
+                  mangled)
     if m is None:
         return None
-    return (f"flash_{m.group(1)}<{m.group(2)},"
-            f"{'drop' if m.group(3) == '1' else 'rate0'}>")
+    return (f"flash_{m.group(1)}{m.group(2) or ''}<{m.group(3)},"
+            f"{'drop' if m.group(4) == '1' else 'rate0'}>")
 
 
 def flash_build_report(native):
@@ -415,10 +497,15 @@ def flash_build_report(native):
     lib = native.lib()
     for inst, r in rep.items():
         d = int(inst.split("<")[1].split(",")[0])
-        r["smem_bytes"] = (lib.ptt_flash_fwd_smem_bytes(d)
-                           if inst.startswith("flash_fwd") else
-                           lib.ptt_flash_bwd_smem_bytes(
-                               int(inst.startswith("flash_dkv")), d))
+        bf16 = "_bf16<" in inst
+        if inst.startswith("flash_fwd"):
+            r["smem_bytes"] = (lib.ptt_flash_fwd_bf16_smem_bytes(d) if bf16
+                               else lib.ptt_flash_fwd_smem_bytes(d))
+        else:
+            dkv = int(inst.startswith("flash_dkv"))
+            r["smem_bytes"] = (lib.ptt_flash_bwd_bf16_smem_bytes(dkv, d)
+                               if bf16 else
+                               lib.ptt_flash_bwd_smem_bytes(dkv, d))
         if not r.get("hmma"):
             raise AssertionError(f"{inst}: no HMMA instruction in the built "
                                  f"library: its products do not run on the "
@@ -426,22 +513,26 @@ def flash_build_report(native):
         if inst.startswith("flash_fwd") and d <= 64 \
                 and r.get("spill_bytes", 0) != 0:
             raise AssertionError(f"{inst} spills {r['spill_bytes']} bytes")
-    if len(rep) != 18:
-        raise AssertionError(f"expected 18 flash instantiations (forward, dQ "
-                             f"and dK/dV x D 32/64/128 x rate 0/dropout), "
-                             f"found {sorted(rep)}")
+    if len(rep) != 36:
+        raise AssertionError(f"expected 36 flash instantiations (forward, dQ "
+                             f"and dK/dV x D 32/64/128 x rate 0/dropout x "
+                             f"float32/bf16), found {sorted(rep)}")
     return rep
 
 
-def check_dropout_mask(torch, fa, T=128, B=2, H=8, rate=0.5):
+def check_dropout_mask(torch, fa, T=128, B=2, H=8, rate=0.5,
+                       dtype="float32"):
     """With T == D, identity matrices expose each kernel's dropout mask:
     the forward's out with V = I, dQ with K = I and delta = 0, and dV
     with dO = I are zero exactly where a weight was dropped. All three
-    must equal the plain version's mask bit for bit."""
+    instantiations of `dtype` must equal the plain version's mask bit
+    for bit."""
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     q, k, v, do = (torch.randn(B, H, T, T, device="cuda", generator=g)
-                   for _ in range(4))
-    eye = torch.eye(T, device="cuda").expand(B, H, T, T).contiguous()
+                   .to(dt) for _ in range(4))
+    eye = torch.eye(T, device="cuda", dtype=dt).expand(B, H, T,
+                                                       T).contiguous()
     zero = torch.zeros(B, H, T, device="cuda")
     dropped = ~fa._attention_keep(ATTN_SEED, B * H, T, T, rate,
                                   "cuda").reshape(B, H, T, T)
@@ -449,14 +540,115 @@ def check_dropout_mask(torch, fa, T=128, B=2, H=8, rate=0.5):
     dq = fa._flash_dq(q, eye, v, do, lse, zero, False, 0.1, rate, ATTN_SEED)
     _, dv = fa._flash_dkv(q, k, v, eye, lse, zero, False, 0.1, rate,
                           ATTN_SEED)
-    for name, got, want in (("flash_fwd", out == 0, dropped),
-                            ("flash_dq", dq == 0, dropped),
-                            ("flash_dkv", dv == 0, dropped.transpose(-1, -2))):
+    sfx = "" if dtype == "float32" else "_bf16"
+    for name, got, want in ((f"flash_fwd{sfx}", out == 0, dropped),
+                            (f"flash_dq{sfx}", dq == 0, dropped),
+                            (f"flash_dkv{sfx}", dv == 0,
+                             dropped.transpose(-1, -2))):
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: dropout mask differs from the "
                                  f"plain version's in "
                                  f"{int((got != want).sum())} weights")
     return float(dropped.float().mean())
+
+
+def _bf16_err(torch, tag, got, want):
+    """(max |got - want|, the largest share of its tolerance an element
+    used) for two bf16 tensors [..., D]; raises where an element lies
+    further from the plain value than BF16_ULPS bf16 ulps of |plain| plus
+    BF16_ROW_TOL times its row's largest |plain| plus BF16_ATOL times the
+    largest of all."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{tag}: dtypes {got.dtype}, {want.dtype}")
+    err = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    # one bf16 ulp at |plain|: 2^(e - 8) for |plain| = m 2^e, m in [0.5, 1)
+    _, e = torch.frexp(mag.clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    tol = (BF16_ULPS * ulp + BF16_ROW_TOL * mag.amax(-1, keepdim=True)
+           + BF16_ATOL * mag.max())
+    share = float((err / tol.clamp_min(2.0 ** -126)).max())
+    if not share <= 1.0:
+        raise AssertionError(f"{tag}: an element at {share:.3g} of its "
+                             f"tolerance ({BF16_ULPS} bf16 ulps of |plain| "
+                             f"+ {BF16_ROW_TOL} x its row's max |plain| + "
+                             f"{BF16_ATOL} x max|plain|); "
+                             f"max abs error {float(err.max())}")
+    return float(err.max()), share
+
+
+def check_train_kernels_bf16(torch, fa, flush, B, H, T, D, causal, rate):
+    """The bf16 instantiations of the training path's three kernels at one
+    shape, each against its bf16 plain version on the same inputs, two
+    launches bit-equal; returns their numbers: each output's max abs error
+    and the largest share of its per-element tolerance used (`_bf16_err`;
+    lse: absolute)."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9 * T + int(causal))
+    q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    sm, seed = D ** -0.5, ATTN_SEED
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed)
+    delta = fa.flash_delta(out, do)
+    dq = fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate, seed)
+    dk, dv = fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, seed)
+    ref = fa._attention_reference(q, k, v, causal, sm, rate, seed)
+    ref_lse = fa._lse_reference(q, k, causal, sm)
+    refs = fa._flash_backward_reference(q, k, v, out, lse, do, causal, sm,
+                                        rate, seed)
+    torch.cuda.synchronize()
+    tag = f"B={B} H={H} T={T} D={D} causal={causal} rate={rate} bf16"
+    res = dict(B=B, H=H, T=T, D=D, causal=causal, rate=rate)
+    res["fwd_err"], res["fwd_share"] = _bf16_err(
+        torch, f"flash_fwd_bf16 {tag}", out, ref)
+    res["lse_err"] = float((lse - ref_lse).abs().max())
+    if not res["lse_err"] <= LSE_TOL:
+        raise AssertionError(f"flash_fwd_bf16 {tag}: lse max error "
+                             f"{res['lse_err']} > {LSE_TOL}")
+    res["dq_err"], res["dq_share"] = _bf16_err(torch, f"flash_dq_bf16 {tag}",
+                                             dq, refs[0])
+    dk_err = _bf16_err(torch, f"flash_dkv_bf16 {tag} dk", dk, refs[1])
+    dv_err = _bf16_err(torch, f"flash_dkv_bf16 {tag} dv", dv, refs[2])
+    res["dkv_err"] = max(dk_err[0], dv_err[0])
+    res["dkv_share"] = max(dk_err[1], dv_err[1])
+    again = (*fa._flash_forward(q, k, v, causal, sm, rate, seed),
+             fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate, seed),
+             *fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, seed))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                          (out, lse, dq, dk, dv), again):
+        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(a.view(view), b.view(view)):
+            raise AssertionError(f"{name} {tag}: two launches on the same "
+                                 f"inputs differ")
+    res["fwd_ms"] = time_ms(torch, lambda: fa._flash_forward(
+        q, k, v, causal, sm, rate, seed), flush)
+    res["fwd_plain_ms"] = time_ms(torch, lambda: fa._attention_reference(
+        q, k, v, causal, sm, rate, seed), flush)
+    res["fwd_library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=sm, dropout_p=rate), flush)
+    res["dq_ms"] = time_ms(torch, lambda: fa._flash_dq(
+        q, k, v, do, lse, delta, causal, sm, rate, seed), flush)
+    res["dkv_ms"] = time_ms(torch, lambda: fa._flash_dkv(
+        q, k, v, do, lse, delta, causal, sm, rate, seed), flush)
+    res["bwd_plain_ms"] = time_ms(torch, lambda: fa._flash_backward_reference(
+        q, k, v, out, lse, do, causal, sm, rate, seed), flush)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             scale=sm)
+    res["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, do, retain_graph=True), flush)
+    half = 0.5 if causal else 1.0
+    bht, bhtd = B * H * T, B * H * T * D
+    # 2 bytes an element of q, k, v, o, do and the grads, 4 of lse and
+    # delta; products at the bf16 tensor-core rate
+    for name, n_products, n_tensors, n_rows in (("fwd", 2, 4, 1),
+                                                ("dq", 3, 5, 2),
+                                                ("dkv", 4, 6, 2)):
+        work = (n_products * 2.0 * bhtd * T * half,
+                n_tensors * bhtd * 2.0 + n_rows * bht * 4.0)
+        res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = _bound(
+            *work, PEAK_BF16_FLOPS)
+    return res
 
 
 def _split_numbers(P, pa, H, Dh, BS, max_b, seq):
@@ -650,16 +842,20 @@ def paged_build_report(native):
     return rep
 
 
-def check_dropout_kernel(torch, dk, flush, shape, rate=0.1):
-    """The dropout kernel at one of the train path's shapes: the forward
-    with Mask (Out and Mask in one pass, as a fetched Mask takes it), the
-    forward as train-base's op runs it (no Mask: nothing reads it) and the
-    backward's launch on a `dy`, each equal to the plain version bit for
-    bit; times of all three, of the plain version and of
+def check_dropout_kernel(torch, dk, flush, shape, rate=0.1,
+                         dtype="float32"):
+    """The dropout kernel's `dtype` instantiation at one of the train
+    path's shapes: the forward with Mask (Out and Mask in one pass, as a
+    fetched Mask takes it), the forward as train-base's op runs it (no
+    Mask: nothing reads it) and the backward's launch on a `dy`, each
+    equal to the plain version bit for bit, and in bf16 the keep bits of
+    the float32 kernel; times of all three, of the plain version and of
     `torch.nn.functional.dropout`."""
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED + shape[-1])
-    x = torch.randn(*shape, device="cuda", generator=g)
-    dy = torch.randn(*shape, device="cuda", generator=g)
+    x32 = torch.randn(*shape, device="cuda", generator=g)
+    x = x32.to(dt)
+    dy = torch.randn(*shape, device="cuda", generator=g).to(dt)
     seed = ATTN_SEED
     out, mask = dk.dropout_forward(x, seed, rate, want_mask=True)
     op_out, _ = dk.dropout_forward(x, seed, rate)
@@ -667,18 +863,24 @@ def check_dropout_kernel(torch, dk, flush, shape, rate=0.1):
     ref_out, ref_mask = dk.dropout_reference(x, seed, rate)
     ref_dx, _ = dk.dropout_reference(dy, seed, rate)
     torch.cuda.synchronize()
+    bits = torch.int32 if x.element_size() == 4 else torch.int16
     for name, a, b in (("Out", out, ref_out), ("Mask", mask, ref_mask),
                        ("Out without Mask", op_out, ref_out),
                        ("dX", dx, ref_dx)):
-        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        if not torch.equal(a.view(bits), b.view(bits)):
             raise AssertionError(
-                f"dropout {tuple(shape)} rate {rate}: {name} differs from "
-                f"the plain version's in "
-                f"{int((a.view(torch.int32) != b.view(torch.int32)).sum())} "
-                f"elements")
+                f"dropout {tuple(shape)} {dtype} rate {rate}: {name} differs "
+                f"from the plain version's in "
+                f"{int((a.view(bits) != b.view(bits)).sum())} elements")
+    if dt != torch.float32 and not torch.equal(
+            mask.float(), dk.dropout_forward(x32, seed, rate,
+                                             want_mask=True)[1]):
+        raise AssertionError(f"dropout {tuple(shape)} {dtype}: its keep bits "
+                             f"differ from the float32 kernel's")
     n = x.numel()
-    res = dict(shape=list(shape), rate=rate, err=0.0,
-               kept=float(mask.mean()))
+    res = dict(shape=list(shape), dtype=dtype, rate=rate, err=0.0,
+               kept=float(mask.float().mean()),
+               scale=dk.drop_scale(rate, dt))
     res["fwd_ms"] = time_ms(torch, lambda: dk.dropout_forward(
         x, seed, rate, want_mask=True), flush)
     res["op_ms"] = time_ms(torch, lambda: dk.dropout_forward(x, seed, rate),
@@ -689,10 +891,11 @@ def check_dropout_kernel(torch, dk, flush, shape, rate=0.1):
         x, seed, rate), flush)
     res["library_ms"] = time_ms(torch, lambda: torch.nn.functional.dropout(
         x, rate, training=True), flush)
-    # about 20 integer operations an element, against 12 bytes with Mask,
-    # 8 without (the op's forward and the launch on dy alike)
-    res["fwd_bound_ms"], res["fwd_bound_by"] = _bound(0.0, 12.0 * n)
-    res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(0.0, 8.0 * n)
+    # about 20 integer operations an element, against one read and one
+    # write of the tensor, and one more write with Mask
+    e = x.element_size()
+    res["fwd_bound_ms"], res["fwd_bound_by"] = _bound(0.0, 3.0 * e * n)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = _bound(0.0, 2.0 * e * n)
     return res
 
 
@@ -971,17 +1174,20 @@ def gated_dropout_ops(program):
     return n
 
 
-def run_train_base(torch, ptt, native, impl):
-    """TRAIN_STEPS steps of train-base on the card with
-    ``FLAGS_dropout_impl`` at `impl`; returns the numbers, with the launch
-    counts of exactly those steps."""
+def run_train_base(torch, ptt, native, impl, amp=False, batch=TRAIN_BATCH,
+                   steps=TRAIN_STEPS):
+    """`steps` steps of train-base at `batch` on the card with
+    ``FLAGS_dropout_impl`` at `impl`, under bf16 mixed precision when
+    `amp`; returns the numbers, with the launch counts of exactly those
+    steps."""
     import numpy as np
     main, startup, loss = build_train(ptt)
     n_gated = gated_dropout_ops(main)
+    n_f32 = AMP_FLOAT32_DROPOUT_OPS if amp else n_gated
     scope = ptt.Scope()
-    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe = ptt.Executor(ptt.CUDAPlace(0), amp=amp)
     exe.run(startup, scope=scope)
-    feed = train_batch(TRAIN_BATCH)
+    feed = train_batch(batch)
     # an earlier phase's executor and its prepared programs refer to each
     # other: collect them, or their scope's tensors count towards this peak
     gc.collect()
@@ -992,7 +1198,7 @@ def run_train_base(torch, ptt, native, impl):
     ptt.flags.set_flag("dropout_impl", impl)
     try:
         native.reset_launches()
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             t0 = time.perf_counter()
             out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
             torch.cuda.synchronize()
@@ -1002,30 +1208,42 @@ def run_train_base(torch, ptt, native, impl):
     finally:
         ptt.flags.set_flag("dropout_impl", "auto")
     peak = torch.cuda.max_memory_allocated()
+    tag = f"train-base{'-amp' if amp else ''} ({impl})"
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train-base ({impl}) losses not finite: "
-                             f"{losses}")
-    if not max(losses[-3:]) < min(losses[:3]):
-        raise AssertionError(f"train-base ({impl}) loss did not fall: "
-                             f"{losses}")
+        raise AssertionError(f"{tag} losses not finite: {losses}")
+    k = min(3, steps // 2)
+    if not max(losses[-k:]) < min(losses[:k]):
+        raise AssertionError(f"{tag} loss did not fall: {losses}")
     n_attn = 3 * TRAIN_BASE["n_layer"]
+    sfx = "_bf16" if amp else ""
     want = dict.fromkeys(launches, 0)
-    want.update(flash_fwd=2 * n_attn * TRAIN_STEPS,
-                flash_dq=n_attn * TRAIN_STEPS, flash_dkv=n_attn * TRAIN_STEPS)
+    want.update({f"flash_fwd{sfx}": 2 * n_attn * steps,
+                 f"flash_dq{sfx}": n_attn * steps,
+                 f"flash_dkv{sfx}": n_attn * steps})
     if impl == "pallas":        # the forward and the grad of every gated op
         if n_gated < 1:
             raise AssertionError("no dropout op of train-base passes the gate")
-        want["dropout"] = 2 * n_gated * TRAIN_STEPS
+        want["dropout"] = 2 * n_f32 * steps
+        if amp:
+            want["dropout_bf16"] = 2 * (n_gated - n_f32) * steps
     # nothing in a step reads a dropout op's Mask: no launch writes it
     want["dropout_mask"] = 0
     if launches != want:
-        raise AssertionError(f"train-base ({impl}) launches {launches}, "
-                             f"expected {want}")
-    last = sorted(step_ms[-5:])
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    last = sorted(step_ms[1:][-5:])     # the first step sets up cuBLAS
     med = last[len(last) // 2]
-    return dict(impl=impl, losses=losses, step_ms=step_ms, step_ms_median=med,
-                tokens_per_s=TRAIN_BATCH * TRAIN_BASE["seq_len"] / med * 1e3,
-                peak_bytes=peak, launches=launches, gated_dropout_ops=n_gated)
+    # model work as model_macs counts it (the products of `mul`; the
+    # attention inside the flash kernels is not counted), forward and two
+    # backward products, against the bf16 tensor-core peak
+    step_flop = 3 * 2 * model_macs(main) * batch
+    bound_ms = step_flop / PEAK_BF16_FLOPS * 1e3
+    return dict(impl=impl, amp=amp, batch=batch, steps=steps, losses=losses,
+                step_ms=step_ms, step_ms_median=med,
+                tokens_per_s=batch * TRAIN_BASE["seq_len"] / med * 1e3,
+                peak_bytes=peak, launches=launches, gated_dropout_ops=n_gated,
+                float32_dropout_ops=n_f32 if amp else None,
+                step_flop=step_flop, bf16_bound_ms=bound_ms,
+                bf16_bound_share=bound_ms / med)
 
 
 def run_train_parity(torch, ptt, dropout_rate, impl):
@@ -1110,15 +1328,16 @@ def model_macs(program):
     return macs
 
 
-def run_train_resnet50(torch, ptt, native):
+def run_train_resnet50(torch, ptt, native, amp=False):
     """RESNET_STEPS steps of train-resnet50 on the card on one fixed batch,
-    staged on the card first (bench.py stages its batches so); returns
-    the numbers, with the launch counts of exactly those steps."""
+    staged on the card first (bench.py stages its batches so), under bf16
+    mixed precision when `amp`; returns the numbers, with the launch
+    counts of exactly those steps."""
     import numpy as np
     main, startup, fetches = build_resnet(ptt)
     loss = fetches["loss"]
     scope = ptt.Scope()
-    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe = ptt.Executor(ptt.CUDAPlace(0), amp=amp)
     exe.run(startup, scope=scope)
     feed = {k: torch.from_numpy(v).cuda()
             for k, v in resnet_batch(RESNET_BATCH).items()}
@@ -1138,17 +1357,18 @@ def run_train_resnet50(torch, ptt, native):
         losses.append(float(np.asarray(out).reshape(-1)[0]))
     launches = dict(native.launches)
     peak = torch.cuda.max_memory_allocated()
+    tag = f"train-resnet50{'-amp' if amp else ''}"
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train-resnet50 losses not finite: {losses}")
+        raise AssertionError(f"{tag} losses not finite: {losses}")
     if any(launches.values()):
-        raise AssertionError(f"train-resnet50 launched a kernel of the "
-                             f"attention or dropout paths: {launches}")
+        raise AssertionError(f"{tag} launched a kernel of the attention or "
+                             f"dropout paths: {launches}")
     last = sorted(step_ms[-5:])
     med = last[len(last) // 2]
-    bound_ms = step_flop / PEAK_F32_FLOPS * 1e3
+    bound_ms = step_flop / (PEAK_BF16_FLOPS if amp else PEAK_F32_FLOPS) * 1e3
     types = [op.type for op in main.global_block().ops]
     del scope, exe
-    return dict(losses=losses, step_ms=step_ms, step_ms_median=med,
+    return dict(amp=amp, losses=losses, step_ms=step_ms, step_ms_median=med,
                 images_per_s=RESNET_BATCH / med * 1e3, peak_bytes=peak,
                 launches=launches, macs_per_image=macs, step_flop=step_flop,
                 bound_ms=bound_ms, bound_share=bound_ms / med,
@@ -1156,60 +1376,137 @@ def run_train_resnet50(torch, ptt, native):
                                              for t in sorted(set(types))})
 
 
-def run_vision_parity(torch, ptt, name, main, startup, loss, feed, steps):
+def _state_kind(name):
+    """A persistable's kind: an optimizer slot, or a parameter."""
+    for slot in ("moment1", "moment2", "velocity", "pow_acc"):
+        if slot in name:
+            return slot
+    return "parameters"
+
+
+def _rel_l2(np, a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def run_step_parity(torch, ptt, name, main, startup, loss, feed, steps,
+                    amp=False):
     """`steps` steps of `main` on `feed`, each on the card and on the host
     from the host's state after the step before (the first from one
-    startup state, run on the card); returns both sides' losses and the
-    largest share of its tolerance that a persistable used. Fails unless
-    every loss stays above 0.1, the card's agree with the host's within
-    LOSS_RTOL, the running stats within BN_STAT_ATOL + LOSS_RTOL * |host|
-    and every other persistable within STATE_L2_RTOL (relative L2)."""
+    startup state, run on the card), under bf16 mixed precision when
+    `amp`; returns both sides' losses and the largest share of its
+    tolerance that a persistable used. Fails unless every loss stays
+    above 0.1, the card's agree with the host's within LOSS_RTOL, the
+    running stats within BN_STAT_ATOL + LOSS_RTOL * |host| and every other
+    persistable within STATE_L2_RTOL (relative L2). Under AMP each side
+    also takes each step in float32 from the same state, and the card is
+    held to bf16's own effect on the host (AMP_NOISE_FACTOR above), and
+    the output of each op of the policy's bf16 set must be bf16 in every
+    AMP step and float32 in every float32 one; the card's float32 losses
+    are for the record."""
     import numpy as np
     from paddle_tpu_torch.core.executor import fetch_var
+    from paddle_tpu_torch.core.registry import AMP_BF16_OPS
     scope0 = ptt.Scope()
     ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope0)
     state = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
     del scope0
     stats = {op.inputs[s][0] for op in main.global_block().ops
              if op.type == "batch_norm" for s in ("Mean", "Variance")}
+    # the first output of every forward product, convolution and attention
+    probes = [op.output_arg_names[0] for op in main.global_block().ops
+              if op.type in AMP_BF16_OPS] if amp else []
     losses = {"card": [], "host": []}
     stat_share = l2_share = 0.0
+    sides = [("card", ptt.CUDAPlace(0), amp), ("host", ptt.CPUPlace(), amp)]
+    if amp:
+        losses.update(card_float32=[], host_float32=[])
+        sides += [("card_float32", ptt.CUDAPlace(0), False),
+                  ("host_float32", ptt.CPUPlace(), False)]
     for _ in range(steps):
         after = {}
-        for side, place in (("card", ptt.CUDAPlace(0)),
-                            ("host", ptt.CPUPlace())):
+        for side, place, side_amp in sides:
             scope = ptt.io.state_from_numpy(state, place)
-            out, = ptt.Executor(place).run(main, feed=feed,
-                                           fetch_list=[loss], scope=scope)
-            losses[side].append(float(np.asarray(out).reshape(-1)[0]))
+            out, *probed = ptt.Executor(place, amp=side_amp).run(
+                main, feed=feed, fetch_list=[loss] + probes, scope=scope,
+                return_numpy=False)
+            want = torch.bfloat16 if side_amp else torch.float32
+            wrong = {n: t.dtype for n, t in zip(probes, probed)
+                     if t.dtype != want}
+            if wrong:
+                raise AssertionError(f"{name} parity: {side} step made "
+                                     f"{wrong}, not {want}")
+            del probed
+            losses[side].append(float(out.reshape(-1)[0]))
             after[side] = {n: fetch_var(n, scope) for n in state}
             del scope
+        dist, noise = {}, {}
         for n, b in after["host"].items():
             a = after["card"][n]
-            if n in stats:
+            if not np.issubdtype(b.dtype, np.floating):
+                continue
+            if amp:
+                kind = "running stats" if n in stats else _state_kind(n)
+                dist[kind] = max(dist.get(kind, 0.0), _rel_l2(np, a, b))
+                noise[kind] = max(noise.get(kind, 0.0), _rel_l2(
+                    np, after["host_float32"][n], b))
+            elif n in stats:
                 stat_share = max(stat_share, float((np.abs(a - b) / (
                     BN_STAT_ATOL + LOSS_RTOL * np.abs(b))).max()))
-            elif np.issubdtype(b.dtype, np.floating):
-                l2_share = max(l2_share, float(np.linalg.norm(a - b) / (
-                    STATE_L2_RTOL * max(np.linalg.norm(b), 1e-30))))
+            else:
+                l2_share = max(l2_share, _rel_l2(np, a, b) / STATE_L2_RTOL)
+        for kind, d in dist.items():
+            share = d / max(AMP_NOISE_FACTOR * noise[kind], 1e-30)
+            if kind == "running stats":
+                stat_share = max(stat_share, share)
+            else:
+                l2_share = max(l2_share, share)
         state = after["host"]
     torch.cuda.empty_cache()
+
+    def rel_of(x, y):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses[x],
+                                                       losses[y]))
+
+    rel = rel_of("card", "host")
+    loss_rtol = LOSS_RTOL
+    if amp:
+        host_noise = rel_of("host", "host_float32")
+        loss_rtol = max(AMP_LOSS_RTOL, AMP_NOISE_FACTOR * host_noise)
+        log(f"{name} parity: losses {losses}; card vs host {rel:.3g}, "
+            f"card vs its float32 step {rel_of('card', 'card_float32'):.3g}, "
+            f"host vs its float32 step {host_noise:.3g}")
     if not min(losses["card"] + losses["host"]) > 0.1:
         raise AssertionError(f"{name} parity: a loss fell below 0.1, where "
                              f"relative errors say little: {losses}")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
-                                                  losses["host"]))
-    if not rel <= LOSS_RTOL:
+    if not rel <= loss_rtol:
         raise AssertionError(f"{name} parity: card losses {losses['card']} "
                              f"vs host {losses['host']}: relative error "
-                             f"{rel} > {LOSS_RTOL}")
+                             f"{rel} > {loss_rtol}")
+    l2_tol = (f"{AMP_NOISE_FACTOR} x the host's AMP-vs-float32 distance"
+              if amp else f"{STATE_L2_RTOL} relative L2")
     if not (stat_share <= 1.0 and l2_share <= 1.0):
         raise AssertionError(f"{name} parity: running stats at {stat_share} "
                              f"of their tolerance, other state at "
-                             f"{l2_share} of STATE_L2_RTOL")
+                             f"{l2_share} of {l2_tol}")
     return dict(losses=losses, rel_err=rel, n_stats=len(stats),
                 n_state=len(state), stat_share=stat_share,
-                l2_share=l2_share, steps=steps)
+                l2_share=l2_share, steps=steps, amp=amp,
+                loss_rtol=loss_rtol, l2_tol=l2_tol, bf16_probes=len(probes))
+
+
+def run_amp_parity(torch, ptt):
+    """Card against host under AMP, per step from the host's state:
+    train-base at the parity batch and dropout 0, and ResNet-50 at batch
+    2."""
+    main, startup, loss = build_train(ptt, dropout_rate=0.0)
+    out = {"transformer": run_step_parity(
+        torch, ptt, "transformer-amp", main, startup, loss,
+        train_batch(PARITY_BATCH), PARITY_STEPS, amp=True)}
+    main, startup, fetches = build_resnet(ptt, lr=RESNET_PARITY_LR)
+    out["resnet50"] = run_step_parity(
+        torch, ptt, "resnet50-amp", main, startup, fetches["loss"],
+        resnet_batch(RESNET_PARITY_BATCH), PARITY_STEPS, amp=True)
+    return out
 
 
 def run_resnet50_and_mnist_parity(torch, ptt):
@@ -1217,7 +1514,7 @@ def run_resnet50_and_mnist_parity(torch, ptt):
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.models import mnist
     main, startup, fetches = build_resnet(ptt, lr=RESNET_PARITY_LR)
-    out = {"resnet50": run_vision_parity(
+    out = {"resnet50": run_step_parity(
         torch, ptt, "resnet50", main, startup, fetches["loss"],
         resnet_batch(RESNET_PARITY_BATCH), PARITY_STEPS)}
     main, startup = ptt.Program(), ptt.Program()
@@ -1229,7 +1526,7 @@ def run_resnet50_and_mnist_parity(torch, ptt):
                 np.float32),
             "label": rng.randint(0, 10, (MNIST_PARITY_BATCH, 1)).astype(
                 np.int64)}
-    out["mnist"] = run_vision_parity(torch, ptt, "mnist", main, startup,
+    out["mnist"] = run_step_parity(torch, ptt, "mnist", main, startup,
                                      fetches["loss"], feed, PARITY_STEPS)
     return out
 
@@ -1378,6 +1675,48 @@ def main() -> int:
     dropped = check_dropout_mask(torch, fa)
     log(f"dropout mask of flash_fwd, flash_dq and flash_dkv equal to the plain "
         f"version's bit for bit (rate 0.5, {dropped:.4f} dropped)")
+
+    # 3b. the bf16 instantiations (bf16 mixed precision)
+    bf16_cases = [check_train_kernels_bf16(torch, fa, flush, TRAIN_AMP_BATCH,
+                                           8, 256, 64, causal, rate)
+                  for causal, rate in ((False, 0.1), (True, 0.1),
+                                       (False, 0.0), (True, 0.0))]
+    for c in bf16_cases:
+        log(f"bf16 train kernels B={c['B']} H={c['H']} T={c['T']} D={c['D']} "
+            f"causal={c['causal']} rate={c['rate']} [{card}]:")
+        log(f"  flash_fwd_bf16 max_abs_err {c['fwd_err']:.3g} "
+            f"({c['fwd_share']:.3g} of its tolerance), lse "
+            f"{c['lse_err']:.3g} (tol {LSE_TOL}), two launches bit-equal, "
+            f"kernel {c['fwd_ms']:.4f} ms plain {c['fwd_plain_ms']:.4f} ms "
+            f"sdpa bf16 {c['fwd_library_ms']:.4f} ms bound "
+            f"{c['fwd_bound_ms']:.4f} ms ({c['fwd_bound_by']}, bf16 at 989 "
+            f"TFLOP/s)")
+        for name in ("dq", "dkv"):
+            log(f"  flash_{name}_bf16 max_abs_err {c[name + '_err']:.3g} "
+                f"({c[name + '_share']:.3g} of its tolerance), "
+                f"two launches bit-equal, kernel {c[name + '_ms']:.4f} ms "
+                f"bound {c[name + '_bound_ms']:.4f} ms "
+                f"({c[name + '_bound_by']})")
+        log(f"  dq + dkv bf16 {c['dq_ms'] + c['dkv_ms']:.4f} ms; backward "
+            f"plain {c['bwd_plain_ms']:.4f} ms; sdpa bf16 backward at rate 0 "
+            f"{c['bwd_library_ms']:.4f} ms")
+    dropped_bf16 = check_dropout_mask(torch, fa, dtype="bfloat16")
+    log(f"dropout mask of flash_fwd_bf16, flash_dq_bf16 and flash_dkv_bf16 "
+        f"equal to the plain version's bit for bit (rate 0.5, "
+        f"{dropped_bf16:.4f} dropped)")
+    drop_cases_bf16 = [check_dropout_kernel(torch, dk, flush, shape,
+                                            dtype="bfloat16")
+                       for shape in ((TRAIN_AMP_BATCH, 256, 512),
+                                     (TRAIN_AMP_BATCH, 256, 2048))]
+    for c in drop_cases_bf16:
+        log(f"dropout {c['shape']} rate {c['rate']} bf16 (scale "
+            f"{c['scale']}), Out, Mask and dX equal to the plain version's "
+            f"bit for bit, keep bits equal to the float32 kernel's "
+            f"({c['kept']:.4f} kept): forward without Mask {c['op_ms']:.4f} "
+            f"ms (bound {c['bwd_bound_ms']:.4f} ms, {c['bwd_bound_by']}), "
+            f"with Mask {c['fwd_ms']:.4f} ms (bound {c['fwd_bound_ms']:.4f} "
+            f"ms), on dy {c['bwd_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+            f"F.dropout bf16 {c['library_ms']:.4f} ms [{card}]")
 
     # 4. the serving path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1540,7 +1879,56 @@ def main() -> int:
             f"{STATE_L2_RTOL} relative L2")
     log(f"vision parity: {time.perf_counter() - t0:.1f} s")
 
-    # 7. the kernels line: flash_fwd's headline numbers at the train path's
+    # 7. bf16 mixed precision: train-base-amp (bits dropout, then the
+    # dropout kernel), train-resnet50-amp, card vs host
+    amp_trains = {}
+    for impl, steps in (("auto", TRAIN_STEPS),
+                        ("pallas", TRAIN_AMP_PALLAS_STEPS)):
+        t0 = time.perf_counter()
+        amp_trains[impl] = tr = run_train_base(
+            torch, ptt, native, impl, amp=True, batch=TRAIN_AMP_BATCH,
+            steps=steps)
+        log(f"train-base-amp (dropout_impl={impl}): {steps} steps of batch "
+            f"{TRAIN_AMP_BATCH} x {TRAIN_BASE['seq_len']} in "
+            f"{time.perf_counter() - t0:.1f} s (build and startup included); "
+            f"losses {[round(x, 4) for x in tr['losses']]}")
+        log(f"train-base-amp (dropout_impl={impl}) on the card [{card}]: "
+            f"step {tr['step_ms_median']:.1f} ms (median of the last 5; all: "
+            f"{[round(x, 1) for x in tr['step_ms']]}), "
+            f"{tr['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{tr['peak_bytes'] / 2**30:.2f} GiB, bf16 bound "
+            f"{tr['bf16_bound_ms']:.2f} ms ({tr['step_flop'] / 1e12:.3f} "
+            f"TFLOP a step, the `mul` products x 3, at 989 TFLOP/s), "
+            f"{tr['bf16_bound_share']:.3f} of it; launches {tr['launches']} "
+            f"({tr['gated_dropout_ops']} dropout ops pass the gate, "
+            f"{tr['float32_dropout_ops']} of them float32)")
+    t0 = time.perf_counter()
+    resnet_amp = run_train_resnet50(torch, ptt, native, amp=True)
+    log(f"train-resnet50-amp: {RESNET_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s; losses "
+        f"{[round(x, 4) for x in resnet_amp['losses']]}; launches "
+        f"{resnet_amp['launches']}")
+    log(f"train-resnet50-amp on the card [{card}]: step "
+        f"{resnet_amp['step_ms_median']:.1f} ms (median of the last 5; all: "
+        f"{[round(x, 1) for x in resnet_amp['step_ms']]}), "
+        f"{resnet_amp['images_per_s']:.1f} images/s, peak memory "
+        f"{resnet_amp['peak_bytes'] / 2**30:.2f} GiB; bf16 bound "
+        f"{resnet_amp['bound_ms']:.2f} ms at 989 TFLOP/s, "
+        f"{resnet_amp['bound_share']:.3f} of it")
+    t0 = time.perf_counter()
+    amp_parity = run_amp_parity(torch, ptt)
+    for name, par in amp_parity.items():
+        log(f"{name} AMP parity, {par['steps']} steps from the host's state: "
+            f"card {par['losses']['card']} host {par['losses']['host']}, "
+            f"max relative error {par['rel_err']:.3g} (tol "
+            f"{par['loss_rtol']:.3g}: {AMP_NOISE_FACTOR} x the host's "
+            f"AMP-vs-float32 distance, at least {AMP_LOSS_RTOL}); "
+            f"{par['n_stats']} running stats at {par['stat_share']:.3g} and "
+            f"the other persistables at {par['l2_share']:.3g} of "
+            f"{par['l2_tol']}")
+    log(f"AMP parity: {time.perf_counter() - t0:.1f} s")
+
+    # 8. the kernels line: flash_fwd's headline numbers at the train path's
     # shape, its serving case beside them
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
@@ -1652,6 +2040,69 @@ def main() -> int:
                  "ms writes Mask as a fetched Mask makes it, op_ms is the "
                  "launch train-base's forward makes (no Mask)"},
     ]
+    bf16_head = bf16_cases[0]      # B 64, T 256, non-causal, rate 0.1
+    bf16_shape = (f"B={bf16_head['B']} H={bf16_head['H']} T={bf16_head['T']} "
+                  f"D={bf16_head['D']} non-causal rate {bf16_head['rate']} "
+                  f"bf16")
+    amp_auto, amp_pallas = amp_trains["auto"], amp_trains["pallas"]
+    kernels += [
+        {"name": f"flash_{name}_bf16", "route": "cuda",
+         "source": f"paddle_tpu_torch/csrc/{src}",
+         "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+         "dtype": "bfloat16",
+         "launches": amp_auto["launches"][f"flash_{name}_bf16"],
+         "launches_by_path": {
+             "train_amp": amp_auto["launches"][f"flash_{name}_bf16"],
+             "train_amp_pallas": amp_pallas["launches"][f"flash_{name}_bf16"]},
+         "max_abs_err": max(c[f"{name}_err"] for c in bf16_cases),
+         "tol_share": max(c[f"{name}_share"] for c in bf16_cases),
+         "tol": f"per element, {BF16_ULPS} bf16 ulps of |plain| + "
+                f"{BF16_ROW_TOL} x the row's max |plain| + {BF16_ATOL} x "
+                f"max|plain|",
+         "ms": bf16_head[f"{name}_ms"],
+         "plain_ms": bf16_head["fwd_plain_ms" if name == "fwd"
+                              else "bwd_plain_ms"],
+         "bound_ms": bf16_head[f"{name}_bound_ms"],
+         "bound_by": bf16_head[f"{name}_bound_by"],
+         "bound_rate": "bf16 on the tensor cores, 989e12 op/s; 3.35e12 B/s",
+         "library_ms": bf16_head["fwd_library_ms" if name == "fwd"
+                                else "bwd_library_ms"],
+         "shape": bf16_shape,
+         "causal_ms": bf16_cases[1][f"{name}_ms"],
+         "rate0": {"ms": bf16_cases[2][f"{name}_ms"],
+                   "library_ms": bf16_cases[2]["fwd_library_ms"
+                                               if name == "fwd"
+                                               else "bwd_library_ms"],
+                   "bound_ms": bf16_cases[2][f"{name}_bound_ms"]},
+         "build": {k: v for k, v in flash_build.items()
+                   if k.startswith(f"flash_{name}_bf16<64,")},
+         "note": ("library_ms is SDPA in bf16 at the same rate"
+                  if name == "fwd" else
+                  "plain_ms computes dq, dk and dv together; library_ms is "
+                  "SDPA's bf16 backward at rate 0 (all three grads)")}
+        for name, src, line in (("fwd", "flash_fwd.cu", 152),
+                                ("dq", "flash_bwd.cu", 215),
+                                ("dkv", "flash_bwd.cu", 266))]
+    kernels.append(
+        {"name": "dropout_bf16", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/dropout.cu",
+         "replaces": "paddle_tpu/ops/pallas_dropout.py:42",
+         "dtype": "bfloat16",
+         "launches": amp_pallas["launches"]["dropout_bf16"],
+         "mask_writes": amp_pallas["launches"]["dropout_mask"],
+         "op_ms": drop_cases_bf16[0]["op_ms"],
+         "max_abs_err": max(c["err"] for c in drop_cases_bf16),
+         "ms": drop_cases_bf16[0]["fwd_ms"],
+         "plain_ms": drop_cases_bf16[0]["plain_ms"],
+         "bound_ms": drop_cases_bf16[0]["fwd_bound_ms"],
+         "bound_by": drop_cases_bf16[0]["fwd_bound_by"],
+         "library_ms": drop_cases_bf16[0]["library_ms"],
+         "shape": f"{drop_cases_bf16[0]['shape']} bf16 rate 0.1, forward "
+                  f"with Mask",
+         "cases": drop_cases_bf16,
+         "note": "launches: train-base-amp under pallas, "
+                 f"{TRAIN_AMP_PALLAS_STEPS} steps; its two float32 sites "
+                 "launch the float32 kernel; max_abs_err 0: bit for bit"})
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")
     out_dir = os.path.join(here, "chiprun_out")
@@ -1660,7 +2111,10 @@ def main() -> int:
         json.dump({"card": card, "total_s": total_s, "train": trains,
                    "parity": parities, "serve_int8": serve8,
                    "train_resnet50": resnet, "vision_parity": vision_parity,
-                   "kernels": kernels}, f, indent=1)
+                   "train_amp": amp_trains, "train_resnet50_amp": resnet_amp,
+                   "amp_parity": amp_parity, "bf16_kernels": bf16_cases,
+                   "flash_build": flash_build, "kernels": kernels}, f,
+                  indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,6 +19,11 @@ scope's device tensors:
   step reads and writes) and returns a `PreparedProgram` whose `run(feed)`
   is the fast path.
 
+Under `Executor(amp=True)` every rule runs under the JAX package's bf16
+policy (``core/registry.py``): feeds, parameters and optimizer state stay
+float32 in the scope, and are cast at their point of use. A fetched bf16
+value comes back as float32 numpy (an exact upcast; numpy has no bf16).
+
 `CPUPlace()` runs on the host; `CUDAPlace(i)` on card i. An `Executor()`
 without a place means `CUDAPlace(0)`, which raises when no card is
 visible: nothing falls back to the host silently.
@@ -230,10 +235,11 @@ class PreparedProgram:
             env[n] = val
         env.update(feeds)
         seed = program.random_seed if program.random_seed is not None else 0
+        amp = self._exe.amp
         with torch.no_grad():
             run_block(program, 0, env, self.device, seed,
                       self._exe._count_run(program._uid),
-                      _flags.get_flag("check_nan_inf"), plan.live)
+                      _flags.get_flag("check_nan_inf"), plan.live, amp)
         for n in plan.written:
             val = env.get(n)
             if val is not None and self.scope.find_var(n) is not val:
@@ -244,7 +250,7 @@ class PreparedProgram:
                 raise KeyError(f"fetch target {n!r} was not computed")
             fetches.append(env[n])
         if return_numpy:
-            fetches = [f.cpu().numpy() for f in fetches]
+            fetches = [to_numpy(f) for f in fetches]
         return fetches
 
 
@@ -253,15 +259,23 @@ _MAX_PREPARED_HANDLES = 64
 
 
 class Executor:
-    """Program runner (reference executor.py:224). `amp=True` (bf16 mixed
-    precision in the JAX package) is not ported yet and raises."""
+    """Program runner (reference executor.py:224). `amp=True` runs every
+    program under bf16 mixed precision (the JAX package's policy,
+    ``core/registry.py``): matrix products, convolutions and fused
+    attention take bf16 (on a card, attention and the flag-selected
+    dropout launch their bf16 kernels), the losses and means float32;
+    parameters and optimizer state stay float32."""
 
     def __init__(self, place: Optional[Place] = None, amp: bool = False):
-        if amp:
-            raise NotImplementedError(
-                "Executor(amp=True): bf16 mixed precision is not ported to "
-                "paddle_tpu_torch yet (it needs the bf16 kernels); run fp32")
         self.place = place if place is not None else CUDAPlace(0)
+        self.amp = bool(amp)
+        if self.amp and self.place.torch_device().type == "cuda":
+            # cuBLAS may sum a bf16 product's split-K partials in bf16; the
+            # JAX package sums every bf16 product in float32. The port makes
+            # bf16 products only under AMP, so this executor turns that off
+            # for the process, for good
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+                False
         self._prepared: Dict[tuple, PreparedProgram] = {}
         self._run_counts: Dict[int, int] = {}  # program uid -> runs so far
 
@@ -300,6 +314,14 @@ class Executor:
         self._prepared.clear()
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 as float32 (exact), since
+    numpy has no bf16."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 def fetch_var(name: str, scope: Optional[Scope] = None,
               return_numpy: bool = True):
     """Read a variable's current value from a scope."""
@@ -307,4 +329,4 @@ def fetch_var(name: str, scope: Optional[Scope] = None,
     val = scope.find_var(name)
     if val is None:
         raise KeyError(f"fetch_var: variable {name!r} not found in scope")
-    return val.cpu().numpy() if return_numpy else val
+    return to_numpy(val) if return_numpy else val

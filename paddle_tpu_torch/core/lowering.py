@@ -19,6 +19,12 @@ keeps them apart on purpose; here every op is rematerialized, so
 ``__remat__`` needs nothing). Keeping the forward's autograd graph for
 the grad op instead is later performance work.
 
+Under bf16 mixed precision (`amp`) every forward rule runs through
+`registry.call_rule`'s policy, and so does a generic grad op's recompute:
+autograd through the policy's casts hands float32 grads to float32
+inputs, as `jax.vjp` does through `astype`. A hand-written grad gets the
+env's values as they are, with no policy, as in the JAX package.
+
 Random ops get a host integer seed from (program seed, run counter, op
 index): the JAX package's `fold_in(fold_in(key(seed), counter), op index)`
 derivation. A grad op takes the seed of its forward op, so a dropout mask
@@ -48,20 +54,23 @@ def op_seed(seed: int, counter: int, op_idx: int) -> int:
 def run_block(program: ir.Program, block_idx: int, env: Dict[str, Any],
               device, seed: int = 0, counter: int = 0,
               check_nan_inf: bool = False,
-              live: Optional[Set[str]] = None) -> Dict[str, Any]:
+              live: Optional[Set[str]] = None,
+              amp: bool = False) -> Dict[str, Any]:
     """Run every op of `block_idx` on `env` (name -> tensor), mutating
     and returning it. `live`, when given, names the vars that something
     reads (`LoweringContext.wants`); a forward rule may then leave an
-    output that is not in it out of `env`. None keeps every output."""
+    output that is not in it out of `env`. None keeps every output.
+    `amp` runs every rule under the bf16 policy (``core/registry.py``)."""
     device = torch.device(device)
     for op_idx, op in enumerate(program.blocks[block_idx].ops):
         if op.type.endswith(GRAD_OP_SUFFIX) and FWD_OP_ATTR in op.attrs:
-            _run_grad_op(op, env, device, seed, counter)
+            _run_grad_op(op, env, device, seed, counter, amp)
             if check_nan_inf:
                 for name in op.output_arg_names:
                     _check_finite(op, name, env.get(name))
             continue
-        _run_op(op, op_idx, env, device, seed, counter, check_nan_inf, live)
+        _run_op(op, op_idx, env, device, seed, counter, check_nan_inf, live,
+                amp)
     return env
 
 
@@ -92,11 +101,13 @@ def _gather_inputs(inputs: Dict[str, List[str]], env: Dict[str, Any],
 
 
 def _run_op(op: ir.Operator, op_idx: int, env: Dict[str, Any], device,
-            seed: int, counter: int, check_nan_inf: bool, live=None):
+            seed: int, counter: int, check_nan_inf: bool, live=None,
+            amp: bool = False):
     opdef = registry.get_op_def(op.type)
     s = (op_seed(seed, counter, int(op.attrs.get("__idx__", op_idx)))
          if opdef.needs_rng else None)
-    ctx = LoweringContext(op.attrs, device, seed=s, op=op, live=live)
+    ctx = LoweringContext(op.attrs, device, seed=s, op=op, live=live,
+                          amp=amp)
     outs = registry.call_rule(opdef, ctx, _gather_inputs(op.inputs, env,
                                                          op.type))
     for slot, names in op.outputs.items():
@@ -119,7 +130,7 @@ def _run_op(op: ir.Operator, op_idx: int, env: Dict[str, Any], device,
 # ---------------------------------------------------------------------------
 
 def _run_grad_op(op: ir.Operator, env: Dict[str, Any], device, seed: int,
-                 counter: int):
+                 counter: int, amp: bool = False):
     fwd = op.attrs[FWD_OP_ATTR]          # forward OpDesc as dict
     fwd_type, fwd_inputs, fwd_outputs = (fwd["type"], fwd["inputs"],
                                          fwd["outputs"])
@@ -133,7 +144,7 @@ def _run_grad_op(op: ir.Operator, env: Dict[str, Any], device, seed: int,
         ins = {sl: [env[n] for n in ns] for sl, ns in fwd_inputs.items()}
         out_grads = {sl: [env.get(ir.grad_var_name(n)) for n in ns]
                      for sl, ns in fwd_outputs.items()}
-        ctx = LoweringContext(fwd_attrs, device, seed=s, op=op)
+        ctx = LoweringContext(fwd_attrs, device, seed=s, op=op, amp=amp)
         # forward OUTPUT values, already in env: a grad that consumes a
         # saved output (softmax_with_cross_entropy's LSE) reads it here
         ctx.fwd_outs = {sl: [env.get(n) for n in ns]
@@ -156,7 +167,7 @@ def _run_grad_op(op: ir.Operator, env: Dict[str, Any], device, seed: int,
         ins = {sl: [leaves.get(n, env.get(n)) for n in ns]
                for sl, ns in fwd_inputs.items()}
         ctx = LoweringContext(fwd_attrs, device, seed=s, op=op,
-                              recompute=True)
+                              recompute=True, amp=amp)
         outs = registry.call_rule(opdef, ctx, ins)
         primals, cotangents = [], []
         for slot, out_names in fwd_outputs.items():

@@ -93,6 +93,34 @@ def registered_ops() -> List[str]:
     return sorted(_REGISTRY)
 
 
+# bf16 mixed precision (`Executor(amp=True)`), the JAX package's policy
+# letter for letter. Matrix-product ops cast float32 inputs to bf16 and
+# keep bf16 outputs, so activations flow through the network in bf16;
+# numerically sensitive ops (the losses, means, log_softmax) upcast bf16
+# inputs to float32; everything else runs in whatever dtype reaches it.
+# Float32 parameters are cast at their point of use, so autograd through
+# the cast hands float32 grads to the optimizer. Plain `softmax` is not
+# float32-listed: it subtracts the max, so bf16 is safe. The sets name op
+# types the port does not register as well: the policy is the JAX
+# package's, whatever the port runs.
+AMP_BF16_OPS = frozenset({"conv2d", "depthwise_conv2d", "conv2d_transpose",
+                          "mul", "matmul", "lstm", "gru", "fc",
+                          "fused_attention"})
+AMP_F32_OPS = frozenset({"log_softmax", "cross_entropy",
+                         "softmax_with_cross_entropy",
+                         "sigmoid_cross_entropy_with_logits",
+                         "square_error_cost", "smooth_l1", "huber_loss",
+                         "mean", "reduce_mean", "nce", "hierarchical_sigmoid",
+                         "linear_chain_crf", "warpctc", "cos_sim"})
+# A mixed bf16 / float32 elementwise op casts its float32 side down rather
+# than promote the bf16 side: one float32 mask or bias in the residual
+# stream would otherwise turn every tensor after it float32. bf16 keeps
+# float32's exponent range, so additive masks (-1e9) survive the cast.
+AMP_DOWNCAST_OPS = frozenset({"elementwise_add", "elementwise_sub",
+                              "elementwise_mul", "elementwise_div",
+                              "elementwise_max", "elementwise_min"})
+
+
 class LoweringContext:
     """Per-op context handed to rules.
 
@@ -106,16 +134,19 @@ class LoweringContext:
     runs an op (`wants`); None means every output is read. `recompute`
     is True when a generic grad op runs the forward rule again under
     autograd (``core/lowering.py``): a rule that updates state in place
-    (`batch_norm`'s running stats) does so only in the forward op."""
+    (`batch_norm`'s running stats) does so only in the forward op. `amp`
+    turns on the bf16 policy in `call_rule` (the JAX package reads it as
+    ``ctx.lowerer.amp``; the port has no lowerer)."""
 
     def __init__(self, attrs: Dict[str, Any], device, seed=None, op=None,
-                 live=None, recompute=False):
+                 live=None, recompute=False, amp=False):
         self.attrs = attrs
         self.device = torch.device(device)
         self.seed = seed
         self.op = op
         self.live = live
         self.recompute = recompute
+        self.amp = amp
         self._generator = None
 
     @property
@@ -143,10 +174,33 @@ class LoweringContext:
         return any(n in self.live for n in self.op.outputs.get(slot, ()))
 
 
+def _cast_to(v, dt_from, dt_to):
+    if isinstance(v, torch.Tensor) and v.dtype == dt_from:
+        return v.to(dt_to)
+    return v
+
+
+def _amp_cast(opdef: OpDef, ins_by_slot):
+    """(from, to) dtypes the AMP policy casts `opdef`'s inputs between,
+    or None."""
+    if opdef.type in AMP_BF16_OPS:
+        return torch.float32, torch.bfloat16
+    if opdef.type in AMP_F32_OPS:
+        return torch.bfloat16, torch.float32
+    if opdef.type in AMP_DOWNCAST_OPS:
+        dtypes = {v.dtype for vals in ins_by_slot.values() for v in vals
+                  if isinstance(v, torch.Tensor)}
+        if {torch.bfloat16, torch.float32} <= dtypes:
+            return torch.float32, torch.bfloat16
+    return None
+
+
 def call_rule(opdef: OpDef, ctx: LoweringContext,
               ins_by_slot: Dict[str, List[Any]]):
-    """Dispatch tensors to the rule per its signature; normalize outputs
-    to {slot: [tensor, ...]}."""
+    """Dispatch tensors to the rule per its signature, under the AMP
+    policy when `ctx.amp`; normalize outputs to {slot: [tensor, ...]}.
+    Integer tensors and float64 pass the policy unchanged."""
+    cast = _amp_cast(opdef, ins_by_slot) if ctx.amp else None
     kwargs = {}
     for slot in opdef.input_slots:
         vals = ins_by_slot.get(slot)
@@ -155,6 +209,8 @@ def call_rule(opdef: OpDef, ctx: LoweringContext,
                 raise ValueError(
                     f"op {opdef.type}: required input slot {slot!r} missing")
             continue
+        if cast is not None:
+            vals = [_cast_to(v, *cast) for v in vals]
         kwargs[slot] = vals[0] if len(vals) == 1 else list(vals)
     out = opdef.lower(ctx, **kwargs) or {}
     return {slot: (list(v) if isinstance(v, (list, tuple)) else [v])

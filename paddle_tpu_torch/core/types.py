@@ -11,6 +11,7 @@ package runs in x32 mode, where int64 does not exist, and emits int32.
 from __future__ import annotations
 
 import enum
+import functools
 
 import numpy as np
 import torch
@@ -79,6 +80,18 @@ def np_dtype(dtype) -> np.dtype:
     if name == "bfloat16":
         raise ValueError("numpy has no bfloat16; keep bfloat16 data in torch")
     return np.dtype(name)
+
+
+@functools.lru_cache(maxsize=256)
+def scalar_as(value, dtype: torch.dtype):
+    """A Python number about to meet a tensor of `dtype`, rounded to that
+    dtype first when it is a floating one, as JAX's weak typing rounds
+    it. PyTorch would multiply a bf16 tensor by the unrounded scalar in
+    float32 and then round, one bf16 ulp off JAX's result in about a
+    third of the elements; for float32 the rounding changes nothing."""
+    if dtype in (torch.bfloat16, torch.float16, torch.float32):
+        return float(torch.tensor(value, dtype=dtype))
+    return value
 
 
 def is_float_dtype(dtype) -> bool:

@@ -57,11 +57,30 @@
 //   launches the instantiation without it.
 // - No atomics and a fixed order of every sum: two launches on the same
 //   inputs give equal bits.
+//
+// The bf16 instantiation (flash_fwd_bf16_kernel, for bf16 mixed precision)
+// is its own kernel template: its products are one mma.sync m16n8k16 bf16
+// each with float32 accumulation (mma_bf16.cuh), where 3xTF32 takes three
+// m16n8k8, so fragments, tile loop and shared layout differ, and the
+// float32 kernel above stays as it was instruction for instruction. It
+// rounds where the TPU kernel rounds in bf16: S, m, l and the dropout are
+// float32 (bf16 x bf16 products are exact in float32, and sm_scale
+// applies to the float32 sum); P = exp(S - m) is rounded to bf16 for
+// P V, and O = acc / l is written as bf16; lse stays float32. Its shape:
+// the float32 kernel's grid, warps and heaviest-first order, 64-row K/V
+// tiles in a two-stage cp.async ring with one __syncthreads a tile, Q's
+// A fragments loaded once into registers, P fed from the S accumulator as
+// the A operand (acc_pair_as_a), V's B fragments by ldmatrix.trans. With
+// a quarter of float32's bytes a product and one mma where 3xTF32 takes
+// three, the bf16 forward at the train shape has about 4.3 GFLOP against
+// 34 MB: it is bound by bytes at 989 TFLOP/s. It is a first, simple
+// kernel: wgmma and TMA are for a later one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -350,6 +369,199 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16
+// ---------------------------------------------------------------------------
+
+using ptt_mma_bf16::bf16;
+using ptt_mma_bf16::load_tile_bf16;
+
+constexpr int BS16 = 64;          // key rows of a streamed bf16 tile
+
+template <int D>
+constexpr size_t smem_bf16_elems() {
+  return (size_t)(BR + 4 * BS16) * (D + 8);  // Q, then K and V x 2 stages
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(FWD_THREADS)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int T, float sm_scale,
+                      int causal, uint32_t seed, uint32_t thresh,
+                      float drop_scale) {
+  using namespace ptt_mma_bf16;
+  constexpr int SD = D + 8;          // row stride of every tile
+  constexpr int NS = BS16 / 8;       // 8-key n-tiles of S
+  constexpr int KD = D / 16;         // 16-deep k steps of S
+  constexpr int ND = D / 8;          // 8-wide n-tiles of O
+  extern __shared__ __align__(16) unsigned char smem16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem16);  // [BR][SD]
+  bf16* Ks = Qs + BR * SD;           // [2][BS16][SD]
+  bf16* Vs = Ks + 2 * BS16 * SD;     // [2][BS16][SD]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;  // heaviest first
+  const size_t base = (size_t)blockIdx.y * T * D;
+
+  const int n_kv = (T + BS16 - 1) / BS16;
+  const int n_tiles = causal ? min(n_kv, (q0 + BR - 1) / BS16 + 1) : n_kv;
+
+  load_tile_bf16<D, BR, FWD_THREADS>(Qs, q + base, q0, T, tid);
+  load_tile_bf16<D, BS16, FWD_THREADS>(Ks, k + base, 0, T, tid);
+  load_tile_bf16<D, BS16, FWD_THREADS>(Vs, v + base, 0, T, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this thread's query rows: wr and wr + 8 of the tile
+  const int wr = 16 * warp + g;
+  const int row[2] = {q0 + wr, q0 + wr + 8};
+  const int warp_last = q0 + 16 * warp + 15;
+  uint32_t rkey[2] = {0u, 0u};
+  if (DROP) {
+    const uint32_t bk = bh_key(seed, blockIdx.y);
+    rkey[0] = row_key(bk, row[0]);
+    rkey[1] = row_key(bk, row[1]);
+  }
+  uint32_t qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) load_a<SD>(Qs, wr, 16 * kk + 2 * t, qa[kk]);
+
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};           // this lane's share of the row sums
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1;
+    if (kt > 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (kt + 1 < n_tiles) {
+      const int nx = (kt + 1) & 1;
+      load_tile_bf16<D, BS16, FWD_THREADS>(Ks + nx * BS16 * SD, k + base,
+                                           (kt + 1) * BS16, T, tid);
+      load_tile_bf16<D, BS16, FWD_THREADS>(Vs + nx * BS16 * SD, v + base,
+                                           (kt + 1) * BS16, T, tid);
+      cp_async_commit();
+    }
+    const int k0 = kt * BS16;
+    if (causal && k0 > warp_last) continue;  // every row of the warp masks it
+    const bf16* Kt = Ks + st * BS16 * SD;
+    const bf16* Vt = Vs + st * BS16 * SD;
+
+    // S = Q K^T for this warp's 16 rows x BS16 keys, float32
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t b[2];
+        load_b_t<SD>(Kt, 8 * j + g, 16 * kk + 2 * t, b);
+        mma_bf16(s[j], qa[kk], b);
+      }
+
+    // online softmax in float32: element e of n-tile j is row[e >> 1], key
+    // column k0 + 8 j + 2 t + (e & 1)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        float x = s[j][e] * sm_scale;
+        if (col >= T || (causal && col > row[h])) x = NEG_INF;
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = expf(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = expf(s[j][e] - m[h]);
+        rs[h] += p;
+        if (DROP)
+          p = keep(rkey[h], k0 + 8 * j + 2 * t + (e & 1), thresh)
+                  ? p * drop_scale : 0.f;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // O += P V, P rounded to bf16
+#pragma unroll
+    for (int jj = 0; jj < NS / 2; ++jj) {
+      uint32_t pa[4];
+      acc_pair_as_a(s[2 * jj], s[2 * jj + 1], pa);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t b0[2], b1[2];
+        load_b_x4_trans<SD>(Vt, 16 * jj, 8 * n, lane, b0, b1);
+        mma_bf16(acc[n], pa, b0);
+        mma_bf16(acc[n + 1], pa, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (row[h] < T) {
+      const float lsafe = fmaxf(l[h], 1e-20f);
+      const float inv = 1.f / lsafe;
+      bf16* dst = o + base + (size_t)row[h] * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+            pack_bf16(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+      if (t == 0) lse[(size_t)blockIdx.y * T + row[h]] = m[h] + logf(lsafe);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                        float* lse, int bh, int T, float sm_scale, int causal,
+                        uint32_t seed, uint32_t thresh, float drop_scale,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * smem_bf16_elems<D>();
+  auto kernel = thresh ? flash_fwd_bf16_kernel<D, true>
+                       : flash_fwd_bf16_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + BR - 1) / BR, bh);
+  kernel<<<grid, FWD_THREADS, smem, stream>>>(
+      q, k, v, o, lse, T, sm_scale, causal, seed, thresh, drop_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: [bh, T, d] float32, contiguous; lse: [bh, T] float32.
@@ -387,6 +599,43 @@ extern "C" int ptt_flash_fwd_smem_bytes(int d) {
     case 32: return (int)(sizeof(float) * smem_floats<32>());
     case 64: return (int)(sizeof(float) * smem_floats<64>());
     case 128: return (int)(sizeof(float) * smem_floats<128>());
+    default: return -1;
+  }
+}
+
+// As ptt_flash_fwd_f32, with q, k, v and o bf16 ([bh, T, d]); lse stays
+// float32.
+extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int bh, int T, int d,
+                                  float sm_scale, int causal, uint32_t seed,
+                                  uint32_t thresh, float drop_scale,
+                                  int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return (int)launch_bf16<32>(qb, kb, vb, ob, lf, bh, T, sm_scale,
+                                         causal, seed, thresh, drop_scale, s);
+    case 64: return (int)launch_bf16<64>(qb, kb, vb, ob, lf, bh, T, sm_scale,
+                                         causal, seed, thresh, drop_scale, s);
+    case 128: return (int)launch_bf16<128>(qb, kb, vb, ob, lf, bh, T, sm_scale,
+                                           causal, seed, thresh, drop_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block of the bf16 forward kernel takes at head
+// dim d, in bytes; -1 for another d.
+extern "C" int ptt_flash_fwd_bf16_smem_bytes(int d) {
+  switch (d) {
+    case 32: return (int)(sizeof(bf16) * smem_bf16_elems<32>());
+    case 64: return (int)(sizeof(bf16) * smem_bf16_elems<64>());
+    case 128: return (int)(sizeof(bf16) * smem_bf16_elems<128>());
     default: return -1;
   }
 }

@@ -14,6 +14,13 @@ therefore a function of the seed and the linear index only: the same for
 the kernel's mask and output (int64 holding uint32 values, the helpers of
 ``ops/nn.py``).
 
+The kernel takes float32 or bf16 (each its own instantiation, counted
+as `dropout` and `dropout_bf16`): the same keep bits for the same seed
+and element index in both, the kept elements multiplied by 1/(1 - rate)
+rounded to the tensor's dtype, as the JAX kernel's
+``jnp.asarray(inv, x.dtype)`` rounds it (1.109375 in bf16 at rate 0.1),
+and `Mask` in the tensor's dtype.
+
 It is reached from the `dropout` op only with ``FLAGS_dropout_impl=pallas``
 (the JAX package's name for its kernel, see ``flags.py``), on tensors that
 pass `supports`. On a CUDA tensor the wrapper launches the kernel or
@@ -25,8 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import types
 from . import native
-from .flash_attention import _drop_scale
 from .nn import M32, _GOLDEN, _fmix32, _mul32
 
 _LANES = 128
@@ -63,32 +70,44 @@ def _keep_range(seed: int, start: int, stop: int, rate: float, device):
     return _fmix32(key ^ _mul32(idx, _COL_MULT)) >= keep_threshold(rate)
 
 
+def drop_scale(rate: float, dtype) -> float:
+    """1 / (1 - rate) rounded to `dtype`, the value kept elements are
+    multiplied by."""
+    return types.scalar_as(1.0 / (1.0 - rate), dtype)
+
+
 def dropout_reference(x, seed: int, rate: float):
     """Plain version: returns (out, mask), `mask` 1.0 where kept."""
     keep = _keep_range(seed, 0, x.numel(), rate, x.device).reshape(x.shape)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    return (torch.where(keep, x * _drop_scale(rate), zero),
+    return (torch.where(keep, x * drop_scale(rate, x.dtype), zero),
             keep.to(x.dtype))
+
+
+# element dtype -> (C entry point, launch counter)
+_ENTRIES = {torch.float32: ("ptt_dropout_f32", "dropout"),
+            torch.bfloat16: ("ptt_dropout_bf16", "dropout_bf16")}
 
 
 def _dropout_cuda(x, seed: int, rate: float, want_mask: bool):
     dev = x.device
-    if x.dtype != torch.float32:
-        raise ValueError(f"dropout kernel takes float32, got {x.dtype}")
+    if x.dtype not in _ENTRIES:
+        raise ValueError(f"dropout kernel takes float32 or bfloat16, got "
+                         f"{x.dtype}")
+    entry, counter = _ENTRIES[x.dtype]
     x = x.contiguous()
     out = torch.empty_like(x)
     mask = torch.empty_like(x) if want_mask else None
     if x.numel() == 0:
         return out, mask
-    lib = native.lib()
-    err = lib.ptt_dropout_f32(
+    err = getattr(native.lib(), entry)(
         x.data_ptr(), out.data_ptr(),
         mask.data_ptr() if want_mask else None, x.numel(),
-        int(seed) & M32, keep_threshold(rate), _drop_scale(rate),
+        int(seed) & M32, keep_threshold(rate), drop_scale(rate, x.dtype),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     native.check(err, "dropout launch")
-    native.count_launch("dropout")
+    native.count_launch(counter)
     if want_mask:
         native.count_launch("dropout_mask")
     return out, mask
@@ -124,6 +143,6 @@ class _DropoutKernel(torch.autograd.Function):
 
 def dropout_kernel(x, seed: int, rate: float):
     """Upscale-in-train dropout of `x` (any shape that `supports` takes;
-    float32), keyed by the uint32 `seed`. Differentiable: the backward
+    float32 or bf16), keyed by the uint32 `seed`. Differentiable: the backward
     pass reruns the kernel on the incoming gradient."""
     return _DropoutKernel.apply(x, int(seed), float(rate))

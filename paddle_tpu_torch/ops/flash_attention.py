@@ -14,13 +14,24 @@ kernels. Each of the three dispatches on where its tensors lie:
 - CUDA: the hand-written kernels of ``csrc/flash_fwd.cu`` and
   ``csrc/flash_bwd.cu`` (they replace ``_flash_fwd_kernel``,
   ``_flash_dq_kernel`` and ``_flash_dkv_kernel``; see those files for
-  what bounds them and how their designs answer it). They take float32,
-  D in {32, 64, 128}, any T, and as many keys as queries; anything else
-  raises — there is no fallback;
+  what bounds them and how their designs answer it). They take float32
+  or bf16 (each dtype its own instantiation, counted under its own name:
+  `flash_fwd` and `flash_fwd_bf16`, ...), D in {32, 64, 128}, any T, and
+  as many keys as queries; anything else raises — there is no fallback;
 - CPU: the plain PyTorch versions (`_attention_reference`,
   `_lse_reference`, `_flash_backward_reference`), which write out the
   kernels' own formulas;
 - meta: an empty output of the right shape (build-time shape inference).
+
+In bf16 (under `Executor(amp=True)`) every kernel rounds where the TPU
+kernel rounds, and so do the plain versions: products take bf16 operands
+with float32 sums; S, the softmax statistics, lse, W, dP, delta and dS
+are float32; the forward rounds its unnormalized P = exp(S - m) (dropped
+in float32) to bf16 for P V and writes O = acc / l in bf16; dQ rounds dS,
+dK/dV rounds W_drop and dS, for their products; dQ, dK and dV are
+written in bf16. The kernels take m per K/V tile and rescale, the plain
+forward takes the row's max at once: their P round from values that
+differ by a float32 factor, within a bf16 ulp of each other.
 
 Attention-weight dropout (training) keys each weight's keep bit on
 (seed, bh, query row, key column) with a counter hash (`_attention_keep`,
@@ -39,6 +50,7 @@ import math
 
 import torch
 
+from ..core import types
 from ..core.registry import register_op
 from . import native
 from .nn import M32, _fmix32, _mul32, seed32
@@ -58,8 +70,9 @@ def _dropout_threshold(rate: float) -> int:
 
 
 def _drop_scale(rate: float) -> float:
-    """1 / (1 - rate) rounded to float32, the value the kernels get."""
-    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+    """1 / (1 - rate) rounded to float32, the value the kernels get (the
+    attention weights are dropped in float32 in either dtype)."""
+    return types.scalar_as(1.0 / (1.0 - rate), torch.float32)
 
 
 def _attention_keep(seed: int, bh: int, Tq: int, Tk: int, rate: float,
@@ -84,10 +97,16 @@ def _keep_like(s, rate, seed):
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _compute_dtype(t):
+    """float32 at least: bf16 operands are upcast, so their products are
+    exact and their sums float32 (float64 inputs stay float64, for
+    gradient checks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _masked_scores(q, k, causal, sm_scale):
-    # float32 at least (float64 inputs stay float64, for gradient checks)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).to(
-        torch.promote_types(q.dtype, torch.float32)) * sm_scale
+    ct = _compute_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * sm_scale
     if causal:
         Tq, Tk = s.shape[-2], s.shape[-1]
         above = torch.ones(Tq, Tk, dtype=torch.bool,
@@ -97,13 +116,19 @@ def _masked_scores(q, k, causal, sm_scale):
 
 
 def _attention_reference(q, k, v, causal, sm_scale, rate=0.0, seed=0):
-    """Plain PyTorch version: softmax(Q K^T * sm_scale), causal-masked,
-    dropped and scaled by the kernels' mask, times V."""
-    p = torch.softmax(_masked_scores(q, k, causal, sm_scale), dim=-1)
+    """Plain PyTorch version, the kernels' formula: P = exp(S - m) with
+    S = Q K^T * sm_scale causal-masked and m its row max, dropped and
+    scaled by the kernels' mask, rounded to V's dtype for P V (a no-op in
+    float32); O = (P V) / l, l the undropped row sum, in V's dtype."""
+    s = _masked_scores(q, k, causal, sm_scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
     if rate:
         p = torch.where(_keep_like(p, rate, seed), p * _drop_scale(rate),
                         torch.zeros((), dtype=p.dtype, device=p.device))
-    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(s.dtype),
+                     v.to(s.dtype))
+    return (o / l).to(v.dtype)
 
 
 def _lse_reference(q, k, causal, sm_scale):
@@ -116,7 +141,15 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, sm_scale,
                               rate=0.0, seed=0):
     """The backward kernels' formulas in PyTorch (not autograd):
     W = exp(S - lse), dW = drop(dO V^T), dS = W (dW - delta) sm_scale,
-    dQ = dS K, dK = dS^T Q, dV = drop(W)^T dO. Returns (dq, dk, dv)."""
+    dQ = dS K, dK = dS^T Q, dV = drop(W)^T dO. Returns (dq, dk, dv) in
+    the inputs' dtype. In bf16, W_drop and dS are rounded to bf16 for
+    their products, as the kernels round them; all else is float32."""
+    lo, ct = q.dtype, _compute_dtype(q)
+    q, k, v, o, do = (t.to(ct) for t in (q, k, v, o, do))
+
+    def operand(x):       # rounded to the inputs' dtype for a product
+        return x.to(lo).to(ct)
+
     w = torch.exp(_masked_scores(q, k, causal, sm_scale) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
     if rate:
@@ -126,11 +159,11 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, sm_scale,
         dw = torch.where(keep, dp * _drop_scale(rate), zero)
     else:
         w_drop, dw = w, dp
-    delta = (do * o).sum(-1)
-    ds = w * (dw - delta[..., None]) * sm_scale
-    return (torch.einsum("bhqk,bhkd->bhqd", ds, k),
-            torch.einsum("bhqk,bhqd->bhkd", ds, q),
-            torch.einsum("bhqk,bhqd->bhkd", w_drop, do))
+    delta = flash_delta(o, do)
+    ds = operand(w * (dw - delta[..., None]) * sm_scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k).to(lo),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q).to(lo),
+            torch.einsum("bhqk,bhqd->bhkd", operand(w_drop), do).to(lo))
 
 
 # ---------------------------------------------------------------------------
@@ -159,73 +192,95 @@ def _dropout_args(rate, seed):
     return int(seed) & M32, _dropout_threshold(rate), _drop_scale(rate)
 
 
+# element dtype -> the C entry points' suffix and the launch counters'
+_INSTANTIATIONS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16")}
+
+
+def _instantiation(q, what):
+    """(entry suffix, counter suffix) of the kernels for q's dtype."""
+    if q.dtype not in _INSTANTIATIONS:
+        raise ValueError(f"flash attention {what} kernel takes float32 or "
+                         f"bfloat16, got dtype {q.dtype}")
+    return _INSTANTIATIONS[q.dtype]
+
+
 def _flash_forward(q, k, v, causal, sm_scale, rate=0.0, seed=0):
-    """Launch the forward kernel: returns (out [B, H, T, D], lse
-    [B, H, T])."""
+    """Launch the forward kernel of q's dtype: returns (out [B, H, T, D]
+    in that dtype, lse [B, H, T] float32)."""
     B, H, T, D = _check_shape(q, "forward")
+    entry, counter = _instantiation(q, "forward")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        native.check_operand(t, name, torch.float32, dev, (B, H, T, D))
+        native.check_operand(t, name, q.dtype, dev, (B, H, T, D))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     if q.numel() == 0:
         return out, lse
-    lib = native.lib()
-    err = lib.ptt_flash_fwd_f32(
+    err = getattr(native.lib(), f"ptt_flash_fwd_{entry}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B * H, T, D, float(sm_scale), int(bool(causal)),
         *_dropout_args(rate, seed), *_device_args(dev))
     native.check(err, "flash_fwd launch")
-    native.count_launch("flash_fwd")
+    native.count_launch("flash_fwd" + counter)
     return out, lse
 
 
 def _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
-    """Launch the dQ kernel: returns dq [B, H, T, D]."""
+    """Launch the dQ kernel of q's dtype: returns dq [B, H, T, D]."""
     B, H, T, D = _check_shape(q, "dQ")
+    entry, counter = _instantiation(q, "dQ")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        native.check_operand(t, name, torch.float32, dev, (B, H, T, D))
+        native.check_operand(t, name, q.dtype, dev, (B, H, T, D))
     for name, t in (("lse", lse), ("delta", delta)):
         native.check_operand(t, name, torch.float32, dev, (B, H, T))
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
-    err = native.lib().ptt_flash_dq_f32(
+    err = getattr(native.lib(), f"ptt_flash_dq_{entry}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, T, D,
         float(sm_scale), int(bool(causal)), *_dropout_args(rate, seed),
         *_device_args(dev))
     native.check(err, "flash_dq launch")
-    native.count_launch("flash_dq")
+    native.count_launch("flash_dq" + counter)
     return dq
 
 
 def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
-    """Launch the dK/dV kernel: returns (dk, dv), each [B, H, T, D]."""
+    """Launch the dK/dV kernel of q's dtype: returns (dk, dv), each
+    [B, H, T, D]."""
     B, H, T, D = _check_shape(q, "dK/dV")
+    entry, counter = _instantiation(q, "dK/dV")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        native.check_operand(t, name, torch.float32, dev, (B, H, T, D))
+        native.check_operand(t, name, q.dtype, dev, (B, H, T, D))
     for name, t in (("lse", lse), ("delta", delta)):
         native.check_operand(t, name, torch.float32, dev, (B, H, T))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
-    err = native.lib().ptt_flash_dkv_f32(
+    err = getattr(native.lib(), f"ptt_flash_dkv_{entry}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B * H, T, D, float(sm_scale), int(bool(causal)),
         *_dropout_args(rate, seed), *_device_args(dev))
     native.check(err, "flash_dkv launch")
-    native.count_launch("flash_dkv")
+    native.count_launch("flash_dkv" + counter)
     return dk, dv
+
+
+def flash_delta(o, do):
+    """delta = rowsum(dO * O), [B, H, T], in float32 at least (from bf16
+    tensors too): the JAX package computes it so, outside its kernels."""
+    ct = _compute_dtype(o)
+    return (do.to(ct) * o.to(ct)).sum(-1)
 
 
 def _flash_backward(q, k, v, o, lse, do, causal, sm_scale, rate=0.0,
                     seed=0):
     """delta in PyTorch, then the dQ and dK/dV kernels: (dq, dk, dv)."""
-    delta = (do * o).sum(-1)
+    delta = flash_delta(o, do)
     dq = _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate, seed)
     dk, dv = _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate,
                         seed)

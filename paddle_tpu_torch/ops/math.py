@@ -57,7 +57,7 @@ def _matmul(ctx, X, Y):
     out = torch.matmul(a, b)
     alpha = ctx.attr("alpha", 1.0)
     if alpha != 1.0:
-        out = out * alpha
+        out = out * types.scalar_as(alpha, out.dtype)
     return {"Out": out}
 
 
@@ -73,7 +73,8 @@ def _cast(ctx, X):
 
 @register_op("scale")
 def _scale(ctx, X):
-    s, b = ctx.attr("scale", 1.0), ctx.attr("bias", 0.0)
+    s = types.scalar_as(ctx.attr("scale", 1.0), X.dtype)
+    b = types.scalar_as(ctx.attr("bias", 0.0), X.dtype)
     if ctx.attr("bias_after_scale", True):
         return {"Out": X * s + b}
     return {"Out": (X + b) * s}

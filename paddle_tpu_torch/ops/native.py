@@ -1,8 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the headers
-``flash_common.cuh``, which the flash kernels share, ``mma_tf32.cuh``,
-their tensor-core helpers, and ``paged_split.cuh``, the split layout and
+``flash_common.cuh``, which the flash kernels share, ``mma_tf32.cuh`` and
+``mma_bf16.cuh``, their tensor-core helpers in float32 and in bf16, and ``paged_split.cuh``, the split layout and
 merge kernel of both paged decode kernels): plain C entry points, no
 PyTorch headers. At first use each source is compiled by its own `nvcc`
 process (all started together) for ``sm_90a``, and the objects are linked
@@ -36,7 +36,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
            "paged_decode_q8.cu", "dropout.cu")
-HEADERS = ("flash_common.cuh", "mma_tf32.cuh", "paged_split.cuh")
+HEADERS = ("flash_common.cuh", "mma_tf32.cuh", "mma_bf16.cuh",
+           "paged_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +48,11 @@ MAX_GRID_Z = 65535
 
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "paged_decode": 0,
             "paged_decode_q8": 0, "dropout": 0,
-            # the dropout launches among them that also wrote the op's Mask
+            # the bf16 instantiations (bf16 mixed precision)
+            "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
+            "dropout_bf16": 0,
+            # the dropout launches of either dtype that also wrote the
+            # op's Mask
             "dropout_mask": 0}
 _launch_lock = threading.Lock()   # engines of two models launch from two threads
 
@@ -154,6 +159,10 @@ def _declare(lib):
     lib.ptt_flash_fwd_f32.argtypes = [P, P, P, P, P, I, I, I, F, I, U, U, F,
                                       I, P]
     lib.ptt_flash_fwd_f32.restype = I
+    lib.ptt_flash_fwd_bf16.argtypes = lib.ptt_flash_fwd_f32.argtypes
+    lib.ptt_flash_fwd_bf16.restype = I
+    lib.ptt_flash_fwd_bf16_smem_bytes.argtypes = [I]
+    lib.ptt_flash_fwd_bf16_smem_bytes.restype = I
     lib.ptt_flash_fwd_smem_bytes.argtypes = [I]
     lib.ptt_flash_fwd_smem_bytes.restype = I
     lib.ptt_flash_dq_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, U, U,
@@ -162,6 +171,12 @@ def _declare(lib):
     lib.ptt_flash_dkv_f32.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F, I, U,
                                       U, F, I, P]
     lib.ptt_flash_dkv_f32.restype = I
+    lib.ptt_flash_dq_bf16.argtypes = lib.ptt_flash_dq_f32.argtypes
+    lib.ptt_flash_dq_bf16.restype = I
+    lib.ptt_flash_dkv_bf16.argtypes = lib.ptt_flash_dkv_f32.argtypes
+    lib.ptt_flash_dkv_bf16.restype = I
+    lib.ptt_flash_bwd_bf16_smem_bytes.argtypes = [I, I]
+    lib.ptt_flash_bwd_bf16_smem_bytes.restype = I
     lib.ptt_flash_bwd_smem_bytes.argtypes = [I, I]
     lib.ptt_flash_bwd_smem_bytes.restype = I
     lib.ptt_paged_decode_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
@@ -172,6 +187,8 @@ def _declare(lib):
     lib.ptt_paged_decode_q8.restype = I
     lib.ptt_dropout_f32.argtypes = [P, P, P, ctypes.c_uint64, U, U, F, I, P]
     lib.ptt_dropout_f32.restype = I
+    lib.ptt_dropout_bf16.argtypes = lib.ptt_dropout_f32.argtypes
+    lib.ptt_dropout_bf16.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p
 

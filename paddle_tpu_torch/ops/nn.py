@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import flags as _flags
+from ..core import types
 from ..core.registry import register_grad, register_op
 
 M32 = 0xFFFFFFFF
@@ -98,10 +99,11 @@ def _keep_bits(seed: int, shape, p: float, device):
 
 
 def _bits_dropout(x, seed: int, p: float, scale: float):
-    """Keep-and-scale by the hashed bits; returns (out, keep)."""
+    """Keep-and-scale by the hashed bits, the scale rounded to x's dtype
+    as the JAX package rounds it; returns (out, keep)."""
     keep = _keep_bits(seed, x.shape, p, x.device)
-    return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
-                                                    device=x.device)), keep
+    return torch.where(keep, x * types.scalar_as(scale, x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device)), keep
 
 
 def _pair(v, n=2):
@@ -272,7 +274,8 @@ def _dropout(ctx, X):
     p = ctx.attr("dropout_prob", 0.5)
     impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
     if ctx.attr("is_test", False):
-        out = X if impl == "upscale_in_train" else X * (1.0 - p)
+        out = X if impl == "upscale_in_train" \
+            else X * types.scalar_as(1.0 - p, X.dtype)
         return {"Out": out, "Mask": torch.ones_like(X)}
     if p >= 1.0:
         # degenerate: drop everything (upscale would divide by zero)
@@ -311,7 +314,8 @@ def _dropout_grad(ctx, ins, out_grads):
     p = ctx.attr("dropout_prob", 0.5)
     impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
     if ctx.attr("is_test", False):
-        return {"X": g if impl == "upscale_in_train" else g * (1.0 - p)}
+        return {"X": g if impl == "upscale_in_train"
+                else g * types.scalar_as(1.0 - p, g.dtype)}
     if p >= 1.0:
         return {"X": torch.zeros_like(g)}
     if _takes_kernel(g, p, impl):
@@ -320,5 +324,5 @@ def _dropout_grad(ctx, ins, out_grads):
             g, seed32(ctx.seed), float(p))[0]}
     scale = 1.0 if impl != "upscale_in_train" else 1.0 / (1.0 - p)
     keep = ctx.fwd_outs["Mask"][0] != 0
-    return {"X": torch.where(keep, g * scale,
+    return {"X": torch.where(keep, g * types.scalar_as(scale, g.dtype),
                              torch.zeros((), dtype=g.dtype, device=g.device))}

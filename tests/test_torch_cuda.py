@@ -959,3 +959,198 @@ def test_resnet50_step_on_card_equals_host(dev):
             np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4, err_msg=n)
         elif "velocity" in n:
             assert np.linalg.norm(a - b) <= 0.1 * np.linalg.norm(b), n
+
+
+# ---------------------------------------------------------------------------
+# bf16 mixed precision: the bf16 instantiations and an AMP step
+# ---------------------------------------------------------------------------
+
+# bf16 kernels vs their bf16 plain versions, per element (chip_smoke.py's
+# check and the reasons given there): the kernel rounds P against its key
+# tile's running max, the plain version against the row's, so an output
+# sums terms half a bf16 ulp apart at its row's scale. An element lies
+# within BF16_ULPS bf16 ulps of |plain| + BF16_ROW_TOL x its row's max
+# |plain| (a row: D values) + BF16_ATOL x the tensor's max |plain| (float32
+# cancellation where the plain value is 0). lse is float32.
+BF16_ULPS, BF16_ROW_TOL, BF16_ATOL = 1, 2.0 ** -6, 2.0 ** -16
+LSE_TOL = 1e-4
+
+BF16_CASES = [
+    (2, 8, 256, 64, False, 0.1), (2, 8, 256, 64, True, 0.1),
+    (2, 8, 256, 64, False, 0.0), (1, 2, 200, 64, True, 0.1),
+    (2, 3, 77, 32, False, 0.1), (1, 2, 130, 128, True, 0.1),
+    (1, 1, 1, 64, False, 0.0)]
+
+
+def _bf16_close(a, b, what):
+    assert a.dtype == b.dtype == torch.bfloat16, (what, a.dtype, b.dtype)
+    err = (a.float() - b.float()).abs()
+    mag = b.float().abs()
+    _, e = torch.frexp(mag.clamp_min(2.0 ** -126))  # |b| = m 2^e, m in [.5, 1)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    tol = (BF16_ULPS * ulp + BF16_ROW_TOL * mag.amax(-1, keepdim=True)
+           + BF16_ATOL * mag.max())
+    assert bool((err <= tol).all()), (what, float((err / tol).max()),
+                                      float(err.max()))
+
+
+def _qkv_bf16(dev, B, H, T, D, seed, n=3):
+    return [t.to(torch.bfloat16) for t in _qkv(dev, B, H, T, D, seed, n)]
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,rate", BF16_CASES)
+def test_flash_bf16_kernels_match_plain(dev, B, H, T, D, causal, rate):
+    q, k, v, do = _qkv_bf16(dev, B, H, T, D, seed=5 * T + D, n=4)
+    sm = D ** -0.5
+    native.reset_launches()
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, 17)
+    got = fa._flash_backward(q, k, v, out, lse, do, causal, sm, rate, 17)
+    assert {n: native.launches[n] for n in (
+        "flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_bf16",
+        "flash_dq_bf16", "flash_dkv_bf16")} == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 1,
+        "flash_dq_bf16": 1, "flash_dkv_bf16": 1}
+    assert lse.dtype == torch.float32
+    _bf16_close(out, fa._attention_reference(q, k, v, causal, sm, rate, 17),
+                "out")
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=LSE_TOL, rtol=0)
+    ref = fa._flash_backward_reference(q, k, v, out, lse, do, causal, sm,
+                                       rate, 17)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _bf16_close(a, b, name)
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,rate",
+                         [BF16_CASES[0], BF16_CASES[3]])
+def test_flash_bf16_kernels_repeat_bit_for_bit(dev, B, H, T, D, causal,
+                                               rate):
+    q, k, v, do = _qkv_bf16(dev, B, H, T, D, seed=T + 13, n=4)
+    sm = D ** -0.5
+    runs = []
+    for _ in range(2):
+        out, lse = fa._flash_forward(q, k, v, causal, sm, rate, 5)
+        runs.append((out, lse, *fa._flash_backward(q, k, v, out, lse, do,
+                                                   causal, sm, rate, 5)))
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32))
+
+
+@pytest.mark.parametrize("T", [32, 128])
+def test_flash_bf16_kernels_drop_exactly_the_plain_mask(dev, T):
+    """As test_kernels_drop_exactly_the_plain_mask, in bf16: the same
+    bits as the float32 kernels."""
+    B, H, D, rate, seed = 1, 3, T, 0.5, 4242
+    q, k, v, do = _qkv_bf16(dev, B, H, T, D, seed=T, n=4)
+    eye = torch.eye(T, device=dev, dtype=torch.bfloat16).expand(
+        B, H, T, T).contiguous()
+    dropped = ~fa._attention_keep(seed, B * H, T, T, rate, dev).reshape(
+        B, H, T, T)
+    out, lse = fa._flash_forward(q, k, eye, False, 0.1, rate, seed)
+    assert torch.equal(out == 0, dropped)
+    zero = torch.zeros(B, H, T, device=dev)
+    dq = fa._flash_dq(q, eye, v, do, lse, zero, False, 0.1, rate, seed)
+    assert torch.equal(dq == 0, dropped)
+    _, dv = fa._flash_dkv(q, k, v, eye, lse, zero, False, 0.1, rate, seed)
+    assert torch.equal(dv == 0, dropped.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("shape", [(32, 256, 512), (5, 7, 3), (1031,)])
+def test_dropout_bf16_kernel_equals_plain_and_keeps_the_f32_bits(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(shape[0])
+    x = torch.randn(*shape, device=dev, generator=g)
+    xb = x.to(torch.bfloat16)
+    seed = 0xC0FFEE12
+    native.reset_launches()
+    out, mask = dk.dropout_forward(xb, seed, 0.1, want_mask=True)
+    assert (native.launches["dropout_bf16"], native.launches["dropout"]) \
+        == (1, 0)
+    ref_out, ref_mask = dk.dropout_reference(xb, seed, 0.1)
+    assert out.dtype == mask.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), ref_out.view(torch.int16))
+    assert torch.equal(mask.view(torch.int16), ref_mask.view(torch.int16))
+    _, mask32 = dk.dropout_forward(x, seed, 0.1, want_mask=True)
+    assert torch.equal(mask.float(), mask32)
+    # the kept elements scaled by 1/(1 - 0.1) rounded to bf16
+    assert dk.drop_scale(0.1, torch.bfloat16) == 1.109375
+    kept = mask.bool()
+    assert torch.equal(out[kept], (xb[kept].float() * 1.109375).to(
+        torch.bfloat16))
+
+
+def test_pool2d_nhwc_bf16_avg_grad_on_card_equals_host(dev):
+    """The channels-last avg_pool2d backward fault, in bf16: card and host
+    agree within bf16 rounding."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(4, 28, 28, 64)
+                         .astype(np.float32)).to(torch.bfloat16)
+    attrs = {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+             "paddings": [1, 1], "exclusive": True, "data_format": "NHWC"}
+    res = []
+    for d in (dev, torch.device("cpu")):
+        xv = x.to(d).clone().requires_grad_(True)
+        y = _rule("pool2d", attrs, X=xv)["Out"][0]
+        cot = torch.from_numpy(np.random.RandomState(9).randn(
+            *y.shape).astype(np.float32)).to(d).to(torch.bfloat16)
+        res.append([y, *torch.autograd.grad(y, [xv], cot)])
+    for a, b in zip(*res):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_amp_step_launches_only_the_bf16_kernels(dev):
+    """One AMP step of a one-layer Transformer-base (batch 2) under
+    dropout_impl=pallas: the bf16 flash kernels launch and the float32
+    ones not at all; the dropout kernel launches in bf16 at every site but
+    the two right after the embeddings, whose input (embedding plus
+    position table) no bf16 op has reached, and which therefore run in
+    float32, as in the JAX package; parameters and Adam state stay
+    float32."""
+    from paddle_tpu_torch import flags, optimizer
+    from paddle_tpu_torch.models import transformer
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(n_layer=1, dropout_rate=0.1)
+        optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+    n_sites = sum(op.type == "dropout" for op in main.global_block().ops)
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0), amp=True)
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {n: rng.randint(0, 30000, (2, 256)).astype(np.int64)
+            for n in ("src_word", "trg_word", "lbl_word")}
+    flags.set_flag("dropout_impl", "pallas")
+    try:
+        native.reset_launches()
+        loss, = exe.run(main, feed=feed, fetch_list=[fetches["loss"]],
+                        scope=scope)
+    finally:
+        flags.set_flag("dropout_impl", "auto")
+    assert np.isfinite(loss).all()
+    want = dict.fromkeys(native.launches, 0)
+    want.update(flash_fwd_bf16=6, flash_dq_bf16=3, flash_dkv_bf16=3,
+                dropout=2 * 2, dropout_bf16=2 * (n_sites - 2))
+    assert native.launches == want
+    for n in scope.local_var_names():
+        v = scope.find_var(n)
+        if v.is_floating_point():
+            assert v.dtype == torch.float32, n
+
+
+def test_amp_executor_on_card_asks_for_float32_sums(dev):
+    """An AMP executor on a card turns cuBLAS's bf16 split-K reductions off
+    for the process (the JAX package sums bf16 products in float32); a
+    float32 executor leaves the setting alone."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    try:
+        matmul.allow_bf16_reduced_precision_reduction = True
+        ptt.Executor(ptt.CUDAPlace(0))
+        assert matmul.allow_bf16_reduced_precision_reduction
+        ptt.Executor(ptt.CUDAPlace(0), amp=True)
+        assert not matmul.allow_bf16_reduced_precision_reduction
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before

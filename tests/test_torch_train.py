@@ -461,8 +461,3 @@ def test_transformer_with_dropout_trains_in_the_port():
                             scope=scope)[0][0]) for _ in range(10)]
     assert all(np.isfinite(losses))
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
-
-
-def test_amp_is_not_ported_and_says_so():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ptt.Executor(ptt.CPUPlace(), amp=True)

@@ -2,15 +2,19 @@
 """Where paddle_tpu_torch's training step time goes on one NVIDIA card.
 
     python3 tools/torch_train_profile.py [--model transformer|resnet50]
-        [--steps N] [--out DIR]
+        [--amp] [--steps N] [--out DIR]
     FLAGS_dropout_impl=pallas python3 tools/torch_train_profile.py ...
 
 Builds one of chip_smoke.py's training configurations, imported from
 there: train-base (`--model transformer`, the default: its TRAIN_BASE,
 TRAIN_BATCH, Adam learning rate and fixed batch) or train-resnet50
 (`--model resnet50`: RESNET50 at RESNET_BATCH with Momentum, its fixed
-synthetic batch staged on the card first). It runs the startup
-with `Executor(CUDAPlace(0))`, takes 3 warm-up steps, then N untraced
+synthetic batch staged on the card first); with `--amp`, the same under
+bf16 mixed precision (train-base-amp at TRAIN_AMP_BATCH, bench.py's
+batch; train-resnet50-amp), whose kernel groups put the bf16
+instantiations of the flash and dropout kernels, and the float32 <->
+bf16 casts, apart. It runs the startup
+with `Executor(CUDAPlace(0), amp=...)`, takes 3 warm-up steps, then N untraced
 steps (step wall on the host clock after `torch.cuda.synchronize()`) and
 one step under `torch.profiler`. The dropout path is the one the
 ``dropout_impl`` flag selects (read from the environment by
@@ -48,8 +52,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (RESNET_BATCH, TRAIN_BASE, TRAIN_BATCH,  # noqa: E402
-                        build_resnet, build_train, resnet_batch, train_batch)
+from chip_smoke import (RESNET_BATCH, TRAIN_AMP_BATCH,  # noqa: E402
+                        TRAIN_BASE, TRAIN_BATCH, build_resnet, build_train,
+                        resnet_batch, train_batch)
 from tools.torch_serve_profile import device_breakdown  # noqa: E402
 
 
@@ -92,9 +97,17 @@ def by_op_type(prof, top=16):
     return ranked[:top]
 
 
+# the bf16 instantiations of the hand-written kernels, and the dtype
+# casts of the AMP policy (copy kernels), ahead of every other group
+AMP_GROUPS = (("flash kernels (bf16)", ("flash_fwd_bf16", "flash_dq_bf16",
+                                        "flash_dkv_bf16")),
+              ("dropout kernel (bf16)", ("dropout_bf16_kernel",)),
+              ("copies and casts", ("direct_copy_kernel",)))
+
+# cuBLAS names its Hopper GEMM kernels `nvjet_*` (bf16 ones among them)
 KERNEL_GROUPS = {
     "transformer": (("flash kernels", ("flash_",)),
-                    ("GEMMs", ("gemm", "xmma")),
+                    ("GEMMs", ("gemm", "xmma", "nvjet")),
                     ("dropout kernel", ("dropout_kernel",)),
                     ("int64 elementwise (dropout hash)", ("<long",))),
     # cuDNN names a convolution kernel by its pass (fprop, dgrad, wgrad);
@@ -113,7 +126,7 @@ KERNEL_GROUPS = {
                                    "scalePacked")),
                  ("batch norm", ("batch_norm", "welford")),
                  ("pooling", ("pool",)),
-                 ("GEMMs", ("gemm", "xmma", "cutlass")),
+                 ("GEMMs", ("gemm", "xmma", "cutlass", "nvjet")),
                  ("elementwise", ("elementwise", "vectorized", "unrolled")))}
 
 
@@ -132,6 +145,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=sorted(KERNEL_GROUPS),
                     default="transformer")
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 mixed precision: Executor(amp=True)")
     ap.add_argument("--steps", type=int, default=5,
                     help="untraced steps timed after the warm-up")
     ap.add_argument("--out", help="directory for summary.json")
@@ -161,11 +176,16 @@ def main(argv=None) -> int:
                                        "images", RESNET_BATCH)
     else:
         main_prog, startup, loss = build_train(ptt)
-        feed = train_batch(TRAIN_BATCH)
-        name, batch, unit, per_step = ("train-base", TRAIN_BATCH, "tokens",
-                                       TRAIN_BATCH * TRAIN_BASE["seq_len"])
+        batch = TRAIN_AMP_BATCH if args.amp else TRAIN_BATCH
+        feed = train_batch(batch)
+        name, unit, per_step = ("train-base", "tokens",
+                                batch * TRAIN_BASE["seq_len"])
+    groups_of = KERNEL_GROUPS[args.model]
+    if args.amp:
+        name += "-amp"
+        groups_of = AMP_GROUPS + groups_of
     scope = ptt.Scope()
-    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe = ptt.Executor(ptt.CUDAPlace(0), amp=args.amp)
     exe.run(startup, scope=scope)
 
     def step():
@@ -192,9 +212,9 @@ def main(argv=None) -> int:
         trace = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
         dev = device_breakdown(trace, traced_s, top=None)
-    groups = by_group(dev["by_kernel"], KERNEL_GROUPS[args.model])
+    groups = by_group(dev["by_kernel"], groups_of)
     other = [k for k in dev["by_kernel"]
-             if by_group([k], KERNEL_GROUPS[args.model])["other"]][:12]
+             if by_group([k], groups_of)["other"]][:12]
     dev["by_kernel"] = dev["by_kernel"][:16]
     ops_all = by_op_type(prof, top=None)
     if args.model == "resnet50":
@@ -222,7 +242,7 @@ def main(argv=None) -> int:
         print(f"  {r['device_us'] / 1e3:9.3f} ms device {r['host_us'] / 1e3:9.3f}"
               f" ms host  x{r['count']:<5d} {r['op']}")
     summary = {"card": card, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "model": name,
+               "torch": torch.__version__, "model": name, "amp": args.amp,
                "dropout_impl": impl, "batch": batch,
                f"{unit}_per_step": per_step, "untraced_step_ms": walls,
                "traced_step_ms": traced_s * 1e3, "traced": dev,
