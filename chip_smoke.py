@@ -11,9 +11,11 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    flash backward, paged decode over float32 and over int8 caches,
    dropout) and print the build time and the compiler's register /
    shared-memory report; for every instantiation of the three flash
-   kernels (float32 and bf16), its registers, spills, shared memory and the count of HMMA
-   (tensor-core) instructions in ``cuobjdump -sass`` of the built library,
-   which must not be 0 (and the forward must not spill at D <= 64); for
+   kernels (float32 and bf16), its registers, spills, shared memory and
+   the count of HMMA (`mma.sync`) and HGMMA (`wgmma`) tensor-core
+   instructions in ``cuobjdump -sass`` of the built library: not both 0
+   (and the forward must not spill at D <= 64), and the bf16 dQ and
+   dK/dV kernels HGMMA only; for
    every instantiation of the two paged decode sources' split and merge
    kernels, its registers, spills and shared memory;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -46,7 +48,9 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    of its plain value plus BF16_ROW_TOL of its row's largest and
    BF16_ATOL of the tensor's, lse within LSE_TOL), two launches
    bit-equal, their bounds at the bf16 tensor-core rate (989 TFLOP/s)
-   or in bytes, beside SDPA in bf16; their dropout masks bit for bit; the bf16 dropout kernel at
+   or in bytes, beside SDPA in bf16; the backward pair beside
+   `flash_delta` and beside SDPA's bf16 backward at the same dropout_p
+   and at 0; their dropout masks bit for bit; the bf16 dropout kernel at
    [64, 256, 512] and [64, 256, 2048], bit for bit against its plain
    version, its keep bits the float32 kernel's;
 4. serve-base: save the tiny_lm (vocab 30000, d_model 512, 8 heads, 6
@@ -463,10 +467,10 @@ def _flash_instantiation(mangled):
 def flash_build_report(native):
     """Per instantiation of the forward, dQ and dK/dV kernels: registers
     and spill bytes (the build's -Xptxas -v report), dynamic shared memory
-    a block (the library's own count), and the HMMA instructions in
-    `cuobjdump -sass` of the built library. Raises if one has no HMMA (the
-    products must run on the tensor cores) or if the forward spills at
-    D <= 64."""
+    a block (the library's own count), and the tensor-core instructions
+    in `cuobjdump -sass` of the built library: HMMA (`mma.sync`) and
+    HGMMA (`wgmma`). Raises if one has neither (the products must run on
+    the tensor cores), or if the forward spills at D <= 64."""
     rep = {}
     current = None
     for line in native.build_info.log.splitlines():
@@ -493,7 +497,8 @@ def flash_build_report(native):
                                  sass, re.S):
         inst = _flash_instantiation(name)
         if inst:
-            rep.setdefault(inst, {})["hmma"] = body.count("HMMA")
+            rep.setdefault(inst, {}).update(hmma=body.count("HMMA"),
+                                            hgmma=body.count("HGMMA"))
     lib = native.lib()
     for inst, r in rep.items():
         d = int(inst.split("<")[1].split(",")[0])
@@ -506,10 +511,10 @@ def flash_build_report(native):
             r["smem_bytes"] = (lib.ptt_flash_bwd_bf16_smem_bytes(dkv, d)
                                if bf16 else
                                lib.ptt_flash_bwd_smem_bytes(dkv, d))
-        if not r.get("hmma"):
-            raise AssertionError(f"{inst}: no HMMA instruction in the built "
-                                 f"library: its products do not run on the "
-                                 f"tensor cores")
+        if not (r.get("hmma") or r.get("hgmma")):
+            raise AssertionError(f"{inst}: no HMMA or HGMMA instruction in "
+                                 f"the built library: its products do not "
+                                 f"run on the tensor cores")
         if inst.startswith("flash_fwd") and d <= 64 \
                 and r.get("spill_bytes", 0) != 0:
             raise AssertionError(f"{inst} spills {r['spill_bytes']} bytes")
@@ -632,11 +637,18 @@ def check_train_kernels_bf16(torch, fa, flush, B, H, T, D, causal, rate):
         q, k, v, do, lse, delta, causal, sm, rate, seed), flush)
     res["bwd_plain_ms"] = time_ms(torch, lambda: fa._flash_backward_reference(
         q, k, v, out, lse, do, causal, sm, rate, seed), flush)
+    # delta alone, and what the autograd backward launches: delta, dQ and
+    # dK/dV; SDPA's backward (all three grads, its own delta included) at
+    # this case's dropout_p and at 0
+    res["delta_ms"] = time_ms(torch, lambda: fa.flash_delta(out, do), flush)
+    res["backward_ms"] = time_ms(torch, lambda: fa._flash_backward(
+        q, k, v, out, lse, do, causal, sm, rate, seed), flush)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                             scale=sm)
-    res["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, leaves, do, retain_graph=True), flush)
+    for key, p in (("bwd_library_ms", rate), ("bwd_library_rate0_ms", 0.0)):
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, scale=sm, dropout_p=p)
+        res[key] = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), flush)
     half = 0.5 if causal else 1.0
     bht, bhtd = B * H * T, B * H * T * D
     # 2 bytes an element of q, k, v, o, do and the grads, 4 of lse and
@@ -1585,7 +1597,14 @@ def main() -> int:
         log(f"{inst}: {r.get('registers', 'not reported')} registers, "
             f"{r.get('spill_bytes', 'not reported')} bytes spilled, "
             f"{r['smem_bytes']} bytes of shared memory a block, {r['hmma']} "
-            f"HMMA instructions (cuobjdump -sass)")
+            f"HMMA and {r['hgmma']} HGMMA instructions (cuobjdump -sass)")
+    # the bf16 backward kernels run their products as wgmma, none as
+    # mma.sync
+    for inst, r in flash_build.items():
+        if inst.startswith(("flash_dq_bf16", "flash_dkv_bf16")) \
+                and not (r["hgmma"] > 0 and r["hmma"] == 0):
+            raise AssertionError(f"{inst}: {r['hmma']} HMMA and {r['hgmma']} "
+                                 f"HGMMA instructions, expected wgmma only")
     paged_build = paged_build_report(native)
     for inst, r in sorted(paged_build.items()):
         log(f"{inst}: {r.get('registers', 'not reported')} registers, "
@@ -1697,9 +1716,15 @@ def main() -> int:
                 f"two launches bit-equal, kernel {c[name + '_ms']:.4f} ms "
                 f"bound {c[name + '_bound_ms']:.4f} ms "
                 f"({c[name + '_bound_by']})")
-        log(f"  dq + dkv bf16 {c['dq_ms'] + c['dkv_ms']:.4f} ms; backward "
-            f"plain {c['bwd_plain_ms']:.4f} ms; sdpa bf16 backward at rate 0 "
-            f"{c['bwd_library_ms']:.4f} ms")
+        log(f"  flash_delta (rowsum(dO * O) in float32, PyTorch) "
+            f"{c['delta_ms']:.4f} ms")
+        log(f"  dq + dkv bf16 {c['dq_ms'] + c['dkv_ms']:.4f} ms, + delta "
+            f"{c['dq_ms'] + c['dkv_ms'] + c['delta_ms']:.4f} ms; "
+            f"_flash_backward (delta, dq, dkv as autograd launches them) "
+            f"{c['backward_ms']:.4f} ms; backward plain "
+            f"{c['bwd_plain_ms']:.4f} ms; sdpa bf16 backward at dropout_p "
+            f"{c['rate']} {c['bwd_library_ms']:.4f} ms, at 0 "
+            f"{c['bwd_library_rate0_ms']:.4f} ms")
     dropped_bf16 = check_dropout_mask(torch, fa, dtype="bfloat16")
     log(f"dropout mask of flash_fwd_bf16, flash_dq_bf16 and flash_dkv_bf16 "
         f"equal to the plain version's bit for bit (rate 0.5, "
@@ -2076,10 +2101,17 @@ def main() -> int:
                    "bound_ms": bf16_cases[2][f"{name}_bound_ms"]},
          "build": {k: v for k, v in flash_build.items()
                    if k.startswith(f"flash_{name}_bf16<64,")},
+         **({} if name == "fwd" else {
+             "delta_ms": bf16_head["delta_ms"],
+             "backward_ms": bf16_head["backward_ms"],
+             "library_rate0_ms": bf16_head["bwd_library_rate0_ms"]}),
          "note": ("library_ms is SDPA in bf16 at the same rate"
                   if name == "fwd" else
                   "plain_ms computes dq, dk and dv together; library_ms is "
-                  "SDPA's bf16 backward at rate 0 (all three grads)")}
+                  "SDPA's bf16 backward at the same dropout_p (all three "
+                  "grads, its own delta included), library_rate0_ms at 0; "
+                  "backward_ms is what _flash_backward launches: "
+                  "flash_delta (delta_ms), dQ and dK/dV")}
         for name, src, line in (("fwd", "flash_fwd.cu", 152),
                                 ("dq", "flash_bwd.cu", 215),
                                 ("dkv", "flash_bwd.cu", 266))]

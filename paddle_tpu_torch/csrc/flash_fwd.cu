@@ -640,6 +640,11 @@ extern "C" int ptt_flash_fwd_bf16_smem_bytes(int d) {
   }
 }
 
+// The message of an entry's return code: a cudaError_t, or (from
+// flash_bwd.cu's bf16 entries) 100000 + the CUresult of a failed
+// cuTensorMapEncodeTiled.
 extern "C" const char* ptt_error_string(int err) {
+  if (err >= 100000)
+    return "cuTensorMapEncodeTiled failed (CUresult = code - 100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

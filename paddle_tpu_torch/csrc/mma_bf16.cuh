@@ -1,6 +1,6 @@
 // Tensor-core bf16 products with float32 accumulation, and bf16 copies, for
-// the bf16 instantiations of flash_fwd.cu and flash_bwd.cu (and the bf16
-// packing that dropout.cu shares).
+// the bf16 instantiation of flash_fwd.cu (and the bf16 packing that
+// dropout.cu and flash_bwd.cu's wgmma kernels share).
 //
 // A product of two bf16 values is exact in float32 (8 + 8 significant bits
 // of 24), so one mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 takes

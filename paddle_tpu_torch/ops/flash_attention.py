@@ -272,9 +272,12 @@ def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
 
 def flash_delta(o, do):
     """delta = rowsum(dO * O), [B, H, T], in float32 at least (from bf16
-    tensors too): the JAX package computes it so, outside its kernels."""
+    tensors too): the JAX package computes it so, outside its kernels.
+    O enters the product in its own dtype: the multiply promotes it on the
+    fly, so a bf16 O costs no float32 copy, and the products (exact in
+    float32) and their sum are those of two upcast copies, bit for bit."""
     ct = _compute_dtype(o)
-    return (do.to(ct) * o.to(ct)).sum(-1)
+    return (do.to(ct) * o).sum(-1)
 
 
 def _flash_backward(q, k, v, o, lse, do, causal, sm_scale, rate=0.0,

@@ -2,10 +2,15 @@
 
 The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the headers
 ``flash_common.cuh``, which the flash kernels share, ``mma_tf32.cuh`` and
-``mma_bf16.cuh``, their tensor-core helpers in float32 and in bf16, and ``paged_split.cuh``, the split layout and
+``mma_bf16.cuh``, their `mma.sync` helpers in float32 and in bf16,
+``wgmma_bf16.cuh``, the Hopper helpers (mbarriers, TMA, `wgmma`) of the
+bf16 backward kernels, and ``paged_split.cuh``, the split layout and
 merge kernel of both paged decode kernels): plain C entry points, no
-PyTorch headers. At first use each source is compiled by its own `nvcc`
-process (all started together) for ``sm_90a``, and the objects are linked
+PyTorch headers. The bf16 backward entries encode their TMA tensor maps
+with the driver's `cuTensorMapEncodeTiled`, reached through the
+runtime's `cudaGetDriverEntryPoint`, so the link needs no `-lcuda`.
+At first use each source is compiled by its own `nvcc` process (all
+started together) for ``sm_90a``, and the objects are linked
 into one shared library under ``paddle_tpu_torch/_build/`` (listed in
 .gitignore), named by a hash of the sources, headers and flags so an
 edited source never loads a stale build. The library is loaded with `ctypes`: pointers and the
@@ -37,7 +42,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
            "paged_decode_q8.cu", "dropout.cu")
 HEADERS = ("flash_common.cuh", "mma_tf32.cuh", "mma_bf16.cuh",
-           "paged_split.cuh")
+           "wgmma_bf16.cuh", "paged_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -979,7 +979,16 @@ BF16_CASES = [
     (2, 8, 256, 64, False, 0.1), (2, 8, 256, 64, True, 0.1),
     (2, 8, 256, 64, False, 0.0), (1, 2, 200, 64, True, 0.1),
     (2, 3, 77, 32, False, 0.1), (1, 2, 130, 128, True, 0.1),
-    (1, 1, 1, 64, False, 0.0)]
+    (1, 1, 1, 64, False, 0.0),
+    # the backward kernels' tile and TMA edges: 64-row resident tiles in
+    # 128-row work items, 64-row streamed tiles (32 for dK/dV at D 128),
+    # rows past T zero-filled by TMA; D 32 takes the 64-byte swizzle
+    (1, 2, 63, 64, True, 0.1), (1, 2, 64, 32, False, 0.1),
+    (1, 2, 65, 128, True, 0.0), (1, 2, 127, 32, True, 0.1),
+    (1, 2, 129, 128, False, 0.1), (1, 2, 257, 64, True, 0.1),
+    (1, 2, 257, 128, False, 0.0),
+    # 300 work items: more than one persistent block an SM can take at once
+    (2, 150, 128, 64, True, 0.1)]
 
 
 def _bf16_close(a, b, what):
@@ -1037,6 +1046,25 @@ def test_flash_bf16_kernels_repeat_bit_for_bit(dev, B, H, T, D, causal,
                                   else torch.int32),
                            b.view(torch.int16 if b.dtype == torch.bfloat16
                                   else torch.int32))
+
+
+def test_flash_bf16_backward_refuses_a_misaligned_view(dev):
+    """The bf16 backward kernels load through TMA tensor maps, which need
+    16-byte-aligned bases: a bf16 view 2 bytes into its storage raises
+    before any launch."""
+    q, k, v, do = _qkv_bf16(dev, 1, 2, 64, 64, seed=9, n=4)
+    out, lse = fa._flash_forward(q, k, v, False, 0.125)
+    delta = fa.flash_delta(out, do)
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=dev)
+    odd = buf[1:1 + q.numel()].view(q.shape)
+    odd.copy_(q)
+    native.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._flash_dq(odd, k, v, do, lse, delta, False, 0.125)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._flash_dkv(q, k, odd, do, lse, delta, False, 0.125)
+    assert native.launches["flash_dq_bf16"] == 0
+    assert native.launches["flash_dkv_bf16"] == 0
 
 
 @pytest.mark.parametrize("T", [32, 128])

@@ -389,7 +389,8 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
              if f.endswith(".py")]
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tools", "torch_serve_profile.py"),
-              os.path.join(REPO, "tools", "torch_train_profile.py")]
+              os.path.join(REPO, "tools", "torch_train_profile.py"),
+              os.path.join(REPO, "tools", "torch_flash_bwd_bench.py")]
     assert len(files) > 20
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}
