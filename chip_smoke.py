@@ -8,14 +8,15 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of ``paddle_tpu_torch/csrc`` (flash forward,
-   flash backward, paged decode over float32 and over int8 caches,
-   dropout) and print the build time and the compiler's register /
-   shared-memory report; for every instantiation of the three flash
-   kernels (float32 and bf16), its registers, spills, shared memory and
-   the count of HMMA (`mma.sync`) and HGMMA (`wgmma`) tensor-core
-   instructions in ``cuobjdump -sass`` of the built library: not both 0
-   (and the forward must not spill at D <= 64), and the bf16 dQ and
-   dK/dV kernels HGMMA only; for
+   flash backward, the flash backward's delta, paged decode over float32
+   and over int8 caches, dropout) and print the build time and the
+   compiler's register / shared-memory report; for every instantiation
+   of the three flash kernels (float32 and bf16), its registers, spills,
+   shared memory and the count of HMMA (`mma.sync`) and HGMMA (`wgmma`)
+   tensor-core instructions in ``cuobjdump -sass`` of the built library:
+   not both 0 (and the forward must not spill at D <= 64), and the bf16
+   forward, dQ and dK/dV kernels HGMMA only; ptxas's warnings that it
+   serialized a kernel's wgmma (C7500-C7519), each printed; for
    every instantiation of the two paged decode sources' split and merge
    kernels, its registers, spills and shared memory;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -26,8 +27,10 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    dropout and the dQ and dK/dV kernels at the training shapes (B 32,
    H 8, T 256, D 64, causal and not, rate 0 and 0.1, and a ragged T 200);
    the forward on peaked scores (q and k scaled by 4) and at T 200 for
-   D 32, 64 and 128, causal and not; every flash kernel launched twice on
-   the same inputs gives equal bits; their bounds at the 3xTF32
+   D 32, 64 and 128, causal and not; the delta kernel at the same shape
+   against its plain version (each row within DELTA_TOL of its sum of
+   |dO O|); every flash kernel launched twice on the same inputs gives
+   equal bits; their bounds at the 3xTF32
    tensor-core rate they run at, and on the f32 CUDA cores for comparison
    with a CUDA-core version; the dropout mask of all three exactly equal
    to the plain version's;
@@ -48,9 +51,10 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    of its plain value plus BF16_ROW_TOL of its row's largest and
    BF16_ATOL of the tensor's, lse within LSE_TOL), two launches
    bit-equal, their bounds at the bf16 tensor-core rate (989 TFLOP/s)
-   or in bytes, beside SDPA in bf16; the backward pair beside
-   `flash_delta` and beside SDPA's bf16 backward at the same dropout_p
-   and at 0; their dropout masks bit for bit; the bf16 dropout kernel at
+   or in bytes, beside SDPA in bf16; the bf16 delta kernel against its
+   plain version (three PyTorch passes) as in phase 3; the backward pair
+   beside the delta kernel and beside SDPA's bf16 backward at the same
+   dropout_p and at 0; their dropout masks bit for bit; the bf16 dropout kernel at
    [64, 256, 512] and [64, 256, 2048], bit for bit against its plain
    version, its keep bits the float32 kernel's;
 4. serve-base: save the tiny_lm (vocab 30000, d_model 512, 8 heads, 6
@@ -72,8 +76,8 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    0.1, fused attention) with `Adam(1e-3)`, run its startup with
    `Executor(CUDAPlace(0))` and take 10 steps on one fixed batch of
    32 x 256 tokens: losses finite and falling, and per step 36 flash
-   forward launches (18 attentions, each run again by its grad op), 18 dQ
-   and 18 dK/dV launches; print step ms, tokens/s and peak memory. Then
+   forward launches (18 attentions, each run again by its grad op), 18
+   delta, 18 dQ and 18 dK/dV launches; print step ms, tokens/s and peak memory. Then
    the same again under ``FLAGS_dropout_impl=pallas``: every dropout op
    that passes the gate launches the dropout kernel in its forward and in
    its grad, and no launch writes the op's `Mask`, which nothing in the
@@ -102,7 +106,7 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    (`Executor(CUDAPlace(0), amp=True)`): train-base-amp, 10 steps at
    bench.py's batch 64 with the bits dropout and 4 under
    ``FLAGS_dropout_impl=pallas``: per step the bf16 flash kernels launch
-   36 forwards, 18 dQ and 18 dK/dV, the float32 ones never; under
+   36 forwards, 18 deltas, 18 dQ and 18 dK/dV, the float32 ones never; under
    `pallas` the dropout kernel launches in bf16 at every gated site but
    the two that no bf16 op reaches (after the embeddings), which run the
    float32 kernel, as the JAX package runs them in float32;
@@ -261,6 +265,15 @@ AMP_FLOAT32_DROPOUT_OPS = 2
 # holds the port against the JAX package so (largest ratio seen: 1.5)
 AMP_LOSS_RTOL = 5e-5
 AMP_NOISE_FACTOR = 2.0
+# forward, dQ and dK/dV x D 32/64/128 x rate 0/dropout x float32/bf16,
+# and the bf16 forward's causal instantiations (D x rate 0/dropout)
+FLASH_INSTANTIATIONS = 42
+# the JAX package computes delta in XLA, outside its Pallas kernels
+DELTA_REPLACES = "paddle_tpu/ops/pallas_attention.py:387 (XLA, no Pallas kernel)"
+# the delta kernel vs its plain version: the same float32 sum of D exact
+# (bf16) or once rounded (float32) products, in another order, so a row
+# lies within this share of its sum of |dO O|
+DELTA_TOL = 1e-5
 
 
 def log(*a):
@@ -375,6 +388,38 @@ def _bound(flops, nbytes, peak=PEAK_F32_FLOPS):
                                         else "bytes")
 
 
+def check_delta(torch, fa, flush, out, do):
+    """The delta kernel on one (O, dO) pair against its plain version: each
+    row within DELTA_TOL of its sum of |dO O|, two launches bit-equal;
+    returns its numbers (the largest share of that tolerance, times, the
+    byte bound and, for float32, `torch.linalg.vecdot` as the one PyTorch
+    call that computes the same function; in bf16 none returns float32)."""
+    got = fa.flash_delta(out, do)
+    want = fa._flash_delta_reference(out, do)
+    torch.cuda.synchronize()
+    scale = (do.float() * out.float()).abs().sum(-1)
+    share = float(((got - want).abs() / scale.clamp_min(1e-30)).max()
+                  / DELTA_TOL)
+    tag = f"flash_delta {tuple(out.shape)} {out.dtype}"
+    if not share <= 1.0:
+        raise AssertionError(f"{tag}: a row at {share:.3g} of its tolerance "
+                             f"({DELTA_TOL} x sum |dO O|)")
+    _assert_repeats(torch, tag, (got,), (fa.flash_delta(out, do),))
+    res = dict(delta_err=float((got - want).abs().max()), delta_share=share)
+    res["delta_ms"] = time_ms(torch, lambda: fa.flash_delta(out, do), flush)
+    res["delta_plain_ms"] = time_ms(
+        torch, lambda: fa._flash_delta_reference(out, do), flush)
+    res["delta_library_ms"] = (time_ms(torch, lambda: torch.linalg.vecdot(
+        do, out), flush) if out.dtype == torch.float32 else None)
+    rows = out.numel() // out.shape[-1]
+    # a multiply-add an element on the f32 CUDA cores; each input read
+    # once, a float32 a row written
+    res["delta_bound_ms"], res["delta_bound_by"] = _bound(
+        2.0 * out.numel(), 2.0 * out.numel() * out.element_size()
+        + 4.0 * rows)
+    return res
+
+
 def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
     """The training path's three kernels at one shape: the forward with
     attention dropout, dQ and dK/dV, each against its plain version on the
@@ -417,6 +462,7 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
     res = dict(B=B, H=H, T=T, D=D, causal=causal, rate=rate,
                fwd_err=fwd_err, dq_err=bwd_err["dq"],
                dkv_err=max(bwd_err["dk"], bwd_err["dv"]))
+    res.update(check_delta(torch, fa, flush, out, do))
     res["fwd_ms"] = time_ms(torch, lambda: fa._flash_forward(
         q, k, v, causal, sm, rate, seed), flush)
     res["fwd_plain_ms"] = time_ms(torch, lambda: fa._attention_reference(
@@ -455,22 +501,26 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
 
 def _flash_instantiation(mangled):
     """'flash_dq<64,drop>' (float32) or 'flash_dq_bf16<64,drop>' for a
-    mangled flash kernel name, else None."""
-    m = re.search(r"flash_(fwd|dq|dkv)(_bf16)?_kernelILi(\d+)ELb([01])E",
-                  mangled)
+    mangled flash kernel name ('flash_fwd_bf16<64,drop,causal>' for the
+    bf16 forward's causal instantiation), else None."""
+    m = re.search(r"flash_(fwd|dq|dkv)(_bf16)?_kernelILi(\d+)ELb([01])E"
+                  r"(?:Lb([01])E)?", mangled)
     if m is None:
         return None
     return (f"flash_{m.group(1)}{m.group(2) or ''}<{m.group(3)},"
-            f"{'drop' if m.group(4) == '1' else 'rate0'}>")
+            f"{'drop' if m.group(4) == '1' else 'rate0'}"
+            f"{',causal' if m.group(5) == '1' else ''}>")
 
 
-def flash_build_report(native):
+def flash_build_report(native, n_expected=FLASH_INSTANTIATIONS):
     """Per instantiation of the forward, dQ and dK/dV kernels: registers
     and spill bytes (the build's -Xptxas -v report), dynamic shared memory
     a block (the library's own count), and the tensor-core instructions
     in `cuobjdump -sass` of the built library: HMMA (`mma.sync`) and
     HGMMA (`wgmma`). Raises if one has neither (the products must run on
-    the tensor cores), or if the forward spills at D <= 64."""
+    the tensor cores), if the forward spills at D <= 64, or if there are
+    not `n_expected` instantiations (None: any number, for a tool that
+    reports another checkout's build)."""
     rep = {}
     current = None
     for line in native.build_info.log.splitlines():
@@ -504,8 +554,11 @@ def flash_build_report(native):
         d = int(inst.split("<")[1].split(",")[0])
         bf16 = "_bf16<" in inst
         if inst.startswith("flash_fwd"):
-            r["smem_bytes"] = (lib.ptt_flash_fwd_bf16_smem_bytes(d) if bf16
-                               else lib.ptt_flash_fwd_smem_bytes(d))
+            r["smem_bytes"] = (
+                lib.ptt_flash_fwd_bf16_causal_smem_bytes(d)
+                if inst.endswith(",causal>") else
+                lib.ptt_flash_fwd_bf16_smem_bytes(d) if bf16
+                else lib.ptt_flash_fwd_smem_bytes(d))
         else:
             dkv = int(inst.startswith("flash_dkv"))
             r["smem_bytes"] = (lib.ptt_flash_bwd_bf16_smem_bytes(dkv, d)
@@ -518,10 +571,11 @@ def flash_build_report(native):
         if inst.startswith("flash_fwd") and d <= 64 \
                 and r.get("spill_bytes", 0) != 0:
             raise AssertionError(f"{inst} spills {r['spill_bytes']} bytes")
-    if len(rep) != 36:
-        raise AssertionError(f"expected 36 flash instantiations (forward, dQ "
-                             f"and dK/dV x D 32/64/128 x rate 0/dropout x "
-                             f"float32/bf16), found {sorted(rep)}")
+    if n_expected is not None and len(rep) != n_expected:
+        raise AssertionError(f"expected {n_expected} flash instantiations "
+                             f"(forward, dQ and dK/dV x D 32/64/128 x rate "
+                             f"0/dropout x float32/bf16, and the bf16 "
+                             f"forward's causal ones), found {sorted(rep)}")
     return rep
 
 
@@ -594,7 +648,7 @@ def check_train_kernels_bf16(torch, fa, flush, B, H, T, D, causal, rate):
                    .to(torch.bfloat16) for _ in range(4))
     sm, seed = D ** -0.5, ATTN_SEED
     out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed)
-    delta = fa.flash_delta(out, do)
+    delta = fa._flash_delta_reference(out, do)
     dq = fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate, seed)
     dk, dv = fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, seed)
     ref = fa._attention_reference(q, k, v, causal, sm, rate, seed)
@@ -616,6 +670,7 @@ def check_train_kernels_bf16(torch, fa, flush, B, H, T, D, causal, rate):
     dv_err = _bf16_err(torch, f"flash_dkv_bf16 {tag} dv", dv, refs[2])
     res["dkv_err"] = max(dk_err[0], dv_err[0])
     res["dkv_share"] = max(dk_err[1], dv_err[1])
+    res.update(check_delta(torch, fa, flush, out, do))
     again = (*fa._flash_forward(q, k, v, causal, sm, rate, seed),
              fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate, seed),
              *fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, seed))
@@ -637,10 +692,9 @@ def check_train_kernels_bf16(torch, fa, flush, B, H, T, D, causal, rate):
         q, k, v, do, lse, delta, causal, sm, rate, seed), flush)
     res["bwd_plain_ms"] = time_ms(torch, lambda: fa._flash_backward_reference(
         q, k, v, out, lse, do, causal, sm, rate, seed), flush)
-    # delta alone, and what the autograd backward launches: delta, dQ and
-    # dK/dV; SDPA's backward (all three grads, its own delta included) at
-    # this case's dropout_p and at 0
-    res["delta_ms"] = time_ms(torch, lambda: fa.flash_delta(out, do), flush)
+    # what the autograd backward launches: the delta kernel (timed alone
+    # by check_delta), dQ and dK/dV; SDPA's backward (all three grads, its
+    # own delta included) at this case's dropout_p and at 0
     res["backward_ms"] = time_ms(torch, lambda: fa._flash_backward(
         q, k, v, out, lse, do, causal, sm, rate, seed), flush)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1231,7 +1285,8 @@ def run_train_base(torch, ptt, native, impl, amp=False, batch=TRAIN_BATCH,
     want = dict.fromkeys(launches, 0)
     want.update({f"flash_fwd{sfx}": 2 * n_attn * steps,
                  f"flash_dq{sfx}": n_attn * steps,
-                 f"flash_dkv{sfx}": n_attn * steps})
+                 f"flash_dkv{sfx}": n_attn * steps,
+                 f"flash_delta{sfx}": n_attn * steps})
     if impl == "pallas":        # the forward and the grad of every gated op
         if n_gated < 1:
             raise AssertionError("no dropout op of train-base passes the gate")
@@ -1598,13 +1653,22 @@ def main() -> int:
             f"{r.get('spill_bytes', 'not reported')} bytes spilled, "
             f"{r['smem_bytes']} bytes of shared memory a block, {r['hmma']} "
             f"HMMA and {r['hgmma']} HGMMA instructions (cuobjdump -sass)")
-    # the bf16 backward kernels run their products as wgmma, none as
+    # the bf16 flash kernels run their products as wgmma, none as
     # mma.sync
     for inst, r in flash_build.items():
-        if inst.startswith(("flash_dq_bf16", "flash_dkv_bf16")) \
+        if inst.startswith(("flash_fwd_bf16", "flash_dq_bf16",
+                            "flash_dkv_bf16")) \
                 and not (r["hgmma"] > 0 and r["hmma"] == 0):
             raise AssertionError(f"{inst}: {r['hmma']} HMMA and {r['hgmma']} "
                                  f"HGMMA instructions, expected wgmma only")
+    # ptxas serializes every wgmma of a kernel where it cannot keep them
+    # asynchronous (C7500-C7519: a wgmma on a conditional path, an
+    # accumulator or register-A operand touched between issue and wait)
+    wgmma_warnings = [line.strip() for line in info.log.splitlines()
+                      if re.search(r"C75[01]\d", line)]
+    log(f"ptxas wgmma serialization warnings: {len(wgmma_warnings)}")
+    for line in wgmma_warnings:
+        log("  " + line)
     paged_build = paged_build_report(native)
     for inst, r in sorted(paged_build.items()):
         log(f"{inst}: {r.get('registers', 'not reported')} registers, "
@@ -1688,6 +1752,11 @@ def main() -> int:
                 f"{c[name + '_ms']:.4f} ms bound {c[name + '_bound_ms']:.4f} "
                 f"ms ({c[name + '_bound_by']} at 3xTF32, 495/3 TFLOP/s; "
                 f"{c[name + '_bound_f32_ms']:.4f} ms on the f32 CUDA cores)")
+        log(f"  flash_delta {c['delta_share']:.3g} of its tolerance "
+            f"({DELTA_TOL} x sum |dO O| a row), two launches bit-equal, "
+            f"kernel {c['delta_ms']:.4f} ms plain {c['delta_plain_ms']:.4f} "
+            f"ms vecdot {c['delta_library_ms']:.4f} ms bound "
+            f"{c['delta_bound_ms']:.4f} ms ({c['delta_bound_by']})")
         log(f"  dq + dkv {c['dq_ms'] + c['dkv_ms']:.4f} ms; backward plain "
             f"(dq, dk, dv) {c['bwd_plain_ms']:.4f} ms; sdpa backward at rate "
             f"0 (dq, dk, dv) {c['bwd_library_ms']:.4f} ms")
@@ -1716,8 +1785,11 @@ def main() -> int:
                 f"two launches bit-equal, kernel {c[name + '_ms']:.4f} ms "
                 f"bound {c[name + '_bound_ms']:.4f} ms "
                 f"({c[name + '_bound_by']})")
-        log(f"  flash_delta (rowsum(dO * O) in float32, PyTorch) "
-            f"{c['delta_ms']:.4f} ms")
+        log(f"  flash_delta_bf16 {c['delta_share']:.3g} of its tolerance "
+            f"({DELTA_TOL} x sum |dO O| a row), two launches bit-equal, "
+            f"kernel {c['delta_ms']:.4f} ms plain (three PyTorch passes) "
+            f"{c['delta_plain_ms']:.4f} ms bound {c['delta_bound_ms']:.4f} "
+            f"ms ({c['delta_bound_by']})")
         log(f"  dq + dkv bf16 {c['dq_ms'] + c['dkv_ms']:.4f} ms, + delta "
             f"{c['dq_ms'] + c['dkv_ms'] + c['delta_ms']:.4f} ms; "
             f"_flash_backward (delta, dq, dkv as autograd launches them) "
@@ -1765,7 +1837,8 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(native.launches)
-            if launches["flash_dq"] or launches["flash_dkv"]:
+            if launches["flash_dq"] or launches["flash_dkv"] \
+                    or launches["flash_delta"]:
                 raise AssertionError(f"serving launched a backward kernel: "
                                      f"{launches}")
             after = srv.stats()["models"]["lm"]
@@ -2012,6 +2085,21 @@ def main() -> int:
                    "library_ms is SDPA's backward at rate 0, rate0 compares "
                    "like with like"}
           for name, line in (("dq", 215), ("dkv", 266))),
+        {"name": "flash_delta", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_delta.cu",
+         "replaces": DELTA_REPLACES,
+         "launches": train["launches"]["flash_delta"],
+         "launches_by_path": {"train": train["launches"]["flash_delta"],
+                              "train_pallas":
+                                  trains["pallas"]["launches"]["flash_delta"]},
+         "max_abs_err": max(c["delta_err"] for c in train_cases),
+         "tol_share": max(c["delta_share"] for c in train_cases),
+         "tol": f"a row, {DELTA_TOL} x sum |dO O|",
+         "ms": head["delta_ms"], "plain_ms": head["delta_plain_ms"],
+         "bound_ms": head["delta_bound_ms"], "bound_by": head["delta_bound_by"],
+         "library_ms": head["delta_library_ms"], "shape": train_shape,
+         "note": "library_ms is torch.linalg.vecdot(dO, O); plain_ms the "
+                 "port's former delta, (dO.float() * O).sum(-1)"},
         {"name": "paged_decode", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:138",
@@ -2115,6 +2203,24 @@ def main() -> int:
         for name, src, line in (("fwd", "flash_fwd.cu", 152),
                                 ("dq", "flash_bwd.cu", 215),
                                 ("dkv", "flash_bwd.cu", 266))]
+    kernels.append(
+        {"name": "flash_delta_bf16", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_delta.cu",
+         "replaces": DELTA_REPLACES, "dtype": "bfloat16",
+         "launches": amp_auto["launches"]["flash_delta_bf16"],
+         "launches_by_path": {
+             "train_amp": amp_auto["launches"]["flash_delta_bf16"],
+             "train_amp_pallas": amp_pallas["launches"]["flash_delta_bf16"]},
+         "max_abs_err": max(c["delta_err"] for c in bf16_cases),
+         "tol_share": max(c["delta_share"] for c in bf16_cases),
+         "tol": f"a row, {DELTA_TOL} x sum |dO O|",
+         "ms": bf16_head["delta_ms"], "plain_ms": bf16_head["delta_plain_ms"],
+         "bound_ms": bf16_head["delta_bound_ms"],
+         "bound_by": bf16_head["delta_bound_by"], "library_ms": None,
+         "shape": bf16_shape,
+         "note": "library_ms null: no one PyTorch call sums bf16 products "
+                 "into a float32 result; plain_ms is the port's former "
+                 "delta, three PyTorch passes"})
     kernels.append(
         {"name": "dropout_bf16", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/dropout.cu",

@@ -89,8 +89,9 @@
 //   of a head are neighbouring items, so blocks side by side read its
 //   streamed tiles once from memory and then from L2. A block is two
 //   consumer warpgroups, 64 resident rows each, and a producer warpgroup
-//   of which one warp works (setmaxnreg: 232 registers a consumer
-//   thread, 32 a producer thread).
+//   of which one warp works (setmaxnreg hands the producer's registers
+//   to the consumers at run time, 232 and 32 a thread; ptxas still
+//   compiles every thread for at most 168, see flash_fwd.cu).
 // - The producer TMA-loads each item's resident tiles (Q and dO, or K and
 //   V) into one of two buffers, so the next item's land while this one
 //   computes, then streams the other two tensors through a 4-stage ring
@@ -559,12 +560,6 @@ template <int D>
 __host__ __device__ constexpr int stages_dq() { return D == 128 ? 2 : 4; }
 constexpr int STAGES_DKV = 4;
 
-// [rows x D] bf16 tile, TMA'd as panel_cols<D>()-wide panels
-template <int D>
-__host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * D * 2;
-}
-
 // resident tiles: two tensors x two buffers (an item's and the next
 // one's) x the warpgroups' 64 rows; then the ring; then the barriers
 template <int D>
@@ -580,28 +575,6 @@ __host__ __device__ constexpr size_t dkv_smem() {
          2 * STAGES_DKV * tile_bytes<D>(bn_dkv<D>()) +
          3 * STAGES_DKV * bn_dkv<D>() * sizeof(float) +
          8 * (4 + 2 * STAGES_DKV);
-}
-
-template <int D>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map,
-                                         uint64_t* bar, int r0, int bh,
-                                         int rows) {
-  constexpr int PW = panel_cols<D>();
-#pragma unroll
-  for (int p = 0; p < D / PW; ++p)
-    tma_load_3d(dst + p * rows * PW * 2, map, bar, p * PW, r0, bh);
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t s = smem_u32(p);
-  return p + ((1024 - (s & 1023)) & 1023);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // x = A_x B_x^T and y = A_y B_y^T for streamed tile i (ring stage
@@ -1150,60 +1123,8 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host: tensor maps and launches ----------------------------------------
 
-// A failed cuTensorMapEncodeTiled returns PTT_ERR_TENSOR_MAP + its
-// CUresult (ptt_error_string names it)
-constexpr int PTT_ERR_TENSOR_MAP = 100000;
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
-int encode_tiled_fn(EncodeTiledFn* fn) {
-  static EncodeTiledFn cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return (int)cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// [bh, T, D] bf16 at `base` as a 3-D map (innermost first: D, T, bh) with
-// boxes of `rows` rows by one panel: rows >= T of a head come as zeros,
-// never the next head's rows
-template <int D>
-int encode_bf16_map(CUtensorMap* map, const void* base, int bh, int T,
-                    int rows) {
-  EncodeTiledFn fn;
-  int err = encode_tiled_fn(&fn);
-  if (err) return err;
-  constexpr int PW = ptt_hopper::panel_cols<D>();
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)PW, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : PTT_ERR_TENSOR_MAP + (int)r;
-}
+using ptt_hopper::encode_bf16_map;
+using ptt_hopper::persistent_blocks;
 
 // the four maps of q, k, v, dout: `res_rows`-row boxes for the two
 // resident tensors (q, dout for dQ; k, v for dK/dV), `str_rows` for the
@@ -1218,28 +1139,6 @@ int encode_bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
   if ((err = encode_bf16_map<D>(&m[1], k, bh, T, rk))) return err;
   if ((err = encode_bf16_map<D>(&m[2], v, bh, T, rk))) return err;
   return encode_bf16_map<D>(&m[3], dout, bh, T, rq);
-}
-
-// one block an SM (the kernels hold a whole SM), no more than the work
-// items (BLOCK_ROWS rows of one head each)
-int persistent_blocks(int bh, int T, int* blocks) {
-  static int sms[64] = {0};
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
-    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                               dev);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int n_rb = (T + bf16w::BLOCK_ROWS - 1) / bf16w::BLOCK_ROWS;
-  // a multiple of n_rb (work_item), unless a head has more row blocks
-  // than the card has SMs
-  const long grid = n_rb <= sms[dev] ? sms[dev] / n_rb * n_rb : sms[dev];
-  const long items = (long)n_rb * bh;
-  *blocks = (int)(items < grid ? items : grid);
-  return 0;
 }
 
 template <int D>
@@ -1260,7 +1159,9 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int blocks;
-  if ((err = persistent_blocks(bh, T, &blocks))) return err;
+  if ((err = persistent_blocks(
+           (T + bf16w::BLOCK_ROWS - 1) / bf16w::BLOCK_ROWS, bh, &blocks)))
+    return err;
   kernel<<<blocks, bf16w::THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], mdq, lse, delta, bh, T, sm_scale, causal,
       seed, thresh, drop_scale);
@@ -1286,7 +1187,9 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int blocks;
-  if ((err = persistent_blocks(bh, T, &blocks))) return err;
+  if ((err = persistent_blocks(
+           (T + bf16w::BLOCK_ROWS - 1) / bf16w::BLOCK_ROWS, bh, &blocks)))
+    return err;
   kernel<<<blocks, bf16w::THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], mdk, mdv, lse, delta, bh, T, sm_scale,
       causal, seed, thresh, drop_scale);

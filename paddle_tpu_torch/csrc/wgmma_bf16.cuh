@@ -1,6 +1,8 @@
-// Hopper helpers for bf16 kernels on sm_90a: mbarriers, TMA tile loads,
-// shared-memory matrix descriptors and warpgroup matrix multiplies
-// (wgmma), first used by the bf16 dQ and dK/dV kernels of flash_bwd.cu.
+// Hopper helpers for bf16 kernels on sm_90a: mbarriers, TMA tile loads
+// and stores, shared-memory matrix descriptors and warpgroup matrix
+// multiplies (wgmma), and on the host the TMA tensor maps and the size of
+// a persistent grid; used by the bf16 forward (flash_fwd.cu) and the bf16
+// dQ and dK/dV kernels (flash_bwd.cu).
 //
 // The pattern they serve: one producer thread keeps TMA loads of tiles in
 // flight into a ring of shared-memory stages; a "full" mbarrier of each
@@ -35,6 +37,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
@@ -216,6 +219,38 @@ __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile,
   constexpr int PW = panel_cols<D>();
   return smem_desc(tile, rows * PW * 2, 8 * PW * 2, swizzle_mode<D>()) +
          (uint64_t)((jj * 16 * PW * 2) >> 4);
+}
+
+// [rows x D] bf16 tile, TMA'd as panel_cols<D>()-wide panels
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * D * 2;
+}
+
+// rows [r0, r0 + rows) of head bh of `map` -> the tile at `dst`, one TMA
+// load a panel, completing on `bar`
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int r0, int bh,
+                                         int rows) {
+  constexpr int PW = panel_cols<D>();
+#pragma unroll
+  for (int p = 0; p < D / PW; ++p)
+    tma_load_3d(dst + p * rows * PW * 2, map, bar, p * PW, r0, bh);
+}
+
+// the first 1024-byte boundary at or after p (a swizzled tile's start)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = smem_u32(p);
+  return p + ((1024 - (s & 1023)) & 1023);
+}
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The m64 x D float32 accumulator (register 4 n + e: row 16 warp + g +
@@ -478,6 +513,84 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
         "n"(TB));
+}
+
+// ---- host: tensor maps and persistent grids ---------------------------------
+
+// A failed cuTensorMapEncodeTiled returns PTT_ERR_TENSOR_MAP + its
+// CUresult (ptt_error_string names it)
+constexpr int PTT_ERR_TENSOR_MAP = 100000;
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+inline int encode_tiled_fn(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// [bh, T, D] bf16 at `base` as a 3-D map (innermost first: D, T, bh) with
+// boxes of `rows` rows by one panel: rows >= T of a head come as zeros,
+// never the next head's rows (and a store clips them)
+template <int D>
+int encode_bf16_map(CUtensorMap* map, const void* base, int bh, int T,
+                    int rows) {
+  EncodeTiledFn fn;
+  int err = encode_tiled_fn(&fn);
+  if (err) return err;
+  constexpr int PW = panel_cols<D>();
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)PW, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : PTT_ERR_TENSOR_MAP + (int)r;
+}
+
+// Blocks of a persistent kernel that holds a whole SM: one an SM, no more
+// than the work items (n_rb row blocks of each of bh heads), and a
+// multiple of n_rb, so that each round of the grid holds whole heads,
+// unless a head has more row blocks than the card has SMs.
+inline int persistent_blocks(int n_rb, int bh, int* blocks) {
+  static int sms[64] = {0};
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long grid = n_rb <= sms[dev] ? sms[dev] / n_rb * n_rb : sms[dev];
+  const long items = (long)n_rb * bh;
+  *blocks = (int)(items < grid ? items : grid);
+  return 0;
 }
 
 }  // namespace ptt_hopper

@@ -7,20 +7,24 @@ package's: q, k, v and the output are [B, H, T, D].
 
 `flash_attention` is a `torch.autograd.Function` (the JAX package's
 `custom_vjp`): its forward launches the forward kernel and saves
-(q, k, v, out, lse); its backward computes delta = rowsum(dO * O) in
-PyTorch (the JAX package does it in XLA) and launches the dQ and dK/dV
-kernels. Each of the three dispatches on where its tensors lie:
+(q, k, v, out, lse); its backward launches the delta kernel (delta =
+rowsum(dO * O), which the JAX package computes in XLA), then the dQ and
+dK/dV kernels. Each of them dispatches on where its tensors lie:
 
-- CUDA: the hand-written kernels of ``csrc/flash_fwd.cu`` and
-  ``csrc/flash_bwd.cu`` (they replace ``_flash_fwd_kernel``,
-  ``_flash_dq_kernel`` and ``_flash_dkv_kernel``; see those files for
-  what bounds them and how their designs answer it). They take float32
-  or bf16 (each dtype its own instantiation, counted under its own name:
-  `flash_fwd` and `flash_fwd_bf16`, ...), D in {32, 64, 128}, any T, and
-  as many keys as queries; anything else raises — there is no fallback;
+- CUDA: the hand-written kernels of ``csrc/flash_fwd.cu``,
+  ``csrc/flash_delta.cu`` and ``csrc/flash_bwd.cu`` (they replace
+  ``_flash_fwd_kernel``, the XLA delta, ``_flash_dq_kernel`` and
+  ``_flash_dkv_kernel``; see those files for what bounds them and how
+  their designs answer it). They take float32 or bf16 (each dtype its
+  own instantiation, counted under its own name: `flash_fwd` and
+  `flash_fwd_bf16`, ...), D in {32, 64, 128}, any T, and as many keys as
+  queries; anything else raises — there is no fallback. The bf16
+  forward, dQ and dK/dV kernels load through TMA tensor maps, which want
+  16-byte-aligned bases, as every wrapper checks;
 - CPU: the plain PyTorch versions (`_attention_reference`,
-  `_lse_reference`, `_flash_backward_reference`), which write out the
-  kernels' own formulas;
+  `_lse_reference`, `_flash_delta_reference`,
+  `_flash_backward_reference`), which write out the kernels' own
+  formulas;
 - meta: an empty output of the right shape (build-time shape inference).
 
 In bf16 (under `Executor(amp=True)`) every kernel rounds where the TPU
@@ -159,7 +163,7 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, sm_scale,
         dw = torch.where(keep, dp * _drop_scale(rate), zero)
     else:
         w_drop, dw = w, dp
-    delta = flash_delta(o, do)
+    delta = _flash_delta_reference(o, do)
     ds = operand(w * (dw - delta[..., None]) * sm_scale)
     return (torch.einsum("bhqk,bhkd->bhqd", ds, k).to(lo),
             torch.einsum("bhqk,bhqd->bhkd", ds, q).to(lo),
@@ -213,9 +217,14 @@ def _flash_forward(q, k, v, causal, sm_scale, rate=0.0, seed=0):
     for name, t in (("q", q), ("k", k), ("v", v)):
         native.check_operand(t, name, q.dtype, dev, (B, H, T, D))
     out = torch.empty_like(q)
+    native.check_operand(out, "out", q.dtype, dev, (B, H, T, D))
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     if q.numel() == 0:
         return out, lse
+    if q.dtype == torch.bfloat16 and sm_scale < 0:
+        # the bf16 kernel keeps its running max before the scale, which
+        # needs sm_scale >= 0; (-q) K^T is -(Q K^T) exactly
+        q, sm_scale = -q, -sm_scale
     err = getattr(native.lib(), f"ptt_flash_fwd_{entry}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B * H, T, D, float(sm_scale), int(bool(causal)),
@@ -270,7 +279,7 @@ def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
     return dk, dv
 
 
-def flash_delta(o, do):
+def _flash_delta_reference(o, do):
     """delta = rowsum(dO * O), [B, H, T], in float32 at least (from bf16
     tensors too): the JAX package computes it so, outside its kernels.
     O enters the product in its own dtype: the multiply promotes it on the
@@ -280,9 +289,39 @@ def flash_delta(o, do):
     return (do.to(ct) * o).sum(-1)
 
 
+def flash_delta(o, do):
+    """delta = rowsum(dO * O) over [..., D] tensors, float32: the delta
+    kernel for CUDA tensors (float32 or bf16, D in {32, 64, 128}; it sums
+    in float32, in another order than the plain version), the plain
+    version on the CPU, an empty result on meta."""
+    dev = o.device
+    if dev.type == "cpu":
+        return _flash_delta_reference(o, do)
+    if dev.type == "meta":
+        return torch.empty(o.shape[:-1], dtype=_compute_dtype(o), device=dev)
+    if dev.type != "cuda":
+        raise _no_path(o)
+    D = o.shape[-1]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash attention delta kernel takes head dim "
+                         f"{_HEAD_DIMS}, got {D}")
+    entry, counter = _instantiation(o, "delta")
+    for name, t in (("o", o), ("do", do)):
+        native.check_operand(t, name, o.dtype, dev, o.shape)
+    delta = torch.empty(o.shape[:-1], dtype=torch.float32, device=dev)
+    if o.numel() == 0:
+        return delta
+    err = getattr(native.lib(), f"ptt_flash_delta_{entry}")(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), o.numel() // D, D,
+        *_device_args(dev))
+    native.check(err, "flash_delta launch")
+    native.count_launch("flash_delta" + counter)
+    return delta
+
+
 def _flash_backward(q, k, v, o, lse, do, causal, sm_scale, rate=0.0,
                     seed=0):
-    """delta in PyTorch, then the dQ and dK/dV kernels: (dq, dk, dv)."""
+    """The delta kernel, then the dQ and dK/dV kernels: (dq, dk, dv)."""
     delta = flash_delta(o, do)
     dq = _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate, seed)
     dk, dv = _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate,

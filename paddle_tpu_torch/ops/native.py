@@ -2,13 +2,14 @@
 
 The sources are ``paddle_tpu_torch/csrc/*.cu`` (plus the headers
 ``flash_common.cuh``, which the flash kernels share, ``mma_tf32.cuh`` and
-``mma_bf16.cuh``, their `mma.sync` helpers in float32 and in bf16,
-``wgmma_bf16.cuh``, the Hopper helpers (mbarriers, TMA, `wgmma`) of the
-bf16 backward kernels, and ``paged_split.cuh``, the split layout and
-merge kernel of both paged decode kernels): plain C entry points, no
-PyTorch headers. The bf16 backward entries encode their TMA tensor maps
-with the driver's `cuTensorMapEncodeTiled`, reached through the
-runtime's `cudaGetDriverEntryPoint`, so the link needs no `-lcuda`.
+``mma_bf16.cuh``, the float32 kernels' `mma.sync` helpers and the bf16
+type and packing, ``wgmma_bf16.cuh``, the Hopper helpers (mbarriers, TMA,
+`wgmma`, tensor maps) of the bf16 flash kernels, and
+``paged_split.cuh``, the split layout and merge kernel of both paged
+decode kernels): plain C entry points, no PyTorch headers. The bf16
+flash entries encode their TMA tensor maps with the driver's
+`cuTensorMapEncodeTiled`, reached through the runtime's
+`cudaGetDriverEntryPoint`, so the link needs no `-lcuda`.
 At first use each source is compiled by its own `nvcc` process (all
 started together) for ``sm_90a``, and the objects are linked
 into one shared library under ``paddle_tpu_torch/_build/`` (listed in
@@ -39,8 +40,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
-           "paged_decode_q8.cu", "dropout.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_delta.cu",
+           "paged_decode.cu", "paged_decode_q8.cu", "dropout.cu")
 HEADERS = ("flash_common.cuh", "mma_tf32.cuh", "mma_bf16.cuh",
            "wgmma_bf16.cuh", "paged_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,11 +52,11 @@ MAX_GRID_Y = 65535
 # gridDim.z limit: the paged decode kernels put a slot's chunks there
 MAX_GRID_Z = 65535
 
-launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "paged_decode": 0,
-            "paged_decode_q8": 0, "dropout": 0,
+launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_delta": 0,
+            "paged_decode": 0, "paged_decode_q8": 0, "dropout": 0,
             # the bf16 instantiations (bf16 mixed precision)
             "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
-            "dropout_bf16": 0,
+            "flash_delta_bf16": 0, "dropout_bf16": 0,
             # the dropout launches of either dtype that also wrote the
             # op's Mask
             "dropout_mask": 0}
@@ -168,6 +169,8 @@ def _declare(lib):
     lib.ptt_flash_fwd_bf16.restype = I
     lib.ptt_flash_fwd_bf16_smem_bytes.argtypes = [I]
     lib.ptt_flash_fwd_bf16_smem_bytes.restype = I
+    lib.ptt_flash_fwd_bf16_causal_smem_bytes.argtypes = [I]
+    lib.ptt_flash_fwd_bf16_causal_smem_bytes.restype = I
     lib.ptt_flash_fwd_smem_bytes.argtypes = [I]
     lib.ptt_flash_fwd_smem_bytes.restype = I
     lib.ptt_flash_dq_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, U, U,
@@ -184,6 +187,10 @@ def _declare(lib):
     lib.ptt_flash_bwd_bf16_smem_bytes.restype = I
     lib.ptt_flash_bwd_smem_bytes.argtypes = [I, I]
     lib.ptt_flash_bwd_smem_bytes.restype = I
+    lib.ptt_flash_delta_f32.argtypes = [P, P, P, I, I, I, P]
+    lib.ptt_flash_delta_f32.restype = I
+    lib.ptt_flash_delta_bf16.argtypes = lib.ptt_flash_delta_f32.argtypes
+    lib.ptt_flash_delta_bf16.restype = I
     lib.ptt_paged_decode_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
                                          I, I, F, I, P]
     lib.ptt_paged_decode_f32.restype = I

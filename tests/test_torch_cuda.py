@@ -302,8 +302,8 @@ def test_autograd_function_runs_the_three_kernels(dev):
     out = fa.flash_attention(*leaves, True, 0.125, 0.1, 9)
     grads = torch.autograd.grad(out, leaves, do)
     assert {n: native.launches[n] for n in ("flash_fwd", "flash_dq",
-                                            "flash_dkv")} == \
-        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+                                            "flash_dkv", "flash_delta")} == \
+        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_delta": 1}
     lse = fa._lse_reference(q, k, True, 0.125)
     for a, b in zip(grads, fa._flash_backward_reference(
             q, k, v, out.detach(), lse, do, True, 0.125, 0.1, 9)):
@@ -364,7 +364,7 @@ def test_train_base_one_layer_two_steps_on_card(dev):
     """Transformer-base widths at one layer, batch 2: two Adam steps on
     the card, each launching the forward kernel twice per attention (the
     forward op and its grad op's recompute) and each backward kernel
-    once; 3 attentions a layer."""
+    once, and the delta kernel once; 3 attentions a layer."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.models import transformer
     main, startup = ptt.Program(), ptt.Program()
@@ -383,8 +383,9 @@ def test_train_base_one_layer_two_steps_on_card(dev):
                         scope=scope)
         assert np.isfinite(loss).all()
         assert {n: native.launches[n] for n in ("flash_fwd", "flash_dq",
-                                                "flash_dkv")} == \
-            {"flash_fwd": 6, "flash_dq": 3, "flash_dkv": 3}
+                                                "flash_dkv",
+                                                "flash_delta")} == \
+            {"flash_fwd": 6, "flash_dq": 3, "flash_dkv": 3, "flash_delta": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -1015,10 +1016,11 @@ def test_flash_bf16_kernels_match_plain(dev, B, H, T, D, causal, rate):
     out, lse = fa._flash_forward(q, k, v, causal, sm, rate, 17)
     got = fa._flash_backward(q, k, v, out, lse, do, causal, sm, rate, 17)
     assert {n: native.launches[n] for n in (
-        "flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_bf16",
-        "flash_dq_bf16", "flash_dkv_bf16")} == {
-        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 1,
-        "flash_dq_bf16": 1, "flash_dkv_bf16": 1}
+        "flash_fwd", "flash_dq", "flash_dkv", "flash_delta", "flash_fwd_bf16",
+        "flash_dq_bf16", "flash_dkv_bf16", "flash_delta_bf16")} == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_delta": 0,
+        "flash_fwd_bf16": 1, "flash_dq_bf16": 1, "flash_dkv_bf16": 1,
+        "flash_delta_bf16": 1}
     assert lse.dtype == torch.float32
     _bf16_close(out, fa._attention_reference(q, k, v, causal, sm, rate, 17),
                 "out")
@@ -1065,6 +1067,124 @@ def test_flash_bf16_backward_refuses_a_misaligned_view(dev):
         fa._flash_dkv(q, k, odd, do, lse, delta, False, 0.125)
     assert native.launches["flash_dq_bf16"] == 0
     assert native.launches["flash_dkv_bf16"] == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("T", [1, 63, 65, 127, 129, 257, 300])
+def test_flash_fwd_bf16_at_ragged_T(dev, T, D, causal):
+    """The bf16 forward's edges: 64-row query tiles in 128-row work items,
+    128-key K/V tiles (64 at D 128), rows past T zero-filled by TMA and
+    clipped from the store, columns past T masked; D 32 takes the 64-byte
+    swizzle, D 128 two 64-column panels."""
+    q, k, v = _qkv_bf16(dev, 2, 3, T, D, seed=11 * T + D)
+    sm = D ** -0.5
+    native.reset_launches()
+    out, lse = fa._flash_forward(q, k, v, causal, sm, 0.1, 19)
+    assert native.launches["flash_fwd_bf16"] == 1
+    _bf16_close(out, fa._attention_reference(q, k, v, causal, sm, 0.1, 19),
+                "out")
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_bf16_on_peaked_scores(dev, causal):
+    """q and k scaled by 4 before the cast to bf16: W near one-hot and
+    the scores 16 times wider, so the running max moves far between key
+    tiles and O is rescaled by factors far from 1."""
+    q, k, v = _qkv(dev, 2, 4, 256, 64, seed=43)
+    q, k, v = (t.to(torch.bfloat16) for t in (q * 4.0, k * 4.0, v))
+    sm = 64 ** -0.5
+    assert float(torch.softmax(q.float() @ k.float().transpose(-1, -2) * sm,
+                               -1).amax(-1).median()) > 0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, 0.1, 5)
+    _bf16_close(out, fa._attention_reference(q, k, v, causal, sm, 0.1, 5),
+                "out")
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_bf16_past_one_persistent_round(dev, causal):
+    """600 work items (300 heads of two 128-row blocks): more than three
+    rounds of a grid of one block an SM (132 on an H100), so each block
+    walks several items and reuses its Q buffers and ring stages; two
+    launches give equal bits."""
+    q, k, v = _qkv_bf16(dev, 2, 150, 256, 64, seed=29 + int(causal))
+    sm = 64 ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, 0.1, 8)
+    _bf16_close(out, fa._attention_reference(q, k, v, causal, sm, 0.1, 8),
+                "out")
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=LSE_TOL, rtol=0)
+    again = fa._flash_forward(q, k, v, causal, sm, 0.1, 8)
+    assert torch.equal(out.view(torch.int16), again[0].view(torch.int16))
+    assert torch.equal(lse, again[1])
+
+
+def test_flash_fwd_bf16_refuses_a_misaligned_view(dev):
+    """The bf16 forward loads q, k and v through TMA tensor maps, which
+    need 16-byte-aligned bases: a view 2 bytes into its storage raises
+    before any launch."""
+    q, k, v = _qkv_bf16(dev, 1, 2, 64, 64, seed=9)
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=dev)
+    odd = buf[1:1 + q.numel()].view(q.shape)
+    odd.copy_(k)
+    native.reset_launches()
+    for args in ((odd, k, v), (q, odd, v), (q, k, odd)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa._flash_forward(*args, False, 0.125)
+    assert native.launches["flash_fwd_bf16"] == 0
+
+
+def test_flash_fwd_bf16_takes_a_negative_scale(dev):
+    """The kernel keeps its running max before the scale; the wrapper
+    hands it -q and -sm_scale for a negative scale, which is exact."""
+    q, k, v = _qkv_bf16(dev, 1, 2, 100, 64, seed=31)
+    out, lse = fa._flash_forward(q, k, v, True, -0.125, 0.1, 3)
+    _bf16_close(out, fa._attention_reference(q, k, v, True, -0.125, 0.1, 3),
+                "out")
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, True, -0.125),
+                               atol=LSE_TOL, rtol=0)
+
+
+# delta kernel vs plain: the same float32 sum of D exact (bf16) or once
+# rounded (float32) products in another order, so a row lies within this
+# share of its sum of |dO O|
+DELTA_TOL = 1e-5
+
+
+@pytest.mark.parametrize("T", [1, 17, 256, 300])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_delta_kernel_matches_plain(dev, dtype, D, T):
+    o, do = (t.to(dtype) for t in _qkv(dev, 2, 3, T, D, seed=T + D, n=2))
+    native.reset_launches()
+    got = fa.flash_delta(o, do)
+    counter = "flash_delta" + ("_bf16" if dtype == torch.bfloat16 else "")
+    assert native.launches[counter] == 1
+    assert sum(native.launches.values()) == 1
+    assert got.dtype == torch.float32 and got.shape == (2, 3, T)
+    want = fa._flash_delta_reference(o, do)
+    scale = (do.float() * o.float()).abs().sum(-1)
+    assert bool(((got - want).abs() <= DELTA_TOL * scale).all()), \
+        float(((got - want).abs() / scale).max())
+    assert torch.equal(got, fa.flash_delta(o, do))
+
+
+def test_flash_delta_kernel_refuses_a_misaligned_view(dev):
+    o, do = (t.to(torch.bfloat16) for t in _qkv(dev, 1, 2, 64, 64, seed=2,
+                                                n=2))
+    buf = torch.empty(o.numel() + 8, dtype=torch.bfloat16, device=dev)
+    odd = buf[1:1 + o.numel()].view(o.shape)
+    odd.copy_(o)
+    native.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_delta(odd, do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_delta(o, odd)
+    assert native.launches["flash_delta_bf16"] == 0
 
 
 @pytest.mark.parametrize("T", [32, 128])
@@ -1160,7 +1280,8 @@ def test_amp_step_launches_only_the_bf16_kernels(dev):
     assert np.isfinite(loss).all()
     want = dict.fromkeys(native.launches, 0)
     want.update(flash_fwd_bf16=6, flash_dq_bf16=3, flash_dkv_bf16=3,
-                dropout=2 * 2, dropout_bf16=2 * (n_sites - 2))
+                flash_delta_bf16=3, dropout=2 * 2,
+                dropout_bf16=2 * (n_sites - 2))
     assert native.launches == want
     for n in scope.local_var_names():
         v = scope.find_var(n)

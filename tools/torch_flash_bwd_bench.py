@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The bf16 flash backward kernels (dQ, dK/dV) of paddle_tpu_torch on one
-card: the build report of every flash instantiation, and the pair's
-times beside `flash_delta` and SDPA's bf16 backward. Their checks against
-the plain version are tests/test_torch_cuda.py's (-m cuda) and
-chip_smoke.py's.
+"""The bf16 flash kernels of paddle_tpu_torch on one card (the forward, the
+delta kernel, dQ and dK/dV): the build report of every flash
+instantiation, the forward's times beside SDPA's bf16 forward, the
+delta kernel's beside its plain version, and the backward pair's beside
+SDPA's bf16 backward. Their checks against the plain versions are
+tests/test_torch_cuda.py's (-m cuda) and chip_smoke.py's.
 
     python tools/torch_flash_bwd_bench.py [--root DIR] [--reps N]
         [--out FILE]
@@ -17,11 +18,15 @@ chip_smoke.py's.
 
 At train-base-amp's attention shape (B 64, H 8, T 256, D 64), causal or
 not, rate 0.1 or 0: the median CUDA-event time on a cold L2
-(chip_smoke.time_ms) of dQ, of dK/dV, of `flash_delta`, of what
-`_flash_backward` launches (delta + dQ + dK/dV), of SDPA's bf16 backward
-at the case's dropout_p and at 0, each kernel's byte bound; and the host
-time of one wrapper call (an enqueue: its tensor maps, attribute and
-launch), averaged over --reps calls.
+(chip_smoke.time_ms) of the bf16 forward and of SDPA's bf16 forward at
+the case's dropout_p, of dQ, of dK/dV, of `flash_delta` and of its plain
+version (`_flash_delta_reference`; in a checkout from before the delta
+kernel, `flash_delta` is that plain version), of what `_flash_backward`
+launches (delta + dQ + dK/dV), of SDPA's bf16 backward at the case's
+dropout_p and at 0, each kernel's bound (bytes, or products at 989
+TFLOP/s); and the host time of one wrapper call of the forward, dQ and
+dK/dV (an enqueue: its tensor maps, attribute and launch), averaged over
+--reps calls.
 
 Prints one JSON object a line (the build report, each case) and, with
 --out, writes them all to FILE. Needs a card; exits 2 without one.
@@ -63,7 +68,7 @@ def build_report(cs, native):
     spills, shared memory, HMMA and HGMMA counts: the float32 ones to
     hold against another checkout's) and the compiler's warnings about
     wgmma."""
-    rep = cs.flash_build_report(native)
+    rep = cs.flash_build_report(native, n_expected=None)
     warnings = [line.strip() for line in native.build_info.log.splitlines()
                 if re.search(r"warning|wgmma|setmaxnreg", line, re.I)]
     return {"build": rep, "seconds": native.build_info.seconds,
@@ -90,13 +95,21 @@ def time_case(torch, fa, cs, flush, B, H, T, D, causal, rate, reps):
     sm, seed = D ** -0.5, cs.ATTN_SEED
     out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed)
     delta = fa.flash_delta(out, do)
+    plain_delta = getattr(fa, "_flash_delta_reference", fa.flash_delta)
     row = {"case": f"B={B} H={H} T={T} D={D} causal={causal} rate={rate}"}
+    row["fwd_ms"] = cs.time_ms(torch, lambda: fa._flash_forward(
+        q, k, v, causal, sm, rate, seed), flush)
+    row["sdpa_fwd_ms"] = cs.time_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=sm, dropout_p=rate), flush)
     row["dq_ms"] = cs.time_ms(torch, lambda: fa._flash_dq(
         q, k, v, do, lse, delta, causal, sm, rate, seed), flush)
     row["dkv_ms"] = cs.time_ms(torch, lambda: fa._flash_dkv(
         q, k, v, do, lse, delta, causal, sm, rate, seed), flush)
     row["delta_ms"] = cs.time_ms(torch, lambda: fa.flash_delta(out, do),
                                  flush)
+    row["delta_plain_ms"] = cs.time_ms(torch, lambda: plain_delta(out, do),
+                                       flush)
     row["backward_ms"] = cs.time_ms(torch, lambda: fa._flash_backward(
         q, k, v, out, lse, do, causal, sm, rate, seed), flush)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -107,10 +120,16 @@ def time_case(torch, fa, cs, flush, B, H, T, D, causal, rate, reps):
             lib_out, leaves, do, retain_graph=True), flush)
     half = 0.5 if causal else 1.0
     bht, bhtd = B * H * T, B * H * T * D
-    for name, n_products, n_tensors in (("dq", 3, 5), ("dkv", 4, 6)):
+    # bf16 elements 2 bytes, lse and delta 4 a row
+    for name, n_products, n_tensors, n_rows in (("fwd", 2, 4, 1),
+                                                ("dq", 3, 5, 2),
+                                                ("dkv", 4, 6, 2),
+                                                ("delta", 0, 2, 1)):
         row[name + "_bound_ms"], row[name + "_bound_by"] = cs._bound(
             n_products * 2.0 * bhtd * T * half,
-            n_tensors * bhtd * 2.0 + 2 * bht * 4.0, cs.PEAK_BF16_FLOPS)
+            n_tensors * bhtd * 2.0 + n_rows * bht * 4.0, cs.PEAK_BF16_FLOPS)
+    row["fwd_host_us"] = host_us(torch, lambda: fa._flash_forward(
+        q, k, v, causal, sm, rate, seed), reps)
     row["dq_host_us"] = host_us(torch, lambda: fa._flash_dq(
         q, k, v, do, lse, delta, causal, sm, rate, seed), reps)
     row["dkv_host_us"] = host_us(torch, lambda: fa._flash_dkv(

@@ -100,7 +100,8 @@ def by_op_type(prof, top=16):
 # the bf16 instantiations of the hand-written kernels, and the dtype
 # casts of the AMP policy (copy kernels), ahead of every other group
 AMP_GROUPS = (("flash kernels (bf16)", ("flash_fwd_bf16", "flash_dq_bf16",
-                                        "flash_dkv_bf16")),
+                                        "flash_dkv_bf16",
+                                        "flash_delta_bf16")),
               ("dropout kernel (bf16)", ("dropout_bf16_kernel",)),
               ("copies and casts", ("direct_copy_kernel",)))
 
