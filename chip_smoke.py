@@ -41,9 +41,10 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    request), each with its split launch (P, NSPLIT, live blocks) and two
    launches bit-equal; beside them the floor of the timing method (one
    launch of a one-element kernel) and each paged pair with every chunk
-   dead; the dropout kernel at [32, 256, 512] and [32, 256, 2048],
-   rate 0.1, forward with and without `Mask` (train-base's forward writes
-   none) and on a `dy`, bit for bit;
+   dead; the dropout kernel at [32, 256, 512] and [32, 256, 2048] and at
+   train-base-unfused's attention weights [32, 8, 256, 256], rate 0.1,
+   forward with and without `Mask` (train-base's forward writes none)
+   and on a `dy`, bit for bit;
 3b. the bf16 instantiations that bf16 mixed precision launches: the
    flash forward, dQ and dK/dV at train-base-amp's shape (B 64, H 8,
    T 256, D 64, causal and not, rate 0.1 and 0) against their bf16 plain
@@ -55,8 +56,8 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    plain version (three PyTorch passes) as in phase 3; the backward pair
    beside the delta kernel and beside SDPA's bf16 backward at the same
    dropout_p and at 0; their dropout masks bit for bit; the bf16 dropout kernel at
-   [64, 256, 512] and [64, 256, 2048], bit for bit against its plain
-   version, its keep bits the float32 kernel's;
+   [64, 256, 512], [64, 256, 2048] and [64, 8, 256, 256], bit for bit
+   against its plain version, its keep bits the float32 kernel's;
 4. serve-base: save the tiny_lm (vocab 30000, d_model 512, 8 heads, 6
    layers, 8 slots, block 16, context 1024) from a seed, serve it with
    `InferenceServer(CUDAPlace(0))`, send 8 concurrent generate requests
@@ -120,6 +121,33 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    puts between the host's own AMP and float32 steps, and the output of
    every op of the policy's bf16 set bf16 in each AMP step (float32 in
    each float32 one);
+7b. train-base-unfused: Transformer-base with ``fused_attention=False``
+   (matmul, causal_mask + elementwise_add, softmax, dropout, matmul),
+   float32 at batch 32 and AMP at 64, 10 steps each under ``auto`` and
+   ``pallas``: no flash kernel launched; under ``pallas`` the dropout
+   kernel at every gated op, its 18 attention weights among them, in
+   the forward and the grad (124 launches a step float32; 120 bf16 and
+   4 float32 under AMP); step ms, tokens/s and peak memory beside the
+   fused path's of this call; then card vs host at batch 2 and dropout
+   0, 3 steps each from the host's state, float32 (LOSS_RTOL) and AMP,
+   and the unfused loss against the fused one from the same parameters
+   (within TOL);
+7c. train-se_resnext50: SE-ResNeXt-50 32x4d, 224 x 224 NHWC, 1000
+   classes, batch 128, Momentum(0.9) on piecewise_decay with
+   L2Decay(1e-4), 10 steps in float32 (TF32 off) and 10 under AMP: step
+   ms, images/s, peak memory, share of the bound; card vs host at batch
+   2, float32 and AMP, as for ResNet-50;
+7d. train-vgg16: VGG-16 with batch norm on CIFAR-10's shape, batch 128,
+   Adam(1e-3), 10 steps under ``pallas``: its downgrade_in_infer
+   dropouts launch no kernel;
+7e. train-deepfm: `models.deepfm.build()` at its defaults, batch 512,
+   Adagrad(0.01) under GradientClipByGlobalNorm(10), 10 steps, the loss
+   falling;
+7f. the optimizer sweep: a 512-wide three-layer fc net, 3 steps on the
+   card and on the host from one state, through every optimizer class,
+   ModelAverage's apply and restore, every learning-rate schedule,
+   append_LARS, every clip and a per-parameter learning rate: losses
+   within SWEEP_LOSS_RTOL, each persistable within SWEEP_STATE_L2;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -274,6 +302,44 @@ DELTA_REPLACES = "paddle_tpu/ops/pallas_attention.py:387 (XLA, no Pallas kernel)
 # (bf16) or once rounded (float32) products, in another order, so a row
 # lies within this share of its sum of |dO O|
 DELTA_TOL = 1e-5
+# train-base-unfused: Transformer-base with fused_attention=False, at
+# train-base's batches (float32 32, AMP 64) and steps under both dropout
+# flags. Each of its 18 attentions keeps [B, 8, 256, 256] scores, weights
+# and dropped weights, and under `pallas` its weight dropout (a minor dim
+# of 256) launches the dropout kernel in the forward and again in the grad
+UNFUSED_STEPS = 10
+# train-se_resnext50: SE-ResNeXt-50 32x4d as the JAX package builds it,
+# 224 x 224 NHWC, 1000 classes, float32 with TF32 off, at train-resnet50's
+# batch; trained by the PaddlePaddle/models image-classification recipe,
+# Momentum(0.9) on piecewise_decay with L2Decay(1e-4): the smoke's 10
+# steps cross both boundaries, so `increment`, the comparisons and the
+# regularizer run on the card
+SE_RESNEXT50 = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224),
+                    data_format="NHWC")
+SE_BATCH, SE_STEPS = 128, 10
+SE_LR_BOUNDARIES, SE_LR_VALUES = [3, 6], [0.1, 0.01, 0.001]
+SE_L2, SE_MOMENTUM = 1e-4, 0.9
+# train-vgg16: VGG-16 with batch norm on CIFAR-10's shape, batch 128, with
+# Adam(1e-3) as the reference's benchmark/fluid/models/vgg.py trains it;
+# its dropouts are downgrade_in_infer, which the dropout kernel's gate
+# refuses: it runs under `pallas` and no kernel may launch
+VGG16 = dict(class_dim=10, image_shape=(3, 32, 32))
+VGG_BATCH, VGG_STEPS, VGG_LR = 128, 10, 1e-3
+# train-deepfm: models.deepfm.build() at its defaults (26 fields, 1e5
+# features, embedding 16, 13 dense features, 400 x 3) with Adagrad(0.01)
+# under GradientClipByGlobalNorm(10); batch 512 is this smoke's choice
+DEEPFM_BATCH, DEEPFM_STEPS, DEEPFM_LR, DEEPFM_CLIP = 512, 10, 0.01, 10.0
+# the optimizer sweep: a three-layer fc net 512 wide (512 -> 512 -> 512 ->
+# 10), batch 64, SWEEP_STEPS steps from one state on the card and on the
+# host, through every optimizer class, ModelAverage, every schedule,
+# append_LARS, every clip and a per-parameter learning rate. Both sides
+# take float32 products (TF32 off) summed in another order: losses within
+# SWEEP_LOSS_RTOL relative, each persistable within SWEEP_STATE_L2 relative
+# L2 (an Adagrad-family update divides a grad by about its own size, so a
+# grad within ~1e-6 of 0 carries the summation noise into a few of its
+# elements' updates; tests/test_torch_optim.py shows the same on the host)
+SWEEP_WIDTH, SWEEP_BATCH, SWEEP_STEPS = 512, 64, 3
+SWEEP_LOSS_RTOL, SWEEP_STATE_L2 = 1e-5, 1e-4
 
 
 def log(*a):
@@ -1241,13 +1307,16 @@ def gated_dropout_ops(program):
 
 
 def run_train_base(torch, ptt, native, impl, amp=False, batch=TRAIN_BATCH,
-                   steps=TRAIN_STEPS):
+                   steps=TRAIN_STEPS, fused=True):
     """`steps` steps of train-base at `batch` on the card with
     ``FLAGS_dropout_impl`` at `impl`, under bf16 mixed precision when
-    `amp`; returns the numbers, with the launch counts of exactly those
-    steps."""
+    `amp`, its attentions the fused op (the flash kernels) or, unless
+    `fused`, the op chain of train-base-unfused (no flash kernel; under
+    `pallas` the dropout kernel at each attention's weights too); returns
+    the numbers, with the launch counts of exactly those steps."""
     import numpy as np
-    main, startup, loss = build_train(ptt)
+    main, startup, loss = build_train(
+        ptt, **({} if fused else {"fused_attention": False}))
     n_gated = gated_dropout_ops(main)
     n_f32 = AMP_FLOAT32_DROPOUT_OPS if amp else n_gated
     scope = ptt.Scope()
@@ -1274,7 +1343,8 @@ def run_train_base(torch, ptt, native, impl, amp=False, batch=TRAIN_BATCH,
     finally:
         ptt.flags.set_flag("dropout_impl", "auto")
     peak = torch.cuda.max_memory_allocated()
-    tag = f"train-base{'-amp' if amp else ''} ({impl})"
+    tag = f"train-base{'' if fused else '-unfused'}{'-amp' if amp else ''} " \
+        f"({impl})"
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{tag} losses not finite: {losses}")
     k = min(3, steps // 2)
@@ -1283,10 +1353,11 @@ def run_train_base(torch, ptt, native, impl, amp=False, batch=TRAIN_BATCH,
     n_attn = 3 * TRAIN_BASE["n_layer"]
     sfx = "_bf16" if amp else ""
     want = dict.fromkeys(launches, 0)
-    want.update({f"flash_fwd{sfx}": 2 * n_attn * steps,
-                 f"flash_dq{sfx}": n_attn * steps,
-                 f"flash_dkv{sfx}": n_attn * steps,
-                 f"flash_delta{sfx}": n_attn * steps})
+    if fused:
+        want.update({f"flash_fwd{sfx}": 2 * n_attn * steps,
+                     f"flash_dq{sfx}": n_attn * steps,
+                     f"flash_dkv{sfx}": n_attn * steps,
+                     f"flash_delta{sfx}": n_attn * steps})
     if impl == "pallas":        # the forward and the grad of every gated op
         if n_gated < 1:
             raise AssertionError("no dropout op of train-base passes the gate")
@@ -1304,7 +1375,8 @@ def run_train_base(torch, ptt, native, impl, amp=False, batch=TRAIN_BATCH,
     # backward products, against the bf16 tensor-core peak
     step_flop = 3 * 2 * model_macs(main) * batch
     bound_ms = step_flop / PEAK_BF16_FLOPS * 1e3
-    return dict(impl=impl, amp=amp, batch=batch, steps=steps, losses=losses,
+    return dict(impl=impl, amp=amp, fused=fused, batch=batch, steps=steps,
+                losses=losses,
                 step_ms=step_ms, step_ms_median=med,
                 tokens_per_s=batch * TRAIN_BASE["seq_len"] / med * 1e3,
                 peak_bytes=peak, launches=launches, gated_dropout_ops=n_gated,
@@ -1398,49 +1470,12 @@ def model_macs(program):
 def run_train_resnet50(torch, ptt, native, amp=False):
     """RESNET_STEPS steps of train-resnet50 on the card on one fixed batch,
     staged on the card first (bench.py stages its batches so), under bf16
-    mixed precision when `amp`; returns the numbers, with the launch
-    counts of exactly those steps."""
-    import numpy as np
+    mixed precision when `amp` (`run_train_model`)."""
     main, startup, fetches = build_resnet(ptt)
-    loss = fetches["loss"]
-    scope = ptt.Scope()
-    exe = ptt.Executor(ptt.CUDAPlace(0), amp=amp)
-    exe.run(startup, scope=scope)
-    feed = {k: torch.from_numpy(v).cuda()
-            for k, v in resnet_batch(RESNET_BATCH).items()}
-    macs = model_macs(main)
-    step_flop = 3 * 2 * macs * RESNET_BATCH     # forward + two backward
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms = [], []
-    native.reset_launches()
-    for _ in range(RESNET_STEPS):
-        t0 = time.perf_counter()
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(np.asarray(out).reshape(-1)[0]))
-    launches = dict(native.launches)
-    peak = torch.cuda.max_memory_allocated()
-    tag = f"train-resnet50{'-amp' if amp else ''}"
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"{tag} losses not finite: {losses}")
-    if any(launches.values()):
-        raise AssertionError(f"{tag} launched a kernel of the attention or "
-                             f"dropout paths: {launches}")
-    last = sorted(step_ms[-5:])
-    med = last[len(last) // 2]
-    bound_ms = step_flop / (PEAK_BF16_FLOPS if amp else PEAK_F32_FLOPS) * 1e3
-    types = [op.type for op in main.global_block().ops]
-    del scope, exe
-    return dict(amp=amp, losses=losses, step_ms=step_ms, step_ms_median=med,
-                images_per_s=RESNET_BATCH / med * 1e3, peak_bytes=peak,
-                launches=launches, macs_per_image=macs, step_flop=step_flop,
-                bound_ms=bound_ms, bound_share=bound_ms / med,
-                ops=len(types), ops_by_type={t: types.count(t)
-                                             for t in sorted(set(types))})
+    return run_train_model(
+        torch, ptt, native, f"train-resnet50{'-amp' if amp else ''}", main,
+        startup, fetches["loss"], resnet_batch(RESNET_BATCH), RESNET_STEPS,
+        RESNET_BATCH, amp=amp)
 
 
 def _state_kind(name):
@@ -1598,6 +1633,307 @@ def run_resnet50_and_mnist_parity(torch, ptt):
     return out
 
 
+def run_unfused_parity(torch, ptt):
+    """train-base-unfused at the parity batch and dropout 0: card against
+    host, PARITY_STEPS steps each from the host's state, in float32 and
+    under AMP; then, on the card from one startup state, the unfused
+    step's loss against the fused one's (the flash kernels), within the
+    flash forward's tolerance TOL, relative."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import fetch_var
+    main, startup, loss = build_train(ptt, dropout_rate=0.0,
+                                      fused_attention=False)
+    feed = train_batch(PARITY_BATCH)
+    out = {"float32": run_step_parity(torch, ptt, "train-base-unfused", main,
+                                      startup, loss, feed, PARITY_STEPS),
+           "amp": run_step_parity(torch, ptt, "train-base-unfused-amp", main,
+                                  startup, loss, feed, PARITY_STEPS,
+                                  amp=True)}
+    fmain, _, floss = build_train(ptt, dropout_rate=0.0)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    state = {n: fetch_var(n, scope) for n in scope.local_var_names()}
+    del scope
+    step = {}
+    for name, prog, lv in (("unfused", main, loss), ("fused", fmain, floss)):
+        sc = ptt.io.state_from_numpy(state, ptt.CUDAPlace(0))
+        step[name] = float(np.asarray(exe.run(
+            prog, feed=feed, fetch_list=[lv], scope=sc)[0]).reshape(-1)[0])
+        del sc
+    torch.cuda.empty_cache()
+    rel = abs(step["unfused"] - step["fused"]) / abs(step["fused"])
+    if not rel <= TOL:
+        raise AssertionError(f"train-base unfused vs fused from the same "
+                             f"parameters: {step}, relative error {rel} > "
+                             f"{TOL}")
+    out["unfused_vs_fused"] = dict(losses=step, rel_err=rel, tol=TOL)
+    return out
+
+
+def run_train_model(torch, ptt, native, tag, main, startup, loss, feed,
+                    steps, batch, amp=False, impl="auto"):
+    """`steps` steps of one of the zoo's models on `feed` (staged on the
+    card) with ``FLAGS_dropout_impl`` at `impl`, under bf16 mixed
+    precision when `amp`: losses finite, no kernel of the attention or
+    dropout paths launched; returns step ms (median of the last 5), peak
+    memory and the step's share of its bound (3 x 2 x model_macs x the
+    batch at the float32 or bf16 peak)."""
+    import numpy as np
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0), amp=amp)
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    ptt.flags.set_flag("dropout_impl", impl)
+    try:
+        native.reset_launches()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out).reshape(-1)[0]))
+        launches = dict(native.launches)
+    finally:
+        ptt.flags.set_flag("dropout_impl", "auto")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched a kernel of the attention or "
+                             f"dropout paths: {launches}")
+    last = sorted(step_ms[-5:])
+    med = last[len(last) // 2]
+    macs = model_macs(main)
+    step_flop = 3 * 2 * macs * batch
+    bound_ms = step_flop / (PEAK_BF16_FLOPS if amp else PEAK_F32_FLOPS) * 1e3
+    types = [op.type for op in main.global_block().ops]
+    del scope, exe, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tag=tag, amp=amp, impl=impl, batch=batch, steps=steps,
+                losses=losses, step_ms=step_ms, step_ms_median=med,
+                samples_per_s=batch / med * 1e3, peak_bytes=peak,
+                launches=launches, macs_per_sample=macs, step_flop=step_flop,
+                bound_ms=bound_ms, bound_share=bound_ms / med, ops=len(types),
+                ops_by_type={t: types.count(t) for t in sorted(set(types))})
+
+
+def build_se_resnext(ptt, values=SE_LR_VALUES):
+    """SE-ResNeXt-50 (SE_RESNEXT50) + Momentum on
+    piecewise_decay(SE_LR_BOUNDARIES, `values`) with L2Decay:
+    (main, startup, fetches)."""
+    from paddle_tpu_torch import optimizer, regularizer
+    from paddle_tpu_torch.models import se_resnext
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = se_resnext.build(**SE_RESNEXT50)
+        lr = ptt.layers.piecewise_decay(SE_LR_BOUNDARIES, values)
+        optimizer.Momentum(
+            learning_rate=lr, momentum=SE_MOMENTUM,
+            regularization=regularizer.L2Decay(SE_L2)).minimize(
+                fetches["loss"])
+    return main, startup, fetches
+
+
+def build_vgg(ptt):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import vgg
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = vgg.build(**VGG16)
+        optimizer.Adam(learning_rate=VGG_LR).minimize(fetches["loss"])
+    return main, startup, fetches
+
+
+def build_deepfm(ptt):
+    from paddle_tpu_torch import clip, optimizer
+    from paddle_tpu_torch.models import deepfm
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = deepfm.build()
+        clip.set_gradient_clip(clip.GradientClipByGlobalNorm(DEEPFM_CLIP))
+        try:
+            optimizer.Adagrad(learning_rate=DEEPFM_LR).minimize(
+                fetches["loss"])
+        finally:
+            clip.set_gradient_clip(None)
+    return main, startup, fetches
+
+
+def deepfm_batch(batch, seed=DATA_SEED):
+    """Synthetic CTR rows from `seed`: 13 dense features in [0, 1), 26
+    feature ids in [0, 1e5), click labels."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {"dense_input": rng.rand(batch, 13).astype(np.float32),
+            "sparse_input": rng.randint(0, 100000, (batch, 26)).astype(
+                np.int64),
+            "label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+
+
+# The optimizers that scale a grad by about its own size (Adagrad,
+# Adamax, DecayedAdagrad, RMSProp) take 1e-4, a step under which the loss
+# falls as in training. At 1e-2 the net blows up (loss 2.7 -> 7.7..84 in
+# 3 steps) and Adagrad's second step puts one ReLU input of fc_0 2.3e-7
+# from 0: the card's sum lands it on the other side (-1.2e-8), so that
+# element's grad, 0.88 % of the layer's, is dropped, and fc_0's Adagrad
+# moment parts by 0.97 %: a kink within rounding, not the program (every
+# other optimizer at 1e-2 agrees to 5e-6, and a +-1e-7 change of the
+# inputs moves the host's own run by 2e-6;
+# tools/torch_sweep_sensitivity.py --card, PERF.md section 6)
+SWEEP_OPTIMIZERS = {
+    "SGD": lambda o: o.SGD(learning_rate=0.1),
+    "Adagrad": lambda o: o.Adagrad(learning_rate=1e-4),
+    "Adamax": lambda o: o.Adamax(learning_rate=1e-4),
+    "DecayedAdagrad": lambda o: o.DecayedAdagrad(learning_rate=1e-4),
+    "Adadelta": lambda o: o.Adadelta(learning_rate=1.0),
+    "RMSProp": lambda o: o.RMSProp(learning_rate=1e-4),
+    "RMSProp-centered": lambda o: o.RMSProp(learning_rate=1e-4, momentum=0.9,
+                                            centered=True),
+    "Ftrl": lambda o: o.Ftrl(learning_rate=1e-4),
+}
+SWEEP_SCHEDULES = {
+    "exponential_decay": lambda L: L.exponential_decay(0.1, 2, 0.5),
+    "natural_exp_decay": lambda L: L.natural_exp_decay(0.1, 2, 0.5),
+    "inverse_time_decay": lambda L: L.inverse_time_decay(0.1, 2, 0.5),
+    "polynomial_decay": lambda L: L.polynomial_decay(0.1, 4, 0.001, 2.0),
+    "piecewise_decay": lambda L: L.piecewise_decay([1, 2], [0.1, 0.05, 0.01]),
+    "noam_decay": lambda L: L.noam_decay(SWEEP_WIDTH, 2),
+}
+SWEEP_CLIPS = {
+    "GradientClipByValue": lambda c: c.GradientClipByValue(0.002),
+    "GradientClipByNorm": lambda c: c.GradientClipByNorm(0.05),
+    "GradientClipByGlobalNorm": lambda c: c.GradientClipByGlobalNorm(0.1),
+}
+SWEEP_CASES = ([f"optimizer:{n}" for n in SWEEP_OPTIMIZERS]
+               + ["ModelAverage"]
+               + [f"schedule:{n}" for n in SWEEP_SCHEDULES]
+               + ["append_LARS"]
+               + [f"clip:{n}" for n in SWEEP_CLIPS]
+               + ["ErrorClipByValue", "per-parameter learning rate"])
+
+
+def build_sweep(ptt, case, width=SWEEP_WIDTH, optimizers=SWEEP_OPTIMIZERS):
+    """The sweep's net (`width` -> `width` -> `width` -> 10) trained as
+    `case` says, an "optimizer:<name>" case by `optimizers[name]`:
+    (main, startup, loss, ModelAverage or None)."""
+    from paddle_tpu_torch import clip, optimizer
+    from paddle_tpu_torch.core.backward import append_backward
+    L = ptt.layers
+    main, startup = ptt.Program(), ptt.Program()
+    kind, _, arg = case.partition(":")
+    average = None
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = L.data("x", shape=[width], dtype="float32")
+        label = L.data("label", shape=[1], dtype="int64")
+        attr = ptt.ParamAttr(name="sweep_w0", learning_rate=0.25) \
+            if case == "per-parameter learning rate" else None
+        h = L.fc(x, width, act="relu", param_attr=attr)
+        h = L.fc(h, width, act="relu")
+        loss = L.mean(L.softmax_with_cross_entropy(L.fc(h, 10), label))
+        if kind == "optimizer":
+            optimizers[arg](optimizer).minimize(loss)
+        elif kind == "schedule":
+            optimizer.SGD(learning_rate=SWEEP_SCHEDULES[arg](L)).minimize(loss)
+        elif kind == "clip":
+            clip.set_gradient_clip(SWEEP_CLIPS[arg](clip))
+            try:
+                optimizer.SGD(learning_rate=0.1).minimize(loss)
+            finally:
+                clip.set_gradient_clip(None)
+        elif case in ("append_LARS", "ErrorClipByValue"):
+            params_grads = append_backward(loss)
+            if case == "append_LARS":
+                L.append_LARS(params_grads, L.fill_constant(
+                    [1], "float32", 0.01), weight_decay=1e-4)
+            else:
+                for _, g in params_grads:
+                    clip.ErrorClipByValue(0.002).append_clip_op(
+                        main.global_block(), g.name)
+            optimizer.SGD(learning_rate=0.1)._create_optimization_pass(
+                params_grads, loss)
+        else:               # ModelAverage, per-parameter learning rate
+            optimizer.SGD(learning_rate=0.1).minimize(loss)
+            if case == "ModelAverage":
+                average = optimizer.ModelAverage(
+                    0.5, min_average_window=2, max_average_window=3)
+    return main, startup, loss, average
+
+
+def run_sweep_case(torch, ptt, case, width=SWEEP_WIDTH, batch=SWEEP_BATCH):
+    """One case of the sweep: SWEEP_STEPS steps on the card and on the host
+    from one startup state (run on the host) and the same feeds; with
+    ModelAverage also its apply (the averaged parameters compared) and
+    restore (the trained ones back, bit for bit). Returns the largest
+    relative loss error and relative L2 distance of a persistable."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import fetch_var
+    main, startup, loss, average = build_sweep(ptt, case, width)
+    scope0 = ptt.Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope0)
+    state = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
+    rng = np.random.RandomState(DATA_SEED)
+    feeds = [{"x": rng.randn(batch, width).astype(np.float32),
+              "label": rng.randint(0, 10, (batch, 1)).astype(np.int64)}
+             for _ in range(SWEEP_STEPS)]
+    params = [p.name for p in main.global_block().all_parameters()]
+    res = {}
+    for side, place in (("card", ptt.CUDAPlace(0)), ("host", ptt.CPUPlace())):
+        scope = ptt.io.state_from_numpy(state, place)
+        exe = ptt.Executor(place)
+        losses = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                           scope=scope)[0]).reshape(-1)[0])
+                  for f in feeds]
+        after = {n: fetch_var(n, scope) for n in scope.local_var_names()}
+        if average is not None:
+            with average.apply(exe, scope=scope):
+                after.update({f"{n}@averaged": fetch_var(n, scope)
+                              for n in params})
+            for n in params:
+                if not np.array_equal(fetch_var(n, scope), after[n]):
+                    raise AssertionError(f"sweep {case} ({side}): restore "
+                                         f"did not bring {n} back")
+        res[side] = (losses, after)
+        del scope
+    (cl, ca), (hl, ha) = res["card"], res["host"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
+    state_err, worst = 0.0, None
+    for n, b in ha.items():
+        if not np.issubdtype(b.dtype, np.floating):
+            if not np.array_equal(ca[n], b):
+                raise AssertionError(f"sweep {case}: {n} {ca[n]} on the card, "
+                                     f"{b} on the host")
+            continue
+        d = _rel_l2(np, ca[n], b)
+        if d > state_err:
+            state_err, worst = d, n
+    if not (all(np.isfinite(cl)) and loss_err <= SWEEP_LOSS_RTOL
+            and state_err <= SWEEP_STATE_L2):
+        raise AssertionError(f"sweep {case}: card losses {cl} vs host {hl} "
+                             f"(relative error {loss_err}, tol "
+                             f"{SWEEP_LOSS_RTOL}); largest state distance "
+                             f"{state_err} at {worst} (tol {SWEEP_STATE_L2})")
+    return dict(case=case, losses=cl, loss_err=loss_err,
+                state_err=state_err, worst=worst, n_state=len(ha))
+
+
+def run_sweep(torch, ptt, native):
+    """Every case of the sweep; none may launch a kernel."""
+    native.reset_launches()
+    out = [run_sweep_case(torch, ptt, case) for case in SWEEP_CASES]
+    if any(native.launches.values()):
+        raise AssertionError(f"the optimizer sweep launched a kernel: "
+                             f"{dict(native.launches)}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1722,7 +2058,8 @@ def main() -> int:
             f"{sp['grid_blocks']} split blocks [{card}]")
     drop_cases = [check_dropout_kernel(torch, dk, flush, shape)
                   for shape in ((TRAIN_BATCH, 256, 512),
-                                (TRAIN_BATCH, 256, 2048))]
+                                (TRAIN_BATCH, 256, 2048),
+                                (TRAIN_BATCH, 8, 256, 256))]
     for c in drop_cases:
         log(f"dropout {c['shape']} rate {c['rate']} f32, Out, Mask and dX "
             f"equal to the plain version's bit for bit ({c['kept']:.4f} "
@@ -1804,7 +2141,8 @@ def main() -> int:
     drop_cases_bf16 = [check_dropout_kernel(torch, dk, flush, shape,
                                             dtype="bfloat16")
                        for shape in ((TRAIN_AMP_BATCH, 256, 512),
-                                     (TRAIN_AMP_BATCH, 256, 2048))]
+                                     (TRAIN_AMP_BATCH, 256, 2048),
+                                     (TRAIN_AMP_BATCH, 8, 256, 256))]
     for c in drop_cases_bf16:
         log(f"dropout {c['shape']} rate {c['rate']} bf16 (scale "
             f"{c['scale']}), Out, Mask and dX equal to the plain version's "
@@ -1958,11 +2296,11 @@ def main() -> int:
     log(f"train-resnet50 on the card [{card}]: step "
         f"{resnet['step_ms_median']:.1f} ms (median of the last 5; all: "
         f"{[round(x, 1) for x in resnet['step_ms']]}), "
-        f"{resnet['images_per_s']:.1f} images/s, peak memory "
+        f"{resnet['samples_per_s']:.1f} images/s, peak memory "
         f"{resnet['peak_bytes'] / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated); float32 bound "
         f"{resnet['bound_ms']:.1f} ms ({resnet['step_flop'] / 1e12:.3f} "
-        f"TFLOP a step = 3 x 2 x {resnet['macs_per_image'] / 1e9:.3f} G "
+        f"TFLOP a step = 3 x 2 x {resnet['macs_per_sample'] / 1e9:.3f} G "
         f"multiply-adds an image x {RESNET_BATCH}, at 67 TFLOP/s), "
         f"{resnet['bound_share']:.3f} of it")
     t0 = time.perf_counter()
@@ -2009,7 +2347,7 @@ def main() -> int:
     log(f"train-resnet50-amp on the card [{card}]: step "
         f"{resnet_amp['step_ms_median']:.1f} ms (median of the last 5; all: "
         f"{[round(x, 1) for x in resnet_amp['step_ms']]}), "
-        f"{resnet_amp['images_per_s']:.1f} images/s, peak memory "
+        f"{resnet_amp['samples_per_s']:.1f} images/s, peak memory "
         f"{resnet_amp['peak_bytes'] / 2**30:.2f} GiB; bf16 bound "
         f"{resnet_amp['bound_ms']:.2f} ms at 989 TFLOP/s, "
         f"{resnet_amp['bound_share']:.3f} of it")
@@ -2025,6 +2363,149 @@ def main() -> int:
             f"the other persistables at {par['l2_share']:.3g} of "
             f"{par['l2_tol']}")
     log(f"AMP parity: {time.perf_counter() - t0:.1f} s")
+
+    # 7b. train-base-unfused: the unfused attention path, float32 at
+    # train-base's batch and under AMP at train-base-amp's, each under the
+    # bits dropout and under the dropout kernel, beside the fused path's
+    # readings of this call; then card vs host and unfused vs fused
+    unfused = {}
+    for amp, batch in ((False, TRAIN_BATCH), (True, TRAIN_AMP_BATCH)):
+        for impl in ("auto", "pallas"):
+            t0 = time.perf_counter()
+            key = f"{'amp' if amp else 'float32'}-{impl}"
+            unfused[key] = tr = run_train_base(
+                torch, ptt, native, impl, amp=amp, batch=batch,
+                steps=UNFUSED_STEPS, fused=False)
+            fused = (amp_trains if amp else trains)[impl]
+            log(f"train-base-unfused{'-amp' if amp else ''} "
+                f"(dropout_impl={impl}): {UNFUSED_STEPS} steps of batch "
+                f"{batch} in {time.perf_counter() - t0:.1f} s; losses "
+                f"{[round(x, 4) for x in tr['losses']]}; launches "
+                f"{tr['launches']} ({tr['gated_dropout_ops']} dropout ops "
+                f"pass the gate)")
+            log(f"train-base-unfused{'-amp' if amp else ''} "
+                f"(dropout_impl={impl}) on the card [{card}]: step "
+                f"{tr['step_ms_median']:.1f} ms (all: "
+                f"{[round(x, 1) for x in tr['step_ms']]}), "
+                f"{tr['tokens_per_s']:.0f} tokens/s, peak "
+                f"{tr['peak_bytes'] / 2**30:.2f} GiB; the fused path in this "
+                f"call: {fused['step_ms_median']:.1f} ms, "
+                f"{fused['tokens_per_s']:.0f} tokens/s, peak "
+                f"{fused['peak_bytes'] / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    unfused_parity = run_unfused_parity(torch, ptt)
+    for name in ("float32", "amp"):
+        par = unfused_parity[name]
+        log(f"train-base-unfused {name} parity, {par['steps']} steps from "
+            f"the host's state: card {par['losses']['card']} host "
+            f"{par['losses']['host']}, max relative error "
+            f"{par['rel_err']:.3g} (tol {par['loss_rtol']:.3g}); other "
+            f"persistables at {par['l2_share']:.3g} of {par['l2_tol']}")
+    uvf = unfused_parity["unfused_vs_fused"]
+    log(f"train-base unfused vs fused from the same parameters (dropout 0, "
+        f"batch {PARITY_BATCH}): {uvf['losses']}, relative error "
+        f"{uvf['rel_err']:.3g} (tol {TOL}); {time.perf_counter() - t0:.1f} s")
+
+    # 7c. train-se_resnext50, float32 and AMP, then card vs host
+    zoo = {}
+    for amp in (False, True):
+        t0 = time.perf_counter()
+        main_se, startup_se, fetches_se = build_se_resnext(ptt)
+        zoo[f"se_resnext50{'-amp' if amp else ''}"] = tr = run_train_model(
+            torch, ptt, native, "train-se_resnext50", main_se, startup_se,
+            fetches_se["loss"], resnet_batch(SE_BATCH), SE_STEPS, SE_BATCH,
+            amp=amp)
+        del main_se, startup_se, fetches_se
+        log(f"train-se_resnext50{'-amp' if amp else ''}: {SE_STEPS} steps of "
+            f"batch {SE_BATCH} x 224 x 224 x 3 NHWC, Momentum(piecewise "
+            f"{SE_LR_VALUES} at {SE_LR_BOUNDARIES}, {SE_MOMENTUM}), "
+            f"L2Decay({SE_L2}), {tr['ops']} ops a step, in "
+            f"{time.perf_counter() - t0:.1f} s; losses "
+            f"{[round(x, 4) for x in tr['losses']]}")
+        log(f"train-se_resnext50{'-amp' if amp else ''} on the card "
+            f"[{card}]: step {tr['step_ms_median']:.1f} ms (all: "
+            f"{[round(x, 1) for x in tr['step_ms']]}), "
+            f"{tr['samples_per_s']:.1f} images/s, peak "
+            f"{tr['peak_bytes'] / 2**30:.2f} GiB; "
+            f"{'bf16' if amp else 'float32'} bound {tr['bound_ms']:.1f} ms "
+            f"(3 x 2 x {tr['macs_per_sample'] / 1e9:.3f} G multiply-adds an "
+            f"image x {SE_BATCH}), {tr['bound_share']:.3f} of it")
+    t0 = time.perf_counter()
+    parity_values = [RESNET_PARITY_LR * f for f in (1.0, 0.1, 0.01)]
+    main_se, startup_se, fetches_se = build_se_resnext(
+        ptt, values=parity_values)
+    se_parity = {
+        name: run_step_parity(torch, ptt, f"se_resnext50{sfx}", main_se,
+                              startup_se, fetches_se["loss"],
+                              resnet_batch(RESNET_PARITY_BATCH),
+                              PARITY_STEPS, amp=amp)
+        for name, sfx, amp in (("float32", "", False), ("amp", "-amp", True))}
+    del main_se, startup_se, fetches_se
+    for name, par in se_parity.items():
+        log(f"se_resnext50 {name} parity, {par['steps']} steps from the "
+            f"host's state at batch {RESNET_PARITY_BATCH}: card "
+            f"{par['losses']['card']} host {par['losses']['host']}, max "
+            f"relative error {par['rel_err']:.3g} (tol "
+            f"{par['loss_rtol']:.3g}); {par['n_stats']} running stats at "
+            f"{par['stat_share']:.3g} of their tolerance, the other "
+            f"persistables at {par['l2_share']:.3g} of {par['l2_tol']}")
+    log(f"se_resnext50 parity: {time.perf_counter() - t0:.1f} s")
+
+    # 7d. train-vgg16 under the dropout kernel's flag: no kernel launches
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(DATA_SEED)
+    vgg_feed = {"image": rng.rand(VGG_BATCH, *VGG16["image_shape"]).astype(
+                    np.float32),
+                "label": rng.randint(0, VGG16["class_dim"],
+                                     (VGG_BATCH, 1)).astype(np.int64)}
+    main_v, startup_v, fetches_v = build_vgg(ptt)
+    zoo["vgg16"] = tr = run_train_model(
+        torch, ptt, native, "train-vgg16", main_v, startup_v,
+        fetches_v["loss"], vgg_feed, VGG_STEPS, VGG_BATCH, impl="pallas")
+    n_drop = sum(op.type == "dropout" for op in main_v.global_block().ops)
+    del main_v, startup_v, fetches_v
+    log(f"train-vgg16: {VGG_STEPS} steps of batch {VGG_BATCH} x 3 x 32 x 32, "
+        f"Adam({VGG_LR}), under dropout_impl=pallas ({n_drop} "
+        f"downgrade_in_infer dropouts, no kernel launch) in "
+        f"{time.perf_counter() - t0:.1f} s; losses "
+        f"{[round(x, 4) for x in tr['losses']]}")
+    log(f"train-vgg16 on the card [{card}]: step {tr['step_ms_median']:.1f} "
+        f"ms (all: {[round(x, 1) for x in tr['step_ms']]}), "
+        f"{tr['samples_per_s']:.1f} images/s, peak "
+        f"{tr['peak_bytes'] / 2**30:.2f} GiB; float32 bound "
+        f"{tr['bound_ms']:.2f} ms, {tr['bound_share']:.3f} of it")
+
+    # 7e. train-deepfm
+    t0 = time.perf_counter()
+    main_d, startup_d, fetches_d = build_deepfm(ptt)
+    zoo["deepfm"] = tr = run_train_model(
+        torch, ptt, native, "train-deepfm", main_d, startup_d,
+        fetches_d["loss"], deepfm_batch(DEEPFM_BATCH), DEEPFM_STEPS,
+        DEEPFM_BATCH)
+    del main_d, startup_d, fetches_d
+    if not tr["losses"][-1] < tr["losses"][0]:
+        raise AssertionError(f"train-deepfm loss did not fall: "
+                             f"{tr['losses']}")
+    log(f"train-deepfm: {DEEPFM_STEPS} steps of batch {DEEPFM_BATCH} (26 "
+        f"fields over 1e5 features, embedding 16, 13 dense, 400 x 3), "
+        f"Adagrad({DEEPFM_LR}) under GradientClipByGlobalNorm({DEEPFM_CLIP}),"
+        f" in {time.perf_counter() - t0:.1f} s; losses "
+        f"{[round(x, 4) for x in tr['losses']]}")
+    log(f"train-deepfm on the card [{card}]: step {tr['step_ms_median']:.2f} "
+        f"ms (all: {[round(x, 2) for x in tr['step_ms']]}), "
+        f"{tr['samples_per_s']:.0f} examples/s, peak "
+        f"{tr['peak_bytes'] / 2**30:.3f} GiB")
+
+    # 7f. the optimizer sweep, card vs host
+    t0 = time.perf_counter()
+    sweep = run_sweep(torch, ptt, native)
+    for c in sweep:
+        log(f"sweep {c['case']}: losses {[round(x, 5) for x in c['losses']]}"
+            f", card vs host {c['loss_err']:.3g} (tol {SWEEP_LOSS_RTOL}), "
+            f"largest state distance {c['state_err']:.3g} at {c['worst']} "
+            f"(tol {SWEEP_STATE_L2}) over {c['n_state']} persistables")
+    log(f"optimizer sweep: {len(sweep)} cases in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 8. the kernels line: flash_fwd's headline numbers at the train path's
     # shape, its serving case beside them
@@ -2139,6 +2620,13 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/dropout.cu",
          "replaces": "paddle_tpu/ops/pallas_dropout.py:42",
          "launches": trains["pallas"]["launches"]["dropout"],
+         "launches_by_path": {
+             "train_pallas": trains["pallas"]["launches"]["dropout"],
+             "train_unfused_pallas":
+                 unfused["float32-pallas"]["launches"]["dropout"],
+             "train_amp_pallas": amp_trains["pallas"]["launches"]["dropout"],
+             "train_unfused_amp_pallas":
+                 unfused["amp-pallas"]["launches"]["dropout"]},
          "mask_writes": trains["pallas"]["launches"]["dropout_mask"],
          "op_ms": drop_cases[0]["op_ms"],
          "max_abs_err": max(c["err"] for c in drop_cases),
@@ -2227,6 +2715,10 @@ def main() -> int:
          "replaces": "paddle_tpu/ops/pallas_dropout.py:42",
          "dtype": "bfloat16",
          "launches": amp_pallas["launches"]["dropout_bf16"],
+         "launches_by_path": {
+             "train_amp_pallas": amp_pallas["launches"]["dropout_bf16"],
+             "train_unfused_amp_pallas":
+                 unfused["amp-pallas"]["launches"]["dropout_bf16"]},
          "mask_writes": amp_pallas["launches"]["dropout_mask"],
          "op_ms": drop_cases_bf16[0]["op_ms"],
          "max_abs_err": max(c["err"] for c in drop_cases_bf16),
@@ -2251,6 +2743,9 @@ def main() -> int:
                    "train_resnet50": resnet, "vision_parity": vision_parity,
                    "train_amp": amp_trains, "train_resnet50_amp": resnet_amp,
                    "amp_parity": amp_parity, "bf16_kernels": bf16_cases,
+                   "train_unfused": unfused, "unfused_parity": unfused_parity,
+                   "zoo": zoo, "se_resnext50_parity": se_parity,
+                   "sweep": sweep,
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,10 +11,15 @@ format, an eager executor, the shared model-dir format, and
 flash-attention prefill and paged-attention decode kernels), training
 (``append_backward``'s grad ops, ``optimizer.Adam`` and
 ``models/transformer.py``, whose attentions run the flash forward, dQ and
-dK/dV kernels, attention dropout inside them), and training the vision
+dK/dV kernels, attention dropout inside them), training the vision
 models (``models/resnet.py`` and ``models/mnist.py`` with
 ``optimizer.Momentum``: conv, pool and batch norm through torch's own
-ops, cuDNN on the card).
+ops, cuDNN on the card), bf16 mixed precision (``Executor(amp=True)``),
+and the rest of the non-recurrent zoo (``models/se_resnext.py``,
+``models/vgg.py``, ``models/deepfm.py``, the unfused attention of
+``models/transformer.py``) with Fluid's optimizers, learning-rate
+schedules (``layers/learning_rate_scheduler.py``), gradient clips and
+``optimizer.ModelAverage``.
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -30,6 +35,13 @@ ops, cuDNN on the card).
     _, fetches = fluid.models.resnet.build(data_format="NHWC")
     fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9).minimize(
         fetches["loss"])
+
+    _, fetches = fluid.models.se_resnext.build(data_format="NHWC")
+    lr = fluid.layers.piecewise_decay([30000, 60000], [0.1, 0.01, 0.001])
+    fluid.optimizer.Momentum(
+        learning_rate=lr, momentum=0.9,
+        regularization=fluid.regularizer.L2Decay(1e-4)).minimize(
+            fetches["loss"])
 """
 
 from __future__ import annotations

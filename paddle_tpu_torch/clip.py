@@ -1,9 +1,10 @@
 """Gradient clipping (reference: python/paddle/fluid/clip.py):
 ErrorClipByValue, GradientClipByValue, GradientClipByNorm,
 GradientClipByGlobalNorm — applied between backward and the update ops.
-Copy of ``paddle_tpu/clip.py`` (IR only). The ops the clips append
-(`clip`, `clip_by_norm`, `square`, `reduce_sum`, ...) have no rules in
-the port yet, so a program that uses one builds but does not run."""
+Copy of ``paddle_tpu/clip.py``: the clips append `clip`,
+`clip_by_norm`, and for the global norm `square`, `reduce_sum`, `sum`,
+`sqrt`, `fill_constant`, `elementwise_max`, `elementwise_div` and
+`elementwise_mul`, whose rules are in ``ops/math.py``."""
 
 from __future__ import annotations
 

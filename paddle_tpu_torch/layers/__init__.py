@@ -2,7 +2,21 @@
 
 from .io import data  # noqa: F401
 from .metric_op import accuracy  # noqa: F401
-from .nn import (batch_norm, cast, conv2d, cross_entropy,  # noqa: F401
-                 dropout, elementwise_add, embedding, fc, layer_norm, matmul,
-                 mean, pool2d, relu, reshape, scale, softmax,
-                 softmax_with_cross_entropy, topk, transpose)
+from .nn import (batch_norm, cast, clip, clip_by_norm,  # noqa: F401
+                 conv2d, cross_entropy, dropout, elementwise_add,
+                 elementwise_div, elementwise_max, elementwise_min,
+                 elementwise_mul, elementwise_pow, elementwise_sub,
+                 embedding, exp, fc, layer_norm, matmul, mean, pool2d,
+                 reduce_sum, relu, reshape, scale, sigmoid,
+                 sigmoid_cross_entropy_with_logits, softmax,
+                 softmax_with_cross_entropy, sqrt, square, topk, transpose)
+from .tensor import assign, concat, fill_constant, sums  # noqa: F401
+from .control_flow import increment, less_than  # noqa: F401
+from . import learning_rate_scheduler  # noqa: F401
+from .learning_rate_scheduler import (append_LARS,  # noqa: F401
+                                      exponential_decay, inverse_time_decay,
+                                      natural_exp_decay, noam_decay,
+                                      piecewise_decay, polynomial_decay)
+from .math_op_patch import monkey_patch_variable
+
+monkey_patch_variable()

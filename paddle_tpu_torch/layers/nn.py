@@ -281,17 +281,99 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    """`elementwise_add` with the reference broadcast semantics (`axis`);
-    the JAX package's ``layers/ops.py`` wrapper."""
-    helper = LayerHelper("elementwise_add", name=name, act=act)
+def _make_elementwise(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        """`{op}` with the reference broadcast semantics (`axis`); the
+        JAX package's ``layers/ops.py`` wrapper."""
+        helper = LayerHelper(op_type, name=name, act=act)
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
+                         outputs={"Out": [out.name]}, attrs={"axis": axis})
+        out.lod_level = max(x.lod_level, getattr(y, "lod_level", 0))
+        return helper.append_activation(out)
+
+    layer.__name__ = op_type
+    layer.__doc__ = layer.__doc__.format(op=op_type)
+    return layer
+
+
+elementwise_add = _make_elementwise("elementwise_add")
+elementwise_sub = _make_elementwise("elementwise_sub")
+elementwise_mul = _make_elementwise("elementwise_mul")
+elementwise_div = _make_elementwise("elementwise_div")
+elementwise_max = _make_elementwise("elementwise_max")
+elementwise_min = _make_elementwise("elementwise_min")
+elementwise_pow = _make_elementwise("elementwise_pow")
+
+
+def _make_act(op_type):
+    def layer(x, name=None, **attrs):
+        """Elementwise `{op}` (the JAX package's ``layers/ops.py``)."""
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(op_type, inputs={"X": [x.name]},
+                         outputs={"Out": [out.name]}, attrs=attrs)
+        out.lod_level = x.lod_level
+        return out
+
+    layer.__name__ = op_type
+    layer.__doc__ = layer.__doc__.format(op=op_type)
+    return layer
+
+
+relu = _make_act("relu")
+sigmoid = _make_act("sigmoid")
+exp = _make_act("exp")
+sqrt = _make_act("sqrt")
+square = _make_act("square")
+
+
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(dtype=input.dtype)
+        if dim is None:
+            attrs = {"reduce_all": True, "keep_dim": keep_dim}
+        else:
+            dims = dim if isinstance(dim, (list, tuple)) else [dim]
+            attrs = {"dim": list(dims), "keep_dim": keep_dim,
+                     "reduce_all": False}
+        helper.append_op(op_type, inputs={"X": [input.name]},
+                         outputs={"Out": [out.name]}, attrs=attrs)
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op("elementwise_add", inputs={"X": [x.name], "Y": [y.name]},
-                     outputs={"Out": [out.name]}, attrs={"axis": axis})
-    out.lod_level = max(x.lod_level, getattr(y, "lod_level", 0))
-    return helper.append_activation(out)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"ignore_index": ignore_index})
+    return out
 
 
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("clip", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
@@ -314,15 +396,6 @@ def topk(input, k, name=None):
                      outputs={"Out": [values.name], "Indices": [indices.name]},
                      attrs={"k": k})
     return values, indices
-
-
-def relu(x, name=None):
-    helper = LayerHelper("relu", name=name)
-    out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op("relu", inputs={"X": [x.name]},
-                     outputs={"Out": [out.name]}, attrs={})
-    out.lod_level = x.lod_level
-    return out
 
 
 def cast(x, dtype):

@@ -6,8 +6,11 @@ programs it builds (main and startup) are the JAX package's op for op.
 With ``fused_attention=True`` (the default) every attention is one
 ``fused_attention`` op: the flash kernels of ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu`` on the card, with attention-weight dropout inside
-them. The unfused attention path (``fused_attention=False``) is not
-ported and raises.
+them. With ``fused_attention=False`` it is the op chain matmul ->
+(`causal_mask` + elementwise_add) -> softmax -> dropout -> matmul, the
+[B, H, T, T] weights in memory; their `upscale_in_train` dropout takes
+the dropout kernel (``csrc/dropout.cu``) under
+``FLAGS_dropout_impl=pallas``, as every other dropout of the model does.
 
 The q/k/v/ffn weights keep their ParamAttr.sharding annotations so the
 program is the same; the port runs on one card and ignores them.
@@ -23,6 +26,14 @@ from .. import initializer as init
 
 def _shard(spec):
     return ParamAttr(sharding=spec)
+
+
+def _causal_mask(size):
+    helper = LayerHelper("causal_mask")
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    helper.append_op("causal_mask", outputs={"Out": [out.name]},
+                     attrs={"size": size, "neg": -1e9})
+    return out
 
 
 def _pos_table(size, d_model):
@@ -48,10 +59,6 @@ def _fused_attention(qh, kh, vh, d_head, causal, dropout_rate, is_test):
 
 def multi_head_attention(q_in, kv_in, d_model, num_heads, dropout_rate=0.0,
                          causal=False, is_test=False, name="", fused=True):
-    if not fused:
-        raise NotImplementedError(
-            "the unfused attention path (matmul/softmax/dropout/matmul) is "
-            "not ported to paddle_tpu_torch; build with fused_attention=True")
     d_head = d_model // num_heads
     q = layers.fc(input=q_in, size=d_model, num_flatten_dims=2, bias_attr=False,
                   param_attr=_shard((None, "mp")), name=name + "_q")
@@ -65,7 +72,20 @@ def multi_head_attention(q_in, kv_in, d_model, num_heads, dropout_rate=0.0,
         return layers.transpose(r, perm=[0, 2, 1, 3])
 
     qh, kh, vh = split_heads(q), split_heads(k), split_heads(v)
-    ctx = _fused_attention(qh, kh, vh, d_head, causal, dropout_rate, is_test)
+    if fused:
+        ctx = _fused_attention(qh, kh, vh, d_head, causal, dropout_rate,
+                               is_test)
+    else:
+        scores = layers.matmul(qh, kh, transpose_y=True, alpha=d_head ** -0.5)
+        if causal:
+            mask_var = _causal_mask(scores.shape[-1])
+            scores = layers.elementwise_add(scores, mask_var)
+        weights = layers.softmax(scores)
+        if dropout_rate:
+            weights = layers.dropout(weights, dropout_prob=dropout_rate,
+                                     is_test=is_test,
+                                     dropout_implementation="upscale_in_train")
+        ctx = layers.matmul(weights, vh)
     ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
     merged = layers.reshape(ctx, shape=[0, 0, d_model])
     return layers.fc(input=merged, size=d_model, num_flatten_dims=2,

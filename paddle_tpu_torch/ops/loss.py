@@ -1,5 +1,6 @@
 """Loss and metric op rules (the slices' subset): `cross_entropy`,
-`softmax_with_cross_entropy` and its hand-written grad, `accuracy`.
+`softmax_with_cross_entropy` and its hand-written grad,
+`sigmoid_cross_entropy_with_logits`, `accuracy`.
 
 Mirror of ``paddle_tpu/ops/loss.py``. `cross_entropy` takes
 probabilities and clamps them at 1e-8, so a loss stops at -log(1e-8) =
@@ -39,6 +40,16 @@ def _cross_entropy(ctx, X, Label):
     p = X.gather(-1, ids.clamp(0, X.shape[-1] - 1))
     loss = -torch.log(p.clamp_min(eps))
     return {"Y": loss.masked_fill(ids == ctx.attr("ignore_index", -100), 0.0)}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx, X, Label):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), 0 where the label is
+    `ignore_index`."""
+    loss = torch.clamp(X, min=0.0) - X * Label \
+        + torch.log1p(torch.exp(-torch.abs(X)))
+    ignore = Label == ctx.attr("ignore_index", -100)
+    return {"Out": torch.where(ignore, torch.zeros_like(loss), loss)}
 
 
 @register_op("accuracy")

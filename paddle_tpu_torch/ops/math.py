@@ -1,10 +1,26 @@
-"""Math / elementwise / activation op rules (the slices' subset).
+"""Math / elementwise / activation / reduction op rules (the slices'
+subset).
 
-Mirror of ``paddle_tpu/ops/math.py``: `elementwise_add`, `mul`,
-`matmul`, `scale`, `sum`, `mean`, `relu`, `cast`, `softmax`, `top_k`.
-Matrix products go to `torch.matmul`, as the JAX package leaves them to
-XLA; in float32 on the card they run in full float32
-(`torch.backends.cuda.matmul.allow_tf32` is False by default).
+Mirror of ``paddle_tpu/ops/math.py``: the elementwise ops `add`, `sub`,
+`mul`, `div`, `max`, `min` and `pow` with the reference's broadcast
+`axis`, `mul`, `matmul`, `scale`, `sum`, `mean`, `cast`, `clip`,
+`clip_by_norm`, `reduce_sum`, the activations `relu`, `exp`, `sqrt`,
+`square` and `sigmoid`, `softmax`, `top_k`, and the comparisons
+`less_than` and `greater_equal`. Matrix products go to `torch.matmul`,
+as the JAX package leaves them to XLA; in float32 on the card they run
+in full float32 (`torch.backends.cuda.matmul.allow_tf32` is False by
+default).
+
+On a bf16 input each rule rounds where the JAX rule rounds: a Python
+scalar is rounded to the tensor's dtype first (`types.scalar_as`, JAX's
+weak typing); a sum (`reduce_sum`, the norm of `clip_by_norm`, the
+softmax's denominator) adds in float32 and rounds once, as `jnp.sum`
+upcasts a bf16 input; and `softmax` rounds exp(x - max), the sum and the
+quotient each to bf16, as ``jax.nn.softmax`` does in X's dtype, and
+`sigmoid` rounds exp(-x), 1 + exp(-x) and the quotient, as `lax.logistic`
+does. (Under `jax.jit` on a CPU, XLA may keep an intermediate of such a
+chain in float32, ``xla_allow_excess_precision``; the rules here follow
+the JAX rule as written, each op rounding to its dtype.)
 """
 
 from __future__ import annotations
@@ -29,9 +45,24 @@ def _align_y(X, Y, axis):
                      + [1] * (X.ndim - axis - Y.ndim))
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, X, Y):
-    return {"Out": X + _align_y(X, Y, ctx.attr("axis", -1))}
+def _register_binary(name, fn):
+    """An elementwise or comparison op: fn(X, Y aligned at `axis`)."""
+    @register_op(name)
+    def _rule(ctx, X, Y, _fn=fn):
+        return {"Out": _fn(X, _align_y(X, Y, ctx.attr("axis", -1)))}
+    _rule.__name__ = name
+    return _rule
+
+
+_register_binary("elementwise_add", torch.add)
+_register_binary("elementwise_sub", torch.sub)
+_register_binary("elementwise_mul", torch.mul)
+_register_binary("elementwise_div", torch.div)
+_register_binary("elementwise_max", torch.maximum)
+_register_binary("elementwise_min", torch.minimum)
+_register_binary("elementwise_pow", torch.pow)
+_register_binary("less_than", torch.lt)
+_register_binary("greater_equal", torch.ge)
 
 
 @register_op("mul")
@@ -61,9 +92,44 @@ def _matmul(ctx, X, Y):
     return {"Out": out}
 
 
-@register_op("relu")
-def _relu(ctx, X):
-    return {"Out": torch.relu(X)}
+def _register_act(name, fn):
+    @register_op(name)
+    def _rule(ctx, X, _fn=fn):
+        return {"Out": _fn(X)}
+    _rule.__name__ = name
+    return _rule
+
+
+class _HalfSigmoid(torch.autograd.Function):
+    """`lax.logistic` on a bf16 (or fp16) input as the JAX rule rounds it,
+    1 / (1 + exp(-x)) with exp, the sum and the quotient each rounded to
+    x's dtype (torch's sigmoid rounds once: about a quarter of bf16
+    outputs one ulp off). Its grad is logistic's own, g * y * (1 - y), so
+    no exp(-x) that overflows reaches the backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * y * (1.0 - y)
+
+
+def _sigmoid(x):
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _HalfSigmoid.apply(x)
+    return torch.sigmoid(x)
+
+
+_register_act("relu", torch.relu)
+_register_act("sigmoid", _sigmoid)
+_register_act("exp", torch.exp)
+_register_act("sqrt", torch.sqrt)
+_register_act("square", lambda x: x * x)
 
 
 @register_op("cast")
@@ -89,6 +155,46 @@ def _sum(ctx, X):
     return {"Out": out}
 
 
+def _sum_as_jnp(x, dims=None, keepdim=False):
+    """`jnp.sum`'s rounding: a half-precision input adds in float32 and
+    rounds once to its own dtype."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x.sum() if dims is None else x.sum(dims, keepdim=keepdim)
+    s = x.sum(dtype=torch.float32) if dims is None \
+        else x.sum(dims, keepdim=keepdim, dtype=torch.float32)
+    return s.to(x.dtype)
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, X):
+    """Reference reduce_op.cc: over `dim` (default [0]), or every dim
+    with `reduce_all` (a [1] result, or all-ones dims with `keep_dim`)."""
+    keep = ctx.attr("keep_dim", False)
+    if ctx.attr("reduce_all", False):
+        out = _sum_as_jnp(X)
+        return {"Out": out.reshape((1,) * X.ndim if keep else (1,))}
+    dims = ctx.attr("dim", [0])
+    dims = tuple(dims) if isinstance(dims, (list, tuple)) else (dims,)
+    return {"Out": _sum_as_jnp(X, dims, keep)}
+
+
+@register_op("clip")
+def _clip(ctx, X):
+    return {"Out": torch.clamp(X, types.scalar_as(ctx.attr("min"), X.dtype),
+                               types.scalar_as(ctx.attr("max"), X.dtype))}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, X):
+    """X * min(max_norm / max(||X||, 1e-12), 1)."""
+    dt = X.dtype
+    norm = torch.sqrt(_sum_as_jnp(X * X))
+    scale = torch.clamp(
+        types.scalar_as(ctx.attr("max_norm"), dt)
+        / torch.clamp(norm, min=types.scalar_as(1e-12, dt)), max=1.0)
+    return {"Out": X * scale}
+
+
 @register_op("mean")
 def _mean(ctx, X):
     return {"Out": X.mean().reshape(1)}
@@ -96,7 +202,18 @@ def _mean(ctx, X):
 
 @register_op("softmax")
 def _softmax(ctx, X):
-    return {"Out": torch.softmax(X, dim=ctx.attr("axis", -1))}
+    """`jax.nn.softmax` in X's dtype. In float32 that is torch's softmax.
+    In bf16 the JAX rule rounds three times, and so does this one:
+    e = exp(x - max) in bf16, its sum in float32 rounded to bf16, e / sum
+    in bf16 (torch's bf16 softmax rounds once, one ulp off the JAX rule
+    in about half the elements). The max takes no grad, as the JAX rule
+    stops it (`lax.stop_gradient`), which also spares the backward
+    amax's passes."""
+    axis = ctx.attr("axis", -1)
+    if X.dtype not in (torch.bfloat16, torch.float16):
+        return {"Out": torch.softmax(X, dim=axis)}
+    e = torch.exp(X - X.detach().amax(dim=axis, keepdim=True))
+    return {"Out": e / _sum_as_jnp(e, (axis,), keepdim=True)}
 
 
 @register_op("top_k")

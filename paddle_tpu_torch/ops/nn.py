@@ -147,7 +147,8 @@ def _window_pool(x, ptype, ksize, strides, pads, exclusive):
     `x`: torch's CUDA avg_pool2d computes wrong grads for a channels-last
     input (torch 2.11, CUDA 12.8, on an H100: errors of order 1 against
     the host, `tests/test_torch_cuda.py`). ResNet's average pool is
-    global, a mean, and takes no copy."""
+    global, a mean, and takes no copy. A half-precision average takes
+    `_half_window_avg`."""
     fits = all(p <= k // 2 for p, k in zip(pads, ksize))
     if ptype == "max":
         if fits:
@@ -156,6 +157,8 @@ def _window_pool(x, ptype, ksize, strides, pads, exclusive):
                    value=float("-inf"))
         return F.max_pool2d(xp, ksize, strides)
     x = x.contiguous()
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _half_window_avg(x, ksize, strides, pads, exclusive)
     if fits:
         return F.avg_pool2d(x, ksize, strides, pads,
                             count_include_pad=not exclusive,
@@ -170,6 +173,38 @@ def _window_pool(x, ptype, ksize, strides, pads, exclusive):
                       device=x.device)
     return total / F.avg_pool2d(F.pad(ones, padding), ksize, strides,
                                 divisor_override=1)
+
+
+def _window_sum(xp, ksize, strides, out_hw):
+    """Sum of each (kh, kw) window of padded NCHW `xp` in its own dtype,
+    one add a window element in row-major order from 0: the order and
+    rounding of the JAX rule's `lax.reduce_window(X, 0, lax.add, ...)` on
+    a bf16 input."""
+    (kh, kw), (sh, sw), (oh, ow) = ksize, strides, out_hw
+    acc = torch.zeros(xp.shape[:2] + (oh, ow), dtype=xp.dtype,
+                      device=xp.device)
+    for i in range(kh):
+        for j in range(kw):
+            acc = acc + xp[:, :, i:i + sh * (oh - 1) + 1:sh,
+                           j:j + sw * (ow - 1) + 1:sw]
+    return acc
+
+
+def _half_window_avg(x, ksize, strides, pads, exclusive):
+    """The JAX rule's average pool on a bf16 (or fp16) NCHW input: the
+    window sum rounded at each add, and the quotient by the count, each
+    in x's dtype (torch's avg_pool2d sums in float32 and rounds once,
+    one ulp off the JAX rule in most outputs)."""
+    padding = (pads[1], pads[1], pads[0], pads[0])
+    h, w = x.shape[2] + 2 * pads[0], x.shape[3] + 2 * pads[1]
+    out_hw = ((h - ksize[0]) // strides[0] + 1,
+              (w - ksize[1]) // strides[1] + 1)
+    total = _window_sum(F.pad(x, padding), ksize, strides, out_hw)
+    if not exclusive:
+        return total / types.scalar_as(float(ksize[0] * ksize[1]), x.dtype)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return total / _window_sum(F.pad(ones, padding), ksize, strides, out_hw)
 
 
 @register_op("pool2d")

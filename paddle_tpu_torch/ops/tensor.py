@@ -1,10 +1,13 @@
 """Tensor creation / shape / lookup op rules (the slices' subset).
 
 Mirror of ``paddle_tpu/ops/tensor.py``: `fill_constant`,
-`uniform_random`, `gaussian_random`, `reshape`, `transpose`,
-`lookup_table`, `sinusoid_pos_encoding`. Random ops draw
-from the op's own `torch.Generator` (``core/registry.py``), on the op's
-device. `reshape` and `transpose` return views where PyTorch can.
+`uniform_random`, `gaussian_random`, `assign`, `reshape`, `transpose`,
+`concat`, `increment`, `lookup_table`, `causal_mask`,
+`sinusoid_pos_encoding`. Random ops draw from the op's own
+`torch.Generator` (``core/registry.py``), on the op's device. `reshape`
+and `transpose` return views where PyTorch can; `assign` copies, since
+the optimizer rules update their state in place and an alias of a
+parameter (``ModelAverage``'s backup) must keep its value.
 """
 
 from __future__ import annotations
@@ -44,6 +47,24 @@ def _gaussian_random(ctx, X=None):
     return {"Out": out}
 
 
+@register_op("assign")
+def _assign(ctx, X):
+    return {"Out": X.clone()}
+
+
+@register_op("concat")
+def _concat(ctx, X):
+    xs = X if isinstance(X, list) else [X]
+    return {"Out": torch.cat(xs, dim=ctx.attr("axis", 0))}
+
+
+@register_op("increment")
+def _increment(ctx, X):
+    """X + step in X's dtype (an integer counter stays an integer)."""
+    return {"Out": X + torch.tensor(ctx.attr("step", 1.0)).to(
+        dtype=X.dtype, device=X.device)}
+
+
 @register_op("lookup_table")
 def _lookup_table(ctx, W, Ids):
     """Embedding lookup (reference lookup_table_op.cc). Ids has a trailing
@@ -69,6 +90,20 @@ def _reshape(ctx, X, Shape=None):
 @register_op("transpose")
 def _transpose(ctx, X):
     return {"Out": X.permute(*ctx.attr("axis"))}
+
+
+@register_op("causal_mask")
+def _causal_mask(ctx):
+    """Additive float32 attention mask [1, 1, T, T]: `neg` above the
+    diagonal, 0 on and below it, made on the device."""
+    t = int(ctx.attr("size"))
+    row = torch.arange(t, device=ctx.device)[:, None]
+    col = torch.arange(t, device=ctx.device)[None, :]
+    mask = torch.where(col > row,
+                       torch.tensor(ctx.attr("neg", -1e9), dtype=torch.float32,
+                                    device=ctx.device),
+                       torch.zeros((), dtype=torch.float32, device=ctx.device))
+    return {"Out": mask.reshape(1, 1, t, t)}
 
 
 @register_op("sinusoid_pos_encoding")

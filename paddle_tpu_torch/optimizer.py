@@ -1,16 +1,20 @@
 """Optimizers: backward + per-parameter update ops appended to the program.
 
-The slice's subset of ``paddle_tpu/optimizer.py`` (reference
+Copy of ``paddle_tpu/optimizer.py`` with its imports rewired (reference
 python/paddle/fluid/optimizer.py: Optimizer base :36, accumulators,
 `minimize` :245 = append_backward + regularization + clip + update ops;
-Adam :452): the `Optimizer` base, `MomentumOptimizer` (alias
-`Momentum`) and `AdamOptimizer` (alias `Adam`), copied with their
-imports rewired, so `minimize` appends the same ops to the same program.
-The other optimizers are not ported yet.
+SGD :271, Momentum :312, Adagrad :386, Adam :452, Adamax :593,
+DecayedAdagrad :714, Adadelta :785, RMSProp, Ftrl, ModelAverage), so
+`minimize` appends the same ops to the same program. The update ops run
+in place (``ops/optimizer_ops.py``). A per-parameter learning rate
+(`ParamAttr(learning_rate=...)`, or the Variable `append_LARS` stores)
+scales the global one with Variable operators
+(``layers/math_op_patch.py``).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 from . import initializer as init
@@ -117,15 +121,30 @@ class Optimizer:
         return optimize_ops, params_grads
 
     def _lr_for_param(self, param):
-        """Per-parameter lr multiplier (ParamAttr.learning_rate). Only the
-        default 1.0 is ported: the JAX package scales the lr Variable by
-        operator sugar (`layers/math_op_patch.py`) that the port lacks."""
+        """Per-parameter lr multiplier (ParamAttr.learning_rate). A
+        Variable is used directly — append_LARS stores the per-layer
+        decayed lr here (reference optimizer.py _create_param_lr
+        special-cases Variable the same way)."""
         mult = getattr(param, "optimize_attr", {}).get("learning_rate", 1.0)
-        if isinstance(mult, ir.Variable) or mult != 1.0:
-            raise NotImplementedError(
-                f"parameter {param.name!r}: a per-parameter learning rate "
-                f"({mult!r}) is not ported to paddle_tpu_torch yet")
-        return self._lr_var
+        if isinstance(mult, ir.Variable):
+            return mult
+        if mult == 1.0:
+            return self._lr_var
+        return self._lr_var * float(mult)
+
+
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "LearningRate": [self._lr_for_param(p).name]},
+            outputs={"ParamOut": [p.name]})
 
 
 class MomentumOptimizer(Optimizer):
@@ -185,5 +204,285 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "adagrad",
+            inputs={"Param": [p.name], "Grad": [g.name], "Moment": [m.name],
+                    "LearningRate": [self._lr_for_param(p).name]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name]},
+            attrs={"epsilon": self._epsilon})
+
+
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adamax"
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, fill_value=self._beta1,
+                                  shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        u = self._get_accumulator("inf_norm", p)
+        b1 = self._get_accumulator("beta1_pow_acc", p)
+        return block.append_op(
+            "adamax",
+            inputs={"Param": [p.name], "Grad": [g.name], "Moment": [m.name],
+                    "InfNorm": [u.name], "Beta1Pow": [b1.name],
+                    "LearningRate": [self._lr_for_param(p).name]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name],
+                     "InfNormOut": [u.name], "Beta1PowOut": [b1.name]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "decayed_adagrad"
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "decayed_adagrad",
+            inputs={"Param": [p.name], "Grad": [g.name], "Moment": [m.name],
+                    "LearningRate": [self._lr_for_param(p).name]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "adadelta"
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("__avg_squared_grad", p)
+            self._add_accumulator("__avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        g2 = self._get_accumulator("__avg_squared_grad", p)
+        u2 = self._get_accumulator("__avg_squared_update", p)
+        return block.append_op(
+            "adadelta",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "AvgSquaredGrad": [g2.name], "AvgSquaredUpdate": [u2.name]},
+            outputs={"ParamOut": [p.name], "AvgSquaredGradOut": [g2.name],
+                     "AvgSquaredUpdateOut": [u2.name]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "rmsprop"
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("momentum", p)
+            if self._centered:
+                self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        ms = self._get_accumulator("mean_square", p)
+        mom = self._get_accumulator("momentum", p)
+        inputs = {"Param": [p.name], "Grad": [g.name],
+                  "MeanSquare": [ms.name], "Moment": [mom.name],
+                  "LearningRate": [self._lr_for_param(p).name]}
+        outputs = {"ParamOut": [p.name], "MeanSquareOut": [ms.name],
+                   "MomentOut": [mom.name]}
+        if self._centered:
+            mg = self._get_accumulator("mean_grad", p)
+            inputs["MeanGrad"] = [mg.name]
+            outputs["MeanGradOut"] = [mg.name]
+        return block.append_op(
+            "rmsprop", inputs=inputs, outputs=outputs,
+            attrs={"decay": self._rho, "epsilon": self._epsilon,
+                   "momentum": self._momentum, "centered": self._centered})
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self.type = "ftrl"
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            "ftrl",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "SquaredAccumulator": [sq.name],
+                    "LinearAccumulator": [lin.name],
+                    "LearningRate": [self._lr_for_param(p).name]},
+            outputs={"ParamOut": [p.name], "SquaredAccumOut": [sq.name],
+                     "LinearAccumOut": [lin.name]},
+            attrs={"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power})
+
+
+class ModelAverage(Optimizer):
+    """Sliding-window parameter averaging for eval (reference
+    optimizer.py:1111 + average_accumulates_op.h).
+
+    Construct AFTER ``optimizer.minimize(loss)`` on the training program:
+    it appends one ``average_accumulates`` op per parameter to the main
+    program (the sums update in the training step, after the parameter
+    updates), and builds standalone apply/restore programs that swap the
+    averaged values into the parameters around an eval pass::
+
+        with model_average.apply(exe, scope=scope):
+            ... run eval programs: params hold the window average ...
+        # params restored afterwards
+    """
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, main_program=None, **kw):
+        super().__init__(0.0, **kw)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        program = main_program or ir.default_main_program()
+        self._backups: Dict[str, str] = {}
+
+        params = [p for p in program.global_block().all_parameters()
+                  if getattr(p, "do_model_average", None) is not False]
+        block = program.global_block()
+        self._create_accumulators(block, params)
+        for p in params:
+            self._append_accumulate_op(block, p)
+
+        self.apply_program = self._build_apply_program(params)
+        self.restore_program = self._build_restore_program(params)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("sum_1", p)
+            self._add_accumulator("sum_2", p)
+            self._add_accumulator("sum_3", p)
+            for ctr in ("num_accumulates", "old_num_accumulates",
+                        "num_updates"):
+                self._add_accumulator(ctr, p, dtype="int32", shape=(1,))
+
+    def _append_accumulate_op(self, block, p):
+        accs = {n: self._get_accumulator(n, p)
+                for n in ("sum_1", "sum_2", "sum_3", "num_accumulates",
+                          "old_num_accumulates", "num_updates")}
+        block.append_op(
+            "average_accumulates",
+            inputs={"param": [p.name],
+                    **{f"in_{n}": [v.name] for n, v in accs.items()}},
+            outputs={f"out_{n}": [v.name] for n, v in accs.items()},
+            attrs={"average_window": self.average_window,
+                   "min_average_window": self.min_average_window,
+                   "max_average_window": self.max_average_window,
+                   "__role__": "optimize"})
+
+    def _clone_into(self, block, var):
+        return block.create_var(name=var.name, shape=var.shape,
+                                dtype=var.dtype, persistable=True,
+                                stop_gradient=True)
+
+    def _build_apply_program(self, params):
+        from . import layers
+        prog = ir.Program()
+        with ir.program_guard(prog), unique_name.guard():
+            block = prog.global_block()
+            for p in params:
+                param = self._clone_into(block, p)
+                accs = [self._clone_into(block, self._get_accumulator(n, p))
+                        for n in ("sum_1", "sum_2", "sum_3")]
+                ctrs = [self._clone_into(block, self._get_accumulator(n, p))
+                        for n in ("num_accumulates", "old_num_accumulates")]
+                backup = block.create_var(
+                    name=unique_name.generate(p.name + ".model_average_bak"),
+                    shape=p.shape, dtype=p.dtype, persistable=True,
+                    stop_gradient=True)
+                self._backups[p.name] = backup.name
+                layers.assign(input=param, output=backup)
+                total = layers.cast(layers.sums(ctrs), dtype=param.dtype)
+                avg = layers.elementwise_div(x=layers.sums(accs), y=total)
+                layers.assign(input=avg, output=param)
+        return prog
+
+    def _build_restore_program(self, params):
+        from . import layers
+        prog = ir.Program()
+        with ir.program_guard(prog), unique_name.guard():
+            block = prog.global_block()
+            for p in params:
+                param = self._clone_into(block, p)
+                backup = block.create_var(name=self._backups[p.name],
+                                          shape=p.shape, dtype=p.dtype,
+                                          persistable=True,
+                                          stop_gradient=True)
+                layers.assign(input=backup, output=param)
+        return prog
+
+    @contextmanager
+    def apply(self, executor, need_restore=True, scope=None):
+        """Swap window-averaged values into the parameters
+        (reference optimizer.py:1247)."""
+        kw = {"scope": scope} if scope is not None else {}
+        executor.run(self.apply_program, **kw)
+        try:
+            yield
+        finally:
+            if need_restore:
+                self.restore(executor, scope=scope)
+
+    def restore(self, executor, scope=None):
+        """Restore the pre-apply parameter values (reference
+        optimizer.py:1268)."""
+        kw = {"scope": scope} if scope is not None else {}
+        executor.run(self.restore_program, **kw)
+
+
+SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Adagrad = AdagradOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

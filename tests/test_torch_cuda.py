@@ -1303,3 +1303,158 @@ def test_amp_executor_on_card_asks_for_float32_sums(dev):
         assert not matmul.allow_bf16_reduced_precision_reduction
     finally:
         matmul.allow_bf16_reduced_precision_reduction = before
+
+
+# ---------------------------------------------------------------------------
+# the zoo and optimizer slice: the unfused attention's dropout, the optimizer
+# sweep, an SE-ResNeXt step, the bf16 softmax and average pool
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,B", [("float32", 32), ("bfloat16", 64)])
+def test_dropout_kernel_at_the_unfused_attention_weights(dev, dtype, B):
+    """Kernel 6 at train-base-unfused's attention weights [B, 8, 256, 256]
+    (float32 at B 32, bf16 at B 64): Out, Mask and the backward's launch
+    on dy equal to the plain version bit for bit."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = torch.randn(B, 8, 256, 256, device=dev, generator=g).to(dt)
+    dy = torch.randn(B, 8, 256, 256, device=dev, generator=g).to(dt)
+    assert dk.supports(x, 0.1)
+    native.reset_launches()
+    out, mask = dk.dropout_forward(x, 77, 0.1, want_mask=True)
+    dx, _ = dk.dropout_forward(dy, 77, 0.1)
+    name = "dropout" if dtype == "float32" else "dropout_bf16"
+    assert native.launches[name] == 2
+    ref_out, ref_mask = dk.dropout_reference(x, 77, 0.1)
+    ref_dx, _ = dk.dropout_reference(dy, 77, 0.1)
+    view = torch.int32 if dtype == "float32" else torch.int16
+    for a, b in ((out, ref_out), (mask, ref_mask), (dx, ref_dx)):
+        assert torch.equal(a.view(view), b.view(view))
+
+
+def test_unfused_transformer_one_layer_on_card_under_the_dropout_flag(dev):
+    """One step of a one-layer unfused Transformer-base at batch 2 under
+    FLAGS_dropout_impl=pallas: no flash kernel, and the dropout kernel at
+    every gated site (its 3 attention weights among them) forward and
+    backward, none writing a Mask."""
+    from paddle_tpu_torch import flags, optimizer
+    from paddle_tpu_torch.models import transformer
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(n_layer=1, fused_attention=False)
+        optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+    gb = main.global_block()
+    gated = sum(op.type == "dropout"
+                and gb.vars[op.inputs["X"][0]].shape[-1] % 128 == 0
+                for op in gb.ops)
+    assert gated == 2 + 3 + 4 + 3           # embeddings, enc, dec, attention
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(1)
+    feed = {n: rng.randint(0, 30000, (2, 256)).astype(np.int64)
+            for n in ("src_word", "trg_word", "lbl_word")}
+    flags.set_flag("dropout_impl", "pallas")
+    try:
+        native.reset_launches()
+        loss, = exe.run(main, feed=feed, fetch_list=[fetches["loss"]],
+                        scope=scope)
+    finally:
+        flags.set_flag("dropout_impl", "auto")
+    assert np.isfinite(loss).all()
+    want = dict.fromkeys(native.launches, 0)
+    want["dropout"] = 2 * gated
+    assert native.launches == want
+
+
+def test_optimizer_sweep_on_card_equals_host(dev):
+    """chip_smoke.py's optimizer sweep at width 64, batch 16: every
+    optimizer class, ModelAverage, every schedule, append_LARS, every
+    clip and a per-parameter learning rate, 3 steps on the card and on
+    the host from one state, within the sweep's stated tolerances."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    for case in chip_smoke.SWEEP_CASES:
+        chip_smoke.run_sweep_case(torch, ptt, case, width=64, batch=16)
+
+
+def test_se_resnext50_step_on_card_equals_host(dev):
+    """One step of SE-ResNeXt-50 at 32 x 32, NHWC, batch 8, 10 classes,
+    Momentum on piecewise_decay with L2Decay, from one startup state on
+    the card and on the host: the loss to 1e-4 relative, the running
+    stats and the step counter to 1e-4, every velocity within 0.1
+    relative L2 (as the ResNet-50 step above), no kernel launched."""
+    from paddle_tpu_torch import optimizer, regularizer
+    from paddle_tpu_torch.core.executor import fetch_var
+    from paddle_tpu_torch.models import se_resnext
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = se_resnext.build(class_dim=10, image_shape=(3, 32, 32),
+                                      data_format="NHWC")
+        lr = ptt.layers.piecewise_decay([1, 2], [1e-3, 1e-4, 1e-5])
+        optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                           regularization=regularizer.L2Decay(1e-4)
+                           ).minimize(fetches["loss"])
+    scope0 = ptt.Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope0)
+    arrays = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
+    rng = np.random.RandomState(14)
+    feed = {"image": rng.rand(8, 32, 32, 3).astype(np.float32),
+            "label": rng.randint(0, 10, (8, 1)).astype(np.int64)}
+    out = {}
+    for side, place in (("card", ptt.CUDAPlace(0)), ("host", ptt.CPUPlace())):
+        scope = ptt.io.state_from_numpy(arrays, place)
+        native.reset_launches()
+        loss, = ptt.Executor(place).run(main, feed=feed,
+                                        fetch_list=[fetches["loss"]],
+                                        scope=scope)
+        assert not any(native.launches.values())
+        out[side] = (loss, {n: fetch_var(n, scope) for n in arrays})
+    assert np.isfinite(out["card"][0]).all()
+    np.testing.assert_allclose(out["card"][0], out["host"][0], rtol=1e-4)
+    stats = {op.inputs[s][0] for op in main.global_block().ops
+             if op.type == "batch_norm" for s in ("Mean", "Variance")}
+    assert len(stats) == 2 * 53
+    for n in arrays:
+        a, b = out["card"][1][n], out["host"][1][n]
+        if n in stats or n == "@LR_DECAY_COUNTER@":
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4, err_msg=n)
+        elif "velocity" in n:
+            assert np.linalg.norm(a - b) <= 0.1 * np.linalg.norm(b), n
+
+
+def test_bf16_softmax_sigmoid_and_avg_pool_on_card_equal_host(dev):
+    """The bf16 rules that round at each step (softmax, sigmoid, the
+    windowed average pool) on the card against the host: the pool (adds
+    and divides only) bit for bit; softmax and sigmoid, whose float32 exp
+    may differ by an ulp between the card's and the host's libraries,
+    each output within one bf16 ulp and all but 1 in 1000 equal. Their
+    grads (the pool's averages a contiguous NCHW copy: the comment at
+    ops/nn.py::_window_pool) within SPECS' AMP tolerance."""
+    from paddle_tpu_torch.core import registry
+    x = torch.randn(4, 6, 64, generator=torch.Generator().manual_seed(3))
+    img = torch.randn(2, 8, 8, 4, generator=torch.Generator().manual_seed(4))
+    cases = (("softmax", {"axis": -1}, x), ("sigmoid", {}, x * 4),
+             ("pool2d", {"pooling_type": "avg", "ksize": [3, 3],
+                         "strides": [2, 2], "paddings": [1, 1],
+                         "exclusive": True, "data_format": "NHWC"}, img))
+    for op, attrs, a in cases:
+        res = {}
+        for d in ("cpu", dev):
+            t = a.to(torch.bfloat16).to(d).requires_grad_(True)
+            out = registry.get_op_def(op).lower(
+                registry.LoweringContext(attrs, d), t)["Out"]
+            g, = torch.autograd.grad(out.float().square().sum(), t)
+            res[str(d)] = (out.detach().cpu(), g.cpu())
+        (oc, gc), (od, gd) = res["cpu"], res[str(dev)]
+        assert od.dtype == torch.bfloat16
+        diff = (od.view(torch.int16).int() - oc.view(torch.int16).int()).abs()
+        if op == "pool2d":
+            assert not diff.any()
+        else:
+            assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3, op
+        torch.testing.assert_close(gd.float(), gc.float(), rtol=2e-2,
+                                   atol=2e-3)

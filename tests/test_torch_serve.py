@@ -353,6 +353,39 @@ with ptt.program_guard(drop, ptt.Program()), ptt.unique_name.guard():
 out, = exe.run(drop, feed={"x": [[1.0] * 128] * 4}, fetch_list=[y],
                scope=ptt.Scope())
 assert set(out.reshape(-1).tolist()) == {0.0, 2.0}
+from paddle_tpu_torch.layers import learning_rate_scheduler
+from paddle_tpu_torch.models import deepfm, se_resnext, vgg
+for name in ("paddle_tpu_torch.layers.control_flow",
+             "paddle_tpu_torch.layers.math_op_patch",
+             "paddle_tpu_torch.layers.tensor", "paddle_tpu_torch.nets"):
+    assert name in sys.modules, name
+for build in (lambda: vgg.build(), lambda: se_resnext.build(class_dim=10),
+              lambda: transformer.build(src_vocab_size=16, trg_vocab_size=16,
+                                        seq_len=8, n_layer=1, n_head=2,
+                                        d_model=32, d_inner=32,
+                                        fused_attention=False)):
+    with ptt.program_guard(ptt.Program(), ptt.Program()), \
+            ptt.unique_name.guard():
+        build()
+fm, fm_start = ptt.Program(), ptt.Program()
+with ptt.program_guard(fm, fm_start), ptt.unique_name.guard():
+    _, f = deepfm.build(num_fields=3, sparse_feature_dim=50,
+                        embedding_size=4, dense_dim=2, hidden_sizes=(8,))
+    ptt.clip.set_gradient_clip(ptt.clip.GradientClipByGlobalNorm(1.0))
+    lr = learning_rate_scheduler.noam_decay(16, 4)
+    optimizer.Adagrad(learning_rate=lr).minimize(f["loss"])
+    ptt.clip.set_gradient_clip(None)
+    ma = optimizer.ModelAverage(0.5, min_average_window=1,
+                                max_average_window=2)
+fm_scope = ptt.Scope()
+exe.run(fm_start, scope=fm_scope)
+fm_feed = {"dense_input": [[0.5, 1.0]] * 2, "sparse_input": [[1, 2, 3]] * 2,
+           "label": [[1], [0]]}
+for _ in range(2):
+    assert exe.run(fm, feed=fm_feed, fetch_list=[f["loss"]],
+                   scope=fm_scope)[0] > 0
+with ma.apply(exe, scope=fm_scope):
+    pass
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)

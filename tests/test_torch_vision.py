@@ -49,6 +49,17 @@ EARLIER_OPS = {
     "paged_attention_q8", "prefill_attention", "prefill_attention_q8",
     "relu", "reshape", "scale", "sinusoid_pos_encoding",
     "softmax_with_cross_entropy", "sum", "transpose", "uniform_random"}
+# the op types later slices register (optimizers, schedules,
+# clips and the rest of the non-recurrent zoo); each has its parity case
+# in tests/test_torch_zoo.py or tests/test_torch_optim.py
+LATER_OPS = {
+    "elementwise_sub", "elementwise_mul", "elementwise_div",
+    "elementwise_min", "elementwise_max", "elementwise_pow", "exp", "sqrt",
+    "square", "sigmoid", "reduce_sum", "clip", "clip_by_norm", "less_than",
+    "greater_equal", "concat", "increment", "assign", "causal_mask",
+    "sigmoid_cross_entropy_with_logits", "sgd", "adamax", "adagrad",
+    "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "proximal_gd",
+    "proximal_adagrad", "average_accumulates"}
 
 
 @pytest.fixture(autouse=True)
@@ -342,12 +353,14 @@ def test_momentum_update_matches_paddle_tpu(nesterov):
 
 def test_every_port_op_is_a_reference_op_and_every_new_one_has_a_case():
     """The registry contract: the port registers only ops the JAX package
-    registers; the ops this slice adds are exactly NEW_OPS, and each one
-    appears in a program of this file's parity cases."""
+    registers, 63 of them; the ops this slice adds are exactly NEW_OPS,
+    and each one appears in a program of this file's parity cases."""
     ported = set(tregistry.registered_ops())
     assert ported <= set(jregistry.registered_ops())
-    assert ported - EARLIER_OPS == NEW_OPS
-    assert EARLIER_OPS <= ported
+    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 30
+    assert len(ported) == 63
+    assert ported - EARLIER_OPS - LATER_OPS == NEW_OPS
+    assert EARLIER_OPS | LATER_OPS <= ported
     covered = set()
     for case in OP_CASES.values():
         covered |= {op.type for op in _build_jax(case.build)[0]

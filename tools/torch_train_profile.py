@@ -2,7 +2,7 @@
 """Where paddle_tpu_torch's training step time goes on one NVIDIA card.
 
     python3 tools/torch_train_profile.py [--model transformer|resnet50]
-        [--amp] [--steps N] [--out DIR]
+        [--amp] [--unfused] [--steps N] [--out DIR]
     FLAGS_dropout_impl=pallas python3 tools/torch_train_profile.py ...
 
 Builds one of chip_smoke.py's training configurations, imported from
@@ -11,7 +11,9 @@ TRAIN_BATCH, Adam learning rate and fixed batch) or train-resnet50
 (`--model resnet50`: RESNET50 at RESNET_BATCH with Momentum, its fixed
 synthetic batch staged on the card first); with `--amp`, the same under
 bf16 mixed precision (train-base-amp at TRAIN_AMP_BATCH, bench.py's
-batch; train-resnet50-amp), whose kernel groups put the bf16
+batch; train-resnet50-amp), with `--unfused` train-base-unfused
+(`fused_attention=False`: matmul, causal mask, softmax, dropout and
+matmul in place of the flash kernels), whose kernel groups put the bf16
 instantiations of the flash and dropout kernels, and the float32 <->
 bf16 casts, apart. It runs the startup
 with `Executor(CUDAPlace(0), amp=...)`, takes 3 warm-up steps, then N untraced
@@ -148,6 +150,8 @@ def main(argv=None) -> int:
                     default="transformer")
     ap.add_argument("--amp", action="store_true",
                     help="bf16 mixed precision: Executor(amp=True)")
+    ap.add_argument("--unfused", action="store_true",
+                    help="train-base with fused_attention=False")
     ap.add_argument("--steps", type=int, default=5,
                     help="untraced steps timed after the warm-up")
     ap.add_argument("--out", help="directory for summary.json")
@@ -176,10 +180,12 @@ def main(argv=None) -> int:
         name, batch, unit, per_step = ("train-resnet50", RESNET_BATCH,
                                        "images", RESNET_BATCH)
     else:
-        main_prog, startup, loss = build_train(ptt)
+        main_prog, startup, loss = build_train(
+            ptt, fused_attention=not args.unfused)
         batch = TRAIN_AMP_BATCH if args.amp else TRAIN_BATCH
         feed = train_batch(batch)
-        name, unit, per_step = ("train-base", "tokens",
+        name, unit, per_step = ("train-base" + ("-unfused" if args.unfused
+                                                else ""), "tokens",
                                 batch * TRAIN_BASE["seq_len"])
     groups_of = KERNEL_GROUPS[args.model]
     if args.amp:
@@ -248,7 +254,7 @@ def main(argv=None) -> int:
                f"{unit}_per_step": per_step, "untraced_step_ms": walls,
                "traced_step_ms": traced_s * 1e3, "traced": dev,
                "by_kernel_group_us": groups, "other_kernels": other,
-               "by_op_type": ops, "launches": dict(native.launches)}
+               "by_op_type": ops_all, "launches": dict(native.launches)}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "summary.json"), "w") as f:
