@@ -148,6 +148,20 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    ModelAverage's apply and restore, every learning-rate schedule,
    append_LARS, every clip and a per-parameter learning rate: losses
    within SWEEP_LOSS_RTOL, each persistable within SWEEP_STATE_L2;
+7g. train-stacked-lstm: the stacked dynamic LSTM at bench.py's
+   configuration (`models.stacked_dynamic_lstm.build()`: dict 30000,
+   embedding 512, 3 LSTMs of 512 with peepholes, Adam(1e-3); batch 64
+   padded to 100 steps, lengths uniform in [50, 100] from RandomState(0),
+   fed as a `(words, lengths)` pair), float32 and under AMP, 3 + 10 steps
+   each, then one traced step of each (a torch.profiler session slows
+   every later launch, so no timed step follows one): losses finite and
+   falling, no kernel of csrc/ launched; step ms, examples/s, padded and
+   valid tokens/s, peak memory and the traced step's device busy share.
+   Then card vs host, 3 steps
+   each from the host's state, at 2 layers x 64 (the second reversed),
+   batch 4, T 12, lengths 1 and 12 among them; and each sequence op and
+   gru / lstmp / lstm_unit / gru_unit (one case sweep) card vs host with
+   its grads, within SEQ_OP_TOL;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -340,6 +354,26 @@ DEEPFM_BATCH, DEEPFM_STEPS, DEEPFM_LR, DEEPFM_CLIP = 512, 10, 0.01, 10.0
 # elements' updates; tests/test_torch_optim.py shows the same on the host)
 SWEEP_WIDTH, SWEEP_BATCH, SWEEP_STEPS = 512, 64, 3
 SWEEP_LOSS_RTOL, SWEEP_STATE_L2 = 1e-5, 1e-4
+# train-stacked-lstm: BASELINE.json's "Stacked dynamic LSTM LM" as bench.py
+# measures it (bench_stacked_lstm): models.stacked_dynamic_lstm.build() at
+# its defaults (dict 30000, embedding 512, 3 LSTMs of 512 with peepholes,
+# max pooling, 2 classes), Adam(1e-3), batch 64 padded to 100 steps, ids
+# and lengths (uniform in [50, 100]) from RandomState(0), float32 and
+# under AMP. No kernel of csrc/ lies on this path: the LSTM's time loop
+# is PyTorch ops, one step at a time (ops/rnn.py)
+LSTM = dict(dict_size=30000, emb_dim=512, hidden_dim=512, stacked_num=3)
+LSTM_BATCH, LSTM_SEQ, LSTM_LR, LSTM_DATA_SEED = 64, 100, 1e-3, 0
+LSTM_WARMUP, LSTM_STEPS = 3, 10
+# card vs host, PARITY_STEPS steps each from the host's state (LOSS_RTOL,
+# STATE_L2_RTOL): embedding 64, 2 LSTM layers 64 wide, the second
+# reversed, batch 4 padded to 12 steps, lengths 1, 12 and two between
+LSTM_PARITY_DICT, LSTM_PARITY_WIDTH = 200, 64
+LSTM_PARITY_LENS = (1, 12, 5, 9)
+# each sequence op and gru / lstmp / lstm_unit / gru_unit: card vs host
+# from one state, one step with its grads, each element within
+# SEQ_OP_TOL (1 + |host|) (float32 sums of a few dozen terms, another
+# order on each side); integer outputs exactly
+SEQ_OP_TOL = 1e-5
 
 
 def log(*a):
@@ -1934,6 +1968,346 @@ def run_sweep(torch, ptt, native):
     return out
 
 
+def lstm_batch(batch=LSTM_BATCH, seq=LSTM_SEQ, vocab=LSTM["dict_size"],
+               seed=LSTM_DATA_SEED):
+    """bench.py's stacked_lstm batch: ids [B, T, 1] in [1, vocab), lengths
+    uniform in [T / 2, T], labels in {0, 1}, drawn in that order."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    words = rng.randint(1, vocab, (batch, seq, 1)).astype(np.int64)
+    lens = rng.randint(seq // 2, seq + 1, (batch,)).astype(np.int32)
+    label = rng.randint(0, 2, (batch, 1)).astype(np.int64)
+    return words, lens, label
+
+
+def build_stacked_lstm(ptt):
+    """models.stacked_dynamic_lstm at LSTM + Adam(LSTM_LR):
+    (main, startup, fetches)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = stacked_dynamic_lstm.build(**LSTM)
+        optimizer.Adam(learning_rate=LSTM_LR).minimize(fetches["loss"])
+    return main, startup, fetches
+
+
+def traced_busy(torch, fn):
+    """Run `fn` once under torch.profiler: (wall s, device busy us, device
+    events), busy the union of kernel, copy and set intervals
+    (`tools/torch_serve_profile.py::device_breakdown`)."""
+    from tools.torch_serve_profile import device_breakdown
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        dev = device_breakdown(path, wall)
+    return wall, dev["busy_us"], dev["device_events"]
+
+
+def run_train_stacked_lstm(torch, ptt, native, amp=False):
+    """train-stacked-lstm on the card: LSTM_WARMUP + LSTM_STEPS steps on
+    bench.py's fixed batch, staged on the card as a `(words, lengths)`
+    pair, under bf16 mixed precision when `amp`. Losses finite and
+    falling, no kernel of csrc/ launched; returns step ms (median of the
+    timed steps), examples/s, padded and valid tokens/s, peak memory
+    above what the card held before the model was built, and under
+    "step" the step itself, which `trace_train_stacked_lstm` runs once
+    traced. The phase times every run before it traces any: a
+    torch.profiler session leaves a cost on each later launch
+    (`tools/torch_lstm_step_probe.py`)."""
+    import numpy as np
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    main, startup, fetches = build_stacked_lstm(ptt)
+    loss = fetches["loss"]
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0), amp=amp)
+    exe.run(startup, scope=scope)
+    words, lens, label = lstm_batch()
+    feed = {"words": (torch.from_numpy(words).cuda(),
+                      torch.from_numpy(lens).cuda()),
+            "label": torch.from_numpy(label).cuda()}
+    gc.collect()
+    torch.cuda.synchronize()
+
+    def step():
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        return float(np.asarray(out).reshape(-1)[0])
+
+    losses, step_ms = [], []
+    native.reset_launches()
+    for _ in range(LSTM_WARMUP + LSTM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(native.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    tag = f"train-stacked-lstm{'-amp' if amp else ''}"
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} loss did not fall on its fixed batch: "
+                             f"{losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched a kernel of csrc/: {launches}")
+    timed = sorted(step_ms[LSTM_WARMUP:])
+    med = timed[len(timed) // 2]
+    types = [op.type for op in main.global_block().ops]
+    return dict(tag=tag, amp=amp, batch=LSTM_BATCH, seq=LSTM_SEQ,
+                valid_tokens=int(lens.sum()), warmup=LSTM_WARMUP,
+                steps=LSTM_STEPS, losses=losses, step_ms=step_ms,
+                step_ms_median=med, examples_per_s=LSTM_BATCH / med * 1e3,
+                padded_tokens_per_s=LSTM_BATCH * LSTM_SEQ / med * 1e3,
+                valid_tokens_per_s=int(lens.sum()) / med * 1e3,
+                peak_bytes=peak, launches=launches, ops=len(types),
+                lstm_ops=types.count("lstm"), step=step)
+
+
+def trace_train_stacked_lstm(torch, run):
+    """One step of a `run_train_stacked_lstm` run under torch.profiler:
+    adds the traced step's wall, the device busy time, its share of the
+    traced step and of the untraced median, and the device events; drops
+    the step, and with it the run's model and state."""
+    traced_s, busy_us, n_events = traced_busy(torch, run.pop("step"))
+    run.update(traced_step_ms=traced_s * 1e3, busy_us=busy_us,
+               busy_share=busy_us / (traced_s * 1e6),
+               busy_over_untraced=busy_us / (run["step_ms_median"] * 1e3),
+               device_events=n_events)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def run_stacked_lstm_parity(torch, ptt):
+    """Card against host, PARITY_STEPS steps each from the host's state
+    (`run_step_parity`): a two-layer stacked LSTM LSTM_PARITY_WIDTH wide,
+    its second layer reversed, batch 4 padded to 12 steps with the
+    lengths LSTM_PARITY_LENS."""
+    import numpy as np
+    from paddle_tpu_torch import optimizer
+    L = ptt.layers
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        words = L.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = L.data("label", shape=[1], dtype="int64")
+        inp = L.embedding(words, size=[LSTM_PARITY_DICT, LSTM_PARITY_WIDTH])
+        for reverse in (False, True):
+            proj = L.fc(inp, size=4 * LSTM_PARITY_WIDTH, num_flatten_dims=2)
+            inp, _ = L.dynamic_lstm(proj, size=4 * LSTM_PARITY_WIDTH,
+                                    is_reverse=reverse)
+        prob = L.fc(L.sequence_pool(inp, "max"), size=2, act="softmax")
+        loss = L.mean(L.cross_entropy(prob, label))
+        optimizer.Adam(learning_rate=LSTM_LR).minimize(loss)
+    lens = np.array(LSTM_PARITY_LENS, np.int32)
+    words_np, _, label_np = lstm_batch(len(lens), max(lens),
+                                       LSTM_PARITY_DICT, DATA_SEED)
+    return run_step_parity(torch, ptt, "stacked-lstm", main, startup, loss,
+                           {"words": (words_np, lens), "label": label_np},
+                           PARITY_STEPS)
+
+
+def _seq_op_cases():
+    """{name: (build(L, helper_cls) -> (loss or None, [fetch names]),
+    feed)}: each sequence op and the recurrent rules the stacked LSTM
+    does not run, at B 4, T 6, D 4 (lengths 1 and 6 among them), nested
+    where the rule takes it."""
+    import numpy as np
+    rng = np.random.RandomState(DATA_SEED)
+    B, T, D = 4, 6, 4
+    lens = np.array([1, 6, 3, 5], np.int32)
+    x = rng.randn(B, T, D).astype(np.float32)
+    y = rng.randn(B, T + 2, D).astype(np.float32)
+    xn = rng.randn(2, 3, 5, D).astype(np.float32)
+    nested = (np.array([3, 3], np.int32),
+              np.array([[2, 5, 1], [4, 1, 3]], np.int32))
+    g = rng.randn(B, T, 4 * D).astype(np.float32)
+    ids = rng.randint(0, 4, (B, T, 1)).astype(np.int64)
+
+    def seq(L, name="x", width=D, lod_level=1, dtype="float32"):
+        return L.data(name, shape=[width], dtype=dtype, lod_level=lod_level,
+                      stop_gradient=dtype != "float32")
+
+    def head(L, out, name="head_w"):
+        return L.mean(L.fc(out, 1, num_flatten_dims=len(out.shape) - 1,
+                           bias_attr=False, param_attr=name))
+
+    def one(fn, lod_level=1):
+        def build(L, H):
+            out = fn(L, seq(L, lod_level=lod_level))
+            return head(L, out), [out.name]
+        return build
+
+    cases = {f"sequence_pool-{p}": (one(lambda L, v, p=p:
+                                        L.sequence_pool(v, p)),
+                                    {"x": (x, lens)})
+             for p in ("average", "sum", "sqrt", "max", "last", "first")}
+    cases["sequence_pool-max-nested"] = (
+        one(lambda L, v: L.sequence_pool(v, "max"), 2), {"x": (xn, nested)})
+    cases["sequence_softmax"] = (one(lambda L, v: L.sequence_softmax(v)),
+                                 {"x": (x, lens)})
+    cases["sequence_softmax-nested"] = (
+        one(lambda L, v: L.sequence_softmax(v), 2), {"x": (xn, nested)})
+    cases["sequence_reshape"] = (one(lambda L, v: L.sequence_reshape(v, 2)),
+                                 {"x": (x, lens)})
+    cases["sequence_conv"] = (one(lambda L, v: L.sequence_conv(
+        v, num_filters=5, filter_size=3, act="sigmoid")), {"x": (x, lens)})
+    cases["sequence_conv-nested"] = (one(lambda L, v: L.sequence_conv(
+        v, num_filters=5, filter_size=4), 2), {"x": (xn, nested)})
+    cases["row_conv"] = (one(lambda L, v: L.row_conv(v, 2)),
+                         {"x": (x, lens)})
+
+    def concat(L, H):
+        a, b = seq(L), seq(L, "y")
+        out = L.sequence_concat([a, L.scale(b, 2.0)])
+        return head(L, out), [out.name, out.name + "@SEQLEN"]
+    cases["sequence_concat"] = (concat, {"x": (x, lens), "y": (
+        y, np.array([8, 2, 1, 7], np.int32))})
+
+    def expand(L, H):
+        xd = L.data("xd", shape=[D], stop_gradient=False)
+        out = L.sequence_expand(xd, seq(L, "y", dtype="float32"))
+        return head(L, out), [out.name]
+    cases["sequence_expand"] = (expand, {"xd": x[:, 0].copy(),
+                                         "y": (x, lens)})
+
+    def expand_as(L, H):
+        xd = L.data("xd", shape=[D], stop_gradient=False)
+        helper = H("sequence_expand_as")
+        out = helper.create_variable_for_type_inference("float32")
+        helper.append_op("sequence_expand_as",
+                         inputs={"X": [xd.name], "Y": [seq(L, "y").name]},
+                         outputs={"Out": [out.name]})
+        return head(L, out), [out.name]
+    cases["sequence_expand_as"] = (expand_as, {"xd": x[:, 0].copy(),
+                                               "y": (x, lens)})
+
+    def slice_(L, H):
+        off = L.data("off", shape=[1], dtype="int64")
+        ln = L.data("len", shape=[1], dtype="int64")
+        out = L.sequence_slice(seq(L), off, ln)
+        return head(L, out), [out.name, out.name + "@SEQLEN"]
+    cases["sequence_slice"] = (slice_, {
+        "x": (x, lens), "off": np.array([[0], [2], [-1], [4]], np.int64),
+        "len": np.array([[1], [3], [2], [9]], np.int64)})
+
+    def erase(L, H):
+        out = L.sequence_erase(seq(L, width=1, dtype="int64"), [0, 2])
+        return None, [out.name, out.name + "@SEQLEN"]
+    cases["sequence_erase"] = (erase, {"x": (ids, lens)})
+
+    def mask(L, H):
+        out = L.sequence_mask(L.data("n", shape=[], dtype="int64"),
+                              maxlen=T)
+        return None, [out.name]
+    cases["sequence_mask"] = (mask, {"n": lens.astype(np.int64)})
+
+    def gru(L, H):
+        h0 = L.data("h0", shape=[D], stop_gradient=False)
+        h = L.dynamic_gru(seq(L, width=3 * D), size=D, is_reverse=True,
+                          h_0=h0)
+        return head(L, h), [h.name]
+    cases["gru-reverse-h0"] = (gru, {"x": (g[..., :3 * D], lens),
+                                     "h0": x[:, 1].copy()})
+
+    def lstmp(L, H):
+        p, c = L.dynamic_lstmp(seq(L, width=4 * D), size=4 * D, proj_size=3,
+                               is_reverse=True)
+        return L.elementwise_add(head(L, p), head(L, c, "head_c")), \
+            [p.name, c.name]
+    cases["lstmp-peepholes-reverse"] = (lstmp, {"x": (g, lens)})
+
+    def lstm(L, H):
+        h0 = L.data("h0", shape=[D], stop_gradient=False)
+        c0 = L.data("c0", shape=[D], stop_gradient=False)
+        h, c = L.dynamic_lstm(seq(L, width=4 * D), size=4 * D,
+                              use_peepholes=False, is_reverse=True,
+                              h_0=h0, c_0=c0)
+        return L.elementwise_add(head(L, h), head(L, c, "head_c")), \
+            [h.name, c.name]
+    cases["lstm-reverse-h0-c0"] = (lstm, {"x": (g, lens),
+                                          "h0": x[:, 1].copy(),
+                                          "c0": x[:, 2].copy()})
+
+    def units(L, H):
+        xu, hp, cp = (L.data(n, shape=[D], stop_gradient=False)
+                      for n in ("xu", "hp", "cp"))
+        h, c = L.lstm_unit(xu, hp, cp, forget_bias=0.5)
+        gh, _, _ = L.gru_unit(L.data("gx", shape=[3 * D],
+                                     stop_gradient=False), h, size=3 * D)
+        return L.elementwise_add(head(L, c), head(L, gh, "head_g")), \
+            [h.name, c.name, gh.name]
+    cases["lstm_unit-gru_unit"] = (units, {
+        "xu": x[:, 0].copy(), "hp": x[:, 1].copy(), "cp": x[:, 2].copy(),
+        "gx": g[:, 0, :3 * D].copy()})
+    return cases
+
+
+def run_seq_op_sweep(torch, ptt, native):
+    """Each case of `_seq_op_cases` with its backward, on the card and on
+    the host from one startup state: every output, companion and grad (of
+    each float input and parameter) within SEQ_OP_TOL (1 + |host|),
+    integers equal; no kernel of csrc/ launched."""
+    import numpy as np
+    from paddle_tpu_torch.core.backward import append_backward
+    from paddle_tpu_torch.core.executor import fetch_var
+    from paddle_tpu_torch.layer_helper import LayerHelper
+    out = []
+    native.reset_launches()
+    for name, (build, feed) in _seq_op_cases().items():
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            loss, fetch = build(ptt.layers, LayerHelper)
+            if loss is not None:
+                append_backward(loss)
+                gb = main.global_block()
+                fetch += sorted(
+                    n for n in gb.vars if n.endswith("@GRAD")
+                    and n[:-5] in gb.vars
+                    and (gb.vars[n[:-5]].is_data
+                         or gb.vars[n[:-5]].persistable))
+        scope = ptt.Scope()
+        ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope)
+        state = {n: fetch_var(n, scope) for n in scope.local_var_names()}
+        got = {}
+        for side, place in (("card", ptt.CUDAPlace(0)),
+                            ("host", ptt.CPUPlace())):
+            got[side] = ptt.Executor(place).run(
+                main, feed=feed, fetch_list=fetch,
+                scope=ptt.io.state_from_numpy(state, place))
+        share = 0.0
+        for n, a, b in zip(fetch, got["card"], got["host"]):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"sequence op sweep {name}: {n} is "
+                                     f"{a.dtype}{a.shape} on the card, "
+                                     f"{b.dtype}{b.shape} on the host")
+            if not np.issubdtype(b.dtype, np.floating):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"sequence op sweep {name}: {n} "
+                                         f"differs: {a} vs {b}")
+                continue
+            share = max(share, float((np.abs(a - b) / (
+                SEQ_OP_TOL * (1 + np.abs(b)))).max(initial=0.0)))
+        if not share <= 1.0:
+            raise AssertionError(f"sequence op sweep {name}: card vs host "
+                                 f"at {share:.3g} of SEQ_OP_TOL")
+        out.append(dict(case=name, fetched=len(fetch), tol_share=share))
+    if any(native.launches.values()):
+        raise AssertionError(f"the sequence op sweep launched a kernel: "
+                             f"{dict(native.launches)}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2507,6 +2881,52 @@ def main() -> int:
     log(f"optimizer sweep: {len(sweep)} cases in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # 7g. train-stacked-lstm, float32 and AMP; card vs host; the sequence
+    # op sweep
+    lstm_trains = {}
+    for amp in (False, True):
+        t0 = time.perf_counter()
+        lstm_trains["amp" if amp else "float32"] = tr = \
+            run_train_stacked_lstm(torch, ptt, native, amp=amp)
+        log(f"{tr['tag']}: {LSTM_WARMUP} + {LSTM_STEPS} steps of batch "
+            f"{LSTM_BATCH} padded to {LSTM_SEQ} ({tr['valid_tokens']} valid "
+            f"tokens), {LSTM['stacked_num']} LSTMs of "
+            f"{LSTM['hidden_dim']} with peepholes, dict "
+            f"{LSTM['dict_size']}, Adam({LSTM_LR}), {tr['ops']} ops a step, "
+            f"in {time.perf_counter() - t0:.1f} s; losses "
+            f"{[round(x, 4) for x in tr['losses']]}")
+        log(f"{tr['tag']} on the card [{card}]: step "
+            f"{tr['step_ms_median']:.1f} ms (all: "
+            f"{[round(x, 1) for x in tr['step_ms']]}), "
+            f"{tr['examples_per_s']:.1f} examples/s, "
+            f"{tr['padded_tokens_per_s']:.0f} padded tokens/s, "
+            f"{tr['valid_tokens_per_s']:.0f} valid tokens/s, peak "
+            f"{tr['peak_bytes'] / 2**30:.3f} GiB above what the card held "
+            f"before")
+    for tr in lstm_trains.values():
+        trace_train_stacked_lstm(torch, tr)
+        log(f"{tr['tag']}, one traced step after every timed one: "
+            f"{tr['traced_step_ms']:.1f} ms, device busy "
+            f"{tr['busy_us'] / 1e3:.1f} ms = {tr['busy_share']:.3f} of it "
+            f"({tr['device_events']} device events; "
+            f"{tr['busy_over_untraced']:.3f} of the untraced median)")
+    t0 = time.perf_counter()
+    lstm_parity = run_stacked_lstm_parity(torch, ptt)
+    log(f"stacked-lstm parity, {lstm_parity['steps']} steps from the host's "
+        f"state (2 layers x {LSTM_PARITY_WIDTH}, the second reversed, "
+        f"lengths {LSTM_PARITY_LENS}): card {lstm_parity['losses']['card']} "
+        f"host {lstm_parity['losses']['host']}, max relative error "
+        f"{lstm_parity['rel_err']:.3g} (tol {lstm_parity['loss_rtol']:.3g}); "
+        f"persistables at {lstm_parity['l2_share']:.3g} of "
+        f"{lstm_parity['l2_tol']}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    seq_sweep = run_seq_op_sweep(torch, ptt, native)
+    log(f"sequence op sweep, card vs host: {len(seq_sweep)} cases, "
+        f"largest share of SEQ_OP_TOL ({SEQ_OP_TOL} (1 + |host|)) "
+        f"{max(c['tol_share'] for c in seq_sweep):.3g}: "
+        + ", ".join(f"{c['case']} {c['tol_share']:.2g}" for c in seq_sweep)
+        + f"; {time.perf_counter() - t0:.1f} s")
+
     # 8. the kernels line: flash_fwd's headline numbers at the train path's
     # shape, its serving case beside them
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
@@ -2745,7 +3165,9 @@ def main() -> int:
                    "amp_parity": amp_parity, "bf16_kernels": bf16_cases,
                    "train_unfused": unfused, "unfused_parity": unfused_parity,
                    "zoo": zoo, "se_resnext50_parity": se_parity,
-                   "sweep": sweep,
+                   "sweep": sweep, "train_stacked_lstm": lstm_trains,
+                   "stacked_lstm_parity": lstm_parity,
+                   "seq_op_sweep": seq_sweep,
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,10 @@ and the rest of the non-recurrent zoo (``models/se_resnext.py``,
 ``models/vgg.py``, ``models/deepfm.py``, the unfused attention of
 ``models/transformer.py``) with Fluid's optimizers, learning-rate
 schedules (``layers/learning_rate_scheduler.py``), gradient clips and
-``optimizer.ModelAverage``.
+``optimizer.ModelAverage``, and variable-length sequences
+(``layers.data(lod_level=...)`` fed a ``(padded, lengths)`` pair, the
+sequence and recurrent ops of ``ops/sequence.py`` and ``ops/rnn.py``,
+``models/stacked_dynamic_lstm.py``).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -47,8 +50,12 @@ schedules (``layers/learning_rate_scheduler.py``), gradient clips and
 from __future__ import annotations
 
 from . import ops  # noqa: F401  (registers the op rules)
-from . import (clip, flags, initializer, io, layers, models,  # noqa: F401
-               nets, optimizer, regularizer, serve, unique_name)
+from . import (clip, data_feeder, flags, initializer, io,  # noqa: F401
+               layers, lod_tensor, models, nets, optimizer, regularizer,
+               serve, unique_name)
+from .data_feeder import DataFeeder  # noqa: F401
+from .lod_tensor import (create_lod_tensor,  # noqa: F401
+                         create_random_int_lodtensor)
 from .core.executor import (CPUPlace, CUDAPlace, Executor, Place,  # noqa: F401
                             Scope, global_scope)
 from .core.ir import (Parameter, Program, Variable,  # noqa: F401

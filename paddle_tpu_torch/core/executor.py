@@ -19,6 +19,11 @@ scope's device tensors:
   step reads and writes) and returns a `PreparedProgram` whose `run(feed)`
   is the fast path.
 
+A variable-length input (`layers.data(..., lod_level=1)`) is fed as a
+`(padded, lengths)` pair, a nested one as `(padded, (outer counts,
+inner lengths))`; `convert_feed` turns the lengths into the int32
+`@SEQLEN` companions the sequence ops read.
+
 Under `Executor(amp=True)` every rule runs under the JAX package's bf16
 policy (``core/registry.py``): feeds, parameters and optimizer state stay
 float32 in the scope, and are cast at their point of use. A fetched bf16
@@ -141,6 +146,35 @@ def as_tensor(value, device, dtype: Optional[str] = None) -> torch.Tensor:
     return t.to(device)
 
 
+def convert_feed(block: ir.Block, feed: Dict[str, Any],
+                 device) -> Dict[str, torch.Tensor]:
+    """A user's feed dict as tensors on `device`. A variable-length input
+    (`lod_level` > 0) takes a `(data, lengths)` pair, or for a nested one
+    `(data, (outer counts [B], inner lengths [B, S]))`, and its lengths
+    become the int32 companions `name@SEQLEN` (and `name@SEQLEN.1`), the
+    JAX package's `_convert_feed_dict`."""
+    feeds = {}
+    for name, val in feed.items():
+        var = block.vars.get(name)
+        if isinstance(val, (tuple, list)) and len(val) == 2 \
+                and var is not None and var.lod_level > 0:
+            data, lens = val
+            feeds[name] = as_tensor(data, device, var.dtype)
+            if isinstance(lens, (tuple, list)) and len(lens) == 2 \
+                    and not np.isscalar(lens[0]):
+                feeds[ir.seqlen_var_name(name)] = as_tensor(
+                    lens[0], device, "int32")
+                feeds[ir.seqlen_var_name(name, 1)] = as_tensor(
+                    lens[1], device, "int32")
+            else:
+                feeds[ir.seqlen_var_name(name)] = as_tensor(
+                    lens, device, "int32")
+        else:
+            feeds[name] = as_tensor(val, device,
+                                    var.dtype if var is not None else None)
+    return feeds
+
+
 class _StepPlan:
     """Which scope vars a (program, feed-name set) step reads, which
     persistable vars it writes, and which vars anything reads at all
@@ -165,6 +199,10 @@ class _StepPlan:
                 if n == registry.EMPTY_VAR:
                     continue
                 produced.add(n)
+                # the rules' seqlen propagation (core/lowering.py) writes
+                # an output's length companions without an op naming them
+                produced.add(n + ir.SEQLEN_SUFFIX)
+                produced.add(n + ir.SEQLEN_SUFFIX + ".1")
                 v = block._find_var_recursive(n)
                 if v is not None and v.persistable and n not in written:
                     written.append(n)
@@ -211,12 +249,7 @@ class PreparedProgram:
             raise RuntimeError(
                 "program was mutated after prepare(); prepare() it again "
                 "(Executor.run() re-prepares automatically)")
-        feed = feed or {}
-        feeds = {}
-        for name, val in feed.items():
-            var = self._block.vars.get(name)
-            feeds[name] = as_tensor(val, self.device,
-                                    var.dtype if var is not None else None)
+        feeds = convert_feed(self._block, feed or {}, self.device)
         key = frozenset(feeds)
         plan = self._plans.get(key)
         if plan is None:

@@ -25,6 +25,14 @@ autograd through the policy's casts hands float32 grads to float32
 inputs, as `jax.vjp` does through `astype`. A hand-written grad gets the
 env's values as they are, with no policy, as in the JAX package.
 
+A variable-length batch is a padded tensor plus an int32 `name@SEQLEN`
+companion (``name@SEQLEN.1`` for nested sequences' inner lengths). After
+the rule of an op registered with `propagate_seqlen` (the default), the
+first input's companions are carried onto the op's outputs
+(`_propagate_seqlen`, the JAX package's rule), so an `fc` or an
+activation keeps its input's lengths; the sequence ops register False
+and their layers wire and alias companions as explicit vars.
+
 Random ops get a host integer seed from (program seed, run counter, op
 index): the JAX package's `fold_in(fold_in(key(seed), counter), op index)`
 derivation. A grad op takes the seed of its forward op, so a dropout mask
@@ -123,6 +131,35 @@ def _run_op(op: ir.Operator, op_idx: int, env: Dict[str, Any], device,
             if check_nan_inf:
                 _check_finite(op, name, val)
             env[name] = val
+    if opdef.propagate_seqlen:
+        _propagate_seqlen(op, env)
+
+
+def _propagate_seqlen(op: ir.Operator, env: Dict[str, Any]):
+    """Variable-length bookkeeping (the JAX package's rule): an op that
+    keeps the batch and time axes carries its first input's length
+    companions onto its outputs -- the bare `@SEQLEN` (outer level) and,
+    for nested sequences, the `@SEQLEN.1` inner lengths -- where an
+    output has at least 2 dims and the companion's leading dim. An
+    output that already has a companion keeps it."""
+    for suffix in (ir.SEQLEN_SUFFIX, ir.SEQLEN_SUFFIX + ".1"):
+        src = None
+        for names in op.inputs.values():
+            for n in names:
+                if n != EMPTY_VAR and (n + suffix) in env:
+                    src = env[n + suffix]
+                    break
+            if src is not None:
+                break
+        if src is None:
+            continue
+        for names in op.outputs.values():
+            for n in names:
+                if n != EMPTY_VAR and n in env and (n + suffix) not in env:
+                    val = env[n]
+                    if isinstance(val, torch.Tensor) and val.ndim >= 2 \
+                            and val.shape[0] == src.shape[0]:
+                        env[n + suffix] = src
 
 
 # ---------------------------------------------------------------------------

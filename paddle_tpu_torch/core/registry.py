@@ -34,10 +34,12 @@ FWD_OP_ATTR = "__fwd_op__"  # grad ops carry the forward OpDesc dict here
 
 
 class OpDef:
-    def __init__(self, type: str, lower: Callable, needs_rng: bool):
+    def __init__(self, type: str, lower: Callable, needs_rng: bool,
+                 propagate_seqlen: bool = True):
         self.type = type
         self.lower = lower
         self.needs_rng = needs_rng
+        self.propagate_seqlen = propagate_seqlen
         self.grad_lower: Optional[Callable] = None
         # parameter names of the rule (minus ctx) = input slot names
         params = list(inspect.signature(lower).parameters.values())[1:]
@@ -49,13 +51,19 @@ class OpDef:
 _REGISTRY: Dict[str, OpDef] = {}
 
 
-def register_op(type: str, needs_rng: bool = False):
-    """Decorator registering the rule for op `type`."""
+def register_op(type: str, needs_rng: bool = False,
+                propagate_seqlen: bool = True):
+    """Decorator registering the rule for op `type`. With
+    `propagate_seqlen` (the default, as in the JAX package) the executor
+    carries the first input's `@SEQLEN` companions onto the op's outputs
+    after the rule runs (``core/lowering.py::_propagate_seqlen``); an op
+    that changes the time axis or the batch (`transpose`, `top_k`, the
+    sequence ops, the optimizer updates) registers False."""
 
     def deco(fn):
         if type in _REGISTRY:
             raise ValueError(f"op {type!r} already registered")
-        _REGISTRY[type] = OpDef(type, fn, needs_rng)
+        _REGISTRY[type] = OpDef(type, fn, needs_rng, propagate_seqlen)
         return fn
 
     return deco

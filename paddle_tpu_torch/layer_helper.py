@@ -1,12 +1,15 @@
 """LayerHelper: shared plumbing for the layers DSL.
 
-Mirror of ``paddle_tpu/layer_helper.py`` (the slice's subset): creates
+Mirror of ``paddle_tpu/layer_helper.py`` (the slices' subset): creates
 parameters (appending their initializer ops to the startup program),
-temporary variables and ops, and runs build-time shape inference through
+temporary variables, the length companions of variable-length vars and
+ops, and runs build-time shape inference through
 the op registry (the rules themselves, on meta tensors).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from . import initializer as init
 from . import unique_name
@@ -119,3 +122,20 @@ class LayerHelper:
                        outputs={"Out": [out.name]}, attrs=act)
         out.lod_level = input_var.lod_level
         return out
+
+    # -- sequence plumbing -------------------------------------------------
+    def ensure_seqlen_var(self, var: ir.Variable,
+                          level: int = 0) -> Optional[ir.Variable]:
+        """The lengths companion of LoD level `level` of a
+        variable-length var, declared on first use, so that a sequence op
+        can take it as an explicit input. Level 0 is the outermost
+        (int32 [B]); level 1 the nested inner lengths (int32 [B, S]).
+        None when `var` has no such level."""
+        if var.lod_level <= level:
+            return None
+        name = ir.seqlen_var_name(var.name, level)
+        blk = var.block
+        if name in blk.vars:
+            return blk.vars[name]
+        return blk.create_var(name=name, shape=(-1,) * (level + 1),
+                              dtype="int32", stop_gradient=True)

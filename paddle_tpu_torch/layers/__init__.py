@@ -3,11 +3,16 @@
 from .io import data  # noqa: F401
 from .metric_op import accuracy  # noqa: F401
 from .nn import (batch_norm, cast, clip, clip_by_norm,  # noqa: F401
-                 conv2d, cross_entropy, dropout, elementwise_add,
-                 elementwise_div, elementwise_max, elementwise_min,
-                 elementwise_mul, elementwise_pow, elementwise_sub,
-                 embedding, exp, fc, layer_norm, matmul, mean, pool2d,
-                 reduce_sum, relu, reshape, scale, sigmoid,
+                 conv2d, cross_entropy, dropout, dynamic_gru, dynamic_lstm,
+                 dynamic_lstmp, elementwise_add, elementwise_div,
+                 elementwise_max, elementwise_min, elementwise_mul,
+                 elementwise_pow, elementwise_sub, embedding, exp, fc,
+                 gru_unit, layer_norm, lstm_unit, matmul, mean, pool2d,
+                 reduce_sum, relu, reshape, row_conv, scale,
+                 sequence_concat, sequence_conv, sequence_erase,
+                 sequence_expand, sequence_first_step, sequence_last_step,
+                 sequence_mask, sequence_pool, sequence_reshape,
+                 sequence_slice, sequence_softmax, sigmoid,
                  sigmoid_cross_entropy_with_logits, softmax,
                  softmax_with_cross_entropy, sqrt, square, topk, transpose)
 from .tensor import assign, concat, fill_constant, sums  # noqa: F401

@@ -6,6 +6,8 @@ op for op, name for name."""
 from __future__ import annotations
 
 from .. import initializer as init
+from ..core import registry as _registry
+from ..core.ir import seqlen_var_name
 from ..layer_helper import LayerHelper
 
 
@@ -405,4 +407,412 @@ def cast(x, dtype):
                      outputs={"Out": [out.name]},
                      attrs={"out_dtype": str(dtype)})
     out.lod_level = x.lod_level
+    return out
+
+
+# -- recurrent layers --------------------------------------------------------
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """LSTM over a variable-length batch (reference nn.py:293, with its
+    use_peepholes=True default). `input` is the x-projection
+    [B, T, 4 * hidden] (an `fc` first, as in the reference); `size` is
+    4 * hidden. With peepholes the bias packs [4H gate biases | W_ic |
+    W_if | W_oc] (lstm_op.cc)."""
+    helper = LayerHelper("lstm", **locals())
+    hidden_size = size // 4
+    bias_cols = 7 * hidden_size if use_peepholes else 4 * hidden_size
+    weight = helper.create_parameter(param_attr,
+                                     [hidden_size, 4 * hidden_size], dtype)
+    bias = helper.create_parameter(helper.bias_attr, [1, bias_cols], dtype,
+                                   is_bias=True) \
+        if bias_attr is not False else None
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input.name], "Weight": [weight.name]}
+    if bias is not None:
+        inputs["Bias"] = [bias.name]
+    if h_0 is not None:
+        inputs["H0"] = [h_0.name]
+    if c_0 is not None:
+        inputs["C0"] = [c_0.name]
+    seq = helper.ensure_seqlen_var(input)
+    if seq is not None:
+        inputs["SeqLen"] = [seq.name]
+    helper.append_op("lstm", inputs=inputs,
+                     outputs={"Hidden": [hidden.name], "Cell": [cell.name]},
+                     attrs={"use_peepholes": use_peepholes,
+                            "is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation})
+    hidden.lod_level = cell.lod_level = input.lod_level
+    return hidden, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, name=None):
+    """GRU over a variable-length batch (reference nn.py:597). `input` is
+    the x-projection [B, T, 3 * size]."""
+    helper = LayerHelper("gru", **locals())
+    dtype = input.dtype
+    weight = helper.create_parameter(param_attr, [size, 3 * size], dtype)
+    bias = helper.create_parameter(helper.bias_attr, [1, 3 * size], dtype,
+                                   is_bias=True) \
+        if bias_attr is not False else None
+    hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input.name], "Weight": [weight.name]}
+    if bias is not None:
+        inputs["Bias"] = [bias.name]
+    if h_0 is not None:
+        inputs["H0"] = [h_0.name]
+    seq = helper.ensure_seqlen_var(input)
+    if seq is not None:
+        inputs["SeqLen"] = [seq.name]
+    helper.append_op("gru", inputs=inputs, outputs={"Hidden": [hidden.name]},
+                     attrs={"is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "activation": candidate_activation})
+    hidden.lod_level = input.lod_level
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid"):
+    """One GRU step (reference nn.py gru_unit); `size` is 3 * hidden."""
+    helper = LayerHelper("gru_unit", **locals())
+    dtype = input.dtype
+    hidden_size = size // 3
+    weight = helper.create_parameter(param_attr,
+                                     [hidden_size, 3 * hidden_size], dtype)
+    bias = helper.create_parameter(helper.bias_attr, [1, 3 * hidden_size],
+                                   dtype, is_bias=True) \
+        if bias_attr is not False else None
+    out_hidden = helper.create_variable_for_type_inference(dtype)
+    reset_h = helper.create_variable_for_type_inference(dtype)
+    gate = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input.name], "HiddenPrev": [hidden.name],
+              "Weight": [weight.name]}
+    if bias is not None:
+        inputs["Bias"] = [bias.name]
+    helper.append_op("gru_unit", inputs=inputs,
+                     outputs={"Hidden": [out_hidden.name],
+                              "ResetHiddenPrev": [reset_h.name],
+                              "Gate": [gate.name]},
+                     attrs={"activation": activation,
+                            "gate_activation": gate_activation})
+    return out_hidden, reset_h, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step (reference nn.py lstm_unit:2819): `fc` on
+    [x_t, h_prev], then the lstm_unit op."""
+    helper = LayerHelper("lstm_unit", **locals())
+    from .tensor import concat
+    size = cell_t_prev.shape[-1]
+    cat = concat([x_t, hidden_t_prev], axis=1)
+    fc_out = fc(input=cat, size=4 * size, param_attr=param_attr,
+                bias_attr=bias_attr)
+    h = helper.create_variable_for_type_inference(dtype=x_t.dtype)
+    c = helper.create_variable_for_type_inference(dtype=x_t.dtype)
+    helper.append_op("lstm_unit",
+                     inputs={"X": [fc_out.name], "C_prev": [cell_t_prev.name]},
+                     outputs={"H": [h.name], "C": [c.name]},
+                     attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  dtype="float32", name=None):
+    """LSTM with a recurrent projection (reference nn.py dynamic_lstmp,
+    with its use_peepholes=True default). `input`: [B, T, 4 * hidden]
+    x-projections, as for dynamic_lstm."""
+    helper = LayerHelper("lstmp", **locals())
+    hidden_size = size // 4
+    bias_cols = 7 * hidden_size if use_peepholes else 4 * hidden_size
+    weight = helper.create_parameter(param_attr,
+                                     [proj_size, 4 * hidden_size], dtype)
+    proj_weight = helper.create_parameter(param_attr,
+                                          [hidden_size, proj_size], dtype)
+    bias = helper.create_parameter(helper.bias_attr, [1, bias_cols],
+                                   dtype, is_bias=True) \
+        if bias_attr is not False else None
+    proj = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input.name], "Weight": [weight.name],
+              "ProjWeight": [proj_weight.name]}
+    if bias is not None:
+        inputs["Bias"] = [bias.name]
+    seq = helper.ensure_seqlen_var(input)
+    if seq is not None:
+        inputs["SeqLen"] = [seq.name]
+    helper.append_op("lstmp", inputs=inputs,
+                     outputs={"Projection": [proj.name], "Cell": [cell.name]},
+                     attrs={"use_peepholes": use_peepholes,
+                            "is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation,
+                            "proj_activation": proj_activation})
+    proj.lod_level = cell.lod_level = input.lod_level
+    return proj, cell
+
+
+# -- sequence layers ----------------------------------------------------------
+
+# layers whose op rules take nested (level-2) input; the others refuse it
+# when the program is built
+_NESTED_CAPABLE = {"sequence_pool", "sequence_softmax", "sequence_conv",
+                   "sequence_reshape", "sequence_erase", "sequence_slice",
+                   "sequence_expand", "sequence_concat"}
+
+
+def _seq_inputs(helper, x, extra=None):
+    """{"X": x, "SeqLen": its innermost companion} (+ `extra`): sequence
+    ops act on the innermost level (reference lod_tensor.h:110), so a
+    nested input wires its [B, S] inner lengths."""
+    if (getattr(x, "lod_level", 0) >= 2
+            and helper.layer_type not in _NESTED_CAPABLE):
+        raise NotImplementedError(
+            f"{helper.layer_type}: nested (level-2) LoD input is supported "
+            f"by {sorted(_NESTED_CAPABLE)}; pool the inner level first")
+    inputs = {"X": [x.name]}
+    level = max(getattr(x, "lod_level", 0) - 1, 0)
+    seq = helper.ensure_seqlen_var(x, level=level)
+    if seq is not None:
+        inputs["SeqLen"] = [seq.name]
+    if extra:
+        inputs.update(extra)
+    return inputs
+
+
+def _alias_seqlen(helper, src, dst):
+    """A length-keeping sequence op's output takes its input's companions
+    (every level) by an explicit `assign`: the sequence ops register
+    propagate_seqlen=False, and a later sequence op reads the output's
+    companion as an input."""
+    dst.lod_level = max(dst.lod_level, src.lod_level)
+    for level in range(dst.lod_level):
+        seq_src = helper.ensure_seqlen_var(src, level=level)
+        if seq_src is None:
+            continue
+        seq_dst = helper.ensure_seqlen_var(dst, level=level)
+        helper.append_op("assign", inputs={"X": [seq_src.name]},
+                         outputs={"Out": [seq_dst.name]})
+
+
+def _assign_outer_levels(helper, src, dst, inner):
+    """The outer levels' companions (doc counts) of `src` onto `dst`."""
+    for level in range(inner):
+        s = helper.ensure_seqlen_var(src, level=level)
+        if s is not None:
+            d = helper.ensure_seqlen_var(dst, level=level)
+            helper.append_op("assign", inputs={"X": [s.name]},
+                             outputs={"Out": [d.name]})
+
+
+def sequence_pool(input, pool_type, is_test=False):
+    """Pool each sequence to one row (reference nn.py sequence_pool):
+    average, sum, sqrt, max, last or first. A nested input pools its
+    innermost level and keeps the outer one."""
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    if input.lod_level >= 2:
+        inner = helper.ensure_seqlen_var(input, level=1)
+        helper.append_op("sequence_pool",
+                         inputs={"X": [input.name], "SeqLen": [inner.name]},
+                         outputs={"Out": [out.name]},
+                         attrs={"pooltype": pool_type.upper()})
+        out.lod_level = input.lod_level - 1
+        outer_src = helper.ensure_seqlen_var(input, level=0)
+        outer_dst = helper.ensure_seqlen_var(out, level=0)
+        helper.append_op("assign", inputs={"X": [outer_src.name]},
+                         outputs={"Out": [outer_dst.name]})
+        return out
+    helper.append_op("sequence_pool", inputs=_seq_inputs(helper, input),
+                     outputs={"Out": [out.name]},
+                     attrs={"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, "first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, "last")
+
+
+def sequence_softmax(input, use_cudnn=False, name=None):
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("sequence_softmax", inputs=_seq_inputs(helper, input),
+                     outputs={"Out": [out.name]})
+    out.lod_level = input.lod_level
+    _alias_seqlen(helper, input, out)
+    return out
+
+
+def sequence_concat(input, name=None):
+    """Concatenate sequences row by row along time (reference
+    sequence_concat_op.cc): row b is concat_i(x_i[b, :len_i[b]]),
+    left-aligned, of length sum_i len_i. An input without lengths adds
+    its full rows; nested inputs concatenate their innermost level and
+    take the first input's doc counts."""
+    helper = LayerHelper("sequence_concat", name=name)
+    xs = list(input) if isinstance(input, (list, tuple)) else [input]
+    levels = {getattr(x, "lod_level", 0) for x in xs}
+    if len(levels) > 1:
+        raise ValueError(
+            f"sequence_concat: inputs must share one LoD level, got "
+            f"{sorted(levels)} (reference sequence_concat_op.cc requires "
+            f"matching LoD structure)")
+    out = helper.create_variable_for_type_inference(dtype=xs[0].dtype)
+    out.lod_level = max(levels)
+    inputs = {"X": [x.name for x in xs]}
+    seq_names, wired = [], False
+    for x in xs:
+        level = max(getattr(x, "lod_level", 0) - 1, 0)
+        s = helper.ensure_seqlen_var(x, level=level)
+        if s is None:
+            seq_names.append(_registry.EMPTY_VAR)   # full-length rows
+        else:
+            seq_names.append(s.name)
+            wired = True
+    outputs = {"Out": [out.name]}
+    if wired and out.lod_level:
+        inputs["SeqLen"] = seq_names
+        seq_out = helper.ensure_seqlen_var(out, level=out.lod_level - 1)
+        outputs["OutLen"] = [seq_out.name]
+        _assign_outer_levels(helper, xs[0], out, out.lod_level - 1)
+    helper.append_op("sequence_concat", inputs=inputs, outputs=outputs)
+    return out
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    """x's rows broadcast over y's time axis; the output takes y's
+    lengths."""
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("sequence_expand",
+                     inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"ref_level": ref_level})
+    out.lod_level = y.lod_level
+    _alias_seqlen(helper, y, out)
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None):
+    """A context-window conv over each sequence (reference nn.py
+    sequence_conv), then the bias and `act`; the companions alias onto
+    the final var, which later sequence ops read."""
+    helper = LayerHelper("sequence_conv", **locals())
+    dtype = input.dtype
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr, [filter_size * d, num_filters],
+                                dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("sequence_conv",
+                     inputs=_seq_inputs(helper, input, {"Filter": [w.name]}),
+                     outputs={"Out": [out.name]},
+                     attrs={"contextLength": filter_size,
+                            "contextStart": -(filter_size // 2),
+                            "contextStride": filter_stride})
+    out.lod_level = input.lod_level
+    final = helper.append_activation(_append_bias(helper, out))
+    _alias_seqlen(helper, input, final)
+    return final
+
+
+def sequence_reshape(input, new_dim):
+    """[B, T, D] -> [B, T * D / new_dim, new_dim]; the op writes the
+    scaled innermost lengths (OutLen), the outer levels ride through."""
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    out.lod_level = input.lod_level
+    outputs = {"Out": [out.name]}
+    if input.lod_level > 0:
+        seq_out = helper.ensure_seqlen_var(out, level=input.lod_level - 1)
+        outputs["OutLen"] = [seq_out.name]
+    helper.append_op("sequence_reshape", inputs=_seq_inputs(helper, input),
+                     outputs=outputs, attrs={"new_dim": new_dim})
+    _assign_outer_levels(helper, input, out, input.lod_level - 1)
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead row convolution (reference nn.py row_conv)."""
+    helper = LayerHelper("row_conv", **locals())
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr, [future_context_size + 1, d],
+                                input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("row_conv",
+                     inputs=_seq_inputs(helper, input, {"Filter": [w.name]}),
+                     outputs={"Out": [out.name]})
+    out.lod_level = input.lod_level
+    final = helper.append_activation(out)
+    _alias_seqlen(helper, input, final)
+    return final
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op("sequence_mask", inputs={"X": [x.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"maxlen": maxlen if maxlen else -1,
+                            "out_dtype": dtype})
+    return out
+
+
+def _lengths_companion(helper, input, out, lens):
+    """`lens` (an op's OutLen) as `out`'s innermost companion, the outer
+    levels' from `input`; `out` is at least level 1."""
+    out.lod_level = max(input.lod_level, 1)
+    blk = helper.main_program.current_block()
+    inner = out.lod_level - 1
+    comp = blk.create_var(name=seqlen_var_name(out.name, inner),
+                          shape=[-1] * (inner + 1), dtype="int32")
+    helper.append_op("assign", inputs={"X": [lens.name]},
+                     outputs={"Out": [comp.name]})
+    _assign_outer_levels(helper, input, out, inner)
+
+
+def sequence_slice(input, offset, length, name=None):
+    """Per-sequence sub-slices (reference sequence_slice_op.cc): row b is
+    input[b, offset_b : offset_b + length_b], left-aligned; the slice
+    lengths are the output's companion. Offsets and lengths clamp to the
+    padded bound."""
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    lens = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op("sequence_slice",
+                     inputs={"X": [input.name], "Offset": [offset.name],
+                             "Length": [length.name]},
+                     outputs={"Out": [out.name], "OutLen": [lens.name]},
+                     attrs={"nested": input.lod_level >= 2})
+    _lengths_companion(helper, input, out, lens)
+    return out
+
+
+def sequence_erase(input, tokens, name=None):
+    """Remove `tokens` from each sequence and compact it left (reference
+    sequence_erase_op.cc); the new lengths are the output's companion."""
+    helper = LayerHelper("sequence_erase", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    lens = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op("sequence_erase", inputs=_seq_inputs(helper, input),
+                     outputs={"Out": [out.name], "OutLen": [lens.name]},
+                     attrs={"tokens": [int(t) for t in tokens]})
+    _lengths_companion(helper, input, out, lens)
     return out

@@ -1,8 +1,7 @@
 """Compound networks (mirror of ``paddle_tpu/nets.py``; reference
 python/paddle/fluid/nets.py: simple_img_conv_pool :24, img_conv_group
-:126, scaled_dot_product_attention :329). `glu` and `sequence_conv_pool`
-wait for the `split` and sequence ops, which the port does not register
-yet."""
+:126, sequence_conv_pool :244, scaled_dot_product_attention :329). `glu`
+waits for the `split` op, which the port does not register yet."""
 
 from __future__ import annotations
 
@@ -59,6 +58,16 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
     return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """sequence_conv, then sequence_pool (reference nets.py
+    sequence_conv_pool)."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,

@@ -379,7 +379,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=1.0, dropout_rate=0.0,
                                 float(dropout_rate), int(seed))
 
 
-@register_op("fused_attention", needs_rng=True)
+@register_op("fused_attention", needs_rng=True,
+             propagate_seqlen=False)
 def _fused_attention(ctx, Q, K, V):
     """Q/K/V: [B, H, T, Dh]. attrs: causal, sm_scale, dropout_rate,
     is_test. One O(T)-memory kernel in place of the reference's

@@ -52,7 +52,7 @@ def _sigmoid_ce(ctx, X, Label):
     return {"Out": torch.where(ignore, torch.zeros_like(loss), loss)}
 
 
-@register_op("accuracy")
+@register_op("accuracy", propagate_seqlen=False)
 def _accuracy(ctx, Out, Indices, Label):
     """Top-k accuracy (reference accuracy_op.cc): a row is correct when
     any of its `Indices` [N, k] (from top_k) is its label. `Accuracy` is

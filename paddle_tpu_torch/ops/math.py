@@ -104,8 +104,9 @@ class _HalfSigmoid(torch.autograd.Function):
     """`lax.logistic` on a bf16 (or fp16) input as the JAX rule rounds it,
     1 / (1 + exp(-x)) with exp, the sum and the quotient each rounded to
     x's dtype (torch's sigmoid rounds once: about a quarter of bf16
-    outputs one ulp off). Its grad is logistic's own, g * y * (1 - y), so
-    no exp(-x) that overflows reaches the backward."""
+    outputs one ulp off). Its grad is logistic's own, g * (y * (1 - y))
+    rounded in that order, so no exp(-x) that overflows reaches the
+    backward."""
 
     @staticmethod
     def forward(ctx, x):
@@ -116,13 +117,41 @@ class _HalfSigmoid(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, = ctx.saved_tensors
-        return g * y * (1.0 - y)
+        return g * (y * (1.0 - y))
+
+
+class _HalfTanh(torch.autograd.Function):
+    """tanh on a bf16 (or fp16) input with the grad rounded as the
+    transpose of `lax.tanh`'s JVP (g + g y)(1 - y): t = g (1 - y), then
+    t and t y as two terms (torch's tanh grad rounds g (1 - y^2) once).
+    It takes x twice, `apply(x, x)`, and returns t for one and t y for
+    the other: the JAX transpose adds the two into x's cotangent one at
+    a time, after what x's other uses gave it, and autograd's buffer
+    does the same when they reach it as two grads."""
+
+    @staticmethod
+    def forward(ctx, x, x_again):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        t = g * (1.0 - y)
+        return t, t * y
 
 
 def _sigmoid(x):
     if x.dtype in (torch.bfloat16, torch.float16):
         return _HalfSigmoid.apply(x)
     return torch.sigmoid(x)
+
+
+def _tanh(x):
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _HalfTanh.apply(x, x)
+    return torch.tanh(x)
 
 
 _register_act("relu", torch.relu)
@@ -208,15 +237,39 @@ def _softmax(ctx, X):
     in bf16 (torch's bf16 softmax rounds once, one ulp off the JAX rule
     in about half the elements). The max takes no grad, as the JAX rule
     stops it (`lax.stop_gradient`), which also spares the backward
-    amax's passes."""
+    amax's passes; `_HalfSoftmax` takes the grad."""
     axis = ctx.attr("axis", -1)
     if X.dtype not in (torch.bfloat16, torch.float16):
         return {"Out": torch.softmax(X, dim=axis)}
-    e = torch.exp(X - X.detach().amax(dim=axis, keepdim=True))
-    return {"Out": e / _sum_as_jnp(e, (axis,), keepdim=True)}
+    return {"Out": _HalfSoftmax.apply(X, axis)}
 
 
-@register_op("top_k")
+class _HalfSoftmax(torch.autograd.Function):
+    """The bf16 (or fp16) softmax of `_softmax`, its grad rounded as the
+    JAX rule's transpose rounds it: with y = e / s, the cotangent of s is
+    -sum(g * (1 / (s * s)) * e) (the quotient rule's s^-2 as 1 / (s s)),
+    and x's is (g / s + that) * e. The JAX rule adds that sum in bf16 in
+    XLA's order; here it adds in float32 and rounds once, so the two
+    agree bit for bit where the axis has two entries and by that sum's
+    rounding elsewhere (ROADMAP Queue 3, expected differences)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        e = torch.exp(x - x.amax(dim=axis, keepdim=True))
+        s = _sum_as_jnp(e, (axis,), keepdim=True)
+        ctx.save_for_backward(e, s)
+        ctx.axis = axis
+        return e / s
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s = ctx.saved_tensors
+        ct_s = -_sum_as_jnp(g * (1.0 / (s * s)) * e, (ctx.axis,),
+                            keepdim=True)
+        return (g / s + ct_s) * e, None
+
+
+@register_op("top_k", propagate_seqlen=False)
 def _top_k(ctx, X):
     """The k largest along the last dim, in descending order. Indices are
     int64, the port's index dtype (``core/types.py``)."""

@@ -121,7 +121,7 @@ def _from_nchw(y, fmt):
     return y if fmt == "NCHW" else y.permute(0, 2, 3, 1)
 
 
-@register_op("conv2d")
+@register_op("conv2d", propagate_seqlen=False)
 def _conv2d(ctx, Input, Filter, Bias=None):
     """Conv in NCHW or NHWC (reference conv_op.cc `data_format`). Filter
     is always stored OIHW, so parameters are layout-independent."""
@@ -207,7 +207,7 @@ def _half_window_avg(x, ksize, strides, pads, exclusive):
     return total / _window_sum(F.pad(ones, padding), ksize, strides, out_hw)
 
 
-@register_op("pool2d")
+@register_op("pool2d", propagate_seqlen=False)
 def _pool2d(ctx, X):
     """Reference pool_op.cc: max or avg, global, adaptive (where the
     output divides the input), NCHW or NHWC. `ceil_mode` is ignored, as
@@ -247,7 +247,7 @@ def _pool2d(ctx, X):
     return {"Out": _from_nchw(out, fmt)}
 
 
-@register_op("batch_norm")
+@register_op("batch_norm", propagate_seqlen=False)
 def _batch_norm(ctx, X, Scale, Bias, Mean, Variance):
     """Reference batch_norm_op.cc, as the JAX package computes it: in
     training, Y normalizes X by its batch mean and *biased* variance;

@@ -26,13 +26,13 @@ def _lr(LearningRate):
     return LearningRate.reshape(())
 
 
-@register_op("sgd")
+@register_op("sgd", propagate_seqlen=False)
 def _sgd(ctx, Param, Grad, LearningRate):
     Param.sub_(_lr(LearningRate) * Grad.to(Param.dtype))
     return {"ParamOut": Param}
 
 
-@register_op("momentum")
+@register_op("momentum", propagate_seqlen=False)
 def _momentum(ctx, Param, Grad, Velocity, LearningRate):
     """v <- mu * v + g; p <- p - lr * v, or with Nesterov
     p <- p - (g + mu * v) * lr (reference momentum_op.h)."""
@@ -46,7 +46,7 @@ def _momentum(ctx, Param, Grad, Velocity, LearningRate):
     return {"ParamOut": Param, "VelocityOut": Velocity}
 
 
-@register_op("adam")
+@register_op("adam", propagate_seqlen=False)
 def _adam(ctx, Param, Grad, Moment1, Moment2, Beta1Pow, Beta2Pow,
           LearningRate):
     b1 = ctx.attr("beta1", 0.9)
@@ -63,7 +63,7 @@ def _adam(ctx, Param, Grad, Moment1, Moment2, Beta1Pow, Beta2Pow,
             "Beta1PowOut": Beta1Pow, "Beta2PowOut": Beta2Pow}
 
 
-@register_op("adamax")
+@register_op("adamax", propagate_seqlen=False)
 def _adamax(ctx, Param, Grad, Moment, InfNorm, Beta1Pow, LearningRate):
     b1 = ctx.attr("beta1", 0.9)
     b2 = ctx.attr("beta2", 0.999)
@@ -77,7 +77,7 @@ def _adamax(ctx, Param, Grad, Moment, InfNorm, Beta1Pow, LearningRate):
             "Beta1PowOut": Beta1Pow}
 
 
-@register_op("adagrad")
+@register_op("adagrad", propagate_seqlen=False)
 def _adagrad(ctx, Param, Grad, Moment, LearningRate):
     eps = ctx.attr("epsilon", 1e-6)
     Moment.add_(Grad * Grad)
@@ -85,7 +85,7 @@ def _adagrad(ctx, Param, Grad, Moment, LearningRate):
     return {"ParamOut": Param, "MomentOut": Moment}
 
 
-@register_op("decayed_adagrad")
+@register_op("decayed_adagrad", propagate_seqlen=False)
 def _decayed_adagrad(ctx, Param, Grad, Moment, LearningRate):
     decay = ctx.attr("decay", 0.95)
     eps = ctx.attr("epsilon", 1e-6)
@@ -94,7 +94,7 @@ def _decayed_adagrad(ctx, Param, Grad, Moment, LearningRate):
     return {"ParamOut": Param, "MomentOut": Moment}
 
 
-@register_op("adadelta")
+@register_op("adadelta", propagate_seqlen=False)
 def _adadelta(ctx, Param, Grad, AvgSquaredGrad, AvgSquaredUpdate):
     rho = ctx.attr("rho", 0.95)
     eps = ctx.attr("epsilon", 1e-6)
@@ -107,7 +107,7 @@ def _adadelta(ctx, Param, Grad, AvgSquaredGrad, AvgSquaredUpdate):
             "AvgSquaredUpdateOut": AvgSquaredUpdate}
 
 
-@register_op("rmsprop")
+@register_op("rmsprop", propagate_seqlen=False)
 def _rmsprop(ctx, Param, Grad, MeanSquare, Moment, LearningRate,
              MeanGrad=None):
     rho = ctx.attr("decay", 0.95)
@@ -128,7 +128,7 @@ def _rmsprop(ctx, Param, Grad, MeanSquare, Moment, LearningRate,
     return out
 
 
-@register_op("ftrl")
+@register_op("ftrl", propagate_seqlen=False)
 def _ftrl(ctx, Param, Grad, SquaredAccumulator, LinearAccumulator,
           LearningRate):
     l1 = ctx.attr("l1", 0.0)
@@ -158,7 +158,7 @@ def _proximal(prox, lr, l1, l2):
         / (1.0 + lr * l2)
 
 
-@register_op("proximal_gd")
+@register_op("proximal_gd", propagate_seqlen=False)
 def _proximal_gd(ctx, Param, Grad, LearningRate):
     lr = _lr(LearningRate)
     Param.copy_(_proximal(Param - lr * Grad, lr, ctx.attr("l1", 0.0),
@@ -166,7 +166,7 @@ def _proximal_gd(ctx, Param, Grad, LearningRate):
     return {"ParamOut": Param}
 
 
-@register_op("proximal_adagrad")
+@register_op("proximal_adagrad", propagate_seqlen=False)
 def _proximal_adagrad(ctx, Param, Grad, Moment, LearningRate):
     Moment.add_(Grad * Grad)
     lr = _lr(LearningRate) / torch.sqrt(Moment + 1e-12)
@@ -175,7 +175,7 @@ def _proximal_adagrad(ctx, Param, Grad, Moment, LearningRate):
     return {"ParamOut": Param, "MomentOut": Moment}
 
 
-@register_op("average_accumulates")
+@register_op("average_accumulates", propagate_seqlen=False)
 def _average_accumulates(ctx, param, in_sum_1, in_sum_2, in_sum_3,
                          in_num_accumulates, in_old_num_accumulates,
                          in_num_updates):

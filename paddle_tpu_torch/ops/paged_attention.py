@@ -460,7 +460,7 @@ def paged_attention_q8(q, k_cache, v_cache, k_scale, v_scale, block_tables,
 # registered ops (the decode/prefill program building blocks)
 # ---------------------------------------------------------------------------
 
-@register_op("paged_attention")
+@register_op("paged_attention", propagate_seqlen=False)
 def _paged_attention_op(ctx, Q, K, V, KCache, VCache, BlockTables, SeqLens):
     """One decode step. Q/K/V: [slots, d_model], this step's token per
     slot. Appends K/V at position seq_len-1 in place (KCacheOut/VCacheOut
@@ -479,7 +479,7 @@ def _paged_attention_op(ctx, Q, K, V, KCache, VCache, BlockTables, SeqLens):
     return {"Out": out.reshape(S, D), "KCacheOut": kc, "VCacheOut": vc}
 
 
-@register_op("prefill_attention")
+@register_op("prefill_attention", propagate_seqlen=False)
 def _prefill_attention_op(ctx, Q, K, V, KCache, VCache, BlockTables,
                           SeqLens):
     """Prompt phase. Q/K/V: [rows, T, d_model] at a bucket-ladder rung.
@@ -505,7 +505,7 @@ def _prefill_attention_op(ctx, Q, K, V, KCache, VCache, BlockTables,
             "KCacheOut": kc, "VCacheOut": vc}
 
 
-@register_op("paged_attention_q8")
+@register_op("paged_attention_q8", propagate_seqlen=False)
 def _paged_attention_q8_op(ctx, Q, K, V, KCache, VCache, KScale, VScale,
                            RequantCount, BlockTables, SeqLens):
     """One decode step over int8 caches. Same contract as paged_attention
@@ -527,7 +527,7 @@ def _paged_attention_q8_op(ctx, Q, K, V, KCache, VCache, KScale, VScale,
             "RequantCountOut": RequantCount + (n_k + n_v)}
 
 
-@register_op("prefill_attention_q8")
+@register_op("prefill_attention_q8", propagate_seqlen=False)
 def _prefill_attention_q8_op(ctx, Q, K, V, KCache, VCache, KScale, VScale,
                              BlockTables, SeqLens):
     """Prompt phase over int8 caches: attention runs on the exact K/V in
@@ -561,7 +561,7 @@ def _prefill_attention_q8_op(ctx, Q, K, V, KCache, VCache, KScale, VScale,
             "KScaleOut": ks, "VScaleOut": vs}
 
 
-@register_op("gather_last_token")
+@register_op("gather_last_token", propagate_seqlen=False)
 def _gather_last_token(ctx, X, SeqLens):
     """X: [rows, T, D] -> Out: [rows, D], each row's position seq_len - 1
     (clamped into range; rows with seq_len 0 read position 0 — callers

@@ -2,7 +2,7 @@
 
 Mirror of ``paddle_tpu/ops/tensor.py``: `fill_constant`,
 `uniform_random`, `gaussian_random`, `assign`, `reshape`, `transpose`,
-`concat`, `increment`, `lookup_table`, `causal_mask`,
+`concat`, `increment`, `lookup_table`, `sequence_mask`, `causal_mask`,
 `sinusoid_pos_encoding`. Random ops draw from the op's own
 `torch.Generator` (``core/registry.py``), on the op's device. `reshape`
 and `transpose` return views where PyTorch can; `assign` copies, since
@@ -79,6 +79,18 @@ def _lookup_table(ctx, W, Ids):
     return {"Out": out}
 
 
+@register_op("sequence_mask", propagate_seqlen=False)
+def _sequence_mask(ctx, X):
+    """Y[b, t] = t < X[b] for t < the static `maxlen`, in `out_dtype`
+    (int64 by default; the JAX package's x32 mode makes it int32)."""
+    maxlen = ctx.attr("maxlen", -1)
+    if maxlen < 0:
+        raise ValueError("sequence_mask needs a static maxlen")
+    t = torch.arange(maxlen, device=X.device)
+    return {"Y": (t[None, :] < X.reshape(-1, 1)).to(
+        types.torch_dtype(ctx.attr("out_dtype", "int64")))}
+
+
 @register_op("reshape")
 def _reshape(ctx, X, Shape=None):
     shape = [int(s) for s in ctx.attr("shape")]
@@ -87,12 +99,12 @@ def _reshape(ctx, X, Shape=None):
     return {"Out": X.reshape(shape)}
 
 
-@register_op("transpose")
+@register_op("transpose", propagate_seqlen=False)
 def _transpose(ctx, X):
     return {"Out": X.permute(*ctx.attr("axis"))}
 
 
-@register_op("causal_mask")
+@register_op("causal_mask", propagate_seqlen=False)
 def _causal_mask(ctx):
     """Additive float32 attention mask [1, 1, T, T]: `neg` above the
     diagonal, 0 on and below it, made on the device."""
@@ -106,7 +118,7 @@ def _causal_mask(ctx):
     return {"Out": mask.reshape(1, 1, t, t)}
 
 
-@register_op("sinusoid_pos_encoding")
+@register_op("sinusoid_pos_encoding", propagate_seqlen=False)
 def _sinusoid_pos_encoding(ctx):
     """Transformer sinusoidal position table [T, D], computed on the
     device (the JAX package's formula, in float32)."""

@@ -429,8 +429,10 @@ def test_softmax_bf16_is_the_jax_rule_bit_for_bit():
 
 
 def test_softmax_bf16_max_takes_no_grad():
-    """The bf16 rule's grad is that of its rounding chain with the row max
-    held constant, as `jax.nn.softmax` stops the max's grad."""
+    """The bf16 rule's grad is the transpose of its rounding chain with
+    the row max held constant, as `jax.nn.softmax` stops the max's grad:
+    (dy / s - sum(dy * (1 / (s * s)) * e)) * e, the sum in float32
+    rounded once."""
     rng = np.random.RandomState(7)
     x = torch.from_numpy(rng.randn(6, 40).astype(np.float32) * 3).to(
         torch.bfloat16).requires_grad_(True)
@@ -439,12 +441,41 @@ def test_softmax_bf16_max_takes_no_grad():
     ctx = tregistry.LoweringContext({"axis": -1}, "cpu")
     got, = torch.autograd.grad(
         tregistry.get_op_def("softmax").lower(ctx, x)["Out"], x, dy)
-    xc = x.detach().clone().requires_grad_(True)
-    e = torch.exp(xc - x.detach().amax(-1, keepdim=True))
-    want, = torch.autograd.grad(
-        e / e.sum(-1, keepdim=True, dtype=torch.float32).to(torch.bfloat16),
-        xc, dy)
+    xd = x.detach()
+    e = torch.exp(xd - xd.amax(-1, keepdim=True))
+    s = e.sum(-1, keepdim=True, dtype=torch.float32).to(torch.bfloat16)
+    ct_s = -(dy * (1.0 / (s * s)) * e).sum(
+        -1, keepdim=True, dtype=torch.float32).to(torch.bfloat16)
+    want = (dy / s + ct_s) * e
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_softmax_bf16_grad_over_two_entries_is_the_jax_rules_bit_for_bit():
+    """Over an axis of two entries (the stacked LSTM's class head) the
+    cotangent sum is one add, so the bf16 rule's grad is the JAX rule's
+    vjp, op by op, bit for bit, where torch's autograd of the same
+    chain is not (the control)."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(64, 2).astype(np.float32) * 3
+    dy = rng.randn(64, 2).astype(np.float32)
+    rule = jregistry.get_op_def("softmax").lower
+    with jax.disable_jit():
+        _, vjp = jax.vjp(
+            lambda a: rule(jregistry.LoweringContext({"axis": -1}),
+                           X=a)["Out"], jnp.asarray(x, jnp.bfloat16))
+        want, = vjp(jnp.asarray(dy, jnp.bfloat16))
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    dyt = torch.from_numpy(dy).to(torch.bfloat16)
+    got, = torch.autograd.grad(
+        tregistry.get_op_def("softmax").lower(
+            tregistry.LoweringContext({"axis": -1}, "cpu"), xt)["Out"],
+        xt, dyt)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    e = torch.exp(xt - xt.detach().amax(-1, keepdim=True))
+    chain, = torch.autograd.grad(
+        e / e.sum(-1, keepdim=True, dtype=torch.float32).to(torch.bfloat16),
+        xt, dyt)
+    assert not np.array_equal(_bits(chain), _bits(want))
 
 
 _POOL_ATTRS = {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],

@@ -3,7 +3,10 @@ PyTorch versions, small generations (fp32 and int8 cache) on the card
 against the host, training steps of a one-layer Transformer-base on
 the card, with the bits dropout and with the flag-selected dropout kernel,
 and the vision slice's conv, pool and batch-norm rules (cuDNN, NHWC) and
-a ResNet-50 step on the card against the host.
+a ResNet-50 step on the card against the host, and the sequence slice's
+bf16 `lstm` rule at the stacked LSTM's widths against the host (chip_smoke.py
+holds every sequence op and a small stacked LSTM on the card against the
+host).
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -1458,3 +1461,56 @@ def test_bf16_softmax_sigmoid_and_avg_pool_on_card_equal_host(dev):
             assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3, op
         torch.testing.assert_close(gd.float(), gc.float(), rtol=2e-2,
                                    atol=2e-3)
+
+
+def _lstm_rule(place_dev, ins, attrs, lens, dtype):
+    from paddle_tpu_torch.core import registry
+    t = {k: torch.from_numpy(v).to(place_dev, dtype) for k, v in ins.items()}
+    out = registry.get_op_def("lstm").lower(
+        registry.LoweringContext(attrs, place_dev), **t,
+        SeqLen=torch.from_numpy(lens).to(place_dev))
+    return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+
+# the card's bf16 lstm against the host's, as a share of bf16's own noise
+# (the host's bf16 against its float32): the card's GEMMs and exp / tanh
+# round in their own order, a far smaller difference than bf16's rounding;
+# the card's float32 run, rounded to bf16, lies outside it (the control)
+LSTM_BF16_NOISE_SHARE = 0.5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_rule_bf16_on_card_within_bf16_noise_of_host(dev, reverse):
+    """The bf16 `lstm` rule at the stacked LSTM's widths (B 64, T 100, H
+    512, peepholes): the card's output within LSTM_BF16_NOISE_SHARE of
+    the host's bf16-vs-float32 distance from the host's bf16 output, and
+    the card's float32 output rounded to bf16 outside it; finished rows
+    keep zeros past their lengths on both."""
+    rng = np.random.RandomState(7)
+    B, T, H = 64, 100, 512
+    lens = rng.randint(T // 2, T + 1, B).astype(np.int32)
+    lens[:2] = (1, T)
+    ins = {"Input": rng.randn(B, T, 4 * H).astype(np.float32),
+           "Weight": (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32),
+           "Bias": (rng.randn(1, 7 * H) * 0.1).astype(np.float32)}
+    attrs = {"use_peepholes": True, "is_reverse": reverse}
+    card = _lstm_rule(dev, ins, attrs, lens, torch.bfloat16)
+    card32 = _lstm_rule(dev, ins, attrs, lens, torch.float32)
+    host = _lstm_rule(torch.device("cpu"), ins, attrs, lens, torch.bfloat16)
+    host32 = _lstm_rule(torch.device("cpu"), ins, attrs, lens,
+                        torch.float32)
+
+    def rel(a, b):
+        return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+    for k in card:
+        pad = np.arange(T)[None, :] >= lens[:, None]
+        assert not card[k][pad].any() and not host[k][pad].any()
+        limit = LSTM_BF16_NOISE_SHARE * rel(host[k], host32[k])
+        dist = rel(card[k], host[k])
+        control = rel(torch.from_numpy(card32[k]).bfloat16().float().numpy(),
+                      host[k])
+        print(f"lstm bf16 {k} reverse={reverse}: card {dist:.3e}, "
+              f"float32 control {control:.3e}, limit {limit:.3e}")
+        assert dist <= limit, (k, dist, limit)
+        assert control > limit, (k, control, limit)

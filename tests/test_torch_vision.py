@@ -49,9 +49,10 @@ EARLIER_OPS = {
     "paged_attention_q8", "prefill_attention", "prefill_attention_q8",
     "relu", "reshape", "scale", "sinusoid_pos_encoding",
     "softmax_with_cross_entropy", "sum", "transpose", "uniform_random"}
-# the op types later slices register (optimizers, schedules,
-# clips and the rest of the non-recurrent zoo); each has its parity case
-# in tests/test_torch_zoo.py or tests/test_torch_optim.py
+# the op types later slices register (optimizers, schedules, clips, the
+# rest of the non-recurrent zoo, the sequence and recurrent ops); each has
+# its parity case in tests/test_torch_zoo.py, tests/test_torch_optim.py
+# or tests/test_torch_seq.py
 LATER_OPS = {
     "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_min", "elementwise_max", "elementwise_pow", "exp", "sqrt",
@@ -59,7 +60,11 @@ LATER_OPS = {
     "greater_equal", "concat", "increment", "assign", "causal_mask",
     "sigmoid_cross_entropy_with_logits", "sgd", "adamax", "adagrad",
     "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "proximal_gd",
-    "proximal_adagrad", "average_accumulates"}
+    "proximal_adagrad", "average_accumulates",
+    "sequence_pool", "sequence_softmax", "sequence_expand",
+    "sequence_reshape", "sequence_concat", "sequence_slice",
+    "sequence_conv", "sequence_erase", "sequence_expand_as", "row_conv",
+    "sequence_mask", "lstm", "gru", "lstm_unit", "gru_unit", "lstmp"}
 
 
 @pytest.fixture(autouse=True)
@@ -353,12 +358,12 @@ def test_momentum_update_matches_paddle_tpu(nesterov):
 
 def test_every_port_op_is_a_reference_op_and_every_new_one_has_a_case():
     """The registry contract: the port registers only ops the JAX package
-    registers, 63 of them; the ops this slice adds are exactly NEW_OPS,
+    registers, 79 of them; the ops this slice adds are exactly NEW_OPS,
     and each one appears in a program of this file's parity cases."""
     ported = set(tregistry.registered_ops())
     assert ported <= set(jregistry.registered_ops())
-    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 30
-    assert len(ported) == 63
+    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 46
+    assert len(ported) == 79
     assert ported - EARLIER_OPS - LATER_OPS == NEW_OPS
     assert EARLIER_OPS | LATER_OPS <= ported
     covered = set()

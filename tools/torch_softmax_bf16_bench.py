@@ -13,14 +13,15 @@ causal mask (-1e9 above the diagonal) as the unfused path adds it. Times
 (median CUDA-event time on a cold L2, chip_smoke.time_ms) the forward of
 the port's rule (`ops/math.py::_softmax`: exp, a float32 sum rounded to
 bf16, the quotient, each in bf16, as the JAX rule rounds, the max
-taking no grad), of the same with a grad through the max (the rule as
-it first was), and of `torch.softmax` in bf16, then a forward and
-backward of each through
-autograd; gives the bound of one read of the scores and one write of the
+taking no grad, and `_HalfSoftmax`'s backward in the order of the JAX
+rule's transpose), of the same chain with autograd's backward (the rule
+before its backward took that order), of the chain with a grad through
+the max too (the rule as it first was), and of `torch.softmax` in bf16,
+then a forward and backward of each; gives the bound of one read of the scores and one write of the
 weights (the backward: two reads and one write) at 3.35 TB/s; and counts
-the elements where the rule's result on the card differs from its result
-on the host (CPU) on the same scores, and where it differs from
-`torch.softmax`'s. Prints the card's name and power limit, one JSON line
+the elements where the rule's result, and its grad, on the card differ
+from its result on the host (CPU) on the same scores, and where its
+result differs from `torch.softmax`'s. Prints the card's name and power limit, one JSON line
 per case, and with --out writes them to FILE. Needs a card; exits 2
 without one.
 """
@@ -65,6 +66,11 @@ def main(argv=None) -> int:
     def torch_softmax(x):
         return torch.softmax(x, -1)
 
+    def port_autograd(x):
+        """The rule before its backward took the JAX rule's order."""
+        e = torch.exp(x - x.detach().amax(-1, keepdim=True))
+        return e / e.sum(-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+
     def port_max_grad(x):
         """The rule as it was before its max stopped taking a grad."""
         e = torch.exp(x - x.amax(-1, keepdim=True))
@@ -80,8 +86,15 @@ def main(argv=None) -> int:
     nbytes = x.numel() * x.element_size()
     on_host = port(x.cpu())
     on_card = port(x)
+
+    def grad(x, dy):
+        xg = x.detach().requires_grad_(True)
+        return torch.autograd.grad(port(xg), xg, dy)[0]
+
+    grad_host, grad_card = grad(x.cpu(), dy.cpu()), grad(x, dy)
     rows = []
     for name, fn in (("port rule", port),
+                     ("port rule, autograd's backward", port_autograd),
                      ("port rule, max with a grad", port_max_grad),
                      ("torch.softmax", torch_softmax)):
         xg = x.detach().requires_grad_(True)
@@ -99,6 +112,7 @@ def main(argv=None) -> int:
         check="port rule on the card against the host and torch.softmax",
         elements=x.numel(),
         differ_from_host=int((on_card.cpu() != on_host).sum()),
+        grad_differ_from_host=int((grad_card.cpu() != grad_host).sum()),
         differ_from_torch_softmax=int((on_card != torch_softmax(x)).sum())))
     for r in rows:
         print(json.dumps(r), flush=True)

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Where paddle_tpu_torch's training step time goes on one NVIDIA card.
 
-    python3 tools/torch_train_profile.py [--model transformer|resnet50]
-        [--amp] [--unfused] [--steps N] [--out DIR]
+    python3 tools/torch_train_profile.py
+        [--model transformer|resnet50|stacked_lstm] [--amp] [--unfused]
+        [--steps N] [--out DIR]
     FLAGS_dropout_impl=pallas python3 tools/torch_train_profile.py ...
 
 Builds one of chip_smoke.py's training configurations, imported from
 there: train-base (`--model transformer`, the default: its TRAIN_BASE,
 TRAIN_BATCH, Adam learning rate and fixed batch) or train-resnet50
 (`--model resnet50`: RESNET50 at RESNET_BATCH with Momentum, its fixed
-synthetic batch staged on the card first); with `--amp`, the same under
+synthetic batch staged on the card first) or train-stacked-lstm
+(`--model stacked_lstm`: LSTM with Adam at LSTM_BATCH x LSTM_SEQ,
+bench.py's fixed `(words, lengths)` batch staged on the card; its
+`lstm` and `lstm_grad` rows are the time loops); with `--amp`, the same under
 bf16 mixed precision (train-base-amp at TRAIN_AMP_BATCH, bench.py's
 batch; train-resnet50-amp), with `--unfused` train-base-unfused
 (`fused_attention=False`: matmul, causal mask, softmax, dropout and
@@ -54,9 +58,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (RESNET_BATCH, TRAIN_AMP_BATCH,  # noqa: E402
-                        TRAIN_BASE, TRAIN_BATCH, build_resnet, build_train,
-                        resnet_batch, train_batch)
+from chip_smoke import (LSTM_BATCH, LSTM_SEQ, RESNET_BATCH,  # noqa: E402
+                        TRAIN_AMP_BATCH, TRAIN_BASE, TRAIN_BATCH,
+                        build_resnet, build_stacked_lstm, build_train,
+                        lstm_batch, resnet_batch, train_batch)
 from tools.torch_serve_profile import device_breakdown  # noqa: E402
 
 
@@ -130,7 +135,15 @@ KERNEL_GROUPS = {
                  ("batch norm", ("batch_norm", "welford")),
                  ("pooling", ("pool",)),
                  ("GEMMs", ("gemm", "xmma", "cutlass", "nvjet")),
-                 ("elementwise", ("elementwise", "vectorized", "unrolled")))}
+                 ("elementwise", ("elementwise", "vectorized", "unrolled"))),
+    # the LSTM's time loops: one recurrent GEMM and ~20 small elementwise
+    # kernels a step; gathers are the embedding and its grad
+    "stacked_lstm": (("GEMMs", ("gemm", "xmma", "cutlass", "nvjet")),
+                     ("gathers and scatters", ("index", "gather", "scatter",
+                                               "embedding")),
+                     ("reductions", ("reduce",)),
+                     ("elementwise", ("elementwise", "vectorized",
+                                      "unrolled")))}
 
 
 def by_group(kernels, groups):
@@ -179,6 +192,15 @@ def main(argv=None) -> int:
                 for k, v in resnet_batch(RESNET_BATCH).items()}
         name, batch, unit, per_step = ("train-resnet50", RESNET_BATCH,
                                        "images", RESNET_BATCH)
+    elif args.model == "stacked_lstm":
+        main_prog, startup, fetches = build_stacked_lstm(ptt)
+        loss = fetches["loss"]
+        words, lens, label = lstm_batch()
+        feed = {"words": (torch.from_numpy(words).cuda(),
+                          torch.from_numpy(lens).cuda()),
+                "label": torch.from_numpy(label).cuda()}
+        name, batch, unit, per_step = ("train-stacked-lstm", LSTM_BATCH,
+                                       "padded_tokens", LSTM_BATCH * LSTM_SEQ)
     else:
         main_prog, startup, loss = build_train(
             ptt, fused_attention=not args.unfused)
