@@ -162,6 +162,23 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    batch 4, T 12, lengths 1 and 12 among them; and each sequence op and
    gru / lstmp / lstm_unit / gru_unit (one case sweep) card vs host with
    its grads, within SEQ_OP_TOL;
+7h. train-mt: BASELINE.json's "Fluid machine_translation", the
+   attention seq2seq of `models.machine_translation.build` at the
+   reference's Fluid benchmark widths (dictionary 30000, embedding,
+   encoder and decoder 512), Adam(1e-3), float32 with TF32 off; batch
+   64, source lengths uniform in [10, 50] from RandomState(0) fed as a
+   `(src, lengths)` pair, target and label padded to 50; 3 + 10 steps on
+   one batch, then one traced step: losses finite and falling, no kernel
+   of csrc/ launched; step ms, examples/s, target tokens/s, peak memory,
+   the traced step's device busy share and device events;
+7i. infer-mt-beam: the trained parameters saved, `build_infer` (beam
+   4, max_len 50) loaded with them and saved by `save_inference_model`,
+   then `load_inference_model` into a fresh scope on the card and on the
+   host; 16 sources decoded on each: ids equal (a row whose history
+   parts from the host's at a step where the two sides' top-beam scores
+   lie within MT_TIE of each other is reported as a tie, any other
+   difference fails), scores within MT_SCORE_RTOL; ms a batch and
+   generated tokens/s on the card;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -374,6 +391,19 @@ LSTM_PARITY_LENS = (1, 12, 5, 9)
 # SEQ_OP_TOL (1 + |host|) (float32 sums of a few dozen terms, another
 # order on each side); integer outputs exactly
 SEQ_OP_TOL = 1e-5
+# train-mt: BASELINE.json's "Fluid machine_translation" at the reference's
+# Fluid benchmark widths (benchmark/fluid/models/machine_translation.py:
+# embedding, encoder and decoder 512, dictionary 30000), not the JAX
+# defaults; Adam(1e-3), float32 with TF32 off, batch 64, source lengths
+# uniform in [10, 50] from RandomState(0), target and label padded to 50
+MT = dict(dict_size=30000, emb_dim=512, hidden_dim=512)
+MT_BATCH, MT_SRC_MIN, MT_SRC_MAX, MT_TRG = 64, 10, 50, 50
+MT_LR, MT_DATA_SEED, MT_WARMUP, MT_STEPS = 1e-3, 0, 3, 10
+# infer-mt-beam: beam 4, max_len 50, 16 sources; card vs host, ids exact,
+# scores within MT_SCORE_RTOL relative; a diverging row passes only where
+# both sides' scores at that step lie within MT_TIE of each other
+MT_BEAM, MT_MAX_LEN, MT_DECODE_BATCH, MT_DECODE_RUNS = 4, 50, 16, 3
+MT_SCORE_RTOL, MT_TIE = 1e-4, 1e-5
 
 
 def log(*a):
@@ -1839,6 +1869,10 @@ SWEEP_SCHEDULES = {
     "polynomial_decay": lambda L: L.polynomial_decay(0.1, 4, 0.001, 2.0),
     "piecewise_decay": lambda L: L.piecewise_decay([1, 2], [0.1, 0.05, 0.01]),
     "noam_decay": lambda L: L.noam_decay(SWEEP_WIDTH, 2),
+    "exponential_decay-staircase": lambda L: L.exponential_decay(
+        0.1, 2, 0.5, staircase=True),
+    "polynomial_decay-cycle": lambda L: L.polynomial_decay(
+        0.1, 2, 0.001, 2.0, cycle=True),
 }
 SWEEP_CLIPS = {
     "GradientClipByValue": lambda c: c.GradientClipByValue(0.002),
@@ -2306,6 +2340,217 @@ def run_seq_op_sweep(torch, ptt, native):
         raise AssertionError(f"the sequence op sweep launched a kernel: "
                              f"{dict(native.launches)}")
     return out
+
+
+def mt_batch(batch=MT_BATCH, seed=MT_DATA_SEED, vocab=MT["dict_size"]):
+    """A machine_translation batch: sources [B, MT_SRC_MAX, 1] with
+    lengths uniform in [MT_SRC_MIN, MT_SRC_MAX]; targets of lengths in
+    the same range, each `<s> w1 .. wn` with label `w1 .. wn </s>` (start
+    id 0, end id 1), padded to MT_TRG with the end id. Drawn in that
+    order from RandomState(seed)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(MT_SRC_MIN, MT_SRC_MAX + 1, batch).astype(np.int32)
+    src = rng.randint(2, vocab, (batch, MT_SRC_MAX, 1)).astype(np.int64)
+    src[np.arange(MT_SRC_MAX)[None, :] >= lens[:, None]] = 0
+    trg_lens = rng.randint(MT_SRC_MIN, MT_TRG, batch)
+    words = rng.randint(2, vocab, (batch, MT_TRG)).astype(np.int64)
+    trg = np.ones((batch, MT_TRG, 1), np.int64)
+    lbl = np.ones((batch, MT_TRG, 1), np.int64)
+    for b, n in enumerate(trg_lens):
+        trg[b, 0, 0] = 0
+        trg[b, 1:n + 1, 0] = words[b, :n]
+        lbl[b, :n, 0] = words[b, :n]
+    return src, lens, trg, lbl, int(trg_lens.sum() + batch)
+
+
+def build_mt(ptt):
+    """models.machine_translation.build at MT + Adam(MT_LR):
+    (main, startup, fetches)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import machine_translation
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = machine_translation.build(**MT)
+        optimizer.Adam(learning_rate=MT_LR).minimize(fetches["loss"])
+    return main, startup, fetches
+
+
+def run_train_mt(torch, ptt, native):
+    """train-mt on the card: MT_WARMUP + MT_STEPS steps on one batch,
+    staged on the card. Losses finite and falling, no kernel of csrc/
+    launched; returns step ms (median of the timed steps), examples/s,
+    target tokens/s (padded and valid), peak memory above what the card
+    held before, the scope and program (infer-mt-beam decodes with the
+    trained parameters) and under "step" the step itself, traced once by
+    `trace_train_stacked_lstm` after the timed runs."""
+    import numpy as np
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train-mt runs float32 with TF32 off")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    main, startup, fetches = build_mt(ptt)
+    loss = fetches["loss"]
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    src, lens, trg, lbl, valid = mt_batch()
+    feed = {"src_word": (torch.from_numpy(src).cuda(),
+                         torch.from_numpy(lens).cuda()),
+            "trg_word": torch.from_numpy(trg).cuda(),
+            "lbl_word": torch.from_numpy(lbl).cuda()}
+    gc.collect()
+    torch.cuda.synchronize()
+
+    def step():
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        return float(np.asarray(out).reshape(-1)[0])
+
+    losses, step_ms = [], []
+    native.reset_launches()
+    for _ in range(MT_WARMUP + MT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(native.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train-mt losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train-mt loss did not fall on its fixed "
+                             f"batch: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"train-mt launched a kernel of csrc/: "
+                             f"{launches}")
+    timed = sorted(step_ms[MT_WARMUP:])
+    med = timed[len(timed) // 2]
+    gb = main.global_block()
+    types = [op.type for op in gb.ops]
+    return dict(tag="train-mt", batch=MT_BATCH, src_max=MT_SRC_MAX,
+                trg=MT_TRG, src_tokens=int(lens.sum()), valid_trg=valid,
+                warmup=MT_WARMUP, steps=MT_STEPS, losses=losses,
+                step_ms=step_ms, step_ms_median=med,
+                examples_per_s=MT_BATCH / med * 1e3,
+                trg_tokens_per_s=MT_BATCH * MT_TRG / med * 1e3,
+                valid_trg_tokens_per_s=valid / med * 1e3,
+                peak_bytes=peak, launches=launches, ops=len(types),
+                body_ops=len(main.blocks[1].ops),
+                static_rnn_ops=types.count("static_rnn"), step=step,
+                scope=scope, main=main)
+
+
+def _mt_tie_rows(card_hist, host_hist, tie=MT_TIE):
+    """Rows whose (ids, parents) histories part between card and host,
+    each with the first step they part at and whether both sides' scores
+    at that step lie within `tie` of each other (a near tie the two
+    sides' float32 sums may break either way). Histories: (ids, parents,
+    scores), each [B, T, beam]."""
+    import numpy as np
+    rows = []
+    for b in range(card_hist[0].shape[0]):
+        differ = ((card_hist[0][b] != host_hist[0][b])
+                  | (card_hist[1][b] != host_hist[1][b])).any(axis=-1)
+        if not differ.any():
+            continue
+        t = int(np.argmax(differ))
+        gap = float(np.abs(np.sort(card_hist[2][b, t])
+                           - np.sort(host_hist[2][b, t])).max())
+        rows.append({"row": b, "step": t, "score_gap": gap,
+                     "tie": gap <= tie})
+    return rows
+
+
+def run_infer_mt_beam(torch, ptt, native, trained, tmp):
+    """infer-mt-beam: the trained parameters saved and loaded into
+    `build_infer`'s program (beam MT_BEAM, max_len MT_MAX_LEN), that
+    program saved by `save_inference_model` and loaded by
+    `load_inference_model` into a fresh scope on the card and on the
+    host; MT_DECODE_BATCH sources decoded on each. Ids equal (rows that
+    part at a near tie reported), scores within MT_SCORE_RTOL; ms a batch
+    (median of MT_DECODE_RUNS after a warm-up) and generated tokens/s
+    (the best beam's MT_MAX_LEN tokens a source); no kernel of csrc/
+    launched. Under "step", one card decode, traced once after every
+    timed run."""
+    import numpy as np
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models import machine_translation
+    card_exe = ptt.Executor(ptt.CUDAPlace(0))
+    params = os.path.join(tmp, "mt_params")
+    io.save_persistables(card_exe, params, trained["main"],
+                         scope=trained["scope"])
+    infer, infer_start = ptt.Program(), ptt.Program()
+    with ptt.program_guard(infer, infer_start), ptt.unique_name.guard():
+        _, f = machine_translation.build_infer(beam_size=MT_BEAM,
+                                               max_len=MT_MAX_LEN, **MT)
+    scope = ptt.Scope()
+    card_exe.run(infer_start, scope=scope)
+    io.load_persistables(card_exe, params, infer, scope=scope)
+    model = os.path.join(tmp, "mt_beam")
+    io.save_inference_model(model, ["src_word"], [f["ids"], f["scores"]],
+                            card_exe, main_program=infer, scope=scope)
+    rnn = next(op for op in infer.global_block().ops
+               if op.type == "static_rnn")
+    hist = list(rnn.outputs["Out"])        # ids, parents, scores [B, T, K]
+    src, lens, _, _, _ = mt_batch(MT_DECODE_BATCH, seed=MT_DATA_SEED + 1)
+    feed = {"src_word": (src, lens)}
+    out = {}
+    for side, exe in (("card", card_exe),
+                      ("host", ptt.Executor(ptt.CPUPlace()))):
+        fresh = ptt.Scope()
+        prog, feed_names, fetch_vars = io.load_inference_model(
+            model, exe, scope=fresh)
+        if feed_names != ["src_word"] or len(prog.blocks) != 2:
+            raise AssertionError(f"infer-mt-beam loaded {feed_names}, "
+                                 f"{len(prog.blocks)} blocks")
+        fetch = [v.name for v in fetch_vars] + hist
+        runs, ms = (MT_DECODE_RUNS + 1, []) if side == "card" else (1, [])
+        native.reset_launches()
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            res = exe.run(prog, feed=feed, fetch_list=fetch, scope=fresh)
+            if side == "card":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if side == "card" and any(native.launches.values()):
+            raise AssertionError(f"infer-mt-beam launched a kernel of "
+                                 f"csrc/: {dict(native.launches)}")
+        out[side] = dict(ids=res[0], scores=res[1], hist=res[2:], ms=ms,
+                         run=lambda exe=exe, prog=prog, fresh=fresh,
+                         fetch=fetch: exe.run(prog, feed=feed,
+                                              fetch_list=fetch, scope=fresh))
+    card, host = out["card"], out["host"]
+    if card["ids"].shape != (MT_DECODE_BATCH, MT_BEAM, MT_MAX_LEN):
+        raise AssertionError(f"infer-mt-beam ids {card['ids'].shape}")
+    if not np.isfinite(card["scores"]).all():
+        raise AssertionError("infer-mt-beam scores not finite")
+    ties = _mt_tie_rows(card["hist"], host["hist"])
+    if any(not r["tie"] for r in ties):
+        raise AssertionError(f"infer-mt-beam: card ids part from the "
+                             f"host's away from a tie: {ties}")
+    same = np.array([b not in {r["row"] for r in ties}
+                     for b in range(MT_DECODE_BATCH)])
+    if not np.array_equal(card["ids"][same], host["ids"][same]):
+        raise AssertionError("infer-mt-beam: card ids differ from the "
+                             "host's in a row whose history agrees")
+    rel = float(np.max(np.abs(card["scores"][same] - host["scores"][same])
+                       / np.maximum(np.abs(host["scores"][same]), 1e-30),
+                       initial=0.0))
+    if rel > MT_SCORE_RTOL:
+        raise AssertionError(f"infer-mt-beam scores {rel:.3g} from the "
+                             f"host's (tol {MT_SCORE_RTOL})")
+    timed = sorted(card["ms"][1:])
+    med = timed[len(timed) // 2]
+    return dict(tag="infer-mt-beam", batch=MT_DECODE_BATCH, beam=MT_BEAM,
+                max_len=MT_MAX_LEN, src_tokens=int(lens.sum()),
+                ms=card["ms"], ms_median=med, host_ms=host["ms"][0],
+                tokens_per_s=MT_DECODE_BATCH * MT_MAX_LEN / med * 1e3,
+                ties=ties, rows_compared=int(same.sum()),
+                score_rel_err=rel, ids_equal_rows=int(same.sum()),
+                best=card["ids"][:2, 0, :12].tolist(), step=card["run"])
 
 
 def main() -> int:
@@ -2903,6 +3148,38 @@ def main() -> int:
             f"{tr['valid_tokens_per_s']:.0f} valid tokens/s, peak "
             f"{tr['peak_bytes'] / 2**30:.3f} GiB above what the card held "
             f"before")
+    # 7h. train-mt; 7i. infer-mt-beam from its trained parameters (timed
+    # before any traced step: a profiler session slows every later launch)
+    t0 = time.perf_counter()
+    mt = run_train_mt(torch, ptt, native)
+    log(f"train-mt: {MT_WARMUP} + {MT_STEPS} steps of batch {MT_BATCH}, "
+        f"sources {MT_SRC_MIN}-{MT_SRC_MAX} ({mt['src_tokens']} tokens), "
+        f"targets padded to {MT_TRG} ({mt['valid_trg']} valid), dict "
+        f"{MT['dict_size']}, widths {MT['emb_dim']}/{MT['hidden_dim']}, "
+        f"Adam({MT_LR}), float32, {mt['ops']} ops a step ({mt['body_ops']} "
+        f"in the decoder's step body), in {time.perf_counter() - t0:.1f} s; "
+        f"losses {[round(x, 4) for x in mt['losses']]}")
+    log(f"train-mt on the card [{card}]: step {mt['step_ms_median']:.1f} ms "
+        f"(all: {[round(x, 1) for x in mt['step_ms']]}), "
+        f"{mt['examples_per_s']:.1f} examples/s, "
+        f"{mt['trg_tokens_per_s']:.0f} target tokens/s padded, "
+        f"{mt['valid_trg_tokens_per_s']:.0f} valid, peak "
+        f"{mt['peak_bytes'] / 2**30:.3f} GiB above what the card held before")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mt_") as tmp:
+        beam = run_infer_mt_beam(torch, ptt, native, mt, tmp)
+    log(f"infer-mt-beam on the card [{card}]: {MT_DECODE_BATCH} sources "
+        f"({beam['src_tokens']} tokens), beam {MT_BEAM}, max_len "
+        f"{MT_MAX_LEN}, from a saved and reloaded inference model: "
+        f"{beam['ms_median']:.1f} ms a batch (all: "
+        f"{[round(x, 1) for x in beam['ms']]}), {beam['tokens_per_s']:.0f} "
+        f"generated tokens/s; host {beam['host_ms']:.0f} ms; ids equal in "
+        f"{beam['ids_equal_rows']} of {MT_DECODE_BATCH} rows, "
+        f"{len(beam['ties'])} parted at a tie {beam['ties']}; scores within "
+        f"{beam['score_rel_err']:.3g} of the host's (tol {MT_SCORE_RTOL}); "
+        f"best beams {beam['best']}; {time.perf_counter() - t0:.1f} s")
+    for k in ("scope", "main"):
+        mt.pop(k)
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -2910,6 +3187,21 @@ def main() -> int:
             f"{tr['busy_us'] / 1e3:.1f} ms = {tr['busy_share']:.3f} of it "
             f"({tr['device_events']} device events; "
             f"{tr['busy_over_untraced']:.3f} of the untraced median)")
+    trace_train_stacked_lstm(torch, mt)
+    log(f"train-mt, one traced step after every timed one: "
+        f"{mt['traced_step_ms']:.1f} ms, device busy "
+        f"{mt['busy_us'] / 1e3:.1f} ms = {mt['busy_share']:.3f} of it "
+        f"({mt['device_events']} device events; "
+        f"{mt['busy_over_untraced']:.3f} of the untraced median)")
+    traced_s, busy_us, n_events = traced_busy(torch, beam.pop("step"))
+    beam.update(traced_ms=traced_s * 1e3, busy_us=busy_us,
+                busy_share=busy_us / (traced_s * 1e6),
+                busy_over_untraced=busy_us / (beam["ms_median"] * 1e3),
+                device_events=n_events)
+    log(f"infer-mt-beam, one traced decode: {beam['traced_ms']:.1f} ms, "
+        f"device busy {busy_us / 1e3:.1f} ms = {beam['busy_share']:.3f} of "
+        f"it ({n_events} device events; {beam['busy_over_untraced']:.3f} "
+        f"of the untraced median)")
     t0 = time.perf_counter()
     lstm_parity = run_stacked_lstm_parity(torch, ptt)
     log(f"stacked-lstm parity, {lstm_parity['steps']} steps from the host's "
@@ -3167,7 +3459,8 @@ def main() -> int:
                    "zoo": zoo, "se_resnext50_parity": se_parity,
                    "sweep": sweep, "train_stacked_lstm": lstm_trains,
                    "stacked_lstm_parity": lstm_parity,
-                   "seq_op_sweep": seq_sweep,
+                   "seq_op_sweep": seq_sweep, "train_mt": mt,
+                   "infer_mt_beam": beam,
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

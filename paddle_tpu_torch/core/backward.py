@@ -94,8 +94,10 @@ def append_backward(loss: ir.Variable,
             continue
         if op.type == "while":
             raise NotImplementedError(
-                "gradients cannot flow through an unbounded `while` loop "
-                "(control flow is not ported to paddle_tpu_torch yet)")
+                "gradients cannot flow through an unbounded `while` loop on "
+                "TPU (lax.while_loop is not reverse-differentiable); pass "
+                "While(cond, max_iters=N) for a scan-based differentiable "
+                "loop, or use layers.StaticRNN / DynamicRNN / dynamic_lstm")
         grad_targets = _grad_needing_inputs(block, op, no_grad, parameter_list)
 
         # out-grad inputs: canonical @GRAD names.

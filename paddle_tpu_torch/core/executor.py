@@ -178,7 +178,8 @@ def convert_feed(block: ir.Block, feed: Dict[str, Any],
 class _StepPlan:
     """Which scope vars a (program, feed-name set) step reads, which
     persistable vars it writes, and which vars anything reads at all
-    (`live`: every op input, the fetches and the write-backs) — resolved
+    (`live`: every op input, a sub-block's external reads, the fetches
+    and the write-backs) — resolved
     once per prepared handle. A rule skips an output that is not live
     (``LoweringContext.wants``), as XLA drops an unread expression."""
 
@@ -190,8 +191,14 @@ class _StepPlan:
         written: List[str] = []
         live = set(fetch_names)
         for op in block.ops:
-            live.update(op.input_arg_names)
-            for n in op.input_arg_names:
+            # a control-flow op's sub-blocks read vars of this block too:
+            # a parameter only a loop body reads is loaded from the scope
+            # and its producers' outputs count as read
+            in_names = list(op.input_arg_names)
+            for si in ir.sub_block_indices(op):
+                in_names += ir.external_reads(program, si)
+            live.update(in_names)
+            for n in in_names:
                 if n != registry.EMPTY_VAR and n not in produced \
                         and n not in read:
                     read.append(n)

@@ -33,12 +33,22 @@ first input's companions are carried onto the op's outputs
 activation keeps its input's lengths; the sequence ops register False
 and their layers wire and alias companions as explicit vars.
 
+A control-flow op (``ops/control.py``) runs its sub-blocks through
+`LoweringContext.run_block` on a copy of the live env, which carries the
+outer values and their `@SEQLEN` companions in, whatever slot names
+them. Its generic grad recomputes it on a copy in which the autograd
+leaves of its declared inputs replace the outer values, so a parameter
+that only the loop body reads (it is in the op's `X`, the layer adds
+the body's external reads there) gets its grad through the recompute.
+
 Random ops get a host integer seed from (program seed, run counter, op
 index): the JAX package's `fold_in(fold_in(key(seed), counter), op index)`
-derivation. A grad op takes the seed of its forward op, so a dropout mask
-or an attention seed is the forward's own. The two packages draw
-different numbers from the same seed, so parity tests hand both the same
-parameters instead of the same seed.
+derivation. Inside a sub-block the control op's own seed takes the
+program seed's place and the iteration the counter's. A grad op takes
+the seed of its forward op, so a dropout mask or an attention seed is
+the forward's own. The two packages draw different numbers from the same
+seed, so parity tests hand both the same parameters instead of the same
+seed.
 """
 
 from __future__ import annotations
@@ -63,22 +73,24 @@ def run_block(program: ir.Program, block_idx: int, env: Dict[str, Any],
               device, seed: int = 0, counter: int = 0,
               check_nan_inf: bool = False,
               live: Optional[Set[str]] = None,
-              amp: bool = False) -> Dict[str, Any]:
+              amp: bool = False, recompute: bool = False) -> Dict[str, Any]:
     """Run every op of `block_idx` on `env` (name -> tensor), mutating
     and returning it. `live`, when given, names the vars that something
     reads (`LoweringContext.wants`); a forward rule may then leave an
     output that is not in it out of `env`. None keeps every output.
-    `amp` runs every rule under the bf16 policy (``core/registry.py``)."""
+    `amp` runs every rule under the bf16 policy (``core/registry.py``);
+    `recompute` marks a sub-block run inside a generic grad's recompute."""
     device = torch.device(device)
     for op_idx, op in enumerate(program.blocks[block_idx].ops):
         if op.type.endswith(GRAD_OP_SUFFIX) and FWD_OP_ATTR in op.attrs:
-            _run_grad_op(op, env, device, seed, counter, amp)
+            _run_grad_op(op, env, device, seed, counter, amp,
+                         program=program)
             if check_nan_inf:
                 for name in op.output_arg_names:
                     _check_finite(op, name, env.get(name))
             continue
         _run_op(op, op_idx, env, device, seed, counter, check_nan_inf, live,
-                amp)
+                amp, recompute=recompute, program=program)
     return env
 
 
@@ -110,12 +122,14 @@ def _gather_inputs(inputs: Dict[str, List[str]], env: Dict[str, Any],
 
 def _run_op(op: ir.Operator, op_idx: int, env: Dict[str, Any], device,
             seed: int, counter: int, check_nan_inf: bool, live=None,
-            amp: bool = False):
+            amp: bool = False, recompute: bool = False,
+            program: Optional[ir.Program] = None):
     opdef = registry.get_op_def(op.type)
     s = (op_seed(seed, counter, int(op.attrs.get("__idx__", op_idx)))
          if opdef.needs_rng else None)
     ctx = LoweringContext(op.attrs, device, seed=s, op=op, live=live,
-                          amp=amp)
+                          recompute=recompute, amp=amp, program=program,
+                          env=env)
     outs = registry.call_rule(opdef, ctx, _gather_inputs(op.inputs, env,
                                                          op.type))
     for slot, names in op.outputs.items():
@@ -167,7 +181,8 @@ def _propagate_seqlen(op: ir.Operator, env: Dict[str, Any]):
 # ---------------------------------------------------------------------------
 
 def _run_grad_op(op: ir.Operator, env: Dict[str, Any], device, seed: int,
-                 counter: int, amp: bool = False):
+                 counter: int, amp: bool = False,
+                 program: Optional[ir.Program] = None):
     fwd = op.attrs[FWD_OP_ATTR]          # forward OpDesc as dict
     fwd_type, fwd_inputs, fwd_outputs = (fwd["type"], fwd["inputs"],
                                          fwd["outputs"])
@@ -181,7 +196,8 @@ def _run_grad_op(op: ir.Operator, env: Dict[str, Any], device, seed: int,
         ins = {sl: [env[n] for n in ns] for sl, ns in fwd_inputs.items()}
         out_grads = {sl: [env.get(ir.grad_var_name(n)) for n in ns]
                      for sl, ns in fwd_outputs.items()}
-        ctx = LoweringContext(fwd_attrs, device, seed=s, op=op, amp=amp)
+        ctx = LoweringContext(fwd_attrs, device, seed=s, op=op, amp=amp,
+                              program=program, env=env)
         # forward OUTPUT values, already in env: a grad that consumes a
         # saved output (softmax_with_cross_entropy's LSE) reads it here
         ctx.fwd_outs = {sl: [env.get(n) for n in ns]
@@ -200,11 +216,19 @@ def _run_grad_op(op: ir.Operator, env: Dict[str, Any], device, seed: int,
                 leaves[n] = env[n].detach().requires_grad_(True)
     if not leaves:
         return
+    shadow = None
+    if opdef.reads_env:
+        # the rule reads its values through ctx.env: the leaves must
+        # stand there for the outer values, or autograd never reaches
+        # them (a loop body's parameters would get zero grads)
+        shadow = dict(env)
+        shadow.update(leaves)
     with torch.enable_grad():
         ins = {sl: [leaves.get(n, env.get(n)) for n in ns]
                for sl, ns in fwd_inputs.items()}
         ctx = LoweringContext(fwd_attrs, device, seed=s, op=op,
-                              recompute=True, amp=amp)
+                              recompute=True, amp=amp, program=program,
+                              env=shadow)
         outs = registry.call_rule(opdef, ctx, ins)
         primals, cotangents = [], []
         for slot, out_names in fwd_outputs.items():

@@ -35,11 +35,12 @@ FWD_OP_ATTR = "__fwd_op__"  # grad ops carry the forward OpDesc dict here
 
 class OpDef:
     def __init__(self, type: str, lower: Callable, needs_rng: bool,
-                 propagate_seqlen: bool = True):
+                 propagate_seqlen: bool = True, reads_env: bool = False):
         self.type = type
         self.lower = lower
         self.needs_rng = needs_rng
         self.propagate_seqlen = propagate_seqlen
+        self.reads_env = reads_env
         self.grad_lower: Optional[Callable] = None
         # parameter names of the rule (minus ctx) = input slot names
         params = list(inspect.signature(lower).parameters.values())[1:]
@@ -52,18 +53,23 @@ _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type: str, needs_rng: bool = False,
-                propagate_seqlen: bool = True):
+                propagate_seqlen: bool = True, reads_env: bool = False):
     """Decorator registering the rule for op `type`. With
     `propagate_seqlen` (the default, as in the JAX package) the executor
     carries the first input's `@SEQLEN` companions onto the op's outputs
     after the rule runs (``core/lowering.py::_propagate_seqlen``); an op
     that changes the time axis or the batch (`transpose`, `top_k`, the
-    sequence ops, the optimizer updates) registers False."""
+    sequence ops, the optimizer updates) registers False. `reads_env`
+    marks a rule that reads vars through `ctx.env` rather than its slots
+    (the control-flow ops, ``ops/control.py``): its generic grad
+    recomputes it on a copy of the env in which the autograd leaves
+    stand for the outer values."""
 
     def deco(fn):
         if type in _REGISTRY:
             raise ValueError(f"op {type!r} already registered")
-        _REGISTRY[type] = OpDef(type, fn, needs_rng, propagate_seqlen)
+        _REGISTRY[type] = OpDef(type, fn, needs_rng, propagate_seqlen,
+                                reads_env)
         return fn
 
     return deco
@@ -144,10 +150,15 @@ class LoweringContext:
     autograd (``core/lowering.py``): a rule that updates state in place
     (`batch_norm`'s running stats) does so only in the forward op. `amp`
     turns on the bf16 policy in `call_rule` (the JAX package reads it as
-    ``ctx.lowerer.amp``; the port has no lowerer)."""
+    ``ctx.lowerer.amp``; the port has no lowerer).
+
+    A control-flow rule also gets the `program` and the live `env`
+    (name -> tensor) and runs a sub-block through `run_block`, with this
+    context's device, `amp` and `recompute`; `env` is None in meta runs."""
 
     def __init__(self, attrs: Dict[str, Any], device, seed=None, op=None,
-                 live=None, recompute=False, amp=False):
+                 live=None, recompute=False, amp=False, program=None,
+                 env=None):
         self.attrs = attrs
         self.device = torch.device(device)
         self.seed = seed
@@ -155,7 +166,20 @@ class LoweringContext:
         self.live = live
         self.recompute = recompute
         self.amp = amp
+        self.program = program
+        self.env = env
         self._generator = None
+
+    def run_block(self, block_idx: int, env: Dict[str, Any], step: int = 0):
+        """Run block `block_idx` of the program on `env` (mutated and
+        returned). The random ops of iteration `step` draw from seeds
+        derived from (this op's seed, step, their index in the block):
+        the JAX package's `fold_in(key, t)`, so a grad's recompute draws
+        the forward's numbers."""
+        from .lowering import run_block
+        return run_block(self.program, block_idx, env, self.device,
+                         seed=self.seed or 0, counter=step, amp=self.amp,
+                         recompute=self.recompute)
 
     @property
     def generator(self):

@@ -6,10 +6,8 @@ Each schedule builds a small subgraph over the persistable global step
 counter ``@LR_DECAY_COUNTER@`` (float32 [1], 0 at startup), which the
 optimizer pass increments once a step after its update ops. The
 schedule's ops run on the device with the rest of the step: no value is
-read back to the host. The `staircase` option of the exponential,
-natural-exp and inverse-time decays and polynomial decay's `cycle` need
-the `floor` and `ceil` ops, which the port does not register yet; they
-raise.
+read back to the host. `staircase` rounds the decay's exponent down
+(`floor`), polynomial decay's `cycle` rounds its period up (`ceil`).
 """
 
 from __future__ import annotations
@@ -30,51 +28,52 @@ def _global_step(helper: LayerHelper):
     return var
 
 
-def _no_rounding(option, value):
-    if value:
-        raise NotImplementedError(
-            f"{option}=True needs the floor / ceil ops, which "
-            f"paddle_tpu_torch does not port yet")
-
-
 def global_learning_rate_counter():
     helper = LayerHelper("lr_counter")
     return _global_step(helper)
 
 
 def exponential_decay(learning_rate, decay_steps, decay_rate, staircase=False):
-    _no_rounding("staircase", staircase)
     helper = LayerHelper("exponential_decay")
     step = _global_step(helper)
     div = step / float(decay_steps)
+    if staircase:
+        div = nn.floor(div)
     return learning_rate * (decay_rate ** div)
 
 
 def natural_exp_decay(learning_rate, decay_steps, decay_rate, staircase=False):
-    _no_rounding("staircase", staircase)
     helper = LayerHelper("natural_exp_decay")
     step = _global_step(helper)
     div = step / float(decay_steps)
+    if staircase:
+        div = nn.floor(div)
     return learning_rate * nn.exp(div * (-decay_rate))
 
 
 def inverse_time_decay(learning_rate, decay_steps, decay_rate, staircase=False):
-    _no_rounding("staircase", staircase)
     helper = LayerHelper("inverse_time_decay")
     step = _global_step(helper)
     div = step / float(decay_steps)
+    if staircase:
+        div = nn.floor(div)
     denom = div * decay_rate + 1.0
     return tensor.fill_constant([1], "float32", learning_rate) / denom
 
 
 def polynomial_decay(learning_rate, decay_steps, end_learning_rate=0.0001,
                      power=1.0, cycle=False):
-    _no_rounding("cycle", cycle)
     helper = LayerHelper("polynomial_decay")
     step = _global_step(helper)
-    capped = nn.elementwise_min(step, tensor.fill_constant(
-        [1], "float32", float(decay_steps)))
-    frac = capped / float(decay_steps)
+    if cycle:
+        ratio = nn.ceil(step / float(decay_steps))
+        ratio = nn.elementwise_max(ratio, tensor.fill_constant(
+            [1], "float32", 1.0))
+        frac = step / (ratio * float(decay_steps))
+    else:
+        capped = nn.elementwise_min(step, tensor.fill_constant(
+            [1], "float32", float(decay_steps)))
+        frac = capped / float(decay_steps)
     one = tensor.fill_constant([1], "float32", 1.0)
     return (learning_rate - end_learning_rate) * ((one - frac) ** power) \
         + end_learning_rate

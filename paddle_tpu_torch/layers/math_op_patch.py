@@ -3,9 +3,9 @@
 python/paddle/fluid/layers/math_op_patch.py): `a + b`, `a * 2.0`,
 `2.0 ** a`, `a >= b`, ... append the elementwise or comparison op, a
 Python number entering as a [1] `fill_constant`. The learning rate
-schedules and per-parameter learning rates are built with them. `%`,
-`<=` and `>` wait for the ops they append (`elementwise_mod`,
-`less_equal`, `greater_than`), which the port does not register yet."""
+schedules and per-parameter learning rates are built with them. `%`
+waits for the op it appends (`elementwise_mod`), which the port does
+not register yet."""
 
 from __future__ import annotations
 
@@ -43,5 +43,7 @@ def monkey_patch_variable():
     V.__pow__ = _binary("elementwise_pow")
     V.__rpow__ = _binary("elementwise_pow", reverse=True)
     V.__lt__ = _binary("less_than")
+    V.__le__ = _binary("less_equal")
+    V.__gt__ = _binary("greater_than")
     V.__ge__ = _binary("greater_equal")
     V.__neg__ = lambda self: self * (-1.0)

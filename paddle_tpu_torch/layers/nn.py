@@ -265,6 +265,49 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     return helper.append_activation(out)
 
 
+def squeeze(input, axes=None, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("squeeze", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axes": axes or []})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("unsqueeze", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axes": list(axes)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+    else:
+        num = 0
+        sections = list(num_or_sections)
+    n_outs = num if num else len(sections)
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in range(n_outs)]
+    helper.append_op("split", inputs={"X": [input.name]},
+                     outputs={"Out": [o.name for o in outs]},
+                     attrs={"num": num, "sections": sections, "axis": dim})
+    return outs
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("slice", inputs={"Input": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
 def transpose(x, perm, name=None):
     helper = LayerHelper("transpose", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
@@ -328,6 +371,9 @@ sigmoid = _make_act("sigmoid")
 exp = _make_act("exp")
 sqrt = _make_act("sqrt")
 square = _make_act("square")
+tanh = _make_act("tanh")
+floor = _make_act("floor")
+ceil = _make_act("ceil")
 
 
 def _reduce_layer(op_type):

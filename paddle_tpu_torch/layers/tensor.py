@@ -1,8 +1,10 @@
 """Tensor layers (mirror of ``paddle_tpu/layers/tensor.py`` for the
-slices' subset: `fill_constant`, `assign`, `concat`, `sums`). `cast` is
-in ``layers/nn.py``."""
+slices' subset: `fill_constant`, `fill_constant_batch_size_like`,
+`assign`, `concat`, `sums`). `cast` is in ``layers/nn.py``."""
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..core import ir
 from ..layer_helper import LayerHelper
@@ -18,19 +20,38 @@ def fill_constant(shape, dtype, value, out=None, name=None):
     return out
 
 
+def fill_constant_batch_size_like(input, shape, dtype, value, input_dim_idx=0,
+                                  output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op("fill_constant_batch_size_like",
+                     inputs={"Input": [input.name]}, outputs={"Out": [out.name]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
 def assign(input, output=None):
-    """Copy a Variable into `output` (a new variable when None). The JAX
-    package also assigns a numpy value through its `assign_value` op,
-    which the port does not register yet."""
-    if not isinstance(input, ir.Variable):
-        raise NotImplementedError(
-            "assign of a numpy value needs the assign_value op, which "
-            "paddle_tpu_torch does not port yet; assign a Variable")
+    """Copy a Variable into `output` (a new variable when None), or a
+    numpy value through the `assign_value` op (its values in the attrs)."""
     helper = LayerHelper("assign")
-    if output is None:
-        output = helper.create_variable_for_type_inference(dtype=input.dtype)
-    helper.append_op("assign", inputs={"X": [input.name]},
-                     outputs={"Out": [output.name]})
+    if isinstance(input, ir.Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+        helper.append_op("assign", inputs={"X": [input.name]},
+                         outputs={"Out": [output.name]})
+    else:
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=str(arr.dtype))
+        helper.append_op("assign_value", outputs={"Out": [output.name]},
+                         attrs={"shape": list(arr.shape),
+                                "dtype": str(arr.dtype),
+                                "values": [float(v) for v in arr.reshape(-1)]})
     return output
 
 

@@ -1,7 +1,7 @@
 """Compound networks (mirror of ``paddle_tpu/nets.py``; reference
 python/paddle/fluid/nets.py: simple_img_conv_pool :24, img_conv_group
-:126, sequence_conv_pool :244, scaled_dot_product_attention :329). `glu`
-waits for the `split` op, which the port does not register yet."""
+:126, sequence_conv_pool :244, glu, scaled_dot_product_attention
+:329)."""
 
 from __future__ import annotations
 
@@ -68,6 +68,11 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                                     filter_size=filter_size,
                                     param_attr=param_attr, act=act)
     return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,

@@ -1,4 +1,5 @@
 """Op rules of the slices. Importing this package registers them."""
 
-from . import (flash_attention, loss, math, nn, optimizer_ops,  # noqa: F401
-               paged_attention, rnn, sequence, tensor)
+from . import (beam, control, flash_attention, loss, math,  # noqa: F401
+               nn, optimizer_ops, paged_attention, rnn, sequence, tensor,
+               tensor_array)

@@ -5,8 +5,11 @@ Mirror of ``paddle_tpu/ops/math.py``: the elementwise ops `add`, `sub`,
 `mul`, `div`, `max`, `min` and `pow` with the reference's broadcast
 `axis`, `mul`, `matmul`, `scale`, `sum`, `mean`, `cast`, `clip`,
 `clip_by_norm`, `reduce_sum`, the activations `relu`, `exp`, `sqrt`,
-`square` and `sigmoid`, `softmax`, `top_k`, and the comparisons
-`less_than` and `greater_equal`. Matrix products go to `torch.matmul`,
+`square`, `sigmoid`, `tanh`, `floor` and `ceil`, `softmax`,
+`log_softmax`, `top_k`, the comparisons `equal`, `not_equal`,
+`less_than`, `less_equal`, `greater_than` and `greater_equal`, and the
+logical ops `logical_and`, `logical_or`, `logical_xor` and
+`logical_not`. Matrix products go to `torch.matmul`,
 as the JAX package leaves them to XLA; in float32 on the card they run
 in full float32 (`torch.backends.cuda.matmul.allow_tf32` is False by
 default).
@@ -61,8 +64,15 @@ _register_binary("elementwise_div", torch.div)
 _register_binary("elementwise_max", torch.maximum)
 _register_binary("elementwise_min", torch.minimum)
 _register_binary("elementwise_pow", torch.pow)
+_register_binary("equal", torch.eq)
+_register_binary("not_equal", torch.ne)
 _register_binary("less_than", torch.lt)
+_register_binary("less_equal", torch.le)
+_register_binary("greater_than", torch.gt)
 _register_binary("greater_equal", torch.ge)
+_register_binary("logical_and", torch.logical_and)
+_register_binary("logical_or", torch.logical_or)
+_register_binary("logical_xor", torch.logical_xor)
 
 
 @register_op("mul")
@@ -159,6 +169,10 @@ _register_act("sigmoid", _sigmoid)
 _register_act("exp", torch.exp)
 _register_act("sqrt", torch.sqrt)
 _register_act("square", lambda x: x * x)
+_register_act("tanh", _tanh)
+_register_act("floor", torch.floor)
+_register_act("ceil", torch.ceil)
+_register_act("logical_not", torch.logical_not)
 
 
 @register_op("cast")
@@ -267,6 +281,16 @@ class _HalfSoftmax(torch.autograd.Function):
         ct_s = -_sum_as_jnp(g * (1.0 / (s * s)) * e, (ctx.axis,),
                             keepdim=True)
         return (g / s + ct_s) * e, None
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, X):
+    """`jax.nn.log_softmax`: x - max - log(sum(exp(x - max))), the max
+    taking no grad."""
+    axis = ctx.attr("axis", -1)
+    shifted = X - X.amax(dim=axis, keepdim=True).detach()
+    return {"Out": shifted - torch.log(
+        _sum_as_jnp(torch.exp(shifted), (axis,), keepdim=True))}
 
 
 @register_op("top_k", propagate_seqlen=False)

@@ -1514,3 +1514,127 @@ def test_lstm_rule_bf16_on_card_within_bf16_noise_of_host(dev, reverse):
               f"float32 control {control:.3e}, limit {limit:.3e}")
         assert dist <= limit, (k, dist, limit)
         assert control > limit, (k, control, limit)
+
+
+# ---------------------------------------------------------------------------
+# control flow on the card: the loop ops and the beam ops against the host
+# (chip_smoke.py owns the full-width machine_translation train and beam
+# decode; these check the ops at small sizes)
+# ---------------------------------------------------------------------------
+
+CONTROL_TOL = 1e-5
+
+
+def _card_and_host(dev, build, feed, backward=True):
+    """`build(L)` -> (loss or None, fetch names) in a fresh Program, its
+    grads appended when there is a loss; one step on the host and one on
+    the card from the same startup state. Returns (names, host, card)."""
+    from paddle_tpu_torch.core.backward import append_backward
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, names = build(ptt.layers)
+        if loss is not None and backward:
+            append_backward(loss)
+            gb = main.global_block()
+            names = names + sorted(n for n in gb.vars if n.endswith("@GRAD")
+                                   and n[:-5] in gb.vars
+                                   and gb.vars[n[:-5]].persistable)
+    host_exe = ptt.Executor(ptt.CPUPlace())
+    scope = ptt.Scope()
+    host_exe.run(startup, scope=scope)
+    state = {n: ptt.core.executor.fetch_var(n, scope)
+             for n in scope.local_var_names()}
+    host = host_exe.run(main, feed=feed, fetch_list=names,
+                        scope=ptt.io.state_from_numpy(state, ptt.CPUPlace()))
+    card = ptt.Executor(ptt.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=names,
+        scope=ptt.io.state_from_numpy(state, ptt.CUDAPlace(0)))
+    return names, host, card
+
+
+def _assert_card_is_host(names, host, card):
+    for n, h, c in zip(names, host, card):
+        assert h.shape == c.shape and h.dtype == c.dtype, n
+        if h.dtype.kind in "iub":
+            np.testing.assert_array_equal(c, h, err_msg=n)
+        else:
+            assert np.abs(c - h).max(initial=0) \
+                <= CONTROL_TOL * (1 + np.abs(h).max(initial=0)), n
+
+
+def test_static_rnn_on_card_equals_host(dev):
+    """A StaticRNN over 12 steps (an fc + gru_unit body, the MT decoder's
+    cell) with its grads: the body's parameters reach their grads through
+    the static_rnn grad's recompute on the card."""
+    rng = np.random.RandomState(11)
+
+    def build(L):
+        xs = L.data("xs", shape=[12, 32])
+        h0 = L.fc(L.data("x", shape=[32]), 48)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(xs)
+            h = rnn.memory(init=h0)
+            gate = L.fc(L.concat([xt, h], axis=1), 144, bias_attr=False)
+            nh, _, _ = L.gru_unit(gate, h, 144)
+            rnn.update_memory(h, nh)
+            rnn.step_output(nh)
+        out = rnn()
+        return L.mean(L.fc(out, 1, num_flatten_dims=2)), [out.name]
+
+    names, host, card = _card_and_host(
+        dev, build, {"xs": rng.randn(8, 12, 32).astype(np.float32),
+                     "x": rng.randn(8, 32).astype(np.float32)})
+    assert len(names) >= 5
+    _assert_card_is_host(names, host, card)
+    assert all(np.abs(g).max() > 0 for g in card[1:])
+
+
+def test_dynamic_rnn_on_card_equals_host(dev):
+    """DynamicRNN over lengths 1..12 with a static input and a memory."""
+    rng = np.random.RandomState(12)
+    lens = np.array([1, 12, 5, 9, 3, 12, 7, 2], np.int32)
+
+    def build(L):
+        xs = L.data("xs", shape=[32], lod_level=1)
+        s = L.data("s", shape=[32])
+        rnn = L.DynamicRNN()
+        with rnn.block():
+            xt = rnn.step_input(xs)
+            st = rnn.static_input(s)
+            h = rnn.memory(shape=[48], value=0.0)
+            nh = L.fc([xt, h, st], 48, act="tanh")
+            rnn.update_memory(h, nh)
+            rnn.output(nh)
+        out = rnn()
+        last = L.sequence_pool(out, "last")
+        return L.mean(L.fc(last, 1)), [out.name, last.name]
+
+    names, host, card = _card_and_host(
+        dev, build, {"xs": (rng.randn(8, 12, 32).astype(np.float32), lens),
+                     "s": rng.randn(8, 32).astype(np.float32)})
+    _assert_card_is_host(names, host, card)
+    out = card[0]
+    for b, n in enumerate(lens):
+        assert not out[b, n:].any()
+
+
+def test_beam_decode_on_card_equals_host(dev):
+    """machine_translation.build_infer at dict 64, width 32, beam 4,
+    max_len 8: tile_beam, batch_gather, beam_search_step and
+    beam_backtrack inside and after a StaticRNN; ids equal, scores to
+    CONTROL_TOL."""
+    from paddle_tpu_torch.models import machine_translation
+    rng = np.random.RandomState(13)
+
+    def build(L):
+        _, f = machine_translation.build_infer(
+            dict_size=64, emb_dim=32, hidden_dim=32, beam_size=4, max_len=8)
+        return None, [f["ids"].name, f["scores"].name]
+
+    names, host, card = _card_and_host(
+        dev, build, {"src_word": (rng.randint(2, 64, (6, 10, 1)),
+                                  np.array([10, 1, 4, 7, 10, 2], np.int32))},
+        backward=False)
+    assert card[0].shape == (6, 4, 8)
+    _assert_card_is_host(names, host, card)

@@ -290,6 +290,10 @@ SCHEDULES = {
     "piecewise_decay": lambda L: L.piecewise_decay([3, 10, 20],
                                                    [0.1, 0.05, 0.01, 0.001]),
     "noam_decay": lambda L: L.noam_decay(64, 10),
+    "exponential_decay-staircase": lambda L: L.exponential_decay(
+        0.1, 5, 0.5, staircase=True),
+    "polynomial_decay-cycle": lambda L: L.polynomial_decay(
+        0.1, 8, 0.001, 2.0, cycle=True),
 }
 
 
@@ -316,16 +320,6 @@ def test_schedule_matches_paddle_tpu_over_30_steps(name):
     np.testing.assert_array_equal(fetch_var("@LR_DECAY_COUNTER@", tscope),
                                   [30.0])
     _assert_same_state(jscope, tscope)
-
-
-@pytest.mark.parametrize("kind", ["staircase", "cycle"])
-def test_schedule_options_without_rounding_ops_raise(kind):
-    with ptt.program_guard(ptt.Program(), ptt.Program()):
-        with pytest.raises(NotImplementedError, match="floor / ceil"):
-            if kind == "staircase":
-                ptt.layers.exponential_decay(0.1, 5, 0.5, staircase=True)
-            else:
-                ptt.layers.polynomial_decay(0.1, 5, cycle=True)
 
 
 def test_per_parameter_learning_rate_matches_paddle_tpu():

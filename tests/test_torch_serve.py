@@ -357,8 +357,23 @@ from paddle_tpu_torch.layers import learning_rate_scheduler
 from paddle_tpu_torch.models import deepfm, se_resnext, vgg
 for name in ("paddle_tpu_torch.layers.control_flow",
              "paddle_tpu_torch.layers.math_op_patch",
-             "paddle_tpu_torch.layers.tensor", "paddle_tpu_torch.nets"):
+             "paddle_tpu_torch.layers.tensor", "paddle_tpu_torch.nets",
+             "paddle_tpu_torch.ops.control", "paddle_tpu_torch.ops.beam",
+             "paddle_tpu_torch.ops.tensor_array",
+             "paddle_tpu_torch.models.machine_translation",
+             "paddle_tpu_torch.contrib.decoder.beam_search_decoder"):
     assert name in sys.modules, name
+from paddle_tpu_torch.models import machine_translation
+mt, mt_start = ptt.Program(), ptt.Program()
+with ptt.program_guard(mt, mt_start), ptt.unique_name.guard():
+    _, mtf = machine_translation.build_infer(dict_size=16, emb_dim=8,
+                                             hidden_dim=8, beam_size=2,
+                                             max_len=3)
+mt_scope = ptt.Scope()
+exe.run(mt_start, scope=mt_scope)
+ids, = exe.run(mt, feed={"src_word": ([[[3], [4], [5]]] * 2, [3, 1])},
+               fetch_list=[mtf["ids"]], scope=mt_scope)
+assert ids.shape == (2, 2, 3)
 for build in (lambda: vgg.build(), lambda: se_resnext.build(class_dim=10),
               lambda: transformer.build(src_vocab_size=16, trg_vocab_size=16,
                                         seq_len=8, n_layer=1, n_head=2,

@@ -50,9 +50,10 @@ EARLIER_OPS = {
     "relu", "reshape", "scale", "sinusoid_pos_encoding",
     "softmax_with_cross_entropy", "sum", "transpose", "uniform_random"}
 # the op types later slices register (optimizers, schedules, clips, the
-# rest of the non-recurrent zoo, the sequence and recurrent ops); each has
-# its parity case in tests/test_torch_zoo.py, tests/test_torch_optim.py
-# or tests/test_torch_seq.py
+# rest of the non-recurrent zoo, the sequence and recurrent ops, control
+# flow, tensor arrays and beam search); each has its parity case in
+# tests/test_torch_zoo.py, tests/test_torch_optim.py, tests/test_torch_seq.py
+# or tests/test_torch_control.py
 LATER_OPS = {
     "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_min", "elementwise_max", "elementwise_pow", "exp", "sqrt",
@@ -64,7 +65,17 @@ LATER_OPS = {
     "sequence_pool", "sequence_softmax", "sequence_expand",
     "sequence_reshape", "sequence_concat", "sequence_slice",
     "sequence_conv", "sequence_erase", "sequence_expand_as", "row_conv",
-    "sequence_mask", "lstm", "gru", "lstm_unit", "gru_unit", "lstmp"}
+    "sequence_mask", "lstm", "gru", "lstm_unit", "gru_unit", "lstmp",
+    "while", "bounded_while", "static_rnn", "dynamic_rnn",
+    "conditional_block", "if_else", "select_input", "array_write",
+    "array_read", "array_length", "lod_rank_table", "max_sequence_len",
+    "lod_tensor_to_array", "array_to_lod_tensor", "shrink_memory",
+    "reorder_lod_tensor_by_rank", "tile_beam", "beam_search_step",
+    "beam_backtrack", "fill_constant_batch_size_like", "assign_value",
+    "squeeze", "unsqueeze", "split", "slice", "batch_gather", "is_empty",
+    "print", "log_softmax", "tanh", "floor", "ceil", "equal", "not_equal",
+    "less_equal", "greater_than", "logical_and", "logical_or",
+    "logical_xor", "logical_not"}
 
 
 @pytest.fixture(autouse=True)
@@ -358,12 +369,12 @@ def test_momentum_update_matches_paddle_tpu(nesterov):
 
 def test_every_port_op_is_a_reference_op_and_every_new_one_has_a_case():
     """The registry contract: the port registers only ops the JAX package
-    registers, 79 of them; the ops this slice adds are exactly NEW_OPS,
+    registers, 119 of them; the ops this slice adds are exactly NEW_OPS,
     and each one appears in a program of this file's parity cases."""
     ported = set(tregistry.registered_ops())
     assert ported <= set(jregistry.registered_ops())
-    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 46
-    assert len(ported) == 79
+    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 86
+    assert len(ported) == 119
     assert ported - EARLIER_OPS - LATER_OPS == NEW_OPS
     assert EARLIER_OPS | LATER_OPS <= ported
     covered = set()

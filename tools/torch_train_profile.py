@@ -2,7 +2,7 @@
 """Where paddle_tpu_torch's training step time goes on one NVIDIA card.
 
     python3 tools/torch_train_profile.py
-        [--model transformer|resnet50|stacked_lstm] [--amp] [--unfused]
+        [--model transformer|resnet50|stacked_lstm|mt] [--amp] [--unfused]
         [--steps N] [--out DIR]
     FLAGS_dropout_impl=pallas python3 tools/torch_train_profile.py ...
 
@@ -13,7 +13,12 @@ TRAIN_BATCH, Adam learning rate and fixed batch) or train-resnet50
 synthetic batch staged on the card first) or train-stacked-lstm
 (`--model stacked_lstm`: LSTM with Adam at LSTM_BATCH x LSTM_SEQ,
 bench.py's fixed `(words, lengths)` batch staged on the card; its
-`lstm` and `lstm_grad` rows are the time loops); with `--amp`, the same under
+`lstm` and `lstm_grad` rows are the time loops) or train-mt (`--model
+mt`: machine_translation at MT with Adam at MT_BATCH, its fixed
+`(src, lengths)` batch staged on the card; the `static_rnn` and
+`static_rnn_grad` rows are the decoder's 50-step loop, and the rows of
+the ops of its body, nested inside them, count each step's call);
+with `--amp`, the same under
 bf16 mixed precision (train-base-amp at TRAIN_AMP_BATCH, bench.py's
 batch; train-resnet50-amp), with `--unfused` train-base-unfused
 (`fused_attention=False`: matmul, causal mask, softmax, dropout and
@@ -58,10 +63,11 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (LSTM_BATCH, LSTM_SEQ, RESNET_BATCH,  # noqa: E402
-                        TRAIN_AMP_BATCH, TRAIN_BASE, TRAIN_BATCH,
-                        build_resnet, build_stacked_lstm, build_train,
-                        lstm_batch, resnet_batch, train_batch)
+from chip_smoke import (LSTM_BATCH, LSTM_SEQ, MT_BATCH,  # noqa: E402
+                        MT_TRG, RESNET_BATCH, TRAIN_AMP_BATCH, TRAIN_BASE,
+                        TRAIN_BATCH, build_mt, build_resnet,
+                        build_stacked_lstm, build_train, lstm_batch,
+                        mt_batch, resnet_batch, train_batch)
 from tools.torch_serve_profile import device_breakdown  # noqa: E402
 
 
@@ -143,7 +149,15 @@ KERNEL_GROUPS = {
                                                "embedding")),
                      ("reductions", ("reduce",)),
                      ("elementwise", ("elementwise", "vectorized",
-                                      "unrolled")))}
+                                      "unrolled"))),
+    # the encoder's LSTM loop and the decoder's 50 static_rnn steps: the
+    # output products [64, 512] x [512, 30000] a step among the GEMMs
+    "mt": (("GEMMs", ("gemm", "xmma", "cutlass", "nvjet")),
+           ("gathers and scatters", ("index", "gather", "scatter",
+                                     "embedding")),
+           ("softmax and log-softmax", ("softmax",)),
+           ("reductions", ("reduce",)),
+           ("elementwise", ("elementwise", "vectorized", "unrolled")))}
 
 
 def by_group(kernels, groups):
@@ -201,6 +215,17 @@ def main(argv=None) -> int:
                 "label": torch.from_numpy(label).cuda()}
         name, batch, unit, per_step = ("train-stacked-lstm", LSTM_BATCH,
                                        "padded_tokens", LSTM_BATCH * LSTM_SEQ)
+    elif args.model == "mt":
+        main_prog, startup, fetches = build_mt(ptt)
+        loss = fetches["loss"]
+        src, lens, trg, lbl, _ = mt_batch()
+        feed = {"src_word": (torch.from_numpy(src).cuda(),
+                             torch.from_numpy(lens).cuda()),
+                "trg_word": torch.from_numpy(trg).cuda(),
+                "lbl_word": torch.from_numpy(lbl).cuda()}
+        name, batch, unit, per_step = ("train-mt", MT_BATCH,
+                                       "padded_target_tokens",
+                                       MT_BATCH * MT_TRG)
     else:
         main_prog, startup, loss = build_train(
             ptt, fused_attention=not args.unfused)
