@@ -72,6 +72,26 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    whose tokens differ, is replayed on both teacher-forced on the host's
    tokens: logits within Q8_LOGIT_TOL, int8 caches apart by rounding
    flips only, differing picks a near-tie (see Q8_LOGIT_TOL below);
+4c. serve-base-swap: serve-base as v1 and a v2 from another weight seed;
+   4 requests start on v1 (600 new tokens each), v2 is staged with
+   `prepare_swap` and published with `commit_swap` while they decode,
+   4 more requests follow: the first finish on v1, the later on v2, each
+   with a `CPUPlace()` run's tokens of its version; no v2 prefill runs
+   before v1's slots drain; v1 retires; the flash forward and paged decode
+   kernels launch on both versions, once a layer a step;
+4d. serve-resnet50: ResNet-50 (bench.py's, 224 x 224 x 3 NHWC, 1000
+   classes, float32, TF32 off) built for inference, saved with
+   `save_inference_model` and served one-shot by
+   `InferenceServer(CUDAPlace(0))` over rows rungs 1..32: probes solo
+   against a `CPUPlace()` server and coalesced into one batch of 32 against
+   their solo rows (top-1 equal, probabilities and log-probabilities within
+   tolerance); then 640 requests of 1-8 images from 16 closed-loop client
+   threads, with v2 (parameters x 1.01) staged and committed halfway and
+   v3 (x 1.02) saved over the served dir and picked up by the dir watcher,
+   a probe after each flip against the host's run of that version: no
+   failed request, every version serving, v1 and v2 retired, no kernel of
+   ``csrc/`` launched; images/s, latency p50/p99, batches, occupancy,
+   padding waste and peak device memory printed;
 5. train-base: build Transformer-base (`models/transformer.py`: vocab
    30000, seq 256, 6 layers, 8 heads, d_model 512, d_inner 2048, dropout
    0.1, fused attention) with `Adam(1e-3)`, run its startup with
@@ -202,6 +222,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SEED = 0
@@ -251,7 +272,8 @@ ATTN_SEED = 12345   # attention-dropout seed of the kernel checks
 # train-resnet50: the JAX package's headline benchmark as bench.py builds
 # it (bench_resnet: depth 50, 1000 classes, 224 x 224 x 3 NHWC, batch 128,
 # Momentum(0.1, 0.9)), in float32 with TF32 off
-RESNET50 = dict(class_dim=1000, depth=50, data_format="NHWC")
+RESNET50 = dict(class_dim=1000, depth=50, data_format="NHWC",
+                image_shape=(3, 224, 224))
 RESNET_BATCH, RESNET_STEPS, RESNET_LR, RESNET_MOMENTUM = 128, 10, 0.1, 0.9
 # card vs host: ResNet-50 at batch 2, PARITY_STEPS steps on one batch at a
 # learning rate at which no loss falls below 0.1 (at 0.1 a batch of 2
@@ -404,6 +426,44 @@ MT_LR, MT_DATA_SEED, MT_WARMUP, MT_STEPS = 1e-3, 0, 3, 10
 # both sides' scores at that step lie within MT_TIE of each other
 MT_BEAM, MT_MAX_LEN, MT_DECODE_BATCH, MT_DECODE_RUNS = 4, 50, 16, 3
 MT_SCORE_RTOL, MT_TIE = 1e-4, 1e-5
+# serve-resnet50: bench.py's ResNet-50 (RESNET50) built for inference
+# (`is_test`), random weights from SEED, batch-norm running statistics a
+# calibration batch's perturbed from RandomState(DATA_SEED)
+# (serve_resnet50_model), served one-shot
+# on the card by InferenceServer's MicroBatcher: rows ladder 1..32, the
+# default 2 ms batch window, a closed loop of 16 client threads issuing 640
+# requests of 1-8 images (sizes and images from RandomState(DATA_SEED); the
+# images are rows of a pool of SERVE_RN50_POOL). In the same traffic v2
+# (every parameter x 1.01) is staged with prepare_swap and published with
+# commit_swap halfway, and v3 (x 1.02) is saved over the served dir and
+# picked up by the dir watcher
+SERVE_RN50_LADDER = (1, 2, 4, 8, 16, 32)
+SERVE_RN50_CLIENTS, SERVE_RN50_REQUESTS, SERVE_RN50_MAX_IMAGES = 16, 640, 8
+SERVE_RN50_POOL, SERVE_RN50_CALIB = 256, 8
+SERVE_RN50_SCALES = (1.0, 1.01, 1.02)       # v1, v2, v3
+# the probes: run solo on the card and on the host, and coalesced (with
+# filler rows) into one batch of the top rung on the card
+SERVE_RN50_PROBES, SERVE_RN50_FILLERS = (1, 3, 8, 2, 5, 1), (8, 4)
+SERVE_RN50_SWAP_PROBE = 1                   # the probe resubmitted after a flip
+# card vs host, and a probe's rows coalesced vs solo: softmax
+# probabilities over 1000 classes through 53 float32 convs (TF32 off),
+# summed in another order on each side and by another cuDNN algorithm at
+# another batch size. With random weights the softmax is near one-hot
+# (logits about +-200, top-1 gaps above 20), so beside the probabilities
+# (within SERVE_RN50_PROB_TOL) the log-probabilities above 1e-30, which
+# carry the logits less their log-sum-exp, are held to
+# SERVE_RN50_LOGP_TOL (1 + |log p|). On an H100 the largest readings were
+# 1.2e-11 and 1.1e-5 (1 + |log p|) (card vs host and coalesced vs solo);
+# v2 against v1 reads 2.6 (1 + |log p|) on the log-probabilities while
+# its probabilities differ by only 1.2e-7
+SERVE_RN50_PROB_TOL, SERVE_RN50_LOGP_TOL, SERVE_RN50_LOGP_FLOOR = \
+    1e-6, 1e-4, 1e-30
+# serve-base-swap: serve-base (v1) and a v2 from SWAP_WEIGHT_SEED; 4
+# requests on v1 generating SWAP_V1_TOKENS each (long enough that they
+# still decode when v2 is committed), then 4 on v2
+SWAP_WEIGHT_SEED = WEIGHT_SEED + 1
+SWAP_V1_LENS, SWAP_V2_LENS = (40, 100, 160, 220), (60, 120, 180, 240)
+SWAP_V1_TOKENS, SWAP_V2_TOKENS = 600, NEW_TOKENS
 
 
 def log(*a):
@@ -2464,6 +2524,452 @@ def _mt_tie_rows(card_hist, host_hist, tie=MT_TIE):
     return rows
 
 
+def _count_runs(native, prepared, tally, before_run=None):
+    """Wrap `prepared.run` so each run adds its kernel launches (the
+    native counters' advance across the run) and one `runs` to `tally`.
+    Only the engine thread launches while a phase is counted, so the
+    deltas belong to this program."""
+    run = prepared.run
+
+    def counted(feed, *a, **k):
+        if before_run is not None:
+            before_run()
+        snap = dict(native.launches)
+        out = run(feed, *a, **k)
+        for n, v in native.launches.items():
+            tally[n] = tally.get(n, 0) + v - snap.get(n, 0)
+        tally["runs"] = tally.get("runs", 0) + 1
+        return out
+
+    prepared.run = counted
+
+
+def run_serve_base_swap(torch, ptt, native, tiny_lm, tmp, mdir, sig):
+    """serve-base-swap: serve-base (v1, `mdir`) and a v2 from
+    SWAP_WEIGHT_SEED. Four requests start on v1 (their first tokens out);
+    v2 is staged with prepare_swap and published with commit_swap while
+    they decode; four more requests follow. The first finish on v1 with
+    the host's v1 tokens, the later on v2 with the host's v2 tokens; no v2
+    prefill runs before v1's slots drain; v1 retires; kernels 1 and 4
+    launch on both versions. Returns the numbers."""
+    import numpy as np
+    v2dir = os.path.join(tmp, "serve_base_v2")
+    tiny_lm.save_tiny_lm(v2dir, seed=SWAP_WEIGHT_SEED, **SERVE_BASE)
+    p1 = prompts_for(sig["vocab"], lens=SWAP_V1_LENS)
+    p2 = prompts_for(sig["vocab"], lens=SWAP_V2_LENS)
+    n_layers = sig["n_layers"]
+    tally = {"v1": {}, "v1_decode": {}, "v2": {}, "v2_decode": {}}
+    v2_prefills_after_drain = []
+    srv = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+    try:
+        v1 = srv.add_model("lm", mdir)
+        _count_runs(native, v1.prepared, tally["v1"])
+        _count_runs(native, v1.decode.prepared, tally["v1_decode"])
+        native.reset_launches()
+        t0 = time.perf_counter()
+        streams = [srv.submit_stream("lm", p, max_new_tokens=SWAP_V1_TOKENS)
+                   for p in p1]
+        first = [next(iter(s)) for s in streams]
+        t_first = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        staged = srv.prepare_swap("lm", v2dir)
+        prepare_s = time.perf_counter() - t1
+        _count_runs(native, staged.prepared, tally["v2"], before_run=lambda:
+                    v2_prefills_after_drain.append(
+                        all(s.future.done() for s in streams)))
+        _count_runs(native, staged.decode.prepared, tally["v2_decode"])
+        active_at_commit = sum(not s.future.done() for s in streams)
+        t_commit = time.perf_counter()
+        v2 = srv.commit_swap("lm")
+        futs = [srv.submit_generate("lm", p, max_new_tokens=SWAP_V2_TOKENS)
+                for p in p2]
+        r1 = [s.future.result(timeout=600) for s in streams]
+        t_drained = time.perf_counter()
+        r2 = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        retired = v1.wait_retired(60)
+        ttft_v2 = sorted(r.ttft_us / 1e3 for r in r2)
+    finally:
+        srv.close()
+    if active_at_commit < 1:
+        raise AssertionError(
+            f"serve-base-swap: every v1 request had finished before "
+            f"commit_swap (prepare_swap took {prepare_s:.2f} s): the drill "
+            f"did not swap under load; raise SWAP_V1_TOKENS")
+    if not v2_prefills_after_drain or not all(v2_prefills_after_drain):
+        raise AssertionError(f"serve-base-swap: a v2 prefill ran before v1's "
+                             f"slots drained: {v2_prefills_after_drain}")
+    if not retired:
+        raise AssertionError("serve-base-swap: v1 did not retire")
+    if [r.tokens[0] for r in r1] != first \
+            or {r.version_id for r in r1} != {v1.version_id} \
+            or {r.version_id for r in r2} != {v2.version_id}:
+        raise AssertionError("serve-base-swap: a request finished on the "
+                             "wrong version")
+    # the same requests on the host: v1, then v2 by a hot swap there too
+    t0 = time.perf_counter()
+    host = ptt.serve.InferenceServer(ptt.CPUPlace())
+    try:
+        host.add_model("lm", mdir, warm=False)
+        h1 = [f.result(timeout=1200) for f in [
+            host.submit_generate("lm", p, max_new_tokens=SWAP_V1_TOKENS)
+            for p in p1]]
+        host.add_model("lm", v2dir, warm=False)
+        h2 = [f.result(timeout=1200) for f in [
+            host.submit_generate("lm", p, max_new_tokens=SWAP_V2_TOKENS)
+            for p in p2]]
+    finally:
+        host.close()
+    host_s = time.perf_counter() - t0
+    for tag, got, want in (("v1", r1, h1), ("v2", r2, h2)):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.tokens != b.tokens:
+                raise AssertionError(
+                    f"serve-base-swap {tag} request {i}: card tokens "
+                    f"{a.tokens} != host tokens {b.tokens}")
+    # each version's runs launch their kernels once a layer. v2 is held to
+    # that exactly; v1's decode steps overlap v2's warm runs, which
+    # prepare_swap makes on this thread while v1 decodes, so a v1 step's
+    # count may include them
+    for key, kern in (("v1", "flash_fwd"), ("v2", "flash_fwd"),
+                      ("v1_decode", "paged_decode"),
+                      ("v2_decode", "paged_decode")):
+        t = tally[key]
+        n, want = t.get(kern, 0), n_layers * t.get("runs", 0)
+        if want < 1 or n < want or (key.startswith("v2") and n != want):
+            raise AssertionError(f"serve-base-swap {key}: {kern} launched "
+                                 f"{n} times over {t.get('runs')} runs of "
+                                 f"{n_layers} layers")
+    return {"prepare_s": prepare_s, "first_tokens_s": t_first,
+            "active_at_commit": active_at_commit,
+            "drain_s": t_drained - t_commit,
+            "swap_to_v2_done_s": t_end - t_commit,
+            "v2_ttft_ms": ttft_v2, "host_s": host_s,
+            "tokens": {"v1": sum(len(r.tokens) for r in r1),
+                       "v2": sum(len(r.tokens) for r in r2)},
+            "runs": {k: v.get("runs", 0) for k, v in tally.items()},
+            "launches_by_version": {
+                "v1": {"flash_fwd": tally["v1"].get("flash_fwd", 0),
+                       "paged_decode": tally["v1_decode"].get(
+                           "paged_decode", 0)},
+                "v2": {"flash_fwd": tally["v2"].get("flash_fwd", 0),
+                       "paged_decode": tally["v2_decode"].get(
+                           "paged_decode", 0)}}}
+
+
+def serve_resnet50_model(ptt):
+    """bench.py's ResNet-50 built for inference: the program, its
+    `predict`, and the host scope of its startup (SEED). Each batch norm's
+    running statistics are a calibration batch's, perturbed from
+    RandomState(DATA_SEED): the batch's channel means plus N(0, 0.1) of
+    its standard deviations, its variances times U[0.5, 1.5]. (Drawn
+    outright, means ~N(0, 0.1) and variances in [0.5, 1.5] leave the 53
+    layers unnormalized: on an H100 the logits reached +-3,800 with a
+    top-1 gap of 77 or more, every softmax one-hot, and no probability
+    could show an error.) The calibration batch is SERVE_RN50_CALIB images
+    through the same weights in training mode on the host, which
+    normalizes by the batch's own statistics (SavedMean, and SavedVariance
+    = 1 / sqrt(var + eps))."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = resnet.build(**RESNET50, is_test=True)
+    calib = ptt.Program()
+    with ptt.program_guard(calib, ptt.Program()), ptt.unique_name.guard():
+        resnet.build(**RESNET50)
+    exe = ptt.Executor(ptt.CPUPlace())
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    bns = [op for op in calib.global_block().ops if op.type == "batch_norm"]
+    rng = np.random.RandomState(DATA_SEED)
+    c, h, w = RESNET50["image_shape"]
+    images = rng.rand(SERVE_RN50_CALIB, h, w, c).astype(np.float32)
+    scratch = ptt.Scope()
+    for n in scope.local_var_names():
+        scratch.set_var(n, scope.find_var(n).clone())
+    stats = exe.run(calib, feed={"image": images, "label": np.zeros(
+        (SERVE_RN50_CALIB, 1), np.int64)}, scope=scratch,
+        fetch_list=[op.output(k)[0] for op in bns
+                    for k in ("SavedMean", "SavedVariance")])
+    for i, op in enumerate(bns):
+        mean, inv = stats[2 * i], stats[2 * i + 1]
+        var = inv.astype(np.float64) ** -2 - op.attrs.get("epsilon", 1e-5)
+        mean = mean + rng.randn(*mean.shape) * 0.1 * np.sqrt(var)
+        var = var * rng.uniform(0.5, 1.5, var.shape)
+        scope.set_var(op.input("Mean")[0],
+                      torch.from_numpy(mean.astype(np.float32)))
+        scope.set_var(op.input("Variance")[0],
+                      torch.from_numpy(var.astype(np.float32)))
+    return main, fetches["predict"], exe, scope
+
+
+def save_serve_resnet50(ptt, model, path, scale):
+    """Save `model` (serve_resnet50_model's) with every parameter times
+    `scale` (atomically, over whatever `path` holds)."""
+    main, predict, exe, base = model
+    scope = ptt.Scope()
+    params = {p.name for p in main.global_block().all_parameters()}
+    for n in base.local_var_names():
+        v = base.find_var(n)
+        scope.set_var(n, v * scale if n in params else v)
+    ptt.io.save_inference_model(path, ["image"], [predict], exe,
+                                main_program=main, scope=scope)
+
+
+def _rn50_check(tag, got, want):
+    """Top-1 ids equal, probabilities within SERVE_RN50_PROB_TOL and
+    log-probabilities above SERVE_RN50_LOGP_FLOOR within
+    SERVE_RN50_LOGP_TOL (1 + |log p|); returns the largest share of either
+    tolerance."""
+    import numpy as np
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"serve-resnet50 {tag}: shape {got.shape} vs "
+                             f"{want.shape} or not finite")
+    if (got.argmax(-1) != want.argmax(-1)).any():
+        raise AssertionError(f"serve-resnet50 {tag}: top-1 ids "
+                             f"{got.argmax(-1)} != {want.argmax(-1)}")
+    live = want > SERVE_RN50_LOGP_FLOOR
+    logw = np.log(want[live])
+    logg = np.log(np.maximum(got[live], np.finfo(np.float32).tiny))
+    shares = (float(np.abs(got - want).max()) / SERVE_RN50_PROB_TOL,
+              float((np.abs(logg - logw) / (1 + np.abs(logw))).max())
+              / SERVE_RN50_LOGP_TOL)
+    if not max(shares) <= 1.0:
+        raise AssertionError(f"serve-resnet50 {tag}: {shares} of the "
+                             f"probability and log-probability tolerances")
+    return max(shares)
+
+
+def run_serve_resnet50(torch, ptt, native, tmp):
+    """serve-resnet50 (see SERVE_RN50_*): returns the numbers."""
+    import numpy as np
+    from paddle_tpu_torch.observe import metrics
+    t0 = time.perf_counter()
+    model = serve_resnet50_model(ptt)
+    dirs = [os.path.join(tmp, f"resnet50_v{i + 1}") for i in range(2)]
+    for path, scale in zip(dirs, SERVE_RN50_SCALES):
+        save_serve_resnet50(ptt, model, path, scale)
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(DATA_SEED)
+    c, h, w = RESNET50["image_shape"]
+    pool = rng.rand(SERVE_RN50_POOL, h, w, c).astype(np.float32)
+    sizes = rng.randint(1, SERVE_RN50_MAX_IMAGES + 1, SERVE_RN50_REQUESTS)
+    feeds = [pool[rng.randint(0, SERVE_RN50_POOL, n)] for n in sizes]
+    probes = [pool[rng.randint(0, SERVE_RN50_POOL, n)]
+              for n in SERVE_RN50_PROBES]
+    fillers = [pool[rng.randint(0, SERVE_RN50_POOL, n)]
+               for n in SERVE_RN50_FILLERS]
+    swap_probe = probes[SERVE_RN50_SWAP_PROBE]
+
+    def host_outputs(path, inputs):
+        with ptt.serve.InferenceServer(ptt.CPUPlace()) as host:
+            host.add_model("rn50", path, warm=False,
+                           ladder=ptt.serve.BucketLadder(
+                               rows=SERVE_RN50_LADDER))
+            return [host.infer("rn50", {"image": x})[0] for x in inputs]
+
+    t0 = time.perf_counter()
+    host_v1 = host_outputs(dirs[0], probes)
+    host_v2 = host_outputs(dirs[1], [swap_probe])[0]
+    host_s = time.perf_counter() - t0
+
+    occ_h = metrics.histogram("serve_batch_occupancy")
+    waste_h = metrics.histogram("serve_padding_waste_ratio")
+    rows_h = metrics.histogram("serve_batch_rows")
+
+    def hist(h):
+        s = h.summary(model="rn50")
+        return (s["count"], s["count"] * s["mean"]) if s else (0, 0.0)
+
+    peaks = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+    try:
+        t0 = time.perf_counter()
+        v1 = srv.add_model("rn50", dirs[0], ladder=ptt.serve.BucketLadder(
+            rows=SERVE_RN50_LADDER))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peaks["load"] = torch.cuda.max_memory_allocated()
+        # the probes alone, then coalesced into one batch of the top rung
+        solo = [srv.infer("rn50", {"image": x})[0] for x in probes]
+        errs = {"card_vs_host": max(
+            _rn50_check(f"probe {i} card vs host", a, b)
+            for i, (a, b) in enumerate(zip(solo, host_v1)))}
+        batcher = srv._batchers["rn50"]
+        batcher.reconfigure(batch_timeout_ms=1000.0)
+        before = hist(rows_h)
+        futs = [srv.submit("rn50", {"image": x}) for x in probes + fillers]
+        coalesced = [f.result(timeout=300)[0] for f in futs]
+        after = hist(rows_h)
+        batcher.reconfigure(batch_timeout_ms=ptt.serve.ServeConfig()
+                            .batch_timeout_ms)
+        if (after[0] - before[0], after[1] - before[1]) != \
+                (1, SERVE_RN50_LADDER[-1]):
+            raise AssertionError(f"serve-resnet50: the probes took "
+                                 f"{after[0] - before[0]} batches of "
+                                 f"{after[1] - before[1]} rows, expected one "
+                                 f"of {SERVE_RN50_LADDER[-1]}")
+        errs["coalesced_vs_solo"] = max(
+            _rn50_check(f"probe {i} coalesced vs solo", a, b)
+            for i, (a, b) in enumerate(zip(coalesced, solo)))
+
+        # the traffic, gated by the controller below
+        n = SERVE_RN50_REQUESTS
+        cond = threading.Condition()
+        state = {"allowed": 0, "next": 0, "done": 0}
+        results = [None] * n
+        errors = []
+
+        def release(k):
+            with cond:
+                state["allowed"] = k
+                cond.notify_all()
+
+        def wait_done(k, timeout=600):
+            with cond:
+                if not cond.wait_for(lambda: state["done"] >= k or errors,
+                                     timeout):
+                    raise AssertionError(f"serve-resnet50: {state['done']} "
+                                         f"of {k} requests done in {timeout} s")
+
+        def client():
+            while True:
+                with cond:
+                    cond.wait_for(lambda: state["next"] < state["allowed"]
+                                  or state["next"] >= n)
+                    if state["next"] >= n:
+                        return
+                    i = state["next"]
+                    state["next"] += 1
+                t_sub = time.perf_counter()
+                try:
+                    fut = srv.submit("rn50", {"image": feeds[i]})
+                    out, = fut.result(timeout=300)
+                    results[i] = (out, fut.version_id,
+                                  time.perf_counter() - t_sub,
+                                  time.perf_counter())
+                except Exception as e:      # noqa: BLE001
+                    errors.append(f"request {i}: {e!r}")
+                with cond:
+                    state["done"] += 1
+                    cond.notify_all()
+
+        native.reset_launches()
+        occ0, waste0 = hist(occ_h), hist(waste_h)
+        torch.cuda.reset_peak_memory_stats()
+        threads = [threading.Thread(target=client, name=f"rn50-client-{k}")
+                   for k in range(SERVE_RN50_CLIENTS)]
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        try:
+            release(n // 2)
+            wait_done(n // 2 - 2 * SERVE_RN50_CLIENTS)
+            steady = (state["done"], time.perf_counter() - t_start)
+            peaks["steady"] = torch.cuda.max_memory_allocated()
+            # v2: staged under load, then published
+            torch.cuda.reset_peak_memory_stats()
+            release(n * 3 // 4)
+            t0 = time.perf_counter()
+            staged = srv.prepare_swap("rn50", dirs[1])
+            prepare_s = time.perf_counter() - t0
+            v2 = srv.commit_swap("rn50")
+            probe_fut = srv.submit("rn50", {"image": swap_probe})
+            errs["after_v2_flip"] = _rn50_check(
+                "probe after the v2 flip vs host v2",
+                probe_fut.result(timeout=300)[0], host_v2)
+            if probe_fut.version_id != v2.version_id or staged is not v2:
+                raise AssertionError("serve-resnet50: the probe after the "
+                                     "v2 flip ran on another version")
+            release(n * 7 // 8)
+            wait_done(n * 3 // 4)
+            peaks["swap"] = torch.cuda.max_memory_allocated()
+            # v3: saved over the served dir, picked up by the watcher
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            save_serve_resnet50(ptt, model, dirs[1], SERVE_RN50_SCALES[2])
+            srv.start_watch(0.5)
+            while srv.registry.get("rn50").version_id == v2.version_id:
+                if time.perf_counter() - t0 > 300 or errors:
+                    raise AssertionError("serve-resnet50: the watcher did "
+                                         "not swap in v3")
+                time.sleep(0.05)
+            watch_s = time.perf_counter() - t0
+            v3 = srv.registry.get("rn50")
+            probe_fut = srv.submit("rn50", {"image": swap_probe})
+            v3_probe = probe_fut.result(timeout=300)[0]
+            if probe_fut.version_id != v3.version_id:
+                raise AssertionError("serve-resnet50: the probe after the "
+                                     "v3 flip ran on another version")
+            peaks["watch"] = torch.cuda.max_memory_allocated()
+            release(n)
+            wait_done(n)
+        finally:
+            release(n)
+            with cond:
+                state["next"] = n
+                cond.notify_all()
+            for t in threads:
+                t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = dict(native.launches)
+        retired = {"v1": v1.wait_retired(60), "v2": v2.wait_retired(60)}
+        occ1, waste1 = hist(occ_h), hist(waste_h)
+    finally:
+        srv.close()
+    t0 = time.perf_counter()
+    errs["after_v3_flip"] = _rn50_check(
+        "probe after the v3 flip vs host v3", v3_probe,
+        host_outputs(dirs[1], [swap_probe])[0])
+    host_s += time.perf_counter() - t0
+    if errors or any(r is None for r in results) \
+            or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve-resnet50: {len(errors)} failed "
+                             f"requests: {errors[:3]}")
+    if any(launches.values()):
+        raise AssertionError(f"serve-resnet50 launched a hand-written "
+                             f"kernel: {launches}")
+    if not all(retired.values()):
+        raise AssertionError(f"serve-resnet50: not retired: {retired}")
+    served = {}
+    for (out, vid, _, _), x in zip(results, feeds):
+        if out.shape != (len(x), RESNET50["class_dim"]) \
+                or not np.isfinite(out).all() \
+                or not np.allclose(out.sum(-1), 1.0, atol=1e-4):
+            raise AssertionError(f"serve-resnet50: a bad output "
+                                 f"{out.shape}")
+        served[vid] = served.get(vid, 0) + 1
+    by_version = {tag: served.get(v.version_id, 0)
+                  for tag, v in (("v1", v1), ("v2", v2), ("v3", v3))}
+    if sum(by_version.values()) != n or min(by_version.values()) < 1:
+        raise AssertionError(f"serve-resnet50: requests by version "
+                             f"{by_version}")
+    lat = sorted(r[2] * 1e3 for r in results)
+    images = int(sizes.sum())
+    batches = occ1[0] - occ0[0]
+    return {"images": images, "requests": n, "wall_s": wall,
+            "images_per_s": images / wall,
+            "steady_images_per_s": float(sum(
+                len(feeds[i]) for i in range(n) if results[i][3] - t_start
+                <= steady[1])) / steady[1],
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "batches": batches,
+            "avg_occupancy": (occ1[1] - occ0[1]) / max(batches, 1),
+            "avg_padding_waste": (waste1[1] - waste0[1]) / max(batches, 1),
+            "peak_bytes": peaks,
+            "load_s": load_s, "prepare_s": prepare_s, "watch_s": watch_s,
+            "build_s": build_s, "host_s": host_s, "errors": errs,
+            "by_version": by_version, "launches": launches}
+
+
 def run_infer_mt_beam(torch, ptt, native, trained, tmp):
     """infer-mt-beam: the trained parameters saved and loaded into
     `build_infer`'s program (beam MT_BEAM, max_len MT_MAX_LEN), that
@@ -2863,6 +3369,55 @@ def main() -> int:
         serve8 = run_serve_int8(torch, ptt, native, tiny_lm, tmp, card,
                                 fp32_tokens)
 
+        # 4c. serve-base-swap: a generative hot swap under load
+        t0 = time.perf_counter()
+        swap = run_serve_base_swap(torch, ptt, native, tiny_lm, tmp, mdir, sig)
+        log(f"serve-base-swap on the card [{card}]: {len(SWAP_V1_LENS)} "
+            f"requests x {SWAP_V1_TOKENS} tokens on v1, first tokens out in "
+            f"{swap['first_tokens_s']:.2f} s; prepare_swap (v2 load + verify "
+            f"+ warm, under load) {swap['prepare_s']:.2f} s; "
+            f"{swap['active_at_commit']} v1 requests still decoding at "
+            f"commit_swap, drained {swap['drain_s']:.2f} s after it; "
+            f"{len(SWAP_V2_LENS)} v2 requests x {SWAP_V2_TOKENS} tokens done "
+            f"{swap['swap_to_v2_done_s']:.2f} s after the commit (v2 TTFT "
+            f"{[round(x, 1) for x in swap['v2_ttft_ms']]} ms); runs "
+            f"{swap['runs']}; launches by version "
+            f"{swap['launches_by_version']}; tokens equal to the host's on "
+            f"both versions (host {swap['host_s']:.1f} s); v1 retired; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # 4d. serve-resnet50: one-shot serving at ResNet-50's full width, with
+    # a staged swap and a watcher swap in the same traffic
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rn50_") as tmp:
+        rn50 = run_serve_resnet50(torch, ptt, native, tmp)
+    gib = {k: round(v / 2**30, 3) for k, v in rn50["peak_bytes"].items()}
+    log(f"serve-resnet50 on the card [{card}]: {rn50['requests']} requests "
+        f"({rn50['images']} images of 224 x 224 x 3, 1-"
+        f"{SERVE_RN50_MAX_IMAGES} a request) from {SERVE_RN50_CLIENTS} "
+        f"closed-loop clients in {rn50['wall_s']:.2f} s = "
+        f"{rn50['images_per_s']:.1f} images/s ({rn50['steady_images_per_s']:.1f} "
+        f"over the first half, before any swap); latency p50 "
+        f"{rn50['p50_ms']:.1f} ms p99 {rn50['p99_ms']:.1f} ms; "
+        f"{rn50['batches']} batches, average occupancy "
+        f"{rn50['avg_occupancy']:.2f} requests, average padding waste "
+        f"{rn50['avg_padding_waste']:.4f}; peak device memory GiB {gib} "
+        f"(torch.cuda.max_memory_allocated; steady traffic, the v2 swap "
+        f"window, the v3 watcher window); requests by version "
+        f"{rn50['by_version']}; load + verify + warm {rn50['load_s']:.2f} s, "
+        f"prepare_swap under load {rn50['prepare_s']:.2f} s, save + watcher "
+        f"swap {rn50['watch_s']:.2f} s; launches {rn50['launches']}")
+    log(f"serve-resnet50 checks: probes {SERVE_RN50_PROBES} card vs host, "
+        f"coalesced (one batch of {SERVE_RN50_LADDER[-1]}) vs solo, and "
+        f"after each flip vs the host's version: top-1 equal, largest share "
+        f"of the tolerances (probabilities {SERVE_RN50_PROB_TOL}, "
+        f"log-probabilities above {SERVE_RN50_LOGP_FLOOR} "
+        f"{SERVE_RN50_LOGP_TOL} (1 + |log p|)) "
+        f"{ {k: float(f'{v:.3g}') for k, v in rn50['errors'].items()} }; "
+        f"0 failed requests; v1 and v2 retired; "
+        f"host {rn50['host_s']:.1f} s, build and saves {rn50['build_s']:.1f} "
+        f"s; {time.perf_counter() - t0:.1f} s")
+
     # 5. train-base on the card, with the bits dropout and with the kernel
     trains = {}
     for impl in ("auto", "pallas"):
@@ -3236,7 +3791,12 @@ def main() -> int:
                               "train_pallas":
                                   trains["pallas"]["launches"]["flash_fwd"],
                               "serve": launches["flash_fwd"],
-                              "serve_int8": serve8["launches"]["flash_fwd"]},
+                              "serve_int8": serve8["launches"]["flash_fwd"],
+                              "serve_swap_v1": swap["launches_by_version"][
+                                  "v1"]["flash_fwd"],
+                              "serve_swap_v2": swap["launches_by_version"][
+                                  "v2"]["flash_fwd"],
+                              "serve_resnet50": rn50["launches"]["flash_fwd"]},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -3297,6 +3857,13 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:138",
          "launches": launches["paged_decode"],
+         "launches_by_path": {
+             "serve": launches["paged_decode"],
+             "serve_swap_v1": swap["launches_by_version"]["v1"][
+                 "paged_decode"],
+             "serve_swap_v2": swap["launches_by_version"]["v2"][
+                 "paged_decode"],
+             "serve_resnet50": rn50["launches"]["paged_decode"]},
          "max_abs_err": max(paged["err"], paged_s1["err"]),
          "ms": paged["ms"], "plain_ms": paged["plain_ms"],
          "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
@@ -3452,6 +4019,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke_train.json"), "w") as f:
         json.dump({"card": card, "total_s": total_s, "train": trains,
                    "parity": parities, "serve_int8": serve8,
+                   "serve_base_swap": swap, "serve_resnet50": rn50,
                    "train_resnet50": resnet, "vision_parity": vision_parity,
                    "train_amp": amp_trains, "train_resnet50_amp": resnet_amp,
                    "amp_parity": amp_parity, "bf16_kernels": bf16_cases,

@@ -37,6 +37,7 @@ visible: nothing falls back to the host silently.
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -318,12 +319,18 @@ class Executor:
                 False
         self._prepared: Dict[tuple, PreparedProgram] = {}
         self._run_counts: Dict[int, int] = {}  # program uid -> runs so far
+        # one executor serves several threads at once (each serving
+        # batcher and decode engine, the model watcher's warm runs, the
+        # caller): the run counter's read-then-write and the prepared
+        # memo take this lock
+        self._lock = threading.Lock()
 
     def _count_run(self, uid: int) -> int:
         """Per-program run counter: a seeded startup re-initializes
         identically whatever else this executor ran."""
-        n = self._run_counts.get(uid, 0)
-        self._run_counts[uid] = n + 1
+        with self._lock:
+            n = self._run_counts.get(uid, 0)
+            self._run_counts[uid] = n + 1
         return n
 
     def prepare(self, program: Optional[ir.Program] = None,
@@ -342,16 +349,18 @@ class Executor:
         fetch_names = tuple(f.name if isinstance(f, ir.Variable) else str(f)
                             for f in (fetch_list or ()))
         key = (program._uid, program._version, fetch_names, scope._uid)
-        prepared = self._prepared.get(key)
-        if prepared is None:
-            prepared = PreparedProgram(self, program, fetch_names, scope)
-            if len(self._prepared) >= _MAX_PREPARED_HANDLES:
-                self._prepared.pop(next(iter(self._prepared)))
-            self._prepared[key] = prepared
+        with self._lock:
+            prepared = self._prepared.get(key)
+            if prepared is None:
+                prepared = PreparedProgram(self, program, fetch_names, scope)
+                if len(self._prepared) >= _MAX_PREPARED_HANDLES:
+                    self._prepared.pop(next(iter(self._prepared)))
+                self._prepared[key] = prepared
         return prepared.run(feed, return_numpy=return_numpy)
 
     def close(self):
-        self._prepared.clear()
+        with self._lock:
+            self._prepared.clear()
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

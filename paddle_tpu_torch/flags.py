@@ -22,9 +22,24 @@ _DEFS: Dict[str, tuple] = {
     # packages) forces the hand-written kernel of ops/dropout_kernel.py on
     # eligible tensors for A/B measurement
     "dropout_impl": ("auto", str),
+    # runtime telemetry (observe/): the serving path's span recording.
+    # Off (default) keeps the request path free of span allocation
+    "observe": (False, bool),
+    # the distributed-tracing half of the observe plane (observe/xray):
+    # span ids and span recording. Only consulted while "observe" is on
+    "trace": (True, bool),
 }
 
 _FLAGS: Dict[str, Any] = {}
+
+# bumped on every set_flag: hot paths memoize a flag read on this, so a
+# per-request "did a flag change?" check is one int compare (a flip still
+# takes effect on the next call)
+_VERSION = 0
+
+
+def version() -> int:
+    return _VERSION
 
 
 def _coerce(val: str, typ):
@@ -60,6 +75,7 @@ _CHOICES: Dict[str, tuple] = {
 
 
 def set_flag(name: str, value):
+    global _VERSION
     if name not in _FLAGS:
         raise KeyError(f"unknown flag {name!r}; known: {sorted(_FLAGS)}")
     if name in _CHOICES:
@@ -68,6 +84,7 @@ def set_flag(name: str, value):
             raise ValueError(
                 f"flag {name!r} must be one of {_CHOICES[name]}, got {value!r}")
     _FLAGS[name] = value
+    _VERSION += 1
 
 
 def all_flags() -> Dict[str, Any]:

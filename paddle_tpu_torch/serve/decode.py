@@ -25,9 +25,16 @@ The engine thread launches the device work of every step, on that
 thread's current CUDA stream. Over an int8 cache (signature
 `kv_dtype="int8"`) the decode step counts whole-block requantize events
 in a [1] int32 scope var on the device; the engine reads it once a step
-and publishes the delta as ``serve_kv_requant_events_total``. KV
-export/import between replicas (and with it requantize-on-admit),
-tracing spans and hot swap are not ported yet.
+and publishes the delta as ``serve_kv_requant_events_total``.
+
+Hot swap: sequences in flight finish on the version they started on (the
+engine holds a registry refcount while any slot is live, and releases it
+whenever it goes idle); when a new version is published the engine stops
+admitting, lets the active slots drain on the old version, releases it
+and binds the new one — the swap costs one drain, never a wrong-version
+token. With the `observe` flag on, each generation closes a
+``serve_generate`` span. KV export/import between replicas (and with it
+requantize-on-admit) is not ported.
 """
 
 from __future__ import annotations
@@ -41,11 +48,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import flags as _flags
 from ..observe import metrics as _metrics
+from ..observe import xray as _xray
 from .batcher import SlotScheduler
 from .errors import (BadRequestError, CacheExhaustedError,
                      DeadlineExceededError, ModelUnavailableError,
-                     QueueFullError)
+                     QueueFullError, ServeError)
 
 _STREAM_END = object()
 
@@ -93,15 +102,18 @@ class GenerationStream:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "future", "stream", "deadline",
-                 "t_enq", "resolved")
+                 "t_enq", "ctx", "ts_wall", "resolved")
 
-    def __init__(self, prompt, max_new, future, stream, deadline):
+    def __init__(self, prompt, max_new, future, stream, deadline, ctx,
+                 ts_wall):
         self.prompt = prompt
         self.max_new = max_new
         self.future = future
         self.stream = stream
         self.deadline = deadline          # absolute monotonic s or None
         self.t_enq = time.monotonic()
+        self.ctx = ctx                    # span context (observe on)
+        self.ts_wall = ts_wall
         self.resolved = False             # guarded by the engine cond
 
 
@@ -127,16 +139,15 @@ class DecodeEngine:
 
     def __init__(self, registry, name: str, max_queue: int = 256,
                  admission: str = "continuous"):
+        self._registry = registry
         self._name = name
-        self._ver = registry.get(name)
-        sig = self._ver.decode.signature
+        self._requant_seen = 0            # engine thread only
+        sig = registry.get(name).decode.signature
         self._sched = SlotScheduler(sig["max_slots"], max_queue=max_queue,
                                     admission=admission)
         self._cond = self._sched.cond
+        self._ver = None                  # acquired while slots are live
         self._closed = False
-        # engine thread only; the engine serves the one version it was
-        # built on, so a new version is a new engine and a fresh count
-        self._requant_seen = 0
         self._m_requant = _metrics.counter(
             "serve_kv_requant_events_total",
             "int8 KV whole-block requantize events, per model")
@@ -167,7 +178,12 @@ class DecodeEngine:
         GenerationStream (stream=True). Rejections are immediate:
         QueueFullError / CacheExhaustedError are retriable backpressure,
         BadRequestError means the prompt can never run."""
-        sig = self._ver.decode.signature
+        ver = self._registry.get(self._name)
+        if ver.decode is None:
+            raise BadRequestError(
+                f"model {self._name!r} has no decode program — "
+                f"a one-shot model cannot generate")
+        sig = ver.decode.signature
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise BadRequestError("empty prompt")
@@ -186,11 +202,14 @@ class DecodeEngine:
             raise BadRequestError(
                 f"prompt {len(prompt)} + max_new_tokens {max_new} "
                 f"exceeds max_context {sig['max_context']}")
+        ctx = _xray.child_of() if _flags.get_flag("observe") else None
+        ts_wall = time.time() if ctx is not None else 0.0
         fut: Future = Future()
         gstream = GenerationStream(fut) if stream else None
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms is not None else None)
-        req = _GenRequest(prompt, max_new, fut, gstream, deadline)
+        req = _GenRequest(prompt, max_new, fut, gstream, deadline, ctx,
+                          ts_wall)
         with self._cond:
             if self._closed:
                 raise ModelUnavailableError(
@@ -226,7 +245,14 @@ class DecodeEngine:
         with self._cond:
             active = self._sched.active_count()
             pending = len(self._sched.pending)
-        kv = self._ver.decode.kvcache
+        kv = None
+        try:
+            dec = self._registry.get(self._name).decode
+            if dec is not None:
+                kv = {"blocks_in_use": dec.kvcache.in_use(),
+                      "blocks_capacity": dec.kvcache.capacity}
+        except ServeError:
+            pass
         ttft = self._m_ttft.summary(model=self._name)
         prefill = self._m_prefill_latency.summary(model=self._name)
         return {
@@ -238,8 +264,7 @@ class DecodeEngine:
             "prefill_steps": prefill["count"] if prefill else 0,
             "avg_ttft_us": round(ttft["mean"], 1) if ttft else 0.0,
             "kv_requant_events": self._m_requant.value(model=self._name),
-            "kv": {"blocks_in_use": kv.in_use(),
-                   "blocks_capacity": kv.capacity},
+            "kv": kv,
         }
 
     # -- outcomes ---------------------------------------------------------
@@ -253,6 +278,13 @@ class DecodeEngine:
                 return
             req.resolved = True
         self._m_requests.inc(model=self._name, outcome=outcome)
+        if req.ctx is not None:
+            _xray.record_span(
+                "serve_generate", req.ctx, req.ts_wall,
+                time.monotonic() - req.t_enq, cat="serve",
+                model=self._name, outcome=outcome,
+                prompt_len=len(req.prompt),
+                tokens=len(result.tokens) if result is not None else 0)
         if req.stream is not None:
             req.stream._finish()
         if req.future.set_running_or_notify_cancel():
@@ -268,6 +300,10 @@ class DecodeEngine:
             with self._cond:
                 while not self._closed and not self._sched.pending \
                         and self._sched.active_count() == 0:
+                    # going idle releases the version pin so a swapped-out
+                    # version can fully retire while no work is in flight
+                    if self._ver is not None:
+                        self._release_version()
                     self._cond.wait()
                 if self._closed:
                     return
@@ -280,8 +316,16 @@ class DecodeEngine:
                     f"after {(time.monotonic() - r.t_enq) * 1e3:.1f} ms "
                     f"in queue"))
             try:
+                self._rebind_if_needed()
                 self._admit_and_prefill()
                 self._decode_step()
+                if self._ver is None:
+                    # pending work but no servable version (registry
+                    # closing): don't hot-spin — wake on the next
+                    # submit/close or re-check shortly
+                    with self._cond:
+                        if not self._closed:
+                            self._cond.wait(0.05)
             except Exception as e:          # noqa: BLE001
                 # a broken step fails the sequences riding it, not the
                 # engine thread; a persistent error must not hot-loop
@@ -290,9 +334,50 @@ class DecodeEngine:
                     if not self._closed:
                         self._cond.wait(0.05)
 
+    def _release_version(self):
+        self._registry.release(self._ver)
+        self._ver = None
+
+    def _rebind_if_needed(self):
+        """Bind the current published version when unbound; when a NEW
+        version was published, stop admitting and let active sequences
+        drain on the old one, then flip."""
+        try:
+            cur = self._registry.get(self._name)
+        except ServeError:
+            return
+        if self._ver is None:
+            self._ver = self._registry.acquire(self._name)
+            self._requant_seen = 0        # fresh binding, fresh counter
+            with self._cond:
+                if self._sched.n_slots != \
+                        self._ver.decode.signature["max_slots"]:
+                    self._sched.resize_locked(
+                        self._ver.decode.signature["max_slots"])
+            return
+        if cur.version_id != self._ver.version_id:
+            with self._cond:
+                active = self._sched.active_count()
+            if active == 0:
+                self._release_version()
+                self._rebind_if_needed()
+
+    def _swap_pending(self) -> bool:
+        """True while a newer version is published than the one bound —
+        admission pauses so the bound version can drain."""
+        if self._ver is None:
+            return False
+        try:
+            return self._registry.get(self._name).version_id \
+                != self._ver.version_id
+        except ServeError:
+            return False
+
     # -- admission + prefill ----------------------------------------------
 
     def _admit_and_prefill(self):
+        if self._ver is None or self._swap_pending():
+            return
         dec = self._ver.decode
         sig = dec.signature
         admitted: List = []               # (slot, _Slot)
@@ -347,6 +432,8 @@ class DecodeEngine:
             "tokens": tokens, "block_tables": bt, "seq_lens": seq_lens})
         self._m_prefill_latency.observe(
             (time.perf_counter() - t0) * 1e6, model=self._name)
+        # a warm=False version becomes "warmed" by serving
+        self._ver.warmed = True
         done = time.monotonic()
         for r, (slot, state) in enumerate(members):
             tok = int(np.argmax(logits[r]))
@@ -378,6 +465,8 @@ class DecodeEngine:
     # -- decode ------------------------------------------------------------
 
     def _decode_step(self):
+        if self._ver is None:
+            return
         dec = self._ver.decode
         sig = dec.signature
         with self._cond:
@@ -470,8 +559,12 @@ class DecodeEngine:
             self._finish_req(r, "error", exc=exc)
         for _, s in live:
             self._finish_req(s.req, "error", exc=exc)
-        # join BEFORE freeing the killed sequences' blocks: the loop may
-        # be mid-step on them
+        # join BEFORE freeing the killed sequences' blocks and dropping
+        # the version pin: the loop may be mid-step on them
         self._thread.join(timeout=10)
-        for i, _ in live:
-            self._ver.decode.kvcache.free_slot(i)
+        if self._ver is not None:
+            # the version may keep serving (a kind-flip re-registration):
+            # return the killed sequences' blocks
+            for i, _ in live:
+                self._ver.decode.kvcache.free_slot(i)
+            self._release_version()

@@ -6,7 +6,8 @@ and the vision slice's conv, pool and batch-norm rules (cuDNN, NHWC) and
 a ResNet-50 step on the card against the host, and the sequence slice's
 bf16 `lstm` rule at the stacked LSTM's widths against the host (chip_smoke.py
 holds every sequence op and a small stacked LSTM on the card against the
-host).
+host), and one-shot serving (an MLP and a small ResNet, card against host)
+with a hot swap under traffic.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -14,6 +15,9 @@ conftest, which imports jax, is left out):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -1638,3 +1642,102 @@ def test_beam_decode_on_card_equals_host(dev):
         backward=False)
     assert card[0].shape == (6, 4, 8)
     _assert_card_is_host(names, host, card)
+
+
+# ---------------------------------------------------------------------------
+# one-shot serving and hot swap
+# ---------------------------------------------------------------------------
+
+def _save_oneshot(path, model, scale=1.0):
+    """An MLP (6 -> 8 -> 3) or resnet_cifar10 depth 8 (32 x 32 x 3 NHWC,
+    `is_test`, running stats drawn from a seed) saved by the port; `scale`
+    multiplies every parameter, so a re-save is another version."""
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = 3
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        if model == "mlp":
+            x = ptt.layers.data("x", shape=[6], dtype="float32")
+            h = ptt.layers.fc(input=x, size=8, act="relu")
+            pred = ptt.layers.fc(input=h, size=3, act="softmax")
+        else:
+            x = ptt.layers.data("x", shape=[32, 32, 3], dtype="float32")
+            pred = resnet.resnet_cifar10(x, class_dim=10, depth=8,
+                                         is_test=True, data_format="NHWC")
+    exe = ptt.Executor(ptt.CPUPlace())
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(7)
+    for op in main.global_block().ops:
+        if op.type == "batch_norm":
+            mean, var = op.input("Mean")[0], op.input("Variance")[0]
+            c = tuple(scope.find_var(mean).shape)
+            scope.set_var(mean, torch.from_numpy(
+                (rng.randn(*c) * 0.1).astype(np.float32)))
+            scope.set_var(var, torch.from_numpy(
+                rng.uniform(0.5, 1.5, c).astype(np.float32)))
+    for n in scope.local_var_names():
+        scope.set_var(n, scope.find_var(n) * scale)
+    ptt.io.save_inference_model(path, ["x"], [pred], exe, main_program=main,
+                                scope=scope)
+    return (6,) if model == "mlp" else (32, 32, 3)
+
+
+@pytest.mark.parametrize("model", ["mlp", "resnet"])
+def test_oneshot_infer_on_card_equals_host(dev, tmp_path, model):
+    mdir = str(tmp_path / model)
+    shape = _save_oneshot(mdir, model)
+    rng = np.random.RandomState(0)
+    feeds = [rng.rand(n, *shape).astype(np.float32) for n in (1, 3, 2, 4)]
+    out = {}
+    for name, place in (("card", ptt.CUDAPlace(0)), ("host", ptt.CPUPlace())):
+        with ptt.serve.InferenceServer(place) as srv:
+            srv.add_model(model, mdir,
+                          ladder=ptt.serve.BucketLadder(rows=(1, 2, 4)))
+            native.reset_launches()
+            futs = [srv.submit(model, {"x": f}) for f in feeds]
+            out[name] = [f.result(timeout=120)[0] for f in futs]
+            assert not any(native.launches.values()), native.launches
+    for a, b, f in zip(out["card"], out["host"], feeds):
+        assert a.shape == b.shape == (len(f), 3 if model == "mlp" else 10)
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+def test_oneshot_swap_under_traffic_on_card(dev, tmp_path):
+    mdir, mdir2 = str(tmp_path / "v1"), str(tmp_path / "v2")
+    _save_oneshot(mdir, "mlp")
+    _save_oneshot(mdir2, "mlp", scale=1.01)
+    x = np.full((1, 6), 0.5, np.float32)
+    with ptt.serve.InferenceServer(ptt.CPUPlace()) as host:
+        host.add_model("m", mdir2, ladder=ptt.serve.BucketLadder(rows=(1,)))
+        want, = host.infer("m", {"x": x})
+    with ptt.serve.InferenceServer(ptt.CUDAPlace(0)) as srv:
+        v1 = srv.add_model("m", mdir, ladder=ptt.serve.BucketLadder(
+            rows=(1, 2, 4)), batch_timeout_ms=1.0)
+        errors, served = [], []
+        stop = threading.Event()
+
+        def client():
+            while not stop.is_set():
+                try:
+                    fut = srv.submit("m", {"x": x})
+                    fut.result(timeout=60)
+                    served.append(fut.version_id)
+                except Exception as e:      # noqa: BLE001
+                    errors.append(repr(e))
+
+        ts = [threading.Thread(target=client) for _ in range(4)]
+        for t in ts:
+            t.start()
+        time.sleep(0.2)
+        srv.prepare_swap("m", mdir2)
+        v2 = srv.commit_swap("m")
+        time.sleep(0.2)
+        stop.set()
+        for t in ts:
+            t.join(timeout=60)
+        assert errors == [] and not any(t.is_alive() for t in ts)
+        assert set(served) == {v1.version_id, v2.version_id}
+        assert v1.wait_retired(10)
+        got, = srv.infer("m", {"x": x})
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

@@ -400,13 +400,16 @@ def test_int8_tokens_equal_fp32_tokens_at_this_size(served):
 
 def test_requant_count_equals_paddle_tpu(served):
     """Sequential generations: the decode steps of both packages count the
-    same requantize events, and the port's metric is that count. (The JAX
-    engine unbinds its version whenever it goes idle and then publishes
-    the whole counter again, so its metric over sequential generations
-    runs ahead of its own counter; the concurrent test below compares the
-    two metrics where it does not go idle.)"""
+    same requantize events. Each engine releases its version whenever it
+    goes idle and, binding again, publishes the whole device counter again,
+    so the metric reaches the counter and runs ahead of it by what each
+    idle spell re-publishes; whether an engine goes idle between two
+    sequential generations depends on thread timing, so the metrics are
+    compared across a forced idle spell in tests/test_torch_oneshot.py and
+    without one in the concurrent test below."""
     assert served["torch_q8"]["counter"] == served["jax_q8"]["counter"] > 0
-    assert served["torch_q8"]["requants"] == served["torch_q8"]["counter"]
+    assert served["torch_q8"]["requants"] >= served["torch_q8"]["counter"]
+    assert served["jax_q8"]["requants"] >= served["jax_q8"]["counter"]
     assert served["torch_q8"]["stats"]["kv_requant_events"] == \
         served["torch_q8"]["requants"]
     assert served["torch_fp"]["requants"] == 0

@@ -344,6 +344,30 @@ with tempfile.TemporaryDirectory() as t:
     with ptt.serve.InferenceServer(ptt.CPUPlace()) as srv:
         srv.add_model("lm8", d8)
         assert len(srv.generate("lm8", [1, 2, 3], max_new_tokens=6).tokens) == 6
+    def save_mlp(path, scale):
+        m, s = ptt.Program(), ptt.Program()
+        with ptt.program_guard(m, s), ptt.unique_name.guard():
+            x = ptt.layers.data("x", shape=[4], dtype="float32")
+            p = ptt.layers.fc(input=x, size=3, act="softmax")
+        sc = ptt.Scope()
+        exe.run(s, scope=sc)
+        for n in sc.local_var_names():
+            sc.set_var(n, sc.find_var(n) * scale)
+        ptt.io.save_inference_model(path, ["x"], [p], exe, main_program=m,
+                                    scope=sc)
+    dm, dm2 = os.path.join(t, "mlp"), os.path.join(t, "mlp2")
+    save_mlp(dm, 1.0)
+    save_mlp(dm2, 2.0)
+    with ptt.serve.InferenceServer(ptt.CPUPlace()) as srv:
+        v1 = srv.add_model("m", dm, ladder=ptt.serve.BucketLadder(rows=(1, 2)))
+        out, = srv.infer("m", {"x": [[1.0, 2.0, 3.0, 4.0]] * 2})
+        assert out.shape == (2, 3)
+        srv.prepare_swap("m", dm2)
+        v2 = srv.commit_swap("m")
+        fut = srv.submit("m", {"x": [[1.0, 2.0, 3.0, 4.0]]})
+        assert fut.result(timeout=60)[0].shape == (1, 3)
+        assert fut.version_id == v2.version_id != v1.version_id
+        assert v1.wait_retired(10)
 ptt.flags.set_flag("dropout_impl", "pallas")
 drop = ptt.Program()
 with ptt.program_guard(drop, ptt.Program()), ptt.unique_name.guard():
