@@ -123,6 +123,27 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    batch 2 and the MNIST CNN (NCHW) at batch 16 with Adam, losses within
    LOSS_RTOL, running stats and the other state within their stated
    tolerances;
+6c. train-resnet50-reader: the same model fed as a Fluid user feeds it,
+   from a RecordIO file: 1024 uint8 224 x 224 x 3 images and int64 labels
+   from RandomState(0) written by `convert_reader_to_recordio_file`
+   (write time and codec path printed), read back through
+   `reader.creator.recordio` -> `xmap_readers` (decode to float32 in
+   numpy: / 255, minus a per-channel mean) -> `batch(128)`; (a)
+   `Trainer.train` for 2 epochs (16 steps) with an `ark.CheckpointConfig`
+   every 4 steps, the checkpoint dir copied before step 6, and a second
+   Trainer resumed from that copy: its losses equal the first run's bit
+   for bit (both under cuDNN's deterministic algorithms); (b)
+   `AsyncFeeder(DataFeeder, reader, capacity=4, prepared=handle)`, 34
+   steps in float32 and under `Executor(amp=True)`, each feed on the card
+   before its step: 2 warm-up, 6 while the pipeline fills, 16 steady and
+   10 draining its buffers, each phase's median apart; over the steady
+   steps the step ms, images/s, the consumer's wait a step, the starved
+   steps and the producer's ms a batch, beside 8 steps on a staged batch
+   and 6b's staged step of the same call, and one batch's H2D pinned on a
+   side stream against pageable (CUDA events);
+   (c) `layers.py_reader` with `exe.run(feed=None)` until `EOFException`,
+   two passes of 8 steps with `reset()` between, each popped feed on the
+   card; losses finite everywhere and no kernel of ``csrc/`` launched;
 7. bf16 mixed precision, the configuration bench.py measures
    (`Executor(CUDAPlace(0), amp=True)`): train-base-amp, 10 steps at
    bench.py's batch 64 with the bits dropout and 4 under
@@ -1600,6 +1621,372 @@ def run_train_resnet50(torch, ptt, native, amp=False):
         torch, ptt, native, f"train-resnet50{'-amp' if amp else ''}", main,
         startup, fetches["loss"], resnet_batch(RESNET_BATCH), RESNET_STEPS,
         RESNET_BATCH, amp=amp)
+
+
+# train-resnet50-reader: train-resnet50 fed as a Fluid user feeds it, from
+# a RecordIO file: READER_SAMPLES uint8 HWC images of 224 x 224 x 3
+# (150,528 bytes each, as a decoded JPEG) with int64 labels from
+# RandomState(0), decoded by READER_WORKERS xmap_readers threads to
+# float32 (/ 255, minus ImageNet's per-channel mean) and batched by 128:
+# 8 steps a pass
+READER_SAMPLES = 1024
+READER_WORKERS = 4
+READER_MEAN = (0.485, 0.456, 0.406)
+# (a) Trainer.train for 2 epochs with an ark checkpoint every
+# READER_CKPT_STEPS steps; the checkpoint dir is copied just before step
+# READER_SNAP_STEP, as a crash there would leave it, and a second Trainer
+# resumes from that copy's newest serial (step 4, mid-epoch). Both runs
+# take cuDNN's deterministic algorithms (torch.backends.cudnn.deterministic),
+# so the resumed run's losses must equal the uninterrupted run's bit for
+# bit, not within a tolerance
+READER_CKPT_STEPS, READER_SNAP_STEP = 4, 6
+# (b) AsyncFeeder, float32 and AMP: READER_WARMUP steps (allocator and
+# cuDNN warm-up), READER_FILL steps while the pipeline fills its buffers
+# (xmap's 2 x 256 samples, the feeder's queue), READER_STEPS steady steps
+# (the feed's cost), then READER_DRAIN steps on what those buffers hold
+# once the source is spent (the producer idle), each phase's median kept
+# apart; then READER_STAGED_STEPS steps on the last batch, staged on the
+# card, for the same call's comparison
+READER_WARMUP, READER_FILL, READER_STEPS, READER_DRAIN = 2, 6, 16, 10
+READER_STAGED_STEPS = 8
+READER_CAPACITY = 4
+
+
+def write_reader_data(ptt, path):
+    """READER_SAMPLES (image, label) samples from RandomState(0) written
+    with convert_reader_to_recordio_file (default compressor); returns
+    seconds, bytes and the codec path that ran."""
+    import numpy as np
+    from paddle_tpu_torch import recordio
+
+    def samples():
+        rng = np.random.RandomState(0)
+        for _ in range(READER_SAMPLES):
+            yield (rng.randint(0, 256, (224, 224, 3), dtype=np.uint8),
+                   rng.randint(0, RESNET50["class_dim"], (1,)).astype(
+                       np.int64))
+
+    t0 = time.perf_counter()
+    n = ptt.convert_reader_to_recordio_file(path, samples)
+    seconds = time.perf_counter() - t0
+    assert n == READER_SAMPLES, n
+    return dict(seconds=seconds, bytes=os.path.getsize(path),
+                codec="native" if recordio._load_native() else "python")
+
+
+def reader_pipeline(ptt, path, passes=1, batches=None):
+    """recordio -> xmap_readers (decode to float32 in numpy) -> batch(128,
+    drop_last): the batched reader a Fluid user builds; `passes` over the
+    file, cut to `batches` batches at the source (so that no decode
+    thread is left blocked on a reader nobody drains)."""
+    import numpy as np
+    mean = np.asarray(READER_MEAN, np.float32)
+    scale = np.float32(1.0 / 255.0)
+
+    def decode(sample):
+        image, label = sample
+        return image.astype(np.float32) * scale - mean, label
+
+    source = ptt.reader.creator.recordio(path)
+    if passes > 1:
+        source = ptt.reader.chain(*[source] * passes)
+    if batches is not None:
+        source = ptt.reader.firstn(source, batches * RESNET_BATCH)
+    return ptt.reader.batch(
+        ptt.reader.xmap_readers(decode, source, READER_WORKERS,
+                                2 * RESNET_BATCH, order=True),
+        RESNET_BATCH, drop_last=True)
+
+
+def _resnet_train_func():
+    from paddle_tpu_torch.models import resnet
+    return resnet.build(**RESNET50)[1]["loss"]
+
+
+def _resnet_optimizer():
+    from paddle_tpu_torch import optimizer
+    return optimizer.Momentum(learning_rate=RESNET_LR,
+                              momentum=RESNET_MOMENTUM)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def run_reader_trainer(torch, ptt, path, tmp):
+    """(a): Trainer.train, 2 epochs from the RecordIO file with ark
+    checkpoints; a second Trainer resumes from the copy taken before step
+    READER_SNAP_STEP: its losses must equal the first run's from the
+    resumed step on, bit for bit (cuDNN deterministic)."""
+    import shutil
+    import numpy as np
+    ckpt, snap = os.path.join(tmp, "ckpt"), os.path.join(tmp, "snap")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, ckdir in (("full", ckpt), ("resumed", snap)):
+            t0 = time.perf_counter()
+            trainer = ptt.Trainer(_resnet_train_func, _resnet_optimizer,
+                                  place=ptt.CUDAPlace(0))
+            build_s = time.perf_counter() - t0
+            losses, steps, ends = [], [], []
+
+            def handler(e):
+                if isinstance(e, ptt.BeginStepEvent):
+                    steps.append(e.step)
+                    if name == "full" and e.step == READER_SNAP_STEP:
+                        shutil.copytree(ckpt, snap)
+                elif isinstance(e, ptt.EndStepEvent):
+                    losses.append(float(np.asarray(e.metrics[0]).reshape(
+                        -1)[0]))
+                    ends.append(time.perf_counter())
+
+            t0 = time.perf_counter()
+            trainer.train(num_epochs=2, event_handler=handler,
+                          reader=reader_pipeline(ptt, path),
+                          feed_order=["image", "label"],
+                          checkpoint=ptt.ark.CheckpointConfig(
+                              checkpoint_dir=ckdir,
+                              step_interval=READER_CKPT_STEPS,
+                              max_num_checkpoints=3))
+            train_s = time.perf_counter() - t0
+            step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+            runs[name] = dict(build_s=build_s, train_s=train_s,
+                              first_step=steps[0], steps=len(steps),
+                              losses=losses, step_ms=step_ms,
+                              serials=[s for s, _ in ptt.ark.list_checkpoints(
+                                  ckdir)])
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    full, resumed = runs["full"], runs["resumed"]
+    for r in runs.values():
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"train-resnet50-reader Trainer losses not "
+                                 f"finite: {r['losses']}")
+    if full["steps"] != 2 * READER_SAMPLES // RESNET_BATCH:
+        raise AssertionError(f"Trainer ran {full['steps']} steps")
+    k = resumed["first_step"]
+    if k != READER_SNAP_STEP - READER_SNAP_STEP % READER_CKPT_STEPS \
+            or resumed["losses"] != full["losses"][k:]:
+        raise AssertionError(
+            f"the resumed Trainer (from step {k}) parts from the "
+            f"uninterrupted run: {resumed['losses']} vs "
+            f"{full['losses'][k:]}")
+    return runs
+
+
+def _h2d_ms(torch, host, reps=5):
+    """One batch's image array host to device: from pageable memory on the
+    current stream, and from a pinned buffer on a side stream with
+    non_blocking=True (CUDA events, median of `reps`)."""
+    dev = torch.device("cuda", 0)
+    src = torch.from_numpy(host)
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    pinned.copy_(src)
+    out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    side = torch.cuda.Stream()
+    res = {}
+    for name, stream, buf, nb in (("pageable", torch.cuda.current_stream(),
+                                   src, False),
+                                  ("pinned", side, pinned, True)):
+        times = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                e0.record()
+                out.copy_(buf, non_blocking=nb)
+                e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        res[name] = _median(times)
+    t0 = time.perf_counter()
+    pinned.copy_(src)
+    res["host_to_pinned"] = (time.perf_counter() - t0) * 1e3
+    res["bytes"] = src.numel() * src.element_size()
+    return res
+
+
+def run_reader_async(torch, ptt, path, amp):
+    """(b): AsyncFeeder(DataFeeder, reader, capacity, prepared=handle),
+    READER_WARMUP + READER_FILL + READER_STEPS + READER_DRAIN steps; each
+    feed on the card before its step; then READER_STAGED_STEPS steps on
+    the last feed, staged. The steady steps give the feed's cost."""
+    import numpy as np
+    from paddle_tpu_torch.async_feeder import AsyncFeeder
+    main, startup, fetches = build_resnet(ptt)
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0), amp=amp)
+    exe.run(startup, scope=scope)
+    handle = exe.prepare(main, fetch_list=[fetches["loss"]], scope=scope)
+    n_steps = READER_WARMUP + READER_FILL + READER_STEPS + READER_DRAIN
+    per_pass = READER_SAMPLES // RESNET_BATCH
+    feeder = AsyncFeeder(
+        ptt.DataFeeder(["image", "label"], program=main),
+        reader_pipeline(ptt, path, passes=-(-n_steps // per_pass),
+                        batches=n_steps),
+        capacity=READER_CAPACITY, prepared=handle)
+    losses, step_ms, other_cpu_ms = [], [], []
+    feed = None
+    it = iter(feeder)
+    torch.cuda.synchronize()
+    while True:
+        t0 = time.perf_counter()
+        cpu0, own0 = time.process_time(), time.thread_time()
+        try:
+            feed = next(it)
+        except StopIteration:
+            break
+        if not all(t.is_cuda for t in feed.values()):
+            raise AssertionError("AsyncFeeder handed the step a host feed")
+        out, = handle.run(feed)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        # CPU time the process's other threads took during the step: the
+        # pipeline's decode, stacking and copies, which share the
+        # interpreter lock with the step's thread
+        other_cpu_ms.append(((time.process_time() - cpu0)
+                             - (time.thread_time() - own0)) * 1e3)
+    staged_ms = []
+    for _ in range(READER_STAGED_STEPS):
+        t0 = time.perf_counter()
+        out, = handle.run(feed)
+        staged_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train-resnet50-reader AsyncFeeder losses not "
+                             f"finite: {losses}")
+    if len(step_ms) != n_steps:
+        raise AssertionError(f"AsyncFeeder delivered {len(step_ms)} batches")
+    a = READER_WARMUP + READER_FILL
+    b = a + READER_STEPS
+    steady = step_ms[a:b]
+    res = dict(amp=amp, losses=losses, step_ms=step_ms,
+               step_ms_median=_median(steady),
+               images_per_s=RESNET_BATCH * len(steady) / sum(steady) * 1e3,
+               wait_ms=[x * 1e3 for x in feeder.waits_s],
+               wait_ms_mean=float(np.mean(feeder.waits_s[a:b])) * 1e3,
+               starved_steady=int(sum(feeder.starved[a:b])),
+               produce_ms=[x * 1e3 for x in feeder.produce_s],
+               produce_ms_mean=float(np.mean(feeder.produce_s[a:b])) * 1e3,
+               pinned_allocs=feeder.stager.pinned_allocs,
+               depths=list(feeder.depths), other_cpu_ms=other_cpu_ms,
+               fill_ms_median=_median(step_ms[READER_WARMUP:a]),
+               drain_ms_median=_median(step_ms[b:]),
+               fill_other_cpu_ms=_median(other_cpu_ms[READER_WARMUP:a]),
+               steady_other_cpu_ms=_median(other_cpu_ms[a:b]),
+               drain_other_cpu_ms=_median(other_cpu_ms[b:]),
+               staged_ms=staged_ms, staged_ms_median=_median(staged_ms))
+    # the feed's cost: steady steps against the staged ones; the fill
+    # phase's is kept apart, as a start-up cost
+    res["loss_to_staged_ms"] = res["step_ms_median"] - res["staged_ms_median"]
+    res["fill_to_staged_ms"] = res["fill_ms_median"] - res["staged_ms_median"]
+    del handle, exe, scope, feed, it, feeder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_reader_py_reader(torch, ptt, path):
+    """(c): layers.py_reader feeding ResNet-50; exe.run(feed=None) until
+    EOFException, two passes with reset() between, each feed popped on
+    the card."""
+    import numpy as np
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        reader, (image, label) = layers.py_reader(
+            capacity=READER_CAPACITY, shapes=[[-1, 224, 224, 3], [-1, 1]],
+            dtypes=["float32", "int64"])
+        predict = resnet.resnet_imagenet(
+            image, class_dim=RESNET50["class_dim"], depth=RESNET50["depth"],
+            data_format=RESNET50["data_format"])
+        loss = layers.mean(layers.cross_entropy(input=predict, label=label))
+        optimizer.Momentum(learning_rate=RESNET_LR,
+                           momentum=RESNET_MOMENTUM).minimize(loss)
+    reader.decorate_paddle_reader(reader_pipeline(ptt, path))
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    pop = reader.next_feed
+    host_pops = []
+
+    def checked_pop(device=None):
+        feed = pop(device)
+        host_pops.extend(n for n, t in feed.items() if not t.is_cuda)
+        return feed
+
+    reader.next_feed = checked_pop
+    passes = []
+    for _ in range(2):
+        reader.start()
+        losses, step_ms = [], []
+        while True:
+            t0 = time.perf_counter()
+            try:
+                out, = exe.run(main, feed=None, fetch_list=[loss],
+                               scope=scope)
+            except ptt.EOFException:
+                reader.reset()
+                break
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out).reshape(-1)[0]))
+        passes.append(dict(losses=losses, step_ms=step_ms,
+                           step_ms_median=_median(step_ms[1:])))
+    if host_pops:
+        raise AssertionError(f"py_reader handed the step host feeds: "
+                             f"{host_pops}")
+    for p in passes:
+        if len(p["losses"]) != READER_SAMPLES // RESNET_BATCH or \
+                not all(np.isfinite(p["losses"])):
+            raise AssertionError(f"py_reader pass: {p['losses']}")
+    pinned = reader._stager.pinned_allocs
+    del exe, scope, reader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(passes=passes, pinned_allocs=pinned)
+
+
+def run_train_resnet50_reader(torch, ptt, native, staged_fp32_ms):
+    """Phase 6c: train-resnet50 from a RecordIO file through the user's
+    entry points, no kernel of csrc/ launched."""
+    import numpy as np
+    res = {}
+    native.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reader_") as tmp:
+        path = os.path.join(tmp, "train.recordio")
+        res["write"] = write_reader_data(ptt, path)
+        t0 = time.perf_counter()
+        res["trainer"] = run_reader_trainer(torch, ptt, path, tmp)
+        res["trainer_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = next(iter(reader_pipeline(ptt, path, batches=1)()))
+        # the stacking DataFeeder does on the step's thread in the
+        # synchronous Trainer (np.asarray of the batch's 128 images)
+        t1 = time.perf_counter()
+        images = np.asarray([b[0] for b in batch], dtype=np.float32)
+        stack_ms = (time.perf_counter() - t1) * 1e3
+        res["h2d"] = dict(_h2d_ms(torch, images), stack_ms=stack_ms)
+        res["async"] = {}
+        for amp in (False, True):
+            res["async"]["amp" if amp else "fp32"] = run_reader_async(
+                torch, ptt, path, amp)
+        res["async_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["py_reader"] = run_reader_py_reader(torch, ptt, path)
+        res["py_reader_s"] = time.perf_counter() - t0
+    res["launches"] = dict(native.launches)
+    if any(res["launches"].values()):
+        raise AssertionError(f"train-resnet50-reader launched a kernel of "
+                             f"csrc/: {res['launches']}")
+    res["staged_6b_ms"] = staged_fp32_ms
+    return res
 
 
 def _state_kind(name):
@@ -3489,6 +3876,71 @@ def main() -> int:
             f"{STATE_L2_RTOL} relative L2")
     log(f"vision parity: {time.perf_counter() - t0:.1f} s")
 
+    # 6c. train-resnet50-reader: train-resnet50 from a RecordIO file through
+    # Trainer.train, AsyncFeeder (float32 and AMP) and py_reader
+    t0 = time.perf_counter()
+    rdr = run_train_resnet50_reader(torch, ptt, native,
+                                    resnet["step_ms_median"])
+    rdr["phase_s"] = time.perf_counter() - t0
+    w = rdr["write"]
+    log(f"train-resnet50-reader: wrote {READER_SAMPLES} samples "
+        f"({w['bytes'] / 1e6:.1f} MB) with convert_reader_to_recordio_file "
+        f"in {w['seconds']:.2f} s, {w['codec']} codec")
+    for name, r in rdr["trainer"].items():
+        log(f"train-resnet50-reader Trainer.train ({name}, from step "
+            f"{r['first_step']}, cuDNN deterministic) on the card [{card}]: "
+            f"{r['steps']} steps in {r['train_s']:.1f} s (build and startup "
+            f"{r['build_s']:.1f} s), step {_median(r['step_ms']):.1f} ms "
+            f"(median; all: {[round(x, 1) for x in r['step_ms']]}); serials "
+            f"kept {r['serials']}; losses {[round(x, 4) for x in r['losses']]}")
+    log(f"train-resnet50-reader resume: the Trainer resumed from step "
+        f"{rdr['trainer']['resumed']['first_step']} fetched the "
+        f"uninterrupted run's losses bit for bit")
+    h = rdr["h2d"]
+    log(f"train-resnet50-reader H2D of one batch's images "
+        f"({h['bytes'] / 1e6:.1f} MB) on the card [{card}]: pageable "
+        f"{h['pageable']:.2f} ms ({h['bytes'] / h['pageable'] / 1e6:.1f} "
+        f"GB/s), pinned on a side stream {h['pinned']:.2f} ms "
+        f"({h['bytes'] / h['pinned'] / 1e6:.1f} GB/s) (CUDA events, median "
+        f"of 5); host copy into the pinned buffer {h['host_to_pinned']:.2f} "
+        f"ms; DataFeeder's stacking of the batch {h['stack_ms']:.1f} ms")
+    for name, r in rdr["async"].items():
+        log(f"train-resnet50-reader AsyncFeeder ({name}) on the card "
+            f"[{card}]: steady step {r['step_ms_median']:.1f} ms (median of "
+            f"{READER_STEPS} after {READER_WARMUP} warm-up and "
+            f"{READER_FILL} fill steps; all: "
+            f"{[round(x, 1) for x in r['step_ms']]}), "
+            f"{r['images_per_s']:.1f} images/s; consumer wait "
+            f"{r['wait_ms_mean']:.2f} ms a step, starved "
+            f"{r['starved_steady']} of {READER_STEPS}; producer "
+            f"{r['produce_ms_mean']:.1f} ms a batch (DataFeeder + pinned "
+            f"copy + H2D issue); {r['pinned_allocs']} pinned buffers; the "
+            f"same step on a staged batch {r['staged_ms_median']:.1f} ms: "
+            f"the feed costs {r['loss_to_staged_ms']:+.1f} ms a steady "
+            f"step; fill / steady / drain medians "
+            f"{r['fill_ms_median']:.1f} / {r['step_ms_median']:.1f} / "
+            f"{r['drain_ms_median']:.1f} ms (fill "
+            f"{r['fill_to_staged_ms']:+.1f} over staged), the other "
+            f"threads' CPU time in them {r['fill_other_cpu_ms']:.1f} / "
+            f"{r['steady_other_cpu_ms']:.1f} / "
+            f"{r['drain_other_cpu_ms']:.1f} ms a step (all: "
+            f"{[round(x, 1) for x in r['other_cpu_ms']]}); queue depth at "
+            f"each arrival {r['depths']}")
+    log(f"train-resnet50-reader AsyncFeeder fp32 against 6b's staged step "
+        f"of this call ({rdr['staged_6b_ms']:.1f} ms): "
+        f"{rdr['async']['fp32']['step_ms_median'] - rdr['staged_6b_ms']:+.1f}"
+        f" ms a step")
+    for i, p in enumerate(rdr["py_reader"]["passes"]):
+        log(f"train-resnet50-reader py_reader pass {i + 1} on the card "
+            f"[{card}]: {len(p['losses'])} steps to EOFException, step "
+            f"{p['step_ms_median']:.1f} ms (median after the first; all: "
+            f"{[round(x, 1) for x in p['step_ms']]}); losses "
+            f"{[round(x, 4) for x in p['losses']]}")
+    log(f"train-resnet50-reader: no kernel of csrc/ launched "
+        f"({rdr['launches']}); phase {rdr['phase_s']:.1f} s (Trainer "
+        f"{rdr['trainer_s']:.1f}, AsyncFeeder {rdr['async_s']:.1f}, py_reader "
+        f"{rdr['py_reader_s']:.1f})")
+
     # 7. bf16 mixed precision: train-base-amp (bits dropout, then the
     # dropout kernel), train-resnet50-amp, card vs host
     amp_trains = {}
@@ -4021,6 +4473,7 @@ def main() -> int:
                    "parity": parities, "serve_int8": serve8,
                    "serve_base_swap": swap, "serve_resnet50": rn50,
                    "train_resnet50": resnet, "vision_parity": vision_parity,
+                   "train_resnet50_reader": rdr,
                    "train_amp": amp_trains, "train_resnet50_amp": resnet_amp,
                    "amp_parity": amp_parity, "bf16_kernels": bf16_cases,
                    "train_unfused": unfused, "unfused_parity": unfused_parity,

@@ -22,7 +22,12 @@ schedules (``layers/learning_rate_scheduler.py``), gradient clips and
 ``optimizer.ModelAverage``, and variable-length sequences
 (``layers.data(lod_level=...)`` fed a ``(padded, lengths)`` pair, the
 sequence and recurrent ops of ``ops/sequence.py`` and ``ops/rnn.py``,
-``models/stacked_dynamic_lstm.py``).
+``models/stacked_dynamic_lstm.py``), control flow, one-shot serving, and
+the data plane and the Trainer (``recordio/``, ``reader/``, `py_reader`
+with ``Executor.run(feed=None)``, `AsyncFeeder`, whose copies run from
+pinned host buffers on a side CUDA stream, ``trainer.py`` with the ark
+checkpoints of ``ark/``, ``metrics.py``, ``evaluator.py``,
+``profiler.py``, ``debugger.py``).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -45,6 +50,12 @@ sequence and recurrent ops of ``ops/sequence.py`` and ``ops/rnn.py``,
         learning_rate=lr, momentum=0.9,
         regularization=fluid.regularizer.L2Decay(1e-4)).minimize(
             fetches["loss"])
+
+    trainer = fluid.Trainer(train_func, optimizer_func)   # CUDAPlace(0)
+    trainer.train(num_epochs=2, reader=fluid.reader.batch(
+        fluid.reader.creator.recordio("train.recordio"), 128),
+        feed_order=["image", "label"],
+        checkpoint=fluid.ark.CheckpointConfig("ckpt", step_interval=100))
 """
 
 from __future__ import annotations
@@ -62,3 +73,12 @@ from .core.ir import (Parameter, Program, Variable,  # noqa: F401
                       default_main_program, default_startup_program,
                       program_guard)
 from .param_attr import ParamAttr  # noqa: F401
+from .core.executor import EOFException, fetch_var  # noqa: F401
+from . import (annotations, ark, average, debugger, evaluator,  # noqa: F401
+               metrics, profiler, reader, recordio, recordio_writer)
+from .recordio_writer import (convert_reader_to_recordio_file,  # noqa: F401
+                              convert_reader_to_recordio_files)
+from .async_feeder import AsyncFeeder  # noqa: F401
+from .trainer import (Trainer, Inferencer, CheckpointConfig,  # noqa: F401
+                      BeginEpochEvent, EndEpochEvent, BeginStepEvent,
+                      EndStepEvent, save_checkpoint, load_checkpoint)

@@ -29,6 +29,9 @@ policy (``core/registry.py``): feeds, parameters and optimizer state stay
 float32 in the scope, and are cast at their point of use. A fetched bf16
 value comes back as float32 numpy (an exact upcast; numpy has no bf16).
 
+`run(feed=None)` on a program that a `py_reader` is bound to pops the
+reader's next batch, and raises `EOFException` when its pass is drained.
+
 `CPUPlace()` runs on the host; `CUDAPlace(i)` on card i. An `Executor()`
 without a place means `CUDAPlace(0)`, which raises when no card is
 visible: nothing falls back to the host silently.
@@ -46,6 +49,12 @@ import torch
 from . import ir, registry, types
 from .. import flags as _flags
 from .lowering import run_block
+
+
+class EOFException(Exception):
+    """A py_reader's data pass is drained (reference
+    operators/reader/lod_tensor_blocking_queue.h; surfaced as
+    core.EOFException in python)."""
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +266,11 @@ class PreparedProgram:
             raise RuntimeError(
                 "program was mutated after prepare(); prepare() it again "
                 "(Executor.run() re-prepares automatically)")
+        if not feed and getattr(program, "_py_reader", None) is not None:
+            # a program bound to a py_reader pops its next batch (raises
+            # EOFException at the end of a pass, the reference's read-op
+            # contract)
+            feed = program._py_reader.next_feed(self.device)
         feeds = convert_feed(self._block, feed or {}, self.device)
         key = frozenset(feeds)
         plan = self._plans.get(key)

@@ -1,6 +1,9 @@
 """The layers DSL (the slices' subset of ``paddle_tpu/layers``)."""
 
-from .io import data  # noqa: F401
+from .io import (data, py_reader, open_recordio_file,  # noqa: F401
+                 double_buffer, ListenAndServ, Send, Recv,
+                 read_file, shuffle, batch, open_files,
+                 random_data_generator, load, Preprocessor)
 from .metric_op import accuracy  # noqa: F401
 from .nn import (batch_norm, cast, ceil, clip, clip_by_norm,  # noqa: F401
                  conv2d, cross_entropy, dropout, dynamic_gru, dynamic_lstm,
@@ -14,6 +17,7 @@ from .nn import (batch_norm, cast, ceil, clip, clip_by_norm,  # noqa: F401
                  sequence_mask, sequence_pool, sequence_reshape,
                  sequence_slice, sequence_softmax, sigmoid,
                  sigmoid_cross_entropy_with_logits, slice, softmax,
+                 square_error_cost,
                  softmax_with_cross_entropy, split, sqrt, square, squeeze,
                  tanh, topk, transpose, unsqueeze)
 from .tensor import (assign, concat, fill_constant,  # noqa: F401

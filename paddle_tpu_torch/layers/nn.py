@@ -407,6 +407,15 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None):
     return out
 
 
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("square_error_cost",
+                     inputs={"X": [input.name], "Y": [label.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
 def clip(x, min, max, name=None):
     helper = LayerHelper("clip", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)

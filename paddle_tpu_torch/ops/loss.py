@@ -1,6 +1,6 @@
 """Loss and metric op rules (the slices' subset): `cross_entropy`,
 `softmax_with_cross_entropy` and its hand-written grad,
-`sigmoid_cross_entropy_with_logits`, `accuracy`.
+`square_error_cost`, `sigmoid_cross_entropy_with_logits`, `accuracy`.
 
 Mirror of ``paddle_tpu/ops/loss.py``. `cross_entropy` takes
 probabilities and clamps them at 1e-8, so a loss stops at -log(1e-8) =
@@ -40,6 +40,12 @@ def _cross_entropy(ctx, X, Label):
     p = X.gather(-1, ids.clamp(0, X.shape[-1] - 1))
     loss = -torch.log(p.clamp_min(eps))
     return {"Y": loss.masked_fill(ids == ctx.attr("ignore_index", -100), 0.0)}
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx, X, Y):
+    d = X - Y
+    return {"Out": d * d}
 
 
 @register_op("sigmoid_cross_entropy_with_logits")

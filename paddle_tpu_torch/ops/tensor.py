@@ -5,7 +5,7 @@ Mirror of ``paddle_tpu/ops/tensor.py``: `fill_constant`,
 `assign`, `assign_value`, `reshape`, `squeeze`, `unsqueeze`,
 `transpose`, `concat`, `split`, `slice`, `increment`, `lookup_table`,
 `batch_gather`, `sequence_mask`, `causal_mask`, `sinusoid_pos_encoding`,
-`is_empty` and `print`. Random ops draw from the op's own
+`is_empty`, `print` and `load`. Random ops draw from the op's own
 `torch.Generator` (``core/registry.py``), on the op's device. `reshape`
 and `transpose` return views where PyTorch can; `assign` copies, since
 the optimizer rules update their state in place and an alias of a
@@ -15,6 +15,7 @@ parameter (``ModelAverage``'s backup) must keep its value.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -227,6 +228,21 @@ def _print(ctx, X):
         print(f"{ctx.attr('message', '') or ''}shape={tuple(X.shape)} "
               f"{shown.detach().cpu().numpy()}", flush=True)
     return {"Out": X}
+
+
+@register_op("load")
+def _load(ctx):
+    """One np.save'd array (reference load_op.cc), read from `file_path`
+    (or `file_path` + ".npy") each time the op runs, onto the op's device;
+    `load_as_fp16` casts it to float16."""
+    import numpy as np
+    path = ctx.attr("file_path")
+    if not path.endswith(".npy") and not os.path.exists(path):
+        path += ".npy"
+    arr = np.load(path)
+    if ctx.attr("load_as_fp16"):
+        arr = arr.astype(np.float16)
+    return {"Out": torch.from_numpy(arr).to(ctx.device)}
 
 
 @register_op("transpose", propagate_seqlen=False)

@@ -7,7 +7,11 @@ a ResNet-50 step on the card against the host, and the sequence slice's
 bf16 `lstm` rule at the stacked LSTM's widths against the host (chip_smoke.py
 holds every sequence op and a small stacked LSTM on the card against the
 host), and one-shot serving (an MLP and a small ResNet, card against host)
-with a hot swap under traffic.
+with a hot swap under traffic, and the data plane: AsyncFeeder's pinned
+ring and side-stream copy, py_reader's double buffer on the card against
+the host, py_reader and AsyncFeeder landing on the card when no place is
+named, the Preprocessor on the card against the host, and the profiler's
+CUDA kernels.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -1741,3 +1745,200 @@ def test_oneshot_swap_under_traffic_on_card(dev, tmp_path):
         assert v1.wait_retired(10)
         got, = srv.infer("m", {"x": x})
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the data plane: AsyncFeeder's pinned ring and side stream, py_reader's
+# double buffer, the profiler's CUDA activity
+# ---------------------------------------------------------------------------
+
+def test_async_feeder_copies_from_a_reused_pinned_ring_on_a_side_stream(dev):
+    from paddle_tpu_torch.async_feeder import AsyncFeeder
+    n, capacity = 12, 2
+    batches = [[{"x": np.full((256, 1024), i, np.float32),
+                 "n": np.arange(4, dtype=np.int64) + i}] for i in range(n)]
+    feeder = AsyncFeeder(lambda b: b[0], lambda: iter(batches),
+                         capacity=capacity, device=ptt.CUDAPlace(0))
+    seen = []
+    for feed in feeder:
+        assert feed["x"].is_cuda and feed["n"].is_cuda
+        seen.append((float(feed["x"][0, 0]), feed["n"].tolist()))
+    assert seen == [(float(i), list(range(i, i + 4))) for i in range(n)]
+    stager = feeder.stager
+    assert stager.stream is not None
+    assert stager.stream.cuda_stream != \
+        torch.cuda.default_stream(dev).cuda_stream
+    ring = capacity + 2
+    # two arrays a batch, one pinned buffer each a ring slot: 12 batches
+    # through a ring of 4 allocate no more than that
+    assert stager.pinned_allocs == 2 * ring
+    bufs = [b for s in stager._slots for b in s.buffers.values()]
+    assert len(bufs) == 2 * ring and all(b.is_pinned() for b in bufs)
+
+
+def test_async_feeder_batch_survives_later_copies_on_card(dev):
+    """The step's stream still reads a batch after the consumer dropped it
+    and later batches were copied: a busy kernel queued ahead of each read
+    keeps the read pending while the producer stages more batches. Without
+    the event wait and record_stream, a later copy lands in the dropped
+    batch's memory and a sum reads another batch's fill value."""
+    from paddle_tpu_torch.async_feeder import AsyncFeeder
+    n, size = 16, 1 << 20
+    batches = [[{"x": np.full(size, i, np.float32)}] for i in range(n)]
+    sums = []
+    for feed in AsyncFeeder(lambda b: b[0], lambda: iter(batches),
+                            capacity=4, device=dev):
+        torch.cuda._sleep(20_000_000)
+        sums.append(feed["x"].sum())
+        del feed
+    torch.cuda.synchronize()
+    assert [float(s) for s in sums] == [float(i * size) for i in range(n)]
+
+
+def test_py_reader_double_buffer_on_card_equals_host(dev, tmp_path):
+    import pickle
+    from paddle_tpu_torch import recordio
+    path = str(tmp_path / "train.recordio")
+    rng = np.random.RandomState(0)
+    w_true = rng.randn(4, 1).astype(np.float32)
+    recs = []
+    for _ in range(64):
+        x = rng.randn(4).astype(np.float32)
+        recs.append(pickle.dumps((x, (x @ w_true).astype(np.float32))))
+    recordio.write_file(path, recs)
+    losses, state = {}, None
+    for name, place in (("host", ptt.CPUPlace()), ("card", ptt.CUDAPlace(0))):
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            reader, feed_vars = ptt.layers.open_recordio_file(
+                path, shapes=[[-1, 4], [-1, 1]],
+                dtypes=["float32", "float32"], pass_num=1)
+            reader = ptt.layers.double_buffer(reader, place=place)
+            xv, yv = feed_vars
+            pred = ptt.layers.fc(input=xv, size=1)
+            loss = ptt.layers.mean(ptt.layers.square_error_cost(pred, yv))
+            ptt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+        exe = ptt.Executor(place)
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        if state is None:
+            state = {k: scope.find_var(k).numpy().copy()
+                     for k in scope.local_var_names()}
+        else:
+            ptt.io.state_from_numpy(state, place, scope=scope)
+        popped = []
+        pop = reader.next_feed
+
+        def spy(device=None):
+            feed = pop(device)
+            popped.append(all(t.device.type == place.torch_device().type
+                              for t in feed.values()))
+            return feed
+
+        reader.next_feed = spy
+        out = []
+        for _ in range(2):
+            reader.start()
+            while True:
+                try:
+                    out.append(float(exe.run(main, fetch_list=[loss],
+                                             scope=scope)[0].reshape(-1)[0]))
+                except ptt.EOFException:
+                    reader.reset()
+                    break
+        losses[name] = out
+        assert all(popped) and len(out) == 8
+        if name == "card":
+            assert reader._stager.cuda and reader._stager.pinned_allocs > 0
+    np.testing.assert_allclose(losses["card"], losses["host"], rtol=1e-5)
+
+
+def test_py_reader_and_async_feeder_default_to_the_card(dev):
+    """With no place named, a py_reader iterated directly (no executor
+    pops it) and an AsyncFeeder stage onto card 0 through the pinned ring
+    on a side stream; the producer runs from start(), so batches are
+    staged before the first pop. A reader given CPUPlace() through
+    double_buffer stays on the host."""
+    from paddle_tpu_torch.async_feeder import AsyncFeeder, _Staged
+    n = 6
+
+    def batches():
+        return ({"x": np.full((64, 256), i, np.float32)} for i in range(n))
+
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        reader, (xv,) = ptt.reader.py_reader(
+            capacity=2, shapes=[[-1, 256]], dtypes=["float32"])
+        host_reader, (hv,) = ptt.reader.py_reader(
+            capacity=2, shapes=[[-1, 256]], dtypes=["float32"])
+    assert ptt.layers.double_buffer(host_reader,
+                                    place=ptt.CPUPlace()) is host_reader
+    reader.decorate_tensor_provider(
+        lambda: ({xv.name: f["x"]} for f in batches()))
+    reader.start()
+    deadline = time.time() + 60
+    while reader._queue.qsize() < 2 and time.time() < deadline:
+        time.sleep(0.01)
+    assert isinstance(reader._queue.queue[0], _Staged)
+    seen = [f[xv.name] for f in reader]
+    reader.reset()
+    assert all(t.device == torch.device("cuda", 0) for t in seen)
+    assert [float(t[0, 0]) for t in seen] == [float(i) for i in range(n)]
+    stager = reader._stager
+    assert stager.cuda and 0 < stager.pinned_allocs <= 2 + 2
+    assert stager.stream.cuda_stream != \
+        torch.cuda.default_stream(dev).cuda_stream
+    # a host executor's pop: this pass stays on the card (the executor's
+    # feed conversion moves it), the next one stages on the host
+    reader.start()
+    assert reader.next_feed(ptt.CPUPlace())[xv.name].is_cuda
+    reader.reset()
+    reader.start()
+    assert reader.next_feed()[xv.name].device.type == "cpu"
+    reader.reset()
+    host_reader.decorate_tensor_provider(
+        lambda: ({hv.name: f["x"]} for f in batches()))
+    host_reader.start()
+    assert all(f[hv.name].device.type == "cpu" for f in host_reader)
+    host_reader.reset()
+    feeder = AsyncFeeder(lambda b: b, batches, capacity=2)
+    got = [f["x"] for f in feeder]
+    assert all(t.device == torch.device("cuda", 0) for t in got)
+    assert [float(t[0, 0]) for t in got] == [float(i) for i in range(n)]
+    assert feeder.stager.cuda and feeder.stager.pinned_allocs == 2 + 2
+
+
+def test_preprocessor_on_card_equals_host(dev):
+    """Preprocessor's default place is CUDAPlace(0): its outputs are card
+    tensors, equal to a CPUPlace() Preprocessor's (elementwise float32,
+    exact)."""
+    def source():
+        rng = np.random.RandomState(0)
+        for _ in range(3):
+            yield (rng.randn(4, 5).astype(np.float32),)
+
+    outs = {}
+    for name, place in (("card", None), ("host", ptt.CPUPlace())):
+        pre = ptt.layers.Preprocessor(source, place=place)
+        with pre.block():
+            x, = pre.inputs(["float32"], [[4, 5]])
+            pre.outputs(ptt.layers.scale(x, scale=3.0, bias=1.0))
+        outs[name] = [o for o, in pre()()]
+    assert all(t.device == torch.device("cuda", 0) for t in outs["card"])
+    assert all(t.device.type == "cpu" for t in outs["host"])
+    for a, b in zip(outs["card"], outs["host"]):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def test_profiler_all_records_cuda_kernels(dev, tmp_path):
+    import json
+    from paddle_tpu_torch import profiler as prof
+    with prof.profiler(state="All", profile_path=str(tmp_path)):
+        with prof.record_event("matmul"):
+            a = torch.randn(512, 512, device=dev)
+            (a @ a).sum().item()
+    trace = json.load(open(tmp_path / "trace.json"))
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    assert kernels, sorted({e.get("cat") for e in trace["traceEvents"]})
+    with prof.cuda_profiler("nvtx_range"):
+        (a @ a).sum().item()

@@ -51,9 +51,10 @@ EARLIER_OPS = {
     "softmax_with_cross_entropy", "sum", "transpose", "uniform_random"}
 # the op types later slices register (optimizers, schedules, clips, the
 # rest of the non-recurrent zoo, the sequence and recurrent ops, control
-# flow, tensor arrays and beam search); each has its parity case in
-# tests/test_torch_zoo.py, tests/test_torch_optim.py, tests/test_torch_seq.py
-# or tests/test_torch_control.py
+# flow, tensor arrays and beam search, the data plane's `load` and
+# `square_error_cost`); each has its parity case in tests/test_torch_zoo.py,
+# tests/test_torch_optim.py, tests/test_torch_seq.py,
+# tests/test_torch_control.py or tests/test_torch_data.py
 LATER_OPS = {
     "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_min", "elementwise_max", "elementwise_pow", "exp", "sqrt",
@@ -75,7 +76,7 @@ LATER_OPS = {
     "squeeze", "unsqueeze", "split", "slice", "batch_gather", "is_empty",
     "print", "log_softmax", "tanh", "floor", "ceil", "equal", "not_equal",
     "less_equal", "greater_than", "logical_and", "logical_or",
-    "logical_xor", "logical_not"}
+    "logical_xor", "logical_not", "load", "square_error_cost"}
 
 
 @pytest.fixture(autouse=True)
@@ -369,12 +370,12 @@ def test_momentum_update_matches_paddle_tpu(nesterov):
 
 def test_every_port_op_is_a_reference_op_and_every_new_one_has_a_case():
     """The registry contract: the port registers only ops the JAX package
-    registers, 119 of them; the ops this slice adds are exactly NEW_OPS,
+    registers, 121 of them; the ops this slice adds are exactly NEW_OPS,
     and each one appears in a program of this file's parity cases."""
     ported = set(tregistry.registered_ops())
     assert ported <= set(jregistry.registered_ops())
-    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 86
-    assert len(ported) == 119
+    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 88
+    assert len(ported) == 121
     assert ported - EARLIER_OPS - LATER_OPS == NEW_OPS
     assert EARLIER_OPS | LATER_OPS <= ported
     covered = set()
