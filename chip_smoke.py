@@ -220,6 +220,27 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    lie within MT_TIE of each other is reported as a tie, any other
    difference fails), scores within MT_SCORE_RTOL; ms a batch and
    generated tokens/s on the card;
+7j. the book: the nine chapters of Fluid's book tests
+   (``tools/torch_book.py``: fit_a_line, recognize_digits,
+   image_classification, word2vec, understand_sentiment,
+   label_semantic_roles, machine_translation, recommender_system,
+   rnn_encoder_decoder) at the book's widths, batches and optimizers
+   (`torch_book.CARD`), float32 with TF32 off, NCHW, each built through
+   `layers`, trained through `optimizer.*.minimize` and
+   `Executor(CUDAPlace(0))` on batches that `reader.batch` over the
+   port's `dataset` readers and `DataFeeder` make: BOOK_WARMUP + BOOK_STEPS
+   steps, then one counted step (the rule calls a step; every feed and
+   persistable on the card); losses finite, no kernel of csrc/ launched;
+   step ms (median), examples/s, peak memory; the inference model saved,
+   loaded into a fresh scope on the card and on the host, one batch run
+   on each (floats within LOSS_RTOL of the host's scale, the Viterbi
+   paths equal, the classifiers' top-1 equal but at a host near-tie
+   within BOOK_TIE); card vs host for BOOK_PARITY_STEPS steps each from
+   the host's state (`run_step_parity`; the image chapters at batch 8;
+   under Adam and Adagrad the parameters held through their optimizer
+   slots);
+   after the other traced steps, one traced step a chapter (device busy
+   share). Numbers also in ``chiprun_out/chip_smoke_book.json``;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -485,6 +506,15 @@ SERVE_RN50_PROB_TOL, SERVE_RN50_LOGP_TOL, SERVE_RN50_LOGP_FLOOR = \
 SWAP_WEIGHT_SEED = WEIGHT_SEED + 1
 SWAP_V1_LENS, SWAP_V2_LENS = (40, 100, 160, 220), (60, 120, 180, 240)
 SWAP_V1_TOKENS, SWAP_V2_TOKENS = 600, NEW_TOKENS
+# the book (tools/torch_book.py): BOOK_WARMUP + BOOK_STEPS steps a
+# chapter at torch_book.CARD's widths; card vs host BOOK_PARITY_STEPS
+# steps from the host's state, the image chapters (batch-norm networks,
+# chaotic at small batches; see train-resnet50's parity) at
+# BOOK_PARITY_BATCH; a classifier's top-1 may differ from the host's only
+# in a row whose host top-two lie within BOOK_TIE of each other
+BOOK_WARMUP, BOOK_STEPS, BOOK_PARITY_STEPS = 3, 20, 3
+BOOK_PARITY_BATCH = {"recognize_digits": 8, "image_classification": 8}
+BOOK_TIE = 1e-5
 
 
 def log(*a):
@@ -2002,10 +2032,11 @@ def _rel_l2(np, a, b):
 
 
 def run_step_parity(torch, ptt, name, main, startup, loss, feed, steps,
-                    amp=False):
-    """`steps` steps of `main` on `feed`, each on the card and on the host
-    from the host's state after the step before (the first from one
-    startup state, run on the card), under bf16 mixed precision when
+                    amp=False, init=None, sign_updates=False):
+    """`steps` steps of `main` on `feed` (or on the list's feed of each
+    step), each on the card and on the host from the host's state after
+    the step before (the first from one startup state, run on the card,
+    with `init`'s values set over it), under bf16 mixed precision when
     `amp`; returns both sides' losses and the largest share of its
     tolerance that a persistable used. Fails unless every loss stays
     above 0.1, the card's agree with the host's within LOSS_RTOL, the
@@ -2015,33 +2046,44 @@ def run_step_parity(torch, ptt, name, main, startup, loss, feed, steps,
     held to bf16's own effect on the host (AMP_NOISE_FACTOR above), and
     the output of each op of the policy's bf16 set must be bf16 in every
     AMP step and float32 in every float32 one; the card's float32 losses
-    are for the record."""
+    are for the record. With `sign_updates` (an optimizer that divides a
+    grad by its own size, Adam's or Adagrad's first steps) an update is
+    about lr * sign(grad), so where a grad lies within rounding of 0 the
+    two sides step a parameter lr the opposite way: on an H100 80GB
+    HBM3 (700 W) a zero-initialized bias of 16 lay 0.5 relative L2 from
+    the host's with every grad in agreement. The parameters are then
+    held through their optimizer slots, which carry the grads, and
+    their largest share is reported (`param_share`), not gated."""
     import numpy as np
     from paddle_tpu_torch.core.executor import fetch_var
     from paddle_tpu_torch.core.registry import AMP_BF16_OPS
     scope0 = ptt.Scope()
     ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope0)
     state = {n: fetch_var(n, scope0) for n in scope0.local_var_names()}
+    state.update(init or {})
     del scope0
+    feeds = feed if isinstance(feed, list) else [feed] * steps
     stats = {op.inputs[s][0] for op in main.global_block().ops
              if op.type == "batch_norm" for s in ("Mean", "Variance")}
     # the first output of every forward product, convolution and attention
     probes = [op.output_arg_names[0] for op in main.global_block().ops
               if op.type in AMP_BF16_OPS] if amp else []
     losses = {"card": [], "host": []}
-    stat_share = l2_share = 0.0
+    stat_share = l2_share = param_share = 0.0
+    l2_worst = None
+    params = {p.name for p in main.global_block().all_parameters()}
     sides = [("card", ptt.CUDAPlace(0), amp), ("host", ptt.CPUPlace(), amp)]
     if amp:
         losses.update(card_float32=[], host_float32=[])
         sides += [("card_float32", ptt.CUDAPlace(0), False),
                   ("host_float32", ptt.CPUPlace(), False)]
-    for _ in range(steps):
+    for step in range(steps):
         after = {}
         for side, place, side_amp in sides:
             scope = ptt.io.state_from_numpy(state, place)
             out, *probed = ptt.Executor(place, amp=side_amp).run(
-                main, feed=feed, fetch_list=[loss] + probes, scope=scope,
-                return_numpy=False)
+                main, feed=feeds[step], fetch_list=[loss] + probes,
+                scope=scope, return_numpy=False)
             want = torch.bfloat16 if side_amp else torch.float32
             wrong = {n: t.dtype for n, t in zip(probes, probed)
                      if t.dtype != want}
@@ -2066,7 +2108,11 @@ def run_step_parity(torch, ptt, name, main, startup, loss, feed, steps,
                 stat_share = max(stat_share, float((np.abs(a - b) / (
                     BN_STAT_ATOL + LOSS_RTOL * np.abs(b))).max()))
             else:
-                l2_share = max(l2_share, _rel_l2(np, a, b) / STATE_L2_RTOL)
+                share = _rel_l2(np, a, b) / STATE_L2_RTOL
+                if sign_updates and n in params:
+                    param_share = max(param_share, share)
+                elif share > l2_share:
+                    l2_share, l2_worst = share, f"{n} at step {step}"
         for kind, d in dist.items():
             share = d / max(AMP_NOISE_FACTOR * noise[kind], 1e-30)
             if kind == "running stats":
@@ -2100,11 +2146,13 @@ def run_step_parity(torch, ptt, name, main, startup, loss, feed, steps,
     if not (stat_share <= 1.0 and l2_share <= 1.0):
         raise AssertionError(f"{name} parity: running stats at {stat_share} "
                              f"of their tolerance, other state at "
-                             f"{l2_share} of {l2_tol}")
+                             f"{l2_share} of {l2_tol} (the largest: "
+                             f"{l2_worst})")
     return dict(losses=losses, rel_err=rel, n_stats=len(stats),
                 n_state=len(state), stat_share=stat_share,
-                l2_share=l2_share, steps=steps, amp=amp,
-                loss_rtol=loss_rtol, l2_tol=l2_tol, bf16_probes=len(probes))
+                l2_share=l2_share, param_share=param_share, steps=steps,
+                amp=amp, loss_rtol=loss_rtol, l2_tol=l2_tol,
+                bf16_probes=len(probes))
 
 
 def run_amp_parity(torch, ptt):
@@ -3446,6 +3494,169 @@ def run_infer_mt_beam(torch, ptt, native, trained, tmp):
                 best=card["ids"][:2, 0, :12].tolist(), step=card["run"])
 
 
+def _count_rule_calls(fn):
+    """Run `fn`, counting the op rules the executor runs (forward and
+    grad ops, sub-blocks' included); returns (fn's result, count)."""
+    from paddle_tpu_torch.core import lowering
+    run_op, run_grad_op = lowering._run_op, lowering._run_grad_op
+    n = [0]
+
+    def count(inner):
+        def wrapped(*a, **k):
+            n[0] += 1
+            return inner(*a, **k)
+        return wrapped
+
+    lowering._run_op, lowering._run_grad_op = count(run_op), count(
+        run_grad_op)
+    try:
+        out = fn()
+    finally:
+        lowering._run_op, lowering._run_grad_op = run_op, run_grad_op
+    return out, n[0]
+
+
+def _book_agree(np, name, agree, card, host):
+    """The inference outputs of a chapter on the card against the host's:
+    floats within LOSS_RTOL of the host's scale; "equal" exactly; "top1"
+    the argmax equal but in a row whose host top-two lie within BOOK_TIE
+    (relative to the row's scale) of each other. Returns (the largest
+    float error over its scale, the tied rows)."""
+    err, ties = 0.0, []
+    for c, h in zip(card, host):
+        c, h = np.asarray(c), np.asarray(h)
+        if c.shape != h.shape:
+            raise AssertionError(f"book {name}: inference shape {c.shape} "
+                                 f"on the card, {h.shape} on the host")
+        if agree == "equal":
+            if not np.array_equal(c, h):
+                raise AssertionError(f"book {name}: Viterbi paths differ: "
+                                     f"card {c.tolist()} host {h.tolist()}")
+            continue
+        scale = max(float(np.abs(h).max()), 1e-30)
+        e = float(np.abs(c.astype(np.float64) - h).max()) / scale
+        err = max(err, e)
+        if e > LOSS_RTOL:
+            raise AssertionError(f"book {name}: inference outputs {e} of "
+                                 f"the host's scale apart (tol {LOSS_RTOL})")
+        if agree == "top1":
+            h2 = h.reshape(-1, h.shape[-1])
+            c2 = c.reshape(-1, c.shape[-1])
+            for r in np.nonzero(c2.argmax(-1) != h2.argmax(-1))[0]:
+                top = np.sort(h2[r])[-2:]
+                if top[1] - top[0] > BOOK_TIE * max(abs(top[1]), 1e-30):
+                    raise AssertionError(
+                        f"book {name}: row {r}'s top-1 is "
+                        f"{c2[r].argmax()} on the card, {h2[r].argmax()} "
+                        f"on the host, not at a tie: {h2[r].tolist()}")
+                ties.append(int(r))
+    return err, ties
+
+
+def run_book_chapter(torch, ptt, native, book, name, tmp):
+    """One chapter of the book on the card (the docstring's 7j): returns
+    its numbers, with a `step` closure for the traced step later."""
+    import numpy as np
+    w = book.CARD[name]
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        ch = book.build(ptt, name, w)
+    place = ptt.CUDAPlace(0)
+    exe, scope = ptt.Executor(place), ptt.Scope()
+    exe.run(startup, scope=scope)
+    init = book.init_values(ptt, name)
+    ptt.io.state_from_numpy(init, place, scope)
+    df = book.feeder(ptt, ch, place, main)
+    batches = book.batches(ptt, name, w, BOOK_WARMUP + BOOK_STEPS + 1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    losses, step_ms = [], []
+    for i, rows in enumerate(batches[:-1]):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=book.feed(ch, df, rows),
+                       fetch_list=[ch.loss], scope=scope)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+        if i >= BOOK_WARMUP:
+            step_ms.append(dt)
+    peak = torch.cuda.max_memory_allocated() - before
+    # one more step, counted: the rule calls, and where the feeds and the
+    # persistables live while the chapter trains
+    last = book.feed(ch, df, batches[-1])
+    feed_names = [v.name for v in ch.feeds]
+    outs, calls = _count_rule_calls(lambda: exe.run(
+        main, feed=last, fetch_list=[ch.loss] + feed_names, scope=scope,
+        return_numpy=False))
+    losses.append(float(outs[0].reshape(-1)[0]))
+    launches = dict(native.launches)
+    if any(launches.values()):
+        raise AssertionError(f"book {name}: a kernel of csrc/ launched: "
+                             f"{launches}")
+    off = [n for n, t in zip(feed_names, outs[1:]) if t.device.type != "cuda"]
+    off += [n for n in scope.local_var_names()
+            if isinstance(scope.find_var(n), torch.Tensor)
+            and scope.find_var(n).device.type != "cuda"]
+    if off:
+        raise AssertionError(f"book {name}: not on the card: {off}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"book {name}: losses {losses}")
+
+    # the inference model: saved, loaded on the card and on the host
+    path = os.path.join(tmp, name)
+    ptt.io.save_inference_model(path, ch.infer_feeds, ch.targets, exe,
+                                main_program=main, scope=scope)
+    infer = book.infer_feed(ch, book.feed(ch, df, batches[0]))
+    res = {}
+    for side, pl in (("card", place), ("host", ptt.CPUPlace())):
+        e, sc = ptt.Executor(pl), ptt.Scope()
+        prog, names, fetches = ptt.io.load_inference_model(path, e, scope=sc)
+        if names != ch.infer_feeds:
+            raise AssertionError(f"book {name}: loaded feeds {names}")
+        res[side] = e.run(prog, feed=infer, fetch_list=fetches, scope=sc)
+    infer_err, ties = _book_agree(np, name, ch.agree, res["card"],
+                                  res["host"])
+
+    # card vs host from one state, each step from the host's
+    pw = dict(w, batch=BOOK_PARITY_BATCH.get(name, w["batch"]))
+    pfeeds = [book.feed(ch, df, rows)
+              for rows in book.batches(ptt, name, pw, BOOK_PARITY_STEPS)]
+    sign_updates = any(op.type in ("adam", "adagrad")
+                       for op in main.global_block().ops)
+    parity = run_step_parity(torch, ptt, f"book {name}", main, startup,
+                             ch.loss, pfeeds, BOOK_PARITY_STEPS, init=init,
+                             sign_updates=sign_updates)
+
+    def step():
+        exe.run(main, feed=last, fetch_list=[ch.loss], scope=scope)
+
+    med = _median(step_ms)
+    # the float32 bound of the image chapters' convs and products (the
+    # sequence chapters' shapes carry a time dim unknown at build time)
+    macs = model_macs(main) if name in BOOK_PARITY_BATCH else None
+    return dict(
+        name=name, widths=w, batch=w["batch"], losses=losses,
+        step_ms=step_ms, step_ms_median=med,
+        examples_per_s=w["batch"] / med * 1e3, peak_bytes=peak,
+        rule_calls=calls, ops=len(main.global_block().ops),
+        macs_per_sample=macs,
+        bound_ms=(3 * 2 * macs * w["batch"] / PEAK_F32_FLOPS * 1e3
+                  if macs else None),
+        launches=launches, infer_err=infer_err, infer_ties=ties,
+        infer_agree=ch.agree, infer_shapes=[list(np.asarray(o).shape)
+                                            for o in res["card"]],
+        parity=parity, step=step)
+
+
+def run_book(torch, ptt, native, tmp):
+    """Phase 7j: every chapter of the book on the card."""
+    from tools import torch_book as book
+    return {name: run_book_chapter(torch, ptt, native, book, name, tmp)
+            for name in book.CHAPTERS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4187,6 +4398,47 @@ def main() -> int:
         f"best beams {beam['best']}; {time.perf_counter() - t0:.1f} s")
     for k in ("scope", "main"):
         mt.pop(k)
+
+    # 7j. the book: the nine chapters at the book's widths on the card
+    # (timed before the traced steps below: a profiler session slows every
+    # later launch), card vs host, their inference models on both
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_book_") as tmp:
+        book = run_book(torch, ptt, native, tmp)
+    book_s = time.perf_counter() - t0
+    for name, b in book.items():
+        par = b["parity"]
+        log(f"book {name} (widths {b['widths']}) on the card [{card}]: "
+            f"{BOOK_WARMUP} + {BOOK_STEPS} steps, step "
+            f"{b['step_ms_median']:.2f} ms (median; all: "
+            f"{[round(x, 2) for x in b['step_ms']]}), "
+            f"{b['examples_per_s']:.1f} examples/s, peak memory "
+            f"{b['peak_bytes'] / 2**20:.1f} MiB above what the card held "
+            f"before, {b['rule_calls']} rule calls a step ({b['ops']} ops "
+            f"in the main block); losses "
+            f"{[round(x, 4) for x in b['losses']]}; no kernel of csrc/ "
+            f"launched; every feed and persistable on the card")
+        log(f"book {name}: inference model reloaded on the card and on "
+            f"the host, outputs {b['infer_shapes']} agree "
+            f"({b['infer_agree']}; float error {b['infer_err']:.3g} of the "
+            f"host's scale, tol {LOSS_RTOL}; near-tie rows "
+            f"{b['infer_ties']}); card vs host, {par['steps']} steps from "
+            f"the host's state at batch "
+            f"{BOOK_PARITY_BATCH.get(name, b['batch'])}: card "
+            f"{par['losses']['card']} host {par['losses']['host']}, max "
+            f"relative error {par['rel_err']:.3g} (tol {LOSS_RTOL}); "
+            f"{par['n_stats']} running stats at {par['stat_share']:.3g} "
+            f"and the other persistables at {par['l2_share']:.3g} of their "
+            f"tolerance"
+            + (f" (Adam / Adagrad: the parameters, not gated, at "
+               f"{par['param_share']:.3g})" if par["param_share"] else ""))
+    ic = book["image_classification"]
+    log(f"book image_classification float32 bound {ic['bound_ms']:.3f} ms "
+        f"(3 x 2 x {ic['macs_per_sample'] / 1e6:.2f} M multiply-adds an "
+        f"image x {ic['batch']}, at 67 TFLOP/s), "
+        f"{ic['bound_ms'] / ic['step_ms_median']:.3f} of its step")
+    log(f"book: phase {book_s:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -4209,6 +4461,16 @@ def main() -> int:
         f"device busy {busy_us / 1e3:.1f} ms = {beam['busy_share']:.3f} of "
         f"it ({n_events} device events; {beam['busy_over_untraced']:.3f} "
         f"of the untraced median)")
+    for name, b in book.items():
+        traced_s, busy_us, n_events = traced_busy(torch, b.pop("step"))
+        b.update(traced_ms=traced_s * 1e3, busy_us=busy_us,
+                 busy_share=busy_us / (traced_s * 1e6),
+                 busy_over_untraced=busy_us / (b["step_ms_median"] * 1e3),
+                 device_events=n_events)
+        log(f"book {name}, one traced step: {b['traced_ms']:.2f} ms, device "
+            f"busy {busy_us / 1e3:.2f} ms = {b['busy_share']:.3f} of it "
+            f"({n_events} device events; {b['busy_over_untraced']:.3f} of "
+            f"the untraced median)")
     t0 = time.perf_counter()
     lstm_parity = run_stacked_lstm_parity(torch, ptt)
     log(f"stacked-lstm parity, {lstm_parity['steps']} steps from the host's "
@@ -4468,6 +4730,9 @@ def main() -> int:
     log(f"total {total_s:.1f} s")
     out_dir = os.path.join(here, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_book.json"), "w") as f:
+        json.dump({"card": card, "phase_s": book_s, "total_s": total_s,
+                   "chapters": book}, f, indent=1)
     with open(os.path.join(out_dir, "chip_smoke_train.json"), "w") as f:
         json.dump({"card": card, "total_s": total_s, "train": trains,
                    "parity": parities, "serve_int8": serve8,

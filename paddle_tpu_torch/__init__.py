@@ -27,7 +27,9 @@ the data plane and the Trainer (``recordio/``, ``reader/``, `py_reader`
 with ``Executor.run(feed=None)``, `AsyncFeeder`, whose copies run from
 pinned host buffers on a side CUDA stream, ``trainer.py`` with the ark
 checkpoints of ``ark/``, ``metrics.py``, ``evaluator.py``,
-``profiler.py``, ``debugger.py``).
+``profiler.py``, ``debugger.py``), and the Fluid book (``dataset/``'s
+readers, ``layers.cos_sim``, ``layers.linear_chain_crf`` and
+``layers.crf_decoding``).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -74,8 +76,9 @@ from .core.ir import (Parameter, Program, Variable,  # noqa: F401
                       program_guard)
 from .param_attr import ParamAttr  # noqa: F401
 from .core.executor import EOFException, fetch_var  # noqa: F401
-from . import (annotations, ark, average, debugger, evaluator,  # noqa: F401
-               metrics, profiler, reader, recordio, recordio_writer)
+from . import (annotations, ark, average, dataset, debugger,  # noqa: F401
+               evaluator, metrics, profiler, reader, recordio,
+               recordio_writer)
 from .recordio_writer import (convert_reader_to_recordio_file,  # noqa: F401
                               convert_reader_to_recordio_files)
 from .async_feeder import AsyncFeeder  # noqa: F401

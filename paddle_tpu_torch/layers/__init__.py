@@ -6,20 +6,20 @@ from .io import (data, py_reader, open_recordio_file,  # noqa: F401
                  random_data_generator, load, Preprocessor)
 from .metric_op import accuracy  # noqa: F401
 from .nn import (batch_norm, cast, ceil, clip, clip_by_norm,  # noqa: F401
-                 conv2d, cross_entropy, dropout, dynamic_gru, dynamic_lstm,
-                 dynamic_lstmp, elementwise_add, elementwise_div,
+                 conv2d, cos_sim, cross_entropy, dropout, dynamic_gru,
+                 dynamic_lstm, dynamic_lstmp, elementwise_add, elementwise_div,
                  elementwise_max, elementwise_min, elementwise_mul,
-                 elementwise_pow, elementwise_sub, embedding, exp, fc,
-                 floor, gru_unit, layer_norm, lstm_unit, matmul, mean,
-                 pool2d, reduce_sum, relu, reshape, row_conv, scale,
-                 sequence_concat, sequence_conv, sequence_erase,
-                 sequence_expand, sequence_first_step, sequence_last_step,
-                 sequence_mask, sequence_pool, sequence_reshape,
-                 sequence_slice, sequence_softmax, sigmoid,
-                 sigmoid_cross_entropy_with_logits, slice, softmax,
-                 square_error_cost,
-                 softmax_with_cross_entropy, split, sqrt, square, squeeze,
-                 tanh, topk, transpose, unsqueeze)
+                 elementwise_pow, elementwise_sub, embedding, exp, fc, floor,
+                 gru_unit, layer_norm, lstm_unit, matmul, mean, pool2d,
+                 reduce_sum, relu, reshape, row_conv, scale, sequence_concat,
+                 sequence_conv, sequence_erase, sequence_expand,
+                 sequence_first_step, sequence_last_step, sequence_mask,
+                 sequence_pool, sequence_reshape, sequence_slice,
+                 sequence_softmax, sigmoid, sigmoid_cross_entropy_with_logits,
+                 slice, softmax, square_error_cost, softmax_with_cross_entropy,
+                 split, sqrt, square, squeeze, tanh, topk, transpose,
+                 unsqueeze)
+from .loss_layers import crf_decoding, linear_chain_crf  # noqa: F401
 from .tensor import (assign, concat, fill_constant,  # noqa: F401
                      fill_constant_batch_size_like, sums)
 from .control_flow import (While, StaticRNN, Switch, DynamicRNN,  # noqa: F401

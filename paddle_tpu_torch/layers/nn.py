@@ -705,6 +705,18 @@ def sequence_last_step(input):
     return sequence_pool(input, "last")
 
 
+def cos_sim(X, Y):
+    """Row-wise cosine similarity (reference nn.py cos_sim)."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(dtype=X.dtype)
+    xn = helper.create_variable_for_type_inference(dtype=X.dtype)
+    yn = helper.create_variable_for_type_inference(dtype=X.dtype)
+    helper.append_op("cos_sim", inputs={"X": [X.name], "Y": [Y.name]},
+                     outputs={"Out": [out.name], "XNorm": [xn.name],
+                              "YNorm": [yn.name]})
+    return out
+
+
 def sequence_softmax(input, use_cudnn=False, name=None):
     helper = LayerHelper("sequence_softmax", name=name)
     out = helper.create_variable_for_type_inference(dtype=input.dtype)

@@ -6,7 +6,7 @@ Mirror of ``paddle_tpu/ops/math.py``: the elementwise ops `add`, `sub`,
 `axis`, `mul`, `matmul`, `scale`, `sum`, `mean`, `cast`, `clip`,
 `clip_by_norm`, `reduce_sum`, the activations `relu`, `exp`, `sqrt`,
 `square`, `sigmoid`, `tanh`, `floor` and `ceil`, `softmax`,
-`log_softmax`, `top_k`, the comparisons `equal`, `not_equal`,
+`log_softmax`, `top_k`, `cos_sim`, the comparisons `equal`, `not_equal`,
 `less_than`, `less_equal`, `greater_than` and `greater_equal`, and the
 logical ops `logical_and`, `logical_or`, `logical_xor` and
 `logical_not`. Matrix products go to `torch.matmul`,
@@ -299,3 +299,17 @@ def _top_k(ctx, X):
     int64, the port's index dtype (``core/types.py``)."""
     vals, idx = torch.topk(X, ctx.attr("k", 1), dim=-1)
     return {"Out": vals, "Indices": idx}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, X, Y):
+    """Row-wise cosine similarity over the last dim, [N, 1]; a one-row Y
+    broadcasts over X's rows. The denominator is clamped at 1e-12 by
+    `torch.maximum`, whose grad splits at a tie as `jnp.maximum`'s
+    does."""
+    xn = torch.sqrt(torch.sum(X * X, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(Y * Y, dim=-1, keepdim=True))
+    den = xn * yn
+    out = torch.sum(X * Y, dim=-1, keepdim=True) / torch.maximum(
+        den, den.new_tensor(1e-12))
+    return {"Out": out, "XNorm": xn, "YNorm": yn}

@@ -11,7 +11,9 @@ with a hot swap under traffic, and the data plane: AsyncFeeder's pinned
 ring and side-stream copy, py_reader's double buffer on the card against
 the host, py_reader and AsyncFeeder landing on the card when no place is
 named, the Preprocessor on the card against the host, and the profiler's
-CUDA kernels.
+CUDA kernels, and the book's ops (`cos_sim`, `linear_chain_crf` with its
+grads, `crf_decoding`) and two steps of its label_semantic_roles chapter
+on the card against the host.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -1942,3 +1944,97 @@ def test_profiler_all_records_cuda_kernels(dev, tmp_path):
     assert kernels, sorted({e.get("cat") for e in trace["traceEvents"]})
     with prof.cuda_profiler("nvtx_range"):
         (a @ a).sum().item()
+
+
+def _assert_within_scale(names, host, card, rtol):
+    """Floats within `rtol` of each tensor's largest host magnitude;
+    integers equal."""
+    for n, h, c in zip(names, host, card):
+        assert h.shape == c.shape and h.dtype == c.dtype, n
+        if h.dtype.kind in "iub":
+            np.testing.assert_array_equal(c, h, err_msg=n)
+        else:
+            assert np.abs(c - h).max(initial=0) \
+                <= rtol * max(np.abs(h).max(initial=0), 1e-30), n
+
+
+def test_cos_sim_and_crf_pair_on_card_equal_host(dev):
+    """cos_sim (a one-row Y too), linear_chain_crf with its grads, and
+    crf_decoding with and without Label, on lengths 1..9 of a batch
+    padded to 9: card against host from one state, floats within 1e-5
+    of each tensor's scale, the Viterbi paths equal."""
+    rng = np.random.RandomState(13)
+    lens = np.array([9, 1, 4, 9, 2, 7], np.int32)
+    B, T, N = len(lens), 9, 12
+
+    def build(L):
+        em = L.data("em", shape=[N], lod_level=1, stop_gradient=False)
+        lab = L.data("lab", shape=[1], dtype="int64", lod_level=1)
+        x = L.data("x", shape=[16], stop_gradient=False)
+        y1 = L.data("y1", shape=[1, 16], append_batch_size=False,
+                    stop_gradient=False)
+        cost = L.linear_chain_crf(em, lab, param_attr="crfw")
+        path = L.crf_decoding(em, param_attr="crfw")
+        miss = L.crf_decoding(em, param_attr="crfw", label=lab)
+        sim = L.cos_sim(x, L.fc(x, 16))
+        sim1 = L.cos_sim(x, y1)
+        loss = L.sums([L.mean(cost), L.mean(sim), L.mean(sim1)])
+        return loss, [cost.name, path.name, miss.name, sim.name, sim1.name,
+                      "em@GRAD", "x@GRAD", "y1@GRAD"]
+
+    feed = {"em": (rng.randn(B, T, N).astype(np.float32), lens),
+            "lab": (rng.randint(0, N, (B, T, 1)).astype(np.int64), lens),
+            "x": rng.randn(B, 16).astype(np.float32),
+            "y1": rng.randn(1, 16).astype(np.float32)}
+    native.reset_launches()
+    names, host, card = _card_and_host(dev, build, feed)
+    assert not any(native.launches.values())
+    assert "crfw@GRAD" in names
+    _assert_within_scale(names, host, card, 1e-5)
+    path = card[1]
+    for b, n in enumerate(lens):
+        assert not path[b, n:].any()
+
+
+def test_srl_chapter_steps_on_card_equal_host(dev):
+    """Two steps of the book's label_semantic_roles chapter (db_lstm at
+    the CPU tests' widths: depth 2, 8 LSTM units) on the card and on the
+    host from one state, on the same conll05 batches: the losses within
+    1e-5 relative, every persistable within 1e-5 of its scale, and the
+    Viterbi paths of the inference program equal."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import torch_book as book
+    name = "label_semantic_roles"
+    w = book.SMALL[name]
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        ch = book.build(ptt, name, w)
+    scope = ptt.Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope)
+    state = {n: ptt.core.executor.fetch_var(n, scope)
+             for n in scope.local_var_names()}
+    state.update(book.init_values(ptt, name))
+    df = book.feeder(ptt, ch, ptt.CPUPlace(), main)
+    feeds = [book.feed(ch, df, rows)
+             for rows in book.batches(ptt, name, w, 2)]
+    runs = {}
+    native.reset_launches()
+    for side, place in (("host", ptt.CPUPlace()), ("card", ptt.CUDAPlace(0))):
+        exe = ptt.Executor(place)
+        sc = ptt.io.state_from_numpy(state, place)
+        losses = [float(exe.run(main, feed=f, fetch_list=[ch.loss],
+                                scope=sc)[0].reshape(-1)[0]) for f in feeds]
+        paths, = exe.run(main.clone(for_test=True), feed=feeds[0],
+                         fetch_list=ch.targets, scope=sc)
+        runs[side] = (losses, {n: ptt.core.executor.fetch_var(n, sc)
+                               for n in state}, paths)
+    assert not any(native.launches.values())
+    (hl, hs, hp), (cl, cs, cp) = runs["host"], runs["card"]
+    np.testing.assert_allclose(cl, hl, rtol=1e-5)
+    for n in state:
+        assert np.abs(cs[n] - hs[n]).max() \
+            <= 1e-5 * max(np.abs(hs[n]).max(), 1e-30), n
+    np.testing.assert_array_equal(cp, hp)

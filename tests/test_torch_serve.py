@@ -425,6 +425,27 @@ for _ in range(2):
                    scope=fm_scope)[0] > 0
 with ma.apply(exe, scope=fm_scope):
     pass
+for name in ["paddle_tpu_torch.dataset." + m for m in (
+        "common", "image", "mnist", "cifar", "uci_housing", "imdb", "wmt16",
+        "imikolov", "movielens", "conll05", "sentiment", "wmt14", "voc2012",
+        "flowers", "mq2007")] + ["paddle_tpu_torch.ops.loss_extra",
+                                 "paddle_tpu_torch.layers.loss_layers"]:
+    assert name in sys.modules, name
+assert len(next(ptt.dataset.conll05.test()())) == 9
+crf, crf_start = ptt.Program(), ptt.Program()
+with ptt.program_guard(crf, crf_start), ptt.unique_name.guard():
+    em = ptt.layers.data("em", shape=[3], dtype="float32", lod_level=1)
+    lab = ptt.layers.data("lab", shape=[1], dtype="int64", lod_level=1)
+    cost = ptt.layers.linear_chain_crf(em, lab, param_attr="crfw")
+    path = ptt.layers.crf_decoding(em, param_attr="crfw")
+    sim = ptt.layers.cos_sim(ptt.layers.sequence_pool(em, "sum"),
+                             ptt.layers.sequence_pool(em, "max"))
+crf_scope = ptt.Scope()
+exe.run(crf_start, scope=crf_scope)
+crf_out = exe.run(crf, feed={"em": ([[[1.0, 2.0, 3.0]] * 2] * 2, [2, 1]),
+                             "lab": ([[[1], [2]]] * 2, [2, 1])},
+                  fetch_list=[cost, path, sim], scope=crf_scope)
+assert crf_out[1].tolist()[1][1] == 0 and crf_out[2].shape == (2, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)
@@ -462,7 +483,11 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tools", "torch_serve_profile.py"),
               os.path.join(REPO, "tools", "torch_train_profile.py"),
-              os.path.join(REPO, "tools", "torch_flash_bwd_bench.py")]
+              os.path.join(REPO, "tools", "torch_flash_bwd_bench.py"),
+              os.path.join(REPO, "tools", "torch_book.py")]
     assert len(files) > 20
+    for part in ("dataset/mnist.py", "dataset/common.py",
+                 "ops/loss_extra.py", "layers/loss_layers.py"):
+        assert os.path.join(PORT, part) in files, part
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}
