@@ -241,6 +241,31 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    slots);
    after the other traced steps, one traced step a chapter (device busy
    share). Numbers also in ``chiprun_out/chip_smoke_book.json``;
+7k. the common op breadth: train-deepfm (7e's program) with
+   `layers.auc` on its prediction, DEEPFM_STEPS steps on the host from
+   one state, a new batch each step, each step also on the card from the
+   host's state before it: StatPos / StatNeg equal every step (a
+   prediction may move bucket only on a bucket's edge, AUC_BUCKET_TIE,
+   reported), the AUC within AUC_TOL, the losses within LOSS_RTOL; a free
+   run on the card times the step with and without the auc op;
+   `io.save_params`, `load_params` into a fresh card scope and one more
+   step, bit-equal to the step without the round trip. Then the breadth
+   bank (`_breadth_cases`): each new activation, elementwise, reduction,
+   `cumsum`, `argsort`, `l2_normalize`, `prelu` and loss op, and the
+   three repaired ones, forward and grad on [8192, 2048] float32 (a
+   quarter of the inputs on multiples of 0.5: zeros, bounds, ties);
+   gather, scatter (both modes, ids repeated), gather_nd and one_hot on
+   a [30000, 512] table with 8192 ids; stack, unstack, expand, pad,
+   pad2d (three modes), flatten and reverse on [32, 8, 256, 64];
+   depthwise_conv2d 3x3 on [32, 256, 56, 56], conv2d_transpose 4x4
+   stride 2 from [32, 256, 14, 14] to 128 channels (both also under
+   AMP), lrn on [32, 96, 55, 55] and grid_sampler on [32, 64, 56, 56]:
+   two card runs bit-equal (cuDNN deterministic), the card ms a run,
+   and the card against the host with the rows or batch cut by
+   BREADTH_CUT (BREADTH_RTOL / BREADTH_ATOL, BREADTH_SCALE_TOL of the
+   tensor's scale for BREADTH_SUM_ORDER, AMP within AMP_NOISE_FACTOR of
+   the host's AMP-vs-float32 distance, finite where the host is); no
+   kernel of csrc/ launched. Numbers in ``chip_smoke_train.json``;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -515,6 +540,40 @@ SWAP_V1_TOKENS, SWAP_V2_TOKENS = 600, NEW_TOKENS
 BOOK_WARMUP, BOOK_STEPS, BOOK_PARITY_STEPS = 3, 20, 3
 BOOK_PARITY_BATCH = {"recognize_digits": 8, "image_classification": 8}
 BOOK_TIE = 1e-5
+# phase 7k (a): train-deepfm (DEEPFM_* above) with `layers.auc` at its
+# defaults (200 thresholds) on its prediction, DEEPFM_STEPS steps on the
+# host from one state, a new batch each step (DATA_SEED + step), each
+# step also on the card from the host's state before it. A free run
+# drifts (the card's run from the same state is reported beside the
+# host's: a prediction a few 1e-6 from a bucket's edge crosses it within
+# a few steps), so the histograms are held per step. Each step's histograms
+# must be equal on both sides; a prediction may fall in another bucket
+# only where the host's p * 200 lies within AUC_BUCKET_TIE of a bucket's
+# edge (reported as a tie)
+AUC_TOL, AUC_BUCKET_TIE = 1e-6, 1e-4
+# phase 7k (b): the breadth bank. Elementwise, activation, reduction and
+# loss ops on [BREADTH_ROWS, BREADTH_WIDTH] float32 (B 32 x T 256 rows at
+# Transformer-base's FFN width); gather / scatter / gather_nd / one_hot
+# on a [30000, 512] table with BREADTH_IDS ids; the shape ops on
+# [32, 8, 256, 64]; the vision ops at ResNet-50 / AlexNet stage widths.
+# Inputs carry exact zeros and ties (a quarter of each float tensor lies
+# on multiples of 0.5). Two runs on the card bit-equal at full size; card
+# vs host with the rows (or the batch) cut by BREADTH_CUT, widths kept:
+# floats within BREADTH_RTOL relative / BREADTH_ATOL absolute, or, for the
+# ops that sum in another order on the card (BREADTH_SUM_ORDER), within
+# BREADTH_SCALE_TOL of the tensor's largest magnitude; integers equal;
+# finite wherever the host is. Under AMP (the two convs) the card within
+# AMP_NOISE_FACTOR x the host's own AMP-vs-float32 distance (relative L2)
+BREADTH_ROWS, BREADTH_WIDTH, BREADTH_TABLE, BREADTH_IDS = \
+    8192, 2048, (30000, 512), 8192
+BREADTH_4D = (32, 8, 256, 64)
+BREADTH_CUT, BREADTH_TIMED = 8, 3
+BREADTH_RTOL, BREADTH_ATOL, BREADTH_SCALE_TOL = 1e-4, 1e-6, 1e-5
+BREADTH_SUM_ORDER = {"cumsum", "cumsum_exclusive_reverse", "scatter_add",
+                     "pad2d_reflect", "pad2d_edge", "depthwise_conv2d",
+                     "conv2d_transpose", "depthwise_conv2d_amp",
+                     "conv2d_transpose_amp", "gather", "gather_nd",
+                     "grid_sampler"}
 
 
 def log(*a):
@@ -3657,6 +3716,537 @@ def run_book(torch, ptt, native, tmp):
             for name in book.CHAPTERS}
 
 
+# ---------------------------------------------------------------------------
+# phase 7k: the common op breadth
+# ---------------------------------------------------------------------------
+
+def build_deepfm_auc(ptt):
+    """train-deepfm's program with `layers.auc` on its prediction (added
+    before the optimizer, as a training script does): (main, startup,
+    fetches) with "auc" and "auc_stats" [StatPos, StatNeg]."""
+    from paddle_tpu_torch import clip, optimizer
+    from paddle_tpu_torch.models import deepfm
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        feeds, fetches = deepfm.build()
+        fetches["auc"], fetches["auc_stats"] = ptt.layers.auc(
+            fetches["predict"], feeds["label"])
+        clip.set_gradient_clip(clip.GradientClipByGlobalNorm(DEEPFM_CLIP))
+        try:
+            optimizer.Adagrad(learning_rate=DEEPFM_LR).minimize(
+                fetches["loss"])
+        finally:
+            clip.set_gradient_clip(None)
+    return main, startup, fetches
+
+
+def _buckets(torch, np, p, nt=200):
+    """The `auc` rule's bucket of each prediction, as the rule computes
+    it in float32."""
+    t = torch.from_numpy(np.ascontiguousarray(p, np.float32)).reshape(-1)
+    return (t * nt).to(torch.int64).clamp(0, nt).numpy()
+
+
+def _timed_pair(torch, ptt, progs, startup_state, feeds):
+    """Two programs on the card, each from `startup_state` in a scope of
+    its own, a step of each on every feed, in turns (A B, B A, ...); each
+    one's step ms (host clock, after a sync), fetches, executor and
+    scope."""
+    runs = []
+    for main, fetch in progs:
+        runs.append(dict(main=main, fetch=fetch, ms=[], outs=[],
+                         exe=ptt.Executor(ptt.CUDAPlace(0)),
+                         scope=ptt.io.state_from_numpy(startup_state,
+                                                       ptt.CUDAPlace(0))))
+    for k, feed in enumerate(feeds):
+        for r in (runs if k % 2 == 0 else runs[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["outs"].append(r["exe"].run(r["main"], feed=feed,
+                                          fetch_list=r["fetch"],
+                                          scope=r["scope"]))
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def run_deepfm_auc(torch, ptt, native, tmp):
+    """Phase 7k (a): train-deepfm with a streaming `auc`, DEEPFM_STEPS
+    steps on the host from one state, a batch a step, and each step on
+    the card from the host's state before it (histograms included): the
+    histograms' counts, the AUC and the loss each step. A free run on
+    the card from the same state times the step with and without the
+    `auc` op, and is held to the host's run (losses within LOSS_RTOL; the
+    predictions that drift into another bucket are counted, not gated);
+    `io.save_params` / `load_params` into a fresh card scope and one more
+    step, bit-equal to the step without the round trip."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import fetch_var
+    main, startup, f = build_deepfm_auc(ptt)
+    pos, neg = f["auc_stats"]
+    fetch = [f["loss"], f["auc"], pos, neg, f["predict"]]
+    dev = ptt.CUDAPlace(0).torch_device()
+    feeds = [deepfm_batch(DEEPFM_BATCH, seed=DATA_SEED + step)
+             for step in range(DEEPFM_STEPS + 1)]
+    card_feeds = [{k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+                  for feed in feeds]
+    host_exe, host = ptt.Executor(ptt.CPUPlace()), ptt.Scope()
+    host_exe.run(startup, scope=host)
+    # copies: the optimizer updates the host scope's tensors in place
+    state0 = {n: np.array(fetch_var(n, host))
+              for n in host.local_var_names()}
+    card_exe = ptt.Executor(ptt.CUDAPlace(0))
+    losses = {"card": [], "host": []}
+    aucs = {"card": [], "host": []}
+    ties, auc_err, loss_err, host_outs = [], 0.0, 0.0, []
+    native.reset_launches()
+    for step in range(DEEPFM_STEPS):
+        state = {n: fetch_var(n, host) for n in host.local_var_names()}
+        card = card_exe.run(main, feed=card_feeds[step], fetch_list=fetch,
+                            scope=ptt.io.state_from_numpy(
+                                state, ptt.CUDAPlace(0)))
+        out = host_exe.run(main, feed=feeds[step], fetch_list=fetch,
+                           scope=host)
+        host_outs.append(out)
+        if not (np.array_equal(card[2], out[2])
+                and np.array_equal(card[3], out[3])):
+            # only a prediction on a bucket's edge may count elsewhere
+            hp = np.asarray(out[4]).reshape(-1)
+            moved = np.nonzero(_buckets(torch, np, card[4])
+                               != _buckets(torch, np, hp))[0]
+            frac = np.abs(hp[moved] * 200 - np.round(hp[moved] * 200))
+            if not len(moved) or (frac > AUC_BUCKET_TIE).any():
+                d_pos, d_neg = card[2] - out[2], card[3] - out[3]
+                raise AssertionError(
+                    f"deepfm-auc step {step}: histogram counts differ (card "
+                    f"- host at buckets {np.nonzero(d_pos)[0].tolist()}: "
+                    f"{d_pos[d_pos != 0].tolist()}, "
+                    f"{np.nonzero(d_neg)[0].tolist()}: "
+                    f"{d_neg[d_neg != 0].tolist()}) beyond predictions on a "
+                    f"bucket's edge: {len(moved)} predictions changed "
+                    f"bucket, host p * 200 at "
+                    f"{(hp[moved] * 200).tolist()}")
+            ties += [(step, int(r)) for r in moved]
+        for side, o in (("card", card), ("host", out)):
+            losses[side].append(float(o[0].reshape(-1)[0]))
+            aucs[side].append(float(o[1].reshape(-1)[0]))
+        e = abs(aucs["card"][-1] - aucs["host"][-1])
+        auc_err = max(auc_err, e)
+        if not ties and e > AUC_TOL:
+            raise AssertionError(f"deepfm-auc step {step}: AUC card "
+                                 f"{aucs['card'][-1]} host "
+                                 f"{aucs['host'][-1]} (tol {AUC_TOL})")
+        le = abs(losses["card"][-1] - losses["host"][-1]) / abs(
+            losses["host"][-1])
+        loss_err = max(loss_err, le)
+        if le > LOSS_RTOL:
+            raise AssertionError(f"deepfm-auc step {step}: loss card "
+                                 f"{losses['card'][-1]} host "
+                                 f"{losses['host'][-1]} (tol {LOSS_RTOL})")
+    counts = float(out[2].sum() + out[3].sum())
+    if counts != DEEPFM_STEPS * DEEPFM_BATCH or not 0 <= aucs["card"][-1] \
+            <= 1:
+        raise AssertionError(f"deepfm-auc: the histograms hold {counts} "
+                             f"predictions ({DEEPFM_STEPS} x "
+                             f"{DEEPFM_BATCH} expected), AUC "
+                             f"{aucs['card'][-1]}")
+    # the card alone from the startup state, with and without the auc op
+    plain_main, _, plain_f = build_deepfm(ptt)
+    with_auc, plain = _timed_pair(
+        torch, ptt, [(main, fetch), (plain_main, [plain_f["loss"]])],
+        state0, card_feeds[:DEEPFM_STEPS])
+    step_ms, plain_ms = with_auc["ms"], plain["ms"]
+    exe, scope = with_auc["exe"], with_auc["scope"]
+    # the free run against the host's (a free run itself, from the same
+    # state on the same batches)
+    free = dict(moved=[], p_err=[], parted_at=None, loss_err=0.0)
+    for step, (c, h) in enumerate(zip(with_auc["outs"], host_outs)):
+        free["moved"].append(int((_buckets(torch, np, c[4])
+                                  != _buckets(torch, np, h[4])).sum()))
+        free["p_err"].append(float(np.abs(c[4] - h[4]).max()))
+        if free["parted_at"] is None and not (
+                np.array_equal(c[2], h[2]) and np.array_equal(c[3], h[3])):
+            free["parted_at"] = step
+        free["loss_err"] = max(free["loss_err"], abs(
+            float(c[0][0]) - float(h[0][0])) / abs(float(h[0][0])))
+    if free["loss_err"] > LOSS_RTOL:
+        raise AssertionError(f"deepfm-auc free run: losses {free['loss_err']}"
+                             f" apart (tol {LOSS_RTOL})")
+    # save_params / load_params into a fresh scope, then one more step
+    params = {p.name for p in main.global_block().all_parameters()}
+    pdir = os.path.join(tmp, "deepfm_params")
+    ptt.io.save_params(exe, pdir, main, scope=scope)
+    fresh = ptt.Scope()
+    for n in scope.local_var_names():
+        if n not in params:
+            fresh.set_var(n, scope.find_var(n).clone())
+    ptt.io.load_params(exe, pdir, main, scope=fresh)
+    if sorted(fresh.local_var_names()) != sorted(scope.local_var_names()):
+        raise AssertionError("deepfm-auc: the reloaded scope's vars differ")
+    after = [exe.run(main, feed=card_feeds[-1], fetch_list=fetch, scope=sc)
+             for sc in (scope, fresh)]
+    for n, a, b in zip(["loss", "auc", "stat_pos", "stat_neg", "predict"],
+                       *after):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"deepfm-auc: the step after save_params / "
+                                 f"load_params differs in {n}")
+    for n in scope.local_var_names():
+        if not torch.equal(scope.find_var(n), fresh.find_var(n)):
+            raise AssertionError(f"deepfm-auc: {n} differs after the step "
+                                 f"from the reloaded parameters")
+    launches = dict(native.launches)
+    if any(launches.values()):
+        raise AssertionError(f"deepfm-auc launched a kernel: {launches}")
+    return dict(losses=losses, aucs=aucs, auc_err=auc_err,
+                loss_err=loss_err, ties=ties, step_ms=step_ms,
+                step_ms_median=_median(step_ms[1:]), plain_step_ms=plain_ms,
+                plain_step_ms_median=_median(plain_ms[1:]), counts=counts,
+                free_run=free,
+                n_params=len(params), n_state=len(scope.local_var_names()))
+
+
+def _lattice(torch, x, every=4):
+    """A quarter of x's elements rounded to multiples of 0.5: exact
+    zeros, bounds and ties among ordinary values."""
+    flat = x.reshape(-1)
+    flat[::every] = torch.round(flat[::every] * 2) / 2
+    return x
+
+
+def _breadth_cases():
+    """The bank: (name, op type, make(torch, n, gen, dev) -> inputs,
+    attrs, output slots, backward, the scaled dim at full size). `n` is
+    the rows, the id count or the batch; everything else keeps its
+    width."""
+    W = BREADTH_WIDTH
+    R = BREADTH_ROWS
+
+    def u(torch, shape, gen, dev, scale=1.0):
+        return _lattice(torch, torch.randn(*shape, generator=gen,
+                                           device=dev) * scale)
+
+    def pos(torch, shape, gen, dev):
+        return 0.5 + u(torch, shape, gen, dev).abs()
+
+    def bits(torch, shape, gen, dev):
+        return (torch.rand(*shape, generator=gen, device=dev) > 0.5).float()
+
+    def act(name, attrs=None, positive=False):
+        return (name, name, lambda t, n, g, d: {
+            "X": (pos if positive else u)(t, (n, W), g, d)},
+            attrs or {}, ("Out",), True, R)
+
+    cases = [act("abs"), act("cos"), act("sin"), act("round"), act("sign"),
+             act("logsigmoid"), act("tanh_shrink"), act("softplus"),
+             act("softsign"), act("gelu"), act("elu", {"alpha": 0.5}),
+             act("brelu", {"t_min": -1.0, "t_max": 1.0}),
+             act("hard_shrink", {"threshold": 0.5}),
+             act("hard_sigmoid", {"slope": 0.5, "offset": 0.5}),
+             act("leaky_relu", {"alpha": 0.1}),
+             act("relu6", {"threshold": 1.0}),
+             act("soft_relu", {"threshold": 1.0}),
+             act("softshrink", {"lambda": 0.5}),
+             act("swish", {"beta": 1.0}),
+             act("thresholded_relu", {"threshold": 0.5}),
+             act("log", positive=True), act("rsqrt", positive=True),
+             act("reciprocal", positive=True),
+             act("pow", {"factor": 2.5}, positive=True),
+             act("clip", {"min": -1.0, "max": 1.0}),
+             act("clip_by_norm", {"max_norm": 100.0}),
+             act("l2_normalize", {"axis": 1}),
+             act("cumsum", {"axis": 1}),
+             ("cumsum_exclusive_reverse", "cumsum",
+              lambda t, n, g, d: {"X": u(t, (n, W), g, d)},
+              {"axis": 1, "exclusive": True, "reverse": True}, ("Out",),
+              True, R),
+             act("reduce_max", {"dim": [1]}), act("reduce_min", {"dim": [1]}),
+             act("reduce_mean", {"dim": [1]}),
+             ("reduce_prod", "reduce_prod", lambda t, n, g, d: {
+                 "X": _prod_input(t, n, W, g, d)}, {"dim": [1]}, ("Out",),
+              True, R),
+             ("arg_max", "arg_max", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d)}, {"axis": 1}, ("Out",), False, R),
+             ("arg_min", "arg_min", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d)}, {"axis": 1}, ("Out",), False, R),
+             ("isfinite", "isfinite", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d)}, {}, ("Out",), False, R),
+             ("argsort", "argsort", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d)}, {"axis": -1},
+              ("Out", "Indices"), True, R),
+             ("prelu", "prelu", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d),
+                 "Alpha": t.full((1,), 0.25, device=d)}, {"mode": "all"},
+              ("Out",), True, R),
+             ("maximum", "maximum", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d), "Y": u(t, (n, W), g, d)}, {},
+              ("Out",), True, R),
+             ("elementwise_mod", "elementwise_mod", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d, 3.0),
+                 "Y": pos(t, (n, W), g, d) * t.sign(
+                     t.randn(n, W, generator=g, device=d))}, {},
+              ("Out",), True, R),
+             ("elementwise_floordiv", "elementwise_floordiv",
+              lambda t, n, g, d: {
+                  "X": u(t, (n, W), g, d, 3.0),
+                  "Y": pos(t, (n, W), g, d) * t.sign(
+                      t.randn(n, W, generator=g, device=d))}, {},
+              ("Out",), False, R),
+             ("sigmoid_cross_entropy_with_logits",
+              "sigmoid_cross_entropy_with_logits", lambda t, n, g, d: {
+                  "X": u(t, (n, W), g, d), "Label": bits(t, (n, W), g, d)},
+              {}, ("Out",), True, R),
+             ("smooth_l1_loss", "smooth_l1_loss", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d), "Y": u(t, (n, W), g, d)},
+              {"sigma": 1.0}, ("Out", "Diff"), True, R),
+             ("huber_loss", "huber_loss", lambda t, n, g, d: {
+                 "X": u(t, (n, W), g, d), "Y": u(t, (n, W), g, d)},
+              {"delta": 1.0}, ("Out", "Residual"), True, R),
+             ("log_loss", "log_loss", lambda t, n, g, d: {
+                 "Predicted": _lattice(t, t.rand(n, W, generator=g,
+                                                 device=d) * 0.98 + 0.01),
+                 "Labels": bits(t, (n, W), g, d)}, {}, ("Loss",), True, R),
+             ("rank_loss", "rank_loss", lambda t, n, g, d: {
+                 "Label": bits(t, (n, W), g, d), "Left": u(t, (n, W), g, d),
+                 "Right": u(t, (n, W), g, d)}, {}, ("Out",), True, R),
+             ("margin_rank_loss", "margin_rank_loss", lambda t, n, g, d: {
+                 "Label": bits(t, (n, W), g, d) * 2 - 1,
+                 "X1": u(t, (n, W), g, d), "X2": u(t, (n, W), g, d)},
+              {"margin": 0.5}, ("Out", "Activated"), True, R),
+             ("hinge_loss", "hinge_loss", lambda t, n, g, d: {
+                 "Logits": u(t, (n, W), g, d),
+                 "Labels": bits(t, (n, W), g, d)}, {}, ("Loss",), True, R)]
+
+    V, E = BREADTH_TABLE
+
+    def ids(t, n, g, d, lo=0, hi=V):
+        i = t.randint(lo, hi, (n,), generator=g, device=d)
+        i[::3] = i[0]                       # an id repeated n / 3 times
+        return i
+
+    cases += [
+        ("gather", "gather", lambda t, n, g, d: {
+            "X": u(t, (V, E), g, d), "Index": ids(t, n, g, d)}, {},
+         ("Out",), True, BREADTH_IDS),
+        ("scatter", "scatter", lambda t, n, g, d: {
+            "X": u(t, (V, E), g, d), "Ids": ids(t, n, g, d),
+            "Updates": u(t, (n, E), g, d)}, {"overwrite": True}, ("Out",),
+         True, BREADTH_IDS),
+        ("scatter_add", "scatter", lambda t, n, g, d: {
+            "X": u(t, (V, E), g, d), "Ids": ids(t, n, g, d),
+            "Updates": u(t, (n, E), g, d)}, {"overwrite": False}, ("Out",),
+         True, BREADTH_IDS),
+        ("gather_nd", "gather_nd", lambda t, n, g, d: {
+            "X": u(t, (V, E), g, d), "Index": t.stack(
+                [ids(t, n, g, d), ids(t, n, g, d, hi=E)], -1)}, {},
+         ("Out",), True, BREADTH_IDS),
+        ("one_hot", "one_hot", lambda t, n, g, d: {
+            "X": ids(t, n, g, d, lo=-5, hi=V + 5).reshape(n, 1)},
+         {"depth": V}, ("Out",), False, BREADTH_IDS)]
+
+    B4 = BREADTH_4D
+
+    def x4(t, n, g, d):
+        return u(t, (n,) + B4[1:], g, d)
+
+    cases += [
+        ("stack", "stack", lambda t, n, g, d: {
+            "X": [x4(t, n, g, d), x4(t, n, g, d)]}, {"axis": 1}, ("Y",),
+         True, B4[0]),
+        ("unstack", "unstack", lambda t, n, g, d: {"X": x4(t, n, g, d)},
+         {"axis": 1}, ("Y",), True, B4[0]),
+        ("expand", "expand", lambda t, n, g, d: {"X": x4(t, n, g, d)},
+         {"expand_times": [1, 2, 1, 1]}, ("Out",), True, B4[0]),
+        ("pad", "pad", lambda t, n, g, d: {"X": x4(t, n, g, d)},
+         {"paddings": [0, 0, 0, 0, 1, 2, 3, 4], "pad_value": 0.5},
+         ("Out",), True, B4[0]),
+        *((f"pad2d_{mode}", "pad2d", lambda t, n, g, d: {
+            "X": x4(t, n, g, d)}, {"paddings": [1, 2, 3, 4], "mode": mode,
+                                   "pad_value": 0.5}, ("Out",), True, B4[0])
+          for mode in ("constant", "reflect", "edge")),
+        ("flatten", "flatten", lambda t, n, g, d: {"X": x4(t, n, g, d)},
+         {"axis": 2}, ("Out",), True, B4[0]),
+        ("reverse", "reverse", lambda t, n, g, d: {"X": x4(t, n, g, d)},
+         {"axis": [1, 3]}, ("Out",), True, B4[0])]
+
+    def conv_in(t, n, g, d, c, hw, f):
+        return {"Input": u(t, (n, c, hw, hw), g, d),
+                "Filter": u(t, f, g, d, 0.1)}
+
+    dw = ("depthwise_conv2d", lambda t, n, g, d: conv_in(
+        t, n, g, d, 256, 56, (256, 1, 3, 3)),
+        {"strides": [1, 1], "paddings": [1, 1]}, ("Output",), True, 32)
+    ct = ("conv2d_transpose", lambda t, n, g, d: conv_in(
+        t, n, g, d, 256, 14, (256, 128, 4, 4)),
+        {"strides": [2, 2], "paddings": [1, 1]}, ("Output",), True, 32)
+    cases += [
+        ("depthwise_conv2d",) + dw, ("conv2d_transpose",) + ct,
+        ("depthwise_conv2d_amp",) + dw, ("conv2d_transpose_amp",) + ct,
+        ("lrn", "lrn", lambda t, n, g, d: {"X": u(t, (n, 96, 55, 55), g, d)},
+         {"n": 5}, ("Out", "MidOut"), True, 32),
+        ("grid_sampler", "grid_sampler", lambda t, n, g, d: {
+            "X": u(t, (n, 64, 56, 56), g, d),
+            "Grid": _lattice(t, t.rand(n, 56, 56, 2, generator=g, device=d)
+                             * 2.2 - 1.1)}, {}, ("Output",), True, 32)]
+    return cases
+
+
+def _prod_input(torch, n, w, gen, dev):
+    """Values near 1 (so a row's product of 2048 stays finite), a row in
+    seven with one exact zero and a row in eleven with two."""
+    x = 1.0 + 0.001 * torch.randn(n, w, generator=gen, device=dev)
+    x[::7, 5] = 0.0
+    x[::11, 9:11] = 0.0
+    return x
+
+
+def _breadth_program(ptt, op_type, inputs, attrs, outs, backward):
+    """A Program of one op on data vars built with the port's own
+    LayerHelper, its first output cast to float32 and averaged, and the
+    grads of every float input when `backward`; returns (main, fetch)."""
+    from paddle_tpu_torch.core.backward import append_backward
+    from paddle_tpu_torch.layer_helper import LayerHelper
+    main = ptt.Program()
+    with ptt.program_guard(main, ptt.Program()), ptt.unique_name.guard():
+        blk = main.global_block()
+        helper = LayerHelper(op_type)
+        slots = {}
+        for slot, v in inputs.items():
+            vs = v if isinstance(v, list) else [v]
+            slots[slot] = [f"{slot}_{k}" for k in range(len(vs))]
+            for name, a in zip(slots[slot], vs):
+                blk.create_var(name=name, shape=tuple(a.shape),
+                               dtype=str(a.dtype).replace("torch.", ""),
+                               is_data=True,
+                               stop_gradient=not a.is_floating_point())
+        out = {}
+        for slot in outs:
+            count = (inputs["X"].shape[attrs.get("axis", 0)]
+                     if op_type == "unstack" else 1)
+            out[slot] = [helper.create_variable_for_type_inference().name
+                         for _ in range(count)]
+        helper.append_op(op_type, inputs=slots, outputs=out, attrs=attrs)
+        fetch = [n for slot in outs for n in out[slot][:1]]
+        if backward:
+            first = ptt.layers.cast(blk.var(out[outs[0]][0]), "float32")
+            append_backward(ptt.layers.mean(first))
+            fetch += [n + "@GRAD" for names in slots.values() for n in names
+                      if n + "@GRAD" in blk.vars]
+    return main, fetch, {n: a for slot, v in inputs.items() for n, a in zip(
+        slots[slot], v if isinstance(v, list) else [v])}
+
+
+def _bits_equal(torch, a, b):
+    """Bit for bit, NaN payloads included."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                torch.float16: torch.int16, torch.float64: torch.int64}
+        return torch.equal(a.view(view[a.dtype]), b.view(view[b.dtype]))
+    return torch.equal(a, b)
+
+
+def run_breadth_case(torch, ptt, case, seed):
+    """One case of the bank: at full size two card runs (bit-equal) and
+    BREADTH_TIMED timed ones; at the cut size the card against the host
+    (and, for an `_amp` case, the host's float32 run for bf16's own
+    distance)."""
+    import numpy as np
+    name, op_type, make, attrs, outs, backward, full_n = case
+    amp = name.endswith("_amp")
+    dev = ptt.CUDAPlace(0).torch_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    inputs = make(torch, full_n, gen, dev)
+    main, fetch, feed = _breadth_program(ptt, op_type, inputs, attrs, outs,
+                                         backward)
+    card = ptt.Executor(ptt.CUDAPlace(0), amp=amp)
+    runs = [card.run(main, feed=feed, fetch_list=fetch, scope=ptt.Scope(),
+                     return_numpy=False) for _ in range(2)]
+    for n, a, b in zip(fetch, *runs):
+        if not _bits_equal(torch, a, b):
+            raise AssertionError(f"breadth {name}: two card runs differ in "
+                                 f"{n}")
+    shapes = {n: list(a.shape) for n, a in zip(fetch, runs[0])}
+    del runs
+    ms = []
+    for _ in range(BREADTH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.run(main, feed=feed, fetch_list=fetch, scope=ptt.Scope(),
+                 return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del feed, inputs
+    # the cut: the same program at rows (or batch) / BREADTH_CUT
+    gen.manual_seed(seed)
+    inputs = make(torch, full_n // BREADTH_CUT, gen, dev)
+    main, fetch, feed = _breadth_program(ptt, op_type, inputs, attrs, outs,
+                                         backward)
+    host_feed = {n: a.cpu() for n, a in feed.items()}
+    got = card.run(main, feed=feed, fetch_list=fetch, scope=ptt.Scope())
+    want = ptt.Executor(ptt.CPUPlace(), amp=amp).run(
+        main, feed=host_feed, fetch_list=fetch, scope=ptt.Scope())
+    share = 0.0
+    if amp:
+        f32 = ptt.Executor(ptt.CPUPlace()).run(
+            main, feed=host_feed, fetch_list=fetch, scope=ptt.Scope())
+    for i, (n, c, h) in enumerate(zip(fetch, got, want)):
+        if c.shape != h.shape or c.dtype != h.dtype:
+            raise AssertionError(f"breadth {name}: {n} is {c.dtype} "
+                                 f"{c.shape} on the card, {h.dtype} "
+                                 f"{h.shape} on the host")
+        if h.dtype.kind != "f":
+            if not np.array_equal(c, h):
+                raise AssertionError(f"breadth {name}: {n} differs")
+            continue
+        fin = np.isfinite(h)
+        if not np.isfinite(c[fin]).all():
+            raise AssertionError(f"breadth {name}: {n} not finite on the "
+                                 f"card where the host's is")
+        if not np.array_equal(np.isnan(c), np.isnan(h)):
+            raise AssertionError(f"breadth {name}: {n} NaN apart")
+        c, h = np.where(fin, c, 0.0), np.where(fin, h, 0.0)
+        if amp:
+            noise = _rel_l2(np, h, np.asarray(f32[i]))
+            e = _rel_l2(np, c, h) / max(AMP_NOISE_FACTOR * noise, 1e-30)
+        elif name in BREADTH_SUM_ORDER:
+            e = float(np.abs(c.astype(np.float64) - h).max(initial=0)) / (
+                BREADTH_SCALE_TOL * max(float(np.abs(h).max(initial=0)),
+                                        1e-30))
+        else:
+            e = float((np.abs(c.astype(np.float64) - h) / (
+                BREADTH_ATOL + BREADTH_RTOL * np.abs(h))).max(initial=0))
+        share = max(share, e)
+        if e > 1.0:
+            raise AssertionError(f"breadth {name}: {n} card vs host at "
+                                 f"{e:.3g} of its tolerance")
+    return dict(name=name, op=op_type, amp=amp, ms=ms,
+                ms_median=_median(ms), shapes=shapes, tol_share=share,
+                gate=("amp" if amp else "scale" if name in BREADTH_SUM_ORDER
+                      else "elementwise"))
+
+
+def run_breadth(torch, ptt, native):
+    """Phase 7k (b): every case of `_breadth_cases`, cuDNN deterministic
+    (its default algorithms may add a conv's weight grad in another order
+    each run); no kernel of csrc/ may launch."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    native.reset_launches()
+    try:
+        out = [run_breadth_case(torch, ptt, case, SEED + 1000 + i)
+               for i, case in enumerate(_breadth_cases())]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    launches = dict(native.launches)
+    if any(launches.values()):
+        raise AssertionError(f"breadth bank launched a kernel: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4439,6 +5029,54 @@ def main() -> int:
         f"{ic['bound_ms'] / ic['step_ms_median']:.3f} of its step")
     log(f"book: phase {book_s:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # 7k. the common op breadth: train-deepfm with a streaming auc, card
+    # vs host; then the breadth bank at full width (timed before the
+    # traced steps below)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_auc_") as tmp:
+        dauc = run_deepfm_auc(torch, ptt, native, tmp)
+    log(f"train-deepfm-auc: {DEEPFM_STEPS} steps of batch {DEEPFM_BATCH} "
+        f"(a new batch each step) with layers.auc(predict, label) at its "
+        f"defaults on the host, each also on the card from the host's "
+        f"state: losses card "
+        f"{[round(x, 5) for x in dauc['losses']['card']]} host "
+        f"{[round(x, 5) for x in dauc['losses']['host']]} (max relative "
+        f"error {dauc['loss_err']:.3g}, tol {LOSS_RTOL}); AUC card "
+        f"{[round(x, 6) for x in dauc['aucs']['card']]} (max error "
+        f"{dauc['auc_err']:.3g}, tol {AUC_TOL}); StatPos / StatNeg counts "
+        f"equal every step ({int(dauc['counts'])} predictions; "
+        f"{len(dauc['ties'])} on a bucket's edge {dauc['ties']}); "
+        f"save_params ({dauc['n_params']} parameters) -> load_params into "
+        f"a fresh scope -> one more step: {dauc['n_state']} persistables "
+        f"and every fetch bit-equal; no kernel launched; the card's free "
+        f"run against the host's: losses within "
+        f"{dauc['free_run']['loss_err']:.3g} (tol {LOSS_RTOL}), predictions "
+        f"apart by at most {[f'{x:.2g}' for x in dauc['free_run']['p_err']]}"
+        f" a step, {dauc['free_run']['moved']} in another bucket, "
+        f"histograms parted at step {dauc['free_run']['parted_at']} (not "
+        f"gated: a free run drifts)")
+    log(f"train-deepfm-auc on the card [{card}], free runs from the "
+        f"startup state, a step of each in turns: step "
+        f"{dauc['step_ms_median']:.2f} ms with the auc op (all: "
+        f"{[round(x, 2) for x in dauc['step_ms']]}), "
+        f"{dauc['plain_step_ms_median']:.2f} ms without (all: "
+        f"{[round(x, 2) for x in dauc['plain_step_ms']]}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    breadth = run_breadth(torch, ptt, native)
+    breadth_s = time.perf_counter() - t0
+    for b in breadth:
+        log(f"breadth {b['name']} ({b['op']}{', AMP' if b['amp'] else ''}) "
+            f"at {b['shapes']}: card {b['ms_median']:.3f} ms a run "
+            f"(forward and grad, wall after a sync; all: "
+            f"{[round(x, 3) for x in b['ms']]}) [{card}], two card runs "
+            f"bit-equal; card vs host at 1/{BREADTH_CUT} of the rows or "
+            f"batch: {b['tol_share']:.3g} of its tolerance ({b['gate']})")
+    log(f"breadth bank: {len(breadth)} cases held ({len(set(b['op'] for b in breadth))} "
+        f"op types), no kernel of csrc/ launched; phase 7k "
+        f"{breadth_s:.1f} s for the bank; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -4746,6 +5384,7 @@ def main() -> int:
                    "sweep": sweep, "train_stacked_lstm": lstm_trains,
                    "stacked_lstm_parity": lstm_parity,
                    "seq_op_sweep": seq_sweep, "train_mt": mt,
+                   "train_deepfm_auc": dauc, "breadth": breadth,
                    "infer_mt_beam": beam,
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)

@@ -29,7 +29,12 @@ pinned host buffers on a side CUDA stream, ``trainer.py`` with the ark
 checkpoints of ``ark/``, ``metrics.py``, ``evaluator.py``,
 ``profiler.py``, ``debugger.py``), and the Fluid book (``dataset/``'s
 readers, ``layers.cos_sim``, ``layers.linear_chain_crf`` and
-``layers.crf_decoding``).
+``layers.crf_decoding``), and the common op breadth and API surface (the
+activation, elementwise, reduction, tensor, loss and vision ops of
+``ops/``, ``layers.ops``, the streaming ``layers.auc``, every
+initializer, ``io.save_params`` / ``load_params``, ``Operator``,
+``enforce``, ``default_scope_funcs``, ``graphviz`` and
+``net_drawer``).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -76,6 +81,14 @@ from .core.ir import (Parameter, Program, Variable,  # noqa: F401
                       program_guard)
 from .param_attr import ParamAttr  # noqa: F401
 from .core.executor import EOFException, fetch_var  # noqa: F401
+from .core.executor import PreparedProgram, scope_guard  # noqa: F401
+from .core.backward import append_backward, calc_gradient  # noqa: F401
+from . import (backward, contrib, default_scope_funcs,  # noqa: F401
+               enforce, graphviz, net_drawer, op)
+from .enforce import EnforceNotMet  # noqa: F401
+from .flags import get_flag, set_flag  # noqa: F401
+from .op import Operator  # noqa: F401
+from .param_attr import WeightNormParamAttr  # noqa: F401
 from . import (annotations, ark, average, dataset, debugger,  # noqa: F401
                evaluator, metrics, profiler, reader, recordio,
                recordio_writer)
@@ -85,3 +98,21 @@ from .async_feeder import AsyncFeeder  # noqa: F401
 from .trainer import (Trainer, Inferencer, CheckpointConfig,  # noqa: F401
                       BeginEpochEvent, EndEpochEvent, BeginStepEvent,
                       EndStepEvent, save_checkpoint, load_checkpoint)
+
+
+def is_compiled_with_cuda() -> bool:
+    """Whether a CUDA card is present for this process (the port's
+    meaning of the name: its kernels build at first use, so there is no
+    build-time switch)."""
+    import torch
+    return torch.cuda.is_available()
+
+
+def get_var(name, program=None):
+    """Look up a Variable by name in a program's global block (reference
+    framework.py get_var)."""
+    program = program or default_main_program()
+    v = program.global_block()._find_var_recursive(name)
+    if v is None:
+        raise ValueError(f"get_var: no variable named {name!r}")
+    return v

@@ -39,6 +39,7 @@ visible: nothing falls back to the host silently.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -105,7 +106,17 @@ class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, Any] = {}
         self._parent = parent
+        self._kids: List["Scope"] = []
         self._uid = next(Scope._uid_counter)
+
+    def new_scope(self) -> "Scope":
+        """A child scope whose lookups fall back to this one."""
+        kid = Scope(self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self._kids = []
 
     def var(self, name: str):
         """The variable in THIS scope only, or None."""
@@ -128,12 +139,36 @@ class Scope:
     def local_var_names(self) -> List[str]:
         return list(self._vars)
 
+    def erase(self, names):
+        for n in names:
+            self._vars.pop(n, None)
+
 
 _global_scope = Scope()
 
 
 def global_scope() -> Scope:
     return _global_scope
+
+
+def _switch_scope(scope: Scope) -> Scope:
+    """Make `scope` the process-global scope; returns the previous one
+    (reference executor.py _switch_scope)."""
+    global _global_scope
+    prev = _global_scope
+    _global_scope = scope
+    return prev
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    """Run a `with` region against `scope` as the global scope (reference
+    executor.py scope_guard)."""
+    prev = _switch_scope(scope)
+    try:
+        yield
+    finally:
+        _switch_scope(prev)
 
 
 def as_tensor(value, device, dtype: Optional[str] = None) -> torch.Tensor:

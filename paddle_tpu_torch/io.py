@@ -137,37 +137,69 @@ def _collect(program: ir.Program, predicate) -> List[ir.Variable]:
 
 
 def save_vars(executor, dirname, main_program=None, vars=None,
-              predicate=None, scope=None):
-    """One `.npy` per variable (reference io.py:86 save_vars)."""
+              predicate=None, filename=None, scope=None):
+    """One `.npy` a variable, or with `filename` every variable in one
+    `.npz` (`filename` + ".npz" unless it ends so), each file written
+    atomically (reference io.py:86 save_vars)."""
     main_program = main_program or ir.default_main_program()
     scope = scope or global_scope()
     if vars is None:
         vars = _collect(main_program, predicate or _is_persistable)
     os.makedirs(dirname, exist_ok=True)
+    arrays = {}
     for v in vars:
         val = scope.find_var(v.name)
         if val is None:
             raise RuntimeError(f"variable {v.name} not in scope")
-        arr = val.detach().cpu().numpy() if hasattr(val, "detach") \
-            else np.asarray(val)
-        with atomic_file(os.path.join(dirname, v.name + PARAMS_SUFFIX)) as f:
+        arrays[v.name] = val.detach().cpu().numpy() \
+            if hasattr(val, "detach") else np.asarray(val)
+    if filename is not None:
+        path = os.path.join(dirname, filename)
+        if not path.endswith(".npz"):
+            path += ".npz"
+        with atomic_file(path) as f:
+            np.savez(f, **arrays)
+        return
+    for name, arr in arrays.items():
+        with atomic_file(os.path.join(dirname, name + PARAMS_SUFFIX)) as f:
             np.save(f, arr)
 
 
-def save_persistables(executor, dirname, main_program=None, scope=None):
+def _is_parameter(var: ir.Variable) -> bool:
+    return isinstance(var, ir.Parameter)
+
+
+def save_params(executor, dirname, main_program=None, filename=None,
+                scope=None):
+    """The program's parameters only (no optimizer state, no stats)."""
+    return save_vars(executor, dirname, main_program, None, _is_parameter,
+                     filename, scope)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None,
+                      scope=None):
     return save_vars(executor, dirname, main_program, None, _is_persistable,
-                     scope)
+                     filename, scope)
 
 
 def load_vars(executor, dirname, main_program=None, vars=None,
-              predicate=None, scope=None):
-    """Load `.npy` files into `scope` as tensors on the executor's device
-    (reference io.py:292 load_vars)."""
+              predicate=None, filename=None, scope=None):
+    """Load `.npy` files (or the `.npz` that `filename` names) into
+    `scope` as tensors on the executor's device (reference io.py:292
+    load_vars)."""
     main_program = main_program or ir.default_main_program()
     scope = scope or global_scope()
     device = executor.place.torch_device()
     if vars is None:
         vars = _collect(main_program, predicate or _is_persistable)
+    if filename is not None:
+        if not filename.endswith(".npz"):
+            filename += ".npz"
+        with np.load(os.path.join(dirname, filename)) as blob:
+            for v in vars:
+                scope.set_var(v.name, as_tensor(blob[v.name], device,
+                                                v.dtype))
+        return
     for v in vars:
         path = os.path.join(dirname, v.name + PARAMS_SUFFIX)
         if not os.path.exists(path):
@@ -176,9 +208,16 @@ def load_vars(executor, dirname, main_program=None, vars=None,
         scope.set_var(v.name, as_tensor(np.load(path), device, v.dtype))
 
 
-def load_persistables(executor, dirname, main_program=None, scope=None):
+def load_params(executor, dirname, main_program=None, filename=None,
+                scope=None):
+    return load_vars(executor, dirname, main_program, None, _is_parameter,
+                     filename, scope)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None,
+                      scope=None):
     return load_vars(executor, dirname, main_program, None, _is_persistable,
-                     scope)
+                     filename, scope)
 
 
 def state_from_numpy(arrays: Dict[str, np.ndarray], place: Place,
@@ -228,7 +267,7 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         for extra_name, extra_meta in (extra_programs or {}).items():
             with open(os.path.join(stage, extra_name), "w") as f:
                 json.dump(extra_meta, f)
-        save_persistables(executor, stage, pruned, scope)
+        save_persistables(executor, stage, pruned, scope=scope)
         files = {}
         for name in sorted(os.listdir(stage)):
             path = os.path.join(stage, name)
@@ -266,7 +305,7 @@ def load_inference_model(dirname, executor, scope=None, verify=True):
         meta = json.load(f)
     program = ir.Program.from_dict(meta["program"])
     program._is_inference = True
-    load_persistables(executor, dirname, program, scope)
+    load_persistables(executor, dirname, program, scope=scope)
     fetch_vars = [program.global_block().var(n) for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
 
@@ -282,3 +321,12 @@ def load_decode_program(dirname):
     program = ir.Program.from_dict(meta["program"])
     program._is_inference = True
     return program, list(meta["feed_names"]), list(meta["fetch_names"])
+
+
+def get_inference_program(target_vars, main_program=None):
+    """The test-mode clone of `main_program` pruned to what `target_vars`
+    need."""
+    main_program = main_program or ir.default_main_program()
+    names = [v.name if isinstance(v, ir.Variable) else str(v)
+             for v in target_vars]
+    return main_program.clone(for_test=True)._prune(names)

@@ -1,10 +1,10 @@
 """LayerHelper: shared plumbing for the layers DSL.
 
-Mirror of ``paddle_tpu/layer_helper.py`` (the slices' subset): creates
-parameters (appending their initializer ops to the startup program),
-temporary variables, the length companions of variable-length vars and
-ops, and runs build-time shape inference through
-the op registry (the rules themselves, on meta tensors).
+Mirror of ``paddle_tpu/layer_helper.py``: creates parameters
+(appending their initializer ops to the startup program), temporary and
+global variables, the length companions of variable-length vars and ops,
+and runs build-time shape inference through the op registry (the rules
+themselves, on meta tensors).
 """
 
 from __future__ import annotations
@@ -74,6 +74,16 @@ class LayerHelper:
         return self.block.create_var(
             name=unique_name.generate(f"{self.name}.tmp"),
             shape=(), dtype=dtype, stop_gradient=stop_gradient)
+
+    def create_global_variable(self, name=None, shape=(1,), dtype="float32",
+                               persistable=False,
+                               stop_gradient=True) -> ir.Variable:
+        """A variable of the main program's global block (an `auc`
+        histogram, a step counter), named after the layer when unnamed."""
+        return self.main_program.global_block().create_var(
+            name=name or unique_name.generate(f"{self.name}.global"),
+            shape=shape, dtype=dtype, persistable=persistable,
+            stop_gradient=stop_gradient)
 
     def set_variable_initializer(self, var, initializer):
         sb = self.startup_program.global_block()

@@ -1,14 +1,20 @@
-"""Layers built on single ops (mirror of ``paddle_tpu/layers/nn.py``,
-``layers/ops.py`` and ``layers/tensor.py`` for the slices' subset). Each
-function is the JAX package's, so the programs they build are the same
-op for op, name for name."""
+"""Layers built on single ops (mirror of ``paddle_tpu/layers/nn.py``:
+every layer whose op the port registers; the resize, 3-d, crop and
+detection-side layers wait for their ops). Each function is the JAX
+package's, so the programs they build are the same op for op, name for
+name. The activation and elementwise layers are ``layers/ops.py``'s."""
 
 from __future__ import annotations
 
 from .. import initializer as init
+from ..core import ir  # noqa: F401  (exported as `layers.ir`, as in the JAX package)
 from ..core import registry as _registry
 from ..core.ir import seqlen_var_name
 from ..layer_helper import LayerHelper
+from .ops import (ceil, elementwise_add, elementwise_div,  # noqa: F401
+                  elementwise_max, elementwise_min, elementwise_mul,
+                  elementwise_pow, elementwise_sub, exp, floor, relu,
+                  sigmoid, sqrt, square, tanh)
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -326,56 +332,6 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
     return helper.append_activation(out)
 
 
-def _make_elementwise(op_type):
-    def layer(x, y, axis=-1, act=None, name=None):
-        """`{op}` with the reference broadcast semantics (`axis`); the
-        JAX package's ``layers/ops.py`` wrapper."""
-        helper = LayerHelper(op_type, name=name, act=act)
-        out = helper.create_variable_for_type_inference(dtype=x.dtype)
-        helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
-                         outputs={"Out": [out.name]}, attrs={"axis": axis})
-        out.lod_level = max(x.lod_level, getattr(y, "lod_level", 0))
-        return helper.append_activation(out)
-
-    layer.__name__ = op_type
-    layer.__doc__ = layer.__doc__.format(op=op_type)
-    return layer
-
-
-elementwise_add = _make_elementwise("elementwise_add")
-elementwise_sub = _make_elementwise("elementwise_sub")
-elementwise_mul = _make_elementwise("elementwise_mul")
-elementwise_div = _make_elementwise("elementwise_div")
-elementwise_max = _make_elementwise("elementwise_max")
-elementwise_min = _make_elementwise("elementwise_min")
-elementwise_pow = _make_elementwise("elementwise_pow")
-
-
-def _make_act(op_type):
-    def layer(x, name=None, **attrs):
-        """Elementwise `{op}` (the JAX package's ``layers/ops.py``)."""
-        helper = LayerHelper(op_type, name=name)
-        out = helper.create_variable_for_type_inference(dtype=x.dtype)
-        helper.append_op(op_type, inputs={"X": [x.name]},
-                         outputs={"Out": [out.name]}, attrs=attrs)
-        out.lod_level = x.lod_level
-        return out
-
-    layer.__name__ = op_type
-    layer.__doc__ = layer.__doc__.format(op=op_type)
-    return layer
-
-
-relu = _make_act("relu")
-sigmoid = _make_act("sigmoid")
-exp = _make_act("exp")
-sqrt = _make_act("sqrt")
-square = _make_act("square")
-tanh = _make_act("tanh")
-floor = _make_act("floor")
-ceil = _make_act("ceil")
-
-
 def _reduce_layer(op_type):
     def layer(input, dim=None, keep_dim=False, name=None):
         helper = LayerHelper(op_type, name=name)
@@ -395,6 +351,10 @@ def _reduce_layer(op_type):
 
 
 reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
 
 
 def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None):
@@ -883,3 +843,232 @@ def sequence_erase(input, tokens, name=None):
                      attrs={"tokens": [int(t) for t in tokens]})
     _lengths_companion(helper, input, out, lens)
     return out
+
+
+# -- the common op breadth ---------------------------------------------------
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None, use_cudnn=True):
+    """Transposed conv, NCHW, filter [in_c, num_filters, kh, kw]; with no
+    `filter_size` it is derived from `output_size` (reference
+    nn.py:2377-2390)."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("filter_size or output_size must be set")
+        osz = [output_size] * 2 if isinstance(output_size, int) \
+            else list(output_size)
+        st, pd, dl = _pair(stride), _pair(padding), _pair(dilation)
+        filter_size = [(osz[i] - (input.shape[2 + i] - 1) * st[i]
+                        + 2 * pd[i] - 1) // dl[i] + 1 for i in range(2)]
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) \
+        else [filter_size, filter_size]
+    filter_shape = [num_channels, num_filters] + list(fsize)
+    w = helper.create_parameter(param_attr, filter_shape, dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [pre_bias.name]},
+                     attrs={"strides": _pair(stride),
+                            "paddings": _pair(padding),
+                            "dilations": _pair(dilation)})
+    pre_act = _append_bias_channel(helper, pre_bias)
+    return helper.append_activation(pre_act)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {"X": [x.name], "Y": [y.name]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight.name]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight.name]
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": [out.name], "Diff": [diff.name]},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    helper.append_op("one_hot", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"depth": depth})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("gather",
+                     inputs={"X": [input.name], "Index": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("scatter",
+                     inputs={"X": [input.name], "Ids": [index.name],
+                             "Updates": [updates.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"overwrite": overwrite})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("expand", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op("stack", inputs={"X": [v.name for v in x]},
+                     outputs={"Y": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("pad", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": pad_value})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("l2_normalize", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Norm": [norm.name]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """Alpha is a parameter initialized to 0.25: one value (`all`), one a
+    channel (`channel`) or one an element of x's dims after the batch
+    (`element`)."""
+    helper = LayerHelper("prelu", **locals())
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = [int(d) if d > 0 else 1 for d in x.shape[1:]]
+    alpha = helper.create_parameter(
+        param_attr, alpha_shape, x.dtype,
+        default_initializer=init.ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("prelu", inputs={"X": [x.name], "Alpha": [alpha.name]},
+                     outputs={"Out": [out.name]}, attrs={"mode": mode})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    mid = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("lrn", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "MidOut": [mid.name]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(dtype=left.dtype)
+    helper.append_op("rank_loss",
+                     inputs={"Label": [label.name], "Left": [left.name],
+                             "Right": [right.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 - 2 |X n Y| / (|X| + |Y| + epsilon) per sample (over every dim
+    but the batch), averaged over the batch; composed from the layers
+    the JAX package composes it from."""
+    from .ops import elementwise_mul
+    label_f = cast(label, input.dtype)
+    dims = list(range(1, len(input.shape)))
+    inter = reduce_sum(elementwise_mul(input, label_f), dim=dims)
+    union = reduce_sum(input, dim=dims) + reduce_sum(label_f, dim=dims)
+    dice = scale(inter, scale=2.0) / (union + epsilon)
+    return reduce_mean(scale(dice, scale=-1.0, bias=1.0))
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter that each run of the program bumps by
+    `step`, starting at `begin` (reference nn.py
+    autoincreased_step_counter); a second call shares the counter."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    blk = helper.main_program.global_block()
+    if name in blk.vars:
+        return blk.vars[name]
+    counter = helper.create_global_variable(
+        name=name, shape=[1], dtype="int64", persistable=True)
+    helper.set_variable_initializer(counter,
+                                    init.ConstantInitializer(begin - step))
+    helper.append_op("increment", inputs={"X": [counter.name]},
+                     outputs={"Out": [counter.name]},
+                     attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter
+
+
+def beam_search(pre_ids, pre_scores, probs, beam_size, end_id, name=None,
+                finished=None):
+    """One static-shape beam expansion (`beam_search_step`) on dense
+    [B, beam] state: `probs` are log-probs [B, beam, V]; returns
+    (selected_ids, parents, new_scores, new_finished)."""
+    helper = LayerHelper("beam_search", name=name)
+    if finished is None:
+        raise ValueError("pass the running `finished` [B, beam] bool var")
+    outs = {k: [helper.create_variable_for_type_inference(dtype=d).name]
+            for k, d in (("Ids", "int32"), ("Parents", "int32"),
+                         ("AccScoresOut", probs.dtype),
+                         ("FinishedOut", "bool"))}
+    helper.append_op("beam_search_step",
+                     inputs={"LogProbs": [probs.name],
+                             "AccScores": [pre_scores.name],
+                             "Finished": [finished.name]},
+                     outputs=outs,
+                     attrs={"beam_size": int(beam_size),
+                            "end_id": int(end_id)})
+    blk = helper.main_program.current_block()
+    return tuple(blk.var(outs[k][0])
+                 for k in ("Ids", "Parents", "AccScoresOut", "FinishedOut"))
+
+
+def beam_search_decode(ids_hist, parents_hist, final_scores, beam_size=None,
+                       end_id=None, name=None):
+    """Backtrack stacked beam selections ([B, T, beam] ids and parents)
+    into ranked sequences (`beam_backtrack`): (sentence_ids
+    [B, beam, T], sentence_scores [B, beam]), best first."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    ids = helper.create_variable_for_type_inference(dtype="int32")
+    scores = helper.create_variable_for_type_inference(
+        dtype=final_scores.dtype)
+    helper.append_op("beam_backtrack",
+                     inputs={"Ids": [ids_hist.name],
+                             "Parents": [parents_hist.name],
+                             "AccScores": [final_scores.name]},
+                     outputs={"SentenceIds": [ids.name],
+                              "SentenceScores": [scores.name]})
+    return ids, scores

@@ -1,15 +1,16 @@
-"""Math / elementwise / activation / reduction op rules (the slices'
-subset).
+"""Math / elementwise / activation / reduction op rules.
 
-Mirror of ``paddle_tpu/ops/math.py``: the elementwise ops `add`, `sub`,
-`mul`, `div`, `max`, `min` and `pow` with the reference's broadcast
-`axis`, `mul`, `matmul`, `scale`, `sum`, `mean`, `cast`, `clip`,
-`clip_by_norm`, `reduce_sum`, the activations `relu`, `exp`, `sqrt`,
-`square`, `sigmoid`, `tanh`, `floor` and `ceil`, `softmax`,
-`log_softmax`, `top_k`, `cos_sim`, the comparisons `equal`, `not_equal`,
-`less_than`, `less_equal`, `greater_than` and `greater_equal`, and the
-logical ops `logical_and`, `logical_or`, `logical_xor` and
-`logical_not`. Matrix products go to `torch.matmul`,
+Mirror of ``paddle_tpu/ops/math.py``, every rule of it: the elementwise
+ops with the reference's broadcast `axis` (`add` ... `pow`, `mod`,
+`floordiv`), `mul`, `matmul`, `scale`, `sum`, `mean`, `cast`, `clip`,
+`clip_by_norm`, the `reduce_*` ops, the activations, `prelu`,
+`softmax`, `log_softmax`, `cumsum`, `top_k`, `arg_max` / `arg_min`,
+`isfinite`, `maximum`, `l2_normalize`, `cos_sim`, the comparisons and
+the logical ops. Each rule is written as its JAX rule is, so that its
+grad is autograd through the same expression: where that expression
+takes `jnp.clip`, `jnp.maximum` or `jnp.abs`, the grad at a bound, a tie
+or 0 is theirs (`jax_clip`, `torch.maximum`, `jax_abs`; `torch.clamp`
+and `torch.abs` differ there). Matrix products go to `torch.matmul`,
 as the JAX package leaves them to XLA; in float32 on the card they run
 in full float32 (`torch.backends.cuda.matmul.allow_tf32` is False by
 default).
@@ -64,6 +65,10 @@ _register_binary("elementwise_div", torch.div)
 _register_binary("elementwise_max", torch.maximum)
 _register_binary("elementwise_min", torch.minimum)
 _register_binary("elementwise_pow", torch.pow)
+# `jnp.mod` / `jnp.floor_divide`: the result takes the divisor's sign
+# (`torch.fmod` would take the dividend's)
+_register_binary("elementwise_mod", torch.remainder)
+_register_binary("elementwise_floordiv", torch.floor_divide)
 _register_binary("equal", torch.eq)
 _register_binary("not_equal", torch.ne)
 _register_binary("less_than", torch.lt)
@@ -173,6 +178,14 @@ _register_act("tanh", _tanh)
 _register_act("floor", torch.floor)
 _register_act("ceil", torch.ceil)
 _register_act("logical_not", torch.logical_not)
+_register_act("log", torch.log)
+_register_act("rsqrt", torch.rsqrt)
+_register_act("sign", torch.sign)
+_register_act("round", torch.round)       # half to even, as jnp.round
+_register_act("cos", torch.cos)
+_register_act("sin", torch.sin)
+_register_act("reciprocal", lambda x: 1.0 / x)
+_register_act("tanh_shrink", lambda x: x - _tanh(x))
 
 
 @register_op("cast")
@@ -208,33 +221,102 @@ def _sum_as_jnp(x, dims=None, keepdim=False):
     return s.to(x.dtype)
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, X):
+def _reduce(ctx, X, fn):
     """Reference reduce_op.cc: over `dim` (default [0]), or every dim
-    with `reduce_all` (a [1] result, or all-ones dims with `keep_dim`)."""
+    with `reduce_all` (a [1] result, or all-ones dims with `keep_dim`).
+    `fn(x, dims, keepdim)` reduces over a tuple of dims, or over all of
+    them when dims is None."""
     keep = ctx.attr("keep_dim", False)
     if ctx.attr("reduce_all", False):
-        out = _sum_as_jnp(X)
+        out = fn(X, None, False)
         return {"Out": out.reshape((1,) * X.ndim if keep else (1,))}
     dims = ctx.attr("dim", [0])
     dims = tuple(dims) if isinstance(dims, (list, tuple)) else (dims,)
-    return {"Out": _sum_as_jnp(X, dims, keep)}
+    return {"Out": fn(X, dims, keep)}
+
+
+def _mean_as_jnp(x, dims, keepdim):
+    """`jnp.mean`'s rounding: a half-precision input is averaged in
+    float32 and rounded once."""
+    dims = tuple(range(x.ndim)) if dims is None else dims
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x.mean(dims, keepdim=keepdim)
+    return x.mean(dims, keepdim=keepdim, dtype=torch.float32).to(x.dtype)
+
+
+def _prod(x, dims, keepdim):
+    """`jnp.prod` over several dims as one product: the reduced dims are
+    moved last and flattened, so the grad with zeros in a row is
+    `torch.prod`'s over one dim, which equals the JAX rule's."""
+    dims = range(x.ndim) if dims is None else sorted(d % x.ndim
+                                                     for d in dims)
+    kept = [d for d in range(x.ndim) if d not in dims]
+    out = x.permute(*kept, *dims).reshape(
+        [x.shape[d] for d in kept] + [-1]).prod(-1)
+    if keepdim:
+        out = out.reshape([1 if d in dims else x.shape[d]
+                           for d in range(x.ndim)])
+    return out
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, X):
+    return _reduce(ctx, X, _sum_as_jnp)
+
+
+@register_op("reduce_mean")
+def _reduce_mean(ctx, X):
+    return _reduce(ctx, X, _mean_as_jnp)
+
+
+@register_op("reduce_max")
+def _reduce_max(ctx, X):
+    """`torch.amax`, whose grad splits among tied maxima as `jnp.max`'s
+    does (`torch.max(dim=)` sends it all to one)."""
+    return _reduce(ctx, X, lambda x, d, k: x.amax(d or (), keepdim=k))
+
+
+@register_op("reduce_min")
+def _reduce_min(ctx, X):
+    return _reduce(ctx, X, lambda x, d, k: x.amin(d or (), keepdim=k))
+
+
+@register_op("reduce_prod")
+def _reduce_prod(ctx, X):
+    return _reduce(ctx, X, _prod)
+
+
+def jax_clip(x, lo, hi):
+    """`jnp.clip(x, lo, hi)` with its grad: minimum(maximum(x, lo), hi),
+    whose grad splits 0.5 at a bound, as the JAX rule's does
+    (`torch.clamp` passes the whole grad there). The bounds are rounded
+    to x's dtype first (`types.scalar_as`)."""
+    return torch.minimum(
+        torch.maximum(x, x.new_full((), types.scalar_as(lo, x.dtype))),
+        x.new_full((), types.scalar_as(hi, x.dtype)))
+
+
+def jax_abs(x):
+    """`jnp.abs(x)` with its grad: +1 at 0, where `torch.abs`'s is 0."""
+    return torch.where(x >= 0, x, -x)
 
 
 @register_op("clip")
 def _clip(ctx, X):
-    return {"Out": torch.clamp(X, types.scalar_as(ctx.attr("min"), X.dtype),
-                               types.scalar_as(ctx.attr("max"), X.dtype))}
+    return {"Out": jax_clip(X, ctx.attr("min"), ctx.attr("max"))}
 
 
 @register_op("clip_by_norm")
 def _clip_by_norm(ctx, X):
-    """X * min(max_norm / max(||X||, 1e-12), 1)."""
+    """X * min(max_norm / max(||X||, 1e-12), 1), with `torch.minimum` and
+    `torch.maximum` as the JAX rule's `jnp.minimum` / `jnp.maximum`, so
+    the grad splits where the norm meets max_norm."""
     dt = X.dtype
     norm = torch.sqrt(_sum_as_jnp(X * X))
-    scale = torch.clamp(
+    scale = torch.minimum(
         types.scalar_as(ctx.attr("max_norm"), dt)
-        / torch.clamp(norm, min=types.scalar_as(1e-12, dt)), max=1.0)
+        / torch.maximum(norm, norm.new_full((), types.scalar_as(1e-12, dt))),
+        norm.new_full((), 1.0))
     return {"Out": X * scale}
 
 
@@ -313,3 +395,129 @@ def _cos_sim(ctx, X, Y):
     out = torch.sum(X * Y, dim=-1, keepdim=True) / torch.maximum(
         den, den.new_tensor(1e-12))
     return {"Out": out, "XNorm": xn, "YNorm": yn}
+
+
+# -- the rest of the activations (the JAX package's formulas, so each grad
+# is autograd through the same expression: at a kink or a bound the grad
+# is the JAX rule's, see `jax_clip` and `jax_abs`) --------------------------
+
+def _register_attr_act(name, fn):
+    @register_op(name)
+    def _rule(ctx, X, _fn=fn):
+        return {"Out": _fn(ctx, X)}
+    _rule.__name__ = name
+    return _rule
+
+
+def _softplus(x):
+    """`jax.nn.softplus`, logaddexp(x, 0) (`F.softplus` turns linear
+    above 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _elu(x, alpha):
+    """`jax.nn.elu`: x above 0, alpha * expm1(x) at and below it."""
+    pos = x > 0
+    return torch.where(pos, x, alpha * torch.expm1(
+        torch.where(pos, x.new_zeros(()), x)))
+
+
+def _a(ctx, x, name, default):
+    """Attr `name` rounded to x's dtype, as JAX's weak typing rounds a
+    Python scalar."""
+    return types.scalar_as(ctx.attr(name, default), x.dtype)
+
+
+_register_act("abs", jax_abs)
+_register_act("logsigmoid", lambda x: -_softplus(-x))
+_register_act("softplus", _softplus)
+_register_act("softsign", lambda x: x / (1.0 + jax_abs(x)))
+_register_act("gelu", lambda x: torch.nn.functional.gelu(
+    x, approximate="none"))
+_register_attr_act("relu6", lambda ctx, x: jax_clip(
+    x, 0.0, ctx.attr("threshold", 6.0)))
+_register_attr_act("leaky_relu", lambda ctx, x: torch.where(
+    x >= 0, x, x * _a(ctx, x, "alpha", 0.02)))
+_register_attr_act("elu", lambda ctx, x: _elu(x, _a(ctx, x, "alpha", 1.0)))
+_register_attr_act("swish", lambda ctx, x: x * _sigmoid(
+    _a(ctx, x, "beta", 1.0) * x))
+_register_attr_act("hard_sigmoid", lambda ctx, x: jax_clip(
+    _a(ctx, x, "slope", 0.2) * x + _a(ctx, x, "offset", 0.5), 0.0, 1.0))
+_register_attr_act("brelu", lambda ctx, x: jax_clip(
+    x, ctx.attr("t_min", 0.0), ctx.attr("t_max", 24.0)))
+_register_attr_act("soft_relu", lambda ctx, x: torch.log(1 + torch.exp(
+    jax_clip(x, -ctx.attr("threshold", 40.0), ctx.attr("threshold", 40.0)))))
+_register_attr_act("pow", lambda ctx, x: torch.pow(
+    x, ctx.attr("factor", 1.0)))
+_register_attr_act("hard_shrink", lambda ctx, x: torch.where(
+    jax_abs(x) > _a(ctx, x, "threshold", 0.5), x, x.new_zeros(())))
+_register_attr_act("thresholded_relu", lambda ctx, x: torch.where(
+    x > _a(ctx, x, "threshold", 1.0), x, x.new_zeros(())))
+
+
+@register_op("softshrink")
+def _softshrink(ctx, X):
+    lam = _a(ctx, X, "lambda", 0.5)
+    return {"Out": torch.where(X > lam, X - lam, torch.where(
+        X < -lam, X + lam, X.new_zeros(())))}
+
+
+@register_op("prelu")
+def _prelu(ctx, X, Alpha):
+    """Modes `all` (one alpha), `channel` (Alpha [C] as [1, C, 1, 1] for a
+    4-d X) and `element` (Alpha broadcast as it is)."""
+    alpha = Alpha
+    if ctx.attr("mode", "all") == "channel" and Alpha.ndim == 1 \
+            and X.ndim == 4:
+        alpha = Alpha.reshape(1, -1, 1, 1)
+    return {"Out": torch.where(X >= 0, X, X * alpha)}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, X):
+    """`reverse` by flipping twice and `exclusive` as the cumsum minus X,
+    as the JAX rule computes them."""
+    axis = ctx.attr("axis", -1)
+    if ctx.attr("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(X, (axis,)), dim=axis),
+                         (axis,))
+    else:
+        out = torch.cumsum(X, dim=axis)
+    if ctx.attr("exclusive", False):
+        out = out - X
+    return {"Out": out}
+
+
+@register_op("arg_max", propagate_seqlen=False)
+def _arg_max(ctx, X):
+    """The first index of the largest value along `axis`, int64."""
+    return {"Out": torch.argmax(X, dim=ctx.attr("axis", -1))}
+
+
+@register_op("arg_min", propagate_seqlen=False)
+def _arg_min(ctx, X):
+    return {"Out": torch.argmin(X, dim=ctx.attr("axis", -1))}
+
+
+@register_op("isfinite")
+def _isfinite(ctx, X):
+    """One bool of shape [1]: every element of every tensor in X is
+    finite."""
+    xs = X if isinstance(X, list) else [X]
+    ok = torch.stack([torch.isfinite(x).all() for x in xs]).all()
+    return {"Out": ok.reshape(1)}
+
+
+@register_op("maximum")
+def _maximum(ctx, X, Y):
+    return {"Out": torch.maximum(X, Y)}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx, X):
+    """X / max(||X||, epsilon) along `axis`, and the norm."""
+    axis = ctx.attr("axis", -1)
+    norm = torch.sqrt(torch.sum(X * X, dim=axis, keepdim=True))
+    eps = norm.new_full((), types.scalar_as(ctx.attr("epsilon", 1e-10),
+                                            norm.dtype))
+    return {"Out": X / torch.maximum(norm, eps), "Norm": norm}

@@ -1,5 +1,6 @@
-"""Neural-net op rules (the slices' subset): `conv2d`, `pool2d`,
-`batch_norm`, `layer_norm`, `dropout`.
+"""Neural-net op rules: `conv2d`, `depthwise_conv2d`, `conv2d_transpose`,
+`pool2d`, `batch_norm`, `layer_norm`, `dropout`, `lrn` and
+`grid_sampler`.
 
 Mirror of ``paddle_tpu/ops/nn.py``. The JAX package computes convs and
 pools in XLA (`lax.conv_general_dilated`, `lax.reduce_window`), outside
@@ -121,21 +122,90 @@ def _from_nchw(y, fmt):
     return y if fmt == "NCHW" else y.permute(0, 2, 3, 1)
 
 
-@register_op("conv2d", propagate_seqlen=False)
-def _conv2d(ctx, Input, Filter, Bias=None):
-    """Conv in NCHW or NHWC (reference conv_op.cc `data_format`). Filter
-    is always stored OIHW, so parameters are layout-independent."""
+def _conv(ctx, Input, Filter, Bias, groups):
     fmt = ctx.attr("data_format", "NCHW")
     out = _from_nchw(F.conv2d(
         _nchw(Input, fmt), Filter, None,
         stride=_pair(ctx.attr("strides", [1, 1])),
         padding=_pair(ctx.attr("paddings", [0, 0])),
         dilation=_pair(ctx.attr("dilations", [1, 1])),
-        groups=ctx.attr("groups", 1)), fmt)
+        groups=groups), fmt)
     if Bias is not None:
         bshape = (1, -1, 1, 1) if fmt == "NCHW" else (1, 1, 1, -1)
         out = out + Bias.reshape(bshape)
     return {"Output": out}
+
+
+@register_op("conv2d", propagate_seqlen=False)
+def _conv2d(ctx, Input, Filter, Bias=None):
+    """Conv in NCHW or NHWC (reference conv_op.cc `data_format`). Filter
+    is always stored OIHW, so parameters are layout-independent."""
+    return _conv(ctx, Input, Filter, Bias, ctx.attr("groups", 1))
+
+
+@register_op("depthwise_conv2d", propagate_seqlen=False)
+def _depthwise_conv2d(ctx, Input, Filter, Bias=None):
+    """`conv2d` with one group a channel: groups is the input's channel
+    count under its `data_format`, whatever the attr says."""
+    c_axis = 1 if ctx.attr("data_format", "NCHW") == "NCHW" else 3
+    return _conv(ctx, Input, Filter, Bias, Input.shape[c_axis])
+
+
+@register_op("conv2d_transpose", propagate_seqlen=False)
+def _conv2d_transpose(ctx, Input, Filter, Bias=None):
+    """The gradient of a conv as a forward op (reference
+    conv_transpose_op.cc), NCHW. The filter is stored [in_c, out_c, kh,
+    kw], `F.conv_transpose2d`'s own layout; with no output padding the
+    output is (in - 1) s + d (k - 1) + 1 - 2p, the JAX rule's size."""
+    out = F.conv_transpose2d(
+        Input, Filter, None, stride=_pair(ctx.attr("strides", [1, 1])),
+        padding=_pair(ctx.attr("paddings", [0, 0])),
+        dilation=_pair(ctx.attr("dilations", [1, 1])))
+    if Bias is not None:
+        out = out + Bias.reshape(1, -1, 1, 1)
+    return {"Output": out}
+
+
+@register_op("lrn", propagate_seqlen=False)
+def _lrn(ctx, X):
+    """Local response norm across channels, NCHW: mid = (k + alpha * the
+    sum of X^2 over n neighbouring channels)^beta, Out = X / mid, summed
+    as the JAX rule sums its n shifted slices (k defaults to 2.0 here,
+    1.0 in the layer, as in the JAX package)."""
+    n = ctx.attr("n", 5)
+    half = n // 2
+    sq = X * X
+    pad = F.pad(sq, (0, 0, 0, 0, half, n - 1 - half))
+    c = X.shape[1]
+    acc = sum(pad[:, i:i + c] for i in range(n))
+    mid = torch.pow(ctx.attr("k", 2.0) + ctx.attr("alpha", 1e-4) * acc,
+                    ctx.attr("beta", 0.75))
+    return {"Out": X / mid, "MidOut": mid}
+
+
+@register_op("grid_sampler", propagate_seqlen=False)
+def _grid_sampler(ctx, X, Grid):
+    """Bilinear grid sample with aligned corners, NCHW, as the JAX rule
+    writes it: each of the four corners' indices clamped into the image
+    (not the coordinate), the weights from the unclamped coordinate; the
+    corners gathered from X."""
+    n, c, h, w = X.shape
+    gx = (Grid[..., 0] + 1.0) * (w - 1) / 2.0
+    gy = (Grid[..., 1] + 1.0) * (h - 1) / 2.0
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    wx, wy = (gx - x0)[..., None], (gy - y0)[..., None]
+    batch = torch.arange(n, device=X.device)[:, None, None]
+
+    def sample(xi, yi):              # [N, Hg, Wg, C]
+        xi = xi.clamp(0, w - 1).long()
+        yi = yi.clamp(0, h - 1).long()
+        return X[batch, :, yi, xi]
+
+    out = (sample(x0, y0) * (1 - wx) * (1 - wy)
+           + sample(x0 + 1, y0) * wx * (1 - wy)
+           + sample(x0, y0 + 1) * (1 - wx) * wy
+           + sample(x0 + 1, y0 + 1) * wx * wy)
+    return {"Output": out.permute(0, 3, 1, 2)}
 
 
 def _window_pool(x, ptype, ksize, strides, pads, exclusive):

@@ -33,3 +33,13 @@ class ParamAttr:
             return ParamAttr() if arg else False
         raise TypeError(f"cannot convert {arg!r} to ParamAttr")
 
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that stores `dim`, as the JAX package's does. Nothing
+    reads `dim`: neither package reparameterizes the weight (Fluid's
+    weight norm splits it into a direction and a magnitude), so this
+    behaves as a plain ParamAttr."""
+
+    def __init__(self, dim=None, **kw):
+        super().__init__(**kw)
+        self.dim = dim

@@ -13,7 +13,10 @@ the host, py_reader and AsyncFeeder landing on the card when no place is
 named, the Preprocessor on the card against the host, and the profiler's
 CUDA kernels, and the book's ops (`cos_sim`, `linear_chain_crf` with its
 grads, `crf_decoding`) and two steps of its label_semantic_roles chapter
-on the card against the host.
+on the card against the host, and the op breadth's rules that depend on
+repeats, ties and kinks (`scatter` with repeated ids in both modes,
+`argsort` ties, `one_hot` out of range, the three repaired grads) and
+`depthwise_conv2d` / `conv2d_transpose` on the card against the host.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2038,3 +2041,125 @@ def test_srl_chapter_steps_on_card_equal_host(dev):
         assert np.abs(cs[n] - hs[n]).max() \
             <= 1e-5 * max(np.abs(hs[n]).max(), 1e-30), n
     np.testing.assert_array_equal(cp, hp)
+
+
+# ---------------------------------------------------------------------------
+# the common op breadth: the rules whose answers depend on ties, repeats
+# and kinks, and the two new convolutions, on the card against the host
+# ---------------------------------------------------------------------------
+
+def _one_op(op_type, inputs, attrs, outs=("Out",), backward=True):
+    """A Program of one op on data vars (its inputs), with the grads of
+    mean(first output) when `backward`; returns (main, fetch names)."""
+    from paddle_tpu_torch.core.backward import append_backward
+    from paddle_tpu_torch.layer_helper import LayerHelper
+    main = ptt.Program()
+    with ptt.program_guard(main, ptt.Program()), ptt.unique_name.guard():
+        blk = main.global_block()
+        helper = LayerHelper(op_type)
+        for slot, a in inputs.items():
+            blk.create_var(name=slot, shape=a.shape, dtype=str(a.dtype),
+                           is_data=True, stop_gradient=a.dtype.kind != "f")
+        out = {s: [helper.create_variable_for_type_inference().name]
+               for s in outs}
+        helper.append_op(op_type, inputs={s: [s] for s in inputs},
+                         outputs=out, attrs=attrs)
+        fetch = [out[s][0] for s in outs]
+        if backward:
+            append_backward(ptt.layers.mean(blk.var(fetch[0])))
+            fetch += [s + "@GRAD" for s in inputs if s + "@GRAD" in blk.vars]
+    return main, fetch
+
+
+def _op_runs(dev, op_type, inputs, attrs, outs=("Out",), backward=True,
+             card_runs=2):
+    """The op on the host once and on the card `card_runs` times."""
+    main, fetch = _one_op(op_type, inputs, attrs, outs, backward)
+    host = ptt.Executor(ptt.CPUPlace()).run(main, feed=inputs,
+                                            fetch_list=fetch,
+                                            scope=ptt.Scope())
+    native.reset_launches()
+    cards = [ptt.Executor(ptt.CUDAPlace(0)).run(main, feed=inputs,
+                                                fetch_list=fetch,
+                                                scope=ptt.Scope())
+             for _ in range(card_runs)]
+    assert not any(native.launches.values())
+    return fetch, host, cards
+
+
+@pytest.mark.parametrize("overwrite", [True, False])
+def test_scatter_repeated_ids_on_card_equals_host(dev, overwrite):
+    """8192 ids over 512 rows, each repeated many times: overwriting, the
+    last update wins on the card as on the host, bit for bit; adding, a
+    row's updates sum in the ids' order on both, held to 1e-6 of the
+    tensor's scale (the kernels differ). Two card runs bit-equal."""
+    rng = np.random.RandomState(5)
+    ins = {"X": rng.randn(512, 64).astype(np.float32),
+           "Ids": rng.randint(0, 512, 8192).astype(np.int64),
+           "Updates": rng.randn(8192, 64).astype(np.float32)}
+    fetch, host, (c1, c2) = _op_runs(dev, "scatter", ins,
+                                     {"overwrite": overwrite})
+    for n, a, b in zip(fetch, c1, c2):
+        np.testing.assert_array_equal(a, b, err_msg=n)
+    if overwrite:
+        for n, h, c in zip(fetch, host, c1):
+            np.testing.assert_array_equal(c, h, err_msg=n)
+    else:
+        _assert_within_scale(fetch, host, c1, 1e-6)
+
+
+def test_argsort_ties_on_card_equal_host(dev):
+    x = np.random.RandomState(6).randint(0, 4, (64, 300)).astype(np.float32)
+    fetch, host, (c1, _) = _op_runs(dev, "argsort", {"X": x}, {"axis": -1},
+                                    outs=("Out", "Indices"), backward=False)
+    np.testing.assert_array_equal(c1[1], host[1])
+    np.testing.assert_array_equal(c1[1], np.argsort(x, -1, kind="stable"))
+
+
+def test_one_hot_out_of_range_on_card(dev):
+    ids = np.array([[-1], [0], [5], [9], [3]], np.int64)
+    _, host, (c1, _) = _op_runs(dev, "one_hot", {"X": ids}, {"depth": 6},
+                                backward=False)
+    np.testing.assert_array_equal(c1[0], host[0])
+    np.testing.assert_array_equal(c1[0].sum(1), [0, 1, 1, 0, 1])
+
+
+@pytest.mark.parametrize("op_type,ins,attrs", [
+    ("clip", {"X": np.array([[0, 6, 3, -1], [7, 0, 6, 2]], np.float32)},
+     {"min": 0.0, "max": 6.0}),
+    ("clip_by_norm", {"X": np.array([[3, 4]], np.float32)},
+     {"max_norm": 5.0}),
+    ("sigmoid_cross_entropy_with_logits",
+     {"X": np.array([[0, 0.5], [0, -2]], np.float32),
+      "Label": np.array([[1, 0], [0, 1]], np.float32)}, {})],
+    ids=["clip", "clip_by_norm", "sigmoid_ce"])
+def test_repaired_grads_at_their_kinks_on_card_equal_host(dev, op_type, ins,
+                                                          attrs):
+    fetch, host, (c1, _) = _op_runs(dev, op_type, ins, attrs)
+    assert "X@GRAD" in fetch
+    for n, h, c in zip(fetch, host, c1):
+        np.testing.assert_allclose(c, h, rtol=1e-6, atol=1e-7, err_msg=n)
+
+
+@pytest.mark.parametrize("op_type,ins,attrs", [
+    ("depthwise_conv2d", {"Input": (4, 32, 28, 28), "Filter": (32, 1, 3, 3)},
+     {"strides": [1, 1], "paddings": [1, 1], "groups": 1}),
+    ("depthwise_conv2d", {"Input": (4, 28, 28, 32), "Filter": (32, 1, 3, 3)},
+     {"strides": [2, 2], "paddings": [1, 1], "data_format": "NHWC"}),
+    ("conv2d_transpose", {"Input": (4, 32, 14, 14),
+                          "Filter": (32, 16, 4, 4)},
+     {"strides": [2, 2], "paddings": [1, 1]}),
+    ("conv2d_transpose", {"Input": (2, 8, 9, 9), "Filter": (8, 4, 3, 3)},
+     {"strides": [2, 2], "paddings": [2, 2], "dilations": [2, 2]})],
+    ids=["depthwise", "depthwise_nhwc", "transpose", "transpose_dilated"])
+def test_depthwise_and_transposed_convs_on_card_equal_host(dev, op_type, ins,
+                                                           attrs):
+    """cuDNN in float32 with TF32 off against the host, forward and both
+    grads within 1e-5 of each tensor's scale."""
+    rng = np.random.RandomState(7)
+    ins = {k: rng.randn(*shape).astype(np.float32)
+           for k, shape in ins.items()}
+    fetch, host, (c1,) = _op_runs(dev, op_type, ins, attrs,
+                                  outs=("Output",), card_runs=1)
+    assert fetch[1:] == ["Input@GRAD", "Filter@GRAD"]
+    _assert_within_scale(fetch, host, c1, 1e-5)

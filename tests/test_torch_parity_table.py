@@ -13,7 +13,8 @@ an op ported later gets its case here with no new test code.
 
 fp32 tolerance: 1e-4 relative, and 1e-6 absolute where a value lies
 near 0. Named exceptions:
-- `RANDOM_OPS` (`dropout`, `gaussian_random`, `uniform_random`): the
+- `RANDOM_OPS` (`dropout`, `gaussian_random`, `uniform_random`,
+  `truncated_gaussian_random`, `uniform_random_batch_size_like`): the
   two packages draw from different streams by design (ROADMAP Queue 3,
   expected differences), so the test compares what the draw must
   satisfy: the keep share and the kept values, or the bounds and the
@@ -22,6 +23,15 @@ near 0. Named exceptions:
   and mean(batch_norm) cancel to about 0 (each row or channel of the
   output sums to a constant), so they are held to an absolute tolerance
   at float32's rounding of the terms that cancel.
+
+The kink column runs every fp32 case but the random ones again with
+its float inputs rounded to multiples of 0.5 inside their own range
+(`on_lattice`), so exact zeros, bounds and ties reach the rules, where
+uniform draws never land; an op whose kink sits at an attr off that
+lattice gets the attr moved onto it (`KINK_ATTRS`). Outputs and grads
+are compared as in the fp32 column, NaN equal to NaN. An op undefined on
+such inputs is waived by name with its reason (`KINK_WAIVED`); a fault
+of the port is repaired, never waived.
 
 The AMP column runs every op of the sweep's AMP_OPS_IN_SPECS that the
 port registers under `Executor(amp=True)`. The JAX side runs in one
@@ -66,7 +76,8 @@ PORTED = set(tregistry.registered_ops())
 CASES = sorted(PORTED & set(sweep.SPECS))
 AMP_CASES = [op for op in sweep.AMP_OPS_IN_SPECS if op in PORTED]
 
-RANDOM_OPS = {"dropout", "gaussian_random", "uniform_random"}
+RANDOM_OPS = {"dropout", "gaussian_random", "uniform_random",
+              "truncated_gaussian_random", "uniform_random_batch_size_like"}
 # op -> absolute tolerance on its input grads
 CANCELLING_GRADS = {"softmax": 1e-7, "sequence_softmax": 1e-7,
                     "batch_norm": 1e-7}
@@ -104,6 +115,7 @@ WAIVED_PORT_TESTS = {
     "sequence_slice": "test_torch_seq.py",
     "sequence_erase": "test_torch_seq.py",
     "load": "test_torch_data.py",
+    "auc": "test_torch_breadth.py",
 }
 # The AMP column's float32 results that are not bit for bit, op ->
 # tolerance relative to the tensor's largest magnitude. Every bf16 output
@@ -124,6 +136,9 @@ AMP_SUM_ORDER = {
     "sigmoid_cross_entropy_with_logits": 2e-7,
     # the row's sum of exp in the grad
     "softmax_with_cross_entropy": 2e-7,
+    # a float32 mean over two dims, summed in torch's order: one element
+    # of three 7.5e-9 from XLA's
+    "reduce_mean": 1e-7,
 }
 
 
@@ -223,15 +238,37 @@ def _check_random(op_type, spec, ref, got):
         return
     a, b = ref[0], got[0]
     assert a.shape == b.shape and a.dtype == b.dtype
-    if op_type == "uniform_random":
+    if op_type in ("uniform_random", "uniform_random_batch_size_like"):
         lo, hi = spec.attrs["min"], spec.attrs["max"]
         assert lo <= b.min() and b.max() <= hi
         assert abs(b.mean() - a.mean()) < 0.15
         assert abs(b.std() - (hi - lo) / 12 ** 0.5) < 0.1
+    elif op_type == "truncated_gaussian_random":
+        # the standard normal truncated to [-2, 2]: std 0.880 of `std`
+        mean, std = spec.attrs["mean"], spec.attrs["std"]
+        assert mean - 2 * std <= b.min() and b.max() <= mean + 2 * std
+        assert abs(b.mean() - mean) < 0.1 * std
+        assert abs(b.std() - 0.880 * std) < 0.05 * std
+        assert abs(b.std() - a.std()) < 0.05 * std
     else:
         assert abs(b.mean() - spec.attrs["mean"]) < 0.15
         assert abs(b.std() - spec.attrs["std"]) < 0.1
         assert abs(b.std() - a.std()) < 0.1
+
+
+def _compare(op_type, fetch, grads, ref, got, equal_nan=False):
+    for name, r, g in zip(fetch, ref, got):
+        assert r.shape == g.shape, name
+        if not _is_float(r):
+            np.testing.assert_array_equal(g, r, err_msg=name)
+            continue
+        if name in grads and op_type in CANCELLING_GRADS:
+            np.testing.assert_allclose(g, r, rtol=0,
+                                       atol=CANCELLING_GRADS[op_type],
+                                       equal_nan=equal_nan, err_msg=name)
+            continue
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6,
+                                   equal_nan=equal_nan, err_msg=name)
 
 
 @pytest.mark.parametrize("op_type", CASES)
@@ -244,23 +281,89 @@ def test_op_matches_paddle_tpu_fp32(op_type):
     if op_type in RANDOM_OPS:
         _check_random(op_type, spec, ref, got)
         return
-    for name, r, g in zip(fetch, ref, got):
-        assert r.shape == g.shape, name
-        if not _is_float(r):
-            np.testing.assert_array_equal(g, r, err_msg=name)
-            continue
-        if name in grads and op_type in CANCELLING_GRADS:
-            np.testing.assert_allclose(g, r, rtol=0,
-                                       atol=CANCELLING_GRADS[op_type],
-                                       err_msg=name)
-            continue
-        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6, err_msg=name)
+    _compare(op_type, fetch, grads, ref, got)
+
+
+# ---------------------------------------------------------------------------
+# the kink column: the fp32 cases on inputs that sit on kinks and ties
+# ---------------------------------------------------------------------------
+
+# Attrs moved onto the lattice of the rounded inputs, for the ops whose
+# kink sits at an attr the spec puts off it (the spec's own bounds lie
+# between multiples of 0.5, or outside the input's range):
+KINK_ATTRS = {
+    "clip": lambda ins: {"min": -0.5, "max": 0.5},
+    # max_norm = the rounded input's norm, so the scale is exactly 1 (the
+    # squares of multiples of 0.5 sum exactly in float32, so every side
+    # computes the same norm)
+    "clip_by_norm": lambda ins: {"max_norm": float(np.sqrt(np.sum(
+        ins["X"] * ins["X"], dtype=np.float32)))},
+    "relu6": lambda ins: {"threshold": 2.0},
+    "hard_sigmoid": lambda ins: {"slope": 1.0, "offset": 0.5},
+    "soft_relu": lambda ins: {"threshold": 0.5},
+    "margin_rank_loss": lambda ins: {"margin": 0.5},
+}
+# ops whose value or grad is undefined on such inputs, each with its
+# reason (none so far: every fp32 case is defined on the lattice)
+KINK_WAIVED = {}
+KINK_CASES = [op for op in CASES
+              if op not in RANDOM_OPS and op not in KINK_WAIVED]
+
+
+def on_lattice(v):
+    """A float input rounded to multiples of 0.5, kept inside its own
+    range [min, max] (a value whose nearest multiple lies outside goes to
+    the nearest one inside; an input whose range holds no multiple stays
+    as it is). That puts exact zeros, bounds and ties on the inputs."""
+    if not _is_float(v) or v.size == 0:
+        return v
+    lo, hi = np.ceil(v.min() * 2) / 2, np.floor(v.max() * 2) / 2
+    if lo > hi:
+        return v
+    return np.clip(np.round(v * 2) / 2, lo, hi).astype(v.dtype)
+
+
+def kink_spec(op_type):
+    import copy
+    spec = copy.copy(sweep.SPECS[op_type])
+    spec.inputs = {slot: ([on_lattice(x) for x in v] if isinstance(v, list)
+                          else on_lattice(v))
+                   for slot, v in spec.inputs.items()}
+    if op_type in KINK_ATTRS:
+        spec.attrs = dict(spec.attrs, **KINK_ATTRS[op_type](spec.inputs))
+    return spec
+
+
+@pytest.mark.parametrize("op_type", KINK_CASES)
+def test_op_matches_paddle_tpu_on_kinks_and_ties(op_type):
+    """The fp32 case once more with every float input on the 0.5 lattice:
+    outputs and grads at the fp32 tolerance, NaN where the JAX package
+    has NaN."""
+    spec = kink_spec(op_type)
+    main, feed, fetch, grads = one_op_program(op_type, spec)
+    ref = [np.asarray(r) for r in fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=fluid.Scope())]
+    got = _run_port(main.serialize_to_string(), feed, fetch)
+    _compare(op_type, fetch, grads, ref, got, equal_nan=True)
+
+
+def test_kink_column_reaches_the_kinks():
+    """The lattice puts the repaired ops' inputs on their kinks: exact
+    zero logits, values at clip's bounds, a norm at max_norm."""
+    x = kink_spec("sigmoid_cross_entropy_with_logits").inputs["X"]
+    assert (x == 0).any()
+    c = kink_spec("clip")
+    assert (np.abs(c.inputs["X"]) == c.attrs["max"]).any()
+    n = kink_spec("clip_by_norm")
+    assert np.float32(np.sqrt(np.sum(n.inputs["X"] ** 2))) == \
+        np.float32(n.attrs["max_norm"])
+    assert set(KINK_CASES) == set(CASES) - RANDOM_OPS
 
 
 def test_table_covers_every_port_op():
     """Every op the port registers is a case of the table, or a waiver of
     the sweep that a port test covers (the file names the op)."""
-    assert len(CASES) >= 95
+    assert len(CASES) >= 159
     waived = PORTED - set(sweep.SPECS)
     assert waived <= set(sweep.WAIVED)
     assert waived == set(WAIVED_PORT_TESTS)

@@ -53,10 +53,12 @@ EARLIER_OPS = {
 # rest of the non-recurrent zoo, the sequence and recurrent ops, control
 # flow, tensor arrays and beam search, the data plane's `load` and
 # `square_error_cost`, the book's `cos_sim`, `linear_chain_crf` and
-# `crf_decoding`); each has its parity case in tests/test_torch_zoo.py,
-# tests/test_torch_optim.py, tests/test_torch_seq.py,
-# tests/test_torch_control.py, tests/test_torch_data.py or
-# tests/test_torch_book.py
+# `crf_decoding`, and the common op breadth: activations, reductions,
+# tensor, loss and vision ops and `auc`); each has its parity case in
+# tests/test_torch_zoo.py, tests/test_torch_optim.py,
+# tests/test_torch_seq.py, tests/test_torch_control.py,
+# tests/test_torch_data.py, tests/test_torch_book.py,
+# tests/test_torch_parity_table.py or tests/test_torch_breadth.py
 LATER_OPS = {
     "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_min", "elementwise_max", "elementwise_pow", "exp", "sqrt",
@@ -79,7 +81,21 @@ LATER_OPS = {
     "print", "log_softmax", "tanh", "floor", "ceil", "equal", "not_equal",
     "less_equal", "greater_than", "logical_and", "logical_or",
     "logical_xor", "logical_not", "load", "square_error_cost", "cos_sim",
-    "linear_chain_crf", "crf_decoding"}
+    "linear_chain_crf", "crf_decoding",
+    "abs", "arg_max", "arg_min", "brelu", "cos", "cumsum",
+    "elementwise_floordiv", "elementwise_mod", "elu", "gelu", "hard_shrink",
+    "hard_sigmoid", "isfinite", "l2_normalize", "leaky_relu", "log",
+    "logsigmoid", "maximum", "pow", "prelu", "reciprocal", "reduce_max",
+    "reduce_mean", "reduce_min", "reduce_prod", "relu6", "round", "rsqrt",
+    "sign", "sin", "soft_relu", "softplus", "softshrink", "softsign",
+    "swish", "tanh_shrink", "thresholded_relu",
+    "argsort", "expand", "expand_dims_tile", "flatten", "gather",
+    "gather_nd", "one_hot", "pad", "pad2d", "range", "reverse", "scatter",
+    "shape", "stack", "unstack", "truncated_gaussian_random",
+    "uniform_random_batch_size_like",
+    "smooth_l1_loss", "huber_loss", "log_loss", "rank_loss",
+    "margin_rank_loss", "hinge_loss", "auc",
+    "conv2d_transpose", "depthwise_conv2d", "grid_sampler", "lrn"}
 
 
 @pytest.fixture(autouse=True)
@@ -373,12 +389,12 @@ def test_momentum_update_matches_paddle_tpu(nesterov):
 
 def test_every_port_op_is_a_reference_op_and_every_new_one_has_a_case():
     """The registry contract: the port registers only ops the JAX package
-    registers, 124 of them; the ops this slice adds are exactly NEW_OPS,
+    registers, 189 of them; the ops this slice adds are exactly NEW_OPS,
     and each one appears in a program of this file's parity cases."""
     ported = set(tregistry.registered_ops())
     assert ported <= set(jregistry.registered_ops())
-    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 91
-    assert len(ported) == 124
+    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 156
+    assert len(ported) == 189
     assert ported - EARLIER_OPS - LATER_OPS == NEW_OPS
     assert EARLIER_OPS | LATER_OPS <= ported
     covered = set()
