@@ -266,6 +266,30 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    tensor's scale for BREADTH_SUM_ORDER, AMP within AMP_NOISE_FACTOR of
    the host's AMP-vs-float32 distance, finite where the host is); no
    kernel of csrc/ launched. Numbers in ``chip_smoke_train.json``;
+7l. the rest of the op families: train-mobilenet-ssd
+   (`tools/torch_mobilenet_ssd.py`: MobileNet-v1 SSD at 300 x 300, its
+   published widths, 21 classes, six maps, 2278 priors, `ssd_loss`,
+   RMSProp + L2Decay, float32, TF32 off) SSD_WARMUP + SSD_STEPS steps of
+   batch SSD_BATCH on synthetic boxes: losses finite and falling, step
+   ms, images/s, rule calls a step, peak memory, and after every timed
+   step a traced one (busy share); card vs host SSD_PARITY_STEPS steps
+   at SSD_PARITY_BATCH, each from the host's state: losses within
+   LOSS_RTOL, match indices and mined negatives equal (the card's free
+   run beside, reported); the `is_test` twin (detection_output: NMS
+   0.45, top 400, keep 200, score 0.01; detection_map 11point and
+   integral; an `evaluator.DetectionMAP`) over SSD_EVAL_BATCHES batches
+   on the card, the ground truth as its own detections scoring 1, the
+   NMS fed the card's decoded boxes and scores bit-equal on the host,
+   and the host's mAP from the same parameters within SSD_MAP_ATOL plus
+   one flipped detection's worth of AP a detection row that differs;
+   SSD_AMP_STEPS AMP steps (`run_step_parity`); then the bank of the 36
+   new ops (`_item6_cases`: the 3-D convs and pools at a C3D conv2
+   stage, the resizes, `roi_pool`, the crops, `label_smooth`, the
+   [30000, 512] table's `nce` and `hsigmoid`, a CRNN's CTC ops,
+   `chunk_eval`, `mean_iou`, quantization, the detection ops at SSD's
+   and Faster R-CNN's shapes), each as the breadth bank holds its cases
+   (`nce` and `random_crop` by their draws' properties); no kernel of
+   csrc/ launched in the phase. Numbers in ``chip_smoke_train.json``;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -573,7 +597,36 @@ BREADTH_SUM_ORDER = {"cumsum", "cumsum_exclusive_reverse", "scatter_add",
                      "pad2d_reflect", "pad2d_edge", "depthwise_conv2d",
                      "conv2d_transpose", "depthwise_conv2d_amp",
                      "conv2d_transpose_amp", "gather", "gather_nd",
-                     "grid_sampler"}
+                     "grid_sampler",
+                     # phase 7l's cases (below): cuDNN's 3-D convs and
+                     # their grads, the grads that add into a gathered
+                     # table or image, log-space and precision sums
+                     "conv3d", "conv3d_transpose", "pool3d_avg",
+                     "bilinear_up", "bilinear_down", "roi_pool", "nce",
+                     "hierarchical_sigmoid", "warpctc", "im2sequence",
+                     "detection_map", "softmax_ce_no_reduce",
+                     "box_encode_per_prior"}
+# phase 7l: the rest of the op families. train-mobilenet-ssd
+# (tools/torch_mobilenet_ssd.py: MobileNet-v1 SSD at 300 x 300, its
+# published widths, 21 classes, 2278 priors, RMSProp(0.001) + L2Decay
+# (5e-5), float32 with TF32 off): SSD_WARMUP + SSD_STEPS steps of batch
+# SSD_BATCH cycling over SSD_DATA_BATCHES synthetic batches from
+# DATA_SEED; card vs host SSD_PARITY_STEPS steps at SSD_PARITY_BATCH from
+# one state, each step from the host's state (losses within LOSS_RTOL,
+# the match indices and mined negatives equal), beside the card's free
+# run from the same state (drift reported, not gated); the is_test
+# program's detection_output + detection_map over SSD_EVAL_BATCHES
+# batches, the NMS and detection_map fed the card's inputs equal on both
+# sides, and the end-to-end mAP on the host within SSD_MAP_ATOL: the
+# card's scores lie ~1e-6 from the host's (cuDNN's sum order), which can
+# reorder detections at near-ties only (the rows whose label or box
+# differs are reported), and such a row near the tail of an image's 200
+# moves AP by far less; an AMP run of SSD_AMP_STEPS steps at
+# SSD_AMP_BATCH (run_step_parity)
+SSD_BATCH, SSD_WARMUP, SSD_STEPS, SSD_DATA_BATCHES = 32, 3, 20, 4
+SSD_PARITY_BATCH, SSD_PARITY_STEPS = 8, 3
+SSD_EVAL_BATCHES, SSD_AMP_BATCH, SSD_AMP_STEPS = 4, 4, 5
+SSD_MAP_ATOL = 1e-3
 
 
 def log(*a):
@@ -4247,6 +4300,584 @@ def run_breadth(torch, ptt, native):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7l: the rest of the op families (structured ops, detection,
+# quantization)
+# ---------------------------------------------------------------------------
+
+def build_ssd(ptt, is_test=False, **kw):
+    """train-mobilenet-ssd's program (tools/torch_mobilenet_ssd.py), or
+    its is_test twin with `detection_output`, `detection_map` and an
+    `evaluator.DetectionMAP`; the two share their parameters' names."""
+    from tools import torch_mobilenet_ssd as mssd
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        v = mssd.build(ptt, is_test=is_test, **kw)
+        if is_test:
+            v["evaluator"] = ptt.evaluator.DetectionMAP(
+                v["nmsed"], v["gt"], class_num=mssd.CLASSES)
+    return main, startup, v
+
+
+def _ssd_feeds(torch, dev, seed, n, batch, test=False):
+    from tools import torch_mobilenet_ssd as mssd
+    out = []
+    for i in range(n):
+        f = mssd.batch(seed + i, batch)[1 if test else 0]
+        out.append(f if dev is None else
+                   {k: torch.from_numpy(a).to(dev) for k, a in f.items()})
+    return out
+
+
+def run_train_mobilenet_ssd(torch, ptt, native):
+    """Phase 7l (a): train-mobilenet-ssd on the card, then card vs host
+    per step from the host's state, the is_test program's detections and
+    mAP on both, and a short AMP run (the module's constants above)."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import fetch_var
+    from tools import torch_mobilenet_ssd as mssd
+    main, startup, v = build_ssd(ptt)
+    priors = int(v["boxes"].shape[0])
+    if priors != mssd.PRIORS:
+        raise AssertionError(f"train-mobilenet-ssd: {priors} priors, "
+                             f"{mssd.PRIORS} expected")
+    match = mssd.op_output(main, "bipartite_match", "ColToRowMatchIndices")
+    negs = mssd.op_output(main, "mine_hard_examples", "NegMask")
+    dev = ptt.CUDAPlace(0).torch_device()
+    t0 = time.perf_counter()
+    feeds = _ssd_feeds(torch, dev, DATA_SEED, SSD_DATA_BATCHES, SSD_BATCH)
+    data_s = time.perf_counter() - t0
+    exe, scope = ptt.Executor(ptt.CUDAPlace(0)), ptt.Scope()
+    exe.run(startup, scope=scope)
+    state0 = {n: np.array(fetch_var(n, scope))
+              for n in scope.local_var_names()}
+    native.reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for step in range(SSD_WARMUP + SSD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feeds[step % SSD_DATA_BATCHES],
+                       fetch_list=[v["loss"]], scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.reshape(-1)[0]))
+    peak = torch.cuda.max_memory_allocated() - base
+    _, calls = _count_rule_calls(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[v["loss"]], scope=scope))
+    launches = dict(native.launches)
+    if any(launches.values()):
+        raise AssertionError(f"train-mobilenet-ssd launched a kernel: "
+                             f"{launches}")
+    # the batches cycle: the last cycle's mean below the first's
+    first, last = (np.mean(losses[:SSD_DATA_BATCHES]),
+                   np.mean(losses[-SSD_DATA_BATCHES:]))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"train-mobilenet-ssd losses {losses}")
+    timed = ms[SSD_WARMUP:]
+    res = dict(tag="train-mobilenet-ssd", batch=SSD_BATCH, priors=priors,
+               losses=losses, step_ms=timed, step_ms_median=_median(timed),
+               images_per_s=SSD_BATCH / _median(timed) * 1e3,
+               rule_calls=calls, ops=len(main.global_block().ops),
+               peak_bytes=peak, data_s=data_s,
+               n_params=len(main.global_block().all_parameters()))
+    res["step"] = lambda: exe.run(main, feed=feeds[0],
+                                  fetch_list=[v["loss"]], scope=scope)
+    res["parity"] = _ssd_parity(torch, ptt, main, v["loss"], match, negs,
+                                state0)
+    res["eval"] = _ssd_eval(torch, ptt, native, scope)
+    t0 = time.perf_counter()
+    res["amp"] = run_step_parity(
+        torch, ptt, "train-mobilenet-ssd-amp", main, startup, v["loss"],
+        _ssd_feeds(torch, None, DATA_SEED + 200, SSD_AMP_STEPS,
+                   SSD_AMP_BATCH), SSD_AMP_STEPS, amp=True,
+        sign_updates=True)
+    res["amp"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ssd_parity(torch, ptt, main, loss, match, negs, state0):
+    """Card vs host at SSD_PARITY_BATCH from `state0`: each step on the
+    card from the host's state (losses within LOSS_RTOL, the match
+    indices and the mined negatives equal), and the card's free run from
+    the same state beside the host's (drift reported, not gated)."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import fetch_var
+    t0 = time.perf_counter()
+    feeds = _ssd_feeds(torch, None, DATA_SEED + 100, SSD_PARITY_STEPS,
+                       SSD_PARITY_BATCH)
+    fetch = [loss, match, negs]
+    card_exe, host_exe = ptt.Executor(ptt.CUDAPlace(0)), ptt.Executor(
+        ptt.CPUPlace())
+    host = ptt.io.state_from_numpy(state0, ptt.CPUPlace())
+    free = ptt.io.state_from_numpy(state0, ptt.CUDAPlace(0))
+    out = dict(losses={"card": [], "host": [], "free": []}, rel_err=0.0,
+               free_rel_err=[], free_match_equal=[], free_neg_equal=[],
+               positives=[], negatives=[])
+    for step, feed in enumerate(feeds):
+        state = {n: fetch_var(n, host) for n in host.local_var_names()}
+        c = card_exe.run(main, feed=feed, fetch_list=fetch,
+                         scope=ptt.io.state_from_numpy(state,
+                                                       ptt.CUDAPlace(0)))
+        h = host_exe.run(main, feed=feed, fetch_list=fetch, scope=host)
+        f = card_exe.run(main, feed=feed, fetch_list=fetch, scope=free)
+        cl, hl, fl = (float(x[0].reshape(-1)[0]) for x in (c, h, f))
+        rel = abs(cl - hl) / abs(hl)
+        out["rel_err"] = max(out["rel_err"], rel)
+        for side, x in (("card", cl), ("host", hl), ("free", fl)):
+            out["losses"][side].append(x)
+        if rel > LOSS_RTOL or not (np.array_equal(c[1], h[1])
+                                   and np.array_equal(c[2], h[2])):
+            raise AssertionError(
+                f"train-mobilenet-ssd parity step {step}: loss card {cl} "
+                f"host {hl} ({rel:.3g}, tol {LOSS_RTOL}); match indices "
+                f"differ at {int((c[1] != h[1]).sum())}, mined negatives "
+                f"at {int((c[2] != h[2]).sum())} priors")
+        out["positives"].append(int((h[1] >= 0).sum()))
+        out["negatives"].append(int(h[2].sum()))
+        out["free_rel_err"].append(abs(fl - hl) / abs(hl))
+        out["free_match_equal"].append(bool(np.array_equal(f[1], h[1])))
+        out["free_neg_equal"].append(bool(np.array_equal(f[2], h[2])))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _ssd_eval(torch, ptt, native, scope):
+    """The is_test program on the trained card scope: SSD_EVAL_BATCHES
+    batches of detection_output + detection_map (11point and integral)
+    and the DetectionMAP evaluator on the card; on the first batch the
+    host's run from the same parameters, the NMS fed the card's decoded
+    boxes and scores on both sides (Out and Count equal), and the
+    end-to-end mAP against the host's."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import fetch_var
+    tmain, _, tv = build_ssd(ptt, is_test=True)
+    nms_op = [op for op in tmain.global_block().ops
+              if op.type == "multiclass_nms"][0]
+    decoded, probs = nms_op.input("BBoxes")[0], nms_op.input("Scores")[0]
+    ev = tv["evaluator"]
+    fetch = [tv["nmsed"], tv["count"], tv["map_11point"],
+             tv["map_integral"], ev.metrics[0], decoded, probs]
+    dev = ptt.CUDAPlace(0).torch_device()
+    host_feeds = _ssd_feeds(torch, None, DATA_SEED + 300, SSD_EVAL_BATCHES,
+                            SSD_BATCH, test=True)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    native.reset_launches()
+    ms, maps, counts, cards = [], {"11point": [], "integral": []}, [], []
+    for feed in host_feeds:
+        card_feed = {k: torch.from_numpy(a).to(dev) for k, a in feed.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe.run(tmain, feed=card_feed, fetch_list=fetch, scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ev.update(got[4], 1)            # weight 1 a batch: a plain mean
+        maps["11point"].append(float(got[2][0]))
+        maps["integral"].append(float(got[3][0]))
+        counts.append(got[1].tolist())
+        cards.append(got)
+    if any(native.launches.values()):
+        raise AssertionError(f"mobilenet-ssd eval launched a kernel: "
+                             f"{dict(native.launches)}")
+    # the host from the same parameters, first batch
+    state = {n: np.array(fetch_var(n, scope)) for n in scope.local_var_names()}
+    t0 = time.perf_counter()
+    host = ptt.Executor(ptt.CPUPlace()).run(
+        tmain, feed=host_feeds[0], fetch_list=fetch,
+        scope=ptt.io.state_from_numpy(state, ptt.CPUPlace()))
+    host_s = time.perf_counter() - t0
+    card = cards[0]
+    # the NMS alone, fed the card's decoded boxes and scores
+    nms_prog, nms_fetch, nms_feed = _breadth_program(
+        ptt, "multiclass_nms",
+        {"BBoxes": torch.from_numpy(card[5]),
+         "Scores": torch.from_numpy(card[6])},
+        dict(nms_op.attrs), ("Out", "Count"), False)
+    nms = {side: ptt.Executor(place).run(
+        nms_prog, feed={k: a.to(place.torch_device())
+                        for k, a in nms_feed.items()},
+        fetch_list=nms_fetch, scope=ptt.Scope())
+        for side, place in (("card", ptt.CUDAPlace(0)),
+                            ("host", ptt.CPUPlace()))}
+    for a, b in zip(nms["card"], nms["host"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("mobilenet-ssd eval: the NMS fed the same "
+                                 "boxes and scores differs card vs host")
+    gt = host_feeds[0]["gt"]
+    same_input = {}
+    for ap in ("11point", "integral"):
+        prog, pf, pfeed = _breadth_program(
+            ptt, "detection_map", {"DetectRes": torch.from_numpy(card[0]),
+                                   "Label": torch.from_numpy(gt)},
+            {"class_num": 21, "ap_version": ap}, ("MAP",), False)
+        c, h = (float(ptt.Executor(place).run(
+            prog, feed={k: a.to(place.torch_device())
+                        for k, a in pfeed.items()},
+            fetch_list=pf, scope=ptt.Scope())[0][0])
+            for place in (ptt.CUDAPlace(0), ptt.CPUPlace()))
+        if abs(c - h) > 1e-6 * max(abs(h), 1e-30):
+            raise AssertionError(f"mobilenet-ssd eval: detection_map fed "
+                                 f"the same detections: card {c} host {h}")
+        same_input[ap] = c
+    # end to end: rows whose label or box differs, and the mAP
+    rows = int(np.sum((card[0][..., 0] != host[0][..., 0])
+                      | (np.abs(card[0][..., 2:] - host[0][..., 2:])
+                         > 1e-4).any(-1)))
+    errs = {ap: abs(float(card[i][0]) - float(host[i][0]))
+            for ap, i in (("11point", 2), ("integral", 3))}
+    if max(errs.values()) > SSD_MAP_ATOL:
+        raise AssertionError(f"mobilenet-ssd eval: mAP card "
+                             f"{card[2][0]}, {card[3][0]} host "
+                             f"{host[2][0]}, {host[3][0]}: {errs} > "
+                             f"{SSD_MAP_ATOL} ({rows} detection rows "
+                             f"differ)")
+    # detection_map's own check: the ground truth as its detections
+    # (score 1) scores 1 on the card
+    det = gt[..., [0, 1, 2, 3, 4, 5]].copy()
+    det[..., 1] = np.where(gt[..., 0] > 0, 1.0, -1.0)
+    perfect = {}
+    for ap in ("11point", "integral"):
+        prog, pf, pfeed = _breadth_program(
+            ptt, "detection_map",
+            {"DetectRes": torch.from_numpy(det).to(dev),
+             "Label": torch.from_numpy(gt).to(dev)},
+            {"class_num": 21, "ap_version": ap}, ("MAP",), False)
+        perfect[ap] = float(ptt.Executor(ptt.CUDAPlace(0)).run(
+            prog, feed=pfeed, fetch_list=pf, scope=ptt.Scope())[0][0])
+    if min(perfect.values()) != 1.0:
+        raise AssertionError(f"mobilenet-ssd eval: the ground truth as its "
+                             f"detections scores {perfect}, not 1")
+    return dict(batch=SSD_BATCH, ms=ms, ms_median=_median(ms), maps=maps,
+                perfect_map=perfect,
+                counts=counts, evaluator_map=float(ev.eval()),
+                host_map={"11point": float(host[2][0]),
+                          "integral": float(host[3][0])},
+                host_count=host[1].tolist(), map_err=errs,
+                rows_differ=rows, same_input_map=same_input, host_s=host_s,
+                nms_equal=True, kept=int(np.sum(card[1])))
+
+
+def _item6_cases():
+    """The bank's new cases, in `_breadth_cases`' format: every op of
+    phase 7l at a full-width shape (the module docstring lists them)."""
+    W = BREADTH_WIDTH
+
+    def u(torch, shape, gen, dev, scale=1.0):
+        return _lattice(torch, torch.randn(*shape, generator=gen,
+                                           device=dev) * scale)
+
+    def ints(torch, lo, hi, shape, gen, dev):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    def boxes(torch, shape, gen, dev):
+        p = torch.rand(*shape, 2, 2, generator=gen, device=dev).sort(
+            dim=-2).values
+        return p.reshape(*shape, 4)[..., [0, 2, 1, 3]].contiguous()
+
+    c3d = ("conv3d", lambda t, n, g, d: {
+        "Input": u(t, (4, 64, n, 56, 56), g, d),
+        "Filter": u(t, (128, 64, 3, 3, 3), g, d, 0.05)},
+        {"strides": [1, 1, 1], "paddings": [1, 1, 1]}, ("Output",), True,
+        16)
+    cases = [("conv3d",) + c3d,
+             ("conv3d_transpose", "conv3d_transpose", lambda t, n, g, d: {
+                 "Input": u(t, (4, 64, n, 56, 56), g, d),
+                 "Filter": u(t, (64, 128, 3, 3, 3), g, d, 0.05)},
+              {"strides": [1, 1, 1], "paddings": [1, 1, 1]}, ("Output",),
+              True, 16),
+             ("pool3d_max", "pool3d", lambda t, n, g, d: {
+                 "X": u(t, (4, 64, n, 56, 56), g, d)},
+              {"pooling_type": "max", "ksize": [2, 2, 2],
+               "strides": [2, 2, 2]}, ("Out",), True, 16),
+             ("pool3d_avg", "pool3d", lambda t, n, g, d: {
+                 "X": u(t, (4, 64, n, 56, 56), g, d)},
+              {"pooling_type": "avg", "ksize": [3, 3, 3],
+               "strides": [2, 2, 2], "paddings": [1, 1, 1]}, ("Out",), True,
+              16)]
+    for name, size in (("bilinear_up", 128), ("bilinear_down", 32)):
+        cases.append((name, "bilinear_interp", lambda t, n, g, d: {
+            "X": u(t, (n, 256, 64, 64), g, d)},
+            {"out_h": size, "out_w": size}, ("Out",), True, 16))
+    cases += [
+        ("nearest_down", "bilinear_interp", lambda t, n, g, d: {
+            "X": u(t, (n, 256, 64, 64), g, d)},
+         {"out_h": 32, "out_w": 48, "interp_method": "nearest"}, ("Out",),
+         True, 16),
+        ("roi_pool", "roi_pool", lambda t, n, g, d: {
+            "X": u(t, (2, 512, 38, 50), g, d),
+            "ROIs": t.cat([ints(t, 0, 2, (n, 1), g, d).float(),
+                           boxes(t, (n,), g, d) * t.tensor(
+                               [800.0, 608.0, 800.0, 608.0], device=d)],
+                          1)},
+         {"pooled_height": 7, "pooled_width": 7,
+          "spatial_scale": 1.0 / 16}, ("Out",), True, 256),
+        ("crop", "crop", lambda t, n, g, d: {
+            "X": u(t, (n, 3, 256, 256), g, d),
+            "Y": t.zeros(n, 3, 224, 224, device=d)},
+         {"offsets": [0, 0, 16, 16]}, ("Out",), True, 128),
+        ("label_smooth", "label_smooth", lambda t, n, g, d: {
+            "X": t.nn.functional.one_hot(ints(t, 0, 30000, (n,), g, d),
+                                         30000).float()},
+         {"epsilon": 0.1}, ("Out",), True, 4096),
+        ("multiplex", "multiplex", lambda t, n, g, d: {
+            "X": [u(t, (n, W), g, d) for _ in range(3)],
+            "Ids": ints(t, 0, 3, (n, 1), g, d)}, {}, ("Out",), True,
+         BREADTH_ROWS),
+        ("lod_reset", "lod_reset", lambda t, n, g, d: {
+            "X": u(t, (n, W), g, d),
+            "Y": t.full((n // 64,), 64, dtype=t.int32, device=d)}, {},
+         ("Out",), True, BREADTH_ROWS),
+        ("mean_iou", "mean_iou", lambda t, n, g, d: {
+            "Predictions": ints(t, 0, 21, (n, 512, 512), g, d).int(),
+            "Labels": ints(t, 0, 21, (n, 512, 512), g, d).int()},
+         {"num_classes": 21}, ("OutMeanIou", "OutWrong", "OutCorrect"),
+         False, 16),
+        ("hierarchical_sigmoid", "hierarchical_sigmoid", lambda t, n, g, d: {
+            "X": u(t, (n, 512), g, d), "W": u(t, (29999, 512), g, d, 0.05),
+            "Label": ints(t, 0, 30000, (n, 1), g, d),
+            "Bias": u(t, (29999, 1), g, d, 0.1)}, {"num_classes": 30000},
+         ("Out",), True, BREADTH_IDS),
+        ("warpctc", "warpctc", lambda t, n, g, d: {
+            "Logits": u(t, (n, 96, 96), g, d),
+            "Label": ints(t, 1, 96, (n, 24), g, d),
+            "LogitsLen": ints(t, 48, 97, (n,), g, d),
+            "LabelLen": ints(t, 0, 25, (n,), g, d)}, {"blank": 0},
+         ("Loss",), True, 32),
+        ("ctc_greedy_decoder", "ctc_greedy_decoder", lambda t, n, g, d: {
+            "X": u(t, (n, 96, 96), g, d),
+            "SeqLen": ints(t, 48, 97, (n,), g, d).int()}, {"blank": 0},
+         ("Out", "OutLen"), False, 32),
+        ("edit_distance", "edit_distance", lambda t, n, g, d: {
+            "Hyps": ints(t, 1, 8, (n, 96), g, d),
+            "Refs": ints(t, 1, 8, (n, 24), g, d),
+            "HypsLen": ints(t, 0, 40, (n,), g, d),
+            "RefsLen": ints(t, 1, 25, (n,), g, d)}, {"normalized": True},
+         ("Out", "SequenceNum"), False, 32),
+        ("im2sequence", "im2sequence", lambda t, n, g, d: {
+            "X": u(t, (n, 128, 6, 96), g, d)},
+         {"kernels": [6, 1], "strides": [1, 1]}, ("Out",), True, 32),
+        ("chunk_eval", "chunk_eval", lambda t, n, g, d: {
+            "X": ints(t, 0, 9, (n, 100), g, d),
+            "Label": ints(t, 0, 9, (n, 100), g, d),
+            "SeqLen": ints(t, 20, 101, (n,), g, d).int()},
+         {"num_chunk_types": 4, "chunk_scheme": "IOB"},
+         ("NumInferChunks", "NumLabelChunks", "NumCorrectChunks",
+          "Precision", "Recall", "F1-Score"), False, 64),
+        ("fake_quantize_abs_max", "fake_quantize_abs_max",
+         lambda t, n, g, d: {"X": u(t, (n, W), g, d)}, {"bit_length": 8},
+         ("Out", "OutScale"), True, BREADTH_ROWS),
+        ("fake_quantize_range_abs_max", "fake_quantize_range_abs_max",
+         lambda t, n, g, d: {"X": u(t, (n, 1024, 14, 14), g, d),
+                             "InScale": t.full((1,), 3.0, device=d)},
+         {"bit_length": 8}, ("Out", "OutScale"), True, 128),
+        ("fake_dequantize_max_abs", "fake_dequantize_max_abs",
+         lambda t, n, g, d: {"X": t.round(u(t, (n, W), g, d, 40.0)),
+                             "Scale": t.full((1,), 2.5, device=d)},
+         {"max_range": 127.0}, ("Out",), True, BREADTH_ROWS)]
+
+    # detection at SSD's shapes (batch n, 2278 priors, 21 classes, 16
+    # ground-truth rows) and Faster R-CNN's anchors over a 38 x 50 map
+    P, C, G = 2278, 21, 16
+    cases += [
+        ("prior_box", "prior_box", lambda t, n, g, d: {
+            "Input": t.zeros(n, 1, 19, 19, device=d),
+            "Image": t.zeros(n, 1, 300, 300, device=d)},
+         {"min_sizes": [60.0], "max_sizes": [111.0],
+          "aspect_ratios": [2.0, 3.0], "flip": True, "clip": True},
+         ("Boxes", "Variances"), False, 32),
+        ("anchor_generator", "anchor_generator", lambda t, n, g, d: {
+            "Input": t.zeros(n, 1, 38, 50, device=d)},
+         {"anchor_sizes": [32.0, 64.0, 128.0, 256.0, 512.0],
+          "aspect_ratios": [0.5, 1.0, 2.0], "stride": [16.0, 16.0]},
+         ("Anchors", "Variances"), False, 8),
+        ("iou_similarity", "iou_similarity", lambda t, n, g, d: {
+            "X": boxes(t, (n, G), g, d), "Y": boxes(t, (P,), g, d)}, {},
+         ("Out",), False, 32),
+        ("box_coder_decode", "box_coder", lambda t, n, g, d: {
+            "PriorBox": boxes(t, (P,), g, d),
+            "PriorBoxVar": t.tensor([0.1, 0.1, 0.2, 0.2],
+                                    device=d).expand(P, 4).contiguous(),
+            "TargetBox": u(t, (n, P, 4), g, d)},
+         {"code_type": "decode_center_size"}, ("OutputBox",), True, 32),
+        ("bipartite_match", "bipartite_match", lambda t, n, g, d: {
+            "DistMat": t.round(t.rand(n, G, P, generator=g, device=d)
+                               ** 4 * 16) / 16},
+         {"match_type": "per_prediction", "dist_threshold": 0.5},
+         ("ColToRowMatchIndices", "ColToRowMatchDist"), False, 32),
+        ("target_assign", "target_assign", lambda t, n, g, d: {
+            "X": boxes(t, (n, G), g, d),
+            "MatchIndices": ints(t, -1, G, (n, P), g, d)},
+         {"mismatch_value": 0.0}, ("Out", "OutWeight"), True, 32),
+        ("box_encode_per_prior", "box_encode_per_prior", lambda t, n, g, d: {
+            "TargetBox": boxes(t, (n, P), g, d),
+            "PriorBox": boxes(t, (P,), g, d)}, {}, ("OutputBox",), True, 32),
+        ("smooth_l1_elementwise", "smooth_l1_elementwise",
+         lambda t, n, g, d: {"X": u(t, (n, P, 4), g, d)}, {"sigma": 1.0},
+         ("Out",), True, 32),
+        ("softmax_ce_no_reduce", "softmax_ce_no_reduce", lambda t, n, g, d: {
+            "Logits": u(t, (n, P, C), g, d),
+            "Label": ints(t, 0, C, (n, P, 1), g, d)}, {}, ("Out",), True,
+         32),
+        ("greater_equal_scalar0", "greater_equal_scalar0",
+         lambda t, n, g, d: {"X": ints(t, -1, G, (n, P), g, d).float()},
+         {}, ("Out",), False, 32),
+        ("mine_hard_examples", "mine_hard_examples", lambda t, n, g, d: {
+            "ClsLoss": t.round(t.rand(n, P, generator=g, device=d) * 64)
+            / 16,
+            "MatchIndices": t.where(t.rand(n, P, generator=g, device=d)
+                                    < 0.02, ints(t, 0, G, (n, P), g, d),
+                                    -1),
+            "MatchDist": t.rand(n, P, generator=g, device=d) * 0.7},
+         {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5},
+         ("NegMask", "UpdatedMatchIndices"), False, 32),
+        ("multiclass_nms", "multiclass_nms", lambda t, n, g, d: {
+            "BBoxes": boxes(t, (n, P), g, d),
+            "Scores": t.round(t.softmax(u(t, (n, P, C), g, d, 3.0), -1)
+                              .transpose(1, 2) * 256) / 256},
+         dict(score_threshold=0.01, nms_top_k=400, keep_top_k=200,
+              nms_threshold=0.45), ("Out", "Count"), False, 32),
+        ("detection_map", "detection_map", lambda t, n, g, d: {
+            "DetectRes": t.cat([ints(t, -1, C, (n, 200, 1), g, d).float(),
+                                t.round(t.rand(n, 200, 1, generator=g,
+                                               device=d) * 64) / 64,
+                                boxes(t, (n, 200), g, d)], -1),
+            "Label": t.cat([ints(t, -1, C, (n, G, 1), g, d).float(),
+                            (t.rand(n, G, 1, generator=g, device=d)
+                             < 0.1).float(), boxes(t, (n, G), g, d)], -1)},
+         {"class_num": C, "overlap_threshold": 0.1}, ("MAP",), False, 32),
+        ("rpn_target_assign", "rpn_target_assign", lambda t, n, g, d: {
+            "Anchor": t.zeros(38 * 50 * 15, 4, device=d),
+            "GtBox": t.zeros(G, 4, device=d),
+            "DistMat": t.round(t.rand(n, G, 38 * 50 * 15, generator=g,
+                                      device=d) * 32) / 32},
+         {"rpn_batch_size_per_im": 256}, ("Labels", "MatchIndices"), False,
+         8),
+        ("polygon_box_transform", "polygon_box_transform",
+         lambda t, n, g, d: {"Input": u(t, (n, 8, 128, 128), g, d)}, {},
+         ("Output",), True, 32)]
+    return cases
+
+
+def _window_at(torch, x, out):
+    """The (row, column) at which `out` is a window of `x`'s last two
+    dims, or None."""
+    h, w = out.shape[-2:]
+    for i in range(x.shape[-2] - h + 1):
+        for j in range(x.shape[-1] - w + 1):
+            if torch.equal(x[..., i:i + h, j:j + w], out):
+                return i, j
+    return None
+
+
+def run_item6_random_case(torch, ptt, name, seed):
+    """The bank's random ops, whose card and host draw from different
+    generators: two card runs from fresh executors bit-equal, and each
+    side's output what the draw must satisfy. `random_crop`: a window
+    of its input ([128, 3, 256, 256] -> 224). `nce` (the [30000, 512]
+    table, 8192 ids, 10 negatives): Cost and SampleLogits the rule's
+    formula on the card's own SampleLabels, evaluated on the host in
+    float64 (within BREADTH_SCALE_TOL of the scale), the labels first
+    and every negative in [0, 30000)."""
+    import numpy as np
+    dev = ptt.CUDAPlace(0).torch_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if name == "random_crop":
+        inputs = {"X": torch.randn(128, 3, 256, 256, generator=gen,
+                                   device=dev)}
+        op, attrs, outs = "random_crop", {"shape": [224, 224]}, ("Out",)
+    else:
+        inputs = {"Input": torch.randn(BREADTH_IDS, 512, generator=gen,
+                                       device=dev),
+                  "Label": torch.randint(0, 30000, (BREADTH_IDS, 1),
+                                         generator=gen, device=dev),
+                  "Weight": torch.randn(30000, 512, generator=gen,
+                                        device=dev) * 0.05,
+                  "Bias": torch.randn(30000, generator=gen, device=dev)}
+        op = "nce"
+        attrs = {"num_total_classes": 30000, "num_neg_samples": 10}
+        outs = ("Cost", "SampleLogits", "SampleLabels")
+    main, fetch, feed = _breadth_program(ptt, op, inputs, attrs, outs,
+                                         op == "nce")
+    runs = [ptt.Executor(ptt.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch, scope=ptt.Scope(),
+        return_numpy=False) for _ in range(2)]
+    for n, a, b in zip(fetch, *runs):
+        if not _bits_equal(torch, a, b):
+            raise AssertionError(f"bank {name}: two card runs differ in {n}")
+    ms = []
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    for _ in range(BREADTH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch, scope=ptt.Scope(),
+                return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    got = runs[0]
+    share = 0.0
+    if name == "random_crop":
+        if _window_at(torch, inputs["X"], got[0]) is None:
+            raise AssertionError("bank random_crop: the card's output is "
+                                 "no window of its input")
+        cut = inputs["X"][:128 // BREADTH_CUT].cpu()
+        host, = ptt.Executor(ptt.CPUPlace()).run(
+            main, feed={"X_0": cut}, fetch_list=fetch[:1],
+            scope=ptt.Scope(), return_numpy=False)
+        if _window_at(torch, cut, host) is None:
+            raise AssertionError("bank random_crop: the host's output is "
+                                 "no window of its input")
+    else:
+        x = inputs["Input"].double().cpu()
+        w = inputs["Weight"].double().cpu()
+        b = inputs["Bias"].double().cpu()
+        ids = got[2].cpu()
+        if not (torch.equal(ids[:, :1], inputs["Label"].cpu())
+                and int(ids.min()) >= 0 and int(ids.max()) < 30000):
+            raise AssertionError("bank nce: SampleLabels out of range")
+        logits = torch.einsum("bd,bkd->bk", x, w[ids]) + b[ids]
+        shift = np.log(10) + np.log(1.0 / 30000)
+        cost = (torch.nn.functional.softplus(-(logits[:, :1] - shift)).sum(1)
+                + torch.nn.functional.softplus(logits[:, 1:] - shift).sum(1))
+        for want, have in ((logits, got[1]), (cost[:, None], got[0])):
+            e = float((have.double().cpu() - want).abs().max()) / (
+                BREADTH_SCALE_TOL * float(want.abs().max()))
+            share = max(share, e)
+        if share > 1.0:
+            raise AssertionError(f"bank nce: the card's Cost / SampleLogits "
+                                 f"at {share:.3g} of the tolerance from "
+                                 f"the formula on its own SampleLabels")
+    return dict(name=name, op=op, amp=False, ms=ms, ms_median=_median(ms),
+                shapes={n: list(a.shape) for n, a in zip(fetch, got)},
+                tol_share=share, gate="random")
+
+
+def run_item6_bank(torch, ptt, native):
+    """Phase 7l (b): every case of `_item6_cases` through
+    `run_breadth_case`, and the two random ops; cuDNN deterministic; no
+    kernel of csrc/ may launch."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    native.reset_launches()
+    try:
+        out = [run_breadth_case(torch, ptt, case, SEED + 2000 + i)
+               for i, case in enumerate(_item6_cases())]
+        out += [run_item6_random_case(torch, ptt, name, SEED + 3000 + i)
+                for i, name in enumerate(("random_crop", "nce"))]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    launches = dict(native.launches)
+    if any(launches.values()):
+        raise AssertionError(f"phase 7l bank launched a kernel: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5077,6 +5708,77 @@ def main() -> int:
         f"op types), no kernel of csrc/ launched; phase 7k "
         f"{breadth_s:.1f} s for the bank; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # 7l. the rest of the op families: train-mobilenet-ssd (train, card vs
+    # host, evaluation with NMS and mAP, AMP), then the bank of the new
+    # ops at full width (timed before the traced steps below); no kernel
+    # of csrc/ may launch anywhere in the phase
+    t0 = time.perf_counter()
+    native.reset_launches()
+    ssd = run_train_mobilenet_ssd(torch, ptt, native)
+    par, ev, amp = ssd["parity"], ssd["eval"], ssd["amp"]
+    log(f"train-mobilenet-ssd (MobileNet-v1 SSD 300 x 300, 21 classes, "
+        f"{ssd['priors']} priors, {ssd['n_params']} parameters, RMSProp + "
+        f"L2Decay, float32) on the card [{card}]: {SSD_WARMUP} + "
+        f"{SSD_STEPS} steps of batch {SSD_BATCH}, step "
+        f"{ssd['step_ms_median']:.2f} ms (median; all: "
+        f"{[round(x, 2) for x in ssd['step_ms']]}), "
+        f"{ssd['images_per_s']:.1f} images/s, {ssd['rule_calls']} rule "
+        f"calls a step ({ssd['ops']} ops in the main block), peak memory "
+        f"{ssd['peak_bytes'] / 2**20:.1f} MiB above what the card held "
+        f"before; losses {[round(x, 3) for x in ssd['losses']]}; no kernel "
+        f"of csrc/ launched; synthetic data {ssd['data_s']:.1f} s")
+    log(f"train-mobilenet-ssd card vs host, {SSD_PARITY_STEPS} steps at "
+        f"batch {SSD_PARITY_BATCH}, each from the host's state: losses card "
+        f"{par['losses']['card']} host {par['losses']['host']} (max "
+        f"relative error {par['rel_err']:.3g}, tol {LOSS_RTOL}); match "
+        f"indices ({par['positives']} positives) and mined negatives "
+        f"({par['negatives']}) equal every step; the card's free run from "
+        f"the same state: losses {par['losses']['free']}, "
+        f"{[f'{x:.3g}' for x in par['free_rel_err']]} from the host's, "
+        f"matches equal {par['free_match_equal']}, negatives equal "
+        f"{par['free_neg_equal']} (not gated: RMSProp's first updates are "
+        f"about lr * sign(grad)); {par['seconds']:.1f} s")
+    log(f"mobilenet-ssd is_test on the card: detection_output (NMS 0.45, "
+        f"top 400, keep 200, score 0.01) + detection_map over "
+        f"{SSD_EVAL_BATCHES} batches of {ev['batch']}: "
+        f"{ev['ms_median']:.2f} ms a batch (all: "
+        f"{[round(x, 2) for x in ev['ms']]}), mAP 11point "
+        f"{ev['maps']['11point']} integral {ev['maps']['integral']}, "
+        f"DetectionMAP evaluator (mean over the batches) "
+        f"{ev['evaluator_map']:.6f}, detections "
+        f"kept {ev['counts'][0]} (first batch); host on the first batch "
+        f"({ev['host_s']:.1f} s): mAP {ev['host_map']}, counts "
+        f"{ev['host_count']}; NMS fed the card's decoded boxes and scores "
+        f"equal card vs host (Out and Count bit for bit), detection_map "
+        f"fed the card's detections equal to 1e-6 ({ev['same_input_map']}); "
+        f"end-to-end mAP error {ev['map_err']} (tol {SSD_MAP_ATOL}; "
+        f"{ev['rows_differ']} of {SSD_BATCH * 200} detection rows differ); "
+        f"the ground truth as its detections scores {ev['perfect_map']}")
+    log(f"train-mobilenet-ssd AMP, {amp['steps']} steps at batch "
+        f"{SSD_AMP_BATCH} from the host's state: losses {amp['losses']}; "
+        f"card vs host {amp['rel_err']:.3g} (tol {amp['loss_rtol']:.3g}); "
+        f"state at {amp['l2_share']:.3g} and running stats at "
+        f"{amp['stat_share']:.3g} of {amp['l2_tol']}; {amp['bf16_probes']} "
+        f"bf16 products checked; {amp['seconds']:.1f} s")
+    ssd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    item6 = run_item6_bank(torch, ptt, native)
+    item6_s = time.perf_counter() - t0
+    for b in item6:
+        log(f"bank {b['name']} ({b['op']}) at {b['shapes']}: card "
+            f"{b['ms_median']:.3f} ms a run (forward{' and grad' if any('@GRAD' in n for n in b['shapes']) else ''}, "
+            f"wall after a sync; all: {[round(x, 3) for x in b['ms']]}) "
+            f"[{card}], two card runs bit-equal; card vs host "
+            f"{'at 1/' + str(BREADTH_CUT) + ' of the rows or batch' if b['gate'] != 'random' else '(each its own draw)'}: "
+            f"{b['tol_share']:.3g} of its tolerance ({b['gate']})")
+    launches = dict(native.launches)
+    if any(launches.values()):
+        raise AssertionError(f"phase 7l launched a kernel: {launches}")
+    log(f"phase 7l: {len(item6)} bank cases ({len(set(b['op'] for b in item6))} "
+        f"op types), no kernel of csrc/ launched in the phase; "
+        f"train-mobilenet-ssd {ssd_s:.1f} s, bank {item6_s:.1f} s; total "
+        f"so far {time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -5084,6 +5786,15 @@ def main() -> int:
             f"{tr['busy_us'] / 1e3:.1f} ms = {tr['busy_share']:.3f} of it "
             f"({tr['device_events']} device events; "
             f"{tr['busy_over_untraced']:.3f} of the untraced median)")
+    traced_s, busy_us, n_events = traced_busy(torch, ssd.pop("step"))
+    ssd.update(traced_ms=traced_s * 1e3, busy_us=busy_us,
+               busy_share=busy_us / (traced_s * 1e6),
+               busy_over_untraced=busy_us / (ssd["step_ms_median"] * 1e3),
+               device_events=n_events)
+    log(f"train-mobilenet-ssd, one traced step after every timed one: "
+        f"{ssd['traced_ms']:.1f} ms, device busy {busy_us / 1e3:.1f} ms = "
+        f"{ssd['busy_share']:.3f} of it ({n_events} device events; "
+        f"{ssd['busy_over_untraced']:.3f} of the untraced median)")
     trace_train_stacked_lstm(torch, mt)
     log(f"train-mt, one traced step after every timed one: "
         f"{mt['traced_step_ms']:.1f} ms, device busy "
@@ -5385,6 +6096,7 @@ def main() -> int:
                    "stacked_lstm_parity": lstm_parity,
                    "seq_op_sweep": seq_sweep, "train_mt": mt,
                    "train_deepfm_auc": dauc, "breadth": breadth,
+                   "train_mobilenet_ssd": ssd, "item6_bank": item6,
                    "infer_mt_beam": beam,
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)

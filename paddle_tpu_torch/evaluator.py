@@ -5,9 +5,9 @@ fluid.metrics, kept for source compatibility).
 Mirror of ``paddle_tpu/evaluator.py``. Each evaluator appends its
 per-batch metric ops to the current program at construction time and
 accumulates host-side across `eval()` epochs via the matching
-``metrics`` class. `ChunkEvaluator`, `EditDistance` and `DetectionMAP`
-build the `chunk_eval`, `edit_distance` and `detection_map` ops, which
-are not ported yet (ROADMAP Queue 1 item 6): constructing one raises."""
+``metrics`` class: `Accuracy` over `accuracy`, `ChunkEvaluator` over
+`chunk_eval`, `EditDistance` over `edit_distance` and `DetectionMAP`
+over `detection_map` in its padded layout (``ops/detection.py``)."""
 
 from __future__ import annotations
 
@@ -51,16 +51,51 @@ class Accuracy(Evaluator):
                          int(weight))
 
 
-def _needs_item6_op(name, op):
-    class _Evaluator(Evaluator):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"evaluator.{name} builds the `{op}` op, which is not "
-                f"ported yet (ROADMAP Queue 1 item 6)")
-    _Evaluator.__name__ = _Evaluator.__qualname__ = name
-    return _Evaluator
+class ChunkEvaluator(Evaluator):
+    @deprecated("2018", "fluid.metrics.ChunkEvaluator")
+    def __init__(self, input, label, chunk_scheme, num_chunk_types,
+                 excluded_chunk_types=None, **kwargs):
+        super().__init__(**kwargs)
+        self._acc = _metrics.ChunkEvaluator()
+        precision, recall, f1, ninfer, nlabel, ncorrect = layers.chunk_eval(
+            input=input, label=label, chunk_scheme=chunk_scheme,
+            num_chunk_types=num_chunk_types,
+            excluded_chunk_types=excluded_chunk_types)
+        self.metrics.extend([ninfer, nlabel, ncorrect])
+
+    def update(self, num_infer_chunks, num_label_chunks, num_correct_chunks):
+        self._acc.update(num_infer_chunks, num_label_chunks,
+                         num_correct_chunks)
 
 
-ChunkEvaluator = _needs_item6_op("ChunkEvaluator", "chunk_eval")
-EditDistance = _needs_item6_op("EditDistance", "edit_distance")
-DetectionMAP = _needs_item6_op("DetectionMAP", "detection_map")
+class EditDistance(Evaluator):
+    @deprecated("2018", "fluid.metrics.EditDistance")
+    def __init__(self, input, label, ignored_tokens=None, **kwargs):
+        super().__init__(**kwargs)
+        self._acc = _metrics.EditDistance()
+        dist, seq_num = layers.edit_distance(input=input, label=label,
+                                             ignored_tokens=ignored_tokens)
+        self.metrics.extend([dist, seq_num])
+
+    def update(self, distances, seq_num):
+        self._acc.update(distances, seq_num)
+
+
+class DetectionMAP(Evaluator):
+    @deprecated("2018", "fluid.metrics.DetectionMAP")
+    def __init__(self, input, gt_label, gt_box=None, gt_difficult=None,
+                 class_num=None, background_label=0, overlap_threshold=0.5,
+                 evaluate_difficult=True, ap_version="integral", **kwargs):
+        super().__init__(**kwargs)
+        self._acc = _metrics.DetectionMAP()
+        # padded static-shape contract (ops/detection.py _detection_map):
+        # input [B,D,6] detections, gt_label [B,G,6] padded ground truth
+        m = layers.detection_map(input, gt_label, class_num=class_num,
+                                 background_label=background_label,
+                                 overlap_threshold=overlap_threshold,
+                                 evaluate_difficult=evaluate_difficult,
+                                 ap_version=ap_version)
+        self.metrics.append(m)
+
+    def update(self, value, weight):
+        self._acc.update(value, weight)

@@ -1,8 +1,8 @@
 """Layers built on single ops (mirror of ``paddle_tpu/layers/nn.py``:
-every layer whose op the port registers; the resize, 3-d, crop and
-detection-side layers wait for their ops). Each function is the JAX
-package's, so the programs they build are the same op for op, name for
-name. The activation and elementwise layers are ``layers/ops.py``'s."""
+every layer of it). Each function is the JAX package's, so the programs
+they build are the same op for op, name for name, but for the index
+outputs the port declares int64 (`ctc_greedy_decoder`'s ids). The
+activation and elementwise layers are ``layers/ops.py``'s."""
 
 from __future__ import annotations
 
@@ -1072,3 +1072,265 @@ def beam_search_decode(ids_hist, parents_hist, final_scores, beam_size=None,
                      outputs={"SentenceIds": [ids.name],
                               "SentenceScores": [scores.name]})
     return ids, scores
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    p = _pair(padding)
+    helper.append_op("im2sequence", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"kernels": _pair(filter_size), "strides": _pair(stride),
+                            "paddings": p + p})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the extra layers over ops/extra_nn.py (3-D, image resize, crop, misc)
+# ---------------------------------------------------------------------------
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None, name=None):
+    """reference nn.py conv3d."""
+    helper = LayerHelper("conv3d", **locals())
+    k = filter_size if isinstance(filter_size, (list, tuple)) \
+        else [filter_size] * 3
+    in_c = input.shape[1]
+    g = groups or 1
+    w = helper.create_parameter(param_attr,
+                                [num_filters, in_c // g] + list(k),
+                                input.dtype,
+                                default_initializer=init.MSRAInitializer())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"Input": [input.name], "Filter": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters],
+                                    input.dtype, is_bias=True)
+        inputs["Bias"] = [b.name]
+    helper.append_op("conv3d", inputs=inputs,
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": list(_triple3(stride)),
+                            "paddings": list(_triple3(padding)),
+                            "dilations": list(_triple3(dilation)),
+                            "groups": g})
+    return helper.append_activation(out)
+
+
+def _triple3(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v,) * 3
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None):
+    """reference nn.py conv3d_transpose."""
+    helper = LayerHelper("conv3d_transpose", **locals())
+    stride3 = _triple3(stride)
+    pad3 = _triple3(padding)
+    dil3 = _triple3(dilation)
+    if filter_size is None:
+        # reference conv2d_transpose:2377 derives the kernel from the
+        # requested output: k = (out - (in-1)*s + 2p - 1)/d + 1
+        if output_size is None:
+            raise ValueError("filter_size or output_size must be set")
+        osz = [output_size] * 3 if isinstance(output_size, int) \
+            else list(output_size)
+        k = [(osz[i] - (input.shape[2 + i] - 1) * stride3[i]
+              + 2 * pad3[i] - 1) // dil3[i] + 1 for i in range(3)]
+    else:
+        k = filter_size if isinstance(filter_size, (list, tuple)) \
+            else [filter_size] * 3
+    in_c = input.shape[1]
+    w = helper.create_parameter(param_attr, [in_c, num_filters] + list(k),
+                                input.dtype,
+                                default_initializer=init.XavierInitializer())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"Input": [input.name], "Filter": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters],
+                                    input.dtype, is_bias=True)
+        inputs["Bias"] = [b.name]
+    helper.append_op("conv3d_transpose", inputs=inputs,
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": list(_triple3(stride)),
+                            "paddings": list(_triple3(padding)),
+                            "dilations": list(_triple3(dilation))})
+    return helper.append_activation(out)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("pool3d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": list(_triple3(pool_size)),
+                            "strides": list(_triple3(pool_stride)),
+                            "paddings": list(_triple3(pool_padding)),
+                            "global_pooling": global_pooling})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR"):
+    """reference nn.py image_resize (BILINEAR/NEAREST)."""
+    helper = LayerHelper("image_resize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    attrs = {"interp_method": resample.lower()}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op("bilinear_interp", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, resample="BILINEAR")
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so the SHORT side equals out_short_len (reference
+    nn.py image_resize_short), preserving aspect ratio."""
+    h, w = input.shape[2], input.shape[3]
+    short, is_h = (h, True) if h < w else (w, False)
+    ratio = out_short_len / float(short)
+    out_shape = ([out_short_len, int(round(w * ratio))] if is_h
+                 else [int(round(h * ratio)), out_short_len])
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper("crop", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {"X": [x.name]}
+    attrs = {}
+    if isinstance(shape, ir.Variable):
+        inputs["Y"] = [shape.name]
+    else:
+        attrs["shape"] = list(shape)
+    if offsets is not None:
+        attrs["offsets"] = list(offsets)
+    helper.append_op("crop", inputs=inputs, outputs={"Out": [out.name]},
+                     attrs=attrs)
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("random_crop", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"shape": list(shape)})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    inputs = {"X": [label.name]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist.name]
+    helper.append_op("label_smooth", inputs=inputs,
+                     outputs={"Out": [out.name]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(dtype=inputs[0].dtype)
+    helper.append_op("multiplex",
+                     inputs={"X": [v.name for v in inputs],
+                             "Ids": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference(dtype="float32")
+    wrong = helper.create_variable_for_type_inference(dtype="int32")
+    correct = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op("mean_iou",
+                     inputs={"Predictions": [input.name],
+                             "Labels": [label.name]},
+                     outputs={"OutMeanIou": [miou.name],
+                              "OutWrong": [wrong.name],
+                              "OutCorrect": [correct.name]},
+                     attrs={"num_classes": int(num_classes)})
+    return miou, wrong, correct
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1, spatial_scale=1.0):
+    helper = LayerHelper("roi_pool")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("roi_pool",
+                     inputs={"X": [input.name], "ROIs": [rois.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"pooled_height": int(pooled_height),
+                            "pooled_width": int(pooled_width),
+                            "spatial_scale": float(spatial_scale)})
+    return out
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """reference nn.py ctc_greedy_decoder. Returns padded ids [B, T]
+    (int64, the port's index dtype); the decoded lengths ride the
+    @SEQLEN companion (reference emits LoD)."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    out = helper.create_variable_for_type_inference(dtype="int64")
+    lens = helper.create_variable_for_type_inference(dtype="int32")
+    inputs = _seq_inputs(helper, input)
+    helper.append_op("ctc_greedy_decoder", inputs=inputs,
+                     outputs={"Out": [out.name], "OutLen": [lens.name]},
+                     attrs={"blank": int(blank)})
+    out.lod_level = 1
+    blk = helper.main_program.current_block()
+    comp = blk.create_var(name=seqlen_var_name(out.name), shape=[-1],
+                          dtype="int32")
+    helper.append_op("assign", inputs={"X": [lens.name]},
+                     outputs={"Out": [comp.name]})
+    return out, lens
+
+
+def lod_reset(x, y=None, target_lod=None):
+    helper = LayerHelper("lod_reset")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {"X": [x.name]}
+    attrs = {}
+    if y is not None:
+        inputs["Y"] = [y.name]
+    elif target_lod is not None:
+        attrs["target_lod"] = list(target_lod)
+    else:
+        raise ValueError("lod_reset needs y or target_lod")
+    helper.append_op("lod_reset", inputs=inputs,
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    out.lod_level = max(1, x.lod_level)
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """reference nn.py chunk_eval -> (precision, recall, f1, #infer,
+    #label, #correct)."""
+    helper = LayerHelper("chunk_eval")
+    names = ["Precision", "Recall", "F1-Score", "NumInferChunks",
+             "NumLabelChunks", "NumCorrectChunks"]
+    dtypes = ["float32", "float32", "float32", "int32", "int32", "int32"]
+    outs = {s: [helper.create_variable_for_type_inference(dtype=d).name]
+            for s, d in zip(names, dtypes)}
+    inputs = _seq_inputs(helper, input, {"Label": [label.name]})
+    helper.append_op("chunk_eval", inputs=inputs, outputs=outs,
+                     attrs={"num_chunk_types": int(num_chunk_types),
+                            "chunk_scheme": chunk_scheme,
+                            "excluded_chunk_types":
+                                list(excluded_chunk_types or [])})
+    blk = helper.main_program.current_block()
+    return tuple(blk.var(outs[s][0]) for s in names)

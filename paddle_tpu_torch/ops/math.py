@@ -365,14 +365,17 @@ class _HalfSoftmax(torch.autograd.Function):
         return (g / s + ct_s) * e, None
 
 
-@register_op("log_softmax")
-def _log_softmax(ctx, X):
+def jax_log_softmax(x, axis=-1):
     """`jax.nn.log_softmax`: x - max - log(sum(exp(x - max))), the max
     taking no grad."""
-    axis = ctx.attr("axis", -1)
-    shifted = X - X.amax(dim=axis, keepdim=True).detach()
-    return {"Out": shifted - torch.log(
-        _sum_as_jnp(torch.exp(shifted), (axis,), keepdim=True))}
+    shifted = x - x.amax(dim=axis, keepdim=True).detach()
+    return shifted - torch.log(
+        _sum_as_jnp(torch.exp(shifted), (axis,), keepdim=True))
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, X):
+    return {"Out": jax_log_softmax(X, ctx.attr("axis", -1))}
 
 
 @register_op("top_k", propagate_seqlen=False)

@@ -1,6 +1,6 @@
 """Neural-net op rules: `conv2d`, `depthwise_conv2d`, `conv2d_transpose`,
-`pool2d`, `batch_norm`, `layer_norm`, `dropout`, `lrn` and
-`grid_sampler`.
+`pool2d`, `batch_norm`, `layer_norm`, `dropout`, `lrn`, `grid_sampler`
+and `im2sequence`.
 
 Mirror of ``paddle_tpu/ops/nn.py``. The JAX package computes convs and
 pools in XLA (`lax.conv_general_dilated`, `lax.reduce_window`), outside
@@ -181,6 +181,22 @@ def _lrn(ctx, X):
     mid = torch.pow(ctx.attr("k", 2.0) + ctx.attr("alpha", 1e-4) * acc,
                     ctx.attr("beta", 0.75))
     return {"Out": X / mid, "MidOut": mid}
+
+
+@register_op("im2sequence", propagate_seqlen=False)
+def _im2sequence(ctx, X):
+    """Every (kh, kw) patch of NCHW `X` (padded by `paddings` = [top,
+    left, bottom, right]) as a row: [N * OH * OW, C * kh * kw], rows in
+    image-major, then row-major patch order, each row's values in the
+    order (c, i, j). `F.unfold` gives exactly the patch layout of the JAX
+    rule's `lax.conv_general_dilated_patches`."""
+    kernels = _pair(ctx.attr("kernels"))
+    strides = _pair(ctx.attr("strides", [1, 1]))
+    pads = ctx.attr("paddings", [0, 0, 0, 0])
+    xp = F.pad(X, (pads[1], pads[3], pads[0], pads[2]))
+    patches = F.unfold(xp, kernels, stride=strides)    # [N, C*kh*kw, L]
+    n, ck, length = patches.shape
+    return {"Out": patches.transpose(1, 2).reshape(n * length, ck)}
 
 
 @register_op("grid_sampler", propagate_seqlen=False)

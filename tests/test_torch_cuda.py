@@ -16,7 +16,11 @@ grads, `crf_decoding`) and two steps of its label_semantic_roles chapter
 on the card against the host, and the op breadth's rules that depend on
 repeats, ties and kinks (`scatter` with repeated ids in both modes,
 `argsort` ties, `one_hot` out of range, the three repaired grads) and
-`depthwise_conv2d` / `conv2d_transpose` on the card against the host.
+`depthwise_conv2d` / `conv2d_transpose` on the card against the host,
+and the rest of the op families: `multiclass_nms` (tied scores, padded
+rows), `detection_map`, `warpctc`, `bilinear_interp` with its
+antialiasing and `fake_quantize_range_abs_max` on the card against the
+host.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2163,3 +2167,99 @@ def test_depthwise_and_transposed_convs_on_card_equal_host(dev, op_type, ins,
                                   outs=("Output",), card_runs=1)
     assert fetch[1:] == ["Input@GRAD", "Filter@GRAD"]
     _assert_within_scale(fetch, host, c1, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the op families: detection, CTC, resize, quantization
+# ---------------------------------------------------------------------------
+
+def _ltrb(rng, *lead):
+    pts = np.sort(rng.uniform(0, 1, lead + (2, 2)), axis=-2)
+    return pts.reshape(lead + (4,))[..., [0, 2, 1, 3]].astype(np.float32)
+
+
+@pytest.mark.parametrize("eta", [1.0, 0.8])
+def test_multiclass_nms_on_card_equals_host(dev, eta):
+    """SSD's test pass at batch 4: 21 classes over 2278 priors, scores
+    tied (multiples of 1/64) and many rows padded: Out and Count bit for
+    bit, two card runs too."""
+    rng = np.random.RandomState(8)
+    ins = {"BBoxes": _ltrb(rng, 4, 2278),
+           "Scores": (np.round(rng.dirichlet(np.ones(21), (4, 2278))
+                               .transpose(0, 2, 1) * 64) / 64)
+           .astype(np.float32)}
+    attrs = dict(score_threshold=0.05, nms_top_k=400, keep_top_k=200,
+                 nms_threshold=0.45 if eta == 1.0 else 0.7, nms_eta=eta)
+    fetch, host, (c1, c2) = _op_runs(dev, "multiclass_nms", ins, attrs,
+                                     outs=("Out", "Count"), backward=False)
+    for h, a, b in zip(host, c1, c2):
+        np.testing.assert_array_equal(a, h)
+        np.testing.assert_array_equal(b, a)
+    assert (host[1] > 0).all()
+
+
+@pytest.mark.parametrize("ap_version", ["integral", "11point"])
+def test_detection_map_on_card_equals_host(dev, ap_version):
+    rng = np.random.RandomState(9)
+    B, D, G = 16, 200, 16
+    det = np.full((B, D, 6), -1.0, np.float32)
+    gt = np.full((B, G, 6), -1.0, np.float32)
+    for b in range(B):
+        n_gt, n_det = rng.randint(1, G + 1), rng.randint(0, D + 1)
+        gt[b, :n_gt, 0] = rng.randint(1, 21, n_gt)
+        gt[b, :n_gt, 1] = rng.rand(n_gt) < 0.2
+        gt[b, :n_gt, 2:] = _ltrb(rng, n_gt)
+        det[b, :n_det, 0] = rng.randint(1, 21, n_det)
+        det[b, :n_det, 1] = np.round(rng.rand(n_det) * 32) / 32
+        near = gt[b, rng.randint(0, n_gt, n_det), 2:] + rng.normal(
+            0, 0.03, (n_det, 4))
+        det[b, :n_det, 2:] = np.where(rng.rand(n_det, 1) < 0.6, near,
+                                      _ltrb(rng, n_det))
+    fetch, host, (c1, _) = _op_runs(
+        dev, "detection_map", {"DetectRes": det, "Label": gt},
+        dict(class_num=21, overlap_threshold=0.5, ap_version=ap_version),
+        outs=("MAP",), backward=False)
+    np.testing.assert_allclose(c1[0], host[0], rtol=1e-6)
+    assert 0 < host[0][0] < 1
+
+
+def test_warpctc_on_card_equals_host(dev):
+    """A CRNN recognizer's shapes: B 32, T 96, 96 classes with the
+    blank, labels up to 24 with repeats; the loss and the Logits grad
+    within 1e-5 of each tensor's scale."""
+    rng = np.random.RandomState(10)
+    ins = {"Logits": rng.randn(32, 96, 96).astype(np.float32),
+           "Label": rng.randint(1, 4, (32, 24)).astype(np.int64),
+           "LogitsLen": rng.randint(60, 97, 32).astype(np.int64),
+           "LabelLen": rng.randint(0, 25, 32).astype(np.int64)}
+    fetch, host, (c1, c2) = _op_runs(dev, "warpctc", ins, {"blank": 0},
+                                     outs=("Loss",))
+    assert fetch[1:] == ["Logits@GRAD"]
+    _assert_within_scale(fetch, host, c1, 1e-5)
+    for a, b in zip(c1, c2):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("size", [(32, 32), (128, 128), (40, 150)],
+                         ids=["down", "up", "mixed"])
+def test_bilinear_interp_antialias_on_card_equals_host(dev, size):
+    rng = np.random.RandomState(11)
+    ins = {"X": rng.randn(4, 16, 64, 64).astype(np.float32)}
+    fetch, host, (c1,) = _op_runs(dev, "bilinear_interp", ins,
+                                  {"out_h": size[0], "out_w": size[1]},
+                                  card_runs=1)
+    _assert_within_scale(fetch, host, c1, 1e-5)
+
+
+@pytest.mark.parametrize("is_test", [False, True])
+def test_fake_quantize_range_abs_max_on_card_equals_host(dev, is_test):
+    """Out, OutScale and the straight-through grad bit for bit."""
+    rng = np.random.RandomState(12)
+    ins = {"X": rng.randn(1024, 512).astype(np.float32),
+           "InScale": np.array([3.5], np.float32)}
+    fetch, host, (c1, c2) = _op_runs(
+        dev, "fake_quantize_range_abs_max", ins,
+        {"bit_length": 8, "is_test": is_test}, outs=("Out", "OutScale"))
+    for h, a, b in zip(host, c1, c2):
+        np.testing.assert_array_equal(a, h)
+        np.testing.assert_array_equal(b, a)

@@ -1004,7 +1004,9 @@ def test_composite_metric_and_weighted_average_like_paddle_tpu():
 
 def test_evaluator_accuracy_like_paddle_tpu(capsys):
     """evaluator.Accuracy over 3 batches from one state: eval() within
-    LOSS_RTOL of the JAX one; the item-6 evaluators raise."""
+    LOSS_RTOL of the JAX one; the other three evaluators build their ops
+    (tests/test_torch_structured.py and test_torch_detection.py run
+    them against the JAX package)."""
     rng = np.random.RandomState(0)
     feeds = [{"x": rng.rand(8, 4).astype(np.float32),
               "lbl": rng.randint(0, 3, (8, 1)).astype(np.int64)}
@@ -1035,9 +1037,18 @@ def test_evaluator_accuracy_like_paddle_tpu(capsys):
         out[name] = ev.eval()
     assert "deprecated" in capsys.readouterr().err
     assert abs(out["torch"] - out["jax"]) <= LOSS_RTOL
-    for cls in ("ChunkEvaluator", "EditDistance", "DetectionMAP"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(ptt.evaluator, cls)(None, None)
+    for cls, op, args in (
+            ("ChunkEvaluator", "chunk_eval", dict(chunk_scheme="IOB",
+                                                  num_chunk_types=2)),
+            ("EditDistance", "edit_distance", {}),
+            ("DetectionMAP", "detection_map", dict(class_num=3))):
+        main = ptt.Program()
+        with ptt.program_guard(main, ptt.Program()):
+            a = ptt.layers.data("a", shape=[4, 6], dtype="float32")
+            b = ptt.layers.data("b", shape=[4, 6], dtype="float32")
+            ev = getattr(ptt.evaluator, cls)(a, b, **args)
+        assert [o.type for o in main.global_block().ops] == [op]
+        assert ev.metrics
 
 
 def test_debugger_listings_equal_paddle_tpu(tmp_path):

@@ -14,11 +14,15 @@ an op ported later gets its case here with no new test code.
 fp32 tolerance: 1e-4 relative, and 1e-6 absolute where a value lies
 near 0. Named exceptions:
 - `RANDOM_OPS` (`dropout`, `gaussian_random`, `uniform_random`,
-  `truncated_gaussian_random`, `uniform_random_batch_size_like`): the
-  two packages draw from different streams by design (ROADMAP Queue 3,
-  expected differences), so the test compares what the draw must
-  satisfy: the keep share and the kept values, or the bounds and the
-  first two moments.
+  `truncated_gaussian_random`, `uniform_random_batch_size_like`, `nce`,
+  `random_crop`): the two packages draw from different streams by design
+  (ROADMAP Queue 3, expected differences), so the test compares what the
+  draw must satisfy: the keep share and the kept values, or the bounds
+  and the first two moments; `random_crop`'s output is a window of its
+  input; `nce`'s `Cost` and `SampleLogits` are the JAX formula's on the
+  port's own `SampleLabels`, whose true ids are the labels and whose
+  negatives are uniform over [0, V) (`_check_nce`, in the AMP column
+  too).
 - `CANCELLING_GRADS`: the grads of mean(softmax), mean(sequence_softmax)
   and mean(batch_norm) cancel to about 0 (each row or channel of the
   output sums to a constant), so they are held to an absolute tolerance
@@ -77,7 +81,8 @@ CASES = sorted(PORTED & set(sweep.SPECS))
 AMP_CASES = [op for op in sweep.AMP_OPS_IN_SPECS if op in PORTED]
 
 RANDOM_OPS = {"dropout", "gaussian_random", "uniform_random",
-              "truncated_gaussian_random", "uniform_random_batch_size_like"}
+              "truncated_gaussian_random", "uniform_random_batch_size_like",
+              "nce", "random_crop"}
 # op -> absolute tolerance on its input grads
 CANCELLING_GRADS = {"softmax": 1e-7, "sequence_softmax": 1e-7,
                     "batch_norm": 1e-7}
@@ -116,6 +121,16 @@ WAIVED_PORT_TESTS = {
     "sequence_erase": "test_torch_seq.py",
     "load": "test_torch_data.py",
     "auc": "test_torch_breadth.py",
+    "prior_box": "test_torch_detection.py",
+    "anchor_generator": "test_torch_detection.py",
+    "box_coder": "test_torch_detection.py",
+    "bipartite_match": "test_torch_detection.py",
+    "target_assign": "test_torch_detection.py",
+    "multiclass_nms": "test_torch_detection.py",
+    "mine_hard_examples": "test_torch_detection.py",
+    "polygon_box_transform": "test_torch_detection.py",
+    "rpn_target_assign": "test_torch_detection.py",
+    "detection_map": "test_torch_detection.py",
 }
 # The AMP column's float32 results that are not bit for bit, op ->
 # tolerance relative to the tensor's largest magnitude. Every bf16 output
@@ -139,6 +154,14 @@ AMP_SUM_ORDER = {
     # a float32 mean over two dims, summed in torch's order: one element
     # of three 7.5e-9 from XLA's
     "reduce_mean": 1e-7,
+    # each path node's dot product over the input's width, the sum over
+    # the path, and XLA's log1p / exp in softplus: one element of four
+    # an ulp apart
+    "hierarchical_sigmoid": 2e-7,
+    # log_softmax's row sums, and the grad back through the logaddexp
+    # chain over the frames: most elements of the Logits grad an ulp or
+    # two apart
+    "warpctc": 4e-7,
 }
 
 
@@ -227,8 +250,64 @@ def _run_port(program_json, feed, fetch, amp=False):
     return [np.asarray(o) for o in out]
 
 
+def _check_nce(spec, amp=False):
+    """The port's `nce` on the spec's inputs, with every output fetched:
+    `Cost` and `SampleLogits` equal the JAX rule's formula evaluated on
+    the port's own `SampleLabels`, whose first columns are the labels
+    and whose negatives lie in [0, V); then the rule alone on a large
+    batch draws each class about equally often."""
+    import copy
+    import jax
+    import jax.numpy as jnp
+    full = copy.copy(spec)
+    full.outs = ["Cost", "SampleLogits", "SampleLabels"]
+    full.grad = []
+    main, feed, fetch, _ = one_op_program("nce", full)
+    cost, logits, labels = _run_port(main.serialize_to_string(), feed,
+                                     fetch, amp=amp)
+    V = spec.attrs["num_total_classes"]
+    x, w = spec.inputs["Input"], spec.inputs["Weight"]
+    lab = spec.inputs["Label"].reshape(len(x), -1)
+    np.testing.assert_array_equal(labels[:, :lab.shape[1]], lab)
+    assert labels.min() >= 0 and labels.max() < V
+    ids = jnp.asarray(labels.astype(np.int32))
+    want_logits = jnp.einsum("bd,bkd->bk", x, jnp.take(w, ids, axis=0))
+    shift = np.log(spec.attrs["num_neg_samples"]) + np.log(1.0 / V)
+    t = lab.shape[1]
+    want_cost = (jnp.sum(jax.nn.softplus(-(want_logits[:, :t] - shift)), 1)
+                 + jnp.sum(jax.nn.softplus(want_logits[:, t:] - shift), 1))
+    np.testing.assert_allclose(logits, np.asarray(want_logits), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(cost[:, 0], np.asarray(want_cost), rtol=1e-5,
+                               atol=1e-6)
+    # uniform negatives: 4096 x 8 draws over V classes, each count
+    # within 5 standard deviations of its mean
+    rule = tregistry.get_op_def("nce").lower
+    ctx = tregistry.LoweringContext({"num_total_classes": V,
+                                     "num_neg_samples": 8}, "cpu", seed=11)
+    drawn = rule(ctx, torch.zeros(4096, 2), torch.zeros(4096, 1,
+                                                        dtype=torch.long),
+                 torch.zeros(V, 2))["SampleLabels"][:, 1:]
+    counts = np.bincount(drawn.numpy().reshape(-1), minlength=V)
+    n, p = drawn.numel(), 1.0 / V
+    assert len(counts) == V
+    assert np.abs(counts - n * p).max() <= 5 * np.sqrt(n * p * (1 - p)), \
+        counts
+
+
 def _check_random(op_type, spec, ref, got):
     """What a draw must satisfy, on both sides alike."""
+    if op_type == "nce":
+        _check_nce(spec)
+        return
+    if op_type == "random_crop":
+        x, out = spec.inputs["X"], got[0]
+        assert out.shape == ref[0].shape and out.dtype == ref[0].dtype
+        h, w = out.shape[-2:]
+        assert any(np.array_equal(out, x[..., i:i + h, j:j + w])
+                   for i in range(x.shape[-2] - h + 1)
+                   for j in range(x.shape[-1] - w + 1))
+        return
     if op_type == "dropout":
         keep = [float((o != 0).mean()) for o in (ref[0], got[0])]
         rate = spec.attrs["dropout_prob"]
@@ -363,7 +442,7 @@ def test_kink_column_reaches_the_kinks():
 def test_table_covers_every_port_op():
     """Every op the port registers is a case of the table, or a waiver of
     the sweep that a port test covers (the file names the op)."""
-    assert len(CASES) >= 159
+    assert len(CASES) >= 185
     waived = PORTED - set(sweep.SPECS)
     assert waived <= set(sweep.WAIVED)
     assert waived == set(WAIVED_PORT_TESTS)
@@ -380,6 +459,7 @@ def test_table_covers_every_port_op():
             assert op in text, (op, fname)
     assert set(AMP_CASES) == set(sweep.AMP_OPS_IN_SPECS) & PORTED
     assert {"cos_sim", "linear_chain_crf", "crf_decoding"} <= set(CASES)
+    assert {"nce", "hierarchical_sigmoid", "warpctc"} <= set(AMP_CASES)
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +508,9 @@ def jax_amp_outputs(tmp_path_factory):
 @pytest.mark.parametrize("op_type", AMP_CASES)
 def test_op_matches_paddle_tpu_amp_bit_for_bit(op_type, jax_amp_outputs):
     spec = sweep.SPECS[op_type]
+    if op_type == "nce":        # random: what its draw must satisfy
+        _check_nce(spec, amp=True)
+        return
     _, feed, fetch, _ = one_op_program(op_type, spec)
     assert json.loads(str(jax_amp_outputs[op_type + "/fetch"])) == fetch
     got = _run_port(str(jax_amp_outputs[op_type + "/program"]), feed,

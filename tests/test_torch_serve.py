@@ -446,6 +446,24 @@ crf_out = exe.run(crf, feed={"em": ([[[1.0, 2.0, 3.0]] * 2] * 2, [2, 1]),
                              "lab": ([[[1], [2]]] * 2, [2, 1])},
                   fetch_list=[cost, path, sim], scope=crf_scope)
 assert crf_out[1].tolist()[1][1] == 0 and crf_out[2].shape == (2, 1)
+for name in ("paddle_tpu_torch.ops.extra_nn", "paddle_tpu_torch.ops.detection",
+             "paddle_tpu_torch.ops.quantize",
+             "paddle_tpu_torch.layers.detection",
+             "paddle_tpu_torch.layers.quant"):
+    assert name in sys.modules, name
+det, det_start = ptt.Program(), ptt.Program()
+with ptt.program_guard(det, det_start), ptt.unique_name.guard():
+    bx = ptt.layers.data("bx", shape=[3, 4], dtype="float32")
+    sc = ptt.layers.data("sc", shape=[2, 3], dtype="float32")
+    nms, cnt = ptt.layers.multiclass_nms(bx, sc, keep_top_k=4)
+    qx, _ = ptt.layers.fake_quantize(bx)
+    rs = ptt.layers.image_resize(ptt.layers.reshape(qx, [-1, 1, 3, 4]),
+                                 out_shape=[2, 2])
+det_out = exe.run(det, feed={"bx": [[[0, 0, 1, 1], [0, 0, 1, 0.9],
+                                     [0.5, 0.5, 1, 1]]],
+                             "sc": [[[0.1, 0.2, 0.3], [0.9, 0.8, 0.1]]]},
+                  fetch_list=[nms, cnt, rs], scope=ptt.Scope())
+assert det_out[1].tolist() == [2] and det_out[2].shape == (1, 1, 2, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)

@@ -58,7 +58,10 @@ EARLIER_OPS = {
 # tests/test_torch_zoo.py, tests/test_torch_optim.py,
 # tests/test_torch_seq.py, tests/test_torch_control.py,
 # tests/test_torch_data.py, tests/test_torch_book.py,
-# tests/test_torch_parity_table.py or tests/test_torch_breadth.py
+# tests/test_torch_parity_table.py or tests/test_torch_breadth.py; the
+# rest of the op families (structured ops, detection, quantization) in
+# tests/test_torch_structured.py, tests/test_torch_detection.py and
+# tests/test_torch_quant.py
 LATER_OPS = {
     "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_min", "elementwise_max", "elementwise_pow", "exp", "sqrt",
@@ -95,7 +98,18 @@ LATER_OPS = {
     "uniform_random_batch_size_like",
     "smooth_l1_loss", "huber_loss", "log_loss", "rank_loss",
     "margin_rank_loss", "hinge_loss", "auc",
-    "conv2d_transpose", "depthwise_conv2d", "grid_sampler", "lrn"}
+    "conv2d_transpose", "depthwise_conv2d", "grid_sampler", "lrn",
+    "conv3d", "conv3d_transpose", "pool3d", "bilinear_interp", "crop",
+    "random_crop", "label_smooth", "multiplex", "mean_iou", "roi_pool",
+    "ctc_greedy_decoder", "lod_reset", "chunk_eval", "im2sequence", "nce",
+    "hierarchical_sigmoid", "warpctc", "edit_distance",
+    "prior_box", "anchor_generator", "iou_similarity", "box_coder",
+    "bipartite_match", "target_assign", "multiclass_nms",
+    "mine_hard_examples", "polygon_box_transform", "box_encode_per_prior",
+    "greater_equal_scalar0", "smooth_l1_elementwise",
+    "softmax_ce_no_reduce", "rpn_target_assign", "detection_map",
+    "fake_quantize_abs_max", "fake_quantize_range_abs_max",
+    "fake_dequantize_max_abs"}
 
 
 @pytest.fixture(autouse=True)
@@ -389,12 +403,12 @@ def test_momentum_update_matches_paddle_tpu(nesterov):
 
 def test_every_port_op_is_a_reference_op_and_every_new_one_has_a_case():
     """The registry contract: the port registers only ops the JAX package
-    registers, 189 of them; the ops this slice adds are exactly NEW_OPS,
+    registers, 225 of them; the ops this slice adds are exactly NEW_OPS,
     and each one appears in a program of this file's parity cases."""
     ported = set(tregistry.registered_ops())
     assert ported <= set(jregistry.registered_ops())
-    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 156
-    assert len(ported) == 189
+    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 192
+    assert len(ported) == 225
     assert ported - EARLIER_OPS - LATER_OPS == NEW_OPS
     assert EARLIER_OPS | LATER_OPS <= ported
     covered = set()
