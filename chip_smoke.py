@@ -290,6 +290,27 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    and Faster R-CNN's shapes), each as the breadth bank holds its cases
    (`nce` and `random_crop` by their draws' properties); no kernel of
    csrc/ launched in the phase. Numbers in ``chip_smoke_train.json``;
+7m. the transpilers: infer-base-bf16 (Transformer-base at TRAIN_BASE's
+   widths built `is_test` with fused attention, saved by
+   `save_inference_model`, loaded on the card and rewritten by
+   `transpiler.Float16Transpiler()`): every parameter bf16 on the card,
+   `prepare(validate="error")` passing the float32 program and finding
+   on the transpiled one only the dtype-mismatch errors that the JAX
+   package finds on its own, each attention launching the
+   flash forward instantiation of its Q's dtype on the host's run of the
+   same transpiled dir and no other kernel, the first rows' logits within
+   INFER_BF16_TOL of that host run (top-1 equal at a clear gap), beside
+   the float32 program in the same call: ms a batch of 64, tokens/s,
+   rule calls, parameter bytes and peak memory, top-1 agreement;
+   serve-resnet50-folded (serve_resnet50_model's program and state saved,
+   loaded on the card, folded there by `InferenceTranspiler`): 53 pairs,
+   no batch_norm left, the folded parameters a numpy fold's bit for bit,
+   served one-shot beside the unfolded dir: probes within the fold's
+   tolerances, then closed-loop traffic on each (images/s, p50, p99) and
+   prepared batches of 32 (ms, rule calls), no kernel of csrc/ launched;
+   train-base with `memory_optimize`'s marks and without, MEMOPT_STEPS
+   steps from one state: losses bit-equal, launches equal; after the
+   other traced steps, one traced batch of each (busy share);
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -627,6 +648,40 @@ SSD_BATCH, SSD_WARMUP, SSD_STEPS, SSD_DATA_BATCHES = 32, 3, 20, 4
 SSD_PARITY_BATCH, SSD_PARITY_STEPS = 8, 3
 SSD_EVAL_BATCHES, SSD_AMP_BATCH, SSD_AMP_STEPS = 4, 4, 5
 SSD_MAP_ATOL = 1e-3
+# phase 7m: the transpilers. infer-base-bf16: Transformer-base at
+# TRAIN_BASE's widths built `is_test` with fused attention, saved by
+# save_inference_model (target `logits`) from SEED, loaded on the card and
+# rewritten by Float16Transpiler (bfloat16), INFER_BASE_BATCHES timed
+# batches of INFER_BASE_BATCH against the untranspiled float32 program in
+# the same call (alternated: float32, bf16, bf16, float32). Each fused
+# attention launches the flash forward instantiation of its Q's dtype on
+# a host run of the same transpiled dir (the position table's float32
+# makes that float32 in both packages: ROADMAP Queue 3). The first
+# INFER_BASE_HOST_ROWS rows' logits lie within INFER_BF16_TOL of the
+# largest |host logit| of the host's run of the same transpiled dir (one
+# bf16 ulp at 1: what a bf16 product path may move; the float32 path reads
+# far inside it), top-1 equal wherever the host's top-2 gap exceeds it
+INFER_BASE_BATCH, INFER_BASE_BATCHES, INFER_BASE_HOST_ROWS = 64, 8, 4
+INFER_BF16_TOL = 2.0 ** -8
+# serve-resnet50-folded: serve_resnet50_model's program and state, saved,
+# loaded on the card, folded there by InferenceTranspiler (53 pairs), saved
+# and served one-shot beside the unfolded dir by one InferenceServer
+# (SERVE_RN50_LADDER, the default window): the probes folded vs unfolded on
+# the card, top-1 equal where the unfolded top-2 probability gap exceeds
+# FOLD_TIE, probabilities within FOLD_PROB_TOL and log-probabilities above
+# SERVE_RN50_LOGP_FLOOR within FOLD_LOGP_TOL (1 + |log p|): the fold
+# reassociates each conv's float32 products with gamma / std (1.5e-06 of
+# the logits' scale on a small ResNet-50 on the host,
+# tests/test_torch_transpiler.py); then FOLD_REQUESTS requests of 1-8
+# images from SERVE_RN50_CLIENTS closed-loop clients on each model
+# (unfolded, folded, folded, unfolded), and FOLD_BATCHES prepared runs of a
+# batch of SERVE_RN50_LADDER[-1] images on each
+FOLD_TIE, FOLD_PROB_TOL, FOLD_LOGP_TOL = 1e-4, 1e-5, 1e-3
+FOLD_REQUESTS, FOLD_BATCHES = 320, 10
+# train-base with memory_optimize (level 1: the activations, mul and
+# matmul marked): MEMOPT_STEPS steps at MEMOPT_BATCH from one state with
+# the marks and without, losses bit-equal and the launch counts equal
+MEMOPT_BATCH, MEMOPT_STEPS = 8, 3
 
 
 def log(*a):
@@ -4878,6 +4933,404 @@ def run_item6_bank(torch, ptt, native):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7m: the transpilers
+# ---------------------------------------------------------------------------
+
+def _median_ms(torch, fn, n):
+    """fn() n times, each timed on the host clock after a sync: (median
+    ms, all ms)."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return _median(ms), ms
+
+
+def _on_card(torch, scope, program):
+    """The program's persistables in `scope`: {name: tensor}, each
+    checked to lie on the card."""
+    out = {}
+    for v in program.global_block().vars.values():
+        val = scope.find_var(v.name) if v.persistable else None
+        if val is None:
+            continue
+        if not (isinstance(val, torch.Tensor) and val.device.type == "cuda"):
+            raise AssertionError(f"{v.name} is not a tensor on the card")
+        out[v.name] = val
+    return out
+
+
+def run_infer_base_bf16(torch, ptt, native, tmp):
+    """infer-base-bf16 (INFER_BASE_*): returns the numbers and the two
+    prepared runs (for the traced batches)."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import to_numpy
+    from paddle_tpu_torch.models import transformer
+    t0 = time.perf_counter()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(**dict(TRAIN_BASE, is_test=True,
+                                              fused_attention=True))
+    host = ptt.Executor(ptt.CPUPlace())
+    hscope = ptt.Scope()
+    host.run(startup, scope=hscope)
+    path = os.path.join(tmp, "infer_base")
+    ptt.io.save_inference_model(path, ["src_word", "trg_word"],
+                                [fetches["logits"]], host, main_program=main,
+                                scope=hscope)
+    del hscope
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(DATA_SEED)
+    feed = {n: rng.randint(0, TRAIN_BASE["trg_vocab_size"],
+                           (INFER_BASE_BATCH, TRAIN_BASE["seq_len"])
+                           ).astype(np.int64)
+            for n in ("src_word", "trg_word")}
+
+    # the host's run of the transpiled dir: its logits on the first rows,
+    # and the dtype each attention's Q takes there
+    t0 = time.perf_counter()
+    hs = ptt.Scope()
+    hprog, feeds, targets = ptt.io.load_inference_model(path, host,
+                                                        scope=hs)
+    ptt.transpiler.Float16Transpiler().transpile(hprog, scope=hs)
+    attn_q = [op.input("Q")[0] for op in hprog.global_block().ops
+              if op.type == "fused_attention"]
+    hres = host.run(hprog, feed={n: v[:INFER_BASE_HOST_ROWS]
+                                 for n, v in feed.items()},
+                    fetch_list=list(targets) + attn_q, scope=hs,
+                    return_numpy=False)
+    host_logits = to_numpy(hres[0])
+    q_dtypes = [str(t.dtype).replace("torch.", "") for t in hres[1:]]
+    expected = {}
+    for dt in q_dtypes:
+        name = "flash_fwd" + ("_bf16" if dt == "bfloat16" else "")
+        expected[name] = expected.get(name, 0) + 1
+    del hs, hres
+    host_s = time.perf_counter() - t0
+
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    runs = {}
+    peak = {}
+    for tag in ("float32", "bfloat16"):
+        scope = ptt.Scope()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        prog, feeds, targets = ptt.io.load_inference_model(path, exe,
+                                                           scope=scope)
+        if tag == "bfloat16":
+            ptt.transpiler.Float16Transpiler().transpile(prog, scope=scope)
+        params = _on_card(torch, scope, prog)
+        want = torch.bfloat16 if tag == "bfloat16" else torch.float32
+        odd = [n for n, t in params.items()
+               if t.is_floating_point() and t.dtype != want]
+        if odd:
+            raise AssertionError(f"infer-base {tag}: {len(odd)} parameters "
+                                 f"not {want} on the card: {odd[:4]}")
+        # (d): the static verifier passes the float32 program; on the
+        # transpiled one it reports, as the JAX package's does on its own
+        # (tests/test_torch_transpiler.py), the vars re-typed bf16 whose
+        # rules still give float32 (ROADMAP Queue 3), and nothing else
+        try:
+            exe.prepare(prog, fetch_list=targets, scope=scope,
+                        feed_names=feeds, validate="error")
+            mismatches = 0
+        except ptt.ProgramVerificationError as e:
+            errors = [d for d in e.diagnostics
+                      if d.severity == ptt.analysis.Severity.ERROR]
+            if tag == "float32" or {d.code for d in errors} != \
+                    {"dtype-mismatch"}:
+                raise
+            mismatches = len(errors)
+        if tag == "bfloat16" and not mismatches:
+            raise AssertionError("infer-base-bf16: the verifier found no "
+                                 "dtype-mismatch on the transpiled program")
+        handle = exe.prepare(prog, fetch_list=targets, scope=scope)
+        torch.cuda.synchronize()
+        param_bytes = torch.cuda.memory_allocated() - base
+        runs[tag] = dict(handle=handle, scope=scope, prog=prog,
+                         param_bytes=param_bytes, n_params=len(params),
+                         mismatches=mismatches)
+    for tag in ("float32", "bfloat16"):          # warm-up
+        runs[tag]["handle"].run(feed)
+    # a batch with its logits fetched to host numpy (the [64, 256, 30000]
+    # float32 logits are 1.97 GB), then the timed batches with the logits
+    # left on the card, whose time the fetch would otherwise swamp
+    fetch_ms = {tag: _median_ms(torch, lambda: runs[tag]["handle"].run(feed),
+                                1)[0] for tag in ("float32", "bfloat16")}
+    ms = {"float32": [], "bfloat16": []}
+    launches = {"float32": {}, "bfloat16": {}}
+    for tag in ("float32", "bfloat16", "bfloat16", "float32"):
+        h = runs[tag]["handle"]
+        native.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _, all_ms = _median_ms(torch, lambda: h.run(
+            feed, return_numpy=False), INFER_BASE_BATCHES // 2)
+        peak[tag] = max(peak.get(tag, 0),
+                        torch.cuda.max_memory_allocated() - before)
+        ms[tag] += all_ms
+        for k, v in native.launches.items():
+            if v:
+                launches[tag][k] = launches[tag].get(k, 0) + v
+    per_batch = {tag: {k: v / INFER_BASE_BATCHES for k, v in l.items()}
+                 for tag, l in launches.items()}
+    if per_batch["bfloat16"] != {k: float(v) for k, v in expected.items()}:
+        raise AssertionError(f"infer-base-bf16: launches a batch "
+                             f"{per_batch['bfloat16']}, expected {expected} "
+                             f"from the host's attention dtypes {q_dtypes}")
+    if per_batch["float32"] != {"flash_fwd": float(len(attn_q))}:
+        raise AssertionError(f"infer-base float32: launches a batch "
+                             f"{per_batch['float32']}")
+    out = {tag: to_numpy(runs[tag]["handle"].run(
+        feed, return_numpy=False)[0]) for tag in ("float32", "bfloat16")}
+    _, rule_calls = _count_rule_calls(
+        lambda: runs["bfloat16"]["handle"].run(feed, return_numpy=False))
+    card = out["bfloat16"][:INFER_BASE_HOST_ROWS]
+    if card.shape != host_logits.shape or not np.isfinite(out["bfloat16"]
+                                                          ).all():
+        raise AssertionError(f"infer-base-bf16: logits {card.shape} vs host "
+                             f"{host_logits.shape}, or not finite")
+    scale = float(np.abs(host_logits).max())
+    err = float(np.abs(card - host_logits).max())
+    if not err <= INFER_BF16_TOL * scale:
+        raise AssertionError(f"infer-base-bf16: card vs host {err} > "
+                             f"{INFER_BF16_TOL} x {scale}")
+    top2 = np.sort(host_logits, -1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > INFER_BF16_TOL * scale
+    if (card.argmax(-1) != host_logits.argmax(-1))[clear].any():
+        raise AssertionError("infer-base-bf16: top-1 differs from the "
+                             "host's where the host's gap is clear")
+    agree = float((out["bfloat16"].argmax(-1)
+                   == out["float32"].argmax(-1)).mean())
+    return {
+        "build_s": build_s, "host_s": host_s, "q_dtypes": q_dtypes,
+        "launches_per_batch": per_batch, "attentions": len(attn_q),
+        "ms": ms, "ms_median": {k: _median(v) for k, v in ms.items()},
+        "with_fetch_ms": fetch_ms,
+        "tokens_per_s": {k: INFER_BASE_BATCH * TRAIN_BASE["seq_len"]
+                         / (_median(v) / 1e3) for k, v in ms.items()},
+        "peak_bytes": peak, "param_bytes": {k: r["param_bytes"]
+                                            for k, r in runs.items()},
+        "n_params": runs["bfloat16"]["n_params"],
+        "dtype_mismatches": runs["bfloat16"]["mismatches"],
+        "rule_calls": rule_calls, "host_err": err, "host_scale": scale,
+        "tol_share": err / (INFER_BF16_TOL * scale),
+        "clear_rows": int(clear.sum()), "top1_vs_float32": agree,
+        "handles": {k: r["handle"] for k, r in runs.items()}, "feed": feed}
+
+
+def _numpy_fold(np, program, state):
+    """The fold of every conv2d -> batch_norm pair of `program` over the
+    host arrays `state`, in numpy, as the transpiler's docstring states
+    it: {name: array} of the filters and the new biases."""
+    ops = program.global_block().ops
+    out = {}
+    for op, nxt in zip(ops, ops[1:]):
+        if op.type == "conv2d" and nxt.type == "batch_norm" \
+                and op.output("Output")[0] == nxt.input("X")[0]:
+            w_name = op.input("Filter")[0]
+            scale, bias, mean, var = (state[nxt.input(k)[0]] for k in (
+                "Scale", "Bias", "Mean", "Variance"))
+            std = np.sqrt(var + nxt.attrs.get("epsilon", 1e-5))
+            out[w_name] = state[w_name] * (scale / std).reshape(-1, 1, 1, 1)
+            out[w_name + "@bn_folded_bias"] = \
+                ((0.0 - mean) * scale / std + bias).astype(np.float32)
+    return out
+
+
+def _closed_loop(srv, name, feeds, clients):
+    """Every feed submitted once by `clients` closed-loop threads: (wall
+    s, latencies ms, outputs)."""
+    lock = threading.Lock()
+    state = {"next": 0}
+    lat, outs, errors = [None] * len(feeds), [None] * len(feeds), []
+
+    def client():
+        while True:
+            with lock:
+                i = state["next"]
+                state["next"] += 1
+            if i >= len(feeds):
+                return
+            t0 = time.perf_counter()
+            try:
+                outs[i] = srv.submit(name, {"image": feeds[i]}).result(
+                    timeout=300)[0]
+            except Exception as e:      # reported below, not swallowed
+                errors.append(repr(e))
+                return
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{name}: {len(errors)} failed requests: "
+                             f"{errors[:2]}")
+    return wall, lat, outs
+
+
+def run_serve_resnet50_folded(torch, ptt, native, tmp):
+    """serve-resnet50-folded (FOLD_*): returns the numbers and the two
+    prepared batch runs (for the traced batches)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    model = serve_resnet50_model(ptt)
+    dirs = {"unfolded": os.path.join(tmp, "rn50_unfolded"),
+            "folded": os.path.join(tmp, "rn50_folded")}
+    save_serve_resnet50(ptt, model, dirs["unfolded"], 1.0)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    prog, feeds, targets = ptt.io.load_inference_model(dirs["unfolded"],
+                                                       exe, scope=scope)
+    state = {n: t.cpu().numpy() for n, t in
+             _on_card(torch, scope, prog).items()}
+    n_bn = sum(op.type == "batch_norm" for op in prog.global_block().ops)
+    ops = {"unfolded": len(prog.global_block().ops)}
+    want = _numpy_fold(np, prog, state)
+    pairs = ptt.InferenceTranspiler()._fuse_batch_norm(prog, scope)
+    left = sum(op.type == "batch_norm" for op in prog.global_block().ops)
+    if (pairs, left) != (53, 0):
+        raise AssertionError(f"serve-resnet50-folded: {pairs} pairs folded "
+                             f"of {n_bn} batch norms, {left} left")
+    folded = _on_card(torch, scope, prog)
+    for n, w in want.items():
+        got = folded[n].cpu().numpy()
+        if got.dtype != w.dtype or not np.array_equal(got.view(np.uint32),
+                                                      w.view(np.uint32)):
+            raise AssertionError(f"serve-resnet50-folded: {n} is not the "
+                                 f"numpy fold bit for bit")
+    ptt.io.save_inference_model(dirs["folded"], feeds, targets, exe,
+                                main_program=prog, scope=scope)
+    ops["folded"] = len(prog.global_block().ops)
+    del scope, folded
+    fold_s = time.perf_counter() - t0
+
+    rng = np.random.RandomState(DATA_SEED + 1)
+    c, h, w = RESNET50["image_shape"]
+    pool = rng.rand(SERVE_RN50_POOL, h, w, c).astype(np.float32)
+    sizes = rng.randint(1, SERVE_RN50_MAX_IMAGES + 1, FOLD_REQUESTS)
+    reqs = [pool[rng.randint(0, SERVE_RN50_POOL, n)] for n in sizes]
+    probes = [pool[rng.randint(0, SERVE_RN50_POOL, n)]
+              for n in SERVE_RN50_PROBES]
+    batch = pool[:SERVE_RN50_LADDER[-1]]
+
+    res = {"fold_s": fold_s, "pairs": pairs, "ops": ops,
+           "params": {k: sum(os.path.getsize(os.path.join(d, f))
+                             for f in os.listdir(d) if f.endswith(".npy"))
+                      for k, d in dirs.items()}}
+    native.reset_launches()
+    with ptt.serve.InferenceServer(ptt.CUDAPlace(0)) as srv:
+        for tag, d in dirs.items():
+            srv.add_model(tag, d, ladder=ptt.serve.BucketLadder(
+                rows=SERVE_RN50_LADDER))
+        outs = {tag: [srv.infer(tag, {"image": x})[0] for x in probes]
+                for tag in dirs}
+        shares, ties = [], 0
+        for i, (f, u) in enumerate(zip(outs["folded"], outs["unfolded"])):
+            if f.shape != u.shape or not np.isfinite(f).all():
+                raise AssertionError(f"serve-resnet50-folded probe {i}: "
+                                     f"shape or not finite")
+            top2 = np.sort(u, -1)[..., -2:]
+            clear = (top2[..., 1] - top2[..., 0]) > FOLD_TIE
+            ties += int((~clear).sum())
+            if (f.argmax(-1) != u.argmax(-1))[clear].any():
+                raise AssertionError(f"serve-resnet50-folded probe {i}: "
+                                     f"top-1 differs at a clear gap")
+            live = u > SERVE_RN50_LOGP_FLOOR
+            logu = np.log(u[live])
+            logf = np.log(np.maximum(f[live], np.finfo(np.float32).tiny))
+            shares.append(max(
+                float(np.abs(f - u).max()) / FOLD_PROB_TOL,
+                float((np.abs(logf - logu) / (1 + np.abs(logu))).max())
+                / FOLD_LOGP_TOL))
+        if not max(shares) <= 1.0:
+            raise AssertionError(f"serve-resnet50-folded: {max(shares)} of "
+                                 f"the fold's tolerances")
+        res.update(tol_share=max(shares), ties=ties)
+        traffic = {"unfolded": [], "folded": []}
+        for tag in ("unfolded", "folded", "folded", "unfolded"):
+            wall, lat, _ = _closed_loop(srv, tag, reqs, SERVE_RN50_CLIENTS)
+            traffic[tag].append({
+                "wall_s": wall, "images_per_s": int(sizes.sum()) / wall,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99))})
+        res["traffic"] = traffic
+    res["launches"] = {k: v for k, v in native.launches.items() if v}
+    if res["launches"]:
+        raise AssertionError(f"serve-resnet50-folded launched "
+                             f"{res['launches']}")
+    # prepared runs of one top-rung batch on each model
+    handles = {}
+    for tag, d in dirs.items():
+        scope = ptt.Scope()
+        p, f, t = ptt.io.load_inference_model(d, exe, scope=scope)
+        handles[tag] = exe.prepare(p, fetch_list=t, scope=scope)
+        handles[tag].run({"image": batch})
+    ms = {"unfolded": [], "folded": []}
+    calls = {}
+    for tag in ("unfolded", "folded", "folded", "unfolded"):
+        _, all_ms = _median_ms(torch, lambda: handles[tag].run(
+            {"image": batch}), FOLD_BATCHES // 2)
+        ms[tag] += all_ms
+    for tag, h in handles.items():
+        _, calls[tag] = _count_rule_calls(lambda: h.run({"image": batch}))
+    res.update(batch_ms=ms, batch_ms_median={k: _median(v)
+                                             for k, v in ms.items()},
+               rule_calls=calls, handles=handles, batch=batch)
+    return res
+
+
+def run_train_base_memopt(torch, ptt, native):
+    """train-base, MEMOPT_STEPS steps with memory_optimize's marks and
+    without, from one state (MEMOPT_*)."""
+    main, startup, loss = build_train(ptt)
+    marked = main.clone()
+    ptt.memory_optimize(marked, level=1)
+    n_marked = sum(bool(op.attrs.get("__remat__"))
+                   for op in marked.global_block().ops)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    s0 = ptt.Scope()
+    exe.run(startup, scope=s0)
+    state = {n: s0.find_var(n).clone() for n in s0.local_var_names()}
+    del s0
+    feed = train_batch(MEMOPT_BATCH)
+    out = {}
+    for tag, prog in (("plain", main), ("marked", marked)):
+        scope = ptt.Scope()
+        for n, t in state.items():
+            scope.set_var(n, t.clone())
+        e = ptt.Executor(ptt.CUDAPlace(0))
+        native.reset_launches()
+        losses = [e.run(prog, feed=feed, fetch_list=[loss], scope=scope)[0]
+                  for _ in range(MEMOPT_STEPS)]
+        torch.cuda.synchronize()
+        out[tag] = {"losses": [float(x) for x in losses],
+                    "bits": [x.tobytes() for x in losses],
+                    "launches": {k: v for k, v in native.launches.items()
+                                 if v}}
+    if out["plain"]["bits"] != out["marked"]["bits"]:
+        raise AssertionError(f"memory_optimize moved the losses: "
+                             f"{out['plain']['losses']} vs "
+                             f"{out['marked']['losses']}")
+    if out["plain"]["launches"] != out["marked"]["launches"]:
+        raise AssertionError(f"memory_optimize moved the launches: "
+                             f"{out['plain']['launches']} vs "
+                             f"{out['marked']['launches']}")
+    return {"marked_ops": n_marked, "losses": out["plain"]["losses"],
+            "launches": out["plain"]["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5772,13 +6225,81 @@ def main() -> int:
             f"[{card}], two card runs bit-equal; card vs host "
             f"{'at 1/' + str(BREADTH_CUT) + ' of the rows or batch' if b['gate'] != 'random' else '(each its own draw)'}: "
             f"{b['tol_share']:.3g} of its tolerance ({b['gate']})")
-    launches = dict(native.launches)
-    if any(launches.values()):
-        raise AssertionError(f"phase 7l launched a kernel: {launches}")
+    launches_7l = dict(native.launches)
+    if any(launches_7l.values()):
+        raise AssertionError(f"phase 7l launched a kernel: {launches_7l}")
     log(f"phase 7l: {len(item6)} bank cases ({len(set(b['op'] for b in item6))} "
         f"op types), no kernel of csrc/ launched in the phase; "
         f"train-mobilenet-ssd {ssd_s:.1f} s, bank {item6_s:.1f} s; total "
         f"so far {time.perf_counter() - t_start:.1f} s")
+    # 7m. the transpilers: infer-base-bf16 (Float16Transpiler) against
+    # the float32 program, serve-resnet50 folded (InferenceTranspiler)
+    # against unfolded, train-base with memory_optimize's marks, and
+    # validate="error" on the transpiled program (inside run_infer_base_bf16)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_7m_") as tmp:
+        infer16 = run_infer_base_bf16(torch, ptt, native, tmp)
+        log(f"infer-base-bf16 (Transformer-base is_test, fused attention, "
+            f"saved, loaded on the card, Float16Transpiler bfloat16; "
+            f"{infer16['n_params']} parameters, every one bf16 on the card; "
+            f"prepare(validate='error') passes the float32 program and "
+            f"finds {infer16['dtype_mismatches']} dtype-mismatch errors, and "
+            f"nothing else, on the transpiled one) [{card}]: batch "
+            f"{INFER_BASE_BATCH} x {TRAIN_BASE['seq_len']}, "
+            f"{infer16['ms_median']['bfloat16']:.2f} ms a batch (median; "
+            f"all: {[round(x, 2) for x in infer16['ms']['bfloat16']]}) "
+            f"against the float32 program's "
+            f"{infer16['ms_median']['float32']:.2f} (all: "
+            f"{[round(x, 2) for x in infer16['ms']['float32']]}), the "
+            f"logits left on the card; with them fetched to numpy "
+            f"{infer16['with_fetch_ms']['bfloat16']:.1f} against "
+            f"{infer16['with_fetch_ms']['float32']:.1f} ms; "
+            f"{infer16['tokens_per_s']['bfloat16']:.0f} against "
+            f"{infer16['tokens_per_s']['float32']:.0f} tokens/s; "
+            f"{infer16['rule_calls']} rule calls a batch; parameters "
+            f"{infer16['param_bytes']['bfloat16'] / 2**20:.1f} against "
+            f"{infer16['param_bytes']['float32'] / 2**20:.1f} MiB, a batch's "
+            f"peak {infer16['peak_bytes']['bfloat16'] / 2**20:.1f} against "
+            f"{infer16['peak_bytes']['float32'] / 2**20:.1f} MiB above them; "
+            f"launches a batch {infer16['launches_per_batch']} (the host's "
+            f"attention Q dtypes: {sorted(set(infer16['q_dtypes']))} x "
+            f"{infer16['attentions']}); card vs host on the first "
+            f"{INFER_BASE_HOST_ROWS} rows {infer16['host_err']:.3g} of a "
+            f"{infer16['host_scale']:.3g} scale ({infer16['tol_share']:.3g} "
+            f"of INFER_BF16_TOL), top-1 equal on {infer16['clear_rows']} "
+            f"clear rows; top-1 equal to the float32 program's on "
+            f"{infer16['top1_vs_float32']:.4f} of the tokens; build "
+            f"{infer16['build_s']:.1f} s, host run {infer16['host_s']:.1f} s")
+        folded = run_serve_resnet50_folded(torch, ptt, native, tmp)
+    tr = folded["traffic"]
+    log(f"serve-resnet50-folded (serve_resnet50_model folded on the card by "
+        f"InferenceTranspiler: {folded['pairs']} pairs, no batch_norm left, "
+        f"the folded parameters the numpy fold's bit for bit; ops "
+        f"{folded['ops']['unfolded']} -> {folded['ops']['folded']}; the "
+        f"saved dirs' .npy bytes {folded['params']}, the batch norms' "
+        f"parameters kept as the JAX package keeps them) [{card}]: probes "
+        f"folded vs "
+        f"unfolded at {folded['tol_share']:.3g} of the fold's tolerances "
+        f"({folded['ties']} near-tied rows); a prepared batch of "
+        f"{SERVE_RN50_LADDER[-1]}: unfolded "
+        f"{folded['batch_ms_median']['unfolded']:.2f} ms, folded "
+        f"{folded['batch_ms_median']['folded']:.2f} ms (all: "
+        f"{ {k: [round(x, 2) for x in v] for k, v in folded['batch_ms'].items()} }"
+        f"), rule calls a batch {folded['rule_calls']}; served "
+        f"{FOLD_REQUESTS} requests x 2 each (unfolded, folded, folded, "
+        f"unfolded): images/s "
+        f"{ {k: [round(r['images_per_s'], 1) for r in v] for k, v in tr.items()} }"
+        f", p50 ms { {k: [round(r['p50_ms'], 1) for r in v] for k, v in tr.items()} }"
+        f", p99 ms { {k: [round(r['p99_ms'], 1) for r in v] for k, v in tr.items()} }"
+        f"; no kernel of csrc/ launched; fold {folded['fold_s']:.1f} s")
+    memopt = run_train_base_memopt(torch, ptt, native)
+    log(f"train-base with memory_optimize (level 1, {memopt['marked_ops']} "
+        f"ops marked) [{card}]: {MEMOPT_STEPS} steps at batch "
+        f"{MEMOPT_BATCH} from one state, losses {memopt['losses']} bit-equal "
+        f"with and without the marks, launches {memopt['launches']} equal")
+    phase7m_s = time.perf_counter() - t0
+    log(f"phase 7m: {phase7m_s:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -5820,6 +6341,29 @@ def main() -> int:
             f"busy {busy_us / 1e3:.2f} ms = {b['busy_share']:.3f} of it "
             f"({n_events} device events; {b['busy_over_untraced']:.3f} of "
             f"the untraced median)")
+    for tag, h in infer16.pop("handles").items():
+        feed16 = infer16["feed"]
+        traced_s, busy_us, n_events = traced_busy(
+            torch, lambda: h.run(feed16, return_numpy=False))
+        infer16.setdefault("traced", {})[tag] = dict(
+            ms=traced_s * 1e3, busy_us=busy_us,
+            busy_share=busy_us / (traced_s * 1e6), device_events=n_events)
+        log(f"infer-base {tag}, one traced batch: {traced_s * 1e3:.1f} ms, "
+            f"device busy {busy_us / 1e3:.1f} ms = "
+            f"{busy_us / (traced_s * 1e6):.3f} of it ({n_events} device "
+            f"events)")
+    infer16.pop("feed")
+    rn50_batch = folded.pop("batch")
+    for tag, h in folded.pop("handles").items():
+        traced_s, busy_us, n_events = traced_busy(
+            torch, lambda: h.run({"image": rn50_batch}))
+        folded.setdefault("traced", {})[tag] = dict(
+            ms=traced_s * 1e3, busy_us=busy_us,
+            busy_share=busy_us / (traced_s * 1e6), device_events=n_events)
+        log(f"serve-resnet50 {tag}, one traced batch of "
+            f"{SERVE_RN50_LADDER[-1]}: {traced_s * 1e3:.1f} ms, device busy "
+            f"{busy_us / 1e3:.1f} ms = {busy_us / (traced_s * 1e6):.3f} of "
+            f"it ({n_events} device events)")
     t0 = time.perf_counter()
     lstm_parity = run_stacked_lstm_parity(torch, ptt)
     log(f"stacked-lstm parity, {lstm_parity['steps']} steps from the host's "
@@ -5859,7 +6403,15 @@ def main() -> int:
                                   "v1"]["flash_fwd"],
                               "serve_swap_v2": swap["launches_by_version"][
                                   "v2"]["flash_fwd"],
-                              "serve_resnet50": rn50["launches"]["flash_fwd"]},
+                              "serve_resnet50": rn50["launches"]["flash_fwd"],
+                              "infer_base_bf16_a_batch":
+                                  infer16["launches_per_batch"][
+                                      "bfloat16"].get("flash_fwd", 0),
+                              "infer_base_float32_a_batch":
+                                  infer16["launches_per_batch"][
+                                      "float32"].get("flash_fwd", 0),
+                              "train_base_memopt":
+                                  memopt["launches"].get("flash_fwd", 0)},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -5996,7 +6548,9 @@ def main() -> int:
          "launches": amp_auto["launches"][f"flash_{name}_bf16"],
          "launches_by_path": {
              "train_amp": amp_auto["launches"][f"flash_{name}_bf16"],
-             "train_amp_pallas": amp_pallas["launches"][f"flash_{name}_bf16"]},
+             "train_amp_pallas": amp_pallas["launches"][f"flash_{name}_bf16"],
+             "infer_base_bf16_a_batch": infer16["launches_per_batch"][
+                 "bfloat16"].get(f"flash_{name}_bf16", 0)},
          "max_abs_err": max(c[f"{name}_err"] for c in bf16_cases),
          "tol_share": max(c[f"{name}_share"] for c in bf16_cases),
          "tol": f"per element, {BF16_ULPS} bf16 ulps of |plain| + "
@@ -6017,6 +6571,11 @@ def main() -> int:
                                                if name == "fwd"
                                                else "bwd_library_ms"],
                    "bound_ms": bf16_cases[2][f"{name}_bound_ms"]},
+         "rate0_causal": {"ms": bf16_cases[3][f"{name}_ms"],
+                          "library_ms": bf16_cases[3]["fwd_library_ms"
+                                                      if name == "fwd"
+                                                      else "bwd_library_ms"],
+                          "bound_ms": bf16_cases[3][f"{name}_bound_ms"]},
          "build": {k: v for k, v in flash_build.items()
                    if k.startswith(f"flash_{name}_bf16<64,")},
          **({} if name == "fwd" else {
@@ -6097,6 +6656,9 @@ def main() -> int:
                    "seq_op_sweep": seq_sweep, "train_mt": mt,
                    "train_deepfm_auc": dauc, "breadth": breadth,
                    "train_mobilenet_ssd": ssd, "item6_bank": item6,
+                   "infer_base_bf16": infer16,
+                   "serve_resnet50_folded": folded,
+                   "train_base_memopt": memopt,
                    "infer_mt_beam": beam,
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)

@@ -34,7 +34,9 @@ activation, elementwise, reduction, tensor, loss and vision ops of
 ``ops/``, ``layers.ops``, the streaming ``layers.auc``, every
 initializer, ``io.save_params`` / ``load_params``, ``Operator``,
 ``enforce``, ``default_scope_funcs``, ``graphviz`` and
-``net_drawer``).
+``net_drawer``), and the transpilers and the program analysis
+(``transpiler.{InferenceTranspiler,Float16Transpiler}``,
+``memory_optimize``, ``ir_pass``, ``analysis`` and the `validate` flag).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -98,6 +100,10 @@ from .async_feeder import AsyncFeeder  # noqa: F401
 from .trainer import (Trainer, Inferencer, CheckpointConfig,  # noqa: F401
                       BeginEpochEvent, EndEpochEvent, BeginStepEvent,
                       EndStepEvent, save_checkpoint, load_checkpoint)
+from . import analysis, ir_pass, transpiler  # noqa: F401
+from .analysis import ProgramVerificationError  # noqa: F401
+from .transpiler import (InferenceTranspiler, memory_optimize,  # noqa: F401
+                         release_memory)
 
 
 def is_compiled_with_cuda() -> bool:

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import logging
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -50,6 +51,8 @@ import torch
 from . import ir, registry, types
 from .. import flags as _flags
 from .lowering import run_block
+
+logger = logging.getLogger(__name__)
 
 
 class EOFException(Exception):
@@ -275,6 +278,52 @@ class _StepPlan:
         self.live = frozenset(live.union(written))
 
 
+# (program uid, version, feed/fetch sig, mode) keys already validated:
+# re-sweeping an unchanged program on every prepare() or run() would cost
+# the sweep each time. Errors are never cached (they raise); a mutation
+# bumps the version and re-validates, and drops the older versions' keys.
+_validated: Dict[tuple, bool] = {}
+_validated_lock = threading.Lock()
+_MAX_VALIDATED = 4096
+
+
+def _validate_program(program, mode, feed_names, fetch_names):
+    """`validate` hook shared by prepare()/run(): mode None follows the
+    `validate` flag; "error" raises ProgramVerificationError on ERROR
+    findings before any rule runs, "warn" logs everything found (once
+    per program version), "off" is free."""
+    if mode is None:
+        mode = _flags.get_flag("validate")
+    if mode == "off":
+        return
+    if mode not in ("error", "warn"):
+        raise ValueError(f"validate must be 'error', 'warn' or 'off', "
+                         f"got {mode!r}")
+    key = (program._uid, program._version,
+           tuple(feed_names or ()), tuple(fetch_names or ()), mode)
+    if _validated.get(key):
+        return
+    from .. import analysis
+    # listen_and_serv programs are host services, not steps
+    if not any(op.type == "listen_and_serv"
+               for op in program.global_block().ops):
+        diags = analysis.analyze_program(program, feed_targets=feed_names,
+                                         fetch_targets=fetch_names or None,
+                                         lint=(mode == "warn"))
+        if mode == "error" and analysis.has_errors(diags):
+            raise analysis.ProgramVerificationError(diags)
+        if diags:
+            logger.warning("program validation findings:\n%s",
+                           analysis.format_diagnostics(diags))
+    with _validated_lock:
+        for k in [k for k in _validated
+                  if k[0] == program._uid and k[1] != program._version]:
+            del _validated[k]
+        if len(_validated) >= _MAX_VALIDATED:
+            _validated.pop(next(iter(_validated)))
+        _validated[key] = True
+
+
 class PreparedProgram:
     """Bound fast-path handle from `Executor.prepare()` (reference
     Executor::Prepare / RunPreparedContext, executor.cc:294-366). Each
@@ -283,11 +332,16 @@ class PreparedProgram:
     back."""
 
     def __init__(self, executor: "Executor", program: ir.Program,
-                 fetch_list, scope: Scope):
+                 fetch_list, scope: Scope, feed_names=None, validate=None):
         self._exe = executor
         self.program = program
         self.fetch_names = [f.name if isinstance(f, ir.Variable) else str(f)
                             for f in (fetch_list or [])]
+        # static verification (analysis/) runs HERE, before any rule: a
+        # malformed program is rejected with op provenance, not mid-step
+        _validate_program(program, validate,
+                          list(feed_names) if feed_names else None,
+                          self.fetch_names)
         self.scope = scope
         self.device = executor.place.torch_device()
         self._block = program.global_block()
@@ -384,10 +438,18 @@ class Executor:
 
     def prepare(self, program: Optional[ir.Program] = None,
                 fetch_list: Optional[Sequence[Union[str, ir.Variable]]] = None,
-                scope: Optional[Scope] = None) -> PreparedProgram:
+                scope: Optional[Scope] = None,
+                feed_names: Optional[Sequence[str]] = None,
+                validate: Optional[str] = None) -> PreparedProgram:
+        """A bound `PreparedProgram` whose `run(feed)` is the fast path.
+        `validate="error"|"warn"|"off"` runs the static verifier
+        (analysis/) over the program before any rule; None follows the
+        `validate` flag (default off). `feed_names` is advisory: it names
+        the feeds the verifier takes as available."""
         program = program or ir.default_main_program()
         scope = scope or global_scope()
-        return PreparedProgram(self, program, fetch_list, scope)
+        return PreparedProgram(self, program, fetch_list, scope,
+                               feed_names=feed_names, validate=validate)
 
     def run(self, program: Optional[ir.Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -397,11 +459,16 @@ class Executor:
         scope = scope or global_scope()
         fetch_names = tuple(f.name if isinstance(f, ir.Variable) else str(f)
                             for f in (fetch_list or ()))
+        # the `validate` flag, read on every run (a memoized handle was
+        # made under whatever the flag said then); a program already
+        # validated at its version is one dict lookup
+        _validate_program(program, None, None, fetch_names)
         key = (program._uid, program._version, fetch_names, scope._uid)
         with self._lock:
             prepared = self._prepared.get(key)
             if prepared is None:
-                prepared = PreparedProgram(self, program, fetch_names, scope)
+                prepared = PreparedProgram(self, program, fetch_names, scope,
+                                           validate="off")
                 if len(self._prepared) >= _MAX_PREPARED_HANDLES:
                     self._prepared.pop(next(iter(self._prepared)))
                 self._prepared[key] = prepared

@@ -84,13 +84,22 @@ def register_grad(type: str):
 
     def deco(fn):
         if type not in _REGISTRY:
+            close = close_op_names(type)
+            hint = f"; closest registered: {', '.join(close)}" if close else ""
             raise ValueError(
                 f"register_grad({type!r}): forward op {type!r} is not "
-                f"registered — register_op must run first")
+                f"registered — register_op must run first{hint}")
         _REGISTRY[type].grad_lower = fn
         return fn
 
     return deco
+
+
+def close_op_names(name: str, n: int = 3) -> List[str]:
+    """Registered op types most similar to `name` (typo hints for
+    register_grad and the analysis verifier)."""
+    import difflib
+    return difflib.get_close_matches(name, _REGISTRY, n=n)
 
 
 def get_op_def(type: str) -> OpDef:

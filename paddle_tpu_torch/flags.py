@@ -22,6 +22,10 @@ _DEFS: Dict[str, tuple] = {
     # packages) forces the hand-written kernel of ops/dropout_kernel.py on
     # eligible tensors for A/B measurement
     "dropout_impl": ("auto", str),
+    # static program verification on Executor.prepare()/run() (analysis/):
+    # "error" rejects malformed programs before any rule runs, "warn"
+    # logs the diagnostics and proceeds, "off" (default) skips the sweep
+    "validate": ("off", str),
     # runtime telemetry (observe/): the serving path's span recording.
     # Off (default) keeps the request path free of span allocation
     "observe": (False, bool),
@@ -71,6 +75,7 @@ def get_flag(name: str):
 # dropout_impl=palas would otherwise silently select the default path)
 _CHOICES: Dict[str, tuple] = {
     "dropout_impl": ("auto", "pallas", "xla"),
+    "validate": ("error", "warn", "off"),
 }
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import logging
 import os
 import shutil
 import tempfile
@@ -31,6 +32,8 @@ import numpy as np
 
 from .core import ir
 from .core.executor import Place, Scope, as_tensor, global_scope
+
+logger = logging.getLogger(__name__)
 
 MODEL_FILENAME = "__model__"
 # the autoregressive decode-step program of a generative model rides next
@@ -259,6 +262,12 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     parent = os.path.dirname(dirname) or "."
     os.makedirs(parent, exist_ok=True)
     base = os.path.basename(dirname)
+    # advisory serving lint: a fetch target nothing in the pruned slice
+    # produces (and that isn't fed or persistable) fetches an undefined
+    # value — almost always a target wired to the training-only graph
+    from .analysis.diagnostics import lint_dead_fetch_targets
+    for d in lint_dead_fetch_targets(pruned, target_names):
+        logger.warning("save_inference_model: %s", d.format())
     stage = os.path.join(parent, f".stage_{base}_{uuid.uuid4().hex}")
     os.makedirs(stage)
     try:

@@ -910,20 +910,35 @@ def test_graphviz_and_net_drawer_write_the_reference_dot(tmp_path):
 # item 7 (ParallelDo)
 LAYERS_WAITING = {"ParallelDo"}
 # top-level names waiting: item 7 (parallel), item 8 (the host planes and
-# analysis), item 10 (the transpilers, ir_pass), and the TPU names, which
-# the port does not take. A submodule the JAX package does not import
-# itself (`quorum`, `capi_runtime`) is a name only once something imports
-# it, so the lists say what may be missing, and the test that nothing
-# else is and that no listed name has been ported
+# the parameter-server transpiler), and the TPU names, which the port
+# does not take. A submodule the JAX package does not import itself
+# (`quorum`, `capi_runtime`) is a name only once something imports it, so
+# the lists say what may be missing, and the test that nothing else is
+# and that no listed name has been ported
 TOP_WAITING = {
     "parallel", "ParallelExecutor", "BuildStrategy", "ExecutionStrategy",
     "distributed",
-    "analysis", "ProgramVerificationError", "wire", "pserver", "master",
+    "wire", "pserver", "master",
     "haven", "fleet", "torrent", "quorum", "capi_runtime",
-    "transpiler", "DistributeTranspiler", "DistributeTranspilerConfig",
-    "InferenceTranspiler", "memory_optimize", "release_memory", "ir_pass",
+    "DistributeTranspiler", "DistributeTranspilerConfig",
     "TPUPlace", "tpu_device_count", "is_compiled_with_tpu",
 }
+# paddle_tpu.transpiler names waiting for the parameter-server plane
+# (item 8.4)
+TRANSPILER_WAITING = {"DistributeTranspiler", "DistributeTranspilerConfig",
+                      "RoundRobin", "HashName", "distribute_transpiler",
+                      "ps_dispatcher"}
+# paddle_tpu.analysis names waiting: the planner, which feeds
+# `parallel.mesh.auto_mesh` (item 7); its `optimal_rungs` is the port's
+# serve/bucketing.optimal_rungs
+ANALYSIS_WAITING = {"planner", "CPU_REHEARSAL", "TPU_CHIP", "HardwareSpec",
+                    "MeshPlan", "PlanReport", "cost_profile",
+                    "detect_hardware", "enumerate_meshes",
+                    "estimate_step_time", "flag_family_priors",
+                    "optimal_rungs", "plan_meshes"}
+# cost_model's `xla_flops` asks XLA for a compiled step's FLOPs; the
+# port's counterpart is `measured_flops`, torch's FLOP counter over one run
+COST_MODEL_RENAMED = {"xla_flops": "measured_flops"}
 
 
 def _public(mod):
@@ -932,7 +947,11 @@ def _public(mod):
 
 @pytest.mark.parametrize("jmod,tmod,waiting", [
     (fluid.layers, ptt.layers, LAYERS_WAITING),
-    (fluid, ptt, TOP_WAITING)], ids=["layers", "top_level"])
+    (fluid, ptt, TOP_WAITING),
+    (fluid.transpiler, ptt.transpiler, TRANSPILER_WAITING),
+    (fluid.analysis, ptt.analysis, ANALYSIS_WAITING),
+    (fluid.ir_pass, ptt.ir_pass, set())],
+    ids=["layers", "top_level", "transpiler", "analysis", "ir_pass"])
 def test_every_public_name_is_ported_or_waiting(jmod, tmod, waiting):
     import importlib.util
     missing = _public(jmod) - _public(tmod)
@@ -940,6 +959,13 @@ def test_every_public_name_is_ported_or_waiting(jmod, tmod, waiting):
     assert not waiting & _public(tmod), sorted(waiting & _public(tmod))
     assert all(hasattr(jmod, n) or importlib.util.find_spec(
         f"{jmod.__name__}.{n}") for n in waiting)
+
+
+def test_cost_model_names_are_ported_or_renamed():
+    from paddle_tpu.analysis import cost_model as jcost
+    from paddle_tpu_torch.analysis import cost_model as tcost
+    assert _public(jcost) - _public(tcost) == set(COST_MODEL_RENAMED)
+    assert _public(tcost) - _public(jcost) == set(COST_MODEL_RENAMED.values())
 
 
 def test_every_op_of_the_reference_is_ported_or_waiting():

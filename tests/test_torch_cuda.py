@@ -20,7 +20,10 @@ repeats, ties and kinks (`scatter` with repeated ids in both modes,
 and the rest of the op families: `multiclass_nms` (tied scores, padded
 rows), `detection_map`, `warpctc`, `bilinear_interp` with its
 antialiasing and `fake_quantize_range_abs_max` on the card against the
-host.
+host, and the transpilers on a card scope: `InferenceTranspiler` and
+`Float16Transpiler` leave every parameter on the card (folded, or in its
+new dtype), a bf16-transpiled attention launches the flash forward's
+bf16 instantiation only, and a float16-transpiled one raises.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2263,3 +2266,80 @@ def test_fake_quantize_range_abs_max_on_card_equals_host(dev, is_test):
     for h, a, b in zip(host, c1, c2):
         np.testing.assert_array_equal(a, h)
         np.testing.assert_array_equal(b, a)
+
+
+# ---------------------------------------------------------------------------
+# the transpilers on a card scope
+# ---------------------------------------------------------------------------
+
+def _card_program(build_fn):
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        out = build_fn(ptt.layers)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    return main, exe, scope, out
+
+
+def _conv_bn_net(L):
+    x = L.data(name="x", shape=[3, 16, 16], dtype="float32")
+    c = L.conv2d(x, num_filters=8, filter_size=3, padding=1, bias_attr=False)
+    return L.fc(L.batch_norm(c, is_test=True), size=4)
+
+
+def _attention_net(L):
+    q, k, v = (L.data(name=n, shape=[-1, 4, 128, 64], dtype="float32",
+                      append_batch_size=False) for n in "qkv")
+    return ptt.models.transformer._fused_attention(q, k, v, 64, True, 0.0,
+                                                   True)
+
+
+def test_transpilers_keep_a_card_scope_on_the_card(dev):
+    main, exe, scope, out = _card_program(_conv_bn_net)
+    x = np.random.RandomState(0).rand(2, 3, 16, 16).astype(np.float32)
+    before, = exe.run(main, feed={"x": x}, fetch_list=[out], scope=scope)
+    assert ptt.InferenceTranspiler()._fuse_batch_norm(main, scope) == 1
+    params = [v.name for v in main.global_block().vars.values()
+              if v.persistable]
+    assert any(n.endswith("@bn_folded_bias") for n in params)
+    for n in params:
+        assert scope.find_var(n).device.type == "cuda", n
+    after, = exe.run(main, feed={"x": x}, fetch_list=[out], scope=scope)
+    np.testing.assert_allclose(after, before, rtol=1e-4, atol=1e-5)
+    ptt.transpiler.Float16Transpiler().transpile(main, scope=scope)
+    for n in params:
+        t = scope.find_var(n)
+        assert t.device.type == "cuda" and t.dtype == torch.bfloat16, n
+    half, = exe.run(main, feed={"x": x}, fetch_list=[out], scope=scope)
+    assert np.isfinite(half).all() and half.shape == before.shape
+
+
+def test_bf16_transpiled_attention_launches_the_bf16_forward_only(dev):
+    main, exe, scope, out = _card_program(_attention_net)
+    ptt.transpiler.Float16Transpiler().transpile(main, scope=scope)
+    rng = np.random.RandomState(1)
+    feed = {n: rng.randn(2, 4, 128, 64).astype(np.float32) for n in "qkv"}
+    native.reset_launches()
+    got, = exe.run(main, feed=feed, fetch_list=[out], scope=scope,
+                   return_numpy=False)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert {k: v for k, v in native.launches.items() if v} == \
+        {"flash_fwd_bf16": 1}
+    q, k, v = (torch.from_numpy(feed[n]).to(dev, torch.bfloat16)
+               for n in "qkv")
+    want = fa._attention_reference(q, k, v, True, 64 ** -0.5)
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= 2.0 ** -6 * float(want.float().abs().max())
+
+
+def test_float16_transpiled_attention_raises_on_the_card(dev):
+    main, exe, scope, out = _card_program(_attention_net)
+    ptt.transpiler.Float16Transpiler().transpile(main, scope=scope,
+                                                 dtype="float16")
+    feed = {n: np.ones((1, 4, 128, 64), np.float32) for n in "qkv"}
+    native.reset_launches()
+    with pytest.raises(ValueError, match="float16"):
+        exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    assert not any(native.launches.values())

@@ -464,6 +464,34 @@ det_out = exe.run(det, feed={"bx": [[[0, 0, 1, 1], [0, 0, 1, 0.9],
                              "sc": [[[0.1, 0.2, 0.3], [0.9, 0.8, 0.1]]]},
                   fetch_list=[nms, cnt, rs], scope=ptt.Scope())
 assert det_out[1].tolist() == [2] and det_out[2].shape == (1, 1, 2, 2)
+for name in ("paddle_tpu_torch.analysis.concurrency",
+             "paddle_tpu_torch.analysis.cost_model",
+             "paddle_tpu_torch.analysis.diagnostics",
+             "paddle_tpu_torch.analysis.shape_infer",
+             "paddle_tpu_torch.analysis.verifier",
+             "paddle_tpu_torch.transpiler.float16_transpiler",
+             "paddle_tpu_torch.transpiler.inference_transpiler",
+             "paddle_tpu_torch.transpiler.memory_optimization_transpiler",
+             "paddle_tpu_torch.ir_pass"):
+    assert name in sys.modules, name
+cb, cb_start = ptt.Program(), ptt.Program()
+with ptt.program_guard(cb, cb_start), ptt.unique_name.guard():
+    im = ptt.layers.data("im", shape=[2, 4, 4], dtype="float32")
+    cbn = ptt.layers.batch_norm(ptt.layers.conv2d(im, 3, 3, bias_attr=False),
+                                is_test=True)
+cb_scope = ptt.Scope()
+exe.run(cb_start, scope=cb_scope)
+im_feed = {"im": [[[[0.5] * 4] * 4] * 2]}
+before, = exe.run(cb, feed=im_feed, fetch_list=[cbn], scope=cb_scope)
+assert ptt.ir_pass.apply_pass("verify", cb, fetch_targets=[cbn.name]) is cb
+ptt.memory_optimize(cb)
+assert ptt.InferenceTranspiler()._fuse_batch_norm(cb, cb_scope) == 1
+folded, = exe.prepare(cb, [cbn], cb_scope, validate="error").run(im_feed)
+assert abs(folded - before).max() < 1e-5
+ptt.transpiler.Float16Transpiler().transpile(cb, scope=cb_scope)
+assert exe.run(cb, feed=im_feed, fetch_list=[cbn],
+               scope=cb_scope)[0].shape == before.shape
+assert ptt.analysis.analyze_source("x = 1\n") == []
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)
@@ -509,3 +537,19 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
         assert os.path.join(PORT, part) in files, part
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}
+
+
+def test_chip_smoke_kernels_line_reads_serve_bases_launches():
+    """The kernels line's `serve` counts (flash_fwd, and paged_decode's
+    `launches`) read the serve-base phase's `launches`: no later phase of
+    `main()` may rebind that name (phase 7l once did, and the line read
+    0 for paged_decode)."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    tree = ast.parse(open(path).read(), path)
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    binds = [n.lineno for n in ast.walk(main)
+             if isinstance(n, ast.Assign)
+             for t in n.targets if isinstance(t, ast.Name)
+             and t.id == "launches"]
+    assert len(binds) == 1, binds
