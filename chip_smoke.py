@@ -311,6 +311,21 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    train-base with `memory_optimize`'s marks and without, MEMOPT_STEPS
    steps from one state: losses bit-equal, launches equal; after the
    other traced steps, one traced batch of each (busy share);
+7n. the parallel plane: the planner's H100 rates (a bf16 torch.matmul
+   at 8192^3, a 2 GiB device copy); the flash forward, dQ and dK/dV
+   (float32 and bf16) and the dropout kernel at rank 1's offsets of
+   train-base's batch (bh0, base), the whole batch's rows bit for bit and
+   the float32 flash kernels against their plain versions there;
+   pe-base-1: train-base through `ParallelExecutor(use_cuda=True)` over
+   the one-rank mesh, PE_STEPS steps from the Executor's saved state,
+   losses bit-equal to the Executor's and the same launches a step; then
+   two ranks of this script (`--pe-rank`) that share the card (gloo),
+   one world for pe-base-dp2 (batch split 16 / 16, dropout 0.1),
+   pe-base-sp2 (dropout 0, ring attention, no flash launch) and
+   pe-base-mp2 (each `_ffn1` weight's columns held in halves), each
+   PE_RANK_STEPS steps within PE_RTOL / PE_ATOL of the Executor's
+   trajectory, with step ms, collectives by kind and bytes and peak
+   memory a rank; Trainer(parallel=True) against parallel=False, bit-equal;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -5331,6 +5346,427 @@ def run_train_base_memopt(torch, ptt, native):
             "launches": out["plain"]["launches"]}
 
 
+# phase 7n: the parallel plane. Transformer-base (TRAIN_BASE, Adam
+# TRAIN_LR, float32, batch TRAIN_BATCH) through ParallelExecutor: (a)
+# pe-base-1 over the one-rank mesh, PE_STEPS steps, against the Executor
+# from the same state in the same call (bit-equal losses, equal launch
+# counts a step); then one world of two ranks that share the card (gloo:
+# NCCL takes one rank a device), each rank this script run with
+# `--pe-rank JOB`, runs (b) pe-base-dp2 (the batch split 16 / 16, dropout
+# 0.1), (c) pe-base-sp2 (dropout 0, ring attention: no flash launch) and
+# (d) pe-base-mp2 (every `mp`-annotated weight held in halves), each
+# PE_RANK_STEPS steps against the Executor's trajectory within
+# PE_RTOL / PE_ATOL (the JAX package's parallel tests' tolerance); (e)
+# Trainer(parallel=True) against Trainer(parallel=False), PE_TRAINER_STEPS
+# steps, bit-equal. The kernels also run at a rank's offsets (bh0, base).
+PE_STEPS, PE_RANK_STEPS, PE_TRAINER_STEPS = 10, 3, 3
+PE_RTOL, PE_ATOL = 2e-4, 2e-5
+PE_RANK_TIMEOUT = 300
+PE_CASES = (("pe-base-dp2", "dp", 0.1), ("pe-base-sp2", "sp", 0.0),
+            ("pe-base-mp2", "mp", 0.1))
+# the planner's H100 profile: one bf16 product at 8192^3 and one copy of
+# 2 GiB, each the median of PEAK_ITERS timed calls
+PEAK_MATMUL_N, PEAK_COPY_BYTES, PEAK_ITERS = 8192, 2 << 30, 10
+
+
+def measure_h100_rates(torch):
+    """(bf16 matmul FLOP/s at 8192^3, device copy bytes/s counting the
+    read and the write), each from the median of PEAK_ITERS calls."""
+    def med(fn):
+        for _ in range(3):
+            fn()
+        ts = []
+        for _ in range(PEAK_ITERS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b) / 1e3)
+        return sorted(ts)[len(ts) // 2]
+    n = PEAK_MATMUL_N
+    x = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    y = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    out = torch.empty(n, n, device="cuda", dtype=torch.bfloat16)
+    flops = 2 * n ** 3 / med(lambda: torch.matmul(x, y, out=out))
+    del x, y, out
+    src = torch.empty(PEAK_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    bw = 2 * PEAK_COPY_BYTES / med(lambda: dst.copy_(src))
+    del src, dst
+    torch.cuda.empty_cache()
+    return flops, bw
+
+
+def check_offsets(torch, fa, dk):
+    """The kernels at a rank's offsets: rows 16.. of train-base's batch
+    (bh0 = 16 H for the flash kernels, base = 16 x 256 x 512 for the
+    dropout kernel) give the whole batch's rows bit for bit, in float32
+    and bf16, and the float32 flash kernels at bh0 agree with their plain
+    versions there (TOL / BWD_TOL)."""
+    B, H, T, D, rate, seed = TRAIN_BATCH, 8, 256, 64, 0.1, ATTN_SEED
+    half = B // 2
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(B, H, T, D, device="cuda",
+                                   generator=g).to(dtype) for _ in range(4))
+        for causal in (False, True):
+            sm = D ** -0.5
+            out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed)
+            delta = fa.flash_delta(out, do)
+            full = (out, lse,
+                    fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate,
+                                 seed),
+                    *fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate,
+                                   seed))
+            hq, hk, hv, hdo, hout, hlse, hdelta = (
+                t[half:].contiguous() for t in (q, k, v, do, out, lse, delta))
+            bh0 = half * H
+            o2, l2 = fa._flash_forward(hq, hk, hv, causal, sm, rate, seed,
+                                       bh0)
+            part = (o2, l2,
+                    fa._flash_dq(hq, hk, hv, hdo, hlse, hdelta, causal, sm,
+                                 rate, seed, bh0),
+                    *fa._flash_dkv(hq, hk, hv, hdo, hlse, hdelta, causal,
+                                   sm, rate, seed, bh0))
+            for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), part,
+                                  full):
+                if not torch.equal(a, b[half:]):
+                    raise AssertionError(
+                        f"flash {name} {dtype} causal={causal} at bh0 "
+                        f"{bh0}: not the whole batch's rows bit for bit")
+            tag = f"{str(dtype)[6:]}-{'causal' if causal else 'full'}"
+            if dtype == torch.float32:
+                ref_o = fa._attention_reference(hq, hk, hv, causal, sm, rate,
+                                                seed, bh0)
+                ref = fa._flash_backward_reference(hq, hk, hv, hout, hlse,
+                                                   hdo, causal, sm, rate,
+                                                   seed, bh0)
+                errs = {"fwd": float((o2 - ref_o).abs().max())}
+                for name, a, b in zip(("dq", "dk", "dv"), part[2:], ref):
+                    errs[name] = float(((a - b).abs()
+                                        / (1 + b.abs())).max())
+                if errs["fwd"] > TOL or max(errs[n] for n in
+                                            ("dq", "dk", "dv")) > BWD_TOL:
+                    raise AssertionError(f"flash at bh0 {bh0} {tag}: {errs}")
+                res[tag] = errs
+            else:
+                res[tag] = "bit-equal to the whole batch's rows"
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(B, 256, 512, device="cuda", generator=g).to(dtype)
+        base = half * 256 * 512
+        out, mask = dk.dropout_forward(x, seed, rate, want_mask=True)
+        out2, mask2 = dk.dropout_forward(x[half:], seed, rate,
+                                         want_mask=True, base=base)
+        ref, ref_mask = dk.dropout_reference(x[half:], seed, rate, base)
+        if not (torch.equal(out2, out[half:]) and torch.equal(mask2,
+                                                              mask[half:])
+                and torch.equal(out2, ref) and torch.equal(mask2,
+                                                           ref_mask)):
+            raise AssertionError(f"dropout {dtype} at base {base}: not the "
+                                 f"whole tensor's bits / the plain version's")
+        res[f"dropout-{str(dtype)[6:]}"] = "bit-equal"
+    return res
+
+
+def _state_checksum(torch, scope):
+    """One float64 number over a scope's tensors: two states equal in
+    every element give the same sum, in any process."""
+    return float(sum(scope.find_var(n).double().sum().item()
+                     for n in sorted(scope.local_var_names())))
+
+
+def run_pe_base_1(torch, ptt, native, spmd):
+    """(a): the Executor and a one-rank ParallelExecutor(use_cuda=True),
+    PE_STEPS steps each from one saved state on one batch; also the
+    Executor's trajectory at dropout 0 (PE_RANK_STEPS steps) for (c)."""
+    import numpy as np
+    feed = train_batch(TRAIN_BATCH)
+    out = {}
+    for dropout in (TRAIN_BASE["dropout_rate"], 0.0):
+        main, startup, loss = build_train(ptt, dropout_rate=dropout)
+        scope = ptt.Scope()
+        ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope)
+        saved = {n: scope.find_var(n).clone()
+                 for n in scope.local_var_names()}
+        out.setdefault("checksum", _state_checksum(torch, scope))
+        del scope
+        kinds = ("executor", "parallel") if dropout else ("executor",)
+        for kind in kinds:
+            s = ptt.Scope()
+            for n, t in saved.items():
+                s.set_var(n, t.clone())
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "executor":
+                exe = ptt.Executor(ptt.CUDAPlace(0))
+
+                def step():
+                    return exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=s)[0]
+            else:
+                pe = ptt.ParallelExecutor(loss_name=loss.name,
+                                          main_program=main, scope=s)
+
+                def step():
+                    return pe.run(feed=feed, fetch_list=[loss.name])[0]
+            steps = PE_STEPS if dropout else PE_RANK_STEPS
+            native.reset_launches()
+            spmd.reset_collectives()
+            losses, ms = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                v = step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(np.asarray(v).reshape(-1)[0]))
+            tag = kind if dropout else "executor-dropout0"
+            last = sorted(ms[1:])
+            out[tag] = dict(losses=losses, step_ms=ms,
+                            step_ms_median=last[len(last) // 2],
+                            launches=dict(native.launches),
+                            collectives=dict(spmd.collectives),
+                            peak_bytes=torch.cuda.max_memory_allocated())
+            if kind == "parallel":
+                out[tag]["inventory"] = ptt.parallel.collective_inventory(
+                    pe.compiled_text(feed))
+                del pe
+            else:
+                del exe
+            del s
+        del saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex, par = out["executor"], out["parallel"]
+    if par["losses"] != ex["losses"]:
+        raise AssertionError(f"pe-base-1 losses {par['losses']} are not the "
+                             f"Executor's {ex['losses']} bit for bit")
+    n_attn = 3 * TRAIN_BASE["n_layer"]
+    want = dict.fromkeys(ex["launches"], 0)
+    want.update(flash_fwd=2 * n_attn * PE_STEPS,
+                flash_dq=n_attn * PE_STEPS, flash_dkv=n_attn * PE_STEPS,
+                flash_delta=n_attn * PE_STEPS)
+    for tag in ("executor", "parallel"):
+        if out[tag]["launches"] != want:
+            raise AssertionError(f"pe-base-1 {tag} launches "
+                                 f"{out[tag]['launches']}, expected {want}")
+    if par["collectives"]:
+        raise AssertionError(f"pe-base-1 issued collectives "
+                             f"{par['collectives']}")
+    return out
+
+
+def _pe_rank_main(job_path):
+    """One rank of phase 7n's world: every case of the job, written to
+    ``rank{r}.json`` beside it."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.ops import native
+    from paddle_tpu_torch.parallel import make_mesh, spmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = json.load(open(job_path))
+    distributed.init()              # a card each rank; gloo: they share it
+    native.lib()                    # the parent's build, loaded
+    rank = distributed.get_rank()
+    feed = train_batch(TRAIN_BATCH)
+    res = {"backend": distributed.backend(),
+           "device": str(distributed.device()), "cases": {}}
+    for name, axis, dropout in job["cases"]:
+        main, startup, loss = build_train(ptt, dropout_rate=dropout)
+        scope = ptt.Scope()
+        ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope)
+        checksum = _state_checksum(torch, scope)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pe = ptt.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                  scope=scope, mesh=make_mesh([2], [axis]))
+        bcast_s = time.perf_counter() - t0
+        native.reset_launches()
+        spmd.reset_collectives()
+        losses, ms = [], []
+        for _ in range(PE_RANK_STEPS):
+            t0 = time.perf_counter()
+            v, = pe.run(feed=feed, fetch_list=[loss.name])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(v).reshape(-1)[0]))
+        launches = dict(native.launches)
+        colls = {k: {"count": c, "bytes": spmd.collective_bytes[k]}
+                 for k, c in spmd.collectives.items()}
+        halves = {n: [list(pe.state_placement(n)),
+                      list(scope.find_var(n).shape)]
+                  for n in scope.local_var_names()
+                  if n.endswith("_ffn1.w_0")}
+        last = sorted(ms[1:])
+        res["cases"][name] = dict(
+            losses=losses, step_ms=ms, step_ms_median=last[len(last) // 2],
+            launches=launches, collectives=colls, checksum=checksum,
+            bcast_s=bcast_s, peak_bytes=torch.cuda.max_memory_allocated(),
+            ffn1=halves,
+            inventory=ptt.parallel.collective_inventory(
+                pe.compiled_text(feed)),
+            replicated_ops=pe._plan_for(feed, "plan").replicated_ops())
+        del pe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(os.path.dirname(job_path), f"rank{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    distributed.barrier()
+    return 0
+
+
+def run_pe_world(torch, tmp):
+    """(b)-(d): two ranks of this script on the card, one world for the
+    three cases; a rank's failure fails the phase."""
+    import socket
+    job = os.path.join(tmp, "pe_job.json")
+    with open(job, "w") as f:
+        json.dump({"cases": PE_CASES}, f)
+    socks = [socket.socket() for _ in range(2)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    eps = ",".join(f"127.0.0.1:{sk.getsockname()[1]}" for sk in socks)
+    for sk in socks:
+        sk.close()
+    procs, logs = [], []
+    for r in range(2):
+        env = dict(os.environ, PADDLE_TRAINER_ID=str(r), PADDLE_TRAINERS="2",
+                   PADDLE_TRAINER_ENDPOINTS=eps)
+        logs.append(os.path.join(tmp, f"rank{r}.log"))
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--pe-rank", job],
+                env=env, stdout=out, stderr=subprocess.STDOUT))
+    # a rank that fails leaves the other waiting in a collective: stop
+    # both as soon as one fails, or at the deadline
+    deadline = time.perf_counter() + PE_RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) \
+                    or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(
+            f"phase 7n: rank(s) {bad} failed or were stopped:\n" + "\n".join(
+                f"--- rank {r} ---\n{open(logs[r]).read()[-4000:]}"
+                for r in bad))
+    return [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+            for r in range(2)]
+
+
+def check_pe_world(ranks, base1):
+    """(b)-(d) against the Executor: every rank's losses within PE_RTOL /
+    PE_ATOL of the trajectory at the case's dropout, the same state
+    (checksum), flash launches on every rank under dp and mp and none
+    under sp, the ring's permutes, the ffn1 weights held in halves."""
+    import numpy as np
+    n_attn = 3 * TRAIN_BASE["n_layer"]
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["device"] != "cuda:0":
+            raise AssertionError(f"rank {r}: {res['backend']} on "
+                                 f"{res['device']}, expected gloo on cuda:0")
+        for name, axis, dropout in PE_CASES:
+            c = res["cases"][name]
+            ref = (base1["executor"] if dropout
+                   else base1["executor-dropout0"])["losses"][:PE_RANK_STEPS]
+            if c["checksum"] != base1["checksum"]:
+                raise AssertionError(f"{name} rank {r}: startup state "
+                                     f"checksum {c['checksum']} != "
+                                     f"{base1['checksum']}")
+            if not np.allclose(c["losses"], ref, rtol=PE_RTOL, atol=PE_ATOL):
+                raise AssertionError(f"{name} rank {r}: losses {c['losses']} "
+                                     f"vs the Executor's {ref}")
+            flash = {k: v for k, v in c["launches"].items()
+                     if k.startswith("flash_")}
+            if axis == "sp":
+                if any(flash.values()):
+                    raise AssertionError(f"{name} rank {r}: flash launches "
+                                         f"under sp: {flash}")
+                if not c["inventory"].get("collective-permute"):
+                    raise AssertionError(f"{name}: no ring permute")
+            else:
+                want = {"flash_fwd": 2 * n_attn * PE_RANK_STEPS,
+                        "flash_dq": n_attn * PE_RANK_STEPS,
+                        "flash_dkv": n_attn * PE_RANK_STEPS,
+                        "flash_delta": n_attn * PE_RANK_STEPS}
+                if {k: flash.get(k, 0) for k in want} != want:
+                    raise AssertionError(f"{name} rank {r}: flash launches "
+                                         f"{flash}, expected {want}")
+            if axis == "mp":
+                if not c["ffn1"]:
+                    raise AssertionError(f"{name}: no _ffn1 weight")
+                for n, (pl, shape) in c["ffn1"].items():
+                    if pl != [1] or shape[1] * 2 != TRAIN_BASE["d_inner"]:
+                        raise AssertionError(
+                            f"{name} rank {r}: {n} held at {pl} {shape}, "
+                            f"expected half of the columns")
+
+
+def run_trainer_parallel(torch, ptt, native):
+    """(e): Trainer(parallel=True) and Trainer(parallel=False) on the
+    card, PE_TRAINER_STEPS steps of train-base from the same seeded
+    startup on the same batches: losses bit-equal."""
+    import numpy as np
+    from paddle_tpu_torch.models import transformer
+    feed = train_batch(TRAIN_BATCH)
+    rows = [tuple(feed[n][i] for n in ("src_word", "trg_word", "lbl_word"))
+            for i in range(TRAIN_BATCH)]
+
+    def reader():
+        for _ in range(PE_TRAINER_STEPS):
+            yield rows
+
+    def train_func():
+        _, fetches = transformer.build(**TRAIN_BASE)
+        return fetches["loss"]
+
+    out = {}
+    for parallel in (False, True):
+        got = []
+
+        def handler(ev, got=got):
+            if isinstance(ev, ptt.EndStepEvent):
+                got.append(float(np.asarray(ev.metrics[0]).reshape(-1)[0]))
+        native.reset_launches()
+        t0 = time.perf_counter()
+        trainer = ptt.Trainer(train_func,
+                              lambda: ptt.optimizer.Adam(
+                                  learning_rate=TRAIN_LR),
+                              parallel=parallel)
+        trainer.train(1, handler, reader=reader,
+                      feed_order=["src_word", "trg_word", "lbl_word"])
+        torch.cuda.synchronize()
+        out["parallel" if parallel else "serial"] = dict(
+            losses=got, s=time.perf_counter() - t0,
+            launches=dict(native.launches))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["parallel"]["losses"] != out["serial"]["losses"] \
+            or len(out["serial"]["losses"]) != PE_TRAINER_STEPS:
+        raise AssertionError(f"Trainer(parallel=True) {out['parallel']} vs "
+                             f"parallel=False {out['serial']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6300,6 +6736,63 @@ def main() -> int:
     phase7m_s = time.perf_counter() - t0
     log(f"phase 7m: {phase7m_s:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+    # 7n. the parallel plane: Transformer-base through ParallelExecutor on
+    # one rank, then two ranks that share the card; the kernels at a
+    # rank's offsets; the planner's H100 rates
+    t0 = time.perf_counter()
+    from paddle_tpu_torch.parallel import spmd
+    peak_flops, copy_bw = measure_h100_rates(torch)
+    log(f"H100 rates for analysis.planner.H100 [{card}]: bf16 torch.matmul "
+        f"at {PEAK_MATMUL_N}^3 {peak_flops / 1e12:.1f} TFLOP/s, device copy "
+        f"of {PEAK_COPY_BYTES >> 30} GiB {copy_bw / 1e12:.3f} TB/s (read + "
+        f"write), medians of {PEAK_ITERS}")
+    offsets = check_offsets(torch, fa, dk)
+    log(f"kernels at rank 1's offsets of train-base's batch (B {TRAIN_BATCH} "
+        f"split 16 / 16: flash bh0 {TRAIN_BATCH // 2 * 8}, dropout base "
+        f"{TRAIN_BATCH // 2 * 256 * 512}): the whole batch's rows bit for "
+        f"bit; against the plain versions at the offset {offsets}")
+    pe1 = run_pe_base_1(torch, ptt, native, spmd)
+    ex1, par1 = pe1["executor"], pe1["parallel"]
+    log(f"pe-base-1 (ParallelExecutor(use_cuda=True), one-rank mesh, "
+        f"{PE_STEPS} steps of train-base at batch {TRAIN_BATCH} from the "
+        f"Executor's saved state) [{card}]: losses bit-equal to the "
+        f"Executor's {par1['losses']}; launches {par1['launches']} equal to "
+        f"the Executor's; no collective; step {par1['step_ms_median']:.1f} "
+        f"ms (median) against the Executor's {ex1['step_ms_median']:.1f} ms; "
+        f"peak {par1['peak_bytes'] / 2**30:.2f} GiB against "
+        f"{ex1['peak_bytes'] / 2**30:.2f} GiB")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_7n_") as tmp:
+        pe_ranks = run_pe_world(torch, tmp)
+    check_pe_world(pe_ranks, pe1)
+    for name, axis, dropout in PE_CASES:
+        cs = [r["cases"][name] for r in pe_ranks]
+        ref = (ex1 if dropout else pe1["executor-dropout0"])["losses"]
+        log(f"{name} (2 ranks sharing the card, gloo, mesh {axis}=2, dropout "
+            f"{dropout}, batch {TRAIN_BATCH}, {PE_RANK_STEPS} steps) "
+            f"[{card}]: losses {[c['losses'] for c in cs]} against the "
+            f"Executor's {ref[:PE_RANK_STEPS]} (rtol {PE_RTOL}, atol "
+            f"{PE_ATOL}); step {[round(c['step_ms_median'], 1) for c in cs]} "
+            f"ms a rank (median; all: "
+            f"{[[round(x, 1) for x in c['step_ms']] for c in cs]}) against "
+            f"the Executor's {ex1['step_ms_median']:.1f} ms; collectives "
+            f"(rank 0, {PE_RANK_STEPS} steps) {cs[0]['collectives']}; "
+            f"flash launches {[{k: v for k, v in c['launches'].items() if k.startswith('flash_')} for c in cs]}; "
+            f"plan {cs[0]['inventory']}, ran whole "
+            f"{cs[0]['replicated_ops']}; peak "
+            f"{[round(c['peak_bytes'] / 2**30, 2) for c in cs]} GiB a rank; "
+            f"broadcast and shard {[round(c['bcast_s'], 1) for c in cs]} s"
+            + (f"; ffn1 held at {cs[0]['ffn1']}" if axis == "mp" else ""))
+    trainer_pe = run_trainer_parallel(torch, ptt, native)
+    log(f"Trainer(parallel=True) against Trainer(parallel=False), "
+        f"{PE_TRAINER_STEPS} steps of train-base [{card}]: losses "
+        f"{trainer_pe['parallel']['losses']} bit-equal; launches "
+        f"{trainer_pe['parallel']['launches']} against "
+        f"{trainer_pe['serial']['launches']}; "
+        f"{trainer_pe['parallel']['s']:.1f} s against "
+        f"{trainer_pe['serial']['s']:.1f} s with set-up")
+    phase7n_s = time.perf_counter() - t0
+    log(f"phase 7n: {phase7n_s:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -6383,6 +6876,17 @@ def main() -> int:
 
     # 8. the kernels line: flash_fwd's headline numbers at the train path's
     # shape, its serving case beside them
+    def pe_launches(kname):
+        """A kernel's launches on phase 7n's paths (each rank apart)."""
+        out = {"pe_base_1": par1["launches"].get(kname, 0),
+               "trainer_parallel": trainer_pe["parallel"]["launches"].get(
+                   kname, 0)}
+        for name, _, _ in PE_CASES:
+            for r, res in enumerate(pe_ranks):
+                out[f"{name.replace('-', '_')}_rank{r}"] = \
+                    res["cases"][name]["launches"].get(kname, 0)
+        return out
+
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
     causal_head = train_cases[1]   # the same, causal
@@ -6411,7 +6915,8 @@ def main() -> int:
                                   infer16["launches_per_batch"][
                                       "float32"].get("flash_fwd", 0),
                               "train_base_memopt":
-                                  memopt["launches"].get("flash_fwd", 0)},
+                                  memopt["launches"].get("flash_fwd", 0),
+                              **pe_launches("flash_fwd")},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -6434,6 +6939,8 @@ def main() -> int:
            "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
            "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
            "launches": train["launches"][f"flash_{name}"],
+           "launches_by_path": {"train": train["launches"][f"flash_{name}"],
+                                **pe_launches(f"flash_{name}")},
            "max_abs_err": max(c[f"{name}_err"] for c in train_cases),
            "ms": head[f"{name}_ms"], "plain_ms": head["bwd_plain_ms"],
            "bound_ms": head[f"{name}_bound_ms"],
@@ -6459,7 +6966,8 @@ def main() -> int:
          "launches": train["launches"]["flash_delta"],
          "launches_by_path": {"train": train["launches"]["flash_delta"],
                               "train_pallas":
-                                  trains["pallas"]["launches"]["flash_delta"]},
+                                  trains["pallas"]["launches"]["flash_delta"],
+                              **pe_launches("flash_delta")},
          "max_abs_err": max(c["delta_err"] for c in train_cases),
          "tol_share": max(c["delta_share"] for c in train_cases),
          "tol": f"a row, {DELTA_TOL} x sum |dO O|",
@@ -6660,6 +7168,11 @@ def main() -> int:
                    "serve_resnet50_folded": folded,
                    "train_base_memopt": memopt,
                    "infer_mt_beam": beam,
+                   "parallel": {"h100_rates": {"bf16_matmul_flops": peak_flops,
+                                               "copy_bytes_per_s": copy_bw},
+                                "offsets": offsets, "pe_base_1": pe1,
+                                "ranks": pe_ranks, "trainer": trainer_pe,
+                                "phase_s": phase7n_s},
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6670,4 +7183,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--pe-rank":
+        sys.exit(_pe_rank_main(sys.argv[2]))
     sys.exit(main())

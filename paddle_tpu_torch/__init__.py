@@ -36,7 +36,10 @@ initializer, ``io.save_params`` / ``load_params``, ``Operator``,
 ``enforce``, ``default_scope_funcs``, ``graphviz`` and
 ``net_drawer``), and the transpilers and the program analysis
 (``transpiler.{InferenceTranspiler,Float16Transpiler}``,
-``memory_optimize``, ``ir_pass``, ``analysis`` and the `validate` flag).
+``memory_optimize``, ``ir_pass``, ``analysis`` and the `validate` flag),
+and the parallel plane (``distributed``, ``parallel.ParallelExecutor``
+over dp / mp / sp meshes of torch.distributed ranks, ring attention,
+the planner ``analysis.planner`` and ``layers.ParallelDo``).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -104,6 +107,9 @@ from . import analysis, ir_pass, transpiler  # noqa: F401
 from .analysis import ProgramVerificationError  # noqa: F401
 from .transpiler import (InferenceTranspiler, memory_optimize,  # noqa: F401
                          release_memory)
+from . import distributed, parallel  # noqa: F401
+from .parallel import (BuildStrategy, ExecutionStrategy,  # noqa: F401
+                       ParallelExecutor)
 
 
 def is_compiled_with_cuda() -> bool:

@@ -18,11 +18,12 @@ A second, source-level surface lives in `concurrency`: an AST-based
 lock-discipline / deadlock-cycle / hold-time analyzer over threaded
 Python, run over this package by tests/test_torch_analysis.py.
 
-The JAX package's planner (`HardwareSpec`, `TPU_CHIP`, `plan_meshes`,
-`estimate_step_time`, `flag_family_priors`, ...) feeds
-`parallel.mesh.auto_mesh` and waits for the port's parallel plane
-(ROADMAP item 7); its
-`optimal_rungs` is the port's `serve/bucketing.py::optimal_rungs`.
+`planner` is the port's copy of the JAX package's planner
+(`HardwareSpec`, `plan_meshes`, `estimate_step_time`,
+`flag_family_priors`, ...) with the port's own machine models (`H100`,
+`CPU_REHEARSAL`; the JAX package's `TPU_CHIP` is a TPU's and is not
+ported); it feeds `parallel.mesh.auto_mesh`. Its `optimal_rungs` is
+`serve/bucketing.py`'s.
 `xla_flops` has no XLA to ask here: `measured_flops` counts a step with
 torch's FLOP counter instead.
 """
@@ -36,6 +37,11 @@ from .concurrency import (ConcurrencyDiagnostic, analyze_package,  # noqa: F401
                           analyze_paths, analyze_source, baseline_key)
 from .cost_model import (CostReport, OpCost, estimate_cost,  # noqa: F401
                          estimate_peak_hbm, measured_flops, shape_env)
+from .planner import (CPU_REHEARSAL, H100, HardwareSpec,  # noqa: F401
+                      MeshPlan, PlanReport, cost_profile,
+                      detect_hardware, enumerate_meshes,
+                      estimate_step_time, flag_family_priors,
+                      optimal_rungs, plan_meshes)
 from .diagnostics import (Diagnostic, ProgramVerificationError,  # noqa: F401
                           Severity, format_diagnostics, has_errors,
                           lint_dead_fetch_targets, lint_program,

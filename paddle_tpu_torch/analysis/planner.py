@@ -1,0 +1,643 @@
+"""fluid-planner: cost-model-driven mesh planning, the port's copy.
+
+A copy of ``paddle_tpu/analysis/planner.py`` over the port's
+``analysis/cost_model.py``, its imports rewired:
+
+1. `estimate_step_time`: a roofline time per op,
+   `max(flops / achievable_flops, bytes / achievable_bw)`, summed, plus a
+   host dispatch floor;
+2. `plan_meshes`: the dp x mp x sp factorizations of a rank count for a
+   program, each with its modelled communication (gradient all-reduce,
+   Megatron activation all-reduce, ring collective-permute bytes), its
+   per-rank peak memory (rejecting what does not fit) and a ranked
+   `PlanReport`; `parallel.mesh.auto_mesh` rides it;
+3. `flag_family_priors` / `cost_profile`: the program's cost profile;
+4. `optimal_rungs` is ``serve/bucketing.py``'s.
+
+The machine models are the port's own: `H100` (measured peak and copy
+bandwidth, the card's memory, NVLink's datasheet link rate) and
+`CPU_REHEARSAL` (the host); the JAX package's TPU profile is not ported.
+Every number here is a MODEL: predictions rank candidates, they do not
+replace measurement.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core import ir
+from . import cost_model
+from .cost_model import CostReport, estimate_cost, estimate_peak_hbm
+from ..serve.bucketing import optimal_rungs  # noqa: F401
+
+_MATMUL_FAMILY = set(cost_model._MATMUL_LIKE) | {
+    t + "_grad" for t in cost_model._MATMUL_LIKE} | {"fused_attention",
+                                                     "fused_attention_grad"}
+_CONV_FAMILY = {"conv2d", "depthwise_conv2d", "conv2d_grad",
+                "depthwise_conv2d_grad"}
+_REDUCE_BCAST_FAMILY = {"softmax", "log_softmax", "layer_norm",
+                        "batch_norm", "softmax_with_cross_entropy"}
+
+
+class HardwareSpec:
+    """The calibrated machine model one plan is computed against.
+
+    All rates are *achievable*, not datasheet: `peak_flops` is the
+    bench-measured matmul peak, and the per-family efficiencies absorb
+    what a real compiled step loses to fusion boundaries, layout ops and
+    sub-tile shapes (docs/PLANNER.md §calibration has the derivation
+    from the recorded BENCH rounds).
+
+    - ``peak_flops``       measured matmul peak, FLOP/s
+    - ``hbm_bw``           HBM bandwidth, B/s
+    - ``hbm_bytes``        per-device memory budget (OOM gate)
+    - ``ici_bw``           per-link interconnect bandwidth, B/s
+    - ``launch_us``        per-collective launch/latency cost
+    - ``dispatch_us``      host dispatch floor added to every step
+    - ``matmul_eff``       achievable fraction of peak for MXU ops
+    - ``vector_eff``       same for elementwise/reduction ops
+    - ``hbm_traffic_fraction``  fraction of the static per-op bytes that
+                           actually pays HBM (fusion keeps the rest in
+                           registers/VMEM; static per-op byte sums count
+                           every producer/consumer edge)
+    - ``min_tile``         matrix-unit tile edge; per-device shards
+                           below it waste MXU lanes proportionally
+    - ``parallel_scaling`` how much of the ideal 1/N compute split the
+                           rig realizes: effective shards = N**this.
+                           1.0 = real chips; 0.0 = the virtual-device
+                           CPU rig, whose 8 "devices" timeshare one
+                           core (compute never shrinks, collectives are
+                           pure added work)
+    """
+
+    __slots__ = ("name", "peak_flops", "hbm_bw", "hbm_bytes", "ici_bw",
+                 "launch_us", "dispatch_us", "matmul_eff", "vector_eff",
+                 "hbm_traffic_fraction", "min_tile", "parallel_scaling")
+
+    def __init__(self, name, peak_flops, hbm_bw, hbm_bytes, ici_bw,
+                 launch_us, dispatch_us, matmul_eff, vector_eff,
+                 hbm_traffic_fraction, min_tile, parallel_scaling=1.0):
+        self.name = name
+        self.peak_flops = float(peak_flops)
+        self.hbm_bw = float(hbm_bw)
+        self.hbm_bytes = float(hbm_bytes)
+        self.ici_bw = float(ici_bw)
+        self.launch_us = float(launch_us)
+        self.dispatch_us = float(dispatch_us)
+        self.matmul_eff = float(matmul_eff)
+        self.vector_eff = float(vector_eff)
+        self.hbm_traffic_fraction = float(hbm_traffic_fraction)
+        self.min_tile = int(min_tile)
+        self.parallel_scaling = float(parallel_scaling)
+
+    def replace(self, **kw) -> "HardwareSpec":
+        vals = {s: getattr(self, s) for s in self.__slots__}
+        vals.update(kw)
+        return HardwareSpec(**vals)
+
+    def as_dict(self) -> dict:
+        return {s: getattr(self, s) for s in self.__slots__}
+
+    def __repr__(self):
+        return (f"HardwareSpec({self.name}, "
+                f"{self.peak_flops / 1e12:.1f} TFLOP/s, "
+                f"{self.hbm_bw / 1e12:.2f} TB/s HBM, "
+                f"{self.hbm_bytes / 1e9:.1f} GB)")
+
+
+# One NVIDIA H100 80GB HBM3 at a 700.00 W power limit. `peak_flops` is
+# the bf16 torch.matmul rate at 8192^3 and `hbm_bw` the device-to-device
+# copy rate, as chip_smoke.py's phase 7n (`measure_h100_rates`) measured
+# them on that card (PERF.md, Findings); the
+# memory is the card's own (`detect_hardware` reads it from
+# torch.cuda.get_device_properties); `ici_bw` is NVLink 4's datasheet
+# rate, 450 GB/s each way (one card cannot measure a link). The port
+# runs every op eagerly, so every op's bytes pay HBM
+# (`hbm_traffic_fraction` 1) and the rates are the measured ones
+# (`matmul_eff` and `vector_eff` 1); `launch_us` and `dispatch_us` are
+# not measured.
+H100_PEAK_FLOPS = 776.35e12     # bf16 torch.matmul, 8192^3, median of 10
+H100_HBM_BW = 3.0227e12        # a 2 GiB device copy, read + write
+H100 = HardwareSpec(
+    name="h100-sxm-80gb", peak_flops=H100_PEAK_FLOPS, hbm_bw=H100_HBM_BW,
+    hbm_bytes=80e9, ici_bw=450e9, launch_us=10.0, dispatch_us=100.0,
+    matmul_eff=1.0, vector_eff=1.0, hbm_traffic_fraction=1.0,
+    min_tile=64, parallel_scaling=1.0)
+
+# The 8-virtual-device 1-core CPU rig the test suite (and the multichip
+# dryrun) runs on: every "device" timeshares one core, so collectives
+# are pure overhead — a large per-collective launch cost and a thin
+# bandwidth. Absolute times are rough; the RANKING is what the measured
+# 4-mesh table in docs/PLANNER.md validates.
+CPU_REHEARSAL = HardwareSpec(
+    name="cpu-rehearsal-8dev", peak_flops=3.5e9, hbm_bw=12.0e9,
+    hbm_bytes=64e9, ici_bw=2.0e9, launch_us=250.0, dispatch_us=400.0,
+    matmul_eff=1.0, vector_eff=1.0, hbm_traffic_fraction=1.0,
+    min_tile=32, parallel_scaling=0.0)
+
+
+def detect_hardware() -> HardwareSpec:
+    """`H100` (with this card's memory) on an H100, `CPU_REHEARSAL` with
+    no card; any other card raises rather than guess its rates."""
+    import torch
+    if not torch.cuda.is_available():
+        return CPU_REHEARSAL
+    name = torch.cuda.get_device_name(0)
+    if "H100" not in name:
+        raise ValueError(f"detect_hardware: no machine model for {name!r}; "
+                         f"pass hw=HardwareSpec(...) measured on it")
+    return H100.replace(
+        hbm_bytes=float(torch.cuda.get_device_properties(0).total_memory))
+
+
+# ---------------------------------------------------------------------------
+# roofline time model
+# ---------------------------------------------------------------------------
+
+def _op_eff(op_type: str, hw: HardwareSpec) -> float:
+    return hw.matmul_eff if op_type in _MATMUL_FAMILY else hw.vector_eff
+
+
+def estimate_step_time(report: CostReport, hw: HardwareSpec,
+                       n_shards: int = 1, shard_eff: float = 1.0) -> dict:
+    """Roofline step-time estimate: per op,
+    max(flops / (peak·eff), hbm_fraction·bytes / hbm_bw), summed, plus
+    the dispatch floor. `n_shards` divides every op's work (the ideal
+    dp·mp·sp split — feasibility is the caller's job); `shard_eff`
+    further derates the compute term for sub-tile shards."""
+    n = max(int(n_shards), 1)
+    se = min(max(float(shard_eff), 1e-3), 1.0)
+    t_flops_total = t_bytes_total = t_sum = 0.0
+    bound_flops = 0
+    for op in report.ops:
+        t_f = op.flops / n / (hw.peak_flops * _op_eff(op.op_type, hw) * se)
+        t_b = (hw.hbm_traffic_fraction * op.bytes / n) / hw.hbm_bw
+        t_flops_total += t_f
+        t_bytes_total += t_b
+        if t_f >= t_b:
+            bound_flops += 1
+        t_sum += max(t_f, t_b)
+    return {
+        "compute_s": t_sum,
+        "dispatch_s": hw.dispatch_us * 1e-6,
+        "step_s": t_sum + hw.dispatch_us * 1e-6,
+        "flops_bound_ops": bound_flops,
+        "bytes_bound_ops": len(report.ops) - bound_flops,
+        "sum_flops_s": t_flops_total,
+        "sum_bytes_s": t_bytes_total,
+    }
+
+
+# ---------------------------------------------------------------------------
+# program introspection for the mesh search
+# ---------------------------------------------------------------------------
+
+class _ProgramProfile:
+    """Everything the mesh search needs to know about one program,
+    derived once: batch/seq extents, mp-shardable params, row-parallel
+    matmul outputs (the Megatron activation-AR sites), attention ops
+    and their K/V payloads, gradient tensor count."""
+
+    def __init__(self, program: ir.Program,
+                 feed_shapes: Dict[str, Sequence[int]],
+                 default_dim: Optional[int]):
+        self.report = estimate_cost(program, feed_shapes, default_dim)
+        self.hbm = estimate_peak_hbm(program, feed_shapes, default_dim)
+        env = cost_model.shape_env(program, feed_shapes, default_dim)
+        blk = program.global_block()
+
+        shapes = [tuple(int(d) for d in s) for s in feed_shapes.values()]
+        self.batch = int(shapes[0][0]) if shapes and len(shapes[0]) else 1
+        self.seq = 0
+        for s in shapes:
+            if len(s) >= 2 and int(s[1]) > 1:
+                self.seq = int(s[1])
+                break
+
+        # mp-shardable params: ParamAttr.sharding tuples naming 'mp'
+        # (the same annotations ParallelExecutor._sharding_for_state
+        # consumes). Row-parallel = 'mp' on axis 0 (output needs the
+        # Megatron all-reduce); column-parallel = 'mp' elsewhere.
+        self.mp_params: List[Tuple[str, Tuple[int, ...], int]] = []
+        self.mp_param_bytes = 0.0
+        row_parallel_names = set()
+        param_names = set()
+        for v in blk.vars.values():
+            if not v.persistable:
+                continue
+            param_names.add(v.name)
+            spec = getattr(v, "sharding", None)
+            if not spec or "mp" not in tuple(spec):
+                continue
+            sd = env.get(v.name)
+            shape = sd[0] if sd else tuple(
+                int(d) for d in v.shape if int(d) != -1)
+            axis = tuple(spec).index("mp")
+            if axis < len(shape):
+                self.mp_params.append((v.name, shape, axis))
+                self.mp_param_bytes += cost_model._nbytes(
+                    (shape, v.dtype or "float32"))
+                if axis == 0:
+                    row_parallel_names.add(v.name)
+
+        # activation-AR payload: outputs of FORWARD ops consuming a
+        # row-parallel param (Megatron: the partial products must be
+        # summed over mp). Grad ops also read the param but their AR is
+        # the explicit fwd+bwd 2x in the comm model, and optimizer ops
+        # (Param+Grad slots) update state that never all-reduces —
+        # counting either would triple the mp comm estimate.
+        from ..core.registry import GRAD_OP_SUFFIX
+        self.rowpar_sites = 0
+        self.rowpar_out_bytes = 0.0
+        self.attn_ops = 0
+        self.attn_kv_bytes = 0.0
+        self.attn_has_dropout = False
+        for op in blk.ops:
+            ins = set(op.input_arg_names)
+            is_fwd_consumer = (
+                not op.type.endswith(GRAD_OP_SUFFIX)
+                and not ("Param" in op.inputs and "Grad" in op.inputs))
+            if is_fwd_consumer and ins & row_parallel_names:
+                self.rowpar_sites += 1
+                self.rowpar_out_bytes += sum(
+                    cost_model._nbytes(env.get(n))
+                    for n in op.output_arg_names)
+            if op.type == "fused_attention":
+                self.attn_ops += 1
+                for slot in ("K", "V"):
+                    names = op.inputs.get(slot) or ()
+                    self.attn_kv_bytes += sum(
+                        cost_model._nbytes(env.get(n)) for n in names)
+                if (float(op.attrs.get("dropout_rate", 0.0) or 0.0) > 0.0
+                        and not op.attrs.get("is_test", False)):
+                    self.attn_has_dropout = True
+
+        # gradient tensors the dp all-reduce moves (one logical AR each;
+        # XLA fuses some — this is the launch-cost model, not HLO truth).
+        # Their byte total is the dp payload; estimate_peak_hbm's
+        # grad_bytes also counts ACTIVATION grads, which never cross the
+        # wire and shard over dp·sp like their activations.
+        self.n_grad_tensors = 0
+        self.param_grad_bytes = 0.0
+        for v in blk.vars.values():
+            if v.persistable or ir.GRAD_SUFFIX not in v.name:
+                continue
+            if v.name.split(ir.GRAD_SUFFIX)[0] not in param_names:
+                continue
+            self.n_grad_tensors += 1
+            sd = env.get(v.name)
+            if sd is None and v.shape != ():
+                sd = (tuple(max(int(d), 1) for d in v.shape),
+                      v.dtype or "float32")
+            self.param_grad_bytes += cost_model._nbytes(sd)
+
+        # flops shares the sub-tile derating scales with: mp shards the
+        # matmul family, sp (ring attention) shards only the attention
+        profile = cost_profile(self.report)
+        self.matmul_share = profile["matmul_share"]
+        by = self.report.by_type()
+        self.attn_share = sum(
+            a["flops"] for t, a in by.items()
+            if t in ("fused_attention", "fused_attention_grad")) \
+            / (self.report.total_flops or 1.0)
+
+
+# ---------------------------------------------------------------------------
+# mesh candidates
+# ---------------------------------------------------------------------------
+
+class MeshPlan:
+    """One dp×mp×sp candidate with its predictions (or rejection)."""
+
+    __slots__ = ("dp", "mp", "sp", "feasible", "reason", "t_compute_s",
+                 "t_comm_s", "t_step_s", "mfu", "peak_hbm_bytes",
+                 "wire_bytes", "collectives")
+
+    def __init__(self, dp, mp, sp):
+        self.dp, self.mp, self.sp = int(dp), int(mp), int(sp)
+        self.feasible = True
+        self.reason = ""
+        self.t_compute_s = self.t_comm_s = self.t_step_s = 0.0
+        self.mfu = 0.0
+        self.peak_hbm_bytes = 0.0
+        self.wire_bytes = 0.0
+        self.collectives: Dict[str, int] = {}
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.mp * self.sp
+
+    @property
+    def axes(self) -> Tuple[int, int, int]:
+        return (self.dp, self.mp, self.sp)
+
+    def label(self) -> str:
+        return f"dp{self.dp}xmp{self.mp}xsp{self.sp}"
+
+    def as_dict(self) -> dict:
+        return {"dp": self.dp, "mp": self.mp, "sp": self.sp,
+                "feasible": self.feasible, "reason": self.reason,
+                "step_time_us": round(self.t_step_s * 1e6, 2),
+                "compute_us": round(self.t_compute_s * 1e6, 2),
+                "comm_us": round(self.t_comm_s * 1e6, 2),
+                "mfu": round(self.mfu, 4),
+                "peak_hbm_bytes": round(self.peak_hbm_bytes),
+                "wire_bytes_per_step": round(self.wire_bytes),
+                "collectives": dict(self.collectives)}
+
+
+def enumerate_meshes(n_devices: int) -> List[Tuple[int, int, int]]:
+    """All (dp, mp, sp) with dp·mp·sp == n_devices."""
+    out = []
+    n = int(n_devices)
+    for dp in range(1, n + 1):
+        if n % dp:
+            continue
+        rem = n // dp
+        for mp in range(1, rem + 1):
+            if rem % mp:
+                continue
+            out.append((dp, mp, rem // mp))
+    return out
+
+
+class PlanReport:
+    """Ranked mesh candidates for one (program, chip count): feasible
+    candidates first, fastest predicted step time first; rejected
+    candidates follow, each naming its reason."""
+
+    def __init__(self, candidates: List[MeshPlan], n_devices: int,
+                 hw: HardwareSpec, report: CostReport):
+        feas = sorted([c for c in candidates if c.feasible],
+                      key=lambda c: c.t_step_s)
+        # rejected: memory-gated candidates first (they carry full
+        # predictions and are the informative ones when NOTHING fits —
+        # the CLI reports candidates[0] as "top"), structural rejections
+        # after, both fastest-predicted first
+        rej = sorted([c for c in candidates if not c.feasible],
+                     key=lambda c: (0 if "HBM" in c.reason else 1,
+                                    c.t_step_s or float("inf")))
+        self.candidates = feas + rej
+        self.n_devices = int(n_devices)
+        self.hw = hw
+        self.cost = report
+
+    @property
+    def best(self) -> Optional[MeshPlan]:
+        return self.candidates[0] if (self.candidates
+                                      and self.candidates[0].feasible) \
+            else None
+
+    def predicted(self, dp: int, mp: int = 1, sp: int = 1
+                  ) -> Optional[MeshPlan]:
+        for c in self.candidates:
+            if c.axes == (int(dp), int(mp), int(sp)):
+                return c
+        return None
+
+    def as_dict(self, top_k: int = 10) -> dict:
+        best = self.best
+        return {
+            "n_devices": self.n_devices,
+            "hardware": self.hw.as_dict(),
+            "total_flops": self.cost.total_flops,
+            "total_bytes": self.cost.total_bytes,
+            "best": best.as_dict() if best else None,
+            "candidates": [c.as_dict() for c in self.candidates[:top_k]],
+            "rejected": sum(1 for c in self.candidates if not c.feasible),
+        }
+
+    def table(self, k: int = 12) -> str:
+        lines = [f"{'mesh':<16} {'step':>10} {'MFU':>6} {'peak HBM':>10} "
+                 f"{'wire/step':>10}  {'comm':>9}  collectives"]
+        for c in self.candidates[:k]:
+            if not c.feasible:
+                lines.append(f"{c.label():<16} {'—':>10} {'—':>6} "
+                             f"{'—':>10} {'—':>10}  {'—':>9}  "
+                             f"REJECTED: {c.reason}")
+                continue
+            coll = ",".join(f"{k_}:{v}" for k_, v in
+                            sorted(c.collectives.items())) or "none"
+            lines.append(
+                f"{c.label():<16} {c.t_step_s * 1e3:>8.3f}ms "
+                f"{c.mfu:>6.1%} {c.peak_hbm_bytes / 1e9:>8.2f}GB "
+                f"{c.wire_bytes / 1e6:>8.2f}MB  "
+                f"{c.t_comm_s * 1e3:>7.3f}ms  {coll}")
+        lines.append(f"[{self.hw.name}: {self.hw.peak_flops / 1e12:.1f} "
+                     f"TFLOP/s peak, {self.hw.hbm_bytes / 1e9:.1f} GB "
+                     f"budget, {self.n_devices} device(s)]")
+        return "\n".join(lines)
+
+
+def _shard_penalty(prof: _ProgramProfile, mp: int, sp: int,
+                   hw: HardwareSpec, compute_s: float) -> float:
+    """Sub-tile derating, as ADDED compute time: per-device extents
+    below the matrix-unit tile waste lanes proportionally, but only for
+    the ops that axis actually shards — mp derates the matmul family,
+    sp (ring attention) derates only the attention ops."""
+    extra = 0.0
+    if mp > 1 and prof.mp_params:
+        smallest = min(shape[axis] // mp
+                       for _, shape, axis in prof.mp_params)
+        eff = min(1.0, max(max(smallest, 1) / hw.min_tile, 1e-2))
+        extra += compute_s * prof.matmul_share * (1.0 / eff - 1.0)
+    if sp > 1 and prof.seq:
+        eff = min(1.0, max((prof.seq / sp) / hw.min_tile, 1e-2))
+        extra += compute_s * prof.attn_share * (1.0 / eff - 1.0)
+    return extra
+
+
+# fraction of the static activation(+grad) byte sum resident at the real
+# peak: XLA's liveness/reuse keeps far less than the every-intermediate
+# sum alive. 0.25 is calibrated so every config the bench actually ran
+# on the 15.75 GB chip plans feasible while the known-OOM seq-8192
+# unfused config rejects (docs/PLANNER.md has the table).
+LIVE_FRACTION = 0.25
+
+
+def _evaluate(cand: MeshPlan, prof: _ProgramProfile,
+              hw: HardwareSpec, live_fraction: float = LIVE_FRACTION
+              ) -> None:
+    dp, mp, sp = cand.dp, cand.mp, cand.sp
+    n = cand.n_devices
+
+    # -- feasibility gates -------------------------------------------------
+    if dp > 1 and prof.batch % dp:
+        cand.feasible = False
+        cand.reason = f"batch {prof.batch} not divisible by dp={dp}"
+        return
+    if mp > 1:
+        if not prof.mp_params:
+            cand.feasible = False
+            cand.reason = "program has no mp-shardable params"
+            return
+        bad = [(nm, shape[axis]) for nm, shape, axis in prof.mp_params
+               if shape[axis] % mp]
+        if bad:
+            cand.feasible = False
+            cand.reason = (f"param {bad[0][0]!r} dim {bad[0][1]} not "
+                           f"divisible by mp={mp}")
+            return
+    if sp > 1:
+        if not prof.attn_ops:
+            cand.feasible = False
+            cand.reason = "no fused_attention op (ring attention needs one)"
+            return
+        if prof.attn_has_dropout:
+            cand.feasible = False
+            cand.reason = "attention dropout active (sp requires 0)"
+            return
+        if not prof.seq or prof.seq % sp:
+            cand.feasible = False
+            cand.reason = f"seq {prof.seq} not divisible by sp={sp}"
+            return
+
+    # -- compute (roofline over the rig's realizable split) ----------------
+    rt = estimate_step_time(prof.report, hw,
+                            n_shards=n ** hw.parallel_scaling)
+    cand.t_compute_s = rt["compute_s"] + _shard_penalty(
+        prof, mp, sp, hw, rt["compute_s"])
+
+    # -- communication -----------------------------------------------------
+    t_comm = 0.0
+    wire = 0.0
+    coll: Dict[str, int] = {}
+    mp_frac = (min(prof.mp_param_bytes / prof.hbm["param_bytes"], 1.0)
+               if prof.hbm["param_bytes"] else 0.0)
+    shard_param = mp_frac / mp + (1 - mp_frac)
+    if dp > 1:
+        # ring all-reduce of the PARAM gradients: 2(dp-1)/dp of the
+        # payload crosses each device's links; mp-sharded params' grads
+        # carry only their 1/mp shard
+        payload = prof.param_grad_bytes * shard_param
+        b = 2.0 * (dp - 1) / dp * payload
+        wire += b
+        t_comm += b / hw.ici_bw + hw.launch_us * 1e-6 * prof.n_grad_tensors
+        coll["all-reduce"] = coll.get("all-reduce", 0) + prof.n_grad_tensors
+    if mp > 1:
+        # Megatron activation all-reduce after every row-parallel
+        # matmul, forward + backward; payload is the per-device
+        # activation slice
+        payload = 2.0 * prof.rowpar_out_bytes / max(dp * sp, 1)
+        b = 2.0 * (mp - 1) / mp * payload
+        wire += b
+        n_ar = 2 * prof.rowpar_sites
+        t_comm += b / hw.ici_bw + hw.launch_us * 1e-6 * n_ar
+        coll["all-reduce"] = coll.get("all-reduce", 0) + n_ar
+    if sp > 1:
+        # ring attention: K and V shards rotate (sp-1) hops forward, and
+        # the backward re-rotates K/V and rotates dK/dV (~3x forward)
+        kv_dev = prof.attn_kv_bytes / max(dp * mp * sp, 1)
+        b = 3.0 * (sp - 1) * kv_dev
+        wire += b
+        n_cp = 6 * prof.attn_ops
+        t_comm += b / hw.ici_bw \
+            + hw.launch_us * 1e-6 * n_cp * (sp - 1)
+        coll["collective-permute"] = n_cp
+    cand.t_comm_s = t_comm
+    cand.wire_bytes = wire
+    cand.collectives = coll
+
+    # -- memory ------------------------------------------------------------
+    # persistent state (params/slots/param-grads) is genuinely live and
+    # shards only over mp; transients (activations + activation grads)
+    # shard over dp·sp and only LIVE_FRACTION of their static sum is
+    # ever resident at once (XLA frees/reuses buffers the static walk
+    # cannot see — calibration in docs/PLANNER.md §memory)
+    h = prof.hbm
+    act_grad = max(h["grad_bytes"] - prof.param_grad_bytes, 0.0)
+    cand.peak_hbm_bytes = (
+        (h["param_bytes"] + h["optimizer_slot_bytes"]
+         + prof.param_grad_bytes) * shard_param
+        + live_fraction * (h["activation_bytes"] + act_grad)
+        / max(dp * sp, 1)
+        + h["feed_bytes"] / max(dp * sp, 1))
+    if cand.peak_hbm_bytes > hw.hbm_bytes:
+        cand.feasible = False
+        cand.reason = (f"predicted peak HBM "
+                       f"{cand.peak_hbm_bytes / 1e9:.2f} GB exceeds the "
+                       f"{hw.hbm_bytes / 1e9:.2f} GB budget")
+
+    cand.t_step_s = cand.t_compute_s + cand.t_comm_s \
+        + hw.dispatch_us * 1e-6
+    cand.mfu = prof.report.total_flops / (n * hw.peak_flops
+                                          * cand.t_step_s)
+
+
+def plan_meshes(program: ir.Program,
+                feed_shapes: Dict[str, Sequence[int]],
+                n_devices: int,
+                hw: Optional[HardwareSpec] = None,
+                default_dim: Optional[int] = None,
+                live_fraction: float = LIVE_FRACTION) -> PlanReport:
+    """Search the dp×mp×sp factorizations of `n_devices` for `program`
+    fed with `feed_shapes`; returns the ranked `PlanReport`. OOM and
+    structurally-impossible candidates are kept, rejected, with their
+    reason — `PlanReport.best` is the top FEASIBLE candidate."""
+    hw = hw or detect_hardware()
+    prof = _ProgramProfile(program, feed_shapes, default_dim)
+    cands = []
+    for dp, mp, sp in enumerate_meshes(n_devices):
+        c = MeshPlan(dp, mp, sp)
+        _evaluate(c, prof, hw, live_fraction)
+        cands.append(c)
+    return PlanReport(cands, n_devices, hw, prof.report)
+
+
+# ---------------------------------------------------------------------------
+# XLA flag-family priors (tools/xla_flag_sweep.py --ranked rides this)
+# ---------------------------------------------------------------------------
+
+def cost_profile(report: CostReport) -> dict:
+    """FLOPs-share fingerprint of a program: which op families dominate.
+    This is what the flag priors (and any future placement heuristic)
+    key on."""
+    total = report.total_flops or 1.0
+    by = report.by_type()
+    matmul = sum(a["flops"] for t, a in by.items() if t in _MATMUL_FAMILY)
+    conv = sum(a["flops"] for t, a in by.items() if t in _CONV_FAMILY)
+    rb = sum(a["flops"] for t, a in by.items()
+             if t in _REDUCE_BCAST_FAMILY
+             or (t.endswith("_grad")
+                 and t[:-len("_grad")] in _REDUCE_BCAST_FAMILY))
+    return {
+        # conv is a SUBSET of the matmul (MXU) family, so subtracting
+        # matmul+rb below already excludes conv from elementwise
+        "matmul_share": matmul / total,
+        "conv_share": conv / total,
+        "reduce_bcast_share": rb / total,
+        "elementwise_share": max(0.0, 1.0 - (matmul + rb) / total),
+        "arithmetic_intensity": report.total_flops
+        / max(report.total_bytes, 1.0),
+    }
+
+
+def flag_family_priors(report: CostReport) -> Dict[str, float]:
+    """Score each XLA flag FAMILY's prior for this program, from its
+    cost profile. Calibrated against the recorded phase-1/phase-r
+    sweeps (docs/PERF.md): the scoped-VMEM fusion budget bought +9% on
+    the matmul-dominant transformer and −7% on the conv/HBM-bound
+    ResNet; conv/DMA knobs are the only family worth probing first on a
+    conv program. Higher = probe earlier."""
+    p = cost_profile(report)
+    return {
+        # fusion-grouping budget: repairs matmul-chain grouping, hurts
+        # already-roofline conv fusions
+        "vmem_budget": p["matmul_share"] - 2.0 * p["conv_share"],
+        # alternate fusion profitability models: same direction as the
+        # budget, weaker recorded effect (x0.93)
+        "fusion_cost": 0.6 * p["matmul_share"] - p["conv_share"],
+        # producer/consumer dot-fusion shaping knobs (x0.94-0.97)
+        "dot_fusion": 0.5 * p["matmul_share"],
+        # reduce+broadcast grouping: softmax/layer_norm shapes
+        "reduce_bcast": 2.0 * p["reduce_bcast_share"],
+        # scheduler priority tweaks: weak, program-agnostic
+        "scheduler": 0.2,
+        # load/store vectorizer windows: elementwise-heavy programs
+        "vectorizer": 0.4 * p["elementwise_share"],
+        "licm": 0.1,
+        # conv input/output fusion + DMA shaping: conv programs only
+        "conv_dma": 2.5 * p["conv_share"],
+    }

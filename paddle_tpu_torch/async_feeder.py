@@ -209,15 +209,19 @@ class AsyncFeeder:
     for it, whether the queue was empty when the consumer asked, the
     batches still queued once it had its batch, and the producer's seconds
     to convert and stage it. With the `observe` flag on, the JAX package's
-    gauges are emitted as well (queue depth, consumer wait, starvation)."""
+    gauges are emitted as well (queue depth, consumer wait, starvation).
+
+    `sharding=parallel.batch_sharded(mesh)` stages only this rank's rows
+    of each batch (its block along the axis) and yields them marked as
+    its shard (`distributed.LocalShard`), which a `ParallelExecutor`
+    over that mesh takes as they are."""
 
     def __init__(self, feeder, reader: Callable[[], Iterable],
                  capacity: int = 4, device=None, sharding=None,
                  pad_to: int = 0, prepared=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "AsyncFeeder(sharding=...): ParallelExecutor's batch "
-                "sharding is not ported yet (ROADMAP Queue 1 item 7)")
+        # sharding=parallel.batch_sharded(mesh): this rank's rows only,
+        # staged and handed to the ParallelExecutor as its shard
+        self._sharding = sharding
         self._feeder = feeder
         self._reader = reader
         self._capacity = capacity
@@ -235,8 +239,40 @@ class AsyncFeeder:
 
     def _convert(self, batch) -> Dict:
         """Host-side conversion only — runs on the producer thread."""
-        return (self._feeder.feed(batch, pad_to=self._pad_to)
+        feed = (self._feeder.feed(batch, pad_to=self._pad_to)
                 if hasattr(self._feeder, "feed") else self._feeder(batch))
+        if self._sharding is None:
+            return feed
+        mesh, axis = self._sharding.mesh, self._sharding.spec[0]
+        n, i = mesh.shape.get(axis, 1), mesh.index(axis)
+
+        def rows(x):
+            if isinstance(x, (tuple, list)):
+                return type(x)(rows(v) for v in x)
+            x = np.asarray(x)
+            if not x.ndim:
+                return x
+            if x.shape[0] % n:
+                raise ValueError(
+                    f"AsyncFeeder: batch dim {x.shape[0]} is not divisible "
+                    f"by the {n}-way {axis!r} mesh axis")
+            size = x.shape[0] // n
+            return x[i * size:(i + 1) * size]
+        return {k: rows(v) for k, v in feed.items()}
+
+    def _mark(self, feed):
+        """A staged sharded feed's leaves as this rank's rows of the
+        global batch (`distributed.LocalShard`)."""
+        if self._sharding is None:
+            return feed
+        from .distributed import LocalShard
+        mesh, axis = self._sharding.mesh, self._sharding.spec[0]
+
+        def mark(x):
+            if isinstance(x, (tuple, list)):
+                return type(x)(mark(v) for v in x)
+            return LocalShard(x, mesh, axis) if getattr(x, "ndim", 0) else x
+        return {k: mark(v) for k, v in feed.items()}
 
     def __iter__(self):
         stager = self.stager
@@ -312,7 +348,7 @@ class AsyncFeeder:
                             "feeder_starvation_total",
                             "consumer arrivals that found the queue "
                             "empty (producer-bound pipeline)").inc()
-                yield stager.hand_over(item)
+                yield self._mark(stager.hand_over(item))
         finally:
             # on break/close: release the producer and drop buffered batches
             stop.set()

@@ -163,11 +163,18 @@ class LoweringContext:
 
     A control-flow rule also gets the `program` and the live `env`
     (name -> tensor) and runs a sub-block through `run_block`, with this
-    context's device, `amp` and `recompute`; `env` is None in meta runs."""
+    context's device, `amp` and `recompute`; `env` is None in meta runs.
+
+    Under a `ParallelExecutor` (``parallel/spmd.py``) a rule runs on this
+    rank's shards: `mesh` is the rank's mesh (the JAX lowerer's `mesh`),
+    and `origin(slot)` gives the global shape of the slot's first input
+    and the offsets of this rank's shard in it (None outside a mesh, or
+    for an input every rank holds whole), so a random rule draws the bits
+    one device would draw for those elements."""
 
     def __init__(self, attrs: Dict[str, Any], device, seed=None, op=None,
                  live=None, recompute=False, amp=False, program=None,
-                 env=None):
+                 env=None, mesh=None, shards=None):
         self.attrs = attrs
         self.device = torch.device(device)
         self.seed = seed
@@ -177,7 +184,14 @@ class LoweringContext:
         self.amp = amp
         self.program = program
         self.env = env
+        self.mesh = mesh
+        self.shards = shards
         self._generator = None
+
+    def origin(self, slot: str):
+        """(global shape, offsets) of this rank's shard of the slot's
+        first input, or None when it is not split over ranks."""
+        return self.shards.get(slot) if self.shards else None
 
     def run_block(self, block_idx: int, env: Dict[str, Any], step: int = 0):
         """Run block `block_idx` of the program on `env` (mutated and

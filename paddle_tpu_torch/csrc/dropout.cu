@@ -20,7 +20,11 @@
 //     key  = fmix32(seed ^ hi * 0x9E3779B9)
 //     bits = fmix32(key ^ lo * 0x85EBCA77)
 //   (fmix32 of flash_common.cuh), and an element is kept when the full
-//   32-bit word bits >= thresh, thresh = rate * 2^32;
+//   32-bit word bits >= thresh, thresh = rate * 2^32. The index is
+//   base + the element's offset: a rank that holds rows of a batch split
+//   over ranks passes its first row's index in the whole batch, so every
+//   rank draws the bits one device would (base a multiple of eight, so a
+//   vector's elements still share hi);
 // - grid-stride over 16-byte vectors (four elements share hi, since a
 //   vector starts at a multiple of four), a scalar loop for the tail and
 //   for pointers that are not 16-byte aligned;
@@ -62,14 +66,16 @@ __device__ __forceinline__ bool keep(uint32_t key, uint32_t lo,
 template <bool MASK>
 __global__ void __launch_bounds__(NTHREADS)
 dropout_kernel(const float* __restrict__ x, float* __restrict__ out,
-               float* __restrict__ mask, size_t n, size_t nvec, uint32_t seed,
+               float* __restrict__ mask, size_t n, size_t nvec,
+               unsigned long long base, uint32_t seed,
                uint32_t thresh, float inv) {
   const size_t stride = (size_t)gridDim.x * NTHREADS;
   const size_t first = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
   for (size_t v = first; v < nvec; v += stride) {
     const size_t i = v * 4;
-    const uint32_t key = index_key(seed, (uint32_t)(i >> 32));
-    const uint32_t lo = (uint32_t)i;
+    const unsigned long long g = base + i;
+    const uint32_t key = index_key(seed, (uint32_t)(g >> 32));
+    const uint32_t lo = (uint32_t)g;
     const float4 xv = __ldg(reinterpret_cast<const float4*>(x) + v);
     const bool k0 = keep(key, lo, thresh);
     const bool k1 = keep(key, lo + 1u, thresh);
@@ -83,7 +89,8 @@ dropout_kernel(const float* __restrict__ x, float* __restrict__ out,
           k0 ? 1.f : 0.f, k1 ? 1.f : 0.f, k2 ? 1.f : 0.f, k3 ? 1.f : 0.f);
   }
   for (size_t i = nvec * 4 + first; i < n; i += stride) {
-    const bool k = keep(index_key(seed, (uint32_t)(i >> 32)), (uint32_t)i, thresh);
+    const unsigned long long g = base + i;
+    const bool k = keep(index_key(seed, (uint32_t)(g >> 32)), (uint32_t)g, thresh);
     out[i] = k ? x[i] * inv : 0.f;
     if (MASK) mask[i] = k ? 1.f : 0.f;
   }
@@ -99,13 +106,14 @@ template <bool MASK>
 __global__ void __launch_bounds__(NTHREADS)
 dropout_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                     bf16* __restrict__ mask, size_t n, size_t nvec,
-                    uint32_t seed, uint32_t thresh, float inv) {
+                    unsigned long long base, uint32_t seed, uint32_t thresh, float inv) {
   const size_t stride = (size_t)gridDim.x * NTHREADS;
   const size_t first = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
   for (size_t v = first; v < nvec; v += stride) {
     const size_t i = v * 8;
-    const uint32_t key = index_key(seed, (uint32_t)(i >> 32));
-    const uint32_t lo = (uint32_t)i;
+    const unsigned long long g = base + i;
+    const uint32_t key = index_key(seed, (uint32_t)(g >> 32));
+    const uint32_t lo = (uint32_t)g;
     const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x) + v);
     const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
     uint32_t ow[4], mw[4];
@@ -123,7 +131,8 @@ dropout_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
           make_uint4(mw[0], mw[1], mw[2], mw[3]);
   }
   for (size_t i = nvec * 8 + first; i < n; i += stride) {
-    const bool k = keep(index_key(seed, (uint32_t)(i >> 32)), (uint32_t)i, thresh);
+    const unsigned long long g = base + i;
+    const bool k = keep(index_key(seed, (uint32_t)(g >> 32)), (uint32_t)g, thresh);
     out[i] = __float2bfloat16_rn(k ? __bfloat162float(x[i]) * inv : 0.f);
     if (MASK) mask[i] = __float2bfloat16_rn(k ? 1.f : 0.f);
   }
@@ -134,7 +143,8 @@ dropout_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
 // pointer is not 16-byte aligned
 template <typename T, typename Kernel>
 int launch(Kernel kernel_mask, Kernel kernel_nomask, const void* x, void* out,
-           void* mask, unsigned long long n, int per_vec, uint32_t seed,
+           void* mask, unsigned long long n, int per_vec,
+           unsigned long long base, uint32_t seed,
            uint32_t thresh, float inv, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -154,32 +164,35 @@ int launch(Kernel kernel_mask, Kernel kernel_nomask, const void* x, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mt != nullptr)
     kernel_mask<<<(unsigned)blocks, NTHREADS, 0, s>>>(
-        xt, ot, mt, (size_t)n, nvec, seed, thresh, inv);
+        xt, ot, mt, (size_t)n, nvec, base, seed, thresh, inv);
   else
     kernel_nomask<<<(unsigned)blocks, NTHREADS, 0, s>>>(
-        xt, ot, mt, (size_t)n, nvec, seed, thresh, inv);
+        xt, ot, mt, (size_t)n, nvec, base, seed, thresh, inv);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, out, mask: n contiguous float32 elements; mask may be null (no Mask
-// output wanted). keep when hash(seed, index) >= thresh; kept elements are
+// output wanted). keep when hash(seed, base + index) >= thresh (base a
+// multiple of 8); kept elements are
 // multiplied by inv. Returns a cudaError_t (0 on success).
 extern "C" int ptt_dropout_f32(const void* x, void* out, void* mask,
-                               unsigned long long n, uint32_t seed,
+                               unsigned long long n,
+                               unsigned long long base, uint32_t seed,
                                uint32_t thresh, float inv, int device,
                                void* stream) {
   return launch<float>(dropout_kernel<true>, dropout_kernel<false>, x, out,
-                       mask, n, 4, seed, thresh, inv, device, stream);
+                       mask, n, 4, base, seed, thresh, inv, device, stream);
 }
 
 // As ptt_dropout_f32 over n contiguous bf16 elements (x, out, mask); inv
 // is 1 / (1 - rate) already rounded to bf16.
 extern "C" int ptt_dropout_bf16(const void* x, void* out, void* mask,
-                                unsigned long long n, uint32_t seed,
+                                unsigned long long n,
+                               unsigned long long base, uint32_t seed,
                                 uint32_t thresh, float inv, int device,
                                 void* stream) {
   return launch<bf16>(dropout_bf16_kernel<true>, dropout_bf16_kernel<false>,
-                      x, out, mask, n, 8, seed, thresh, inv, device, stream);
+                      x, out, mask, n, 8, base, seed, thresh, inv, device, stream);
 }

@@ -191,7 +191,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int T, float sm_scale, int causal,
-                uint32_t seed, uint32_t thresh, float drop_scale) {
+                uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale) {
   constexpr int SD = D + 4;
   constexpr int NS = BS / 8;         // 8-key n-tiles of S, k-tiles of dQ
   constexpr int ND = D / 8;          // 8-wide k-tiles of S, n-tiles of dQ
@@ -222,7 +222,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row[2] = {q0 + wr, q0 + wr + 8};
   float lse_r[2], delta_r[2];
   uint32_t rkey[2];
-  const uint32_t bk = DROP ? bh_key(seed, blockIdx.y) : 0u;
+  const uint32_t bk = DROP ? bh_key(seed, bh0 + blockIdx.y) : 0u;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     lse_r[h] = row[h] < T ? lse[rbase + row[h]] : 0.f;
@@ -324,7 +324,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int T,
-                 float sm_scale, int causal, uint32_t seed, uint32_t thresh,
+                 float sm_scale, int causal, uint32_t seed, uint32_t bh0, uint32_t thresh,
                  float drop_scale) {
   constexpr int SD = D + 4;
   constexpr int NS = BS / 8;         // 8-query n-tiles of S^T, k-tiles of dK/dV
@@ -343,7 +343,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * BR;
   const size_t base = (size_t)blockIdx.y * T * D;
   const size_t rbase = (size_t)blockIdx.y * T;
-  const uint32_t bk = DROP ? bh_key(seed, blockIdx.y) : 0u;
+  const uint32_t bk = DROP ? bh_key(seed, bh0 + blockIdx.y) : 0u;
 
   const int n_q = (T + BS - 1) / BS;
   // causal: query tiles ending before this key tile's first row see none
@@ -491,7 +491,7 @@ template <int D>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse, const float* delta,
                       float* dq, int bh, int T, float sm_scale, int causal,
-                      uint32_t seed, uint32_t thresh, float drop_scale,
+                      uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale,
                       cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
   auto kernel = thresh ? flash_dq_kernel<D, true> : flash_dq_kernel<D, false>;
@@ -500,7 +500,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   dim3 grid((T + BR - 1) / BR, bh);
   kernel<<<grid, BWD_THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, T, sm_scale, causal, seed, thresh,
+      q, k, v, dout, lse, delta, dq, T, sm_scale, causal, seed, bh0, thresh,
       drop_scale);
   return cudaGetLastError();
 }
@@ -509,7 +509,7 @@ template <int D>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse, const float* delta,
                        float* dk, float* dv, int bh, int T, float sm_scale,
-                       int causal, uint32_t seed, uint32_t thresh,
+                       int causal, uint32_t seed, uint32_t bh0, uint32_t thresh,
                        float drop_scale, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
   auto kernel = thresh ? flash_dkv_kernel<D, true> : flash_dkv_kernel<D, false>;
@@ -518,7 +518,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   dim3 grid((T + BR - 1) / BR, bh);
   kernel<<<grid, BWD_THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, T, sm_scale, causal, seed, thresh,
+      q, k, v, dout, lse, delta, dk, dv, T, sm_scale, causal, seed, bh0, thresh,
       drop_scale);
   return cudaGetLastError();
 }
@@ -786,7 +786,7 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, int n_bh, int T,
                      float sm_scale, int causal,
-                     uint32_t seed, uint32_t thresh, float drop_scale) {
+                     uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale) {
   using namespace bf16w;
   constexpr int BN = BN_DQ, ST = stages_dq<D>(), PW = panel_cols<D>();
   constexpr int RES = tile_bytes<D>(WG_ROWS), STR = tile_bytes<D>(BN);
@@ -879,7 +879,7 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row[2] = {r0 + wr, r0 + wr + 8};
       float lse2[2], delta_r[2];
       uint32_t rkey[2];
-      const uint32_t bk = DROP ? bh_key(seed, bh) : 0u;
+      const uint32_t bk = DROP ? bh_key(seed, bh0 + bh) : 0u;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         lse2[h] = row[h] < T ? lse[rbase + row[h]] * LOG2E : 0.f;
@@ -948,7 +948,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_dv,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, int n_bh, int T,
-                      float sm_scale, int causal, uint32_t seed,
+                      float sm_scale, int causal, uint32_t seed, uint32_t bh0,
                       uint32_t thresh,
                       float drop_scale) {
   using namespace bf16w;
@@ -1016,7 +1016,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                         res_full + b, r, bh, WG_ROWS);
           }
         }
-        const uint32_t bk = DROP ? bh_key(seed, bh) : 0u;
+        const uint32_t bk = DROP ? bh_key(seed, bh0 + bh) : 0u;
         for (int qt = qt0; qt < n_q; ++qt, ++g) {
           const int s = g % ST;
           const int r0 = qt * BN;
@@ -1145,7 +1145,7 @@ template <int D>
 int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                    const bf16* dout, const float* lse, const float* delta,
                    bf16* dq, int bh, int T, float sm_scale, int causal,
-                   uint32_t seed, uint32_t thresh, float drop_scale,
+                   uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale,
                    cudaStream_t stream) {
   CUtensorMap m[4], mdq;
   int err = encode_bwd_maps<D>(m, q, k, v, dout, bh, T, true,
@@ -1164,7 +1164,7 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
     return err;
   kernel<<<blocks, bf16w::THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], mdq, lse, delta, bh, T, sm_scale, causal,
-      seed, thresh, drop_scale);
+      seed, bh0, thresh, drop_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1172,7 +1172,7 @@ template <int D>
 int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                     const bf16* dout, const float* lse, const float* delta,
                     bf16* dk, bf16* dv, int bh, int T, float sm_scale,
-                    int causal, uint32_t seed, uint32_t thresh,
+                    int causal, uint32_t seed, uint32_t bh0, uint32_t thresh,
                     float drop_scale, cudaStream_t stream) {
   CUtensorMap m[4], mdk, mdv;
   int err = encode_bwd_maps<D>(m, q, k, v, dout, bh, T, false,
@@ -1192,7 +1192,7 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
     return err;
   kernel<<<blocks, bf16w::THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], mdk, mdv, lse, delta, bh, T, sm_scale,
-      causal, seed, thresh, drop_scale);
+      causal, seed, bh0, thresh, drop_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1205,7 +1205,7 @@ extern "C" int ptt_flash_dq_f32(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int bh, int T,
                                 int d, float sm_scale, int causal,
-                                uint32_t seed, uint32_t thresh,
+                                uint32_t seed, uint32_t bh0, uint32_t thresh,
                                 float drop_scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1219,11 +1219,11 @@ extern "C" int ptt_flash_dq_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return (int)launch_dq<32>(qf, kf, vf, of, lf, df, gf, bh, T, sm_scale,
-                                       causal, seed, thresh, drop_scale, s);
+                                       causal, seed, bh0, thresh, drop_scale, s);
     case 64: return (int)launch_dq<64>(qf, kf, vf, of, lf, df, gf, bh, T, sm_scale,
-                                       causal, seed, thresh, drop_scale, s);
+                                       causal, seed, bh0, thresh, drop_scale, s);
     case 128: return (int)launch_dq<128>(qf, kf, vf, of, lf, df, gf, bh, T, sm_scale,
-                                         causal, seed, thresh, drop_scale, s);
+                                         causal, seed, bh0, thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1233,7 +1233,7 @@ extern "C" int ptt_flash_dkv_f32(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv, int bh,
                                  int T, int d, float sm_scale, int causal,
-                                 uint32_t seed, uint32_t thresh,
+                                 uint32_t seed, uint32_t bh0, uint32_t thresh,
                                  float drop_scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1248,11 +1248,11 @@ extern "C" int ptt_flash_dkv_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return (int)launch_dkv<32>(qf, kf, vf, of, lf, df, gk, gv, bh, T,
-                                        sm_scale, causal, seed, thresh, drop_scale, s);
+                                        sm_scale, causal, seed, bh0, thresh, drop_scale, s);
     case 64: return (int)launch_dkv<64>(qf, kf, vf, of, lf, df, gk, gv, bh, T,
-                                        sm_scale, causal, seed, thresh, drop_scale, s);
+                                        sm_scale, causal, seed, bh0, thresh, drop_scale, s);
     case 128: return (int)launch_dkv<128>(qf, kf, vf, of, lf, df, gk, gv, bh, T,
-                                          sm_scale, causal, seed, thresh, drop_scale, s);
+                                          sm_scale, causal, seed, bh0, thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1274,7 +1274,7 @@ extern "C" int ptt_flash_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int bh, int T,
                                  int d, float sm_scale, int causal,
-                                 uint32_t seed, uint32_t thresh,
+                                 uint32_t seed, uint32_t bh0, uint32_t thresh,
                                  float drop_scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1288,13 +1288,13 @@ extern "C" int ptt_flash_dq_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch_dq_bf16<32>(qb, kb, vb, ob, lf, df, gb, bh, T,
-                                            sm_scale, causal, seed, thresh,
+                                            sm_scale, causal, seed, bh0, thresh,
                                             drop_scale, s);
     case 64: return launch_dq_bf16<64>(qb, kb, vb, ob, lf, df, gb, bh, T,
-                                            sm_scale, causal, seed, thresh,
+                                            sm_scale, causal, seed, bh0, thresh,
                                             drop_scale, s);
     case 128: return launch_dq_bf16<128>(qb, kb, vb, ob, lf, df, gb, bh,
-                                              T, sm_scale, causal, seed,
+                                              T, sm_scale, causal, seed, bh0,
                                               thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1305,7 +1305,7 @@ extern "C" int ptt_flash_dkv_bf16(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv,
                                   int bh, int T, int d, float sm_scale,
-                                  int causal, uint32_t seed, uint32_t thresh,
+                                  int causal, uint32_t seed, uint32_t bh0, uint32_t thresh,
                                   float drop_scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1320,13 +1320,13 @@ extern "C" int ptt_flash_dkv_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch_dkv_bf16<32>(qb, kb, vb, ob, lf, df, gk, gv, bh,
-                                             T, sm_scale, causal, seed, thresh,
+                                             T, sm_scale, causal, seed, bh0, thresh,
                                              drop_scale, s);
     case 64: return launch_dkv_bf16<64>(qb, kb, vb, ob, lf, df, gk, gv, bh,
-                                             T, sm_scale, causal, seed, thresh,
+                                             T, sm_scale, causal, seed, bh0, thresh,
                                              drop_scale, s);
     case 128: return launch_dkv_bf16<128>(qb, kb, vb, ob, lf, df, gk, gv,
-                                               bh, T, sm_scale, causal, seed,
+                                               bh, T, sm_scale, causal, seed, bh0,
                                                thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

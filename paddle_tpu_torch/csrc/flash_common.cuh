@@ -10,7 +10,9 @@
 //   rk   = fmix32(bk + row)                        once per query row
 //   bits = fmix32(rk ^ col * 0x85EBCA77)           once per weight
 // and a weight is kept when bits >= thresh, thresh = rate * 2^32, so it
-// survives with probability 1 - rate (to 2^-32).
+// survives with probability 1 - rate (to 2^-32). bh is bh0 + the block's
+// (batch, head) row: a rank that holds batch rows b0.. of a batch split
+// over ranks passes bh0 = b0 * H, so it draws the mask one device would.
 
 #pragma once
 

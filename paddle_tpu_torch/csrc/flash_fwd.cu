@@ -231,7 +231,7 @@ __global__ void __launch_bounds__(FWD_THREADS, min_blocks<D>())
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int T, float sm_scale, int causal,
-                 uint32_t seed, uint32_t thresh, float drop_scale) {
+                 uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale) {
   constexpr int SK = D + 8;          // row stride of Q and K
   constexpr int SV = D + 4;          // row stride of V
   constexpr int NS = BS / 8;         // 8-key n-tiles of S, k-tiles of P V
@@ -267,7 +267,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp_last = q0 + 16 * warp + 15;
   uint32_t rkey[2] = {0u, 0u};
   if (DROP) {
-    const uint32_t bk = bh_key(seed, blockIdx.y);
+    const uint32_t bk = bh_key(seed, bh0 + blockIdx.y);
     rkey[0] = row_key(bk, row[0]);
     rkey[1] = row_key(bk, row[1]);
   }
@@ -415,7 +415,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lse, int bh, int T, float sm_scale, int causal,
-                   uint32_t seed, uint32_t thresh, float drop_scale,
+                   uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   auto kernel = thresh ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
@@ -424,7 +424,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return err;
   dim3 grid((T + BR - 1) / BR, bh);
   kernel<<<grid, FWD_THREADS, smem, stream>>>(
-      q, k, v, o, lse, T, sm_scale, causal, seed, thresh, drop_scale);
+      q, k, v, o, lse, T, sm_scale, causal, seed, bh0, thresh, drop_scale);
   return cudaGetLastError();
 }
 
@@ -621,7 +621,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_o,
                       float* __restrict__ lse, int n_bh, int T,
-                      float sm_scale, uint32_t seed, uint32_t thresh,
+                      float sm_scale, uint32_t seed, uint32_t bh0, uint32_t thresh,
                       float drop_scale) {
   using namespace fwd16;
   constexpr int BN = bn<D, CAUSAL>(), ST = stages<D, CAUSAL>();
@@ -712,7 +712,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row[2] = {r0 + wr, r0 + wr + 8};
       int lim[2];
       uint32_t rkey[2];   // the rows' dropout keys, as half_key gives them
-      const uint32_t bk = DROP ? bh_key(seed, bh) : 0u;
+      const uint32_t bk = DROP ? bh_key(seed, bh0 + bh) : 0u;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         lim[h] = CAUSAL ? min(row[h], T - 1) : T - 1;
@@ -793,7 +793,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D, bool DROP, bool CAUSAL>
 int launch_bf16_kernel(const CUtensorMap (&maps)[4], float* lse, int bh,
-                       int T, float sm_scale, uint32_t seed,
+                       int T, float sm_scale, uint32_t seed, uint32_t bh0,
                        uint32_t thresh, float drop_scale,
                        cudaStream_t stream) {
   using namespace fwd16;
@@ -808,14 +808,14 @@ int launch_bf16_kernel(const CUtensorMap (&maps)[4], float* lse, int bh,
     return err;
   kernel<<<blocks, THREADS, smem, stream>>>(maps[0], maps[1], maps[2],
                                             maps[3], lse, bh, T, sm_scale,
-                                            seed, thresh, drop_scale);
+                                            seed, bh0, thresh, drop_scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                 float* lse, int bh, int T, float sm_scale, int causal,
-                uint32_t seed, uint32_t thresh, float drop_scale,
+                uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale,
                 cudaStream_t stream) {
   using namespace fwd16;
   const int kv_rows = causal ? bn<D, true>() : bn<D, false>();
@@ -828,16 +828,16 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
     return err;
   if (causal)
     return thresh ? launch_bf16_kernel<D, true, true>(
-                        maps, lse, bh, T, sm_scale, seed, thresh, drop_scale,
+                        maps, lse, bh, T, sm_scale, seed, bh0, thresh, drop_scale,
                         stream)
                   : launch_bf16_kernel<D, false, true>(
-                        maps, lse, bh, T, sm_scale, seed, thresh, drop_scale,
+                        maps, lse, bh, T, sm_scale, seed, bh0, thresh, drop_scale,
                         stream);
   return thresh ? launch_bf16_kernel<D, true, false>(
-                      maps, lse, bh, T, sm_scale, seed, thresh, drop_scale,
+                      maps, lse, bh, T, sm_scale, seed, bh0, thresh, drop_scale,
                       stream)
                 : launch_bf16_kernel<D, false, false>(
-                      maps, lse, bh, T, sm_scale, seed, thresh, drop_scale,
+                      maps, lse, bh, T, sm_scale, seed, bh0, thresh, drop_scale,
                       stream);
 }
 
@@ -849,7 +849,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // Returns a cudaError_t (0 on success); d must be 32, 64 or 128.
 extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int bh, int T, int d,
-                                 float sm_scale, int causal, uint32_t seed,
+                                 float sm_scale, int causal, uint32_t seed, uint32_t bh0,
                                  uint32_t thresh, float drop_scale, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -862,11 +862,11 @@ extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return (int)launch<32>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
-                                       seed, thresh, drop_scale, s);
+                                       seed, bh0, thresh, drop_scale, s);
     case 64: return (int)launch<64>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
-                                       seed, thresh, drop_scale, s);
+                                       seed, bh0, thresh, drop_scale, s);
     case 128: return (int)launch<128>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
-                                       seed, thresh, drop_scale, s);
+                                       seed, bh0, thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -886,7 +886,7 @@ extern "C" int ptt_flash_fwd_smem_bytes(int d) {
 // float32.
 extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int bh, int T, int d,
-                                  float sm_scale, int causal, uint32_t seed,
+                                  float sm_scale, int causal, uint32_t seed, uint32_t bh0,
                                   uint32_t thresh, float drop_scale,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -899,11 +899,11 @@ extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch_bf16<32>(qb, kb, vb, ob, lf, bh, T, sm_scale,
-                                    causal, seed, thresh, drop_scale, s);
+                                    causal, seed, bh0, thresh, drop_scale, s);
     case 64: return launch_bf16<64>(qb, kb, vb, ob, lf, bh, T, sm_scale,
-                                    causal, seed, thresh, drop_scale, s);
+                                    causal, seed, bh0, thresh, drop_scale, s);
     case 128: return launch_bf16<128>(qb, kb, vb, ob, lf, bh, T, sm_scale,
-                                      causal, seed, thresh, drop_scale, s);
+                                      causal, seed, bh0, thresh, drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,7 +20,7 @@ from .control_flow import (While, StaticRNN, Switch, DynamicRNN,  # noqa: F401
                            array_length, lod_rank_table, max_sequence_len,
                            lod_tensor_to_array, array_to_lod_tensor,
                            shrink_memory, reorder_lod_tensor_by_rank,
-                           Print, is_empty)
+                           Print, is_empty, ParallelDo)
 from . import learning_rate_scheduler  # noqa: F401
 from .learning_rate_scheduler import (append_LARS,  # noqa: F401
                                       exponential_decay, inverse_time_decay,

@@ -6,7 +6,8 @@ Program, op for op and name for name: a loop or branch body is a nested
 block, and one op in the parent block (``ops/control.py``) runs it. The
 op's `X` names the body's external reads, so the executor loads a
 parameter that only the body reads, and its generic grad reaches it.
-`ParallelDo` is not ported yet.
+`ParallelDo` is the JAX package's shim: its body is traced inline over
+the full batch, and `ParallelExecutor` splits the batch.
 """
 
 from __future__ import annotations
@@ -732,3 +733,33 @@ def is_empty(x, cond=None):
     helper.append_op("is_empty", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]})
     return out
+
+
+class ParallelDo:
+    """Block-level data parallelism (reference parallel_do_op.cc:115,
+    control_flow.py ParallelDo), the JAX package's shim.
+
+    The reference split the batch across places and ran the sub-block per
+    device on threads; under a `ParallelExecutor` the WHOLE program runs
+    over the mesh, so a parallel_do region is its body over the full
+    batch, and the executor splits the batch dim and reduces the
+    gradients as the reference's merge step did. do() traces the body
+    inline; read_input/write_output are identity bookkeeping."""
+
+    def __init__(self, places, use_nccl=False, name=None):
+        self.helper = LayerHelper("parallel_do", name=name)
+        self._inputs = []
+
+    @contextlib.contextmanager
+    def do(self):
+        yield
+
+    def read_input(self, var):
+        self._inputs.append(var)
+        return var
+
+    def write_output(self, var):
+        self._out = var
+
+    def __call__(self):
+        return self._out

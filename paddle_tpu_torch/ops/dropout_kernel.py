@@ -76,9 +76,11 @@ def drop_scale(rate: float, dtype) -> float:
     return types.scalar_as(1.0 / (1.0 - rate), dtype)
 
 
-def dropout_reference(x, seed: int, rate: float):
-    """Plain version: returns (out, mask), `mask` 1.0 where kept."""
-    keep = _keep_range(seed, 0, x.numel(), rate, x.device).reshape(x.shape)
+def dropout_reference(x, seed: int, rate: float, base: int = 0):
+    """Plain version: returns (out, mask), `mask` 1.0 where kept. `base`
+    is the linear index of x's first element in the whole tensor."""
+    keep = _keep_range(seed, base, base + x.numel(), rate,
+                       x.device).reshape(x.shape)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     return (torch.where(keep, x * drop_scale(rate, x.dtype), zero),
             keep.to(x.dtype))
@@ -89,11 +91,14 @@ _ENTRIES = {torch.float32: ("ptt_dropout_f32", "dropout"),
             torch.bfloat16: ("ptt_dropout_bf16", "dropout_bf16")}
 
 
-def _dropout_cuda(x, seed: int, rate: float, want_mask: bool):
+def _dropout_cuda(x, seed: int, rate: float, want_mask: bool, base: int):
     dev = x.device
     if x.dtype not in _ENTRIES:
         raise ValueError(f"dropout kernel takes float32 or bfloat16, got "
                          f"{x.dtype}")
+    if base % 8:
+        raise ValueError(f"dropout kernel: base {base} is not a multiple "
+                         f"of 8")
     entry, counter = _ENTRIES[x.dtype]
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -102,7 +107,7 @@ def _dropout_cuda(x, seed: int, rate: float, want_mask: bool):
         return out, mask
     err = getattr(native.lib(), entry)(
         x.data_ptr(), out.data_ptr(),
-        mask.data_ptr() if want_mask else None, x.numel(),
+        mask.data_ptr() if want_mask else None, x.numel(), int(base),
         int(seed) & M32, keep_threshold(rate), drop_scale(rate, x.dtype),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -113,18 +118,21 @@ def _dropout_cuda(x, seed: int, rate: float, want_mask: bool):
     return out, mask
 
 
-def dropout_forward(x, seed: int, rate: float, want_mask: bool = False):
+def dropout_forward(x, seed: int, rate: float, want_mask: bool = False,
+                    base: int = 0):
     """out (and the op's Mask when asked for, written in the same pass):
     the kernel on a card, the plain version on the host. Returns
     (out, mask or None). No autograd: `dropout_kernel` is the
-    differentiable form, and the `dropout` op has its own grad rule."""
+    differentiable form, and the `dropout` op has its own grad rule.
+    `base` is the linear index of x's first element in the whole tensor
+    (a rank's rows of a batch split over ranks; a multiple of 8)."""
     if x.device.type == "cuda":
-        return _dropout_cuda(x, seed, rate, want_mask)
+        return _dropout_cuda(x, seed, rate, want_mask, base)
     if x.device.type == "meta":
         return torch.empty_like(x), (torch.empty_like(x) if want_mask
                                      else None)
     if x.device.type == "cpu":
-        out, mask = dropout_reference(x, seed, rate)
+        out, mask = dropout_reference(x, seed, rate, base)
         return out, (mask if want_mask else None)
     raise ValueError(f"dropout kernel: no path for device {x.device}")
 

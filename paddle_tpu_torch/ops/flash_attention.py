@@ -1,8 +1,9 @@
 """Fused (flash) attention: the CUDA kernels, their plain versions, the
 autograd Function and the `fused_attention` op.
 
-Counterpart of ``paddle_tpu/ops/pallas_attention.py`` (without its ring
-attention: the port runs on one card). Public layout is the JAX
+Counterpart of ``paddle_tpu/ops/pallas_attention.py``, its ring attention
+included (`ring_attention`, plain PyTorch over the ranks of an 'sp' mesh
+axis, as the JAX ring is jnp). Public layout is the JAX
 package's: q, k, v and the output are [B, H, T, D].
 
 `flash_attention` is a `torch.autograd.Function` (the JAX package's
@@ -80,21 +81,22 @@ def _drop_scale(rate: float) -> float:
 
 
 def _attention_keep(seed: int, bh: int, Tq: int, Tk: int, rate: float,
-                    device):
-    """[bh, Tq, Tk] bool keep mask, the kernels' bits (flash_common.cuh)."""
+                    device, bh0: int = 0):
+    """[bh, Tq, Tk] bool keep mask, the kernels' bits (flash_common.cuh),
+    for rows bh0 .. bh0 + bh of the whole batch's (batch, head) rows."""
     i64 = dict(dtype=torch.int64, device=device)
-    bhs = torch.arange(bh, **i64)[:, None]
+    bhs = torch.arange(int(bh0), int(bh0) + bh, **i64)[:, None]
     bk = _fmix32((int(seed) & M32) ^ _mul32(bhs, 0x9E3779B9))
     rk = _fmix32((bk + torch.arange(Tq, **i64)[None, :]) & M32)
     ck = _mul32(torch.arange(Tk, **i64), 0x85EBCA77)
     return _fmix32(rk[:, :, None] ^ ck) >= _dropout_threshold(rate)
 
 
-def _keep_like(s, rate, seed):
+def _keep_like(s, rate, seed, bh0=0):
     """The keep mask for a [B, H, Tq, Tk] score tensor."""
     B, H, Tq, Tk = s.shape
     return _attention_keep(seed, B * H, Tq, Tk, rate,
-                           s.device).reshape(B, H, Tq, Tk)
+                           s.device, bh0).reshape(B, H, Tq, Tk)
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +121,8 @@ def _masked_scores(q, k, causal, sm_scale):
     return s
 
 
-def _attention_reference(q, k, v, causal, sm_scale, rate=0.0, seed=0):
+def _attention_reference(q, k, v, causal, sm_scale, rate=0.0, seed=0,
+                         bh0=0):
     """Plain PyTorch version, the kernels' formula: P = exp(S - m) with
     S = Q K^T * sm_scale causal-masked and m its row max, dropped and
     scaled by the kernels' mask, rounded to V's dtype for P V (a no-op in
@@ -128,7 +131,7 @@ def _attention_reference(q, k, v, causal, sm_scale, rate=0.0, seed=0):
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     if rate:
-        p = torch.where(_keep_like(p, rate, seed), p * _drop_scale(rate),
+        p = torch.where(_keep_like(p, rate, seed, bh0), p * _drop_scale(rate),
                         torch.zeros((), dtype=p.dtype, device=p.device))
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(s.dtype),
                      v.to(s.dtype))
@@ -142,7 +145,7 @@ def _lse_reference(q, k, causal, sm_scale):
 
 
 def _flash_backward_reference(q, k, v, o, lse, do, causal, sm_scale,
-                              rate=0.0, seed=0):
+                              rate=0.0, seed=0, bh0=0):
     """The backward kernels' formulas in PyTorch (not autograd):
     W = exp(S - lse), dW = drop(dO V^T), dS = W (dW - delta) sm_scale,
     dQ = dS K, dK = dS^T Q, dV = drop(W)^T dO. Returns (dq, dk, dv) in
@@ -157,7 +160,7 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, sm_scale,
     w = torch.exp(_masked_scores(q, k, causal, sm_scale) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
     if rate:
-        keep = _keep_like(w, rate, seed)
+        keep = _keep_like(w, rate, seed, bh0)
         zero = torch.zeros((), dtype=w.dtype, device=w.device)
         w_drop = torch.where(keep, w * _drop_scale(rate), zero)
         dw = torch.where(keep, dp * _drop_scale(rate), zero)
@@ -190,10 +193,12 @@ def _device_args(dev):
             torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _dropout_args(rate, seed):
+def _dropout_args(rate, seed, bh0=0):
+    """(seed, bh0, thresh, drop_scale) as the kernels take them."""
     if not rate:
-        return 0, 0, 1.0
-    return int(seed) & M32, _dropout_threshold(rate), _drop_scale(rate)
+        return 0, 0, 0, 1.0
+    return (int(seed) & M32, int(bh0) & M32, _dropout_threshold(rate),
+            _drop_scale(rate))
 
 
 # element dtype -> the C entry points' suffix and the launch counters'
@@ -208,7 +213,7 @@ def _instantiation(q, what):
     return _INSTANTIATIONS[q.dtype]
 
 
-def _flash_forward(q, k, v, causal, sm_scale, rate=0.0, seed=0):
+def _flash_forward(q, k, v, causal, sm_scale, rate=0.0, seed=0, bh0=0):
     """Launch the forward kernel of q's dtype: returns (out [B, H, T, D]
     in that dtype, lse [B, H, T] float32)."""
     B, H, T, D = _check_shape(q, "forward")
@@ -228,13 +233,14 @@ def _flash_forward(q, k, v, causal, sm_scale, rate=0.0, seed=0):
     err = getattr(native.lib(), f"ptt_flash_fwd_{entry}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B * H, T, D, float(sm_scale), int(bool(causal)),
-        *_dropout_args(rate, seed), *_device_args(dev))
+        *_dropout_args(rate, seed, bh0), *_device_args(dev))
     native.check(err, "flash_fwd launch")
     native.count_launch("flash_fwd" + counter)
     return out, lse
 
 
-def _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
+def _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0,
+              bh0=0):
     """Launch the dQ kernel of q's dtype: returns dq [B, H, T, D]."""
     B, H, T, D = _check_shape(q, "dQ")
     entry, counter = _instantiation(q, "dQ")
@@ -249,14 +255,15 @@ def _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
     err = getattr(native.lib(), f"ptt_flash_dq_{entry}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, T, D,
-        float(sm_scale), int(bool(causal)), *_dropout_args(rate, seed),
+        float(sm_scale), int(bool(causal)), *_dropout_args(rate, seed, bh0),
         *_device_args(dev))
     native.check(err, "flash_dq launch")
     native.count_launch("flash_dq" + counter)
     return dq
 
 
-def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
+def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0,
+               bh0=0):
     """Launch the dK/dV kernel of q's dtype: returns (dk, dv), each
     [B, H, T, D]."""
     B, H, T, D = _check_shape(q, "dK/dV")
@@ -273,7 +280,7 @@ def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B * H, T, D, float(sm_scale), int(bool(causal)),
-        *_dropout_args(rate, seed), *_device_args(dev))
+        *_dropout_args(rate, seed, bh0), *_device_args(dev))
     native.check(err, "flash_dkv launch")
     native.count_launch("flash_dkv" + counter)
     return dk, dv
@@ -320,12 +327,13 @@ def flash_delta(o, do):
 
 
 def _flash_backward(q, k, v, o, lse, do, causal, sm_scale, rate=0.0,
-                    seed=0):
+                    seed=0, bh0=0):
     """The delta kernel, then the dQ and dK/dV kernels: (dq, dk, dv)."""
     delta = flash_delta(o, do)
-    dq = _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate, seed)
+    dq = _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate, seed,
+                   bh0)
     dk, dv = _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate,
-                        seed)
+                        seed, bh0)
     return dq, dk, dv
 
 
@@ -342,16 +350,18 @@ class FlashAttention(torch.autograd.Function):
     kernels on a card, their plain version on the host."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, rate, seed):
+    def forward(ctx, q, k, v, causal, sm_scale, rate, seed, bh0):
         if q.device.type == "cuda":
-            out, lse = _flash_forward(q, k, v, causal, sm_scale, rate, seed)
+            out, lse = _flash_forward(q, k, v, causal, sm_scale, rate, seed,
+                                      bh0)
         elif q.device.type == "cpu":
-            out = _attention_reference(q, k, v, causal, sm_scale, rate, seed)
+            out = _attention_reference(q, k, v, causal, sm_scale, rate, seed,
+                                       bh0)
             lse = _lse_reference(q, k, causal, sm_scale)
         else:
             raise _no_path(q)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, sm_scale, rate, seed)
+        ctx.args = (causal, sm_scale, rate, seed, bh0)
         return out
 
     @staticmethod
@@ -363,20 +373,66 @@ class FlashAttention(torch.autograd.Function):
         else:
             grads = _flash_backward_reference(q, k, v, out, lse, do,
                                               *ctx.args)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=1.0, dropout_rate=0.0,
-                    seed=0):
+                    seed=0, bh0=0):
     """Attention over [B, H, T, D] tensors, differentiable; the kernels
     on a card, the plain versions on the host. `seed` (a host int) keys
-    the attention-weight dropout mask when `dropout_rate` > 0."""
+    the attention-weight dropout mask when `dropout_rate` > 0; `bh0` is
+    the first (batch, head) row's index in the whole batch when these
+    tensors are one rank's rows of it, so the mask is one device's."""
     if q.device.type == "meta":
         return torch.empty_like(q)
     if q.device.type not in ("cuda", "cpu"):
         raise _no_path(q)
     return FlashAttention.apply(q, k, v, bool(causal), float(sm_scale),
-                                float(dropout_rate), int(seed))
+                                float(dropout_rate), int(seed), int(bh0))
+
+
+# ---------------------------------------------------------------------------
+# ring attention: sequence parallelism over an 'sp' mesh axis
+# ---------------------------------------------------------------------------
+
+def ring_attention(q, k, v, mesh, axis="sp", causal=False, sm_scale=None):
+    """Exact attention with Q/K/V sequence-sharded over `axis`: each rank
+    holds [B, H, T/sp, D] shards, and K/V shards rotate to the next rank
+    of the ring (``parallel/spmd.py::ring_shift``, a point-to-point send
+    and receive whose backward rotates the other way) while the online
+    softmax (m, l, acc) accumulates, the JAX package's `ring_attention`.
+    Plain PyTorch arithmetic, as the JAX ring is jnp outside any Pallas
+    kernel: no flash kernel launches here. Causal masking compares global
+    row and column positions."""
+    from ..parallel import spmd
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    sp, idx = mesh.shape[axis], mesh.index(axis)
+    B, H, Tl, D = q.shape
+    ct = _compute_dtype(q)
+    qs = q.to(ct)
+    m = torch.full((B, H, Tl), NEG_INF, dtype=ct, device=q.device)
+    l = torch.zeros((B, H, Tl), dtype=ct, device=q.device)
+    acc = torch.zeros((B, H, Tl, D), dtype=ct, device=q.device)
+    rows = idx * Tl + torch.arange(Tl, device=q.device)
+    kc, vc = k, v
+    for step in range(sp):
+        src = (idx - step) % sp       # the global chunk held this step
+        s = torch.einsum("bhqd,bhkd->bhqk", qs, kc.to(ct)) * sm_scale
+        if causal:
+            cols = src * Tl + torch.arange(Tl, device=q.device)
+            s = s.masked_fill(cols[None, :] > rows[:, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p, vc.to(ct))
+        m = m_new
+        if step < sp - 1:
+            kc = spmd.ring_shift(kc, mesh, axis)
+            vc = spmd.ring_shift(vc, mesh, axis)
+    return (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
 
 
 @register_op("fused_attention", needs_rng=True,
@@ -385,11 +441,42 @@ def _fused_attention(ctx, Q, K, V):
     """Q/K/V: [B, H, T, Dh]. attrs: causal, sm_scale, dropout_rate,
     is_test. One O(T)-memory kernel in place of the reference's
     matmul+softmax+dropout+matmul composition (nets.py:329), with the
-    attention-weight dropout inside it, keyed by the op's seed."""
+    attention-weight dropout inside it, keyed by the op's seed.
+
+    Under a `ParallelExecutor` mesh (`ctx.mesh`, the JAX lowerer's
+    `mesh`) with an 'sp' axis over more than one rank the sequence is
+    sharded, and attention becomes `ring_attention`. Under a batch split
+    the kernels take the rank's first (batch, head) row (`bh0`), so the
+    dropout mask is the one device's."""
     sm_scale = ctx.attr("sm_scale", 1.0 / math.sqrt(Q.shape[-1]))
+    causal = ctx.attr("causal", False)
     rate = 0.0 if ctx.attr("is_test", False) else ctx.attr("dropout_rate",
                                                            0.0)
+    mesh = ctx.mesh
+    shard = ctx.origin("Q")
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
+        if rate:
+            raise NotImplementedError(
+                "attention-weight dropout is not supported under sequence "
+                "parallelism; build the model with dropout_rate=0 (or move "
+                "dropout outside the attention op)")
+        T = shard[0][2] if shard is not None else Q.shape[2]
+        if T % mesh.shape["sp"] != 0:
+            raise ValueError(
+                f"sequence length {T} is not divisible by the "
+                f"{mesh.shape['sp']}-way 'sp' mesh axis; pad the sequence "
+                f"or choose an sp that divides it")
+        return {"Out": ring_attention(Q, K, V, mesh, axis="sp",
+                                      causal=causal, sm_scale=sm_scale)}
+    bh0 = 0
+    if shard is not None:
+        gshape, offs = shard
+        if tuple(gshape[1:]) != tuple(Q.shape[1:]):
+            raise NotImplementedError(
+                "fused_attention: only the batch dim may be split over "
+                "ranks outside an 'sp' ring")
+        bh0 = offs[0] * Q.shape[1]
     seed = seed32(ctx.seed) if rate else 0
     return {"Out": flash_attention(Q.contiguous(), K.contiguous(),
-                                   V.contiguous(), ctx.attr("causal", False),
-                                   sm_scale, float(rate), seed)}
+                                   V.contiguous(), causal, sm_scale,
+                                   float(rate), seed, bh0)}

@@ -162,8 +162,8 @@ def _build() -> BuildInfo:
 
 def _declare(lib):
     P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    lib.ptt_flash_fwd_f32.argtypes = [P, P, P, P, P, I, I, I, F, I, U, U, F,
-                                      I, P]
+    lib.ptt_flash_fwd_f32.argtypes = [P, P, P, P, P, I, I, I, F, I, U, U, U,
+                                      F, I, P]
     lib.ptt_flash_fwd_f32.restype = I
     lib.ptt_flash_fwd_bf16.argtypes = lib.ptt_flash_fwd_f32.argtypes
     lib.ptt_flash_fwd_bf16.restype = I
@@ -174,10 +174,10 @@ def _declare(lib):
     lib.ptt_flash_fwd_smem_bytes.argtypes = [I]
     lib.ptt_flash_fwd_smem_bytes.restype = I
     lib.ptt_flash_dq_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, U, U,
-                                     F, I, P]
+                                     U, F, I, P]
     lib.ptt_flash_dq_f32.restype = I
     lib.ptt_flash_dkv_f32.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F, I, U,
-                                      U, F, I, P]
+                                      U, U, F, I, P]
     lib.ptt_flash_dkv_f32.restype = I
     lib.ptt_flash_dq_bf16.argtypes = lib.ptt_flash_dq_f32.argtypes
     lib.ptt_flash_dq_bf16.restype = I
@@ -197,7 +197,8 @@ def _declare(lib):
     lib.ptt_paged_decode_q8.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
                                         I, I, I, F, I, P]
     lib.ptt_paged_decode_q8.restype = I
-    lib.ptt_dropout_f32.argtypes = [P, P, P, ctypes.c_uint64, U, U, F, I, P]
+    lib.ptt_dropout_f32.argtypes = [P, P, P, ctypes.c_uint64,
+                                    ctypes.c_uint64, U, U, F, I, P]
     lib.ptt_dropout_f32.restype = I
     lib.ptt_dropout_bf16.argtypes = lib.ptt_dropout_f32.argtypes
     lib.ptt_dropout_bf16.restype = I

@@ -80,29 +80,48 @@ def _fmix32(x):
     return x ^ (x >> 16)
 
 
-def _hash_bits8(seed: int, shape, device):
+def _linear_index(shape, device, origin=None):
+    """Each element's linear index, int64 of `shape`; with `origin`
+    (global shape, offsets) its index in the whole tensor of which this
+    is the shard at those offsets."""
+    if origin is None:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        return torch.arange(n, dtype=torch.int64,
+                            device=device).reshape(shape)
+    gshape, offs = origin
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        pos = torch.arange(int(offs[d]), int(offs[d]) + int(shape[d]),
+                           dtype=torch.int64, device=device) * stride
+        idx = idx + pos.reshape([-1] + [1] * (len(shape) - 1 - d))
+        stride *= int(gshape[d])
+    return idx.expand(tuple(int(d) for d in shape))
+
+
+def _hash_bits8(seed: int, shape, device, origin=None):
     """One random byte per element (uint8): fmix32 of the element's
     linear index * 2654435761 + `seed` (a uint32), the JAX package's
-    `_hash_bits8` bit for bit."""
-    n = 1
-    for d in shape:
-        n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    `_hash_bits8` bit for bit (the index in the whole tensor when
+    `origin` places this shard in it)."""
+    idx = _linear_index(shape, device, origin)
     x = (_mul32(idx, _KNUTH) + seed) & M32
     return (_fmix32(x) & 0xFF).to(torch.uint8)
 
 
-def _keep_bits(seed: int, shape, p: float, device):
+def _keep_bits(seed: int, shape, p: float, device, origin=None):
     t = round((1.0 - p) * 256) - 1
     if t < 0:                       # p ~ 1: nothing survives
         return torch.zeros(shape, dtype=torch.bool, device=device)
-    return _hash_bits8(seed, shape, device) <= min(255, t)
+    return _hash_bits8(seed, shape, device, origin) <= min(255, t)
 
 
-def _bits_dropout(x, seed: int, p: float, scale: float):
+def _bits_dropout(x, seed: int, p: float, scale: float, origin=None):
     """Keep-and-scale by the hashed bits, the scale rounded to x's dtype
     as the JAX package rounds it; returns (out, keep)."""
-    keep = _keep_bits(seed, x.shape, p, x.device)
+    keep = _keep_bits(seed, x.shape, p, x.device, origin)
     return torch.where(keep, x * types.scalar_as(scale, x.dtype),
                        torch.zeros((), dtype=x.dtype, device=x.device)), keep
 
@@ -407,11 +426,28 @@ def _dropout(ctx, X):
         from . import dropout_kernel
         want = ctx.wants("Mask")
         out, mask = dropout_kernel.dropout_forward(
-            X, seed32(ctx.seed), float(p), want_mask=want)
+            X, seed32(ctx.seed), float(p), want_mask=want,
+            base=_kernel_base(ctx, X))
         return {"Out": out, "Mask": mask} if want else {"Out": out}
     scale = 1.0 if impl != "upscale_in_train" else 1.0 / (1.0 - p)
-    out, keep = _bits_dropout(X, seed32(ctx.seed), float(p), float(scale))
+    out, keep = _bits_dropout(X, seed32(ctx.seed), float(p), float(scale),
+                              ctx.origin("X"))
     return {"Out": out, "Mask": keep.to(X.dtype)}
+
+
+def _kernel_base(ctx, x) -> int:
+    """The linear index of this rank's first element of X in the whole
+    tensor (0 outside a mesh): the dropout kernel's `base`. The kernel
+    walks its elements in order, so the shard must be one run of them."""
+    shard = ctx.origin("X")
+    if shard is None:
+        return 0
+    gshape, offs = shard
+    if tuple(gshape[1:]) != tuple(x.shape[1:]):
+        raise NotImplementedError(
+            "dropout kernel: only the leading dim may be split over ranks "
+            "(FLAGS_dropout_impl=pallas)")
+    return int(offs[0]) * (x[0].numel() if x.shape[0] else 0)
 
 
 def _takes_kernel(x, p, impl) -> bool:
@@ -442,7 +478,7 @@ def _dropout_grad(ctx, ins, out_grads):
     if _takes_kernel(g, p, impl):
         from . import dropout_kernel
         return {"X": dropout_kernel.dropout_forward(
-            g, seed32(ctx.seed), float(p))[0]}
+            g, seed32(ctx.seed), float(p), base=_kernel_base(ctx, g))[0]}
     scale = 1.0 if impl != "upscale_in_train" else 1.0 / (1.0 - p)
     keep = ctx.fwd_outs["Mask"][0] != 0
     return {"X": torch.where(keep, g * types.scalar_as(scale, g.dtype),

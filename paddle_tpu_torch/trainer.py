@@ -13,8 +13,12 @@ stream of the port's executor: its seed and that count), so a run resumes
 bit for bit, and a checkpoint the JAX package's Trainer wrote resumes
 here. Fetches come back as numpy.
 
-Not ported yet: `parallel=True` (ParallelExecutor, ROADMAP Queue 1
-item 7), and `pulse_port` with the loss feed of the health plane
+`Trainer(parallel=True)` trains through `ParallelExecutor` over the
+default 'dp' mesh of the world (``parallel/``), as the JAX package's
+does, and `Inferencer(parallel=True)` infers through one; both run on
+the place's device (a `CUDAPlace` by default: no card raises).
+
+Not ported yet: `pulse_port` with the loss feed of the health plane
 (`observe/pulse`, `observe/health`, item 8).
 """
 
@@ -157,10 +161,6 @@ class Trainer:
                  param_path=None, place=None, parallel=False,
                  checkpoint_config: Optional[CheckpointConfig] = None,
                  pulse_port: Optional[int] = None):
-        if parallel:
-            raise NotImplementedError(
-                "Trainer(parallel=True): ParallelExecutor is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
         if pulse_port is not None:
             raise NotImplementedError(
                 "Trainer(pulse_port=...): the health plane (observe/pulse) "
@@ -205,8 +205,23 @@ class Trainer:
         # prepared-step handles per fetch set (Executor.prepare): the
         # train loop's per-step host work skips the scope gather plan
         self._prepared = {}
+        self._pe = None     # the ParallelExecutor of parallel=True
 
     def _executor_run(self, feed, fetch_list):
+        if self.parallel:
+            if self._pe is None:
+                from .parallel import ParallelExecutor
+                self._pe = ParallelExecutor(
+                    use_cuda=self.place.torch_device().type == "cuda",
+                    main_program=self.train_program,
+                    loss_name=self.loss.name, scope=self.scope)
+                self._pe._run_counter = int(self.exe._run_counts.get(
+                    self.train_program._uid, 0))
+            out = self._pe.run(fetch_list=fetch_list, feed=feed)
+            # the run count an ark checkpoint records
+            self.exe._run_counts[self.train_program._uid] = \
+                self._pe._run_counter
+            return out
         key = tuple(f.name if isinstance(f, ir.Variable) else str(f)
                     for f in fetch_list)
         # re-prepare when the program mutates or a flag flips, as
@@ -379,10 +394,6 @@ class Inferencer:
 
     def __init__(self, infer_func: Callable, param_path: str, place=None,
                  parallel=False):
-        if parallel:
-            raise NotImplementedError(
-                "Inferencer(parallel=True): ParallelExecutor is not ported "
-                "yet (ROADMAP Queue 1 item 7)")
         self.place = place or CUDAPlace(0)
         self.scope = Scope()
         self.startup_program = ir.Program()
@@ -395,7 +406,16 @@ class Inferencer:
         fluid_io.load_persistables(self.exe, param_path,
                                    self.inference_program, scope=self.scope)
         self.inference_program = self.inference_program.clone(for_test=True)
+        self._pe = None
+        if parallel:
+            from .parallel import ParallelExecutor
+            self._pe = ParallelExecutor(
+                use_cuda=self.place.torch_device().type == "cuda",
+                main_program=self.inference_program, scope=self.scope)
 
     def infer(self, inputs):
+        if self._pe is not None:
+            return self._pe.run(fetch_list=[self.predict_var.name],
+                                feed=inputs)
         return self.exe.run(self.inference_program, feed=inputs,
                             fetch_list=[self.predict_var], scope=self.scope)

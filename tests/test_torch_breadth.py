@@ -906,18 +906,15 @@ def test_graphviz_and_net_drawer_write_the_reference_dot(tmp_path):
 # the names both packages export
 # ---------------------------------------------------------------------------
 
-# paddle_tpu.layers names whose ops or modules the port has not yet:
-# item 7 (ParallelDo)
-LAYERS_WAITING = {"ParallelDo"}
-# top-level names waiting: item 7 (parallel), item 8 (the host planes and
-# the parameter-server transpiler), and the TPU names, which the port
-# does not take. A submodule the JAX package does not import itself
+# paddle_tpu.layers names whose ops or modules the port has not yet: none
+LAYERS_WAITING = set()
+# top-level names waiting: item 8 (the host planes and the
+# parameter-server transpiler), and the TPU names, which the port does
+# not take. A submodule the JAX package does not import itself
 # (`quorum`, `capi_runtime`) is a name only once something imports it, so
 # the lists say what may be missing, and the test that nothing else is
 # and that no listed name has been ported
 TOP_WAITING = {
-    "parallel", "ParallelExecutor", "BuildStrategy", "ExecutionStrategy",
-    "distributed",
     "wire", "pserver", "master",
     "haven", "fleet", "torrent", "quorum", "capi_runtime",
     "DistributeTranspiler", "DistributeTranspilerConfig",
@@ -928,14 +925,9 @@ TOP_WAITING = {
 TRANSPILER_WAITING = {"DistributeTranspiler", "DistributeTranspilerConfig",
                       "RoundRobin", "HashName", "distribute_transpiler",
                       "ps_dispatcher"}
-# paddle_tpu.analysis names waiting: the planner, which feeds
-# `parallel.mesh.auto_mesh` (item 7); its `optimal_rungs` is the port's
-# serve/bucketing.optimal_rungs
-ANALYSIS_WAITING = {"planner", "CPU_REHEARSAL", "TPU_CHIP", "HardwareSpec",
-                    "MeshPlan", "PlanReport", "cost_profile",
-                    "detect_hardware", "enumerate_meshes",
-                    "estimate_step_time", "flag_family_priors",
-                    "optimal_rungs", "plan_meshes"}
+# paddle_tpu.analysis names the port does not take: the planner's TPU
+# profile, a TPU name as `TPUPlace` is (the port's planner has `H100`)
+ANALYSIS_WAITING = {"TPU_CHIP"}
 # cost_model's `xla_flops` asks XLA for a compiled step's FLOPs; the
 # port's counterpart is `measured_flops`, torch's FLOP counter over one run
 COST_MODEL_RENAMED = {"xla_flops": "measured_flops"}

@@ -2343,3 +2343,99 @@ def test_float16_transpiled_attention_raises_on_the_card(dev):
     with pytest.raises(ValueError, match="float16"):
         exe.run(main, feed=feed, fetch_list=[out], scope=scope)
     assert not any(native.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# the global offsets of a rank's shard (ParallelExecutor under 'dp')
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_at_a_batch_offset(dev, dtype, causal):
+    """A rank holding batch rows 2.. of 4 passes bh0 = 2 * H: its forward,
+    dQ and dK/dV are the whole batch's rows bit for bit (the dropout
+    mask is one device's), and the plain version at bh0 agrees."""
+    B, H, T, D, rate, seed = 4, 2, 128, 64, 0.1, 5
+    q, k, v, do = (t.to(dtype) for t in _qkv(dev, B, H, T, D, seed=9, n=4))
+    sm = D ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, seed)
+    delta = fa.flash_delta(out, do)
+    dq = fa._flash_dq(q, k, v, do, lse, delta, causal, sm, rate, seed)
+    dk, dv = fa._flash_dkv(q, k, v, do, lse, delta, causal, sm, rate, seed)
+    half = [t[2:].contiguous() for t in (q, k, v, do, out, lse, delta)]
+    hq, hk, hv, hdo, hout, hlse, hdelta = half
+    o2, l2 = fa._flash_forward(hq, hk, hv, causal, sm, rate, seed, bh0=2 * H)
+    dq2 = fa._flash_dq(hq, hk, hv, hdo, hlse, hdelta, causal, sm, rate,
+                       seed, bh0=2 * H)
+    dk2, dv2 = fa._flash_dkv(hq, hk, hv, hdo, hlse, hdelta, causal, sm,
+                             rate, seed, bh0=2 * H)
+    for name, a, b in (("out", o2, out[2:]), ("lse", l2, lse[2:]),
+                       ("dq", dq2, dq[2:]), ("dk", dk2, dk[2:]),
+                       ("dv", dv2, dv[2:])):
+        assert torch.equal(a, b), name
+    o1, _ = fa._flash_forward(hq, hk, hv, causal, sm, rate, seed)
+    assert not torch.equal(o1, o2)      # bh0 moves the mask
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            o2, fa._attention_reference(hq, hk, hv, causal, sm, rate, seed,
+                                        bh0=2 * H), atol=TOL, rtol=TOL)
+        ref = fa._flash_backward_reference(hq, hk, hv, hout, hlse, hdo,
+                                           causal, sm, rate, seed,
+                                           bh0=2 * H)
+        for name, a, b in zip(("dq", "dk", "dv"), (dq2, dk2, dv2), ref):
+            torch.testing.assert_close(a, b, atol=BWD_TOL, rtol=BWD_TOL,
+                                       msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_at_a_base(dev, dtype):
+    """A rank holding rows 2.. of 4 passes their first element's index:
+    its bits are the whole tensor's, and the plain version's at that
+    base."""
+    x = torch.randn(4, 8, 256, device=dev).to(dtype)
+    base = 2 * 8 * 256
+    full, full_mask = dk.dropout_forward(x, 77, 0.1, want_mask=True)
+    part, part_mask = dk.dropout_forward(x[2:], 77, 0.1, want_mask=True,
+                                         base=base)
+    assert torch.equal(part, full[2:]) and torch.equal(part_mask,
+                                                       full_mask[2:])
+    ref, ref_mask = dk.dropout_reference(x[2:], 77, 0.1, base=base)
+    assert torch.equal(part, ref) and torch.equal(part_mask, ref_mask)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dk.dropout_forward(x[2:], 77, 0.1, base=base + 4)
+
+
+def test_parallel_executor_on_the_card_is_the_executor(dev):
+    """A one-rank ParallelExecutor (use_cuda=True, the default) runs the
+    same launches and gives the Executor's losses bit for bit."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = ptt.models.transformer.build(
+            src_vocab_size=64, trg_vocab_size=64, seq_len=64, n_layer=1,
+            n_head=2, d_model=64, d_inner=128, dropout_rate=0.1,
+            fused_attention=True)
+        loss = fetches["loss"]
+        ptt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    main.random_seed = startup.random_seed = 3
+    rng = np.random.RandomState(0)
+    src = rng.randint(1, 64, (4, 64)).astype(np.int64)
+    feed = {"src_word": src, "trg_word": src, "lbl_word": src}
+    runs = {}
+    for kind in ("executor", "parallel"):
+        scope = ptt.Scope()
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        native.reset_launches()
+        if kind == "executor":
+            got = [exe.run(main, feed=feed, fetch_list=[loss],
+                           scope=scope)[0] for _ in range(3)]
+        else:
+            pe = ptt.ParallelExecutor(loss_name=loss.name,
+                                      main_program=main, scope=scope)
+            got = [pe.run(feed=feed, fetch_list=[loss.name])[0]
+                   for _ in range(3)]
+        runs[kind] = (got, dict(native.launches))
+    assert all(np.array_equal(a, b) for a, b in zip(runs["executor"][0],
+                                                    runs["parallel"][0]))
+    assert runs["executor"][1] == runs["parallel"][1]
+    assert runs["parallel"][1]["flash_fwd"] == 2 * 3 * 3

@@ -603,8 +603,26 @@ def test_lod_pair_through_async_feeder_and_py_reader_like_paddle_tpu():
 
 
 def test_async_feeder_sharding_waits_for_parallel_executor():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AsyncFeeder(lambda b: b, lambda: iter([]), sharding=object())
+    """`sharding=` is ported (ROADMAP item 7): on a one-rank mesh the
+    feeder stages the whole batch and marks it as the rank's shard, which
+    a ParallelExecutor over that mesh takes."""
+    from paddle_tpu_torch.distributed import LocalShard
+    mesh = ptt.parallel.make_mesh([1], ["dp"])
+    batches = [[np.full(3, i, np.float32), np.full(3, i + 1, np.float32)]
+               for i in range(2)]
+    feeds = list(AsyncFeeder(lambda b: {"x": np.stack(b)},
+                             lambda: iter(batches), device="cpu",
+                             sharding=ptt.parallel.batch_sharded(mesh)))
+    assert len(feeds) == 2 and all(isinstance(f["x"], LocalShard)
+                                   for f in feeds)
+    assert np.array_equal(feeds[1]["x"].data.numpy(), np.stack(batches[1]))
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", shape=[3], dtype="float32")
+        y = ptt.layers.reduce_sum(x)
+    pe = ptt.ParallelExecutor(use_cuda=False, main_program=main,
+                              scope=ptt.Scope(), mesh=mesh)
+    assert float(pe.run([y], feed=feeds[1])[0]) == 9.0
 
 
 def test_device_stager_on_cpu_keeps_nested_structure():
@@ -914,8 +932,8 @@ def test_jax_written_ark_checkpoint_resumes_in_the_port(tmp_path):
 
 
 def test_trainer_not_ported_options_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _trainer(ptt, parallel=True)
+    # parallel=True is ported (item 7): the Trainer runs a ParallelExecutor
+    assert _trainer(ptt, parallel=True).parallel
     with pytest.raises(NotImplementedError, match="item 8"):
         _trainer(ptt, pulse_port=0)
     with pytest.raises(TypeError, match="ark.CheckpointConfig"):
