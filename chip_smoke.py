@@ -326,6 +326,28 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    PE_RANK_STEPS steps within PE_RTOL / PE_ATOL of the Executor's
    trajectory, with step ms, collectives by kind and bytes and peak
    memory a rank; Trainer(parallel=True) against parallel=False, bit-equal;
+7o. the health plane (``observe/``): train-base-observed, train-base
+   through `Trainer(pulse_port=0)` with the `observe` flag on for
+   OBS_STEPS steps while a `Scraper` reads /metrics, then OBS_OFF_STEPS
+   with it off and as many on again: /metrics parses under the strict
+   grammar,
+   `executor_steps_total` counts the observed runs, `trainer_last_loss`
+   is the last loss fetched, /healthz 200, /status' memory section live
+   with `peak_bytes_in_use` equal to `torch.cuda.max_memory_allocated()`,
+   the launches a step equal with the flag on and off; the step medians
+   off and on again, the executor hooks' cost a run (OBS_FLAG_PAIRS
+   interleaved runs of a one-fc step), the step log's phase shares and
+   the memory estimate
+   against the measured peak printed; one step with a weight set to inf
+   turns /healthz 503 with the non-finite alert in /flight;
+   serve-base-pulse, serve-base through `ServeConfig(pulse_port=0)`:
+   /readyz 200 while it serves, no unexpected plan event, launches as in
+   phase 4; a child process under a context from `xray.to_wire`: its
+   flight dump after an unhandled `torch.cuda.OutOfMemoryError` names the
+   error and holds the card's live memory, and its chrome trace stitches
+   under the parent's span (one trace, two processes, no orphan);
+   ``tools/torch_op_profile.py --measured-check`` at train-base's widths
+   and batch and ``tools/torch_paddle_plan.py --devices 1`` (H100) exit 0;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -5767,6 +5789,417 @@ def run_trainer_parallel(torch, ptt, native):
     return out
 
 
+# phase 7o: the health plane. (a) train-base-observed: train-base
+# (TRAIN_BASE, Adam TRAIN_LR, float32, batch TRAIN_BATCH) through
+# Trainer(pulse_port=0) with the `observe` flag on, OBS_STEPS steps while
+# a Scraper reads /metrics every OBS_SCRAPE_S, then OBS_OFF_STEPS steps
+# with the flag off and as many on again (the flag's cost, back to back),
+# launches a step equal; (b) one step with the output projection's weight
+# set to inf: the non-finite
+# detector fires, /healthz answers 503, the alert is in /flight; (c)
+# serve-base-pulse: serve-base (SERVE_BASE, 8 requests) through
+# InferenceServer(ServeConfig(pulse_port=0)), /readyz 200 while it
+# serves, no unexpected plan event, launches as phase 4 counts them; (d)
+# a child process (this script, `--flight-child`) under a context from
+# `xray.to_wire`: the flight recorder installed, a span around work on
+# the card, its chrome trace written, then an allocation past the card's
+# memory left unhandled; its dump names the OutOfMemoryError and carries
+# the card's live memory, and its trace stitches under the parent's span;
+# (e) tools/torch_op_profile.py --measured-check at train-base's widths
+# and batch, tools/torch_paddle_plan.py --full-size --devices 1 on the
+# card's model
+OBS_STEPS, OBS_OFF_STEPS, OBS_SCRAPE_S = 20, 10, 0.5
+# the executor hooks' cost a run, where train-base's host spread (tens of
+# ms a step) cannot show it: OBS_FLAG_PAIRS pairs of runs of a one-fc
+# step on the card (B 32, 64 -> 64, SGD), the flag on in one and off in
+# the other, the order alternating from pair to pair
+OBS_FLAG_PAIRS = 200
+OBS_CHILD_TIMEOUT, OBS_CLI_TIMEOUT = 300, 600
+
+
+def _http(port, path):
+    """(status, body) of GET http://127.0.0.1:port/path."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _median(xs):
+    s = sorted(xs)
+    return s[len(s) // 2]
+
+
+def measure_flag_cost(ptt):
+    """Median host wall of a prepared run with the `observe` flag on and
+    off (OBS_FLAG_PAIRS interleaved pairs); each run fetches its loss."""
+    import numpy as np
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data(name="x", shape=[64], dtype="float32")
+        loss = ptt.layers.mean(ptt.layers.fc(input=x, size=64))
+        ptt.optimizer.SGD(learning_rate=0.01).minimize(loss)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(main, fetch_list=[loss], scope=scope)
+    feed = {"x": np.ones((32, 64), np.float32)}
+    for _ in range(20):
+        prepared.run(feed)
+    walls = {True: [], False: []}
+    for k in range(OBS_FLAG_PAIRS):
+        for flag in ((True, False) if k % 2 else (False, True)):
+            ptt.set_flag("observe", flag)
+            t0 = time.perf_counter()
+            prepared.run(feed)
+            walls[flag].append((time.perf_counter() - t0) * 1e6)
+    on, off = _median(walls[True]), _median(walls[False])
+    return dict(on_us=on, off_us=off, cost_us=on - off,
+                on_p25_p75=sorted(walls[True])[OBS_FLAG_PAIRS // 4::
+                                                 OBS_FLAG_PAIRS // 2][:2],
+                off_p25_p75=sorted(walls[False])[OBS_FLAG_PAIRS // 4::
+                                                   OBS_FLAG_PAIRS // 2][:2])
+
+
+def run_train_base_observed(torch, ptt, native):
+    """(a) and (b): returns the numbers; fails on any contract of the
+    plane (the /metrics grammar, step and loss counts, live memory, the
+    launches with the flag on and off, the alarm)."""
+    import numpy as np
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.observe.metrics import parse_prometheus_text
+    feed = train_batch(TRAIN_BATCH)
+    rows = [tuple(feed[n][i] for n in ("src_word", "trg_word", "lbl_word"))
+            for i in range(TRAIN_BATCH)]
+
+    def train_func():
+        _, fetches = transformer.build(**TRAIN_BASE)
+        return fetches["loss"]
+
+    observe.reset_all()
+    ptt.set_flag("observe", True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = ptt.Trainer(train_func, lambda: ptt.optimizer.Adam(
+        learning_rate=TRAIN_LR), pulse_port=0)
+    port = trainer.pulse_port
+    uid = trainer.train_program._uid
+
+    def segment(steps):
+        """`steps` steps; each step's wall (BeginStep to EndStep, whose
+        fetched loss is on the host), its loss, and the launches."""
+        walls, losses, t = [], [], {}
+
+        def handler(ev):
+            if isinstance(ev, ptt.BeginStepEvent):
+                t["begin"] = time.perf_counter()
+            elif isinstance(ev, ptt.EndStepEvent):
+                walls.append((time.perf_counter() - t["begin"]) * 1e3)
+                losses.append(float(np.asarray(ev.metrics[0]).reshape(-1)[0]))
+        native.reset_launches()
+        trainer.train(1, handler, reader=lambda: iter([rows] * steps),
+                      feed_order=["src_word", "trg_word", "lbl_word"])
+        torch.cuda.synchronize()
+        return walls, losses, dict(native.launches)
+
+    scraper = observe.Scraper([("trainer", f"http://127.0.0.1:{port}")],
+                              interval_s=OBS_SCRAPE_S).start()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        on_ms, on_losses, on_launches = segment(OBS_STEPS)
+        background_rounds = scraper.rounds()
+        scraper.poll_once()     # a last read after the last step
+    finally:
+        scraper.stop()
+    code, body = _http(port, "/metrics")
+    parsed = parse_prometheus_text(body.decode())
+    code_h, health_body = _http(port, "/healthz")
+    code_s, status = _http(port, "/status")
+    status = json.loads(status)
+    max_alloc = torch.cuda.max_memory_allocated()
+    steps_total = {",".join(f"{k}={v}" for k, v in sorted(lab.items())):
+                   v for _, lab, v in parsed["executor_steps_total"]["samples"]}
+    last_loss = parsed["trainer_last_loss"]["samples"][0][2]
+    mem = status["memory"]
+    shares = {}
+    recent = [s for s in observe.get_steplog().recent(OBS_STEPS + 4)
+              if s.program_uid == uid]
+    for s in recent:
+        if "bind" in s.phases:
+            continue
+        for p, v in s.phases.items():
+            shares[p] = shares.get(p, 0.0) + v
+    total = sum(shares.values())
+    shares = {p: v / total for p, v in shares.items()}
+    scraped = scraper.store.latest("executor_steps_total", agg="sum")
+    estimate = observe.memory.get_observatory().estimate_peak_bytes()
+    # the runs made with the flag on: the startup program's and each step
+    want_steps = {"source=executor": 1.0 + OBS_STEPS}
+    if code != 200 or steps_total != want_steps:
+        raise AssertionError(f"/metrics {code}: executor_steps_total "
+                             f"{steps_total}, expected {want_steps}")
+    if last_loss != on_losses[-1] or not np.isfinite(on_losses).all():
+        raise AssertionError(f"trainer_last_loss {last_loss} against the "
+                             f"last loss fetched {on_losses[-1]}")
+    if code_h != 200:
+        raise AssertionError(f"/healthz {code_h}: {health_body[:2000]}")
+    if code_s != 200 or not mem["live"] \
+            or not observe.memory.get_observatory().live_available() \
+            or mem["peak_bytes_in_use"] != max_alloc:
+        raise AssertionError(f"/status memory {mem} against "
+                             f"max_memory_allocated {max_alloc}")
+    if scraped != 1.0 + OBS_STEPS:
+        raise AssertionError(f"the scraper read executor_steps_total "
+                             f"{scraped} in {scraper.rounds()} rounds")
+    if set(shares) != {"feed_convert", "state_gather", "device_compute",
+                       "write_back", "fetch"}:
+        raise AssertionError(f"step log phases {shares}")
+    unexpected = [e for e in observe.observatory().unexpected()
+                  if e.program_uid == uid]
+    if unexpected:
+        raise AssertionError(f"unexpected plan events {unexpected}")
+
+    # the flag's cost: OBS_OFF_STEPS steps off, then as many on, from the
+    # state the steps above left (host speed drifts within a call, so the
+    # two are compared back to back)
+    ptt.set_flag("observe", False)
+    off_ms, off_losses, off_launches = segment(OBS_OFF_STEPS)
+    if observe.get_steplog().phase_summary()["steps"] != 1 + OBS_STEPS:
+        raise AssertionError("the step log recorded a run with the flag off")
+    ptt.set_flag("observe", True)
+    on2_ms, on2_losses, on2_launches = segment(OBS_OFF_STEPS)
+    n_attn = 3 * TRAIN_BASE["n_layer"]
+    per_step = {"flash_fwd": 2 * n_attn, "flash_dq": n_attn,
+                "flash_dkv": n_attn, "flash_delta": n_attn}
+    for tag, launches, n in (("on", on_launches, OBS_STEPS),
+                             ("off", off_launches, OBS_OFF_STEPS),
+                             ("on again", on2_launches, OBS_OFF_STEPS)):
+        want = dict.fromkeys(launches, 0)
+        want.update({k: v * n for k, v in per_step.items()})
+        if launches != want:
+            raise AssertionError(f"flag {tag}: launches {launches}, "
+                                 f"expected {want}")
+
+    # (b) the non-finite alarm
+    ptt.set_flag("observe", True)
+    block = trainer.train_program.global_block()
+    w = [v.name for v in block.vars.values()
+         if isinstance(v, ptt.Parameter) and v.name.endswith(".w_0")][-1]
+    trainer.scope.find_var(w).fill_(float("inf"))
+    _, inf_losses, _ = segment(1)
+    code_h2, health2 = _http(port, "/healthz")
+    flight_doc = json.loads(_http(port, "/flight")[1])
+    alerts = [e for e in flight_doc["events"] if e["kind"] == "alert"]
+    if np.isfinite(inf_losses[-1]) or code_h2 != 503 \
+            or "non_finite_loss" not in [a.get("rule") for a in alerts]:
+        raise AssertionError(f"the non-finite alarm: loss {inf_losses}, "
+                             f"/healthz {code_h2} {health2[:2000]}, "
+                             f"alerts {alerts}")
+    out = dict(
+        steps=OBS_STEPS, off_steps=OBS_OFF_STEPS,
+        step_ms_on=on_ms, step_ms_off=off_ms, step_ms_on_again=on2_ms,
+        step_ms_median_on=_median(on_ms[1:]),
+        step_ms_median_off=_median(off_ms[1:]),
+        step_ms_median_on_again=_median(on2_ms[1:]),
+        losses_on=on_losses, losses_off=off_losses, losses_on_again=on2_losses,
+        launches_on=on_launches, launches_off=off_launches,
+        launches_on_again=on2_launches,
+        phase_shares=shares, phase_summary=observe.get_steplog()
+        .phase_summary(), estimate_peak_bytes=estimate,
+        peak_bytes=max_alloc, estimate_over_peak=estimate / max_alloc,
+        memory_devices=mem.get("devices"),
+        scrape_rounds=background_rounds, scraped_steps=scraped,
+        executor_steps_total=steps_total, last_loss=last_loss,
+        poisoned=w, inf_loss=inf_losses[-1], healthz_after=code_h2,
+        alerts=[a.get("rule") for a in alerts],
+        families=len(parsed))
+    out["on_over_off"] = out["step_ms_median_on_again"] \
+        / out["step_ms_median_off"]
+    out["flag_cost"] = measure_flag_cost(ptt)
+    ptt.set_flag("observe", False)
+    observe.reset_all()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serve_base_pulse(torch, ptt, native, tiny_lm, tmp):
+    """(c): serve-base through ServeConfig(pulse_port=0)."""
+    from paddle_tpu_torch import observe
+    mdir = os.path.join(tmp, "serve_base_pulse")
+    sig = tiny_lm.save_tiny_lm(mdir, seed=WEIGHT_SEED, **SERVE_BASE)
+    prompts = prompts_for(sig["vocab"])
+    observe.reset_all()
+    ptt.set_flag("observe", True)
+    srv = ptt.serve.InferenceServer(
+        ptt.CUDAPlace(0), ptt.serve.ServeConfig(pulse_port=0))
+    try:
+        port = srv.pulse_port
+        srv.add_model("lm", mdir)
+        torch.cuda.synchronize()
+        before = srv.stats()["models"]["lm"]
+        native.reset_launches()
+        futs = [srv.submit_generate("lm", p, max_new_tokens=NEW_TOKENS)
+                for p in prompts]
+        ready_during, body = _http(port, "/readyz")
+        results = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        launches = dict(native.launches)
+        after = srv.stats()["models"]["lm"]
+        ready_after, _ = _http(port, "/readyz")
+        checks = sorted(json.loads(body)["checks"])
+        events = [(e.cause, e.source) for e in observe.observatory().events()]
+        unexpected = observe.observatory().unexpected()
+    finally:
+        srv.close()
+        ptt.set_flag("observe", False)
+        observe.reset_all()
+    n_layers = sig["n_layers"]
+    n_prefill = after["prefill_steps"] - before["prefill_steps"]
+    n_decode = after["steps"] - before["steps"]
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=n_layers * n_prefill,
+                paged_decode=n_layers * n_decode)
+    if launches != want or n_prefill < 1 or n_decode < 1:
+        raise AssertionError(f"serve-base-pulse launches {launches}, "
+                             f"expected {want}")
+    if ready_during != 200 or ready_after != 200 \
+            or not any(c.startswith("serve_queues@") for c in checks):
+        raise AssertionError(f"/readyz {ready_during} / {ready_after}: "
+                             f"{body[:2000]}")
+    if unexpected or ("warmup", "serving") not in events:
+        raise AssertionError(f"plan events {events}; unexpected "
+                             f"{unexpected}")
+    if any(len(r.tokens) != NEW_TOKENS for r in results):
+        raise AssertionError("a generation was cut short")
+    return dict(launches=launches, prefill_steps=n_prefill,
+                decode_steps=n_decode, readyz=[ready_during, ready_after],
+                checks=checks, plan_events=events)
+
+
+def run_flight_stitch(torch, ptt, tmp):
+    """(d): a child process's flight dump and chrome trace."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.observe import xray
+    observe.reset_all()
+    prev_name = xray.process_name()
+    xray.set_process_name("chip_smoke")
+    flight_path = os.path.join(tmp, "child_flight.json")
+    child_trace = os.path.join(tmp, "child_trace.json")
+    parent_trace = os.path.join(tmp, "parent_trace.json")
+    log_path = os.path.join(tmp, "child.log")
+    ptt.set_flag("observe", True)
+    try:
+        with xray.span("chip_smoke:spawn_child", cat="xray") as root:
+            wire = json.dumps(xray.to_wire(root))
+            with open(log_path, "w") as out:
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--flight-child", wire, child_trace, flight_path],
+                    stdout=out, stderr=subprocess.STDOUT,
+                    timeout=OBS_CHILD_TIMEOUT)
+        observe.get_tracer().export_chrome(parent_trace)
+        trace_id = root.trace_id
+    finally:
+        ptt.set_flag("observe", False)
+        xray.set_process_name(prev_name)
+    child_log = open(log_path).read()
+    if proc.returncode == 0 or "OutOfMemoryError" not in child_log:
+        raise AssertionError(f"the child exited {proc.returncode} without "
+                             f"the OutOfMemoryError:\n{child_log[-4000:]}")
+    dump = json.load(open(flight_path))
+    devices = (dump.get("memory") or {}).get("devices") or []
+    if "OutOfMemoryError" not in (dump.get("reason") or "") \
+            or not devices or devices[0].get("platform") != "gpu" \
+            or not devices[0].get("bytes_in_use"):
+        raise AssertionError(f"the child's flight dump: reason "
+                             f"{dump.get('reason')}, memory "
+                             f"{dump.get('memory')}")
+    doc, stats = observe.stitch_traces([parent_trace, child_trace])
+    tree = observe.trace_tree(doc["traceEvents"], trace_id)
+    if stats["edges"] < 1 or stats["orphans"] or len(tree["roots"]) != 1 \
+            or len(tree["pids"]) != 2 or tree["orphans"]:
+        raise AssertionError(f"stitched trace: {stats}, roots "
+                             f"{len(tree['roots'])}, pids {tree['pids']}")
+    observe.reset_all()
+    return dict(reason=dump["reason"], devices=devices,
+                events=len(dump.get("events", [])), edges=stats["edges"],
+                orphans=stats["orphans"], skew_us=stats["skew_us"],
+                pids=sorted(tree["pids"]), spans=len(tree["spans"]),
+                processes=stats["processes"])
+
+
+def _flight_child_main(wire, trace_path, flight_path):
+    """The child of phase 7o (d): under the parent's trace context, a span
+    around work on the card, the trace written, then an allocation past
+    the card's memory that nothing catches."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.observe import flight, xray
+    ptt.set_flag("observe", True)
+    xray.set_process_name("flight-child")
+    flight.install(flight_path)
+    flight.set_stage("phase 7o (d)")
+    parent = xray.from_wire(json.loads(wire))
+    with xray.activate(parent):
+        with xray.span("flight-child:work", cat="xray"):
+            a = torch.randn(4096, 4096, device="cuda")
+            (a @ a).sum().item()
+    # what /status would read: the live stats the dump serves from
+    observe.memory.report()
+    observe.get_tracer().export_chrome(trace_path)
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+    return 0
+
+
+def run_observe_clis(torch):
+    """(e): the two CLIs on the card, each in its own process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, args in (
+            ("op_profile", ["tools/torch_op_profile.py", "--model",
+                            "transformer", "--full-size", "--batch",
+                            str(TRAIN_BATCH), "--steps", "2",
+                            "--measured-check", "--topk", "5"]),
+            ("paddle_plan", ["tools/torch_paddle_plan.py", "--model",
+                             "transformer", "--full-size", "--devices",
+                             "1"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=here,
+                              capture_output=True, text=True,
+                              timeout=OBS_CLI_TIMEOUT)
+        out[name] = dict(rc=proc.returncode, s=time.perf_counter() - t0,
+                         stdout=proc.stdout[-3000:],
+                         stderr=proc.stderr[-3000:])
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(args)} exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+    check = [ln for ln in out["op_profile"]["stderr"].splitlines()
+             if ln.startswith("measured-check:")]
+    if not check or "OK" not in check[0]:
+        raise AssertionError(f"op_profile: {out['op_profile']['stderr']}")
+    out["op_profile"]["check"] = check[0]
+    if "hw=h100-sxm-80gb" not in out["paddle_plan"]["stdout"] \
+            or "PLAN:" not in out["paddle_plan"]["stdout"]:
+        raise AssertionError(f"paddle_plan: {out['paddle_plan']['stdout']}")
+    out["paddle_plan"]["plan"] = [
+        ln for ln in out["paddle_plan"]["stdout"].splitlines()
+        if ln.startswith(("model=", "PLAN:"))]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6793,6 +7226,73 @@ def main() -> int:
     phase7n_s = time.perf_counter() - t0
     log(f"phase 7n: {phase7n_s:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+    # 7o. the health plane: train-base through Trainer(pulse_port=0) with
+    # the observe flag on and off, the non-finite alarm, serve-base with
+    # its pulse, a flight dump and a stitched trace across processes, the
+    # analysis CLIs on the card
+    t0 = time.perf_counter()
+    obs_train = run_train_base_observed(torch, ptt, native)
+    sh = obs_train["phase_shares"]
+    log(f"train-base-observed (Trainer(pulse_port=0), {OBS_STEPS} steps "
+        f"with the observe flag on, then {OBS_OFF_STEPS} off, batch "
+        f"{TRAIN_BATCH}, then {OBS_OFF_STEPS} on again) [{card}]: step "
+        f"{obs_train['step_ms_median_on']:.1f} ms on, "
+        f"{obs_train['step_ms_median_off']:.1f} off, "
+        f"{obs_train['step_ms_median_on_again']:.1f} on again (medians "
+        f"after a segment's first; on again over off "
+        f"{obs_train['on_over_off']:.4f}; all on "
+        f"{[round(x, 1) for x in obs_train['step_ms_on']]}, off "
+        f"{[round(x, 1) for x in obs_train['step_ms_off']]}, on again "
+        f"{[round(x, 1) for x in obs_train['step_ms_on_again']]}); launches "
+        f"a step equal on and off ({obs_train['launches_on']} over "
+        f"{OBS_STEPS} steps); /metrics ({obs_train['families']} families) "
+        f"parses strictly, executor_steps_total "
+        f"{obs_train['executor_steps_total']}, trainer_last_loss "
+        f"{obs_train['last_loss']} = the last loss fetched; /healthz 200; "
+        f"the scraper read {obs_train['scrape_rounds']} rounds while it "
+        f"trained and {obs_train['scraped_steps']} steps at the end; step log "
+        f"phase shares "
+        + ", ".join(f"{p} {v:.4f}" for p, v in sorted(sh.items()))
+        + f"; /status memory live, peak_bytes_in_use "
+        f"{obs_train['peak_bytes']} = max_memory_allocated; the estimate "
+        f"{obs_train['estimate_peak_bytes']:.0f} B = "
+        f"{obs_train['estimate_over_peak']:.4f} of the measured peak")
+    fc = obs_train["flag_cost"]
+    log(f"the executor hooks' cost a run [{card}]: a one-fc step (B 32, 64 "
+        f"-> 64) {fc['on_us']:.1f} us with the flag on, {fc['off_us']:.1f} "
+        f"off (medians of {OBS_FLAG_PAIRS} interleaved pairs; quartiles on "
+        f"{[round(x, 1) for x in fc['on_p25_p75']]}, off "
+        f"{[round(x, 1) for x in fc['off_p25_p75']]}): "
+        f"{fc['cost_us']:.1f} us a run")
+    log(f"the non-finite alarm: {obs_train['poisoned']} set to inf, the "
+        f"step's loss {obs_train['inf_loss']}, /healthz "
+        f"{obs_train['healthz_after']}, alerts in /flight "
+        f"{obs_train['alerts']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_7o_") as tmp:
+        obs_serve = run_serve_base_pulse(torch, ptt, native, tiny_lm, tmp)
+        log(f"serve-base-pulse (ServeConfig(pulse_port=0), {N_REQUESTS} "
+            f"requests) [{card}]: /readyz {obs_serve['readyz']} (during, "
+            f"after) with {obs_serve['checks']}; plan events "
+            f"{obs_serve['plan_events']}, none unexpected; launches "
+            f"{obs_serve['launches']} for {obs_serve['prefill_steps']} "
+            f"prefill and {obs_serve['decode_steps']} decode steps")
+        obs_flight = run_flight_stitch(torch, ptt, tmp)
+    log(f"flight and stitch [{card}]: the child's dump reason "
+        f"{obs_flight['reason']!r}, its memory section {obs_flight['devices']}"
+        f", {obs_flight['events']} events; stitched: "
+        f"{obs_flight['edges']} cross-process edge(s), "
+        f"{obs_flight['orphans']} orphans, {obs_flight['spans']} spans of "
+        f"one trace over pids {obs_flight['pids']} "
+        f"({obs_flight['processes']}); skew applied {obs_flight['skew_us']}")
+    obs_clis = run_observe_clis(torch)
+    log(f"tools/torch_op_profile.py --full-size --batch {TRAIN_BATCH} "
+        f"--measured-check [{card}]: {obs_clis['op_profile']['check']} "
+        f"({obs_clis['op_profile']['s']:.1f} s); tools/torch_paddle_plan.py "
+        f"--full-size --devices 1: {obs_clis['paddle_plan']['plan']} "
+        f"({obs_clis['paddle_plan']['s']:.1f} s)")
+    phase7o_s = time.perf_counter() - t0
+    log(f"phase 7o: {phase7o_s:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -6887,6 +7387,15 @@ def main() -> int:
                     res["cases"][name]["launches"].get(kname, 0)
         return out
 
+    def obs_launches(kname):
+        """A kernel's launches on phase 7o's paths."""
+        return {"train_base_observed": obs_train["launches_on"].get(kname, 0),
+                "train_base_observed_flag_off":
+                    obs_train["launches_off"].get(kname, 0),
+                "train_base_observed_on_again":
+                    obs_train["launches_on_again"].get(kname, 0),
+                "serve_base_pulse": obs_serve["launches"].get(kname, 0)}
+
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
     causal_head = train_cases[1]   # the same, causal
@@ -6916,7 +7425,8 @@ def main() -> int:
                                       "float32"].get("flash_fwd", 0),
                               "train_base_memopt":
                                   memopt["launches"].get("flash_fwd", 0),
-                              **pe_launches("flash_fwd")},
+                              **pe_launches("flash_fwd"),
+                              **obs_launches("flash_fwd")},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -6940,7 +7450,8 @@ def main() -> int:
            "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
            "launches": train["launches"][f"flash_{name}"],
            "launches_by_path": {"train": train["launches"][f"flash_{name}"],
-                                **pe_launches(f"flash_{name}")},
+                                **pe_launches(f"flash_{name}"),
+                                **obs_launches(f"flash_{name}")},
            "max_abs_err": max(c[f"{name}_err"] for c in train_cases),
            "ms": head[f"{name}_ms"], "plain_ms": head["bwd_plain_ms"],
            "bound_ms": head[f"{name}_bound_ms"],
@@ -6967,7 +7478,8 @@ def main() -> int:
          "launches_by_path": {"train": train["launches"]["flash_delta"],
                               "train_pallas":
                                   trains["pallas"]["launches"]["flash_delta"],
-                              **pe_launches("flash_delta")},
+                              **pe_launches("flash_delta"),
+                              **obs_launches("flash_delta")},
          "max_abs_err": max(c["delta_err"] for c in train_cases),
          "tol_share": max(c["delta_share"] for c in train_cases),
          "tol": f"a row, {DELTA_TOL} x sum |dO O|",
@@ -6986,7 +7498,8 @@ def main() -> int:
                  "paged_decode"],
              "serve_swap_v2": swap["launches_by_version"]["v2"][
                  "paged_decode"],
-             "serve_resnet50": rn50["launches"]["paged_decode"]},
+             "serve_resnet50": rn50["launches"]["paged_decode"],
+             **obs_launches("paged_decode")},
          "max_abs_err": max(paged["err"], paged_s1["err"]),
          "ms": paged["ms"], "plain_ms": paged["plain_ms"],
          "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
@@ -7173,6 +7686,10 @@ def main() -> int:
                                 "offsets": offsets, "pe_base_1": pe1,
                                 "ranks": pe_ranks, "trainer": trainer_pe,
                                 "phase_s": phase7n_s},
+                   "health_plane": {"train_base_observed": obs_train,
+                                    "serve_base_pulse": obs_serve,
+                                    "flight_stitch": obs_flight,
+                                    "clis": obs_clis, "phase_s": phase7o_s},
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7185,4 +7702,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--pe-rank":
         sys.exit(_pe_rank_main(sys.argv[2]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--flight-child":
+        sys.exit(_flight_child_main(*sys.argv[2:]))
     sys.exit(main())

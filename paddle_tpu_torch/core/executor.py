@@ -43,6 +43,7 @@ import contextlib
 import itertools
 import logging
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -50,6 +51,7 @@ import torch
 
 from . import ir, registry, types
 from .. import flags as _flags
+from ..observe import steplog as _steplog
 from .lowering import run_block
 
 logger = logging.getLogger(__name__)
@@ -347,6 +349,12 @@ class PreparedProgram:
         self._block = program.global_block()
         self._program_version = program._version
         self._plans: Dict[frozenset, _StepPlan] = {}
+        # the plan of the last run: the JAX package's bound entry, which
+        # observe/steplog's shape tracker keys its seen signatures on
+        self._entry: Optional[_StepPlan] = None
+        # observe/steplog's `source` label: "executor", "serving" (the
+        # serve registry's handles) or "parallel" (ParallelExecutor)
+        self.telemetry_source = "executor"
 
     def run(self, feed: Optional[Dict[str, Any]] = None,
             return_numpy: bool = True):
@@ -355,17 +363,31 @@ class PreparedProgram:
             raise RuntimeError(
                 "program was mutated after prepare(); prepare() it again "
                 "(Executor.run() re-prepares automatically)")
+        # the `observe` gate: one flag read; off, the step records nothing
+        obs_on = _flags.get_flag("observe")
+        if obs_on:
+            t0 = time.perf_counter()
         if not feed and getattr(program, "_py_reader", None) is not None:
             # a program bound to a py_reader pops its next batch (raises
             # EOFException at the end of a pass, the reference's read-op
             # contract)
             feed = program._py_reader.next_feed(self.device)
         feeds = convert_feed(self._block, feed or {}, self.device)
+        if obs_on:
+            t_fc = time.perf_counter()
         key = frozenset(feeds)
         plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[key] = _StepPlan(program, key, self.scope,
-                                                self.fetch_names)
+            plan = self._plans[key] = self._build_plan(key, feeds)
+        bound = plan is not self._entry
+        self._entry = plan
+        if obs_on:
+            # the feed_shape observatory: a new shape/dtype signature on a
+            # bound plan (a retrace and a recompile in the JAX package)
+            _steplog.track_shapes(plan, program._uid, feeds,
+                                  source=self.telemetry_source)
+            t1 = time.perf_counter()
+        counter = self._exe._count_run(program._uid)
         env = {}
         for n in plan.read:
             val = self.scope.find_var(n)
@@ -379,15 +401,20 @@ class PreparedProgram:
             env[n] = val
         env.update(feeds)
         seed = program.random_seed if program.random_seed is not None else 0
-        amp = self._exe.amp
+        if obs_on:
+            t2 = time.perf_counter()
         with torch.no_grad():
-            run_block(program, 0, env, self.device, seed,
-                      self._exe._count_run(program._uid),
-                      _flags.get_flag("check_nan_inf"), plan.live, amp)
+            run_block(program, 0, env, self.device, seed, counter,
+                      _flags.get_flag("check_nan_inf"), plan.live,
+                      self._exe.amp)
+        if obs_on:
+            t3 = time.perf_counter()
         for n in plan.written:
             val = env.get(n)
             if val is not None and self.scope.find_var(n) is not val:
                 self.scope.set_var(n, val)
+        if obs_on:
+            t4 = time.perf_counter()
         fetches = []
         for n in self.fetch_names:
             if n not in env:
@@ -395,7 +422,49 @@ class PreparedProgram:
             fetches.append(env[n])
         if return_numpy:
             fetches = [to_numpy(f) for f in fetches]
+        if obs_on:
+            t5 = time.perf_counter()
+            # host walls, as the JAX executor places them: device_compute
+            # is run_block's wall, which on a card queues the kernels
+            # without waiting for them; the wait falls in fetch (the
+            # first copy to the host). bind is the plan lookup or build,
+            # on a run that changed plans only
+            phases = {
+                "feed_convert": t_fc - t0,
+                "state_gather": t2 - t1,
+                "device_compute": t3 - t2,
+                "write_back": t4 - t3,
+                "fetch": t5 - t4,
+            }
+            if bound:
+                phases["bind"] = t1 - t_fc
+            _steplog.get_steplog().record(_steplog.StepStats(
+                program._uid, self.telemetry_source, time.time(), phases))
         return fetches
+
+    def _build_plan(self, key: frozenset, feeds) -> _StepPlan:
+        """A new step plan for the feed-name set `key`. A key this
+        executor has not planned before is the counterpart of the JAX
+        executor's compile-cache miss: the plan-build observatory records
+        it with its cause and, under the `observe` flag, the memory
+        observatory estimates the program's peak at these feed shapes. A
+        handle prepared again on a planned key records nothing, as a
+        cache hit records nothing there. (The JAX executor's `uncached`
+        path has no counterpart here, so that cause is never recorded.)"""
+        program = self.program
+        plan = _StepPlan(program, key, self.scope, self.fetch_names)
+        sig = tuple(sorted(key))
+        fetch_sig = tuple(self.fetch_names)
+        if self._exe._note_plan((program._uid, program._version, sig,
+                                 fetch_sig, self.scope._uid)):
+            _steplog.observatory().note_entry_build(
+                program._uid, program._version, sig, fetch_sig, None,
+                source=self.telemetry_source, scope_uid=self.scope._uid)
+            if _flags.get_flag("observe"):
+                from ..observe import memory as _obs_memory
+                _obs_memory.note_program(program, feeds,
+                                         source=self.telemetry_source)
+        return plan
 
 
 # run()'s PreparedProgram memo cap (a handle pins its scope)
@@ -422,11 +491,25 @@ class Executor:
                 False
         self._prepared: Dict[tuple, PreparedProgram] = {}
         self._run_counts: Dict[int, int] = {}  # program uid -> runs so far
+        # (program uid, version, feed names, fetches, scope uid) of every
+        # step plan built: the key of the JAX executor's compile cache
+        self._plan_keys: set = set()
         # one executor serves several threads at once (each serving
         # batcher and decode engine, the model watcher's warm runs, the
         # caller): the run counter's read-then-write and the prepared
         # memo take this lock
         self._lock = threading.Lock()
+
+    def _note_plan(self, key: tuple) -> bool:
+        """Record a plan key; True when this executor had not planned it.
+        Older versions' keys of the program go (its plans are stale)."""
+        with self._lock:
+            if key in self._plan_keys:
+                return False
+            self._plan_keys = {k for k in self._plan_keys
+                               if k[0] != key[0] or k[1] == key[1]}
+            self._plan_keys.add(key)
+        return True
 
     def _count_run(self, uid: int) -> int:
         """Per-program run counter: a seeded startup re-initializes

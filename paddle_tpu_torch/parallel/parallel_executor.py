@@ -37,6 +37,7 @@ whole Program over the global batch.
 from __future__ import annotations
 
 import enum
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -47,6 +48,7 @@ from .. import flags as _flags
 from ..core import ir
 from ..core.executor import (_StepPlan, as_tensor, global_scope, to_numpy)
 from ..core.lowering import run_block
+from ..observe import steplog as _steplog
 from . import mesh as mesh_lib
 from . import spmd
 
@@ -284,21 +286,38 @@ class ParallelExecutor:
             feed = {k: np.concatenate(v, axis=0) for k, v in merged.items()}
         fetch_names = [f.name if isinstance(f, ir.Variable) else str(f)
                        for f in fetch_list]
+        # the `observe` gate, as PreparedProgram.run reads it
+        obs_on = _flags.get_flag("observe")
+        if obs_on:
+            t0 = time.perf_counter()
         feeds = self._convert_feeds(feed)
+        if obs_on:
+            t_fc = time.perf_counter()
         key = (self._program._uid, self._program._version,
                frozenset(feeds), tuple(fetch_names),
                _flags.get_flag("dropout_impl"))
         hit = self._plans.get(key)
+        bound = hit is None
         if hit is None:
             for k in [k for k in self._plans
                       if k[0] == self._program._uid
                       and k[1] != self._program._version]:
                 del self._plans[k]
+            # a new plan: the JAX executor's compile-cache miss
+            _steplog.observatory().note_entry_build(
+                self._program._uid, self._program._version,
+                tuple(sorted(feeds)), tuple(fetch_names), None,
+                source="parallel", scope_uid=self._scope._uid)
             hit = self._plans[key] = (
                 _StepPlan(self._program, frozenset(feeds), self._scope,
                           fetch_names), spmd.Plan())
         step_plan, plan = hit
         self._last_key = key
+        if obs_on:
+            _steplog.track_shapes(step_plan, self._program._uid,
+                                  {n: t for n, (t, _) in feeds.items()},
+                                  source="parallel")
+            t1 = time.perf_counter()
         n = len(self._mesh.axis_names)
         env, place = {}, {}
         for name in step_plan.read:
@@ -322,6 +341,8 @@ class ParallelExecutor:
             if self._program.random_seed is not None else 0
         counter = self._run_counter
         self._run_counter += 1
+        if obs_on:
+            t2 = time.perf_counter()
         with torch.no_grad():
             if self._mesh.size == 1:
                 # one rank holds every var whole: nothing to place, so the
@@ -336,10 +357,14 @@ class ParallelExecutor:
                               self._state_place, amp=self._amp).run(
                     env, place, plan, seed, counter, step_plan.live,
                     _flags.get_flag("check_nan_inf"))
+        if obs_on:
+            t3 = time.perf_counter()
         for name in step_plan.written:
             val = env.get(name)
             if val is not None and self._scope.find_var(name) is not val:
                 self._scope.set_var(name, val)
+        if obs_on:
+            t4 = time.perf_counter()
         fetches = []
         for name in fetch_names:
             if name not in env:
@@ -349,6 +374,19 @@ class ParallelExecutor:
                                         whole, self._mesh, diff=False))
         if return_numpy:
             fetches = [to_numpy(f) for f in fetches]
+        if obs_on:
+            t5 = time.perf_counter()
+            phases = {
+                "feed_convert": t_fc - t0,
+                "state_gather": t2 - t1,
+                "device_compute": t3 - t2,
+                "write_back": t4 - t3,
+                "fetch": t5 - t4,
+            }
+            if bound:
+                phases["bind"] = t1 - t_fc
+            _steplog.get_steplog().record(_steplog.StepStats(
+                self._program._uid, "parallel", time.time(), phases))
         return fetches
 
     # -- the plan as text --------------------------------------------------

@@ -31,9 +31,14 @@ Failures in 2-3 leave the old version serving untouched — a corrupt new
 dir costs an error log, not an outage. While a swap warms, two versions
 are resident on the device at once.
 
+Warming records its runs in ``observe/steplog`` as the JAX package
+does: each ladder rung after the first as the expected `warmup` cause,
+every warmed feed signature pre-seeded into the shape tracker, so served
+traffic on warmed shapes records no unexpected plan event and an
+unwarmed shape attributes as `padding_bucket`.
+
 Not ported: the serve-time distributed sparse read path (a manifest with
-a `sparse` key needs ``fleet/``) and the JAX package's warm-shape
-bookkeeping for its compile cache (``observe/steplog``).
+a `sparse` key needs ``fleet/``).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch
 from .. import io as _io
 from ..core.executor import Executor, Place, Scope
 from ..observe import metrics as _metrics
+from ..observe import steplog as _steplog
 from .bucketing import BucketLadder, feed_spec, warm_feed_shapes
 from .errors import ModelNotFoundError, ModelUnavailableError
 from .kvcache import PagedKVCache
@@ -322,6 +328,7 @@ class ModelRegistry:
             self._materialize_cache(scope, sig)
         prepared = self._exe.prepare(program, fetch_list=fetch_vars,
                                      scope=scope)
+        prepared.telemetry_source = "serving"
         ver = ModelVersion(name, dirname, fp, program, list(feed_names),
                            [v.name for v in fetch_vars], scope, prepared,
                            ladder, spec)
@@ -376,6 +383,7 @@ class ModelRegistry:
         fetch_vars = [dprog.global_block().var(n) for n in dfetches]
         prepared = self._exe.prepare(dprog, fetch_list=fetch_vars,
                                      scope=ver.scope)
+        prepared.telemetry_source = "serving"
         kv = PagedKVCache(sig["num_blocks"], sig["block_size"],
                           sig["max_blocks_per_seq"], sig["max_slots"],
                           model=ver.name, version=ver.version_id)
@@ -388,19 +396,36 @@ class ModelRegistry:
         step."""
         dec = ver.decode
         S = dec.signature["max_slots"]
-        dec.prepared.run({
+        feeds = {
             "tokens": np.zeros((S, 1), np.int64),
             "block_tables": np.zeros(
                 (S, dec.signature["max_blocks_per_seq"]), np.int32),
             "seq_lens": np.zeros((S,), np.int32),
-        })
+        }
+        dec.prepared.run(feeds)
+        _steplog.preseed_shapes(dec.prepared._entry, feeds)
 
     @staticmethod
     def _warm(ver: ModelVersion):
         """Run the program once at every ladder rung (zero feeds; a
-        prefill's positions all land in the trash block)."""
-        for feeds in warm_feed_shapes(ver.spec, ver.ladder):
+        prefill's positions all land in the trash block). The first run
+        builds the plan (`first_call`); each further rung is recorded as
+        the expected `warmup` cause and pre-seeded into the shape
+        tracker first, so steady-state traffic on warmed shapes records
+        no event — with the `observe` flag on or off while warming."""
+        warm_feeds = warm_feed_shapes(ver.spec, ver.ladder)
+        obs = _steplog.observatory()
+        for i, feeds in enumerate(warm_feeds):
+            if i > 0:
+                _steplog.preseed_shapes(ver.prepared._entry, feeds)
+                obs.record(ver.program._uid, "warmup", "serving",
+                           {"shapes": {n: list(a.shape)
+                                       for n, a in feeds.items()}})
             ver.prepared.run(feeds)
+        if warm_feeds:
+            # the first rung's signature too (its run may have happened
+            # with the observe flag off, never reaching the tracker)
+            _steplog.preseed_shapes(ver.prepared._entry, warm_feeds[0])
 
     def reload(self, name: str, force: bool = False) -> bool:
         """Re-check `name`'s dir; hot-swap if its fingerprint changed (or

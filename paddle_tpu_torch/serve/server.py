@@ -18,10 +18,12 @@ can pipeline. Both take `deadline_ms`. A second `add_model` of a name,
 (`start_watch`) hot-swap a model of either kind.
 
 Without a place the server runs on `CUDAPlace(0)`, which raises when no
-card is visible; pass `CPUPlace()` to serve on the host. Not ported: the
-health plane (`pulse_port`, ``observe/health``, ``observe/pulse``), the
-distributed sparse read path (`sparse=`, ``fleet/``) and disaggregated
-prefill / decode (``torrent/``).
+card is visible; pass `CPUPlace()` to serve on the host.
+`ServeConfig(pulse_port=0)` starts the process's health plane
+(``observe/pulse``; the `observe` flag must be on) with this server's
+queue and warm-version check on `/readyz`. Not ported: the distributed
+sparse read path (`sparse=`, ``fleet/``) and disaggregated prefill /
+decode (``torrent/``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ class ServeConfig:
     # slot-admission policy: "continuous" (finished sequences vacate
     # mid-batch, default) or "drain" (classic drain-and-refill)
     decode_admission: str = "continuous"
+    # expose this process's health plane and this server's
+    # queue-saturation readiness check on it (0 = ephemeral port;
+    # requires the observe flag — start_pulse refuses otherwise)
+    pulse_port: Optional[int] = None
 
 
 class InferenceServer:
@@ -66,6 +72,19 @@ class InferenceServer:
         self._batchers: Dict[str, MicroBatcher] = {}
         self._engines: Dict[str, DecodeEngine] = {}
         self._closed = False
+        self.pulse_port: Optional[int] = None
+        self._pulse_check_name: Optional[str] = None
+        if self.config.pulse_port is not None:
+            from ..observe import health as _health
+            from ..observe import pulse as _pulse
+            self.pulse_port = _pulse.start_pulse(self.config.pulse_port)
+            # instance-scoped name: two servers in one process (tests, a
+            # blue/green pair) must not clobber each other's check, and
+            # close() of one must not unregister the survivor's
+            self._pulse_check_name = f"serve_queues@{id(self):x}"
+            _health.get_engine().register_check(
+                self._pulse_check_name, self._pulse_queue_check,
+                ready=True)
 
     def model_detail(self) -> dict:
         """Per-model readiness detail: the active `version` (and its
@@ -93,6 +112,23 @@ class InferenceServer:
             d["version_key"] = ver.version_key
             d["warmed"] = bool(ver.warmed)
         return detail
+
+    def _pulse_queue_check(self):
+        """The pulse /readyz check: per-model queue saturation AND
+        per-model version/warm detail. Unready when any queue saturates
+        — at the detector's threshold
+        (health.SERVE_QUEUE_SATURATION_FRAC), so the two verdicts in one
+        /healthz body cannot diverge — or when any model's active
+        version is not warmed."""
+        from ..observe.health import SERVE_QUEUE_SATURATION_FRAC
+        detail = self.model_detail()
+        ok = True
+        for d in detail.values():
+            if d["saturation"] >= SERVE_QUEUE_SATURATION_FRAC:
+                ok = False
+            if d["version"] is not None and not d["warmed"]:
+                ok = False
+        return ok, detail
 
     # -- model management ------------------------------------------------
 
@@ -291,6 +327,11 @@ class InferenceServer:
         if self._closed:
             return
         self._closed = True
+        if self._pulse_check_name is not None:
+            from ..observe import health as _health
+            _health.get_engine().unregister_check(self._pulse_check_name)
+            self._pulse_check_name = None
+            self.pulse_port = None
         for b in self._batchers.values():
             b.close()
         self._batchers.clear()

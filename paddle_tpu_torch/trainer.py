@@ -18,8 +18,11 @@ default 'dp' mesh of the world (``parallel/``), as the JAX package's
 does, and `Inferencer(parallel=True)` infers through one; both run on
 the place's device (a `CUDAPlace` by default: no card raises).
 
-Not ported yet: `pulse_port` with the loss feed of the health plane
-(`observe/pulse`, `observe/health`, item 8).
+`Trainer(pulse_port=0)` starts this process's health plane
+(``observe/pulse``: /metrics, /healthz, /status, ...; the `observe` flag
+must be on), and with the flag on every fetched loss lands on it
+(``observe/health.note_loss_fetch``), where the non-finite detector
+watches it.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from . import unique_name
 from .core import ir
 from .core.executor import CUDAPlace, Executor, Scope, to_numpy
 from .data_feeder import DataFeeder
+from .observe import health as _obs_health
 from .observe import metrics as _obs_metrics
 from .observe.tracer import get_tracer as _get_tracer
 
@@ -161,12 +165,14 @@ class Trainer:
                  param_path=None, place=None, parallel=False,
                  checkpoint_config: Optional[CheckpointConfig] = None,
                  pulse_port: Optional[int] = None):
-        if pulse_port is not None:
-            raise NotImplementedError(
-                "Trainer(pulse_port=...): the health plane (observe/pulse) "
-                "is not ported yet (ROADMAP Queue 1 item 8)")
         self.place = place or CUDAPlace(0)
+        # expose this trainer process's live health plane (/metrics
+        # /healthz /status ...). Requires the observe flag: start_pulse
+        # refuses otherwise
         self.pulse_port = None
+        if pulse_port is not None:
+            from .observe import pulse as _obs_pulse
+            self.pulse_port = _obs_pulse.start_pulse(pulse_port)
         self.parallel = parallel
         self.checkpoint_cfg = checkpoint_config
         self.scope = Scope()
@@ -322,6 +328,10 @@ class Trainer:
                 event_handler(begin)
                 fetch = [self.loss] + self.metrics if begin.fetch_metrics else []
                 out = self._executor_run(feeder.feed(batch), fetch)
+                if out and _flags.get_flag("observe"):
+                    # the loss lands on the health plane's series (the
+                    # non-finite detector's food)
+                    _obs_health.note_loss_fetch(out)
                 event_handler(EndStepEvent(epoch, step,
                                            [np.asarray(o) for o in out]))
                 step += 1

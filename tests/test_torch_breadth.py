@@ -937,13 +937,22 @@ def _public(mod):
     return {n for n in dir(mod) if not n.startswith("_")}
 
 
+# observe/ and each of its modules: every name ported (item 8.1)
+OBSERVE_MODULES = ("flight", "health", "memory", "metrics", "pulse",
+                   "scrape", "steplog", "stitch", "tracer", "xray")
+
+
 @pytest.mark.parametrize("jmod,tmod,waiting", [
     (fluid.layers, ptt.layers, LAYERS_WAITING),
     (fluid, ptt, TOP_WAITING),
     (fluid.transpiler, ptt.transpiler, TRANSPILER_WAITING),
     (fluid.analysis, ptt.analysis, ANALYSIS_WAITING),
-    (fluid.ir_pass, ptt.ir_pass, set())],
-    ids=["layers", "top_level", "transpiler", "analysis", "ir_pass"])
+    (fluid.ir_pass, ptt.ir_pass, set()),
+    (fluid.observe, ptt.observe, set()),
+    *((getattr(fluid.observe, m), getattr(ptt.observe, m), set())
+      for m in OBSERVE_MODULES)],
+    ids=["layers", "top_level", "transpiler", "analysis", "ir_pass",
+         "observe", *(f"observe.{m}" for m in OBSERVE_MODULES)])
 def test_every_public_name_is_ported_or_waiting(jmod, tmod, waiting):
     import importlib.util
     missing = _public(jmod) - _public(tmod)

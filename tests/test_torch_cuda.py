@@ -23,7 +23,10 @@ antialiasing and `fake_quantize_range_abs_max` on the card against the
 host, and the transpilers on a card scope: `InferenceTranspiler` and
 `Float16Transpiler` leave every parameter on the card (folded, or in its
 new dtype), a bf16-transpiled attention launches the flash forward's
-bf16 instantiation only, and a float16-transpiled one raises.
+bf16 instantiation only, and a float16-transpiled one raises; and the
+observe plane on the card: the memory observatory's live stats equal
+`torch.cuda.memory_stats`' after a known allocation, and the executor's
+step log has every phase on the card, `bind` on the first run only.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2439,3 +2442,59 @@ def test_parallel_executor_on_the_card_is_the_executor(dev):
                                                     runs["parallel"][0]))
     assert runs["executor"][1] == runs["parallel"][1]
     assert runs["parallel"][1]["flash_fwd"] == 2 * 3 * 3
+
+
+def test_memory_observatory_reads_the_cards_live_stats(dev):
+    from paddle_tpu_torch.observe import memory
+    obs = memory.MemoryObservatory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_stats(dev)["allocated_bytes.all.current"]
+    block = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    live = obs.live_device_stats()
+    st = torch.cuda.memory_stats(dev)
+    assert obs.live_available()
+    rec = live[dev.index]
+    assert rec["bytes_in_use"] == st["allocated_bytes.all.current"] \
+        >= before + (64 << 20)
+    assert rec["peak_bytes_in_use"] == st["allocated_bytes.all.peak"] \
+        == torch.cuda.max_memory_allocated(dev)
+    assert rec["pool_bytes"] == st["reserved_bytes.all.current"]
+    assert rec["bytes_limit"] == torch.cuda.mem_get_info(dev)[1]
+    assert "largest_free_block_bytes" not in rec
+    rep = obs.report()
+    assert rep["live"] and rep["peak_bytes_in_use"] >= 64 << 20
+    assert obs.flight_section()["devices"] == live
+    del block
+
+
+def test_step_log_on_the_card_has_every_phase_and_bind_once(dev):
+    from paddle_tpu_torch import observe
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data(name="x", shape=[64], dtype="float32")
+        loss = ptt.layers.mean(ptt.layers.fc(input=x, size=32))
+        ptt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    prev = ptt.get_flag("observe")
+    ptt.set_flag("observe", True)
+    try:
+        observe.reset_all()
+        prepared = exe.prepare(main, fetch_list=[loss], scope=scope)
+        feed = {"x": np.ones((16, 64), np.float32)}
+        for _ in range(3):
+            prepared.run(feed)
+        steps = observe.get_steplog().recent()
+        assert ["bind" in s.phases for s in steps] == [True, False, False]
+        for s in steps:
+            assert {"feed_convert", "state_gather", "device_compute",
+                    "write_back", "fetch"} <= set(s.phases)
+            assert all(v >= 0 for v in s.phases.values())
+        assert [e.cause for e in observe.observatory().events()
+                if e.program_uid == main._uid] == ["first_call"]
+        assert observe.memory.get_observatory().live_available()
+    finally:
+        ptt.set_flag("observe", prev)
+        observe.reset_all()

@@ -934,7 +934,9 @@ def test_jax_written_ark_checkpoint_resumes_in_the_port(tmp_path):
 def test_trainer_not_ported_options_name_their_roadmap_items():
     # parallel=True is ported (item 7): the Trainer runs a ParallelExecutor
     assert _trainer(ptt, parallel=True).parallel
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # pulse_port is ported (item 8.1): as in the JAX package, it is
+    # refused while the `observe` flag is off
+    with pytest.raises(RuntimeError, match="requires the observe flag"):
         _trainer(ptt, pulse_port=0)
     with pytest.raises(TypeError, match="ark.CheckpointConfig"):
         _trainer(ptt).train(1, reader=_reader(1), feed_order=["x", "y"],

@@ -492,6 +492,16 @@ ptt.transpiler.Float16Transpiler().transpile(cb, scope=cb_scope)
 assert exe.run(cb, feed=im_feed, fetch_list=[cbn],
                scope=cb_scope)[0].shape == before.shape
 assert ptt.analysis.analyze_source("x = 1\n") == []
+from paddle_tpu_torch import observe
+ptt.set_flag("observe", True)
+pulse_port = observe.start_pulse(0)
+exe.run(cb, feed=im_feed, fetch_list=[cbn], scope=cb_scope)
+assert observe.get_steplog().phase_summary()["steps"] == 1
+assert observe.summary()["memory"]["live"] is False
+observe.reset_all()
+for name in ("flight", "health", "memory", "pulse", "scrape", "steplog",
+             "stitch", "tracer", "xray"):
+    assert "paddle_tpu_torch.observe." + name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)
@@ -526,11 +536,12 @@ def _foreign_imports(path):
 def test_port_sources_import_no_jax_or_paddle_tpu():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")]
-    files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "tools", "torch_serve_profile.py"),
-              os.path.join(REPO, "tools", "torch_train_profile.py"),
-              os.path.join(REPO, "tools", "torch_flash_bwd_bench.py"),
-              os.path.join(REPO, "tools", "torch_book.py")]
+    files += [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", f) for f in (
+        "torch_serve_profile.py", "torch_train_profile.py",
+        "torch_flash_bwd_bench.py", "torch_book.py",
+        "torch_paddle_lint.py", "torch_race_lint.py",
+        "torch_op_profile.py", "torch_paddle_plan.py")]
     assert len(files) > 20
     for part in ("dataset/mnist.py", "dataset/common.py",
                  "ops/loss_extra.py", "layers/loss_layers.py"):

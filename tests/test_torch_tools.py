@@ -1,0 +1,182 @@
+"""The port's analysis CLIs against the JAX package's, on the CPU.
+
+Each tool runs in a subprocess beside its counterpart on the same input:
+
+- ``tools/torch_paddle_lint.py`` vs ``tools/paddle_lint.py``: the same
+  findings (``--format json``) and exit code, on a saved Program and on
+  book models;
+- ``tools/torch_paddle_plan.py --hw cpu`` vs ``tools/paddle_plan.py --hw
+  cpu``: the same ranked report (``--json``) and exit code, also where
+  no candidate fits;
+- ``tools/torch_race_lint.py``: the port sweeps clean against its own
+  baseline;
+- ``tools/torch_op_profile.py``: the same static cost table as
+  ``tools/op_profile.py`` and a passing ``--measured-check``.
+
+Everything is held exactly: the tools' JSON documents and exit codes.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+import paddle_tpu as fluid
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOOLS = os.path.join(REPO, "tools")
+
+
+def _run(tool, *args, timeout=600):
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, os.path.join(TOOLS, tool),
+                           *args], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _pair(jax_tool, port_tool, *args):
+    jrc, jout, jerr = _run(jax_tool, *args)
+    trc, tout, terr = _run(port_tool, *args)
+    return (jrc, jout, jerr), (trc, tout, terr)
+
+
+def _saved_program(path):
+    """A Program with a lint finding: an op no fetch reads (a dead op)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        h = fluid.layers.fc(input=x, size=4, act="relu")
+        fluid.layers.scale(h, scale=2.0)
+        loss = fluid.layers.mean(h)
+    with open(path, "w") as f:
+        f.write(main.serialize_to_string())
+    return loss.name
+
+
+@pytest.mark.parametrize("target", ["saved", "mnist", "transformer-no-train"])
+def test_lint_gives_the_same_findings_as_paddle_lint(tmp_path, target):
+    if target == "saved":
+        path = str(tmp_path / "prog.json")
+        loss = _saved_program(path)
+        args = [path, "--fetch", loss]
+    elif target == "mnist":
+        args = ["--model", "mnist"]
+    else:
+        args = ["--model", "transformer", "--no-train"]
+    (jrc, jout, jerr), (trc, tout, terr) = _pair(
+        "paddle_lint.py", "torch_paddle_lint.py", "--format", "json", *args)
+    assert jrc in (0, 1), jerr
+    assert trc == jrc, terr
+    assert json.loads(tout) == json.loads(jout)
+    if target == "saved":
+        assert json.loads(tout)["diagnostics"]
+        # --strict promotes the warnings to a failing exit, in both
+        assert _run("torch_paddle_lint.py", "--strict", *args)[0] == \
+            _run("paddle_lint.py", "--strict", *args)[0] == 1
+
+
+def test_lint_usage_errors_exit_2():
+    rc, _, err = _run("torch_paddle_lint.py")
+    assert rc == 2 and "exactly one" in err
+    rc, _, err = _run("torch_paddle_lint.py", "/nonexistent/prog.json")
+    assert rc != 0 and "cannot load program" in err
+
+
+@pytest.mark.parametrize("case", ["transformer-4", "mlp-8", "no-fit"])
+def test_plan_gives_the_same_ranking_as_paddle_plan(case):
+    args = {"transformer-4": ["--model", "transformer", "--devices", "4"],
+            "mlp-8": ["--model", "mlp", "--devices", "8", "--batch", "16"],
+            "no-fit": ["--model", "transformer", "--devices", "2",
+                       "--hbm-gb", "0.0001"]}[case]
+    (jrc, jout, jerr), (trc, tout, terr) = _pair(
+        "paddle_plan.py", "torch_paddle_plan.py", "--hw", "cpu", "--json",
+        *args)
+    assert trc == jrc, (terr, jerr)
+    assert json.loads(tout) == json.loads(jout)
+    if case == "no-fit":
+        assert trc == 1 and "no feasible mesh" in terr
+    else:
+        assert trc == 0 and json.loads(tout)["best"] is not None
+
+
+def test_plan_text_report_names_the_machine_model():
+    rc, out, _ = _run("torch_paddle_plan.py", "--model", "mlp",
+                      "--devices", "2", "--hw", "h100")
+    assert rc == 0
+    assert "hw=h100-sxm-80gb" in out and "PLAN:" in out
+
+
+def test_race_lint_sweeps_the_port_clean_against_its_baseline():
+    with open(os.path.join(TOOLS, "torch_race_lint_baseline.json")) as f:
+        doc = json.load(f)
+    assert doc["entries"] == []
+    rc, out, err = _run("torch_race_lint.py", "--format", "json")
+    assert rc == 0, err
+    got = json.loads(out)
+    assert (got["errors"], got["warnings"], got["stale"]) == (0, 0, [])
+
+
+def test_race_lint_flags_a_new_race(tmp_path):
+    src = tmp_path / "racy.py"
+    src.write_text(
+        "import threading\n\n\n"
+        "class Box:\n"
+        "    def __init__(self):\n"
+        "        self._lock = threading.Lock()\n"
+        "        self._n = 0  # guarded_by: self._lock\n\n"
+        "    def bump(self):\n"
+        "        self._n += 1\n")
+    jrc, jout, _ = _run("race_lint.py", "--format", "json", str(src))
+    trc, tout, _ = _run("torch_race_lint.py", "--format", "json", str(src))
+    assert trc == jrc == 1
+    codes = [d["code"] for d in json.loads(tout)["diagnostics"]]
+    assert codes == [d["code"] for d in json.loads(jout)["diagnostics"]]
+    assert codes
+
+
+@pytest.mark.parametrize("model", ["mlp", "transformer"])
+def test_op_profile_static_cost_equals_op_profiles(model):
+    args = ["--model", model, "--steps", "1", "--json"]
+    jrc, jout, jerr = _run("op_profile.py", *args)
+    trc, tout, terr = _run("torch_op_profile.py", "--cpu", *args)
+    assert jrc == 0 and trc == 0, (jerr, terr)
+    j, t = json.loads(jout), json.loads(tout)
+    for k in ("total_flops", "total_bytes", "param_bytes", "top",
+              "by_type"):
+        assert t.get(k) == j.get(k), k
+    assert t["observed_steps"] == j["observed_steps"] == 1
+    # the products the static model counts are what torch's counter saw
+    assert t["static_product_flops"] == t["measured_flops"] > 0
+
+
+def test_op_profile_measured_check_passes_on_the_cpu():
+    rc, _, err = _run("torch_op_profile.py", "--cpu", "--model", "mlp",
+                      "--steps", "1", "--measured-check")
+    assert rc == 0, err
+    assert "measured-check:" in err and "OK" in err
+
+
+def test_tools_import_no_jax_or_paddle_tpu():
+    """Each port tool runs with jax and paddle_tpu unimportable."""
+    code = ("import sys, runpy\n"
+            "class Ban:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', "
+            "'paddle_tpu'):\n"
+            "            raise ImportError('banned: ' + name)\n"
+            "sys.meta_path.insert(0, Ban())\n"
+            "sys.argv = [sys.argv[1]] + sys.argv[2:]\n"
+            "runpy.run_path(sys.argv[0], run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    for tool, args in (("torch_paddle_lint.py", ["--model", "mnist"]),
+                       ("torch_paddle_plan.py", ["--model", "mlp",
+                                                 "--devices", "2",
+                                                 "--hw", "cpu"])):
+        proc = subprocess.run(
+            [sys.executable, "-c", code, os.path.join(TOOLS, tool), *args],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr
