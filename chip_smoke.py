@@ -104,7 +104,8 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    its grad, and no launch writes the op's `Mask`, which nothing in the
    step reads; both readings side by side;
 6. train parity: the same model at batch 2, from one startup state loaded
-   into a `CUDAPlace(0)` and a `CPUPlace()` executor, 3 steps, losses
+   into a `CUDAPlace(0)` and a `CPUPlace()` executor, PARITY_STEPS steps,
+   losses
    equal within LOSS_RTOL: at dropout 0, and at dropout 0.1 under
    ``FLAGS_dropout_impl=pallas`` (the dropout kernel's and the flash
    kernels' masks are their plain versions');
@@ -117,7 +118,8 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    norms are cuDNN's through torch); print step ms, images/s, peak
    memory and the step's share of its float32 bound (3 x 2 x the
    multiply-adds an image, counted from the Program's conv and fc
-   shapes, x 128, at 67 TFLOP/s). Then card against host, 3 steps each
+   shapes, x 128, at 67 TFLOP/s). Then card against host, PARITY_STEPS
+   steps each
    from the host's state (the comment at RESNET_PARITY_LR
    says why): ResNet-50 at
    batch 2 and the MNIST CNN (NCHW) at batch 16 with Adam, losses within
@@ -155,7 +157,8 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    train-resnet50-amp, 10 steps at batch 128, no kernel counter moving;
    step ms, tokens or images a second, peak memory and the share of the
    bf16 bound (3 x 2 x the multiply-adds model_macs counts, at 989
-   TFLOP/s); then card against host under AMP, 3 steps each from the
+   TFLOP/s); then card against host under AMP, PARITY_STEPS steps each
+   from the
    host's state: Transformer-base at batch 2 and dropout 0, ResNet-50 at
    batch 2, each side also taking each step in float32; the card's
    losses and state within AMP_NOISE_FACTOR times the distance bf16
@@ -170,7 +173,8 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    the forward and the grad (124 launches a step float32; 120 bf16 and
    4 float32 under AMP); step ms, tokens/s and peak memory beside the
    fused path's of this call; then card vs host at batch 2 and dropout
-   0, 3 steps each from the host's state, float32 (LOSS_RTOL) and AMP,
+   0, PARITY_STEPS steps each from the host's state, float32 (LOSS_RTOL)
+   and AMP,
    and the unfused loss against the fused one from the same parameters
    (within TOL);
 7c. train-se_resnext50: SE-ResNeXt-50 32x4d, 224 x 224 NHWC, 1000
@@ -198,7 +202,7 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    every later launch, so no timed step follows one): losses finite and
    falling, no kernel of csrc/ launched; step ms, examples/s, padded and
    valid tokens/s, peak memory and the traced step's device busy share.
-   Then card vs host, 3 steps
+   Then card vs host, PARITY_STEPS steps
    each from the host's state, at 2 layers x 64 (the second reversed),
    batch 4, T 12, lengths 1 and 12 among them; and each sequence op and
    gru / lstmp / lstm_unit / gru_unit (one case sweep) card vs host with
@@ -347,7 +351,32 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    error and holds the card's live memory, and its chrome trace stitches
    under the parent's span (one trace, two processes, no orphan);
    ``tools/torch_op_profile.py --measured-check`` at train-base's widths
-   and batch and ``tools/torch_paddle_plan.py --devices 1`` (H100) exit 0;
+   and batch and ``tools/torch_paddle_plan.py --devices 1`` (H100) exit 0
+   (the two in parallel);
+7p. the wire plane (``wire/``, ``transpiler/distribute_transpiler.py``):
+   train-base-wire-int8, train-base from one saved state WIRE_STEPS steps
+   unquantized, then WIRE_STEPS steps on the same batch through
+   `DistributeTranspiler`'s collective path with comm_quant int8: one
+   `comm_quant_dequant` an Adam op, the trainer Program verified, the
+   residuals zero after the startup and non-zero after the first step,
+   losses finite and falling and the last within the JAX tests' band of
+   the unquantized run's, launches a step as train-base's, no
+   unexpected plan build; the median step with and without comm_quant,
+   the op's device time in one traced step and the residuals' bytes;
+   one step's gradients through the host codec (int8 at WIRE_CHUNK and
+   bf16): `decode_tensor` equal to the returned dequant bit for bit,
+   each int8 element within half its chunk's scale, the compression
+   ratios; pe-base-1 with `BuildStrategy.comm_quant = "int8"` bit-equal
+   to the Executor on the same rewritten Program; pe-base-wire-dp2, two
+   ranks of phase 7n's world with comm_quant bf16 (WIRE_DP2_STEPS steps):
+   losses in the band of the unquantized run, the collectives a step
+   (count and bytes) pe-base-dp2's, the op run whole on every rank; the
+   observe CLIs on the card, started after phase 7o (a) and run beside
+   the rest of 7o and 7p:
+   ``tools/torch_telemetry_dump.py --assert-no-recompiles`` exits 0, and
+   1 naming `feed_shape` with ``--two-shapes``;
+   ``tools/torch_step_profile.py`` exits 0 with `flash_fwd`, `flash_dq`
+   and `flash_dkv` among its top device ops;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -415,7 +444,10 @@ TRAIN_BASE = dict(src_vocab_size=30000, trg_vocab_size=30000, seq_len=256,
                   n_layer=6, n_head=8, d_model=512, d_inner=2048,
                   dropout_rate=0.1, fused_attention=True)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 32, 10, 1e-3
-PARITY_BATCH, PARITY_STEPS = 2, 3
+# a card-vs-host parity step runs the model's step on the host too, the
+# script's largest host cost beside the serving references: two steps,
+# the second from the first's optimizer state
+PARITY_BATCH, PARITY_STEPS = 2, 2
 DATA_SEED = 21      # the fixed training batch
 ATTN_SEED = 12345   # attention-dropout seed of the kernel checks
 # train-resnet50: the JAX package's headline benchmark as bench.py builds
@@ -612,7 +644,7 @@ SERVE_RN50_PROB_TOL, SERVE_RN50_LOGP_TOL, SERVE_RN50_LOGP_FLOOR = \
 # still decode when v2 is committed), then 4 on v2
 SWAP_WEIGHT_SEED = WEIGHT_SEED + 1
 SWAP_V1_LENS, SWAP_V2_LENS = (40, 100, 160, 220), (60, 120, 180, 240)
-SWAP_V1_TOKENS, SWAP_V2_TOKENS = 600, NEW_TOKENS
+SWAP_V1_TOKENS, SWAP_V2_TOKENS = 300, NEW_TOKENS
 # the book (tools/torch_book.py): BOOK_WARMUP + BOOK_STEPS steps a
 # chapter at torch_book.CARD's widths; card vs host BOOK_PARITY_STEPS
 # steps from the host's state, the image chapters (batch-norm networks,
@@ -5386,6 +5418,10 @@ PE_RTOL, PE_ATOL = 2e-4, 2e-5
 PE_RANK_TIMEOUT = 300
 PE_CASES = (("pe-base-dp2", "dp", 0.1), ("pe-base-sp2", "sp", 0.0),
             ("pe-base-mp2", "mp", 0.1))
+# phase 7p (c)'s two ranks run in this world, after PE_CASES:
+# pe-base-dp2 with BuildStrategy.comm_quant "bf16", WIRE_DP2_STEPS steps
+WIRE_DP2_STEPS = 5
+WIRE_PE_CASES = (("pe-base-wire-dp2", "dp", 0.1, "bf16", WIRE_DP2_STEPS),)
 # the planner's H100 profile: one bf16 product at 8192^3 and one copy of
 # 2 GiB, each the median of PEAK_ITERS timed calls
 PEAK_MATMUL_N, PEAK_COPY_BYTES, PEAK_ITERS = 8192, 2 << 30, 10
@@ -5600,7 +5636,11 @@ def _pe_rank_main(job_path):
     feed = train_batch(TRAIN_BATCH)
     res = {"backend": distributed.backend(),
            "device": str(distributed.device()), "cases": {}}
-    for name, axis, dropout in job["cases"]:
+    # a case is (name, axis, dropout), or (name, axis, dropout, codec,
+    # steps) for BuildStrategy.comm_quant = codec (phase 7p)
+    for case in job["cases"]:
+        name, axis, dropout = case[:3]
+        codec, steps = case[3:] if len(case) > 3 else (None, PE_RANK_STEPS)
         main, startup, loss = build_train(ptt, dropout_rate=dropout)
         scope = ptt.Scope()
         ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope)
@@ -5609,35 +5649,49 @@ def _pe_rank_main(job_path):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        bs = ptt.BuildStrategy()
+        bs.comm_quant = codec
         t0 = time.perf_counter()
         pe = ptt.ParallelExecutor(loss_name=loss.name, main_program=main,
-                                  scope=scope, mesh=make_mesh([2], [axis]))
+                                  scope=scope, mesh=make_mesh([2], [axis]),
+                                  build_strategy=bs)
         bcast_s = time.perf_counter() - t0
         native.reset_launches()
-        spmd.reset_collectives()
-        losses, ms = [], []
-        for _ in range(PE_RANK_STEPS):
+        losses, ms, per_step = [], [], []
+        for _ in range(steps):
+            spmd.reset_collectives()
             t0 = time.perf_counter()
             v, = pe.run(feed=feed, fetch_list=[loss.name])
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(np.asarray(v).reshape(-1)[0]))
+            per_step.append({k: {"count": c,
+                                 "bytes": spmd.collective_bytes[k]}
+                             for k, c in spmd.collectives.items()})
         launches = dict(native.launches)
-        colls = {k: {"count": c, "bytes": spmd.collective_bytes[k]}
-                 for k, c in spmd.collectives.items()}
+        colls = {k: {"count": sum(p[k]["count"] for p in per_step),
+                     "bytes": sum(p[k]["bytes"] for p in per_step)}
+                 for k in per_step[0]}
         halves = {n: [list(pe.state_placement(n)),
                       list(scope.find_var(n).shape)]
                   for n in scope.local_var_names()
                   if n.endswith("_ffn1.w_0")}
         last = sorted(ms[1:])
+        text = pe.compiled_text(feed)
         res["cases"][name] = dict(
             losses=losses, step_ms=ms, step_ms_median=last[len(last) // 2],
-            launches=launches, collectives=colls, checksum=checksum,
+            launches=launches, collectives=colls,
+            collectives_per_step=per_step, checksum=checksum,
             bcast_s=bcast_s, peak_bytes=torch.cuda.max_memory_allocated(),
-            ffn1=halves,
-            inventory=ptt.parallel.collective_inventory(
-                pe.compiled_text(feed)),
-            replicated_ops=pe._plan_for(feed, "plan").replicated_ops())
+            ffn1=halves, inventory=ptt.parallel.collective_inventory(text),
+            ran_whole=[ln for ln in text.splitlines()
+                       if "ran whole" in ln],
+            replicated_ops=pe._plan_for(feed, "plan").replicated_ops(),
+            comm_quant_ops=sum(op.type == "comm_quant_dequant"
+                               for op in main.global_block().ops),
+            residuals={n: float(scope.find_var(n).abs().max())
+                       for n in scope.local_var_names()
+                       if n.endswith("@COMM_RES")})
         del pe, scope
         gc.collect()
         torch.cuda.empty_cache()
@@ -5648,13 +5702,14 @@ def _pe_rank_main(job_path):
     return 0
 
 
-def run_pe_world(torch, tmp):
-    """(b)-(d): two ranks of this script on the card, one world for the
-    three cases; a rank's failure fails the phase."""
+def run_pe_world(torch, tmp, cases=PE_CASES + WIRE_PE_CASES):
+    """(b)-(d), and phase 7p's pe-base-wire-dp2: two ranks of this script
+    on the card, one world for the cases; a rank's failure fails the
+    phase."""
     import socket
     job = os.path.join(tmp, "pe_job.json")
     with open(job, "w") as f:
-        json.dump({"cases": PE_CASES}, f)
+        json.dump({"cases": cases}, f)
     socks = [socket.socket() for _ in range(2)]
     for sk in socks:
         sk.bind(("127.0.0.1", 0))
@@ -6161,31 +6216,86 @@ def _flight_child_main(wire, trace_path, flight_path):
     return 0
 
 
-def run_observe_clis(torch):
-    """(e): the two CLIs on the card, each in its own process."""
+def _stop(procs):
+    for _, _, proc, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _note_end(proc, ended):
+    proc.wait()
+    ended["t"] = time.perf_counter()
+
+
+def start_clis(runs):
+    """Each CLI of `runs` (name -> its arguments to python, from the
+    checkout) in its own process, all started at once; their output goes
+    to temporary files, and a thread a process notes when it ends. An exit of this
+    script before `finish_clis` stops them."""
+    import atexit
     here = os.path.dirname(os.path.abspath(__file__))
-    out = {}
-    for name, args in (
-            ("op_profile", ["tools/torch_op_profile.py", "--model",
-                            "transformer", "--full-size", "--batch",
-                            str(TRAIN_BATCH), "--steps", "2",
-                            "--measured-check", "--topk", "5"]),
-            ("paddle_plan", ["tools/torch_paddle_plan.py", "--model",
-                             "transformer", "--full-size", "--devices",
-                             "1"])):
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *args], cwd=here,
-                              capture_output=True, text=True,
-                              timeout=OBS_CLI_TIMEOUT)
-        out[name] = dict(rc=proc.returncode, s=time.perf_counter() - t0,
-                         stdout=proc.stdout[-3000:],
-                         stderr=proc.stderr[-3000:])
-        if proc.returncode != 0:
-            raise AssertionError(f"{' '.join(args)} exited "
-                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
-                                 f"\n{proc.stderr[-3000:]}")
+    procs = {}
+    for name, args in runs.items():
+        files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+        proc = subprocess.Popen([sys.executable, *args], cwd=here,
+                                stdout=files[0], stderr=files[1])
+        ended = {}
+        threading.Thread(target=_note_end, args=(proc, ended),
+                         daemon=True).start()
+        procs[name] = (args, time.perf_counter(), proc, files, ended)
+    atexit.register(_stop, procs)
+    return procs
+
+
+def finish_clis(procs, want, timeout):
+    """Wait for `start_clis`' processes, each within `timeout` s of its
+    start; fail unless each exits with `want[name]`. Returns, a CLI, its
+    exit code, seconds from its start to its end and output's tails, and
+    `waited_s`, the seconds spent here."""
+    out, t_wait = {}, time.perf_counter()
+    try:
+        for name, (args, t0, proc, files, ended) in procs.items():
+            try:
+                proc.wait(timeout=max(
+                    1.0, t0 + timeout - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{' '.join(args)} ran past "
+                                     f"{timeout} s")
+            text = []
+            for f in files:
+                f.seek(0)
+                text.append(f.read())
+                f.close()
+            while "t" not in ended:
+                time.sleep(0.01)
+            out[name] = dict(rc=proc.returncode, s=ended["t"] - t0,
+                             stdout=text[0][-6000:], stderr=text[1][-3000:])
+    finally:
+        _stop(procs)
+    for name, rc in want.items():
+        if out[name]["rc"] != rc:
+            raise AssertionError(f"{' '.join(procs[name][0])} exited "
+                                 f"{out[name]['rc']}, expected {rc}:\n"
+                                 f"{out[name]['stdout'][-3000:]}\n"
+                                 f"{out[name]['stderr']}")
+    out["waited_s"] = time.perf_counter() - t_wait
+    return out
+
+
+def run_observe_clis(torch):
+    """(e): the two CLIs on the card, each in its own process, the two at
+    once."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = finish_clis(start_clis({
+        "op_profile": ["tools/torch_op_profile.py", "--model",
+                       "transformer", "--full-size", "--batch",
+                       str(TRAIN_BATCH), "--steps", "2", "--measured-check",
+                       "--topk", "5"],
+        "paddle_plan": ["tools/torch_paddle_plan.py", "--model",
+                        "transformer", "--full-size", "--devices", "1"]}),
+        {"op_profile": 0, "paddle_plan": 0}, OBS_CLI_TIMEOUT)
     check = [ln for ln in out["op_profile"]["stderr"].splitlines()
              if ln.startswith("measured-check:")]
     if not check or "OK" not in check[0]:
@@ -6197,6 +6307,392 @@ def run_observe_clis(torch):
     out["paddle_plan"]["plan"] = [
         ln for ln in out["paddle_plan"]["stdout"].splitlines()
         if ln.startswith(("model=", "PLAN:"))]
+    return out
+
+
+# phase 7p: the wire plane. (a) train-base-wire-int8: train-base
+# (TRAIN_BASE, Adam TRAIN_LR, float32, batch TRAIN_BATCH) from one saved
+# startup state (io.state_from_numpy), WIRE_STEPS steps on the fixed batch
+# unquantized and WIRE_STEPS through a second build transpiled by
+# DistributeTranspiler with comm_quant "int8" (its startup zero-inits the
+# residuals; the saved state is loaded over the rest), their steps in
+# turn, the observe flag on; then one traced step of it; (b) one more
+# step fetches every gradient the quantizer reads, and the host codec
+# encodes each (int8 at WIRE_CHUNK, bf16); (c) pe-base-1 with
+# BuildStrategy.comm_quant "int8" against the Executor on the same
+# rewritten Program, WIRE_PE1_STEPS steps each (pe-base-wire-dp2 runs in
+# phase 7n's world: WIRE_PE_CASES); (d) the observe CLIs (WIRE_CLIS),
+# started after phase 7o (a) and read at this phase's end
+WIRE_STEPS, WIRE_PE1_STEPS, WIRE_CHUNK = 20, 3, 2048
+# tests/test_wire.py:591, the JAX tests' band of a quantized run around
+# the unquantized one: |q - ref| <= WIRE_BAND[0] |ref[0]| + WIRE_BAND[1]
+WIRE_BAND = (0.1, 0.05)
+WIRE_CLI_TIMEOUT = 600
+WIRE_CLIS = {"telemetry_dump": ["tools/torch_telemetry_dump.py",
+                                "--assert-no-recompiles"],
+             "telemetry_dump_two_shapes": ["tools/torch_telemetry_dump.py",
+                                           "--assert-no-recompiles",
+                                           "--two-shapes"],
+             "step_profile": ["tools/torch_step_profile.py", "--top", "40"]}
+
+
+def _wire_band(ref, q):
+    """The largest |q[i] - ref[i]| over the steps both ran, and the band."""
+    dev = max(abs(a - b) for a, b in zip(q, ref))
+    return dev, WIRE_BAND[0] * abs(ref[0]) + WIRE_BAND[1]
+
+
+def _traced_op(torch, fn, op_type):
+    """Run `fn` once under torch.profiler with every `op_type` op inside a
+    `record_function`: the ops' count, their device and host time, and the
+    step's device busy time (the union of its kernel, copy and set
+    intervals, `tools/torch_serve_profile.py::device_breakdown`), in µs."""
+    from paddle_tpu_torch.core import lowering
+    from tools.torch_serve_profile import device_breakdown
+    run_op = lowering._run_op
+
+    def op_(op, *a, **k):
+        if op.type != op_type:
+            return run_op(op, *a, **k)
+        with torch.profiler.record_function("op::" + op_type):
+            return run_op(op, *a, **k)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    lowering._run_op = op_
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        lowering._run_op = run_op
+    out = dict(wall_ms=wall * 1e3, count=0, device_us=0.0, host_us=0.0)
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        dev = e.cuda_time_total if dev is None else dev
+        if e.key == "op::" + op_type and e.cpu_time_total > 0:
+            out.update(count=e.count, device_us=dev,
+                       host_us=e.cpu_time_total)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        busy = device_breakdown(path, wall)
+    out.update(step_busy_us=busy["busy_us"], busy_share=busy["busy_share"])
+    return out
+
+
+def run_train_base_wire(torch, ptt, native):
+    """(a): returns the numbers and, for (b), the quantized run's handles;
+    fails on any contract (the op count, the verified Program, the
+    residuals, the band, the launches, an unexpected plan build). The
+    two runs take their steps in turn, each on its own scope, so the
+    host's drift within the call falls on both medians alike."""
+    import numpy as np
+    from paddle_tpu_torch import observe
+    feed = train_batch(TRAIN_BATCH)
+    place = ptt.CUDAPlace(0)
+    exe = ptt.Executor(place)
+    main, startup, loss = build_train(ptt)
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    checksum = _state_checksum(torch, scope)
+    state = {n: scope.find_var(n).cpu().numpy()
+             for n in scope.local_var_names()}
+    del scope
+    n_attn = 3 * TRAIN_BASE["n_layer"]
+    per_step = {"flash_fwd": 2 * n_attn, "flash_dq": n_attn,
+                "flash_dkv": n_attn, "flash_delta": n_attn}
+    main_q, startup_q, loss_q = build_train(ptt)
+    cfg = ptt.DistributeTranspilerConfig()
+    cfg.comm_quant = "int8"
+    t = ptt.DistributeTranspiler(cfg)
+    t.transpile(0, program=main_q, trainers=1, sync_mode=True,
+                startup_program=startup_q)
+    prog = t.get_trainer_program()       # verified (analysis/)
+    ops = [op.type for op in prog.global_block().ops]
+    n_adam, n_q = ops.count("adam"), ops.count("comm_quant_dequant")
+    if not n_q or n_q != n_adam or loss_q.name != loss.name:
+        raise AssertionError(f"{n_q} comm_quant_dequant for {n_adam} Adam "
+                             f"ops")
+    if any(ops[i + 1] != "adam" for i, o in enumerate(ops)
+           if o == "comm_quant_dequant"):
+        raise AssertionError("a comm_quant_dequant not just before its "
+                             "Adam op")
+    sq = ptt.Scope()
+    exe.run(startup_q, scope=sq)
+    res_names = sorted(n for n in sq.local_var_names()
+                       if n.endswith("@COMM_RES"))
+    if len(res_names) != n_q or any(bool(sq.find_var(n).any())
+                                    for n in res_names):
+        raise AssertionError(f"{len(res_names)} residuals after the "
+                             f"startup, not {n_q} zero ones")
+    ptt.io.state_from_numpy(state, place, sq)
+    if _state_checksum(torch, sq) != checksum:
+        raise AssertionError("the quantized run's state is not the "
+                             "unquantized run's")
+    runs = {"ref": dict(prepared=exe.prepare(
+                main, fetch_list=[loss],
+                scope=ptt.io.state_from_numpy(state, place))),
+            "q": dict(prepared=exe.prepare(prog, fetch_list=[loss],
+                                           scope=sq))}
+    for r in runs.values():
+        r.update(losses=[], ms=[], launches={})
+    moved = 0
+    observe.reset_all()
+    ptt.set_flag("observe", True)
+    gc.collect()
+    torch.cuda.synchronize()
+    try:
+        for i in range(WIRE_STEPS):
+            for r in runs.values():
+                before = dict(native.launches)
+                t0 = time.perf_counter()
+                v = r["prepared"].run(feed)[0]
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+                r["losses"].append(float(np.asarray(v).reshape(-1)[0]))
+                for k, n in native.launches.items():
+                    r["launches"][k] = r["launches"].get(k, 0) + n \
+                        - before.get(k, 0)
+            if i == 0:
+                moved = sum(bool(sq.find_var(n).abs().max() > 0)
+                            for n in res_names)
+        unexpected = [e for e in observe.observatory().unexpected()
+                      if e.program_uid in (main._uid, prog._uid)]
+        causes = [e.cause for e in observe.observatory().events()
+                  if e.program_uid in (main._uid, prog._uid)]
+    finally:
+        ptt.set_flag("observe", False)
+        observe.reset_all()
+    for tag, r in runs.items():
+        want = dict.fromkeys(r["launches"], 0)
+        want.update({k: v * WIRE_STEPS for k, v in per_step.items()})
+        if r["launches"] != want:
+            raise AssertionError(f"train-base-wire {tag} launches "
+                                 f"{r['launches']}, expected {want}")
+    if unexpected:
+        raise AssertionError(f"unexpected plan builds {unexpected}")
+    if not moved:
+        raise AssertionError("no residual moved after the first step")
+    ref, q = runs["ref"]["losses"], runs["q"]["losses"]
+    dev, band = _wire_band(ref, q)
+    if not (np.isfinite(q).all() and q[-1] < q[0]
+            and abs(q[-1] - ref[-1]) <= band):
+        raise AssertionError(f"train-base-wire-int8 losses {q} against the "
+                             f"unquantized {ref} (band {band})")
+    del runs["ref"]["prepared"]
+    prepared_q = runs["q"].pop("prepared")
+    gc.collect()
+    torch.cuda.empty_cache()
+    traced = _traced_op(torch, lambda: prepared_q.run(feed),
+                        "comm_quant_dequant")
+    if traced["count"] != n_q:
+        raise AssertionError(f"traced {traced['count']} comm_quant_dequant "
+                             f"ranges, expected {n_q}")
+    res_bytes = sum(sq.find_var(n).numel() * sq.find_var(n).element_size()
+                    for n in res_names)
+    param_bytes = sum(
+        sq.find_var(n).numel() * sq.find_var(n).element_size()
+        for n, v in prog.global_block().vars.items()
+        if isinstance(v, ptt.Parameter))
+    ref_ms, q_ms = runs["ref"]["ms"], runs["q"]["ms"]
+    return dict(
+        steps=WIRE_STEPS, ref_losses=ref, losses=q, ref_step_ms=ref_ms,
+        step_ms=q_ms, ref_step_ms_median=_median(ref_ms[1:]),
+        step_ms_median=_median(q_ms[1:]),
+        ref_launches=runs["ref"]["launches"],
+        launches=runs["q"]["launches"], n_comm_quant=n_q, n_adam=n_adam,
+        residuals_moved_after_step1=moved, residual_bytes=res_bytes,
+        param_bytes=param_bytes, band=band, last_dev=abs(q[-1] - ref[-1]),
+        max_dev=dev, plan_causes=causes, traced=traced, checksum=checksum,
+        handles=dict(exe=exe, prog=prog, scope=sq, feed=feed,
+                     grads=[op.input("Grad")[0]
+                            for op in prog.global_block().ops
+                            if op.type == "comm_quant_dequant"]))
+
+
+def run_wire_codec(torch, ptt, handles):
+    """(b): one step's gradients through the host codec."""
+    import numpy as np
+    from paddle_tpu_torch import wire
+    exe, prog, scope = handles["exe"], handles["prog"], handles["scope"]
+    grads = exe.run(prog, feed=handles["feed"], fetch_list=handles["grads"],
+                    scope=scope)
+    raw = sum(g.nbytes for g in grads)
+    out = {"tensors": len(grads), "elements": sum(g.size for g in grads),
+           "raw_bytes": raw}
+    for codec in ("int8", "bf16"):
+        t0 = time.perf_counter()
+        enc, worst = 0, 0.0
+        for name, g in zip(handles["grads"], grads):
+            payload, deq = wire.encode_with_dequant(g, codec, name=name,
+                                                    chunk=WIRE_CHUNK)
+            if wire.decode_tensor(payload).tobytes() != deq.tobytes():
+                raise AssertionError(f"{codec} {name}: decode_tensor is not "
+                                     f"the returned dequant bit for bit")
+            err = np.abs(g - deq).ravel()
+            if codec == "int8":
+                n = g.size
+                half = np.repeat(payload["scale"], WIRE_CHUNK)[:n] * 0.5
+                # to float32 rounding: the quotient x / scale and the
+                # product q scale each round, by at most 127 2^-24 of the
+                # scale
+                bound = half * np.float32(1.0 + 2.0 ** -15)
+            else:
+                # half a bf16 ulp: 2^-8 of |x| for a normal x, half the
+                # least bf16 subnormal (2^-134) below
+                half = np.abs(g).ravel() * np.float32(2.0 ** -8)
+                bound = half + np.float32(2.0 ** -134)
+            if (err > bound).any():
+                i = int(np.argmax(err - bound))
+                raise AssertionError(f"{codec} {name}: element {i} off by "
+                                     f"{err[i]}, past {bound[i]}")
+            share = err[half > 0] / half[half > 0]
+            worst = max(worst, float(share.max()) if share.size else 0.0)
+            enc += wire.payload_nbytes(payload)
+        out[codec] = dict(encoded_bytes=enc,
+                          ratio=wire.compression_ratio(raw, enc),
+                          max_err_over_half_quantum=worst,
+                          s=time.perf_counter() - t0)
+    return out
+
+
+def run_pe_base_wire_1(torch, ptt, native):
+    """(c), one rank: ParallelExecutor(build_strategy.comm_quant="int8")
+    over the one-rank mesh and the Executor on the Program it rewrote,
+    WIRE_PE1_STEPS steps each from one saved state."""
+    import numpy as np
+    feed = train_batch(TRAIN_BATCH)
+    main, startup, loss = build_train(ptt)
+    scope = ptt.Scope()
+    ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=scope)
+    saved = {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+    bs = ptt.BuildStrategy()
+    bs.comm_quant = "int8"
+    pe = ptt.ParallelExecutor(loss_name=loss.name, main_program=main,
+                              scope=scope, build_strategy=bs)
+    n_q = sum(op.type == "comm_quant_dequant"
+              for op in main.global_block().ops)
+    res_shapes = {n: scope.find_var(n).shape for n in scope.local_var_names()
+                  if n.endswith("@COMM_RES")}
+    out = {}
+    for kind in ("parallel", "executor"):
+        if kind == "executor":
+            del pe
+            scope = ptt.Scope()
+            for n, t in saved.items():
+                scope.set_var(n, t.clone())
+            for n, shape in res_shapes.items():
+                scope.set_var(n, torch.zeros(shape, device="cuda"))
+            exe = ptt.Executor(ptt.CUDAPlace(0))
+
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope)[0]
+        else:
+            def step():
+                return pe.run(feed=feed, fetch_list=[loss.name])[0]
+        native.reset_launches()
+        losses = [float(np.asarray(step()).reshape(-1)[0])
+                  for _ in range(WIRE_PE1_STEPS)]
+        torch.cuda.synchronize()
+        out[kind] = dict(losses=losses, launches=dict(native.launches))
+    del scope, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    if out["parallel"] != out["executor"] or not n_q \
+            or len(res_shapes) != n_q:
+        raise AssertionError(f"pe-base-wire-1 {out['parallel']} against the "
+                             f"Executor's {out['executor']} ({n_q} ops, "
+                             f"{len(res_shapes)} residuals)")
+    out["n_comm_quant"] = n_q
+    return out
+
+
+def check_pe_wire(ranks, wire_a):
+    """(c), two ranks: pe-base-wire-dp2's losses in the band of (a)'s
+    unquantized run from the same state, its collectives a step those of
+    pe-base-dp2, the op run whole, the launches a step train-base's."""
+    import numpy as np
+    n_attn = 3 * TRAIN_BASE["n_layer"]
+    out = []
+    for r, res in enumerate(ranks):
+        for name, _, _, codec, steps in WIRE_PE_CASES:
+            c, dp2 = res["cases"][name], res["cases"]["pe-base-dp2"]
+            if c["checksum"] != wire_a["checksum"]:
+                raise AssertionError(f"{name} rank {r}: startup checksum "
+                                     f"{c['checksum']} != (a)'s")
+            dev, band = _wire_band(wire_a["ref_losses"], c["losses"])
+            if not np.isfinite(c["losses"]).all() or dev > band:
+                raise AssertionError(f"{name} rank {r}: losses {c['losses']} "
+                                     f"off (a)'s unquantized "
+                                     f"{wire_a['ref_losses'][:steps]} by "
+                                     f"{dev} (band {band})")
+            per = c["collectives_per_step"]
+            if any(p != per[0] for p in per) or {
+                    k: {"count": v["count"] * PE_RANK_STEPS,
+                        "bytes": v["bytes"] * PE_RANK_STEPS}
+                    for k, v in per[0].items()} != dp2["collectives"]:
+                raise AssertionError(f"{name} rank {r}: collectives a step "
+                                     f"{per} against pe-base-dp2's "
+                                     f"{dp2['collectives']} over "
+                                     f"{PE_RANK_STEPS} steps")
+            n_q = c["comm_quant_ops"]
+            if not n_q or c["replicated_ops"].get("comm_quant_dequant") \
+                    != n_q or not any("comm_quant_dequant" in ln
+                                      for ln in c["ran_whole"]):
+                raise AssertionError(f"{name} rank {r}: {n_q} ops, run whole "
+                                     f"{c['replicated_ops']}")
+            if len(c["residuals"]) != n_q \
+                    or not max(c["residuals"].values()) > 0:
+                raise AssertionError(f"{name} rank {r}: residuals "
+                                     f"{len(c['residuals'])}")
+            want = {"flash_fwd": 2 * n_attn * steps,
+                    "flash_dq": n_attn * steps, "flash_dkv": n_attn * steps,
+                    "flash_delta": n_attn * steps}
+            if {k: c["launches"].get(k, 0) for k in want} != want:
+                raise AssertionError(f"{name} rank {r}: launches "
+                                     f"{c['launches']}, expected {want}")
+            out.append(dict(rank=r, codec=codec, losses=c["losses"],
+                            max_dev=dev, band=band,
+                            step_ms_median=c["step_ms_median"],
+                            dp2_step_ms_median=dp2["step_ms_median"],
+                            collectives_per_step=per[0],
+                            ran_whole=c["ran_whole"], n_comm_quant=n_q))
+    return out
+
+
+def finish_wire_clis(procs):
+    """(d): wait for the CLIs (`finish_clis`) and hold their output: the
+    dump's OK, the two-shape run's `feed_shape` cause, the three flash
+    kernels among the profile's top device ops."""
+    out = finish_clis(procs, {"telemetry_dump": 0,
+                              "telemetry_dump_two_shapes": 1,
+                              "step_profile": 0}, WIRE_CLI_TIMEOUT)
+    if "OK" not in out["telemetry_dump"]["stderr"]:
+        raise AssertionError(out["telemetry_dump"]["stderr"])
+    causes = [ln for ln in out["telemetry_dump_two_shapes"][
+        "stderr"].splitlines() if "cause(s):" in ln]
+    if not causes or not causes[0].rstrip().endswith("feed_shape"):
+        raise AssertionError(out["telemetry_dump_two_shapes"]["stderr"])
+    out["telemetry_dump_two_shapes"]["causes"] = causes[0]
+    lines = out["step_profile"]["stdout"].splitlines()
+    start = next((i for i, ln in enumerate(lines)
+                  if ln.startswith("top ") and "self CUDA" in ln), None)
+    if start is None:
+        raise AssertionError(f"step_profile: no device table:\n"
+                             f"{out['step_profile']['stdout'][-3000:]}")
+    top = [ln for ln in lines[start + 2:] if not ln.startswith("TOTAL")]
+    found = {k: next((ln.strip() for ln in top if k + "_" in ln), None)
+             for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    if not all(found.values()):
+        raise AssertionError(f"step_profile's top device ops lack "
+                             f"{[k for k, v in found.items() if not v]}:\n"
+                             + "\n".join(top))
+    out["step_profile"]["flash_rows"] = found
+    out["step_profile"]["top"] = top[:10]
     return out
 
 
@@ -7232,6 +7728,12 @@ def main() -> int:
     # analysis CLIs on the card
     t0 = time.perf_counter()
     obs_train = run_train_base_observed(torch, ptt, native)
+    # phase 7p (d)'s CLIs run beside the rest of 7o and 7p (a)-(c): none
+    # of those times a step against the host clock in a way they would
+    # skew but 7p (a), whose two runs take their steps in turn
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_clis = start_clis(WIRE_CLIS)
     sh = obs_train["phase_shares"]
     log(f"train-base-observed (Trainer(pulse_port=0), {OBS_STEPS} steps "
         f"with the observe flag on, then {OBS_OFF_STEPS} off, batch "
@@ -7292,6 +7794,90 @@ def main() -> int:
         f"({obs_clis['paddle_plan']['s']:.1f} s)")
     phase7o_s = time.perf_counter() - t0
     log(f"phase 7o: {phase7o_s:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+    # 7p. the wire plane: train-base through DistributeTranspiler's
+    # collective path with comm_quant int8 against the unquantized run,
+    # the host codec on its gradients, pe-base-1 with comm_quant, the two
+    # ranks of phase 7n's world with comm_quant bf16, the observe CLIs
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_a = run_train_base_wire(torch, ptt, native)
+    wire_handles = wire_a.pop("handles")
+    wire_tr = wire_a["traced"]
+    log(f"train-base-wire-int8 (train-base, batch {TRAIN_BATCH}, "
+        f"{WIRE_STEPS} steps unquantized and {WIRE_STEPS} through "
+        f"DistributeTranspiler(comm_quant='int8') from one saved state, "
+        f"their steps in turn, the observe flag on) [{card}]: "
+        f"{wire_a['n_comm_quant']} "
+        f"comm_quant_dequant for {wire_a['n_adam']} Adam ops, the trainer "
+        f"Program verified; residuals zero after the startup, "
+        f"{wire_a['residuals_moved_after_step1']} of them non-zero after "
+        f"step 1; losses {[round(x, 4) for x in wire_a['losses']]} against "
+        f"unquantized {[round(x, 4) for x in wire_a['ref_losses']]}: last "
+        f"{wire_a['last_dev']:.4g} apart, at most {wire_a['max_dev']:.4g} "
+        f"(band {wire_a['band']:.4g}); launches {wire_a['launches']} equal "
+        f"to the unquantized run's; plan events {wire_a['plan_causes']}, "
+        f"none unexpected; step {wire_a['step_ms_median']:.1f} ms with "
+        f"comm_quant, {wire_a['ref_step_ms_median']:.1f} without (medians "
+        f"after the first, the two runs' steps in turn; with "
+        f"{[round(x, 1) for x in wire_a['step_ms']]}, "
+        f"without {[round(x, 1) for x in wire_a['ref_step_ms']]}); one "
+        f"traced step {wire_tr['wall_ms']:.1f} ms: {wire_tr['count']} "
+        f"comm_quant ops {wire_tr['device_us'] / 1e3:.3f} ms of device time "
+        f"({wire_tr['host_us'] / 1e3:.1f} ms on the host); the step's "
+        f"device busy {wire_tr['step_busy_us'] / 1e3:.1f} ms = "
+        f"{wire_tr['busy_share']:.3f} of it; "
+        f"residuals {wire_a['residual_bytes']} B beside "
+        f"{wire_a['param_bytes']} B of parameters")
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_b = run_wire_codec(torch, ptt, wire_handles)
+    del wire_handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"the host codec on one step's gradients ({wire_b['tensors']} "
+        f"tensors, {wire_b['elements']} elements, {wire_b['raw_bytes']} B "
+        f"raw) [{card}]: decode_tensor equal to the returned dequant "
+        f"bit for bit; int8 (chunk {WIRE_CHUNK}) "
+        f"{wire_b['int8']['encoded_bytes']} B, "
+        f"{wire_b['int8']['ratio']:.4f}x, each element within half its "
+        f"chunk's scale to float32 rounding (the largest error "
+        f"{wire_b['int8']['max_err_over_half_quantum']:.4f} of it), "
+        f"{wire_b['int8']['s']:.1f} s; bf16 "
+        f"{wire_b['bf16']['encoded_bytes']} B, "
+        f"{wire_b['bf16']['ratio']:.4f}x, the largest error "
+        f"{wire_b['bf16']['max_err_over_half_quantum']:.4f} of half a "
+        f"bf16 ulp, {wire_b['bf16']['s']:.1f} s")
+    wire_pe1 = run_pe_base_wire_1(torch, ptt, native)
+    log(f"pe-base-wire-1 (ParallelExecutor, BuildStrategy.comm_quant "
+        f"'int8', one-rank mesh, {WIRE_PE1_STEPS} steps) [{card}]: "
+        f"losses {wire_pe1['parallel']['losses']} bit-equal to the "
+        f"Executor's on the rewritten Program "
+        f"({wire_pe1['n_comm_quant']} comm_quant_dequant), launches "
+        f"{wire_pe1['parallel']['launches']} equal")
+    wire_dp2 = check_pe_wire(pe_ranks, wire_a)
+    for c in wire_dp2:
+        log(f"pe-base-wire-dp2 rank {c['rank']} (comm_quant "
+            f"'{c['codec']}', phase 7n's world, two ranks sharing the "
+            f"card over gloo) [{card}]: losses "
+            f"{[round(x, 4) for x in c['losses']]}, at most "
+            f"{c['max_dev']:.4g} off the unquantized run (band "
+            f"{c['band']:.4g}); collectives a step "
+            f"{c['collectives_per_step']} = pe-base-dp2's; "
+            f"{c['ran_whole']}; step {c['step_ms_median']:.1f} ms "
+            f"against pe-base-dp2's {c['dp2_step_ms_median']:.1f}")
+    wire_cli = finish_wire_clis(wire_clis)
+    log(f"the observe CLIs on the card, started after phase 7o (a) "
+        f"[{card}]: torch_telemetry_dump --assert-no-recompiles exit 0 "
+        f"({wire_cli['telemetry_dump']['s']:.1f} s), with --two-shapes "
+        f"exit 1 ({wire_cli['telemetry_dump_two_shapes']['s']:.1f} s): "
+        f"{wire_cli['telemetry_dump_two_shapes']['causes'].strip()!r}; "
+        f"torch_step_profile exit 0 ({wire_cli['step_profile']['s']:.1f} s), "
+        f"its flash rows {wire_cli['step_profile']['flash_rows']}; waited "
+        f"{wire_cli['waited_s']:.1f} s for them here")
+    phase7p_s = time.perf_counter() - t0
+    log(f"phase 7p: {phase7p_s:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
@@ -7396,6 +7982,19 @@ def main() -> int:
                     obs_train["launches_on_again"].get(kname, 0),
                 "serve_base_pulse": obs_serve["launches"].get(kname, 0)}
 
+    def wire_launches(kname):
+        """A kernel's launches on phase 7p's paths."""
+        out = {"train_base_wire_unquantized":
+                   wire_a["ref_launches"].get(kname, 0),
+               "train_base_wire_int8": wire_a["launches"].get(kname, 0),
+               "pe_base_wire_1": wire_pe1["parallel"]["launches"].get(
+                   kname, 0)}
+        for name, _, _, _, _ in WIRE_PE_CASES:
+            for r, res in enumerate(pe_ranks):
+                out[f"{name.replace('-', '_')}_rank{r}"] = \
+                    res["cases"][name]["launches"].get(kname, 0)
+        return out
+
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
     causal_head = train_cases[1]   # the same, causal
@@ -7426,7 +8025,8 @@ def main() -> int:
                               "train_base_memopt":
                                   memopt["launches"].get("flash_fwd", 0),
                               **pe_launches("flash_fwd"),
-                              **obs_launches("flash_fwd")},
+                              **obs_launches("flash_fwd"),
+                              **wire_launches("flash_fwd")},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -7451,7 +8051,8 @@ def main() -> int:
            "launches": train["launches"][f"flash_{name}"],
            "launches_by_path": {"train": train["launches"][f"flash_{name}"],
                                 **pe_launches(f"flash_{name}"),
-                                **obs_launches(f"flash_{name}")},
+                                **obs_launches(f"flash_{name}"),
+                                **wire_launches(f"flash_{name}")},
            "max_abs_err": max(c[f"{name}_err"] for c in train_cases),
            "ms": head[f"{name}_ms"], "plain_ms": head["bwd_plain_ms"],
            "bound_ms": head[f"{name}_bound_ms"],
@@ -7479,7 +8080,8 @@ def main() -> int:
                               "train_pallas":
                                   trains["pallas"]["launches"]["flash_delta"],
                               **pe_launches("flash_delta"),
-                              **obs_launches("flash_delta")},
+                              **obs_launches("flash_delta"),
+                              **wire_launches("flash_delta")},
          "max_abs_err": max(c["delta_err"] for c in train_cases),
          "tol_share": max(c["delta_share"] for c in train_cases),
          "tol": f"a row, {DELTA_TOL} x sum |dO O|",
@@ -7690,6 +8292,11 @@ def main() -> int:
                                     "serve_base_pulse": obs_serve,
                                     "flight_stitch": obs_flight,
                                     "clis": obs_clis, "phase_s": phase7o_s},
+                   "wire_plane": {"train_base_wire_int8": wire_a,
+                                  "host_codec": wire_b,
+                                  "pe_base_wire_1": wire_pe1,
+                                  "pe_base_wire_dp2": wire_dp2,
+                                  "clis": wire_cli, "phase_s": phase7p_s},
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

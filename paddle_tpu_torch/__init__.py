@@ -39,7 +39,11 @@ initializer, ``io.save_params`` / ``load_params``, ``Operator``,
 ``memory_optimize``, ``ir_pass``, ``analysis`` and the `validate` flag),
 and the parallel plane (``distributed``, ``parallel.ParallelExecutor``
 over dp / mp / sp meshes of torch.distributed ranks, ring attention,
-the planner ``analysis.planner`` and ``layers.ParallelDo``).
+the planner ``analysis.planner`` and ``layers.ParallelDo``), the
+health plane (``observe``), and fluid-wire (``wire``: the host codecs,
+`ErrorFeedback` and the in-graph ``comm_quant_dequant`` op behind
+``BuildStrategy.comm_quant`` and ``DistributeTranspilerConfig.comm_quant``)
+with the ``DistributeTranspiler`` and its dispatchers.
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -73,6 +77,7 @@ the planner ``analysis.planner`` and ``layers.ParallelDo``).
 from __future__ import annotations
 
 from . import ops  # noqa: F401  (registers the op rules)
+from . import wire  # noqa: F401  (fluid-wire codecs + comm_quant op)
 from . import (clip, data_feeder, flags, initializer, io,  # noqa: F401
                layers, lod_tensor, models, nets, optimizer, regularizer,
                serve, unique_name)
@@ -107,6 +112,8 @@ from . import analysis, ir_pass, transpiler  # noqa: F401
 from .analysis import ProgramVerificationError  # noqa: F401
 from .transpiler import (InferenceTranspiler, memory_optimize,  # noqa: F401
                          release_memory)
+from .transpiler import (DistributeTranspiler,  # noqa: F401
+                         DistributeTranspilerConfig)
 from . import distributed, parallel  # noqa: F401
 from .parallel import (BuildStrategy, ExecutionStrategy,  # noqa: F401
                        ParallelExecutor)

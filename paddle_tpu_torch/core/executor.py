@@ -355,9 +355,21 @@ class PreparedProgram:
         # observe/steplog's `source` label: "executor", "serving" (the
         # serve registry's handles) or "parallel" (ParallelExecutor)
         self.telemetry_source = "executor"
+        # a pserver Program (one listen_and_serv op, from
+        # DistributeTranspiler.get_pserver_program) is a host service,
+        # not a step: the JAX package serves it with a ParameterServer
+        ls = [op for op in self._block.ops if op.type == "listen_and_serv"]
+        self._serve_attrs = ls[0].attrs if ls else None
 
     def run(self, feed: Optional[Dict[str, Any]] = None,
             return_numpy: bool = True):
+        if self._serve_attrs is not None:
+            raise NotImplementedError(
+                f"this Program serves parameters (listen_and_serv at "
+                f"{self._serve_attrs.get('endpoint')!r}): the port's "
+                f"parameter server comes with ROADMAP Queue 1 item 8.4 "
+                f"(pserver/); until then run DistributeTranspiler's "
+                f"collective runtime through ParallelExecutor")
         program = self.program
         if program._version != self._program_version:
             raise RuntimeError(

@@ -83,7 +83,8 @@ class BuildStrategy:
         # bf16 mixed precision (Executor(amp=True)'s policy)
         self.sharding_rules = []
         self.amp = False
-        # fluid-wire's quantized gradient all-reduce: not ported yet
+        # fluid-wire: None / "raw", or "int8" / "bf16" to quantize every
+        # gradient before its optimizer op (wire/graph.py)
         self.comm_quant = None
 
 
@@ -102,11 +103,6 @@ class ParallelExecutor:
                                 else global_scope())
         self._build_strategy = build_strategy or BuildStrategy()
         self._exec_strategy = exec_strategy or ExecutionStrategy()
-        if getattr(self._build_strategy, "comm_quant", None):
-            raise NotImplementedError(
-                "BuildStrategy.comm_quant (fluid-wire's quantized gradient "
-                "all-reduce) is not ported yet: ROADMAP Queue 1 item 8.3 "
-                "(wire/)")
         if use_cuda:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -129,6 +125,15 @@ class ParallelExecutor:
         self._plans: Dict[tuple, tuple] = {}
         self._last_key = None
         self._run_counter = 0
+        # fluid-wire: rewrite BEFORE the state is placed — the residual
+        # vars are written straight into this executor's scope (the
+        # startup program typically already ran) and ride _bcast_params
+        # onto the ranks like any other state
+        if getattr(self._build_strategy, "comm_quant", None):
+            from ..wire.graph import apply_comm_quant
+            apply_comm_quant(self._program,
+                             codec=self._build_strategy.comm_quant,
+                             scope=self._scope)
         self._bcast_params()
 
     # -- state -------------------------------------------------------------

@@ -1,9 +1,12 @@
 """Program transpilers (reference: python/paddle/fluid/transpiler/).
 
-The three that need no parameter server. `DistributeTranspiler`,
-`DistributeTranspilerConfig`, `RoundRobin` and `HashName` come with the
-port's parameter-server plane (ROADMAP item 8)."""
+`DistributeTranspiler` plans every distribution mode; its default sync
+runtime, "collective", runs through `ParallelExecutor`, and a pserver
+Program it plans waits for the port's parameter server (ROADMAP item
+8.4)."""
 
 from .memory_optimization_transpiler import memory_optimize, release_memory  # noqa: F401
 from .inference_transpiler import InferenceTranspiler  # noqa: F401
 from .float16_transpiler import Float16Transpiler  # noqa: F401
+from .distribute_transpiler import DistributeTranspiler, DistributeTranspilerConfig  # noqa: F401
+from .ps_dispatcher import RoundRobin, HashName  # noqa: F401

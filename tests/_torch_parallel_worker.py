@@ -73,9 +73,13 @@ def case_trajectory(job, case):
     bs = BuildStrategy()
     if case.get("reduce"):
         bs.reduce_strategy = BuildStrategy.ReduceStrategy.Reduce
+    bs.comm_quant = case.get("comm_quant")
     pe, scope = pe_for(job, case, main, loss, case["state"], mesh, bs)
     spmd.reset_collectives()
     losses = run_losses(pe, batches(), loss)
+    residuals = {n: float(scope.find_var(n).abs().max())
+                 for n in scope.local_var_names()
+                 if n.endswith("@COMM_RES")}
     layout = {}
     for name in scope.local_var_names():
         pl = pe.state_placement(name)
@@ -89,7 +93,11 @@ def case_trajectory(job, case):
                 "collective_permute" in pe.lowered_text(batches()[0]),
             "replicated_ops": pe._plan_for(batches()[0], "t")
                 .replicated_ops(),
-            "collectives": dict(spmd.collectives)}
+            "collectives": dict(spmd.collectives),
+            "collective_bytes": dict(spmd.collective_bytes),
+            "comm_quant_ops": sum(op.type == "comm_quant_dequant"
+                                  for op in main.global_block().ops),
+            "residuals": residuals}
 
 
 def case_ring(job, case):

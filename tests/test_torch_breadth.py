@@ -908,23 +908,19 @@ def test_graphviz_and_net_drawer_write_the_reference_dot(tmp_path):
 
 # paddle_tpu.layers names whose ops or modules the port has not yet: none
 LAYERS_WAITING = set()
-# top-level names waiting: item 8 (the host planes and the
-# parameter-server transpiler), and the TPU names, which the port does
-# not take. A submodule the JAX package does not import itself
+# top-level names waiting: item 8's host planes still to port, and the
+# TPU names, which the port does not take. A submodule the JAX package does not import itself
 # (`quorum`, `capi_runtime`) is a name only once something imports it, so
 # the lists say what may be missing, and the test that nothing else is
 # and that no listed name has been ported
 TOP_WAITING = {
-    "wire", "pserver", "master",
+    "pserver", "master",
     "haven", "fleet", "torrent", "quorum", "capi_runtime",
-    "DistributeTranspiler", "DistributeTranspilerConfig",
     "TPUPlace", "tpu_device_count", "is_compiled_with_tpu",
 }
-# paddle_tpu.transpiler names waiting for the parameter-server plane
-# (item 8.4)
-TRANSPILER_WAITING = {"DistributeTranspiler", "DistributeTranspilerConfig",
-                      "RoundRobin", "HashName", "distribute_transpiler",
-                      "ps_dispatcher"}
+# paddle_tpu.transpiler names waiting: none (DistributeTranspiler and its
+# dispatchers came with wire/, item 8.3)
+TRANSPILER_WAITING = set()
 # paddle_tpu.analysis names the port does not take: the planner's TPU
 # profile, a TPU name as `TPUPlace` is (the port's planner has `H100`)
 ANALYSIS_WAITING = {"TPU_CHIP"}
@@ -938,6 +934,12 @@ def _public(mod):
 
 
 # observe/ and each of its modules: every name ported (item 8.1)
+# wire/ and each of its modules, with the transpiler's two: every name
+# ported (item 8.3)
+WIRE_MODULES = ("codec", "feedback", "graph")
+# wire/graph.py's module-level import of jax.numpy (its rule's); the
+# port's rule imports torch
+GRAPH_JAX_IMPORTS = {"jnp"}
 OBSERVE_MODULES = ("flight", "health", "memory", "metrics", "pulse",
                    "scrape", "steplog", "stitch", "tracer", "xray")
 
@@ -946,12 +948,21 @@ OBSERVE_MODULES = ("flight", "health", "memory", "metrics", "pulse",
     (fluid.layers, ptt.layers, LAYERS_WAITING),
     (fluid, ptt, TOP_WAITING),
     (fluid.transpiler, ptt.transpiler, TRANSPILER_WAITING),
+    (fluid.wire, ptt.wire, set()),
+    *((getattr(fluid.wire, m), getattr(ptt.wire, m),
+       GRAPH_JAX_IMPORTS if m == "graph" else set())
+      for m in WIRE_MODULES),
+    *((getattr(fluid.transpiler, m), getattr(ptt.transpiler, m), set())
+      for m in ("distribute_transpiler", "ps_dispatcher")),
     (fluid.analysis, ptt.analysis, ANALYSIS_WAITING),
     (fluid.ir_pass, ptt.ir_pass, set()),
     (fluid.observe, ptt.observe, set()),
     *((getattr(fluid.observe, m), getattr(ptt.observe, m), set())
       for m in OBSERVE_MODULES)],
-    ids=["layers", "top_level", "transpiler", "analysis", "ir_pass",
+    ids=["layers", "top_level", "transpiler", "wire",
+         *(f"wire.{m}" for m in WIRE_MODULES),
+         "transpiler.distribute_transpiler", "transpiler.ps_dispatcher",
+         "analysis", "ir_pass",
          "observe", *(f"observe.{m}" for m in OBSERVE_MODULES)])
 def test_every_public_name_is_ported_or_waiting(jmod, tmod, waiting):
     import importlib.util
@@ -970,18 +981,15 @@ def test_cost_model_names_are_ported_or_renamed():
 
 
 def test_every_op_of_the_reference_is_ported_or_waiting():
-    """225 of the JAX package's 226 ops; the one left, by file."""
+    """All 226 of the JAX package's ops (wire/graph.py's
+    `comm_quant_dequant` the last), each registered by the port's module
+    of the same name."""
     from paddle_tpu.core import registry as jreg
     from paddle_tpu_torch.core import registry as treg
-    left = set(jreg.registered_ops()) - set(treg.registered_ops())
-    assert set(treg.registered_ops()) <= set(jreg.registered_ops())
-    assert len(treg.registered_ops()) == 225
-    by_file = {}
-    for op in left:
-        src = jreg.get_op_def(op).lower.__module__
-        by_file.setdefault(src.rsplit(".", 1)[-1], set()).add(op)
-    assert {k: len(v) for k, v in by_file.items()} == {"graph": 1}
-    assert by_file["graph"] == {"comm_quant_dequant"}
+    assert set(treg.registered_ops()) == set(jreg.registered_ops())
+    assert len(treg.registered_ops()) == 226
+    src = treg.get_op_def("comm_quant_dequant").lower.__module__
+    assert src == "paddle_tpu_torch.wire.graph"
 
 
 def test_is_compiled_with_cuda_says_whether_a_card_is_present():

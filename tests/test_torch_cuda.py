@@ -26,7 +26,10 @@ new dtype), a bf16-transpiled attention launches the flash forward's
 bf16 instantiation only, and a float16-transpiled one raises; and the
 observe plane on the card: the memory observatory's live stats equal
 `torch.cuda.memory_stats`' after a known allocation, and the executor's
-step log has every phase on the card, `bind` on the first run only.
+step log has every phase on the card, `bind` on the first run only; and
+fluid-wire's `comm_quant_dequant` on the card against its CPU run bit for
+bit (int8 and bf16), and three steps through `DistributeTranspiler`'s
+collective path with comm_quant int8, card against host.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2498,3 +2501,71 @@ def test_step_log_on_the_card_has_every_phase_and_bind_once(dev):
     finally:
         ptt.set_flag("observe", prev)
         observe.reset_all()
+
+
+@pytest.mark.parametrize("codec,chunk", [("int8", 2048), ("int8", 7),
+                                         ("bf16", 2048)])
+@pytest.mark.parametrize("shape", [(512, 512), (4097,), (3, 5)])
+def test_comm_quant_dequant_on_card_equals_host(dev, codec, chunk, shape):
+    """fluid-wire's op on the card against its CPU run, bit for bit (the
+    CPU run is the host codec's numbers, tests/test_torch_wire.py): the
+    int8 scale divides by a tensor, not by a Python number, which torch
+    on the card would take as a product with its reciprocal."""
+    from paddle_tpu_torch import wire
+    from paddle_tpu_torch.core.registry import LoweringContext, get_op_def
+    rule = get_op_def("comm_quant_dequant").lower
+    rng = np.random.RandomState(sum(shape) + chunk)
+    x = (rng.randn(*shape) * 3).astype(np.float32)
+    x.ravel()[::11] *= 1e-3          # chunks of mixed magnitude
+    r = (rng.randn(*shape) * 0.01).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        ctx = LoweringContext({"codec": codec, "chunk": chunk}, d)
+        got = rule(ctx, torch.tensor(x, device=d), torch.tensor(r, device=d))
+        out[str(d)] = {k: v.cpu().numpy() for k, v in got.items()}
+    host, card = out["cpu"], out[str(dev)]
+    for k in ("Out", "ResidualOut"):
+        assert card[k].tobytes() == host[k].tobytes(), k
+    _, deq = wire.encode_with_dequant(x + r, codec, chunk=chunk)
+    assert card["Out"].tobytes() == deq.tobytes()
+
+
+def test_comm_quant_training_on_card_equals_host(dev):
+    """Three Adam steps of a small net through DistributeTranspiler's
+    collective path with comm_quant int8, card against host from one
+    state: losses to 1e-5 relative, residuals carried on the card."""
+    losses, state = {}, None
+    for d in ("cpu", "cuda"):
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            x = ptt.layers.data(name="x", shape=[64], dtype="float32")
+            y = ptt.layers.data(name="y", shape=[1], dtype="int64")
+            h = ptt.layers.fc(input=x, size=128, act="relu")
+            loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(
+                ptt.layers.fc(input=h, size=8), y))
+            ptt.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+        main.random_seed = startup.random_seed = 5
+        cfg = ptt.DistributeTranspilerConfig()
+        cfg.comm_quant = "int8"
+        t = ptt.DistributeTranspiler(cfg)
+        t.transpile(0, program=main, trainers=1, startup_program=startup)
+        place = ptt.CPUPlace() if d == "cpu" else ptt.CUDAPlace(0)
+        exe = ptt.Executor(place)
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        if state is None:       # the host's startup state, on both
+            state = {n: scope.find_var(n).numpy().copy()
+                     for n in scope.local_var_names()}
+        ptt.io.state_from_numpy(state, place, scope)
+        rng = np.random.RandomState(1)
+        feed = {"x": rng.randn(32, 64).astype(np.float32),
+                "y": rng.randint(0, 8, (32, 1)).astype(np.int64)}
+        losses[d] = [float(exe.run(t.get_trainer_program(), feed=feed,
+                                   fetch_list=[loss], scope=scope)[0][0])
+                     for _ in range(3)]
+        res = [scope.find_var(n) for n in scope.local_var_names()
+               if n.endswith("@COMM_RES")]
+        assert len(res) == 4 and all(v.device.type == (
+            "cpu" if d == "cpu" else "cuda") for v in res)
+        assert any(bool(v.abs().max() > 0) for v in res)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)

@@ -398,12 +398,18 @@ def test_parallel_executor_wants_a_card_unless_told_otherwise():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ParallelExecutor(loss_name=loss.name, main_program=main,
                              scope=ptt.Scope())
+    # BuildStrategy.comm_quant (fluid-wire, item 8.3) rewrites the Program
+    # before the state is placed, its residuals written into the scope
+    # (tests/test_torch_wire.py holds it against the JAX package)
     bs = BuildStrategy()
     bs.comm_quant = "int8"
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        ParallelExecutor(use_cuda=False, loss_name=loss.name,
-                         main_program=main, scope=ptt.Scope(),
-                         build_strategy=bs)
+    scope = ptt.Scope()
+    ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                     main_program=main, scope=scope, build_strategy=bs)
+    ops = [op.type for op in main.global_block().ops]
+    assert ops.count("comm_quant_dequant") == ops.count("sgd") > 0
+    assert sum(n.endswith("@COMM_RES") for n in scope.local_var_names()) \
+        == ops.count("sgd")
     assert BuildStrategy().gradient_scale_strategy is \
         BuildStrategy.GradientScaleStrategy.CoeffNumDevice
 

@@ -541,10 +541,13 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
         "torch_serve_profile.py", "torch_train_profile.py",
         "torch_flash_bwd_bench.py", "torch_book.py",
         "torch_paddle_lint.py", "torch_race_lint.py",
-        "torch_op_profile.py", "torch_paddle_plan.py")]
+        "torch_op_profile.py", "torch_paddle_plan.py",
+        "torch_telemetry_dump.py", "torch_observatory.py",
+        "torch_metrics_lint.py", "torch_step_profile.py")]
     assert len(files) > 20
     for part in ("dataset/mnist.py", "dataset/common.py",
-                 "ops/loss_extra.py", "layers/loss_layers.py"):
+                 "ops/loss_extra.py", "layers/loss_layers.py",
+                 "wire/graph.py", "transpiler/distribute_transpiler.py"):
         assert os.path.join(PORT, part) in files, part
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}

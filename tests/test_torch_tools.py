@@ -11,7 +11,18 @@ Each tool runs in a subprocess beside its counterpart on the same input:
 - ``tools/torch_race_lint.py``: the port sweeps clean against its own
   baseline;
 - ``tools/torch_op_profile.py``: the same static cost table as
-  ``tools/op_profile.py`` and a passing ``--measured-check``.
+  ``tools/op_profile.py`` and a passing ``--measured-check``;
+- ``tools/torch_telemetry_dump.py --cpu`` vs ``tools/telemetry_dump.py``:
+  the same exit codes and causes for ``--assert-no-recompiles`` with and
+  without ``--two-shapes``, the same ``--format prom`` families of the
+  planes the port has;
+- ``tools/torch_observatory.py --rounds 1 --json`` against a live port
+  pulse vs ``tools/observatory.py`` against a live JAX pulse: the same
+  document keys;
+- ``tools/torch_metrics_lint.py``: the port's emitted names all in
+  ``docs/OBSERVABILITY.md``'s catalog;
+- ``tools/torch_step_profile.py --cpu --tiny``: its host-event and op
+  tables.
 
 Everything is held exactly: the tools' JSON documents and exit codes.
 """
@@ -175,8 +186,174 @@ def test_tools_import_no_jax_or_paddle_tpu():
     for tool, args in (("torch_paddle_lint.py", ["--model", "mnist"]),
                        ("torch_paddle_plan.py", ["--model", "mlp",
                                                  "--devices", "2",
-                                                 "--hw", "cpu"])):
+                                                 "--hw", "cpu"]),
+                       ("torch_telemetry_dump.py",
+                        ["--cpu", "--assert-no-recompiles"]),
+                       ("torch_metrics_lint.py", []),
+                       ("torch_observatory.py", ["dead=1", "--rounds", "1",
+                                                 "--interval", "0"]),
+                       ("torch_step_profile.py",
+                        ["--cpu", "--tiny", "--batch", "2", "--top",
+                         "3"])):
         proc = subprocess.run(
             [sys.executable, "-c", code, os.path.join(TOOLS, tool), *args],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
         assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the observe CLIs (item 8.2b)
+# ---------------------------------------------------------------------------
+
+# metric families of planes the port has not ported yet (ROADMAP Queue 1
+# item 8): the JAX package registers some of them at import
+UNPORTED_PLANES = ("torrent_", "fleet_", "pserver_", "ps_", "master_",
+                   "quorum_", "ark_heartbeat")
+
+
+@pytest.mark.parametrize("two_shapes", [False, True])
+def test_telemetry_dump_asserts_as_telemetry_dumps(two_shapes):
+    args = ["--assert-no-recompiles"] + (["--two-shapes"] if two_shapes
+                                         else [])
+    jrc, _, jerr = _run("telemetry_dump.py", *args)
+    trc, _, terr = _run("torch_telemetry_dump.py", "--cpu", *args)
+    assert trc == jrc == (1 if two_shapes else 0), (terr, jerr)
+
+    def causes(err):
+        line = [ln for ln in err.splitlines() if "cause(s):" in ln]
+        return line[0].split("cause(s):")[1].strip() if line else None
+    assert causes(terr) == causes(jerr)
+    if two_shapes:
+        assert causes(terr) == "feed_shape"
+    else:
+        assert "assert-no-recompiles: OK" in terr
+
+
+def test_telemetry_dump_prom_families_are_telemetry_dumps():
+    def families(out):
+        return {ln.split()[2] for ln in out.splitlines()
+                if ln.startswith("# TYPE ")}
+    jrc, jout, jerr = _run("telemetry_dump.py", "--format", "prom")
+    trc, tout, terr = _run("torch_telemetry_dump.py", "--cpu", "--format",
+                           "prom")
+    assert jrc == trc == 0, (jerr, terr)
+    ported = {f for f in families(jout) if not f.startswith(UNPORTED_PLANES)}
+    assert families(tout) == ported
+    assert "executor_recompiles_total" in ported
+
+
+def test_telemetry_dump_table_and_json_render_the_status_document(tmp_path):
+    rc, out, err = _run("torch_telemetry_dump.py", "--cpu", "--format",
+                        "table", "--trace", str(tmp_path / "t.json"))
+    assert rc == 0, err
+    assert out.startswith("steps: 4") and "recompiles:" in out
+    assert "alerts: none" in out and "metrics:" in out
+    assert json.load(open(tmp_path / "t.json"))["traceEvents"]
+    rc, out, err = _run("torch_telemetry_dump.py", "--cpu")
+    assert rc == 0, err
+    doc = json.loads(out)
+    jrc, jout, _ = _run("telemetry_dump.py")
+    assert sorted(doc) == sorted(json.loads(jout))
+    assert _run("torch_telemetry_dump.py", "--url",
+                "http://127.0.0.1:1")[0] == 1
+
+
+def test_observatory_json_keys_are_observatorys():
+    import paddle_tpu_torch as ptt
+    from paddle_tpu import observe as jobs
+    from paddle_tpu_torch import observe as tobs
+    docs = {}
+    fluid.set_flag("observe", True)
+    ptt.set_flag("observe", True)
+    try:
+        for tag, pkg, obs, tool in (("jax", fluid, jobs, "observatory.py"),
+                                    ("port", ptt, tobs,
+                                     "torch_observatory.py")):
+            main, startup = pkg.Program(), pkg.Program()
+            with pkg.program_guard(main, startup), pkg.unique_name.guard():
+                x = pkg.layers.data(name="x", shape=[4], dtype="float32")
+                loss = pkg.layers.mean(pkg.layers.fc(input=x, size=2))
+                pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+            exe = pkg.Executor(pkg.CPUPlace())
+            scope = pkg.Scope()
+            exe.run(startup, scope=scope)
+            import numpy as np
+            exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
+                    fetch_list=[loss], scope=scope)
+            port = obs.start_pulse(0)
+            try:
+                rc, out, err = _run(tool, f"trainer={port}", "--rounds", "1",
+                                    "--interval", "0", "--json")
+            finally:
+                obs.stop_pulse()
+            assert rc == 0, err
+            docs[tag] = json.loads(out)
+    finally:
+        fluid.set_flag("observe", False)
+        ptt.set_flag("observe", False)
+        tobs.reset_all()
+    j, t = docs["jax"], docs["port"]
+    assert sorted(t) == sorted(j)
+    assert sorted(t["overview"]) == sorted(j["overview"])
+    assert t["overview"]["targets_up"] == j["overview"]["targets_up"] == 1
+    assert [sorted(x) for x in t["targets"]] == \
+        [sorted(x) for x in j["targets"]]
+    assert sorted(t["store"]) == sorted(j["store"])
+    assert "executor_steps_total" in t["series"]
+    assert t["series"]["horizon_up"][0]["value"] == 1.0
+
+
+def _catalog():
+    sys.path.insert(0, TOOLS)
+    try:
+        import torch_metrics_lint
+    finally:
+        sys.path.remove(TOOLS)
+    return torch_metrics_lint.parse_catalog(
+        os.path.join(REPO, "docs", "OBSERVABILITY.md"))
+
+
+def test_metrics_lint_passes_the_port_against_the_catalog():
+    rc, out, err = _run("torch_metrics_lint.py")
+    assert rc == 0, out + err
+    summary = out.strip().splitlines()[-1]
+    assert summary.startswith("metrics_lint:") and " 0 missing" in summary
+    rc, out, _ = _run("torch_metrics_lint.py", "--list")
+    assert rc == 0
+    names = {ln.split()[0] for ln in out.splitlines() if ln.strip()}
+    assert names and names <= _catalog()
+    # every name it lists is emitted from the port's tree
+    assert all("paddle_tpu_torch/" in ln for ln in out.splitlines()
+               if ln.strip())
+    for name in ("executor_recompiles_total", "pserver_wire_bytes_raw",
+                 "pserver_wire_bytes_encoded"):
+        assert name in names
+    # the catalog rows of planes not yet ported are stale, so --strict
+    # fails, as the JAX lint would on a tree without those planes
+    assert _run("torch_metrics_lint.py", "--strict")[0] == 1
+
+
+def test_metrics_lint_flags_a_name_missing_from_the_catalog(tmp_path):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "m.py").write_text(
+        "from x import metrics\nmetrics.counter('not_in_the_catalog_total')\n")
+    for tool in ("metrics_lint.py", "torch_metrics_lint.py"):
+        rc, out, _ = _run(tool, "--pkg", str(pkg))
+        assert rc == 1 and "not_in_the_catalog_total" in out
+
+
+def test_step_profile_prints_its_tables_on_the_cpu(tmp_path):
+    rc, out, err = _run("torch_step_profile.py", "--cpu", "--tiny",
+                        "--batch", "4", "--top", "10", "--out",
+                        str(tmp_path))
+    assert rc == 0, err
+    assert "Event" in out and "train_step" in out and "fetch_sync" in out
+    assert "top 10 ops by self CPU time:" in out
+    assert "FlashAttention" in out
+    host = json.load(open(tmp_path / "host_timeline.json"))
+    names = [e.get("name") for e in host["traceEvents"]]
+    assert names.count("train_step") == 3
+    assert os.path.exists(tmp_path / "trace.json")
+    rc, _, err = _run("torch_step_profile.py", "--yardstick")
+    assert rc == 2 and "not ported" in err

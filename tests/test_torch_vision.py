@@ -61,7 +61,7 @@ EARLIER_OPS = {
 # tests/test_torch_parity_table.py or tests/test_torch_breadth.py; the
 # rest of the op families (structured ops, detection, quantization) in
 # tests/test_torch_structured.py, tests/test_torch_detection.py and
-# tests/test_torch_quant.py
+# tests/test_torch_quant.py; fluid-wire's op in tests/test_torch_wire.py
 LATER_OPS = {
     "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_min", "elementwise_max", "elementwise_pow", "exp", "sqrt",
@@ -109,7 +109,7 @@ LATER_OPS = {
     "greater_equal_scalar0", "smooth_l1_elementwise",
     "softmax_ce_no_reduce", "rpn_target_assign", "detection_map",
     "fake_quantize_abs_max", "fake_quantize_range_abs_max",
-    "fake_dequantize_max_abs"}
+    "fake_dequantize_max_abs", "comm_quant_dequant"}
 
 
 @pytest.fixture(autouse=True)
@@ -403,12 +403,12 @@ def test_momentum_update_matches_paddle_tpu(nesterov):
 
 def test_every_port_op_is_a_reference_op_and_every_new_one_has_a_case():
     """The registry contract: the port registers only ops the JAX package
-    registers, 225 of them; the ops this slice adds are exactly NEW_OPS,
+    registers, all 226 of them; the ops this slice adds are exactly NEW_OPS,
     and each one appears in a program of this file's parity cases."""
     ported = set(tregistry.registered_ops())
     assert ported <= set(jregistry.registered_ops())
-    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 192
-    assert len(ported) == 225
+    assert len(EARLIER_OPS) == 25 and len(LATER_OPS) == 193
+    assert len(ported) == 226
     assert ported - EARLIER_OPS - LATER_OPS == NEW_OPS
     assert EARLIER_OPS | LATER_OPS <= ported
     covered = set()
