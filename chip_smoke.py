@@ -377,6 +377,34 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    1 naming `feed_shape` with ``--two-shapes``;
    ``tools/torch_step_profile.py`` exits 0 with `flash_fwd`, `flash_dq`
    and `flash_dkv` among its top device ops;
+7q. the parameter-server plane (``pserver/``, ``haven/``, ``ark/``,
+   `Executor.run` on a pserver Program): train-base-ps-sync, train-base
+   through `DistributeTranspiler(runtime="pserver")` on two pserver
+   processes of this script (`--pserver-child`: each runs
+   `Executor(CPUPlace()).run(get_pserver_program(ep))` and reports that
+   it never initialized CUDA), PS_TRAINERS `SyncPSTrainer`s in threads,
+   each on CUDAPlace(0) with its half of the batch: no `adam` op in a
+   trainer Program; PS_PARITY_STEPS steps at dropout 0 whose mean losses
+   lie within LOSS_RTOL of the Executor's at the whole batch, and whose
+   pulled parameters lie within PS_PARAM_RTOL (relative L2, each) of the
+   Executor's grads on the trainers' rows, averaged, under the servers'
+   numpy Adam (their distance from the Executor's own parameters, and
+   the elements outside tests/test_pserver.py's rtol / atol, printed);
+   the flash forward, dQ, dK/dV and delta launched 36 / 18 / 18 / 18 a
+   step a trainer; then, from the same state on two more pairs of
+   pservers, PS_TIMED_STEPS at dropout 0.1 raw and with comm_quant int8,
+   in turn: the step's median, its
+   split (pull RPC, the host-to-device copies, the card's step, the
+   grad fetch, push, barrier and apply), the wire's bytes a step, the
+   int8 losses within the JAX tests' band of the raw job's, the card's
+   peak; train-deepfm-ps-async, DeepFM with distributed tables through
+   `AsyncPSTrainer` on the first two pservers: the loss falls, each
+   push's rows are its batch's unique ids, no kernel launches;
+   train-deepfm-ps-haven, the same job with one shard a primary/backup
+   pair, the primary killed by `ark.chaos.kill_server` mid-run: every
+   step done, the backup promoted, no push applied twice on any server,
+   the blip under tools/haven_bench.py's lease + poll + retry budget,
+   a retry budget for each call that met the dead primary;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -644,7 +672,7 @@ SERVE_RN50_PROB_TOL, SERVE_RN50_LOGP_TOL, SERVE_RN50_LOGP_FLOOR = \
 # still decode when v2 is committed), then 4 on v2
 SWAP_WEIGHT_SEED = WEIGHT_SEED + 1
 SWAP_V1_LENS, SWAP_V2_LENS = (40, 100, 160, 220), (60, 120, 180, 240)
-SWAP_V1_TOKENS, SWAP_V2_TOKENS = 300, NEW_TOKENS
+SWAP_V1_TOKENS, SWAP_V2_TOKENS = 200, NEW_TOKENS
 # the book (tools/torch_book.py): BOOK_WARMUP + BOOK_STEPS steps a
 # chapter at torch_book.CARD's widths; card vs host BOOK_PARITY_STEPS
 # steps from the host's state, the image chapters (batch-norm networks,
@@ -5702,20 +5730,26 @@ def _pe_rank_main(job_path):
     return 0
 
 
+def _free_endpoints(n):
+    """`n` localhost endpoints on ports free a moment ago."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    eps = [f"127.0.0.1:{sk.getsockname()[1]}" for sk in socks]
+    for sk in socks:
+        sk.close()
+    return eps
+
+
 def run_pe_world(torch, tmp, cases=PE_CASES + WIRE_PE_CASES):
     """(b)-(d), and phase 7p's pe-base-wire-dp2: two ranks of this script
     on the card, one world for the cases; a rank's failure fails the
     phase."""
-    import socket
     job = os.path.join(tmp, "pe_job.json")
     with open(job, "w") as f:
         json.dump({"cases": cases}, f)
-    socks = [socket.socket() for _ in range(2)]
-    for sk in socks:
-        sk.bind(("127.0.0.1", 0))
-    eps = ",".join(f"127.0.0.1:{sk.getsockname()[1]}" for sk in socks)
-    for sk in socks:
-        sk.close()
+    eps = ",".join(_free_endpoints(2))
     procs, logs = [], []
     for r in range(2):
         env = dict(os.environ, PADDLE_TRAINER_ID=str(r), PADDLE_TRAINERS="2",
@@ -5863,7 +5897,7 @@ def run_trainer_parallel(torch, ptt, native):
 # (e) tools/torch_op_profile.py --measured-check at train-base's widths
 # and batch, tools/torch_paddle_plan.py --full-size --devices 1 on the
 # card's model
-OBS_STEPS, OBS_OFF_STEPS, OBS_SCRAPE_S = 20, 10, 0.5
+OBS_STEPS, OBS_OFF_STEPS, OBS_SCRAPE_S = 10, 5, 0.5
 # the executor hooks' cost a run, where train-base's host spread (tens of
 # ms a step) cannot show it: OBS_FLAG_PAIRS pairs of runs of a one-fc
 # step on the card (B 32, 64 -> 64, SGD), the flag on in one and off in
@@ -6323,7 +6357,7 @@ def run_observe_clis(torch):
 # rewritten Program, WIRE_PE1_STEPS steps each (pe-base-wire-dp2 runs in
 # phase 7n's world: WIRE_PE_CASES); (d) the observe CLIs (WIRE_CLIS),
 # started after phase 7o (a) and read at this phase's end
-WIRE_STEPS, WIRE_PE1_STEPS, WIRE_CHUNK = 20, 3, 2048
+WIRE_STEPS, WIRE_PE1_STEPS, WIRE_CHUNK = 10, 3, 2048
 # tests/test_wire.py:591, the JAX tests' band of a quantized run around
 # the unquantized one: |q - ref| <= WIRE_BAND[0] |ref[0]| + WIRE_BAND[1]
 WIRE_BAND = (0.1, 0.05)
@@ -6695,6 +6729,696 @@ def finish_wire_clis(procs):
     out["step_profile"]["top"] = top[:10]
     return out
 
+
+# phase 7q: the parameter-server plane (``pserver/``, ``haven/``,
+# ``ark/``). (a) train-base-ps-sync: train-base (TRAIN_BASE, Adam
+# TRAIN_LR, float32) through DistributeTranspiler(runtime="pserver") on
+# two pserver processes (this script's `--pserver-child`, which runs
+# `Executor(CPUPlace()).run(get_pserver_program(ep))`), PS_TRAINERS
+# SyncPSTrainers in threads of this process, each on CUDAPlace(0) with
+# its half of TRAIN_BATCH: PS_PARITY_STEPS steps at dropout 0 against the
+# Executor at TRAIN_BATCH from one saved state, then, on two more
+# pservers, PS_TIMED_STEPS from that state at TRAIN_BASE's dropout; (b)
+# the same timed steps with comm_quant "int8" on a third pair, the two
+# jobs' steps in turn; (c) train-deepfm-ps-async:
+# DeepFM (`build(distributed=True)` at its defaults, Adagrad
+# PS_DEEPFM_LR, batch DEEPFM_BATCH, `_ctr_batch`'s clicks) through
+# AsyncPSTrainer against (a)'s two pservers,
+# PS_DEEPFM_STEPS steps; (d) train-deepfm-ps-haven: the same job with
+# one shard a primary/backup pair in this process (lease
+# PS_HAVEN_LEASE_S, tools/haven_bench.py's), the primary killed by
+# `ark.chaos.kill_server` after PS_HAVEN_KILL_AT of PS_HAVEN_STEPS steps
+PS_TRAINERS = 2
+PS_PARITY_STEPS, PS_TIMED_STEPS = 2, 3
+# the pulled parameters against the servers' rule replayed on the host
+# (the Executor's grads on each trainer's rows, averaged, under the
+# servers' numpy Adam): relative L2 a parameter. Against the Executor's
+# own parameters (its in-graph `adam` op, which places epsilon
+# elsewhere, and the whole batch's sums, where Adam turns a sign that
+# rounds the other way into a whole step) the relative L2 and
+# tests/test_pserver.py:250,254's element-wise rtol / atol are printed
+PS_PARAM_RTOL = 1e-4
+PS_ELEM_RTOL, PS_ELEM_ATOL = 1e-4, 1e-5
+PS_DEEPFM_STEPS, PS_DEEPFM_LR = 20, 0.003
+PS_HAVEN_STEPS, PS_HAVEN_KILL_AT, PS_HAVEN_LEASE_S = 24, 10, 1.0
+PS_CHILD_TIMEOUT = 300
+
+
+def _pserver_child_main(endpoint, endpoints, trainers):
+    """A pserver process of phase 7q: train-base's pserver Program for
+    `endpoint`, served by `Executor(CPUPlace()).run` until a client stops
+    it; then one JSON line: what run returned and whether this process
+    initialized CUDA (it must not: a server is numpy)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    main, startup, _ = build_train(ptt)
+    cfg = ptt.DistributeTranspilerConfig()
+    cfg.runtime = "pserver"
+    t = ptt.DistributeTranspiler(cfg)
+    t.transpile(0, program=main, pservers=endpoints, trainers=int(trainers),
+                sync_mode=True, startup_program=startup)
+    served = ptt.Executor(ptt.CPUPlace()).run(t.get_pserver_program(endpoint))
+    print(json.dumps({"endpoint": endpoint, "served": served,
+                      "cuda_initialized": torch.cuda.is_initialized()}),
+          flush=True)
+    return 0
+
+
+def start_pservers(n, trainers, tmp, tag):
+    """`n` pserver processes on free localhost ports: (endpoints, procs,
+    log path stems: `.out` gets the JSON line, `.err` the rest)."""
+    eps = _free_endpoints(n)
+    procs, logs = [], []
+    for i, ep in enumerate(eps):
+        logs.append(os.path.join(tmp, f"pserver_{tag}{i}"))
+        with open(logs[-1] + ".out", "w") as out, \
+                open(logs[-1] + ".err", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--pserver-child",
+                 ep, ",".join(eps), str(trainers)], stdout=out, stderr=err))
+    return eps, procs, logs
+
+
+def wait_pservers(eps, procs, logs, timeout=PS_CHILD_TIMEOUT):
+    import socket
+    deadline = time.perf_counter() + timeout
+    for ep, p, path in zip(eps, procs, logs):
+        host, port = ep.rsplit(":", 1)
+        while True:
+            try:
+                socket.create_connection((host, int(port)), timeout=1).close()
+                break
+            except OSError:
+                if p.poll() is not None or time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"pserver {ep} never served (exit {p.poll()}):\n"
+                        f"{open(path + '.err').read()[-3000:]}")
+                time.sleep(0.1)
+
+
+def stop_pservers(ptt, eps, procs, logs):
+    """Stop the pservers over the wire; each must exit 0 with run's []
+    and CUDA never initialized."""
+    c = ptt.pserver.PSClient(eps)
+    c.stop_all()
+    c.close()
+    out = []
+    for ep, p, path in zip(eps, procs, logs):
+        p.wait(timeout=120)
+        recs = [json.loads(ln) for ln in open(path + ".out")
+                if ln.startswith("{")]
+        if p.returncode != 0 or not recs or recs[-1]["served"] != [] \
+                or recs[-1]["cuda_initialized"] is not False:
+            raise AssertionError(f"pserver {ep}: exit {p.returncode}, "
+                                 f"{recs[-1:]}:\n"
+                                 f"{open(path + '.err').read()[-3000:]}")
+        out.append(recs[-1])
+    return out
+
+
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _instrument(torch, tr, device):
+    """Time one trainer's step by phase, wrapping its client's calls and
+    its executor: `pull` (`_recv_dense`: the RPC `pull_rpc` plus the
+    copies into the scope's card tensors), `step` (the Executor's run,
+    to the card's last kernel), `fetch` (every fetched tensor to host
+    numpy), `push` / `barrier_apply` (sync), `prefetch` / `push_sparse`
+    (async tables); and the wire's bytes by command (`_call_one`'s sent
+    and received frames). `close()` ends a step and returns its record."""
+    from paddle_tpu_torch.core.executor import to_numpy
+    cur = {"bytes": {}}
+
+    def timed(obj, attr, name):
+        orig = getattr(obj, attr)
+
+        def w(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
+        setattr(obj, attr, w)
+
+    c = tr.client
+    for attr, name in (("get_params_parallel", "pull_rpc"),
+                       ("push_grads_sync", "push"),
+                       ("push_grads_parallel", "push"),
+                       ("sync_apply", "barrier_apply"),
+                       ("prefetch_rows", "prefetch"),
+                       ("push_sparse_grad", "push_sparse")):
+        timed(c, attr, name)
+    timed(tr, "_recv_dense", "pull")
+    call_one = c._call_one
+
+    def counted(endpoint, cmd, *a, **k):
+        reply, tx, rx = call_one(endpoint, cmd, *a, **k)
+        cur["bytes"][cmd] = cur["bytes"].get(cmd, 0) + tx + rx
+        return reply, tx, rx
+    c._call_one = counted
+    exe = tr.exe
+
+    class _TimedExe:
+        def run(self, program, feed=None, fetch_list=None, scope=None):
+            t0 = time.perf_counter()
+            outs = exe.run(program, feed=feed, fetch_list=fetch_list,
+                           scope=scope, return_numpy=False)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            host = [to_numpy(o) for o in outs]
+            cur["step"] = cur.get("step", 0.0) + t1 - t0
+            cur["fetch"] = cur.get("fetch", 0.0) + time.perf_counter() - t1
+            return host
+    tr.exe = _TimedExe()
+
+    def close():
+        rec = {k: (v * 1e3 if k != "bytes" else v) for k, v in cur.items()}
+        if "pull" in rec:
+            rec["h2d"] = rec["pull"] - rec.get("pull_rpc", 0.0)
+        cur.clear()
+        cur["bytes"] = {}
+        return rec
+    return close
+
+
+def _ps_sync_trainers(ptt, eps, state, place, dropout, clocks,
+                      comm_quant=None):
+    """PS_TRAINERS SyncPSTrainers of train-base on `eps`, each with its
+    own Executor and a scope on `place` holding what its Program reads
+    from `state` and the learning rates its servers take (the Adam slots
+    live on the servers)."""
+    import torch
+    from paddle_tpu_torch.pserver import SyncPSTrainer
+    out = []
+    for tid in range(PS_TRAINERS):
+        main, startup, loss = build_train(ptt, dropout_rate=dropout)
+        cfg = ptt.DistributeTranspilerConfig()
+        cfg.runtime = "pserver"
+        cfg.comm_quant = comm_quant
+        t = ptt.DistributeTranspiler(cfg)
+        t.transpile(tid, program=main, pservers=",".join(eps),
+                    trainers=PS_TRAINERS, sync_mode=True,
+                    startup_program=startup)
+        ops = t.get_trainer_program().global_block().ops
+        if any(op.type == "adam" for op in ops) or not t.param_specs:
+            raise AssertionError(f"train-base-ps trainer program: "
+                                 f"{[op.type for op in ops].count('adam')} "
+                                 f"adam ops, {len(t.param_specs)} "
+                                 f"parameters on the servers")
+        reads = {n for op in ops for n in op.input_arg_names} | {
+            spec["lr_name"] for spec in t.param_specs.values()}
+        tr = SyncPSTrainer(t, ptt.Executor(place),
+                           scope=ptt.io.state_from_numpy(
+                               {n: v for n, v in state.items()
+                                if n in reads}, place))
+        clocks.append(_instrument(torch, tr, place.torch_device()))
+        tr.init_params()
+        out.append((tr, loss))
+    return out
+
+
+def _ps_sync_step(trainers, feed):
+    """One sync step: every trainer on its rows of `feed`, in threads;
+    (the trainers' losses, the step's wall ms)."""
+    import numpy as np
+    n = len(trainers)
+    rows = len(next(iter(feed.values()))) // n
+    losses, errs = [None] * n, []
+
+    def one(i):
+        tr, loss = trainers[i]
+        try:
+            v, = tr.step({k: a[i * rows:(i + 1) * rows]
+                          for k, a in feed.items()}, fetch_list=[loss])
+            losses[i] = float(np.asarray(v).reshape(-1)[0])
+        except BaseException as e:          # noqa: BLE001
+            errs.append(f"trainer {i}: {e!r}")
+    ths = [threading.Thread(target=one, args=(i,), daemon=True)
+           for i in range(n)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=900)
+    ms = (time.perf_counter() - t0) * 1e3
+    if errs or any(th.is_alive() for th in ths):
+        raise AssertionError(f"train-base-ps step: {errs or 'hung'}")
+    return losses, ms
+
+
+def _pulled(trainer):
+    t = trainer.t
+    by_ep = {}
+    for p, spec in t.param_specs.items():
+        by_ep.setdefault(spec["endpoint"], []).append(p)
+    out = {}
+    for vals in trainer.client.get_params_parallel(by_ep).values():
+        out.update(vals)
+    return out
+
+
+def run_train_base_ps(torch, ptt, native, pairs, place=None,
+                      ready=lambda: None):
+    """(a) on the pservers `pairs["parity"]`, then (a)'s timed steps and
+    (b) on `pairs["raw"]` and `pairs["int8"]` from the startup state, in
+    turn (`ready()` returns once every pserver serves); fails on any
+    gate. Returns the numbers."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import to_numpy
+    from paddle_tpu_torch.pserver import optim as ps_optim
+    place = place or ptt.CUDAPlace(0)
+    dev = place.torch_device()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    exe = ptt.Executor(place)
+    walls = {}
+    t_sub = time.perf_counter()
+    main, startup, loss = build_train(ptt, dropout_rate=0.0)
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    state = {n: to_numpy(scope.find_var(n)).copy()
+             for n in scope.local_var_names()}
+    del scope
+    feed = train_batch(TRAIN_BATCH)
+    n_attn = 3 * TRAIN_BASE["n_layer"]
+    per_step = {"flash_fwd": 2 * n_attn, "flash_dq": n_attn,
+                "flash_dkv": n_attn, "flash_delta": n_attn}
+    # the Executor at the whole batch, its in-graph Adam
+    ref_scope = ptt.io.state_from_numpy(state, place)
+    ref_losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=ref_scope)[0])
+                  for _ in range(PS_PARITY_STEPS)]
+    graph = {n: to_numpy(ref_scope.find_var(n)) for n in state}
+    del ref_scope
+    # the servers' rule replayed on the host: the Executor's grads on
+    # each trainer's rows, summed and averaged as a server averages its
+    # pending grads, under the servers' numpy Adam
+    m2, s2, _ = build_train(ptt, dropout_rate=0.0)
+    cfg = ptt.DistributeTranspilerConfig()
+    cfg.runtime = "pserver"
+    t2 = ptt.DistributeTranspiler(cfg)
+    t2.transpile(0, program=m2, pservers=",".join(pairs["parity"]),
+                 trainers=1, sync_mode=True, startup_program=s2)
+    specs = t2.param_specs
+    host = {p: state[p].copy() for p in specs}
+    opts = {p: ps_optim.make_optimizer(
+        s["opt_type"], float(state[s["lr_name"]].reshape(-1)[0]),
+        s["attrs"]) for p, s in specs.items()}
+    hscope = ptt.io.state_from_numpy(state, place)
+    prog2 = t2.get_trainer_program()
+    rows = TRAIN_BATCH // PS_TRAINERS
+    halves = [{k: v[i * rows:(i + 1) * rows] for k, v in feed.items()}
+              for i in range(PS_TRAINERS)]
+    t0 = time.perf_counter()
+    for _ in range(PS_PARITY_STEPS):
+        for p in specs:
+            hscope.find_var(p).copy_(torch.from_numpy(host[p]))
+        parts = [exe.run(prog2, feed=f, scope=hscope,
+                         fetch_list=[t2.grad_names[p] for p in specs])
+                 for f in halves]
+        for i, p in enumerate(specs):
+            g = parts[0][i]
+            for part in parts[1:]:
+                g = g + part[i]
+            opts[p].dense(host[p], g / len(parts))
+    host_adam_s = time.perf_counter() - t0
+    del hscope, parts
+    gc.collect()
+    walls["references"] = time.perf_counter() - t_sub
+    # the PS job at dropout 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_sub = time.perf_counter()
+    ready()
+    walls["pservers_ready_wait"] = time.perf_counter() - t_sub
+    clocks = []
+    trs = _ps_sync_trainers(ptt, pairs["parity"], state, place, 0.0, clocks)
+    walls["parity_trainers"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+    losses, launches = [], []
+    for _ in range(PS_PARITY_STEPS):
+        before = dict(native.launches)
+        ls, _ = _ps_sync_step(trs, feed)
+        for c in clocks:
+            c()
+        launches.append({k: native.launches[k] - before.get(k, 0)
+                         for k in native.launches})
+        losses.append(ls)
+    walls["parity_steps"] = time.perf_counter() - t_sub
+    want = {k: (PS_TRAINERS * per_step.get(k, 0)
+                if dev.type == "cuda" else 0) for k in native.launches}
+    if any(lc != want for lc in launches):
+        raise AssertionError(f"train-base-ps-sync launches a step "
+                             f"{launches}, expected {want}")
+    mean = [sum(ls) / len(ls) for ls in losses]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(mean, ref_losses))
+    if loss_err > LOSS_RTOL:
+        raise AssertionError(f"train-base-ps-sync mean losses {mean} against "
+                             f"the Executor's {ref_losses} (rtol {LOSS_RTOL})")
+    pulled = _pulled(trs[0][0])
+
+    def rel_l2(a, b):
+        return {p: float(np.linalg.norm(a[p] - b[p])
+                         / max(np.linalg.norm(b[p]), 1e-30)) for p in specs}
+
+    def worst3(d):
+        return sorted(d.items(), key=lambda kv: -kv[1])[:3]
+    rel = rel_l2(pulled, host)
+    rel_graph = rel_l2(pulled, graph)
+    bit_equal = sum(pulled[p].tobytes() == host[p].tobytes() for p in specs)
+    # tests/test_pserver.py's element-wise check, against the Executor's
+    # own parameters: reported
+    n_el = sum(v.size for v in pulled.values())
+    out_el, worst = 0, (0.0, None)
+    for p in specs:
+        d = np.abs(pulled[p] - graph[p])
+        bad = d > PS_ELEM_ATOL + PS_ELEM_RTOL * np.abs(graph[p])
+        out_el += int(bad.sum())
+        if d.size and float(d.max()) > worst[0]:
+            worst = (float(d.max()), p)
+    if max(rel.values()) > PS_PARAM_RTOL:
+        raise AssertionError(f"train-base-ps-sync parameters: relative L2 "
+                             f"{worst3(rel)} off the Executor's grads on "
+                             f"the trainers' rows under the servers' Adam "
+                             f"(tol {PS_PARAM_RTOL})")
+    for tr, _ in trs:
+        tr.close()
+    del trs, pulled, graph
+    gc.collect()
+    # (a)'s timed steps and (b): two jobs from the startup state, in turn
+    t_sub = time.perf_counter()
+    jobs = {}
+    for tag, q in (("raw", None), ("int8", "int8")):
+        clocks_j = []
+        jobs[tag] = dict(trainers=_ps_sync_trainers(
+            ptt, pairs[tag], state, place, TRAIN_BASE["dropout_rate"],
+            clocks_j, comm_quant=q), clocks=clocks_j, losses=[], ms=[],
+            recs=[], launches=dict.fromkeys(native.launches, 0))
+    walls["timed_trainers"] = time.perf_counter() - t_sub
+    t_sub = time.perf_counter()
+    for i in range(PS_TIMED_STEPS):
+        for j in jobs.values():
+            before = dict(native.launches)
+            ls, ms = _ps_sync_step(j["trainers"], feed)
+            j["losses"].append(ls)
+            j["ms"].append(ms)
+            j["recs"].append([c() for c in j["clocks"]])
+            for k in native.launches:
+                j["launches"][k] += native.launches[k] - before.get(k, 0)
+    sync()
+    walls["timed_steps"] = time.perf_counter() - t_sub
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    for tag, j in jobs.items():
+        want = {k: (PS_TRAINERS * PS_TIMED_STEPS * per_step.get(k, 0)
+                    if dev.type == "cuda" else 0) for k in native.launches}
+        if j["launches"] != want:
+            raise AssertionError(f"train-base-ps-sync {tag} launches "
+                                 f"{j['launches']}, expected {want}")
+        for tr, _ in j["trainers"]:
+            tr.close()
+        del j["trainers"], j["clocks"]
+    raw, q = jobs["raw"], jobs["int8"]
+    mean_raw = [sum(ls) / len(ls) for ls in raw["losses"]]
+    mean_q = [sum(ls) / len(ls) for ls in q["losses"]]
+    dev_q, band = _wire_band(mean_raw, mean_q)
+    if not (np.isfinite(mean_q).all() and dev_q <= band):
+        raise AssertionError(f"train-base-ps-int8 losses {mean_q} against "
+                             f"raw {mean_raw} (band {band})")
+
+    def split(recs):
+        """A trainer's phases, the median over its steps."""
+        keys = sorted({k for step in recs for r in step for k in r
+                       if k != "bytes"})
+        return {k: _median([r.get(k, 0.0) for step in recs for r in step])
+                for k in keys}
+
+    def wire(recs):
+        """Bytes a step on the wire, all trainers, by command."""
+        cmds = {}
+        for r in recs[-1]:
+            for k, v in r["bytes"].items():
+                cmds[k] = cmds.get(k, 0) + v
+        return cmds
+    param_bytes = sum(v.nbytes for p, v in state.items() if p in specs)
+    return dict(
+        steps=PS_PARITY_STEPS, timed_steps=PS_TIMED_STEPS,
+        launches={k: sum(lc[k] for lc in launches) for k in launches[0]},
+        n_params=len(specs), param_bytes=param_bytes,
+        losses=losses, mean_losses=mean, ref_losses=ref_losses,
+        loss_rel_err=loss_err, launches_a_step=launches[0],
+        param_rel_l2_max=max(rel.values()), param_rel_l2_worst=worst3(rel),
+        params_bit_equal=bit_equal,
+        param_rel_l2_in_graph_adam_max=max(rel_graph.values()),
+        param_rel_l2_in_graph_adam_worst=worst3(rel_graph),
+        elements=n_el, elements_outside_test_tol=out_el,
+        share_outside_test_tol=out_el / n_el, largest_element_diff=worst,
+        host_adam_reference_s=host_adam_s, walls_s=walls,
+        raw=dict(losses=raw["losses"], mean_losses=mean_raw,
+                 step_ms=raw["ms"], step_ms_median=_median(raw["ms"]),
+                 split_ms=split(raw["recs"]), bytes=wire(raw["recs"]),
+                 launches=raw["launches"]),
+        int8=dict(losses=q["losses"], mean_losses=mean_q, step_ms=q["ms"],
+                  step_ms_median=_median(q["ms"]),
+                  split_ms=split(q["recs"]), bytes=wire(q["recs"]),
+                  launches=q["launches"], max_dev=dev_q, band=band),
+        peak_bytes=peak)
+
+
+def _deepfm_ps_build(ptt):
+    main, startup = ptt.Program(), ptt.Program()
+    from paddle_tpu_torch.models import deepfm
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = deepfm.build(distributed=True)
+        ptt.optimizer.Adagrad(learning_rate=PS_DEEPFM_LR).minimize(
+            fetches["loss"])
+    return main, startup, fetches["loss"]
+
+
+def _ctr_batch(rng, batch=DEEPFM_BATCH):
+    """DEEPFM_BATCH rows of 26 ids over 1e5 and 13 dense features in
+    [0, 1); a click where the first two dense features sum past 1 (a rule
+    the dense tower learns within PS_DEEPFM_STEPS, so the loss falls)."""
+    import numpy as np
+    dense = rng.rand(batch, 13).astype(np.float32)
+    return {"dense_input": dense,
+            "sparse_input": rng.randint(0, 100000, (batch, 26)).astype(
+                np.int64),
+            "label": (dense[:, 0] + dense[:, 1] > 1.0).astype(
+                np.int64).reshape(batch, 1)}
+
+
+def _deepfm_ps_trainer(ptt, eps, place, replicas=None):
+    main, startup, loss = _deepfm_ps_build(ptt)
+    cfg = ptt.DistributeTranspilerConfig()
+    cfg.sparse_prefetch_cap = DEEPFM_BATCH * 26
+    if replicas:
+        cfg.haven_replicas = replicas
+    t = ptt.DistributeTranspiler(cfg)
+    t.transpile(0, program=main, pservers=",".join(eps), trainers=1,
+                sync_mode=False, startup_program=startup)
+    if set(t.sparse_specs) != {"fm_v", "fm_w"}:
+        raise AssertionError(f"train-deepfm-ps tables {set(t.sparse_specs)}")
+    exe = ptt.Executor(place)
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    tr = ptt.pserver.AsyncPSTrainer(t, exe, scope=scope)
+    tr.init_params()
+    return tr, loss
+
+
+def run_train_deepfm_ps(torch, ptt, native, eps, place=None):
+    """(c): returns the numbers; fails when the loss does not fall, a
+    push's rows are not its batch's unique ids, or a kernel launches."""
+    import numpy as np
+    place = place or ptt.CUDAPlace(0)
+    tr, loss = _deepfm_ps_trainer(ptt, eps, place)
+    close = _instrument(torch, tr, place.torch_device())
+    pushed = []
+    push = tr.client.push_sparse_grad
+
+    def record(name, ids, rows):
+        pushed.append((name, np.array(ids)))
+        return push(name, ids, rows)
+    tr.client.push_sparse_grad = record
+    rng = np.random.RandomState(DATA_SEED)
+    native.reset_launches()
+    losses, ms, recs, bad, uniq_counts = [], [], [], [], []
+    for i in range(PS_DEEPFM_STEPS):
+        feed = _ctr_batch(rng)
+        del pushed[:]
+        t0 = time.perf_counter()
+        v, = tr.step(feed, fetch_list=[loss])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        recs.append(close())
+        losses.append(float(np.asarray(v).reshape(-1)[0]))
+        uniq = np.unique(feed["sparse_input"])
+        uniq_counts.append(int(uniq.size))
+        if sorted(n for n, _ in pushed) != ["fm_v", "fm_w"] or any(
+                not np.array_equal(ids, uniq) for _, ids in pushed):
+            bad.append(i)
+    tr.close()
+    if bad:
+        raise AssertionError(f"train-deepfm-ps-async steps {bad}: a push's "
+                             f"rows are not the batch's unique ids")
+    if any(native.launches.values()):
+        raise AssertionError(f"train-deepfm-ps-async launched "
+                             f"{native.launches}")
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise AssertionError(f"train-deepfm-ps-async losses {losses} do "
+                             f"not fall")
+    keys = sorted({k for r in recs[1:] for k in r if k != "bytes"})
+    return dict(steps=PS_DEEPFM_STEPS, losses=losses, step_ms=ms,
+                step_ms_median=_median(ms[1:]),
+                split_ms={k: _median([r.get(k, 0.0) for r in recs[1:]])
+                          for k in keys},
+                unique_ids=uniq_counts, bytes=recs[-1]["bytes"],
+                cap=DEEPFM_BATCH * 26)
+
+
+def haven_failover_budget_ms(calls=1):
+    """tools/haven_bench.py's bound on a failover's blip: lease expiry +
+    the promotion monitor's poll + the client's retry budget (the default
+    RetryPolicy's backoffs at full jitter and the resolver's poll grid) +
+    1 s. The bench's model makes one call to the dead primary before the
+    client re-resolves the shard; `calls` counts them where a step makes
+    more (each read retries the dead primary, then reads the backup,
+    until a write moves the client's mapping)."""
+    from paddle_tpu_torch.ark import RetryPolicy
+    p = RetryPolicy()
+    retry_s = sum(min(p.max_delay, p.base_delay * 2.0 ** k)
+                  * (1.0 + p.jitter)
+                  for k in range(p.max_attempts + 1)) + 2 * 0.25
+    return (PS_HAVEN_LEASE_S + PS_HAVEN_LEASE_S / 3.0 + calls * retry_s
+            + 1.0) * 1e3
+
+
+def run_train_deepfm_ps_haven(torch, ptt, native, place=None):
+    """(d): returns the numbers; fails when a step fails, the backup does
+    not take over, a push is applied twice on a server, or the blip
+    exceeds the budget."""
+    import numpy as np
+    from paddle_tpu_torch.ark import chaos
+    from paddle_tpu_torch.pserver import ParameterServer
+    place = place or ptt.CUDAPlace(0)
+    backup = ParameterServer("127.0.0.1:0").start()
+    backup.start_standby(lease_s=PS_HAVEN_LEASE_S)
+    primary = ParameterServer("127.0.0.1:0").start()
+    primary.start_replication(backup.endpoint, lease_s=PS_HAVEN_LEASE_S)
+    solo = ParameterServer("127.0.0.1:0").start()
+    marks = {}
+    for name, srv in (("primary", primary), ("backup", backup),
+                      ("solo", solo)):
+        marks[name] = []
+        mark = srv._async_mark
+
+        def note(seq, trainer_id, mark=mark, log=marks[name]):
+            if seq is not None:
+                log.append((trainer_id, seq))
+            return mark(seq, trainer_id)
+        srv._async_mark = note
+    try:
+        tr, loss = _deepfm_ps_trainer(
+            ptt, [primary.endpoint, solo.endpoint], place,
+            replicas={primary.endpoint: [backup.endpoint]})
+        # the calls that meet the dead primary (each with its retries)
+        dead, dead_calls = [], []
+        call_one = tr.client._call_one
+
+        def counted(endpoint, cmd, *a, **k):
+            try:
+                return call_one(endpoint, cmd, *a, **k)
+            except (ConnectionError, EOFError, OSError):
+                if endpoint in dead:
+                    dead_calls.append(cmd)
+                raise
+        tr.client._call_one = counted
+        rng = np.random.RandomState(DATA_SEED + 1)
+        native.reset_launches()
+        done, losses = [time.perf_counter()], []
+        for i in range(PS_HAVEN_STEPS):
+            if i == PS_HAVEN_KILL_AT:
+                lag = primary._haven.log.lag()
+                dead.append(primary.endpoint)
+                chaos.kill_server(primary)
+            v, = tr.step(_ctr_batch(rng), fetch_list=[loss])
+            done.append(time.perf_counter())
+            losses.append(float(np.asarray(v).reshape(-1)[0]))
+        tr.close()
+        role = backup._haven.role
+    finally:
+        for s in (primary, backup, solo):
+            s.stop()
+    gaps = np.diff(done) * 1e3
+    healthy = float(np.median(gaps[1:PS_HAVEN_KILL_AT]))
+    blip = float(gaps.max() - healthy)
+    budget = haven_failover_budget_ms(max(1, len(dead_calls)))
+    twice = {k: len(v) - len(set(v)) for k, v in marks.items()}
+    if role != "primary":
+        raise AssertionError(f"train-deepfm-ps-haven: the backup is "
+                             f"{role!r} after the kill")
+    if any(twice.values()):
+        raise AssertionError(f"train-deepfm-ps-haven: pushes applied twice "
+                             f"{twice}")
+    if not np.isfinite(losses).all() or blip > budget:
+        raise AssertionError(f"train-deepfm-ps-haven: blip {blip:.1f} ms "
+                             f"(budget {budget:.1f}), losses {losses}")
+    if any(native.launches.values()):
+        raise AssertionError(f"train-deepfm-ps-haven launched "
+                             f"{native.launches}")
+    after = set(marks["backup"])
+    lost = [m for m in marks["primary"] if m not in after]
+    return dict(steps=PS_HAVEN_STEPS, kill_at=PS_HAVEN_KILL_AT,
+                lease_s=PS_HAVEN_LEASE_S, losses=losses,
+                healthy_step_ms=healthy, blip_ms=blip, budget_ms=budget,
+                one_call_budget_ms=haven_failover_budget_ms(),
+                calls_to_the_dead_primary=dead_calls,
+                gap_ms_max=float(gaps.max()), backup_role=role,
+                applied=({k: len(v) for k, v in marks.items()}),
+                applied_twice=twice, lag_at_kill=lag,
+                lost_at_kill=len(lost))
+
+
+def run_ps_plane(torch, ptt, native, tmp, place=None):
+    """Phase 7q: (a)-(d), the six pserver processes (a pair each for the
+    parity job, the raw and the int8 jobs) started first and stopped over
+    the wire at the end (each must report it never initialized CUDA);
+    any left running is killed."""
+    pairs, procs, logs = {}, [], []
+    for tag in ("parity", "raw", "int8"):
+        eps, ps, ls = start_pservers(2, PS_TRAINERS, tmp, tag)
+        pairs[tag] = eps
+        procs += ps
+        logs += ls
+    eps = [ep for tag in pairs for ep in pairs[tag]]
+    t0 = time.perf_counter()
+    walls = {}
+    try:
+        a = run_train_base_ps(torch, ptt, native, pairs, place=place,
+                              ready=lambda: wait_pservers(eps, procs, logs))
+        walls["sync"] = time.perf_counter() - t0
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        c = run_train_deepfm_ps(torch, ptt, native, pairs["parity"],
+                                place=place)
+        walls["deepfm_async"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        d = run_train_deepfm_ps_haven(torch, ptt, native, place=place)
+        walls["deepfm_haven"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        served = stop_pservers(ptt, eps, procs, logs)
+        walls["stop"] = time.perf_counter() - t1
+    finally:
+        _kill(procs)
+    return dict(sync=a, deepfm_async=c, deepfm_haven=d, pservers=served,
+                walls_s=walls, s=time.perf_counter() - t0)
 
 def main() -> int:
     import torch
@@ -7879,6 +8603,86 @@ def main() -> int:
     phase7p_s = time.perf_counter() - t0
     log(f"phase 7p: {phase7p_s:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+    # 7q. the parameter-server plane: train-base through sync pservers
+    # (raw, then int8 on the wire), DeepFM through async pservers, then
+    # a replicated shard's primary killed mid-run
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ps_") as ps_tmp:
+        ps = run_ps_plane(torch, ptt, native, ps_tmp)
+    psa, psc, psd = ps["sync"], ps["deepfm_async"], ps["deepfm_haven"]
+
+    def _split(sp):
+        return ", ".join(f"{k} {v:.1f}" for k, v in sp.items())
+    log(f"train-base-ps-sync (train-base through DistributeTranspiler("
+        f"runtime='pserver'), {psa['n_params']} parameters, "
+        f"{psa['param_bytes']} B, on 2 pserver processes that "
+        f"Executor(CPUPlace()).run their pserver Program; "
+        f"{PS_TRAINERS} SyncPSTrainers in threads, each on CUDAPlace(0) "
+        f"with {TRAIN_BATCH // PS_TRAINERS} rows; no adam op in a trainer "
+        f"Program) [{card}]: dropout 0, {psa['steps']} steps: mean losses "
+        f"{psa['mean_losses']} against the Executor's {psa['ref_losses']} at "
+        f"batch {TRAIN_BATCH} ({psa['loss_rel_err']:.3g} relative, tol "
+        f"{LOSS_RTOL}); the pulled parameters within relative L2 "
+        f"{psa['param_rel_l2_max']:.3g} (tol {PS_PARAM_RTOL}; worst "
+        f"{psa['param_rel_l2_worst']}; {psa['params_bit_equal']} of "
+        f"{psa['n_params']} bit-equal) of the Executor's grads on the "
+        f"trainers' rows, averaged, under the servers' Adam (replayed on "
+        f"the host in {psa['host_adam_reference_s']:.1f} s); "
+        f"{psa['param_rel_l2_in_graph_adam_max']:.3g} of the Executor's "
+        f"own, its in-graph Adam (worst "
+        f"{psa['param_rel_l2_in_graph_adam_worst']}): against those, "
+        f"{psa['elements_outside_test_tol']} of {psa['elements']} elements "
+        f"({psa['share_outside_test_tol']:.3g}) outside rtol {PS_ELEM_RTOL} "
+        f"atol {PS_ELEM_ATOL}, the largest difference "
+        f"{psa['largest_element_diff']}; launches a step "
+        f"{ {k: v for k, v in psa['launches_a_step'].items() if v} } "
+        f"({PS_TRAINERS} trainers)")
+    for tag in ("raw", "int8"):
+        r = psa[tag]
+        log(f"train-base-ps-sync{'' if tag == 'raw' else '-int8'} "
+            f"(dropout {TRAIN_BASE['dropout_rate']}, {psa['timed_steps']} "
+            f"steps, the raw and int8 jobs' steps in turn from one state, "
+            f"each on its own pair of pservers) [{card}]: step "
+            f"{r['step_ms_median']:.1f} "
+            f"ms (median; all {[round(x, 1) for x in r['step_ms']]}); a "
+            f"trainer's split (median ms): {_split(r['split_ms'])}; wire "
+            f"bytes a step {r['bytes']}; mean losses "
+            f"{[round(x, 4) for x in r['mean_losses']]}"
+            + (f", at most {r['max_dev']:.3g} off the raw job's (band "
+               f"{r['band']:.4g})" if tag == "int8" else "")
+            + f"; launches {({k: v for k, v in r['launches'].items() if v})}")
+    raw_push = psa["raw"]["bytes"].get("push_grads_sync", 0)
+    q_push = psa["int8"]["bytes"].get("push_grads_sync", 0)
+    log(f"train-base-ps-sync wire [{card}]: push_grads_sync {raw_push} B "
+        f"raw against {q_push} B int8 a step ({raw_push / q_push:.4f}x); "
+        f"peak {psa['peak_bytes'] / 2**30:.2f} GiB on the card")
+    log(f"train-deepfm-ps-async (DeepFM, distributed tables, batch "
+        f"{DEEPFM_BATCH}, Adagrad({PS_DEEPFM_LR}), AsyncPSTrainer on the "
+        f"two pservers, sparse_prefetch_cap {psc['cap']}) [{card}]: "
+        f"{psc['steps']} steps, losses {[round(x, 4) for x in psc['losses']]}"
+        f"; each push's rows the batch's unique ids "
+        f"({min(psc['unique_ids'])}..{max(psc['unique_ids'])}); step "
+        f"{psc['step_ms_median']:.1f} ms (median; split "
+        f"{_split(psc['split_ms'])}); wire bytes a step {psc['bytes']}; no "
+        f"kernel launched")
+    log(f"train-deepfm-ps-haven (the same job, one shard a primary/backup "
+        f"pair in this process, lease {psd['lease_s']} s, the primary "
+        f"killed before step {psd['kill_at']} of {psd['steps']}) [{card}]: "
+        f"every step done, the backup {psd['backup_role']}; pushes applied "
+        f"{psd['applied']}, none twice; {psd['lost_at_kill']} lost at the "
+        f"kill (log lag {psd['lag_at_kill']}); blip {psd['blip_ms']:.1f} ms "
+        f"over a {psd['healthy_step_ms']:.1f} ms step; "
+        f"{len(psd['calls_to_the_dead_primary'])} calls met the dead "
+        f"primary ({psd['calls_to_the_dead_primary']}): budget "
+        f"{psd['budget_ms']:.1f} ms, tools/haven_bench.py's for that many "
+        f"calls ({psd['one_call_budget_ms']:.1f} for its one)")
+    log(f"pservers stopped over the wire: {ps['pservers']}; phase walls "
+        f"{ps['walls_s']}, train-base-ps-sync's {psa['walls_s']}")
+    phase7q_s = time.perf_counter() - t0
+    log(f"phase 7q: {phase7q_s:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -7995,6 +8799,15 @@ def main() -> int:
                     res["cases"][name]["launches"].get(kname, 0)
         return out
 
+    def ps_launches(kname):
+        """A kernel's launches on phase 7q's paths (both trainers)."""
+        return {"train_base_ps_sync": psa["launches"].get(kname, 0),
+                "train_base_ps_sync_timed":
+                    psa["raw"]["launches"].get(kname, 0),
+                "train_base_ps_sync_int8":
+                    psa["int8"]["launches"].get(kname, 0),
+                "train_deepfm_ps_async": 0, "train_deepfm_ps_haven": 0}
+
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
     causal_head = train_cases[1]   # the same, causal
@@ -8026,7 +8839,8 @@ def main() -> int:
                                   memopt["launches"].get("flash_fwd", 0),
                               **pe_launches("flash_fwd"),
                               **obs_launches("flash_fwd"),
-                              **wire_launches("flash_fwd")},
+                              **wire_launches("flash_fwd"),
+                              **ps_launches("flash_fwd")},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -8052,7 +8866,8 @@ def main() -> int:
            "launches_by_path": {"train": train["launches"][f"flash_{name}"],
                                 **pe_launches(f"flash_{name}"),
                                 **obs_launches(f"flash_{name}"),
-                                **wire_launches(f"flash_{name}")},
+                                **wire_launches(f"flash_{name}"),
+                                **ps_launches(f"flash_{name}")},
            "max_abs_err": max(c[f"{name}_err"] for c in train_cases),
            "ms": head[f"{name}_ms"], "plain_ms": head["bwd_plain_ms"],
            "bound_ms": head[f"{name}_bound_ms"],
@@ -8081,7 +8896,8 @@ def main() -> int:
                                   trains["pallas"]["launches"]["flash_delta"],
                               **pe_launches("flash_delta"),
                               **obs_launches("flash_delta"),
-                              **wire_launches("flash_delta")},
+                              **wire_launches("flash_delta"),
+                              **ps_launches("flash_delta")},
          "max_abs_err": max(c["delta_err"] for c in train_cases),
          "tol_share": max(c["delta_share"] for c in train_cases),
          "tol": f"a row, {DELTA_TOL} x sum |dO O|",
@@ -8297,6 +9113,7 @@ def main() -> int:
                                   "pe_base_wire_1": wire_pe1,
                                   "pe_base_wire_dp2": wire_dp2,
                                   "clis": wire_cli, "phase_s": phase7p_s},
+                   "ps_plane": dict(ps, phase_s=phase7q_s),
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -8311,4 +9128,6 @@ if __name__ == "__main__":
         sys.exit(_pe_rank_main(sys.argv[2]))
     if len(sys.argv) == 5 and sys.argv[1] == "--flight-child":
         sys.exit(_flight_child_main(*sys.argv[2:]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--pserver-child":
+        sys.exit(_pserver_child_main(*sys.argv[2:]))
     sys.exit(main())

@@ -43,7 +43,11 @@ the planner ``analysis.planner`` and ``layers.ParallelDo``), the
 health plane (``observe``), and fluid-wire (``wire``: the host codecs,
 `ErrorFeedback` and the in-graph ``comm_quant_dequant`` op behind
 ``BuildStrategy.comm_quant`` and ``DistributeTranspilerConfig.comm_quant``)
-with the ``DistributeTranspiler`` and its dispatchers.
+with the ``DistributeTranspiler`` and its dispatchers, and the
+parameter-server plane (``pserver``: the host servers, their client and
+the async and sync trainers over the ``Executor``; ``haven``: the
+replicated primary/backup shard; ``ark``'s retry, liveness, heartbeat
+and chaos; ``layers.ListenAndServ`` / ``Send`` / ``Recv``).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -115,6 +119,8 @@ from .transpiler import (InferenceTranspiler, memory_optimize,  # noqa: F401
 from .transpiler import (DistributeTranspiler,  # noqa: F401
                          DistributeTranspilerConfig)
 from . import distributed, parallel  # noqa: F401
+from . import pserver  # noqa: F401
+from . import haven  # noqa: F401  (fluid-haven replicated PS plane)
 from .parallel import (BuildStrategy, ExecutionStrategy,  # noqa: F401
                        ParallelExecutor)
 

@@ -1,11 +1,23 @@
-"""fluid-ark's durable checkpoints (mirror of ``paddle_tpu/ark``).
+"""fluid-ark: fault-tolerant training (mirror of ``paddle_tpu/ark``).
 
-Only `checkpoint` is ported: atomic, manifest-verified, rotated
-checkpoints with the training cursor and the executor's run counts
-(`Trainer.train(checkpoint=ark.CheckpointConfig(...))`). The JAX
-package's `retry`, `liveness`, `heartbeat` and `chaos` serve its
-parameter-server and elastic planes, which the port does not have yet
-(ROADMAP Queue 1 item 8).
+Four layers, each copied from the JAX package (reference analogs in each
+module's docstring):
+
+- `checkpoint` — atomic, manifest-verified, rotated checkpoints
+  (reference `CheckpointConfig`/`save_checkpoint` + checkpoint-notify,
+  crash-hardened: tmp-dir + rename commit, sha256 MANIFEST, RNG cursors;
+  `Trainer.train(checkpoint=ark.CheckpointConfig(...))`);
+- `retry` — bounded exponential backoff with jitter for `PSClient` RPCs
+  (reference gRPC client retry);
+- `liveness` — heartbeat leases + the evicting sync barrier so a dead
+  trainer degrades the world to N-1 instead of wedging it;
+- `heartbeat` — the trainer-side lease renewal thread;
+- `chaos` — the seed-deterministic fault injector that proves all of the
+  above actually recovers.
+
+The quorum-backed leases (`QuorumLeaseTable(quorum=...)`,
+`HeartbeatThread(quorum=...)`) wait for the port's `quorum/` (ROADMAP
+Queue 1 item 8.5).
 """
 
 from .checkpoint import (CheckpointConfig, CheckpointError,  # noqa: F401
@@ -13,3 +25,8 @@ from .checkpoint import (CheckpointConfig, CheckpointError,  # noqa: F401
                          list_checkpoints, load_checkpoint, read_manifest,
                          save_checkpoint, verify_checkpoint,
                          verify_sidecar, write_sidecar_manifest)
+from .retry import NO_RETRY, RetryPolicy  # noqa: F401
+from .liveness import (EvictingBarrier, LeaseTable,  # noqa: F401
+                       QuorumLeaseTable)
+from .heartbeat import HeartbeatThread  # noqa: F401
+from . import chaos  # noqa: F401

@@ -357,19 +357,23 @@ class PreparedProgram:
         self.telemetry_source = "executor"
         # a pserver Program (one listen_and_serv op, from
         # DistributeTranspiler.get_pserver_program) is a host service,
-        # not a step: the JAX package serves it with a ParameterServer
+        # not a step: run() serves it with a ParameterServer
         ls = [op for op in self._block.ops if op.type == "listen_and_serv"]
         self._serve_attrs = ls[0].attrs if ls else None
 
     def run(self, feed: Optional[Dict[str, Any]] = None,
             return_numpy: bool = True):
+        # A pserver program (one listen_and_serv op) is a HOST service,
+        # not a step: serve until stopped, exactly like the reference's
+        # blocking Executor.run on the pserver program (reference
+        # listen_and_serv_op.cc:267). The server is numpy only: it never
+        # touches the executor's place.
         if self._serve_attrs is not None:
-            raise NotImplementedError(
-                f"this Program serves parameters (listen_and_serv at "
-                f"{self._serve_attrs.get('endpoint')!r}): the port's "
-                f"parameter server comes with ROADMAP Queue 1 item 8.4 "
-                f"(pserver/); until then run DistributeTranspiler's "
-                f"collective runtime through ParallelExecutor")
+            from ..pserver.server import ParameterServer
+            ps = ParameterServer(self._serve_attrs["endpoint"],
+                                 trainers=self._serve_attrs.get("trainers", 1))
+            ps.serve_forever()
+            return []
         program = self.program
         if program._version != self._program_version:
             raise RuntimeError(
@@ -580,6 +584,14 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+def host_array(value) -> np.ndarray:
+    """A scope value as host numpy: a tensor (on a card or the host)
+    through `to_numpy`, anything else as an array."""
+    if isinstance(value, torch.Tensor):
+        return to_numpy(value)
+    return np.asarray(value)
 
 
 def fetch_var(name: str, scope: Optional[Scope] = None,

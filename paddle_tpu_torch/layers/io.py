@@ -2,8 +2,9 @@
 python/paddle/fluid/layers/io.py): `data`, and the reader-layer surface
 over ``reader/`` and ``recordio/`` (`py_reader`, `open_recordio_file`,
 `open_files`, `double_buffer`, `read_file`, `shuffle`, `batch`,
-`random_data_generator`, `load`, `Preprocessor`). `ListenAndServ`, `Send`
-and `Recv` wait for the parameter-server plane (ROADMAP Queue 1 item 8)."""
+`random_data_generator`, `load`, `Preprocessor`), and the
+parameter-server layers over ``pserver/`` (`ListenAndServ`, `Send`,
+`Recv`)."""
 
 from __future__ import annotations
 
@@ -111,18 +112,57 @@ def double_buffer(reader, place=None, name=None):
     return dec.buffered(reader, 2)
 
 
-def _not_ported(name):
-    def layer(*args, **kwargs):
-        raise NotImplementedError(
-            f"layers.{name}: the parameter-server plane is not ported yet "
-            f"(ROADMAP Queue 1 item 8)")
-    layer.__name__ = name
-    return layer
+def ListenAndServ(endpoint, inputs=None, fan_in=1, optimizer_mode=True):
+    """Parameter-server serving loop (reference io.py:114): the host
+    `ParameterServer` (``pserver/server.py``) IS the listen-and-serv op —
+    this starts it on `endpoint` and returns the server handle (stop() to
+    shut down)."""
+    from ..pserver import ParameterServer
+    return ParameterServer(endpoint).start()
 
 
-ListenAndServ = _not_ported("ListenAndServ")
-Send = _not_ported("Send")
-Recv = _not_ported("Recv")
+_ps_clients = {}
+
+
+def _ps_client(endpoint):
+    """One cached PSClient (socket + pool) per endpoint — Send/Recv are
+    called per training step; constructing a client per call would leak a
+    socket and a thread pool each step."""
+    from ..pserver import PSClient
+    if endpoint not in _ps_clients:
+        _ps_clients[endpoint] = PSClient([endpoint])
+    return _ps_clients[endpoint]
+
+
+def Send(endpoint, var_names, scope=None, sync=True):
+    """Push variables to a pserver (reference io.py:209 Send). Dense push
+    via the PSClient protocol; a scope tensor (on the card or the host)
+    travels as host numpy."""
+    from ..core.executor import global_scope, host_array
+    scope = scope or global_scope()
+    c = _ps_client(endpoint)
+    for n in (var_names if isinstance(var_names, (list, tuple)) else [var_names]):
+        val = scope.find_var(n)
+        if val is None:
+            raise KeyError(f"Send: variable {n!r} not found in scope")
+        # grads are sent under their parameter's name (the reference's
+        # transpiler maps w@GRAD slices onto the pserver-side param block)
+        target = n[:-len("@GRAD")] if n.endswith("@GRAD") else n
+        c.push_grad(endpoint, target, host_array(val))
+
+
+def Recv(endpoint, var_names, scope=None, sync=True):
+    """Fetch variables from a pserver (reference io.py:241 Recv) into the
+    scope, as host numpy (a later Executor run moves each to its place)."""
+    from ..core.executor import global_scope
+    scope = scope or global_scope()
+    c = _ps_client(endpoint)
+    out = []
+    for n in (var_names if isinstance(var_names, (list, tuple)) else [var_names]):
+        val = c.get_param(endpoint, n)
+        scope.set_var(n, val)
+        out.append(val)
+    return out
 
 
 def read_file(reader):

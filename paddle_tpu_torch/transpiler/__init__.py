@@ -2,8 +2,8 @@
 
 `DistributeTranspiler` plans every distribution mode; its default sync
 runtime, "collective", runs through `ParallelExecutor`, and a pserver
-Program it plans waits for the port's parameter server (ROADMAP item
-8.4)."""
+Program it plans is served by `Executor.run` (``pserver/``), its
+trainers driven by `pserver.AsyncPSTrainer` / `SyncPSTrainer`."""
 
 from .memory_optimization_transpiler import memory_optimize, release_memory  # noqa: F401
 from .inference_transpiler import InferenceTranspiler  # noqa: F401

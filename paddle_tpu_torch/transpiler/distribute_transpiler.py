@@ -17,9 +17,8 @@ one Program run over a mesh of ranks, which the port's SPMD interpreter
     (the transpiled program is UNCHANGED: the mesh and the placements do
     the work). config.runtime='pserver' plans the process-based sync
     parameter server instead (per-batch barriers, server-side updates:
-    the reference's RunSyncLoop); its runtime comes with ROADMAP item
-    8.4 (`pserver/`), so a pserver Program is planned here and its run
-    raises until then (``core/executor.py``).
+    the reference's RunSyncLoop), run by ``pserver/``: `Executor.run`
+    serves a pserver Program and `pserver.SyncPSTrainer` drives it.
   - sliced params on pservers       -> ZeRO-style optimizer-state
     sharding (BuildStrategy.ReduceStrategy.Reduce).
   - distributed lookup table (P5)   -> large embedding tables annotated
@@ -28,7 +27,7 @@ one Program run over a mesh of ranks, which the port's SPMD interpreter
     (torch.distributed over gloo or NCCL, see distributed.py).
   - async (barrierless) updates     -> the host parameter-server plan
     (`param_specs`, `sparse_specs`, `grad_names`; reference RunAsyncLoop,
-    listen_and_serv_op.cc:195), run by item 8.4's trainers.
+    listen_and_serv_op.cc:195), run by ``pserver/``'s trainers.
 """
 
 from __future__ import annotations
@@ -280,9 +279,8 @@ class DistributeTranspiler:
 
     def get_pserver_program(self, endpoint) -> ir.Program:
         """A program holding one `listen_and_serv` op (reference
-        listen_and_serv_op.cc); `Executor.run` on it serves, blocking,
-        once the parameter server lands (ROADMAP item 8.4; until then the
-        run raises). Available in async mode, hybrid mode and the sync
+        listen_and_serv_op.cc); `Executor.run` on it serves, blocking
+        (``pserver/server.py``). Available in async mode, hybrid mode and the sync
         "pserver" runtime (RunSyncLoop analog: per-batch barriers,
         aggregated server-side updates). The sync DEFAULT remains the
         collective runtime: parameters live split or whole on each rank's

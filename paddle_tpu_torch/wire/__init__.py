@@ -11,8 +11,8 @@ numerical contract (docs/COMMUNICATION.md):
 - **Host wire codecs** (`wire.codec`, `wire.feedback`): float32 tensors
   travel as codec-tagged payloads — per-chunk abs-max int8 (~4x) or bf16
   (2x) — with per-tensor client-side error feedback on gradient pushes.
-  The parameter-server client that sends them (`PSClient(comm_quant=)`)
-  comes with the port's `pserver/` (ROADMAP item 8.4).
+  The parameter-server client that sends them is
+  `pserver.PSClient(comm_quant=)`.
 
 - **In-graph gradient quantization** (`wire.graph`): a
   `comm_quant_dequant` op (abs-max idiom of ops/quantize.py + persistent

@@ -1,10 +1,9 @@
 """Host-side wire codecs for the communication-compression layer.
 
 Mirror of ``paddle_tpu/wire/codec.py``, copied: it is numpy only. The
-port's parameter-server RPC (`pserver/`) comes with ROADMAP item 8.4;
-until then the codecs serve `ErrorFeedback` and any caller that moves
-tensors between hosts, and they state the numbers the in-graph
-`comm_quant_dequant` rule (``wire/graph.py``) is held to bit for bit.
+codecs carry the port's parameter-server traffic (`pserver/`), serve
+`ErrorFeedback`, and state the numbers the in-graph `comm_quant_dequant`
+rule (``wire/graph.py``) is held to bit for bit.
 
 Reference analog: the reference pserver assumed compressed wire traffic
 (the TF system paper's parameter-server story); EQuARX (PAPERS.md) shows

@@ -21,6 +21,7 @@ initializers, `save_params` / `load_params`, `get_inference_program`,
 `net_drawer`, and the names both packages export.
 """
 
+import importlib
 import os
 
 import numpy as np
@@ -908,14 +909,14 @@ def test_graphviz_and_net_drawer_write_the_reference_dot(tmp_path):
 
 # paddle_tpu.layers names whose ops or modules the port has not yet: none
 LAYERS_WAITING = set()
-# top-level names waiting: item 8's host planes still to port, and the
+# top-level names waiting: item 8's host planes still to port (pserver
+# and haven came with item 8.4), and the
 # TPU names, which the port does not take. A submodule the JAX package does not import itself
 # (`quorum`, `capi_runtime`) is a name only once something imports it, so
 # the lists say what may be missing, and the test that nothing else is
 # and that no listed name has been ported
 TOP_WAITING = {
-    "pserver", "master",
-    "haven", "fleet", "torrent", "quorum", "capi_runtime",
+    "master", "fleet", "torrent", "quorum", "capi_runtime",
     "TPUPlace", "tpu_device_count", "is_compiled_with_tpu",
 }
 # paddle_tpu.transpiler names waiting: none (DistributeTranspiler and its
@@ -942,6 +943,12 @@ WIRE_MODULES = ("codec", "feedback", "graph")
 GRAPH_JAX_IMPORTS = {"jnp"}
 OBSERVE_MODULES = ("flight", "health", "memory", "metrics", "pulse",
                    "scrape", "steplog", "stitch", "tracer", "xray")
+# the parameter-server plane, item 8.4: pserver/, haven/ and ark's four
+# host modules, each of their names ported
+PS_MODULES = ("pserver", "pserver.client", "pserver.optim", "pserver.rpc",
+              "pserver.server", "pserver.trainer", "haven", "haven.log",
+              "haven.replication", "ark", "ark.retry", "ark.liveness",
+              "ark.heartbeat", "ark.chaos")
 
 
 @pytest.mark.parametrize("jmod,tmod,waiting", [
@@ -958,12 +965,16 @@ OBSERVE_MODULES = ("flight", "health", "memory", "metrics", "pulse",
     (fluid.ir_pass, ptt.ir_pass, set()),
     (fluid.observe, ptt.observe, set()),
     *((getattr(fluid.observe, m), getattr(ptt.observe, m), set())
-      for m in OBSERVE_MODULES)],
+      for m in OBSERVE_MODULES),
+    *((importlib.import_module(f"paddle_tpu.{m}"),
+       importlib.import_module(f"paddle_tpu_torch.{m}"), set())
+      for m in PS_MODULES)],
     ids=["layers", "top_level", "transpiler", "wire",
          *(f"wire.{m}" for m in WIRE_MODULES),
          "transpiler.distribute_transpiler", "transpiler.ps_dispatcher",
          "analysis", "ir_pass",
-         "observe", *(f"observe.{m}" for m in OBSERVE_MODULES)])
+         "observe", *(f"observe.{m}" for m in OBSERVE_MODULES),
+         *PS_MODULES])
 def test_every_public_name_is_ported_or_waiting(jmod, tmod, waiting):
     import importlib.util
     missing = _public(jmod) - _public(tmod)

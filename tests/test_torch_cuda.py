@@ -29,7 +29,11 @@ observe plane on the card: the memory observatory's live stats equal
 step log has every phase on the card, `bind` on the first run only; and
 fluid-wire's `comm_quant_dequant` on the card against its CPU run bit for
 bit (int8 and bf16), and three steps through `DistributeTranspiler`'s
-collective path with comm_quant int8, card against host.
+collective path with comm_quant int8, card against host; and the
+parameter-server plane: two `SyncPSTrainer`s of a small fused-attention
+Transformer on the card against the same job on the host, the flash
+kernels counted, and the pulled parameters landing in the scope's card
+tensors.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2569,3 +2573,134 @@ def test_comm_quant_training_on_card_equals_host(dev):
             "cpu" if d == "cpu" else "cuda") for v in res)
         assert any(bool(v.abs().max() > 0) for v in res)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+_PS_T = dict(src_vocab_size=64, trg_vocab_size=64, seq_len=64, n_layer=1,
+             n_head=2, d_model=64, d_inner=128, dropout_rate=0.0,
+             fused_attention=True)
+
+
+def _ps_sync_job(place, state, batches):
+    """Two SyncPSTrainers of a small fused-attention Transformer on two
+    in-process servers, each trainer on its half of every batch, in
+    threads: (per-trainer losses, the servers' parameters, the trainers'
+    scopes)."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.pserver import ParameterServer, SyncPSTrainer
+    servers = [ParameterServer("127.0.0.1:0", trainers=2).start()
+               for _ in range(2)]
+    eps = ",".join(s.endpoint for s in servers)
+    trainers = []
+    try:
+        for tid in range(2):
+            main, startup = ptt.Program(), ptt.Program()
+            with ptt.program_guard(main, startup), ptt.unique_name.guard():
+                _, fetches = transformer.build(**_PS_T)
+                ptt.optimizer.Adam(learning_rate=1e-3).minimize(
+                    fetches["loss"])
+            cfg = ptt.DistributeTranspilerConfig()
+            cfg.runtime = "pserver"
+            t = ptt.DistributeTranspiler(cfg)
+            t.transpile(tid, program=main, pservers=eps, trainers=2,
+                        sync_mode=True, startup_program=startup)
+            tr = SyncPSTrainer(t, ptt.Executor(place),
+                               scope=ptt.io.state_from_numpy(state, place))
+            tr.init_params()
+            trainers.append((tr, fetches["loss"]))
+        losses = [[], []]
+
+        def loop(i):
+            tr, loss = trainers[i]
+            for b in batches:
+                half = {k: v[i * 2:(i + 1) * 2] for k, v in b.items()}
+                losses[i].append(float(tr.step(half, fetch_list=[loss])[0]))
+        ths = [threading.Thread(target=loop, args=(i,)) for i in range(2)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=300)
+        assert all(len(x) == len(batches) for x in losses), losses
+        tr = trainers[0][0]
+        params = {p: tr.client.get_param(spec["endpoint"], p)
+                  for p, spec in tr.t.param_specs.items()}
+        return losses, params, [tr.scope for tr, _ in trainers]
+    finally:
+        for tr, _ in trainers:
+            tr.close()
+        for s in servers:
+            s.stop()
+
+
+def test_sync_ps_trainers_on_card_equal_host(dev):
+    """Two SyncPSTrainers on the card against the same job on the host,
+    from one state: losses to 1e-4 relative, the servers' parameters to
+    1e-4 relative L2 each, and the card job launches the flash forward,
+    dQ, dK/dV and delta 6 / 3 / 3 / 3 a step a trainer (one encoder
+    self-attention, one decoder self- and one cross-attention)."""
+    from paddle_tpu_torch.models import transformer
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(**_PS_T)
+        ptt.optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+    main.random_seed = startup.random_seed = 3
+    scope = ptt.Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope)
+    state = {n: scope.find_var(n).numpy().copy()
+             for n in scope.local_var_names()}
+    rng = np.random.RandomState(2)
+    batches = [{n: rng.randint(0, 64, (4, 64)).astype(np.int64)
+                for n in ("src_word", "trg_word", "lbl_word")}
+               for _ in range(3)]
+    host_l, host_p, _ = _ps_sync_job(ptt.CPUPlace(), state, batches)
+    native.reset_launches()
+    card_l, card_p, _ = _ps_sync_job(ptt.CUDAPlace(0), state, batches)
+    launches = dict(native.launches)
+    np.testing.assert_allclose(card_l, host_l, rtol=1e-4)
+    for p, v in host_p.items():
+        rel = np.linalg.norm(card_p[p] - v) / max(np.linalg.norm(v), 1e-30)
+        assert rel <= 1e-4, (p, rel)
+    steps = 2 * len(batches)
+    assert {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                                     "flash_delta")} == {
+        "flash_fwd": 6 * steps, "flash_dq": 3 * steps,
+        "flash_dkv": 3 * steps, "flash_delta": 3 * steps}
+
+
+def test_pulled_parameters_stay_on_the_card(dev):
+    """After a step, each pulled parameter is the scope's own card tensor
+    (the trainer copies into it, never swaps in host numpy), equal bit
+    for bit to the server's value at the next pull."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data(name="x", shape=[16], dtype="float32")
+        y = ptt.layers.data(name="y", shape=[1], dtype="int64")
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(
+            ptt.layers.fc(input=ptt.layers.fc(input=x, size=32, act="relu"),
+                          size=4), y))
+        ptt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    from paddle_tpu_torch.pserver import AsyncPSTrainer, ParameterServer
+    srv = ParameterServer("127.0.0.1:0").start()
+    try:
+        t = ptt.DistributeTranspiler()
+        t.transpile(0, program=main, pservers=srv.endpoint, trainers=1,
+                    sync_mode=False, startup_program=startup)
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        tr = AsyncPSTrainer(t, exe, scope=scope)
+        tr.init_params()
+        held = {p: scope.find_var(p) for p in t.param_specs}
+        rng = np.random.RandomState(0)
+        for _ in range(2):
+            tr.step({"x": rng.randn(8, 16).astype(np.float32),
+                     "y": rng.randint(0, 4, (8, 1)).astype(np.int64)},
+                    fetch_list=[loss])
+        tr._recv_dense()
+        for p in t.param_specs:
+            v = scope.find_var(p)
+            assert v is held[p] and v.device.type == "cuda"
+            assert v.cpu().numpy().tobytes() == tr.client.get_param(
+                srv.endpoint, p).tobytes()
+        tr.close()
+    finally:
+        srv.stop()

@@ -654,10 +654,11 @@ def test_device_stager_passes_device_tensors_through():
 # ---------------------------------------------------------------------------
 
 def test_layers_io_surface_like_paddle_tpu(tmp_path):
-    """Mirror of tests/test_data_plane.py:308-351 without ListenAndServ:
+    """Mirror of tests/test_data_plane.py:308-351:
     open_recordio_file, open_files, double_buffer, read_file, shuffle,
-    batch, random_data_generator, with the JAX package's results; the
-    parameter-server layers raise, naming their ROADMAP item."""
+    batch, random_data_generator, with the JAX package's results; and
+    ListenAndServ / Send / Recv round-trip through the port's parameter
+    server."""
     path = str(tmp_path / "s.recordio")
     samples = [(np.full((4,), i, np.float32), np.array([i % 2], np.int64))
                for i in range(40)]
@@ -695,9 +696,22 @@ def test_layers_io_surface_like_paddle_tpu(tmp_path):
     assert got["torch"] == got["jax"]
     assert sum(len(f[0]) for f in got["torch"][0]) == 40
     assert len(got["torch"][1]) == 6          # 96 records, batches of 16
-    for layer in ("ListenAndServ", "Send", "Recv"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            getattr(ptt.layers, layer)("127.0.0.1:0")
+    # ListenAndServ/Send/Recv round-trip through the host PS runtime
+    srv = ptt.layers.ListenAndServ("127.0.0.1:0")
+    try:
+        c = ptt.pserver.PSClient([srv.endpoint])
+        c.init_param(srv.endpoint, "w", np.ones((2, 2), np.float32),
+                     "sgd", lr=0.1, attrs={})
+        c.close()
+        scope = ptt.Scope()
+        got, = ptt.layers.Recv(srv.endpoint, ["w"], scope=scope)
+        np.testing.assert_allclose(got, np.ones((2, 2)))
+        scope.set_var("w@GRAD", np.ones((2, 2), np.float32))
+        ptt.layers.Send(srv.endpoint, ["w@GRAD"], scope=scope)
+        got2, = ptt.layers.Recv(srv.endpoint, ["w"], scope=scope)
+        np.testing.assert_allclose(got2, 0.9 * np.ones((2, 2)), rtol=1e-6)
+    finally:
+        srv.stop()
 
 
 def test_load_layer_and_preprocessor_like_paddle_tpu(tmp_path):

@@ -502,6 +502,21 @@ observe.reset_all()
 for name in ("flight", "health", "memory", "pulse", "scrape", "steplog",
              "stitch", "tracer", "xray"):
     assert "paddle_tpu_torch.observe." + name in sys.modules, name
+import numpy as np
+import paddle_tpu_torch.ark, paddle_tpu_torch.haven, paddle_tpu_torch.pserver
+for name in ("pserver.client", "pserver.optim", "pserver.rpc",
+             "pserver.server", "pserver.trainer", "haven.log",
+             "haven.replication", "ark.retry", "ark.liveness",
+             "ark.heartbeat", "ark.chaos"):
+    assert "paddle_tpu_torch." + name in sys.modules, name
+ps = ptt.layers.ListenAndServ("127.0.0.1:0")
+ps_client = ptt.pserver.PSClient([ps.endpoint], comm_quant="int8")
+ps_client.init_param(ps.endpoint, "w", np.zeros(4, np.float32), "sgd", 1.0,
+                     {})
+ps_client.push_grad(ps.endpoint, "w", np.ones(4, np.float32))
+assert ps_client.get_param(ps.endpoint, "w").tolist() == [-1.0] * 4
+ps_client.close()
+ptt.ark.chaos.kill_server(ps)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)
@@ -543,11 +558,14 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
         "torch_paddle_lint.py", "torch_race_lint.py",
         "torch_op_profile.py", "torch_paddle_plan.py",
         "torch_telemetry_dump.py", "torch_observatory.py",
-        "torch_metrics_lint.py", "torch_step_profile.py")]
+        "torch_metrics_lint.py", "torch_step_profile.py",
+        "torch_wire_bench.py")]
     assert len(files) > 20
     for part in ("dataset/mnist.py", "dataset/common.py",
                  "ops/loss_extra.py", "layers/loss_layers.py",
-                 "wire/graph.py", "transpiler/distribute_transpiler.py"):
+                 "wire/graph.py", "transpiler/distribute_transpiler.py",
+                 "pserver/trainer.py", "haven/replication.py",
+                 "ark/chaos.py"):
         assert os.path.join(PORT, part) in files, part
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}

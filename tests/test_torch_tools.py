@@ -22,7 +22,10 @@ Each tool runs in a subprocess beside its counterpart on the same input:
 - ``tools/torch_metrics_lint.py``: the port's emitted names all in
   ``docs/OBSERVABILITY.md``'s catalog;
 - ``tools/torch_step_profile.py --cpu --tiny``: its host-event and op
-  tables.
+  tables;
+- ``tools/torch_wire_bench.py`` vs ``tools/wire_bench.py`` (the
+  parameter-server wire's A/B, 12 steps of a small net on the host): the
+  same exit code, JSON keys and bytes a step.
 
 Everything is held exactly: the tools' JSON documents and exit codes.
 """
@@ -357,3 +360,25 @@ def test_step_profile_prints_its_tables_on_the_cpu(tmp_path):
     assert os.path.exists(tmp_path / "trace.json")
     rc, _, err = _run("torch_step_profile.py", "--yardstick")
     assert rc == 2 and "not ported" in err
+
+
+# ---------------------------------------------------------------------------
+# the parameter-server wire bench (item 8.4)
+# ---------------------------------------------------------------------------
+
+def test_wire_bench_reports_as_wire_bench():
+    """Both benches run the same sync-PS job (the same net, seeds and 12
+    steps) raw and int8: the same keys, and the same bytes a step and
+    compression, which depend only on the shapes and the codec; the times
+    are each host's own."""
+    (jrc, jout, jerr), (trc, tout, terr) = _pair("wire_bench.py",
+                                                  "torch_wire_bench.py")
+    assert jrc == trc == 0, (jerr, terr)
+    jdoc, tdoc = json.loads(jout.splitlines()[-1]), \
+        json.loads(tout.splitlines()[-1])
+    assert sorted(tdoc) == sorted(jdoc)
+    for k in ("wire_bytes_per_step_raw", "wire_bytes_per_step_encoded",
+              "wire_compression_x", "wire_sparse_compression_x"):
+        assert tdoc[k] == jdoc[k], k
+    assert tdoc["wire_compression_x"] > 3.9
+    assert tdoc["wire_quant_loss_delta"] < 0.05

@@ -33,7 +33,9 @@ through both packages:
 - a 2-rank gloo world (tests/_torch_parallel_worker.py) with
   `BuildStrategy.comm_quant`: in the band of the unquantized run, the
   same collectives (count and bytes), the op run whole;
-- a `listen_and_serv` Program raises citing item 8.4; `comm-float64`
+- a `listen_and_serv` Program is served by `Executor.run` until a
+  client stops it (the test keeps its name from when it raised citing
+  item 8.4); `comm-float64`
   gives the same findings in both packages; and the float64 Program of
   ROADMAP Queue 3, built by both packages, with its declared dtypes and
   both lints' findings pinned.
@@ -43,6 +45,8 @@ import json
 import os
 import subprocess
 import sys
+import threading
+import time
 import warnings
 
 import jax
@@ -774,16 +778,39 @@ def test_two_ranks_with_comm_quant_stay_in_the_band(wire_world, codec):
 # ---------------------------------------------------------------------------
 
 def test_a_listen_and_serv_program_raises_citing_item_8_4():
+    """A `listen_and_serv` Program (item 8.4, now ported) is served by
+    `Executor.run` and by a prepared handle's `run`, blocking until a
+    client stops it over the wire; each run then returns []. The
+    prepared handle passes `validate="error"` (a host service is no
+    step)."""
+    from paddle_tpu_torch.pserver import PSClient
+
     main, startup, _ = _ctr_net(ptt)
+    ep = f"127.0.0.1:{_free_ports(1)[0]}"
     t = ptt.DistributeTranspiler()
-    t.transpile(0, program=main, pservers="127.0.0.1:6170",
-                sync_mode=False, startup_program=startup)
-    prog = t.get_pserver_program("127.0.0.1:6170")
+    t.transpile(0, program=main, pservers=ep, sync_mode=False,
+                startup_program=startup)
+    prog = t.get_pserver_program(ep)
     exe = ptt.Executor(ptt.CPUPlace())
     handle = exe.prepare(prog, validate="error")
     for run in (lambda: handle.run({}), lambda: exe.run(prog)):
-        with pytest.raises(NotImplementedError, match="item 8.4"):
-            run()
+        out = {}
+        th = threading.Thread(target=lambda: out.update(ret=run()),
+                              daemon=True)
+        th.start()
+        c = PSClient([ep])
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                assert c._call(ep, "stats")["endpoint"] == ep
+                break
+            except (ConnectionError, OSError, RuntimeError):
+                assert time.monotonic() < deadline, "never served"
+                time.sleep(0.05)
+        c.stop_all()
+        c.close()
+        th.join(timeout=60)
+        assert not th.is_alive() and out["ret"] == []
 
 
 def _boundary(pkg, dtype):
