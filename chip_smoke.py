@@ -405,6 +405,24 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    step done, the backup promoted, no push applied twice on any server,
    the blip under tools/haven_bench.py's lease + poll + retry budget,
    a retry budget for each call that met the dead primary;
+7r. the coordination plane (``quorum/``, ``master/``):
+   train-base-elastic, train-base at TRAIN_BATCH stepped by one trainer
+   thread through the Executor on CUDAPlace(0) from one saved state, fed
+   by `MasterClient(primary, standbys=[standby], quorum_endpoints=...,
+   quorum_resource="master0").records(load_chunk)` over
+   ELASTIC_BATCHES batch ids (`elastic_batch(i)`, one a task) from a
+   primary / standby `Master` pair fenced by three in-process
+   `QuorumNode`s (lease ELASTIC_LEASE_S, task timeout ELASTIC_TIMEOUT_S),
+   the primary killed by `ark.chaos.kill_master` once ELASTIC_KILL_AFTER
+   tasks are done there: the standby promoted within lease + lease/3 +
+   2 s, no trainer failure, the pass complete at the promoted master,
+   every id delivered and a single-issue task once, at most one issuing
+   master at every sample, the quorum promotion metered and in the
+   flight recorder, the flash forward, dQ, dK/dV and delta launched
+   36 / 18 / 18 / 18 a step, and the losses the same bits as a replay of
+   the delivered ids through a fresh Executor from the saved state; the
+   promotion time, the trainer's stall across the kill, the step median
+   and the sampler's period printed;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -7420,6 +7438,242 @@ def run_ps_plane(torch, ptt, native, tmp, place=None):
     return dict(sync=a, deepfm_async=c, deepfm_haven=d, pservers=served,
                 walls_s=walls, s=time.perf_counter() - t0)
 
+# phase 7r: the coordination plane (``quorum/``, ``master/``).
+# train-base-elastic: train-base (TRAIN_BASE, Adam TRAIN_LR, float32) at
+# TRAIN_BATCH, one trainer thread stepping it through the Executor on
+# CUDAPlace(0), fed by `MasterClient.records` from a primary / standby
+# `Master` pair fenced by three in-process `QuorumNode`s
+# (tools/torch_chaos_drill.py's `_master_ha_world`, at lease
+# ELASTIC_LEASE_S and task timeout ELASTIC_TIMEOUT_S) over
+# ELASTIC_BATCHES batch ids, one a task; the primary killed by
+# `ark.chaos.kill_master` once ELASTIC_KILL_AFTER tasks are done there.
+# Then the delivered ids, in their order, through a fresh Executor from
+# the same saved state: the losses must be the same bits.
+ELASTIC_BATCHES, ELASTIC_KILL_AFTER = 12, 4
+ELASTIC_LEASE_S, ELASTIC_TIMEOUT_S = 0.5, 5.0
+ELASTIC_TIMEOUT = 600       # the trainer's whole pass, seconds
+
+
+def elastic_batch(i, batch=TRAIN_BATCH, seq_len=TRAIN_BASE["seq_len"],
+                  vocab=TRAIN_BASE["trg_vocab_size"]):
+    """Train-base batch `i` of the elastic pass: source, target and label
+    ids from (DATA_SEED, i)."""
+    import numpy as np
+    rng = np.random.RandomState([DATA_SEED, int(i)])
+    return {n: rng.randint(0, vocab, (batch, seq_len)).astype(np.int64)
+            for n in ("src_word", "trg_word", "lbl_word")}
+
+
+def _fresh_scope(ptt, state):
+    """A scope holding a copy of each of `state`'s values (a tensor
+    stays on its device)."""
+    scope = ptt.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone() if hasattr(v, "clone") else v.copy())
+    return scope
+
+
+def run_train_base_elastic(torch, ptt, native, tmp, place=None,
+                           build_kw=None, batch=TRAIN_BATCH,
+                           n_batches=ELASTIC_BATCHES,
+                           kill_after=ELASTIC_KILL_AFTER):
+    """Phase 7r: returns the numbers; fails when the standby does not
+    take over within the drill's lease budget, the trainer sees a
+    failure, the pass is not complete at the promoted master, a batch id
+    is missing or a single-issue task was delivered twice, two masters
+    issued at one sample, the promotion is not metered and in the flight
+    recorder, the flash kernels did not launch 2 / 1 / 1 / 1 times an
+    attention a step (on the card; none on the host), or the replay's
+    losses are not the same bits."""
+    import numpy as np
+    from paddle_tpu_torch.ark import chaos
+    from paddle_tpu_torch.master import MasterClient
+    from paddle_tpu_torch.observe import flight as obs_flight
+    from paddle_tpu_torch.observe import metrics as obs_metrics
+    from tools.torch_chaos_drill import (ISSUING_SAMPLE_S, MASTER_RESOURCE,
+                                         _check_master_exactly_once,
+                                         _lease_budget_s, _master_ha_world,
+                                         _start_issuing_sampler)
+    place = place or ptt.CUDAPlace(0)
+    budget_s = _lease_budget_s(ELASTIC_LEASE_S)
+    cfg = dict(TRAIN_BASE, **(build_kw or {}))
+    main, startup, loss = build_train(ptt, **(build_kw or {}))
+    vocab, seq_len = cfg["trg_vocab_size"], cfg["seq_len"]
+    t_phase = time.perf_counter()
+    dev = place.torch_device()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    scope0 = ptt.Scope()
+    ptt.Executor(place).run(startup, scope=scope0)
+    state = {n: scope0.find_var(n) for n in scope0.local_var_names()}
+    del scope0
+
+    def load_chunk(i):
+        yield i, elastic_batch(i, batch, seq_len, vocab)
+
+    def steps_of(exe, scope, feeds, out):
+        """Each (id, feed) of `feeds` one step: the id, the loss, the
+        step's ms and its end on the host's clock into `out`."""
+        for i, feed in feeds:
+            t0 = time.perf_counter()
+            v, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            sync()
+            t1 = time.perf_counter()
+            out["ids"].append(int(i))
+            out["losses"].append(float(np.asarray(v).reshape(-1)[0]))
+            out["step_ms"].append((t1 - t0) * 1e3)
+            out["ends"].append(t1)
+
+    prev_observe = ptt.get_flag("observe")
+    ptt.set_flag("observe", True)
+    obs_metrics.default_registry().reset()
+    obs_flight.get_flight().clear()
+    nodes, qeps, primary, standby = _master_ha_world(
+        tmp, lease_s=ELASTIC_LEASE_S, timeout_dur=ELASTIC_TIMEOUT_S)
+    t_world = time.perf_counter() - t_phase
+    stop_sampling = threading.Event()
+    run = dict(ids=[], losses=[], step_ms=[], ends=[], failures=[])
+    try:
+        admin = MasterClient(primary.endpoint)
+        admin.set_dataset(list(range(n_batches)), chunks_per_task=1)
+        admin.close()
+
+        def trainer():
+            mc = MasterClient(primary.endpoint, standbys=[standby.endpoint],
+                              quorum_endpoints=qeps,
+                              quorum_resource=MASTER_RESOURCE,
+                              failover_s=20.0)
+            try:
+                steps_of(ptt.Executor(place), _fresh_scope(ptt, state),
+                         mc.records(load_chunk), run)
+            except Exception as e:      # noqa: BLE001 - a gate reads it
+                run["failures"].append(repr(e))
+            finally:
+                mc.close()
+
+        samples, violations = _start_issuing_sampler([primary, standby],
+                                                     stop_sampling)
+        native.reset_launches()
+        th = threading.Thread(target=trainer, daemon=True)
+        th.start()
+        deadline = time.monotonic() + ELASTIC_TIMEOUT
+        while True:
+            with primary._lock:
+                done_at_kill = len(primary._done)
+            if done_at_kill >= kill_after or not th.is_alive():
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("train-base-elastic: no progress at "
+                                     "the primary")
+            time.sleep(0.005)
+        steps_at_kill = len(run["ids"])
+        kill_at = time.perf_counter()
+        chaos.kill_master(primary)
+        while standby.ha_status()["role"] != "primary":
+            if time.perf_counter() - kill_at > budget_s + 10:
+                break
+            time.sleep(0.005)
+        promote_s = time.perf_counter() - kill_at
+        th.join(timeout=ELASTIC_TIMEOUT)
+        launches = dict(native.launches)
+        stop_sampling.set()
+        if th.is_alive():
+            raise AssertionError("train-base-elastic: the trainer never "
+                                 "drained the pass")
+        st = standby.ha_status()
+        with standby._lock:
+            done = [(t.epoch, list(t.payload)) for t in standby._done]
+        promoted = obs_metrics.default_registry().get(
+            "master_promotions_total")
+        promoted = promoted.value(kind="quorum") if promoted else 0
+        promos = [e for e in obs_flight.get_flight().events(
+            "master_promotion") if e.get("endpoint") == standby.endpoint]
+    finally:
+        stop_sampling.set()
+        ptt.set_flag("observe", prev_observe)
+        primary.stop()
+        standby.stop()
+        for n in nodes:
+            n.stop()
+    tag = "train-base-elastic"
+    if run["failures"]:
+        raise AssertionError(f"{tag}: the trainer failed {run['failures']}")
+    if promote_s > budget_s:
+        raise AssertionError(f"{tag}: the standby took {promote_s:.2f} s "
+                             f"to promote (budget {budget_s:.2f} s; {st})")
+    if not (st["role"] == "primary" and st["done"] == n_batches
+            and st["todo"] == 0 and st["pending"] == 0):
+        raise AssertionError(f"{tag}: pass not complete at the promoted "
+                             f"master {st}")
+    _check_master_exactly_once(standby, run["ids"], n_batches)
+    reissued = [p for e, p in done if e > 1]
+    if violations:
+        raise AssertionError(f"{tag}: two issuing masters at "
+                             f"{len(violations)} samples")
+    if promoted < 1 or not promos:
+        raise AssertionError(f"{tag}: promotion metered {promoted}, in the "
+                             f"flight recorder {len(promos)}")
+    n_steps = len(run["ids"])
+    n_attn = 3 * cfg["n_layer"]
+    per_step = {"flash_fwd": 2 * n_attn, "flash_dq": n_attn,
+                "flash_dkv": n_attn, "flash_delta": n_attn}
+    want = {k: (per_step.get(k, 0) * n_steps if dev.type == "cuda" else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    if not np.isfinite(run["losses"]).all():
+        raise AssertionError(f"{tag}: losses {run['losses']}")
+    # the replay: the delivered ids, duplicates included, from the state
+    t_replay = time.perf_counter()
+    replay = dict(ids=[], losses=[], step_ms=[], ends=[])
+    native.reset_launches()
+    steps_of(ptt.Executor(place), _fresh_scope(ptt, state),
+             ((i, elastic_batch(i, batch, seq_len, vocab))
+              for i in run["ids"]), replay)
+    replay_launches = dict(native.launches)
+    replay_s = time.perf_counter() - t_replay
+    del state
+    differ = [k for k, (a, b) in enumerate(zip(run["losses"],
+                                                replay["losses"]))
+              if np.float32(a).tobytes() != np.float32(b).tobytes()]
+    if differ or len(replay["losses"]) != n_steps:
+        raise AssertionError(f"{tag}: losses {run['losses']} against the "
+                             f"replay's {replay['losses']} (steps {differ} "
+                             f"differ)")
+    ms = run["step_ms"]
+    gaps = np.diff(run["ends"]) * 1e3
+    med = _median(ms[1:] or ms)
+    # the gap that spans the kill (the step that met the dead primary)
+    before = [e for e in run["ends"] if e <= kill_at]
+    after = [e for e in run["ends"] if e > kill_at]
+    kill_gap = (after[0] - before[-1]) * 1e3 if before and after else 0.0
+    periods = np.diff(samples) * 1e3 if len(samples) > 1 else np.zeros(1)
+    return dict(batches=n_batches, batch=batch, n_layer=cfg["n_layer"],
+                steps=n_steps, ids=run["ids"], losses=run["losses"],
+                replay_losses=replay["losses"], bit_equal=True,
+                kill_after=kill_after, done_at_kill=done_at_kill,
+                steps_at_kill=steps_at_kill, lease_s=ELASTIC_LEASE_S,
+                timeout_dur=ELASTIC_TIMEOUT_S, promote_s=promote_s,
+                budget_s=budget_s, step_ms=ms,
+                step_ms_median=med,
+                gap_ms_max=float(gaps.max()) if len(gaps) else 0.0,
+                stall_ms=(float(gaps.max()) - med) if len(gaps) else 0.0,
+                gap_ms_at_kill=kill_gap, stall_ms_at_kill=kill_gap - med,
+                reissued=reissued, promotions=promoted,
+                samples=len(samples),
+                sample_ms_mean=float(np.mean(periods)),
+                sample_ms_max=float(np.max(periods)),
+                sample_ms_asked=ISSUING_SAMPLE_S * 1e3,
+                launches=launches, launches_a_step=per_step
+                if dev.type == "cuda" else {},
+                replay_launches=replay_launches, replay_s=replay_s,
+                world_s=t_world, master_status=st,
+                s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8683,6 +8937,46 @@ def main() -> int:
     phase7q_s = time.perf_counter() - t0
     log(f"phase 7q: {phase7q_s:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # 7r. the coordination plane: train-base fed by a quorum-fenced master
+    # pair whose primary is killed mid-pass, then its replay
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as el_tmp:
+        el = run_train_base_elastic(torch, ptt, native, el_tmp)
+    log(f"train-base-elastic (train-base at batch {el['batch']}, one "
+        f"trainer thread on CUDAPlace(0) fed by MasterClient.records from "
+        f"a primary/standby Master pair fenced by 3 in-process "
+        f"QuorumNodes, lease {el['lease_s']} s, task timeout "
+        f"{el['timeout_dur']} s, {el['batches']} batch ids one a task; the "
+        f"primary killed by ark.chaos.kill_master at {el['done_at_kill']} "
+        f"tasks done, {el['steps_at_kill']} steps taken) [{card}]: the "
+        f"standby promoted in {el['promote_s'] * 1e3:.1f} ms (budget "
+        f"{el['budget_s'] * 1e3:.1f} ms), {el['promotions']} quorum "
+        f"promotion metered and in the flight recorder; no trainer "
+        f"failure; pass complete at the promoted master "
+        f"({el['master_status']['done']} done, 0 todo, 0 pending); ids "
+        f"delivered in order {el['ids']} (re-issued tasks "
+        f"{el['reissued']}), a single-issue task once; no two issuing "
+        f"masters in {el['samples']} samples (period "
+        f"{el['sample_ms_mean']:.2f} ms "
+        f"mean, {el['sample_ms_max']:.2f} ms max, {el['sample_ms_asked']:g} "
+        f"asked); step {el['step_ms_median']:.1f} ms (median; all "
+        f"{[round(x, 1) for x in el['step_ms']]}); the trainer's stall "
+        f"{el['stall_ms']:.1f} ms (largest gap {el['gap_ms_max']:.1f} ms "
+        f"less the median step), {el['stall_ms_at_kill']:.1f} ms at the "
+        f"kill (the gap spanning it {el['gap_ms_at_kill']:.1f} ms); losses "
+        f"{[round(x, 4) for x in el['losses']]}, the replay's the same bits "
+        f"({el['steps']} steps from the same saved state in "
+        f"{el['replay_s']:.1f} s); launches a step "
+        f"{el['launches_a_step']}, "
+        f"{ {k: v for k, v in el['launches'].items() if v} } in all "
+        f"(replay {({k: v for k, v in el['replay_launches'].items() if v})})"
+        f"; world up in {el['world_s']:.2f} s, the run {el['s']:.1f} s")
+    phase7r_s = time.perf_counter() - t0
+    log(f"phase 7r: {phase7r_s:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -8808,6 +9102,10 @@ def main() -> int:
                     psa["int8"]["launches"].get(kname, 0),
                 "train_deepfm_ps_async": 0, "train_deepfm_ps_haven": 0}
 
+    def el_launches(kname):
+        """A kernel's launches on phase 7r's path (the replay apart)."""
+        return {"train_base_elastic": el["launches"].get(kname, 0)}
+
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
     causal_head = train_cases[1]   # the same, causal
@@ -8840,7 +9138,8 @@ def main() -> int:
                               **pe_launches("flash_fwd"),
                               **obs_launches("flash_fwd"),
                               **wire_launches("flash_fwd"),
-                              **ps_launches("flash_fwd")},
+                              **ps_launches("flash_fwd"),
+                              **el_launches("flash_fwd")},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -8867,7 +9166,8 @@ def main() -> int:
                                 **pe_launches(f"flash_{name}"),
                                 **obs_launches(f"flash_{name}"),
                                 **wire_launches(f"flash_{name}"),
-                                **ps_launches(f"flash_{name}")},
+                                **ps_launches(f"flash_{name}"),
+                                **el_launches(f"flash_{name}")},
            "max_abs_err": max(c[f"{name}_err"] for c in train_cases),
            "ms": head[f"{name}_ms"], "plain_ms": head["bwd_plain_ms"],
            "bound_ms": head[f"{name}_bound_ms"],
@@ -8897,7 +9197,8 @@ def main() -> int:
                               **pe_launches("flash_delta"),
                               **obs_launches("flash_delta"),
                               **wire_launches("flash_delta"),
-                              **ps_launches("flash_delta")},
+                              **ps_launches("flash_delta"),
+                              **el_launches("flash_delta")},
          "max_abs_err": max(c["delta_err"] for c in train_cases),
          "tol_share": max(c["delta_share"] for c in train_cases),
          "tol": f"a row, {DELTA_TOL} x sum |dO O|",
@@ -9114,6 +9415,8 @@ def main() -> int:
                                   "pe_base_wire_dp2": wire_dp2,
                                   "clis": wire_cli, "phase_s": phase7p_s},
                    "ps_plane": dict(ps, phase_s=phase7q_s),
+                   "coordination_plane": {"train_base_elastic": el,
+                                          "phase_s": phase7r_s},
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

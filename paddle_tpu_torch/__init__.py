@@ -47,7 +47,11 @@ with the ``DistributeTranspiler`` and its dispatchers, and the
 parameter-server plane (``pserver``: the host servers, their client and
 the async and sync trainers over the ``Executor``; ``haven``: the
 replicated primary/backup shard; ``ark``'s retry, liveness, heartbeat
-and chaos; ``layers.ListenAndServ`` / ``Send`` / ``Recv``).
+and chaos; ``layers.ListenAndServ`` / ``Send`` / ``Recv``), and the
+coordination plane (``quorum``: the majority-lease arbiters and their
+client, behind every quorum route of ``pserver``, ``haven`` and ``ark``;
+``master``: the elastic data master, a quorum-fenced primary / standby
+pair, and its ``MasterClient``).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -121,6 +125,7 @@ from .transpiler import (DistributeTranspiler,  # noqa: F401
 from . import distributed, parallel  # noqa: F401
 from . import pserver  # noqa: F401
 from . import haven  # noqa: F401  (fluid-haven replicated PS plane)
+from . import master, quorum  # noqa: F401  (the coordination plane)
 from .parallel import (BuildStrategy, ExecutionStrategy,  # noqa: F401
                        ParallelExecutor)
 

@@ -13,11 +13,7 @@ module's docstring):
   trainer degrades the world to N-1 instead of wedging it;
 - `heartbeat` — the trainer-side lease renewal thread;
 - `chaos` — the seed-deterministic fault injector that proves all of the
-  above actually recovers.
-
-The quorum-backed leases (`QuorumLeaseTable(quorum=...)`,
-`HeartbeatThread(quorum=...)`) wait for the port's `quorum/` (ROADMAP
-Queue 1 item 8.5).
+  above actually recovers (`tools/torch_chaos_drill.py` drives it).
 """
 
 from .checkpoint import (CheckpointConfig, CheckpointError,  # noqa: F401

@@ -1,7 +1,6 @@
 """Trainer-side heartbeat: renew a liveness lease on every pserver.
 
-Mirror of ``paddle_tpu/ark/heartbeat.py``, copied; its `quorum=` option
-waits for the port's `quorum/` (ROADMAP Queue 1 item 8.5).
+Mirror of ``paddle_tpu/ark/heartbeat.py``, copied.
 
 The server half lives in `pserver/server.py` (`_h_heartbeat` + the
 `LeaseTable`-backed `EvictingBarrier`); this is the client half — a
@@ -43,10 +42,6 @@ class HeartbeatThread:
         if beat is None and client is None:
             raise ValueError("HeartbeatThread needs a client+endpoints "
                              "pair or a beat callable")
-        if quorum is not None:
-            raise NotImplementedError(
-                "HeartbeatThread(quorum=...): the port's quorum/ comes "
-                "with ROADMAP Queue 1 item 8.5")
         self.client = client
         self.endpoints = list(endpoints)
         self.trainer_id = int(trainer_id)

@@ -1,8 +1,6 @@
 """Trainer liveness: heartbeat leases + an evicting sync barrier.
 
-Mirror of ``paddle_tpu/ark/liveness.py``, copied. `QuorumLeaseTable`
-with a quorum client waits for the port's `quorum/` (ROADMAP Queue 1
-item 8.5); without one it is a plain `LeaseTable`, as there.
+Mirror of ``paddle_tpu/ark/liveness.py``, copied.
 
 Capability parity rationale: the reference's sync pserver
 (listen_and_serv_op.cc RunSyncLoop) wedges the batch barrier until every
@@ -106,10 +104,6 @@ class QuorumLeaseTable(LeaseTable):
     def __init__(self, quorum=None, resource_prefix: str = "member:",
                  status_ttl_s: float = 1.0):
         super().__init__()
-        if quorum is not None:
-            raise NotImplementedError(
-                "QuorumLeaseTable(quorum=...): the port's quorum/ comes "
-                "with ROADMAP Queue 1 item 8.5")
         self.quorum = quorum
         self.resource_prefix = str(resource_prefix)
         self.status_ttl_s = float(status_ttl_s)

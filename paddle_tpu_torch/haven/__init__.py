@@ -1,8 +1,6 @@
 """fluid-haven: a replicated, self-healing parameter-server plane.
 
-Mirror of ``paddle_tpu/haven/``, copied (host services in numpy). The
-fluid-quorum election (`quorum_endpoints=`) waits for the port's
-`quorum/`, ROADMAP Queue 1 item 8.5; a crash-stop pair runs whole.
+Mirror of ``paddle_tpu/haven/``, copied (host services in numpy).
 
 `ark/` gave pserver training checkpoints, retries, and READ
 failover; a pserver death still lost every update since the last

@@ -1,8 +1,6 @@
 """fluid-haven: primary/backup replication of a pserver shard.
 
-Mirror of ``paddle_tpu/haven/replication.py``, copied; its fluid-quorum
-branches run once the port's `quorum/` lands (ROADMAP Queue 1 item 8.5):
-until then `arm_quorum` refuses, so `self.quorum` stays None.
+Mirror of ``paddle_tpu/haven/replication.py``, copied.
 
 Replication unit — **logical update records**: the primary forwards each
 applied mutating command (`push_grad`, `push_grads`, `push_grads_sync`,
@@ -321,12 +319,11 @@ class HavenState:
         now require a majority-granted lease on `resource`, and this
         node fails closed when it cannot renew. Both members of a pair
         must name the SAME resource. No quorum armed = the plain
-        crash-stop behavior, bit for bit. The port's quorum/ comes with
-        ROADMAP Queue 1 item 8.5: until then this refuses, and every
-        quorum branch below stays unreached."""
-        raise NotImplementedError(
-            "HavenState.arm_quorum: the port's quorum/ comes with ROADMAP "
-            "Queue 1 item 8.5")
+        crash-stop behavior, bit for bit."""
+        self.quorum = client
+        self.resource = str(resource)
+        self.quorum_lease_s = float(lease_s) if lease_s else self.lease_s
+        return self
 
     def _quorum_acquire(self, kind: str) -> Optional[int]:
         """Campaign for the shard lease; returns the fencing epoch on a
@@ -668,6 +665,8 @@ class HavenState:
         return True
 
     def _monitor_loop(self):
+        from ..quorum import QuorumUnavailable
+
         poll = max(self.lease_s / 3.0, 0.05)
         while not self._stop.wait(poll):
             if self.role != "backup" or not self.auto_promote \
@@ -678,8 +677,6 @@ class HavenState:
             if self.quorum is None:
                 self.promote(kind="lease_expiry")
                 return
-            # reached only with a quorum armed (ROADMAP item 8.5)
-            from ..quorum import QuorumUnavailable
             # quorum-gated election: promote ONLY on a majority grant.
             # A rejection ("held": the primary is alive to a majority —
             # only OUR link to it is down; or no majority: WE are the

@@ -328,10 +328,7 @@ class PSClient:
         if resource is None or not self._quorum_eps:
             return None
         if self._quorum_client is None:
-            raise NotImplementedError(
-                f"PSClient: {endpoint!r} resolves its primary through a "
-                f"quorum route, and the port's quorum/ comes with ROADMAP "
-                f"Queue 1 item 8.5")
+            from ..quorum import QuorumClient
             with self._lock:
                 if self._quorum_client is None:
                     self._quorum_client = QuorumClient(self._quorum_eps,

@@ -846,12 +846,16 @@ class ParameterServer:
         """fluid-quorum opt-in shared by both haven roles: build the
         arbiter client (attributed to THIS server for chaos partition
         rules) and attach it as the shard's election source. Both
-        members of a pair must name the same resource. The port's
-        quorum/ comes with ROADMAP Queue 1 item 8.5."""
-        raise NotImplementedError(
-            f"ParameterServer({self.endpoint!r}): quorum_endpoints= arms "
-            f"fluid-quorum, and the port's quorum/ comes with ROADMAP "
-            f"Queue 1 item 8.5")
+        members of a pair must name the same resource."""
+        from ..quorum import QuorumClient
+        lease = float(quorum_lease_s or lease_s)
+        client = QuorumClient(
+            list(quorum_endpoints), actor=self.endpoint,
+            # short per-node deadline: a renewal round must resolve well
+            # inside lease/3 even with one arbiter blackholed
+            deadline_s=max(0.25, min(1.0, lease / 4.0)))
+        self._haven.arm_quorum(client, quorum_resource or "ps-shard-0",
+                               lease_s=lease)
 
     def start_replication(self, backup_endpoint: str, lease_s: float = 2.0,
                           window: int = 512, stall_timeout_s: float = 5.0,

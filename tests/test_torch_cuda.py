@@ -33,7 +33,10 @@ collective path with comm_quant int8, card against host; and the
 parameter-server plane: two `SyncPSTrainer`s of a small fused-attention
 Transformer on the card against the same job on the host, the flash
 kernels counted, and the pulled parameters landing in the scope's card
-tensors.
+tensors; and the coordination plane: train-base-sized steps on the card
+fed by a quorum-fenced master pair whose primary is killed, bit-equal to
+their replay with the flash kernels counted, and a quorum-armed haven
+pair under a `SyncPSTrainer` on the card.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2704,3 +2707,128 @@ def test_pulled_parameters_stay_on_the_card(dev):
         tr.close()
     finally:
         srv.stop()
+
+
+def test_master_fed_train_base_steps_equal_their_replay(dev, tmp_path):
+    """chip_smoke.py's phase 7r at train-base's widths, one layer, batch
+    8: the steps fed by a quorum-fenced master pair whose primary is
+    killed after 2 tasks give the same loss bits as their replay on the
+    card, and launch the flash forward, dQ, dK/dV and delta 6 / 3 / 3 / 3
+    a step."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    r = chip_smoke.run_train_base_elastic(
+        torch, ptt, native, str(tmp_path), build_kw=dict(n_layer=1),
+        batch=8, n_batches=6, kill_after=2)
+    assert r["bit_equal"] and r["losses"] == r["replay_losses"]
+    n = r["steps"]
+    assert n >= 6 and sorted(set(r["ids"])) == list(range(6))
+    assert {k: r["launches"][k] for k in ("flash_fwd", "flash_dq",
+                                          "flash_dkv", "flash_delta")} == {
+        "flash_fwd": 6 * n, "flash_dq": 3 * n, "flash_dkv": 3 * n,
+        "flash_delta": 3 * n}
+    assert r["replay_launches"] == r["launches"]
+
+
+def _quorum_haven_job(place, state, batches, qeps=None, kill_at=None,
+                      resource="shard0"):
+    """A SyncPSTrainer of the small Transformer on one shard, on `place`:
+    a quorum-armed primary / backup pair when `qeps`, else one server;
+    the primary killed before step `kill_at`. (losses, backup role)."""
+    from paddle_tpu_torch.ark import chaos
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.pserver import ParameterServer, SyncPSTrainer
+    kw = dict(quorum_endpoints=qeps, quorum_resource=resource) if qeps \
+        else {}
+    backup = None
+    if qeps:
+        backup = ParameterServer("127.0.0.1:0").start()
+        backup.start_standby(lease_s=1.0, **kw)
+    primary = ParameterServer("127.0.0.1:0").start()
+    if qeps:
+        primary.start_replication(backup.endpoint, lease_s=1.0, **kw)
+    tr = None
+    try:
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            _, fetches = transformer.build(**_PS_T)
+            ptt.optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+        cfg = ptt.DistributeTranspilerConfig()
+        cfg.runtime = "pserver"
+        if qeps:
+            cfg.haven_replicas = {primary.endpoint: [backup.endpoint]}
+            cfg.quorum_endpoints = list(qeps)
+            cfg.quorum_resources = {primary.endpoint: resource}
+        t = ptt.DistributeTranspiler(cfg)
+        t.transpile(0, program=main, pservers=primary.endpoint, trainers=1,
+                    sync_mode=True, startup_program=startup)
+        tr = SyncPSTrainer(t, ptt.Executor(place),
+                           scope=ptt.io.state_from_numpy(state, place))
+        tr.init_params()
+        losses = []
+        for i, b in enumerate(batches):
+            if i == kill_at:
+                chaos.kill_server(primary)
+            v, = tr.step(b, fetch_list=[fetches["loss"]])
+            losses.append(float(np.asarray(v).reshape(-1)[0]))
+        return losses, backup._haven.role if backup else None
+    finally:
+        if tr is not None:
+            tr.close()
+        for s in (primary, backup):
+            if s is not None:
+                s.stop()
+
+
+def test_quorum_armed_haven_pair_under_sync_ps_trainer_on_card(dev,
+                                                               tmp_path):
+    """A SyncPSTrainer on the card against a haven pair armed with three
+    arbiters: without a fault its losses are the bits of the same job on
+    one unreplicated server; with the primary killed after 2 of 5 steps
+    every step completes, the backup wins the quorum election, and the
+    flash kernels launch 6 / 3 / 3 / 3 a step."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.observe import metrics as obs_metrics
+    from paddle_tpu_torch.quorum import QuorumNode
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(**_PS_T)
+        ptt.optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+    main.random_seed = startup.random_seed = 3
+    scope = ptt.Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope)
+    state = {n: scope.find_var(n).numpy().copy()
+             for n in scope.local_var_names()}
+    rng = np.random.RandomState(4)
+    batches = [{n: rng.randint(0, 64, (4, 64)).astype(np.int64)
+                for n in ("src_word", "trg_word", "lbl_word")}
+               for _ in range(5)]
+    nodes = [QuorumNode("127.0.0.1:0", str(tmp_path),
+                        node_id=f"n{i}").start() for i in range(3)]
+    qeps = [n.endpoint for n in nodes]
+    prev = ptt.get_flag("observe")
+    ptt.set_flag("observe", True)
+    obs_metrics.default_registry().reset()
+    try:
+        solo, _ = _quorum_haven_job(ptt.CUDAPlace(0), state, batches)
+        clean, _ = _quorum_haven_job(ptt.CUDAPlace(0), state, batches,
+                                     qeps=qeps, resource="clean")
+        assert clean == solo
+        native.reset_launches()
+        got, role = _quorum_haven_job(ptt.CUDAPlace(0), state, batches,
+                                      qeps=qeps, kill_at=2)
+        launches = dict(native.launches)
+        promos = obs_metrics.default_registry().get("ps_promotions_total")
+    finally:
+        ptt.set_flag("observe", prev)
+        for n in nodes:
+            n.stop()
+    assert len(got) == 5 and np.isfinite(got).all()
+    assert got[:2] == solo[:2]
+    assert role == "primary" and promos.value(kind="quorum") == 1
+    assert {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                                     "flash_delta")} == {
+        "flash_fwd": 30, "flash_dq": 15, "flash_dkv": 15, "flash_delta": 15}

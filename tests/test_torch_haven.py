@@ -11,12 +11,9 @@ zero failed pushes across a planned handover, checkpoint x replication
 consistency, the ps_replication_* metrics), and the cross-package check:
 the port's replicated pair is bit-identical to its unreplicated baseline
 AND to the JAX package's pair fed the same records (dense, sparse,
-optimizer slots, watermarks). Two cases wait:
-
-- ``test_torn_handover_leaves_exactly_one_leaseholder`` for the quorum
-  arbiter group, ROADMAP Queue 1 item 8.5 (`quorum/`);
-- ``test_fleet_sparse_row_pulls_survive_primary_kill`` for fluid-fleet,
-  ROADMAP Queue 1 item 8.6 (`fleet/`).
+optimizer slots, watermarks). One case waits:
+``test_fleet_sparse_row_pulls_survive_primary_kill`` for fluid-fleet,
+ROADMAP Queue 1 item 8.6 (`fleet/`).
 
 Every wait is on a condition with a generous timeout (`_wait`), never a
 bare sleep race against a lease; servers bind ``127.0.0.1:0``.
@@ -649,6 +646,68 @@ def test_handover_zero_failed_pushes_and_exact_continuity():
 
 
 # -- observability --------------------------------------------------------
+
+def test_torn_handover_leaves_exactly_one_leaseholder(observe_on):
+    """Kill the handover at both cut points: before the promote the OLD
+    pair stays authoritative (the fresh target never self-promotes);
+    after it the SUCCESSOR is authoritative (higher epoch). At every
+    observable point exactly one server accepts writes, and no
+    acknowledged update is lost."""
+    # -- cut BEFORE the promote ------------------------------------------
+    primary, backup = _pair()
+    c = _client(primary, backup)
+    ep = primary.endpoint
+    fresh = ParameterServer("127.0.0.1:0").start()
+    fresh.start_standby(lease_s=0.6, auto_promote=False)
+    try:
+        c.init_param(ep, "w", np.zeros(3, np.float32), "sgd", 1.0, {})
+        c.push_grad(ep, "w", np.ones(3, np.float32))
+        primary._haven._handover_fault = "pre_promote"
+        with pytest.raises(RuntimeError, match="pre_promote"):
+            primary.handover(fresh.endpoint)
+        primary._haven._handover_fault = None
+        roles = [s._haven.role for s in (primary, backup, fresh)]
+        assert roles.count("primary") == 1 and roles[0] == "primary"
+        c.push_grad(ep, "w", np.ones(3, np.float32))   # still serving
+        np.testing.assert_allclose(primary._dense["w"], -2.0)
+        time.sleep(1.5)   # fresh must NOT lease-expire its way to power
+        assert fresh._haven.role == "backup"
+    finally:
+        c.close()
+        for s in (primary, backup, fresh):
+            s.stop()
+
+    # -- cut AFTER the promote -------------------------------------------
+    primary, backup = _pair()
+    c = _client(primary, backup)
+    ep = primary.endpoint
+    fresh = ParameterServer("127.0.0.1:0").start()
+    fresh.start_standby(lease_s=0.6, auto_promote=False)
+    try:
+        c.init_param(ep, "w", np.zeros(3, np.float32), "sgd", 1.0, {})
+        c.push_grad(ep, "w", np.ones(3, np.float32))
+        _wait(lambda: primary._haven.log.lag() == 0, what="ack drain")
+        primary._haven._handover_fault = "post_promote"
+        with pytest.raises(RuntimeError, match="post_promote"):
+            primary.handover(fresh.endpoint)
+        # the flip itself committed before the crash point: successor
+        # rules, old primary already retired (flip follows the promote
+        # ack with no intervening statement)
+        roles = {s.endpoint: s._haven.role
+                 for s in (primary, backup, fresh)}
+        assert list(roles.values()).count("primary") == 1
+        assert fresh._haven.role == "primary"
+        assert primary._haven.role == "retired"
+        # no acknowledged update lost: the successor holds the push
+        np.testing.assert_allclose(fresh._dense["w"], -1.0)
+        # and writes keep flowing (client follows the redirect)
+        c.push_grad(ep, "w", np.ones(3, np.float32))
+        np.testing.assert_allclose(fresh._dense["w"], -2.0)
+    finally:
+        c.close()
+        for s in (primary, backup, fresh):
+            s.stop()
+
 
 def test_replication_lag_metrics_and_stall_detector(observe_on):
     from paddle_tpu_torch.observe.health import (HealthEngine,

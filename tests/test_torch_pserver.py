@@ -25,7 +25,7 @@ the trainers drive the port's `Executor`. The cases:
   relative L2 distance <= 1e-4;
 - the pull writes into the scope's own tensor; `Send` and `Recv` round
   trip; the unpickler refuses a torch tensor as it refuses `__import__`;
-  every quorum route raises citing ROADMAP item 8.5.
+  every quorum route reaches a live group of three arbiters.
 
 One test here starts processes: the two-pserver, two-trainer job (whose
 pservers are ``Executor(CPUPlace()).run(get_pserver_program(ep))``,
@@ -1025,25 +1025,57 @@ def test_listen_and_serv_send_and_recv_round_trip():
         tio._ps_clients.pop(ep).close()
 
 
-def test_quorum_routes_raise_citing_item_8_5():
-    """Every fluid-quorum entry point waits for the port's quorum/."""
+def test_quorum_routes_reach_the_arbiters(tmp_path):
+    """Each fluid-quorum route of the plane arms against a live group of
+    three arbiters: a pair's `quorum_endpoints=` (`_arm_quorum`, hence
+    `HavenState.arm_quorum`) wins its bootstrap election there,
+    `PSClient`'s quorum resolution reads the holder back,
+    `QuorumLeaseTable(quorum=)` takes the arbiters' word for a member
+    whose own lease lapsed, and `HeartbeatThread(quorum=)` renews a
+    member lease there."""
+    import time
+
     from paddle_tpu_torch import ark
-    srv = ParameterServer("127.0.0.1:0").start()
+    from paddle_tpu_torch.quorum import QuorumClient, QuorumNode
+    nodes = [QuorumNode("127.0.0.1:0", str(tmp_path),
+                        node_id=f"n{i}").start() for i in range(3)]
+    qeps = [n.endpoint for n in nodes]
+    backup = ParameterServer("127.0.0.1:0").start()
+    primary = ParameterServer("127.0.0.1:0").start()
+    qc = QuorumClient(qeps)
+    c = None
     try:
-        with pytest.raises(NotImplementedError, match="8.5"):
-            srv.start_standby(lease_s=1.0,
-                              quorum_endpoints=["127.0.0.1:1"])
-        with pytest.raises(NotImplementedError, match="8.5"):
-            srv._haven.arm_quorum(object(), "r")
-        with pytest.raises(NotImplementedError, match="8.5"):
-            ark.QuorumLeaseTable(quorum=object())
-        with pytest.raises(NotImplementedError, match="8.5"):
-            ark.HeartbeatThread(beat=lambda: None, quorum=object())
-        c = PSClient([srv.endpoint], quorum_endpoints=["127.0.0.1:1"],
-                     quorum_resources={srv.endpoint: "ps-shard-0"})
-        with pytest.raises(NotImplementedError, match="8.5"):
-            c._quorum_holder(srv.endpoint)
-        c.close()
+        backup.start_standby(lease_s=5.0, quorum_endpoints=qeps,
+                             quorum_resource="shard0")
+        primary.start_replication(backup.endpoint, lease_s=5.0,
+                                  quorum_endpoints=qeps,
+                                  quorum_resource="shard0")
+        for srv in (primary, backup):
+            h = srv._haven
+            assert isinstance(h.quorum, QuorumClient)
+            assert (h.resource, h.quorum_lease_s, h.quorum.endpoints) == (
+                "shard0", 5.0, qeps)
+        assert qc.holder("shard0") == {"holder": primary.endpoint,
+                                       "epoch": 1}
+        c = PSClient([primary.endpoint], quorum_endpoints=qeps,
+                     quorum_resources={primary.endpoint: "shard0"})
+        assert c._quorum_holder(primary.endpoint) == primary.endpoint
+        table = ark.QuorumLeaseTable(quorum=qc, status_ttl_s=0.05)
+        table.beat("m0", lease_s=0.05)
+        hb = ark.HeartbeatThread(beat=lambda: None, lease_s=5.0, quorum=qc,
+                                 quorum_resource="member:m0",
+                                 quorum_holder="m0")
+        assert hb.beat_once() == 1 and hb.beat_once() == 1
+        hb.stop()
+        assert qc.holder("member:m0") == {"holder": "m0", "epoch": 1}
+        time.sleep(0.1)                     # the table's own lease lapses
+        assert "m0" not in table.expired()  # the arbiters vouch for it
         assert ark.QuorumLeaseTable().quorum is None   # a plain table
     finally:
-        srv.stop()
+        if c is not None:
+            c.close()
+        qc.close()
+        primary.stop()
+        backup.stop()
+        for n in nodes:
+            n.stop()

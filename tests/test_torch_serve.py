@@ -517,6 +517,29 @@ ps_client.push_grad(ps.endpoint, "w", np.ones(4, np.float32))
 assert ps_client.get_param(ps.endpoint, "w").tolist() == [-1.0] * 4
 ps_client.close()
 ptt.ark.chaos.kill_server(ps)
+import tempfile
+for name in ("quorum", "quorum.client", "quorum.node", "master",
+             "master.client", "master.service"):
+    assert "paddle_tpu_torch." + name in sys.modules, name
+with tempfile.TemporaryDirectory() as qdir:
+    arbiters = [ptt.quorum.QuorumNode("127.0.0.1:0", qdir,
+                                      node_id=f"n{i}").start()
+                for i in range(3)]
+    qc = ptt.quorum.QuorumClient([a.endpoint for a in arbiters])
+    lease = qc.campaign("r", "h", lease_s=5.0)
+    assert lease.epoch == 1 and qc.renew(lease)
+    qc.close()
+    m = ptt.master.Master("127.0.0.1:0").start()
+    mc = ptt.master.MasterClient(m.endpoint)
+    mc.set_dataset([0, 1])
+    status, task = mc.get_task()
+    assert status == "ok" and mc.task_finished(task["task_id"],
+                                               task["epoch"])
+    assert mc.stats()["done"] == 1
+    mc.close()
+    m.stop()
+    for a in arbiters:
+        a.stop()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)
@@ -559,13 +582,17 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
         "torch_op_profile.py", "torch_paddle_plan.py",
         "torch_telemetry_dump.py", "torch_observatory.py",
         "torch_metrics_lint.py", "torch_step_profile.py",
-        "torch_wire_bench.py")]
+        "torch_wire_bench.py", "torch_quorum_node.py",
+        "torch_master_node.py", "torch_ps_worker.py",
+        "torch_haven_bench.py", "torch_elastic_bench.py",
+        "torch_quorum_bench.py", "torch_chaos_drill.py")]
     assert len(files) > 20
     for part in ("dataset/mnist.py", "dataset/common.py",
                  "ops/loss_extra.py", "layers/loss_layers.py",
                  "wire/graph.py", "transpiler/distribute_transpiler.py",
                  "pserver/trainer.py", "haven/replication.py",
-                 "ark/chaos.py"):
+                 "ark/chaos.py", "quorum/node.py", "quorum/client.py",
+                 "master/service.py", "master/client.py"):
         assert os.path.join(PORT, part) in files, part
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}

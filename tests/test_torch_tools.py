@@ -25,13 +25,28 @@ Each tool runs in a subprocess beside its counterpart on the same input:
   tables;
 - ``tools/torch_wire_bench.py`` vs ``tools/wire_bench.py`` (the
   parameter-server wire's A/B, 12 steps of a small net on the host): the
-  same exit code, JSON keys and bytes a step.
+  same exit code, JSON keys and bytes a step;
+- the coordination plane's tools (item 8.5) beside their counterparts:
+  ``torch_quorum_node.py`` and ``torch_master_node.py`` serve the other
+  package's clients and print the same ``--status``;
+  ``torch_ps_worker.py`` leaves the same dumps on SIGTERM;
+  ``torch_haven_bench.py --cpu``, ``torch_elastic_bench.py`` (host
+  only) and
+  ``torch_quorum_bench.py --cpu`` print the same keys and the same
+  failover verdicts (their wall-clock overhead gates, and so their exit
+  codes, are each host's own and not held);
+  ``torch_chaos_drill.py --cpu`` passes ``master_kill``,
+  ``master_partition`` and ``trainer_churn`` at seed 7, and
+  ``replica_kill`` / ``decode_kill`` exit 2 naming items 8.6 / 8.7; every
+  scenario at three seeds is ``slow``.
 
-Everything is held exactly: the tools' JSON documents and exit codes.
+Everything else is held exactly: the tools' JSON documents and exit
+codes.
 """
 
 import json
 import os
+import signal
 import subprocess
 import sys
 
@@ -174,7 +189,7 @@ def test_op_profile_measured_check_passes_on_the_cpu():
     assert "measured-check:" in err and "OK" in err
 
 
-def test_tools_import_no_jax_or_paddle_tpu():
+def test_tools_import_no_jax_or_paddle_tpu(tmp_path):
     """Each port tool runs with jax and paddle_tpu unimportable."""
     code = ("import sys, runpy\n"
             "class Ban:\n"
@@ -197,7 +212,12 @@ def test_tools_import_no_jax_or_paddle_tpu():
                                                  "--interval", "0"]),
                        ("torch_step_profile.py",
                         ["--cpu", "--tiny", "--batch", "2", "--top",
-                         "3"])):
+                         "3"]),
+                       ("torch_quorum_node.py",
+                        ["--data-dir", str(tmp_path), "--status",
+                         "r"]),
+                       ("torch_chaos_drill.py",
+                        ["--cpu", "--scenario", "ckpt_crash"])):
         proc = subprocess.run(
             [sys.executable, "-c", code, os.path.join(TOOLS, tool), *args],
             cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
@@ -209,9 +229,8 @@ def test_tools_import_no_jax_or_paddle_tpu():
 # ---------------------------------------------------------------------------
 
 # metric families of planes the port has not ported yet (ROADMAP Queue 1
-# item 8): the JAX package registers some of them at import
-UNPORTED_PLANES = ("torrent_", "fleet_", "pserver_", "ps_", "master_",
-                   "quorum_", "ark_heartbeat")
+# items 8.6 and 8.7): the JAX package registers some of them at import
+UNPORTED_PLANES = ("torrent_", "fleet_")
 
 
 @pytest.mark.parametrize("two_shapes", [False, True])
@@ -382,3 +401,213 @@ def test_wire_bench_reports_as_wire_bench():
         assert tdoc[k] == jdoc[k], k
     assert tdoc["wire_compression_x"] > 3.9
     assert tdoc["wire_quant_loss_delta"] < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the coordination plane's tools (item 8.5)
+# ---------------------------------------------------------------------------
+
+def _env():
+    return dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                OMP_NUM_THREADS="1")
+
+
+def _start(*runs):
+    """Start each (tool, args) at once, each a process that prints
+    "ENDPOINT <ep>" once it serves; [(process, endpoint)]."""
+    procs = [subprocess.Popen([sys.executable, os.path.join(TOOLS, tool),
+                               *args], cwd=REPO, env=_env(),
+                              stdout=subprocess.PIPE, text=True)
+             for tool, args in runs]
+    out = []
+    for (tool, _), proc in zip(runs, procs):
+        line = proc.stdout.readline().strip()
+        assert line.startswith("ENDPOINT "), (tool, line)
+        out.append((proc, line.split()[1]))
+    return out
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    proc.stdout.close()
+
+
+def _together(*runs, timeout=600):
+    """Run each (tool, args) at once; their (rc, stdout, stderr)."""
+    procs = [subprocess.Popen([sys.executable, os.path.join(TOOLS, tool),
+                               *args], cwd=REPO, env=_env(),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for tool, args in runs]
+    out = []
+    for p in procs:
+        o, e = p.communicate(timeout=timeout)
+        out.append((p.returncode, o, e))
+    return out
+
+
+def test_quorum_node_serves_and_reports_as_quorum_node(tmp_path):
+    """Each package's arbiter process grants the other package's client
+    (port against JAX and JAX against port), keeps its epoch across a
+    SIGTERM, and both tools' `--status` read either data dir the same."""
+    from paddle_tpu.quorum import QuorumClient as JClient
+    from paddle_tpu_torch.quorum import QuorumClient as TClient
+    tools = (("quorum_node.py", TClient), ("torch_quorum_node.py", JClient))
+    dirs = [str(tmp_path / tool) for tool, _ in tools]
+    started = _start(*((tool, ["--data-dir", d, "--node-id", "n0"])
+                       for (tool, _), d in zip(tools, dirs)))
+    try:
+        for (_, client), (_, ep) in zip(tools, started):
+            c = client([ep])
+            try:
+                lease = c.campaign("r", "h", lease_s=5.0)
+                assert lease is not None and lease.epoch == 1
+                assert c.renew(lease)
+                assert c.holder("r") == {"holder": "h", "epoch": 1}
+            finally:
+                c.close()
+    finally:
+        for proc, _ in started:
+            _stop(proc)
+    assert [proc.returncode for proc, _ in started] == [0, 0]
+    runs = _together(*((tool, ["--data-dir", d, "--node-id", "n0",
+                               "--status", "r"])
+                       for tool, _ in tools for d in dirs))
+    assert all(rc == 0 for rc, _, _ in runs), runs
+    assert {out for _, out, _ in runs} == {"r epoch=1 lease_s=5.0\n"}
+
+
+def test_master_node_serves_and_reports_as_master_node():
+    """Each package's master process serves the other package's client,
+    and both tools' `--status` print the same row against either (its
+    endpoint fields aside)."""
+    from paddle_tpu.master import MasterClient as JClient
+    from paddle_tpu_torch.master import MasterClient as TClient
+    tools = (("master_node.py", TClient), ("torch_master_node.py", JClient))
+    started = _start(*((tool, ["--timeout-dur", "60"]) for tool, _ in tools))
+    try:
+        for (_, client), (_, ep) in zip(tools, started):
+            c = client(ep, failover_s=0.0)
+            c.set_dataset(list(range(4)), chunks_per_task=2)
+            status, t = c.get_task()
+            assert status == "ok" and t["payload"] == [0, 1]
+            assert c.task_finished(t["task_id"], t["epoch"])
+            c.close()
+        asks = [(tool, ep) for tool, _ in tools for _, ep in started]
+        runs = _together(*((tool, ["--endpoint", ep, "--status"])
+                           for tool, ep in asks))
+    finally:
+        for proc, _ in started:
+            _stop(proc)
+    rows = set()
+    for (_, ep), (rc, out, err) in zip(asks, runs):
+        assert rc == 0 and f"endpoint={ep}" in out, err
+        rows.add(" ".join(kv for kv in out.split()
+                          if not kv.startswith(("endpoint=", "primary="))))
+    assert rows == {"applied_seq=0 done=1 epoch=0 fenced=False "
+                    "ha_acked=0 ha_seq=0 issuing=True pass=0 pending=0 "
+                    "role=solo todo=1"}
+
+
+def test_ps_worker_leaves_the_dumps_ps_worker_leaves(tmp_path):
+    """On SIGTERM each package's pserver process writes its chrome trace
+    and its flight dump; the dumps carry the same keys and reason, the
+    other package's client having been served first."""
+    import numpy as np
+
+    from paddle_tpu.pserver import PSClient as JClient
+    from paddle_tpu_torch.pserver import PSClient as TClient
+    tools = (("ps_worker.py", TClient), ("torch_ps_worker.py", JClient))
+    outs = [str(tmp_path / tool) for tool, _ in tools]
+    started = _start(*((tool, ["--name", "pserver0", "--out", out])
+                       for (tool, _), out in zip(tools, outs)))
+    try:
+        for (_, client), (_, ep) in zip(tools, started):
+            c = client([ep])
+            try:
+                c.init_param(ep, "w", np.zeros(4, np.float32), "sgd", 0.5,
+                             {})
+                c.push_grad(ep, "w", np.ones(4, np.float32))
+                assert c.get_param(ep, "w").tolist() == [-0.5] * 4
+            finally:
+                c.close()
+    finally:
+        for proc, _ in started:
+            _stop(proc)
+    docs = []
+    for out in outs:
+        assert sorted(os.listdir(out)) == ["flight_pserver0.json",
+                                           "trace_pserver0.json"]
+        fr = json.load(open(os.path.join(out, "flight_pserver0.json")))
+        tr = json.load(open(os.path.join(out, "trace_pserver0.json")))
+        docs.append((sorted(fr), fr["reason"], sorted(tr),
+                     bool(tr["traceEvents"])))
+    assert docs[1] == docs[0] and docs[0][1].startswith("signal")
+
+
+# each bench's verdicts that do not gate on a wall-clock ratio
+BENCH_VERDICTS = {"haven": ("ps_failover_ok",),
+                  "elastic": ("master_failover_ok", "elastic_scaleup_ok"),
+                  "quorum": ("quorum_failover_ok",)}
+
+
+def test_plane_benches_report_as_their_counterparts():
+    """Each bench beside its counterpart, all six at once: the same keys,
+    and both failover verdicts true. The steady-state overhead gates are
+    wall-clock ratios of each host's own, and not held."""
+    benches = sorted(BENCH_VERDICTS)
+    runs = _together(*(run for b in benches for run in (
+        (f"{b}_bench.py", []),
+        (f"torch_{b}_bench.py", [] if b == "elastic" else ["--cpu"]))))
+    for i, bench in enumerate(benches):
+        (_, jout, jerr), (_, tout, terr) = runs[2 * i:2 * i + 2]
+        jdoc = json.loads(jout.strip().splitlines()[-1])
+        tdoc = json.loads(tout.strip().splitlines()[-1])
+        assert sorted(tdoc) == sorted(jdoc), (bench, terr)
+        for k in BENCH_VERDICTS[bench]:
+            assert jdoc[k] is True and tdoc[k] is True, (k, jdoc, tdoc)
+
+
+@pytest.mark.parametrize("scenario", ["master_kill", "master_partition",
+                                      "trainer_churn"])
+def test_chaos_drill_master_scenario_passes_on_the_cpu(tmp_path, scenario):
+    """Each fluid-elastic drill once at seed 7, alone, on the port's
+    Executor on the host."""
+    rc, out, err = _run("torch_chaos_drill.py", "--cpu", "--scenario",
+                        scenario, "--seed", "7", "--workdir", str(tmp_path))
+    if rc != 0 or "DRILL PASSED" not in out:
+        pytest.fail(f"{scenario}: exit {rc}\n{out}\n{err[-4000:]}",
+                    pytrace=False)
+
+
+def test_chaos_drill_fleet_scenarios_name_their_items():
+    """The fleet and torrent drills exit 2 naming their ROADMAP items."""
+    runs = _together(("torch_chaos_drill.py", ["--scenario", "replica_kill"]),
+                     ("torch_chaos_drill.py", ["--scenario", "decode_kill"]))
+    for (rc, out, _), items in zip(runs, ("item 8.6", "items 8.6 and 8.7")):
+        assert rc == 2 and "DRILL NOT PORTED" in out and items in out, out
+
+
+DRILL_SCENARIOS = ("flaky_rpc", "quant_flaky_rpc", "pserver_kill",
+                   "ckpt_crash", "sync_evict", "dist_trace", "health_alerts",
+                   "ps_primary_kill", "ps_handover", "ps_partition",
+                   "master_kill", "master_partition", "trainer_churn")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("scenario", DRILL_SCENARIOS)
+def test_chaos_drill_three_seeds(tmp_path, scenario):
+    """Every ported scenario at seeds 5, 6 and 7, as
+    tests/test_fault_tolerance.py and tests/test_elastic.py sweep the JAX
+    drills."""
+    for seed in (5, 6, 7):
+        rc, out, err = _run("torch_chaos_drill.py", "--cpu", "--scenario",
+                            scenario, "--seed", str(seed), "--workdir",
+                            str(tmp_path / f"{scenario}_{seed}"))
+        assert rc == 0, (scenario, seed, out[-2000:], err[-2000:])
