@@ -423,6 +423,32 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    the delivered ids through a fresh Executor from the saved state; the
    promotion time, the trainer's stall across the kill, the step median
    and the sampler's period printed;
+7s. disaggregated serving and the fleet (``fleet/``, ``torrent/``; run
+   right after 4c, while phase 4's model dirs exist): serve-base-torrent,
+   three in-process `ReplicaServer`s behind one `FleetRouter`, each over
+   its own `InferenceServer(CUDAPlace(0))` on 4b's int8 dir, p0 with
+   role prefill and d0 / d1 with role decode; one lone request first
+   (the longest prompt), then 4b's INT8_REQUESTS prompts through
+   `FleetRouter.generate_torrent` from TORRENT_CLIENTS threads, d1 killed
+   (`ReplicaServer.kill()`) once TORRENT_KILL_AFTER generations completed:
+   no request fails, every request's tokens equal 4b's card tokens or
+   differ at a near tie under 4b's teacher-forced rule, the lone
+   request's rows and scales on its decode replica equal those p0
+   extracted bit for bit (both scopes read at their block ids), p0 ran
+   every prefill step and the decode replicas none, the flash forward
+   launched once a layer a p0 prefill step and the int8 paged decode once
+   a layer a decode step (the float32 paged decode never),
+   `fleet_affinity_sessions` back at 0, KV bytes metered,
+   `torrent_generations_total{outcome="ok"}` one a request, at least one
+   decode failover metered; serve-base-torrent-fp32, phase 4's
+   N_REQUESTS prompts over a fresh p0 / d0 pair on phase 4's float32 dir,
+   the rows through the wire's lossy int8 codec: every first token equal
+   to phase 4's, the injected rows equal to the host codec's decode of
+   p0's bit for bit, the flash forward and the float32 paged decode
+   launched once a layer a step; the end-to-end TTFT (median, p99),
+   tokens a second, KV bytes a request, the stream's ms and each
+   re-prefill after the kill printed, with the later tokens' share equal
+   to phase 4's in the fp32 arm;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -1708,7 +1734,11 @@ def run_serve_int8(torch, ptt, native, tiny_lm, tmp, card, fp32_tokens):
                 tokens_per_s=gen_tokens / wall, wall_s=wall,
                 cache_bytes=cache_bytes, budget_bytes=budget,
                 num_blocks=sig["num_blocks"], host_token_mismatches=len(differing),
-                equal_to_fp32=same_fp32)
+                equal_to_fp32=same_fp32,
+                # phase 7s serves the same dir and prompts through a fleet
+                torrent_arm=dict(name="lm8", mdir=mdir, sig=sig,
+                                 prompts=prompts,
+                                 tokens=[r.tokens for r in results]))
 
 
 def prefill_logits(ver, prompt, rung):
@@ -5459,7 +5489,8 @@ def run_train_base_memopt(torch, ptt, native):
 # PE_RTOL / PE_ATOL (the JAX package's parallel tests' tolerance); (e)
 # Trainer(parallel=True) against Trainer(parallel=False), PE_TRAINER_STEPS
 # steps, bit-equal. The kernels also run at a rank's offsets (bh0, base).
-PE_STEPS, PE_RANK_STEPS, PE_TRAINER_STEPS = 10, 3, 3
+# pe-base-1's steps: 5 (10 until phase 7s came; the gates hold a step)
+PE_STEPS, PE_RANK_STEPS, PE_TRAINER_STEPS = 5, 3, 3
 PE_RTOL, PE_ATOL = 2e-4, 2e-5
 PE_RANK_TIMEOUT = 300
 PE_CASES = (("pe-base-dp2", "dp", 0.1), ("pe-base-sp2", "sp", 0.0),
@@ -6767,7 +6798,9 @@ def finish_wire_clis(procs):
 # PS_HAVEN_LEASE_S, tools/haven_bench.py's), the primary killed by
 # `ark.chaos.kill_server` after PS_HAVEN_KILL_AT of PS_HAVEN_STEPS steps
 PS_TRAINERS = 2
-PS_PARITY_STEPS, PS_TIMED_STEPS = 2, 3
+# one parity step (two until phase 7s came): its losses, pulled
+# parameters and launches keep every gate of the comparison
+PS_PARITY_STEPS, PS_TIMED_STEPS = 1, 3
 # the pulled parameters against the servers' rule replayed on the host
 # (the Executor's grads on each trainer's rows, averaged, under the
 # servers' numpy Adam): relative L2 a parameter. Against the Executor's
@@ -7674,6 +7707,456 @@ def run_train_base_elastic(torch, ptt, native, tmp, place=None,
                 s=time.perf_counter() - t_phase)
 
 
+# phase 7s: disaggregated serving and the fleet (``fleet/``, ``torrent/``).
+# serve-base-torrent: three in-process ReplicaServers behind one
+# FleetRouter, each over its own InferenceServer(CUDAPlace(0)) on phase
+# 4b's int8 serve-base dir: p0 (role prefill), d0 and d1 (role decode).
+# 4b's INT8_REQUESTS prompts go through `FleetRouter.generate_torrent` from
+# TORRENT_CLIENTS threads; d1 is killed (`ReplicaServer.kill()`, its RPC
+# front dies, its engine finishes what it holds) once TORRENT_KILL_AFTER
+# generations completed, and the sequences pinned to it fail over by
+# re-prefill. Before the traffic, one request alone (the longest prompt)
+# has its rows read on both sides. The fp32 arm: phase 4's N_REQUESTS
+# prompts over a fresh p0 / d0 pair on phase 4's float32 dir; its rows
+# ride the wire's lossy int8 codec.
+TORRENT_CLIENTS, TORRENT_KILL_AFTER = 8, 8
+TORRENT_LEASE_S = 2.0
+
+
+def _metric(ptt, name, **labels):
+    """A counter's or gauge's value (its total without labels), 0 when
+    nothing registered it yet."""
+    m = ptt.observe.metrics.default_registry().get(name)
+    if m is None:
+        return 0.0
+    v = m.value(**labels) if labels or not hasattr(m, "total") \
+        else m.total()
+    return v or 0.0
+
+
+def _torrent_fleet(ptt, native, router, mdir, name, roles):
+    """One InferenceServer(CUDAPlace(0)) a replica, loaded in parallel,
+    each behind a ReplicaServer heartbeating `router`; waits until the
+    router finds them all ready. Returns ({rid: ReplicaServer}, {rid:
+    run tallies of the prefill and the decode program})."""
+    servers, errors = {}, []
+
+    def load(rid):
+        try:
+            srv = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+            srv.add_model(name, mdir)
+            servers[rid] = srv
+        except Exception as e:          # noqa: BLE001
+            errors.append(f"{rid}: {e!r}")
+    threads = [threading.Thread(target=load, args=(rid,))
+               for rid, _ in roles]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for srv in servers.values():
+            srv.close()
+        raise AssertionError(f"serve-base-torrent: a replica failed to "
+                             f"load: {errors}")
+    reps, tallies = {}, {}
+    for rid, role in roles:
+        ver = servers[rid].registry.get(name)
+        tallies[rid] = {"prefill": {}, "decode": {}}
+        _count_runs(native, ver.prepared, tallies[rid]["prefill"])
+        _count_runs(native, ver.decode.prepared, tallies[rid]["decode"])
+        reps[rid] = ptt.fleet.ReplicaServer(
+            servers[rid], replica_id=rid,
+            router_endpoint=router.control_endpoint,
+            lease_s=TORRENT_LEASE_S, role=role).start()
+    deadline = time.monotonic() + 120
+    while len(router.ready_members(name)) < len(roles):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve-base-torrent: the fleet never got "
+                                 f"ready: {router.members()}")
+        time.sleep(0.02)
+    return reps, tallies
+
+
+def _scope_rows(torch, scope, sig, ids):
+    """Each cache var's and scale var's rows at block `ids`, read from
+    `scope` to the host by plain indexing."""
+    names = list(sig["cache_vars"]) + list(
+        (sig.get("scale_vars") or {}).values())
+    out = {}
+    for n in names:
+        var = scope.find_var(n)
+        out[n] = var[torch.as_tensor(ids, device=var.device)].cpu().numpy()
+    return out
+
+
+def _capture_rows(torch, eng, side, target, rec):
+    """Wrap the engine's `_extract_kv` (side "p") or `_inject_premat`
+    (side "d") so the first call for the prompt `target` records the
+    slot's block ids, the scope's rows there at that moment (on the engine
+    thread, before any later step writes them) and the payload."""
+    if side == "p":
+        orig = eng._extract_kv
+
+        def extract(dec, sig, slot, prompt_len):
+            out = orig(dec, sig, slot, prompt_len)
+            state = eng._sched.slots[slot]
+            if side not in rec and state is not None \
+                    and state.req.prompt == target:
+                ids = dec.kvcache.slot_blocks(slot)
+                rec[side] = (list(ids), _scope_rows(
+                    torch, eng._ver.scope, sig, ids), out)
+            return out
+        eng._extract_kv = extract
+    else:
+        orig = eng._inject_premat
+
+        def inject(dec, sig, slot, state):
+            orig(dec, sig, slot, state)
+            if side not in rec and state.req.prompt == target:
+                ids = dec.kvcache.slot_blocks(slot)
+                rec[side] = (list(ids), _scope_rows(
+                    torch, eng._ver.scope, sig, ids), state.req.premat)
+        eng._inject_premat = inject
+
+
+def _torrent_traffic(router, name, prompts, kill=None):
+    """Every prompt once through `generate_torrent` from TORRENT_CLIENTS
+    threads (seq ids "<name>-<i>"); `kill` (a callable) runs once, on the
+    thread whose generation is the TORRENT_KILL_AFTER-th to complete.
+    Returns (results {i: (FleetResult, start, end)}, errors, kill time,
+    wall s, {sid: [(start, end) of each torrent_prefill call]}, {sid:
+    [(time, replica) of each decode failover]})."""
+    prefills, fails = {}, {}
+    orig_req, orig_fo = router._request, router._fail_over_decode
+
+    def request(model, cmd, payload, role=None):
+        t0 = time.perf_counter()
+        try:
+            return orig_req(model, cmd, payload, role)
+        finally:
+            if cmd == "torrent_prefill":
+                prefills.setdefault(payload["seq_id"], []).append(
+                    (t0, time.perf_counter()))
+
+    def fail_over(model, sid, m, bad, err):
+        fails.setdefault(sid, []).append((time.perf_counter(),
+                                          m.replica_id))
+        return orig_fo(model, sid, m, bad, err)
+    router._request, router._fail_over_decode = request, fail_over
+    todo = list(range(len(prompts)))
+    results, errors, killed = {}, [], {}
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop(0)
+            t0 = time.perf_counter()
+            try:
+                res = router.generate_torrent(
+                    name, prompts[i], max_new_tokens=NEW_TOKENS,
+                    seq_id=f"{name}-{i}")
+            except Exception as e:      # noqa: BLE001
+                with lock:
+                    errors.append((i, repr(e)))
+                continue
+            t1 = time.perf_counter()
+            with lock:
+                results[i] = (res, t0, t1)
+                fire = kill is not None and not killed \
+                    and len(results) == TORRENT_KILL_AFTER
+                if fire:
+                    killed["t"] = time.perf_counter()
+            if fire:
+                kill()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client)
+               for _ in range(TORRENT_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    del router._request, router._fail_over_decode
+    return results, errors, killed.get("t"), wall, prefills, fails
+
+
+def _wait_idle(reps, name):
+    deadline = time.monotonic() + 120
+    for rep in reps.values():
+        eng = rep.server._engine(name)
+        while True:
+            st = eng.stats()
+            if not st["active_slots"] and not st["queued"]:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve-base-torrent: "
+                                     f"{rep.replica_id} never went idle")
+            time.sleep(0.01)
+
+
+def _torrent_arm(torch, ptt, native, arm, roles, kill_rid=None):
+    """One arm of serve-base-torrent over `arm` (mdir, sig, prompts, the
+    single-server card tokens): the fleet, the lone request whose rows are
+    read on both sides, the traffic, the gates every arm shares. Returns
+    the numbers and the still-open fleet (the caller closes it)."""
+    import numpy as np
+    name, sig = arm["name"], arm["sig"]
+    prompts, n_layers = arm["prompts"], sig["n_layers"]
+    t_arm = time.perf_counter()
+    router = ptt.fleet.FleetRouter(ptt.fleet.RouterConfig(
+        lease_s=TORRENT_LEASE_S, poll_interval_s=0.1)).start()
+    t0 = time.perf_counter()
+    reps, tallies = _torrent_fleet(ptt, native, router, arm["mdir"], name,
+                                   roles)
+    world_s = time.perf_counter() - t0
+    # the lone request: its rows read on the prefill side at extraction
+    # and on the decode side at injection
+    target = prompts[-1]
+    rec = {}
+    _capture_rows(torch, reps["p0"].server._engine(name), "p", target, rec)
+    for rid, role in roles:
+        if role == "decode":
+            _capture_rows(torch, reps[rid].server._engine(name), "d",
+                          target, rec)
+    lone = router.generate_torrent(name, target, max_new_tokens=NEW_TOKENS,
+                                   seq_id=f"{name}-lone")
+    if set(rec) != {"p", "d"}:
+        raise AssertionError(f"serve-base-torrent {name}: the lone request's "
+                             f"rows were not captured on both sides "
+                             f"({sorted(rec)})")
+    # the counted window: the traffic alone
+    _wait_idle(reps, name)
+    for t in tallies.values():
+        t["prefill"].clear()
+        t["decode"].clear()
+    before = {k: _metric(ptt, k) for k in (
+        "torrent_kv_transfer_bytes_total", "torrent_failovers_total")}
+    ok_before = _metric(ptt, "torrent_generations_total", model=name,
+                        outcome="ok")
+    native.reset_launches()
+    results, errors, kill_t, wall, prefills, fails = _torrent_traffic(
+        router, name, prompts,
+        kill=(reps[kill_rid].kill if kill_rid else None))
+    _wait_idle(reps, name)
+    torch.cuda.synchronize()
+    launches = dict(native.launches)
+    runs = {rid: {k: t[k].get("runs", 0) for k in t}
+            for rid, t in tallies.items()}
+    if errors or len(results) != len(prompts):
+        raise AssertionError(f"serve-base-torrent {name}: failed requests "
+                             f"{errors[:3]} ({len(errors)} in all)")
+    n_prefill = runs["p0"]["prefill"]
+    n_decode = sum(r["decode"] for rid, r in runs.items() if rid != "p0")
+    kern = "paged_decode_q8" if sig.get("kv_dtype") == "int8" \
+        else "paged_decode"
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_fwd": n_layers * n_prefill, kern: n_layers * n_decode})
+    if launches != want or n_prefill < 1 or n_decode < 1:
+        raise AssertionError(f"serve-base-torrent {name}: launches "
+                             f"{launches}, expected {want} (runs {runs})")
+    if runs["p0"]["decode"] or any(r["prefill"] for rid, r in runs.items()
+                                   if rid != "p0"):
+        raise AssertionError(f"serve-base-torrent {name}: a prefill ran on a "
+                             f"decode replica or a decode step on the "
+                             f"prefill replica: runs {runs}")
+    for i, (res, _, _) in sorted(results.items()):
+        if len(res.tokens) != NEW_TOKENS or \
+                res.outs["finish_reason"] != "length" or \
+                not all(0 <= t < sig["vocab"] for t in res.tokens):
+            raise AssertionError(f"serve-base-torrent {name}: bad generation "
+                                 f"{i}: {res.tokens}")
+    if _metric(ptt, "fleet_affinity_sessions") != 0:
+        raise AssertionError(f"serve-base-torrent {name}: session pins "
+                             f"left: {_metric(ptt, 'fleet_affinity_sessions')}")
+    n_ok = _metric(ptt, "torrent_generations_total", model=name,
+                   outcome="ok") - ok_before
+    kv_bytes = _metric(ptt, "torrent_kv_transfer_bytes_total") \
+        - before["torrent_kv_transfer_bytes_total"]
+    failovers = _metric(ptt, "torrent_failovers_total") \
+        - before["torrent_failovers_total"]
+    if n_ok != len(prompts) or kv_bytes <= 0:
+        raise AssertionError(f"serve-base-torrent {name}: "
+                             f"torrent_generations_total ok +{n_ok} (want "
+                             f"{len(prompts)}), kv bytes +{kv_bytes}")
+    # end-to-end TTFT: the generation's start to the end of the prefill
+    # call whose stream fed the decode that finished it
+    ttft = sorted((prefills[f"{name}-{i}"][-1][1] - t0) * 1e3
+                  for i, (_, t0, _) in results.items())
+    tokens = sum(len(r.tokens) for r, _, _ in results.values())
+    stream_ms = sorted((r.outs["prefill"]["stream_us"]
+                        - r.outs["prefill"]["ttft_us"]) / 1e3
+                       for r, _, _ in results.values())
+    reprefill = []
+    for sid, events in fails.items():
+        t_fail = events[0][0]
+        after = [(a, b) for a, b in prefills.get(sid, []) if a >= t_fail]
+        if after:
+            reprefill.append(dict(sid=sid, frm=events[0][1],
+                                  prefill_ms=(after[-1][1] - after[-1][0])
+                                  * 1e3,
+                                  recovery_ms=(after[-1][1] - t_fail) * 1e3))
+    p_ids, p_rows, p_payload = rec["p"]
+    d_ids, d_rows, d_payload = rec["d"]
+    out = dict(
+        requests=len(prompts), clients=TORRENT_CLIENTS, world_s=world_s,
+        wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        tokens_per_s_replica=tokens / wall / len(roles),
+        ttft_ms_median=ttft[len(ttft) // 2],
+        ttft_ms_p99=ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))],
+        stream_ms_median=stream_ms[len(stream_ms) // 2],
+        stream_ms_max=stream_ms[-1],
+        bytes_per_request=float(np.mean([r.outs["prefill"]["bytes"]
+                                         for r, _, _ in results.values()])),
+        kv_bytes_total=kv_bytes, failovers=failovers, reprefill=reprefill,
+        killed=kill_rid, kill_after=TORRENT_KILL_AFTER if kill_rid else None,
+        kill_t=(kill_t - t_arm) if kill_t else None, launches=launches,
+        runs=runs, lone_tokens=lone.tokens,
+        lone_blocks={"prefill": p_ids, "decode": d_ids},
+        tokens_by_request={i: r.tokens for i, (r, _, _) in results.items()})
+    return out, dict(router=router, reps=reps, rows=(p_rows, p_payload,
+                                                     d_rows, d_payload))
+
+
+def log_serve_base_torrent(tor, card):
+    q8, fp = tor["int8"], tor["fp32"]
+    for tag, a in (("serve-base-torrent (int8)", q8),
+                   ("serve-base-torrent-fp32", fp)):
+        log(f"{tag} [{card}]: {a['requests']} requests x {NEW_TOKENS} tokens "
+            f"from {a['clients']} client threads through "
+            f"FleetRouter.generate_torrent over {len(a['runs'])} in-process "
+            f"replicas (p0 prefill; {', '.join(r for r in a['runs'] if r != 'p0')} "
+            f"decode), world up in {a['world_s']:.2f} s; end-to-end TTFT "
+            f"median {a['ttft_ms_median']:.1f} ms p99 {a['ttft_ms_p99']:.1f} "
+            f"ms; {a['tokens']} tokens in {a['wall_s']:.3f} s = "
+            f"{a['tokens_per_s']:.1f} tokens/s, "
+            f"{a['tokens_per_s_replica']:.1f} a replica; KV bytes shipped a "
+            f"request {a['bytes_per_request']:.0f} (all streams, retransmits "
+            f"and re-prefills included: {a['kv_bytes_total']:.0f}); stream "
+            f"(prefill end to commit) median {a['stream_ms_median']:.2f} ms "
+            f"max {a['stream_ms_max']:.2f} ms; runs {a['runs']}; launches "
+            f"{ {k: v for k, v in a['launches'].items() if v} }; lone "
+            f"request's blocks {a['lone_blocks']['prefill'][:3]}... on p0, "
+            f"{a['lone_blocks']['decode'][:3]}... on the decode side")
+    log(f"serve-base-torrent kill [{card}]: {q8['killed']} killed "
+        f"{q8['kill_t']:.2f} s into the arm, after {q8['kill_after']} "
+        f"generations; {q8['failovers']:.0f} decode failover(s) metered; "
+        f"re-prefills "
+        + ", ".join(f"{r['sid']} off {r['frm']}: prefill {r['prefill_ms']:.1f} "
+                    f"ms, {r['recovery_ms']:.1f} ms from the failover"
+                    for r in q8["reprefill"])
+        + f"; tokens equal to 4b's card run for {q8['equal_to_4b']} of "
+        f"{q8['requests'] + 1} (the lone request counted), near ties "
+        f"{q8['near_ties']}; injected rows and scales equal p0's bit for bit")
+    log(f"serve-base-torrent-fp32 [{card}]: first tokens equal phase 4's for "
+        f"all {fp['requests']} (and the lone request); later tokens equal "
+        f"{fp['later_equal_share']:.3f} of them (not gated: the int8 wire "
+        f"codec is lossy); first divergence by request "
+        f"{fp['first_divergence']}; injected rows equal the host codec's "
+        f"decode of p0's bit for bit; bytes a request int8 "
+        f"{q8['bytes_per_request']:.0f} against fp32 "
+        f"{fp['bytes_per_request']:.0f}")
+    log(f"phase 7s: {tor['s']:.1f} s")
+
+
+def _close_fleet(fleet):
+    for rep in fleet["reps"].values():
+        rep.close()
+    fleet["router"].close()
+
+
+def run_serve_base_torrent(torch, ptt, native, q8, fp):
+    """Phase 7s: the int8 arm with the kill, then the fp32 arm. `q8` and
+    `fp`: phase 4b's and phase 4's (name, mdir, sig, prompts, card
+    tokens). Returns the numbers."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    codec = ptt.wire.codec
+    out = {}
+    # the int8 arm
+    arm, fleet = _torrent_arm(torch, ptt, native, q8,
+                              (("p0", "prefill"), ("d0", "decode"),
+                               ("d1", "decode")), kill_rid="d1")
+    try:
+        if arm["failovers"] < 1:
+            raise AssertionError("serve-base-torrent: the kill of d1 metered "
+                                 "no decode failover")
+        p_rows, p_payload, d_rows, d_payload = fleet["rows"]
+        sig = q8["sig"]
+        # the rows extracted on p0 are its scope's at its block ids, and
+        # the decode replica's scope holds them, bit for bit, at its own
+        for n in p_rows:
+            extracted = p_payload["cache"].get(n) if n in sig["cache_vars"] \
+                else p_payload["scales"][next(
+                    c for c, s in sig["scale_vars"].items() if s == n)]
+            if p_rows[n].tobytes() != np.asarray(extracted).tobytes() \
+                    or d_rows[n].tobytes() != p_rows[n].tobytes():
+                raise AssertionError(f"serve-base-torrent: {n}'s rows on the "
+                                     f"decode replica differ from p0's")
+        # tokens against 4b's single-server run (the lone request is the
+        # last prompt's); a difference passes only as a near tie under
+        # 4b's teacher-forced rule
+        n = len(q8["prompts"])
+        cases = [(i, q8["prompts"][i], arm["tokens_by_request"][i],
+                  q8["tokens"][i]) for i in range(n)]
+        cases.append(("lone", q8["prompts"][-1], arm["lone_tokens"],
+                      q8["tokens"][-1]))
+        differ = [c for c in cases if c[2] != c[3]]
+        ties = []
+        ver = fleet["reps"]["d0"].server.registry.get(q8["name"])
+        for i, prompt, got, want in differ:
+            logits, _ = teacher_forced(ver, prompt, want, INT8_SLOTS)
+            step = next(k for k, (a, b) in enumerate(zip(got, want))
+                        if a != b)
+            gap = float(logits[step, want[step]] - logits[step, got[step]])
+            ties.append(dict(request=i, step=step, gap=gap))
+            if abs(gap) > 2 * Q8_LOGIT_TOL:
+                raise AssertionError(
+                    f"serve-base-torrent request {i}: tokens differ from 4b's "
+                    f"at step {step} ({got[step]} against {want[step]}) with "
+                    f"a logit gap {gap:.3g} > {2 * Q8_LOGIT_TOL}: not a near "
+                    f"tie")
+        arm["near_ties"] = ties
+        arm["equal_to_4b"] = len(cases) - len(differ)
+    finally:
+        _close_fleet(fleet)
+    out["int8"] = arm
+    # the fp32 arm: the rows ride the lossy int8 codec
+    arm, fleet = _torrent_arm(torch, ptt, native, fp,
+                              (("p0", "prefill"), ("d0", "decode")))
+    try:
+        p_rows, p_payload, d_rows, _ = fleet["rows"]
+        for n in p_rows:
+            if p_rows[n].tobytes() != p_payload["cache"][n].tobytes():
+                raise AssertionError(f"serve-base-torrent fp32: {n}'s "
+                                     f"extracted rows are not p0's")
+            decoded = np.stack([codec.maybe_decode(codec.encode_tensor(
+                row, "int8", name=n)) for row in p_rows[n]])
+            if d_rows[n].tobytes() != decoded.astype(np.float32).tobytes():
+                raise AssertionError(f"serve-base-torrent fp32: {n}'s "
+                                     f"injected rows are not the host codec's "
+                                     f"decode of p0's")
+        got = arm["tokens_by_request"]
+        firsts = [got[i][0] == fp["tokens"][i][0] for i in sorted(got)]
+        if not all(firsts) or arm["lone_tokens"][0] != fp["tokens"][-1][0]:
+            raise AssertionError(f"serve-base-torrent fp32: first tokens "
+                                 f"differ from phase 4's: {firsts}")
+        later = [sum(a == b for a, b in zip(got[i][1:], fp["tokens"][i][1:]))
+                 for i in sorted(got)]
+        arm["later_equal_share"] = sum(later) / (len(got) * (NEW_TOKENS - 1))
+        arm["first_divergence"] = {
+            i: next((k for k, (a, b) in enumerate(zip(got[i], fp["tokens"][i]))
+                     if a != b), None) for i in sorted(got)}
+    finally:
+        _close_fleet(fleet)
+    out["fp32"] = arm
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7983,6 +8466,7 @@ def main() -> int:
         # 4b. the int8 residency
         serve8 = run_serve_int8(torch, ptt, native, tiny_lm, tmp, card,
                                 fp32_tokens)
+        q8_arm = serve8.pop("torrent_arm")
 
         # 4c. serve-base-swap: a generative hot swap under load
         t0 = time.perf_counter()
@@ -8000,6 +8484,16 @@ def main() -> int:
             f"{swap['launches_by_version']}; tokens equal to the host's on "
             f"both versions (host {swap['host_s']:.1f} s); v1 retired; "
             f"{time.perf_counter() - t0:.1f} s")
+
+        # 7s. disaggregated serving and the fleet, over 4b's int8 dir and
+        # phase 4's float32 dir (run here, while phase 4's dirs exist)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tor = run_serve_base_torrent(
+            torch, ptt, native, q8_arm,
+            dict(name="lm", mdir=mdir, sig=sig, prompts=prompts,
+                 tokens=[r.tokens for r in results]))
+        log_serve_base_torrent(tor, card)
 
     # 4d. serve-resnet50: one-shot serving at ResNet-50's full width, with
     # a staged swap and a watcher swap in the same traffic
@@ -9126,6 +9620,10 @@ def main() -> int:
                                   "v1"]["flash_fwd"],
                               "serve_swap_v2": swap["launches_by_version"][
                                   "v2"]["flash_fwd"],
+                              "serve_base_torrent_p0":
+                                  tor["int8"]["launches"]["flash_fwd"],
+                              "serve_base_torrent_fp32_p0":
+                                  tor["fp32"]["launches"]["flash_fwd"],
                               "serve_resnet50": rn50["launches"]["flash_fwd"],
                               "infer_base_bf16_a_batch":
                                   infer16["launches_per_batch"][
@@ -9217,6 +9715,8 @@ def main() -> int:
                  "paged_decode"],
              "serve_swap_v2": swap["launches_by_version"]["v2"][
                  "paged_decode"],
+             "serve_base_torrent_fp32":
+                 tor["fp32"]["launches"]["paged_decode"],
              "serve_resnet50": rn50["launches"]["paged_decode"],
              **obs_launches("paged_decode")},
          "max_abs_err": max(paged["err"], paged_s1["err"]),
@@ -9236,6 +9736,10 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/paged_decode_q8.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:421",
          "launches": serve8["launches"]["paged_decode_q8"],
+         "launches_by_path": {
+             "serve_int8": serve8["launches"]["paged_decode_q8"],
+             "serve_base_torrent":
+                 tor["int8"]["launches"]["paged_decode_q8"]},
          "max_abs_err": max(paged_q8["err"], paged_q8_s1["err"]),
          "ms": paged_q8["ms"], "plain_ms": paged_q8["plain_ms"],
          "bound_ms": paged_q8["bound_ms"], "bound_by": paged_q8["bound_by"],
@@ -9417,6 +9921,8 @@ def main() -> int:
                    "ps_plane": dict(ps, phase_s=phase7q_s),
                    "coordination_plane": {"train_base_elastic": el,
                                           "phase_s": phase7r_s},
+                   "fleet_plane": {"serve_base_torrent": tor,
+                                   "phase_s": tor["s"]},
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -51,7 +51,10 @@ and chaos; ``layers.ListenAndServ`` / ``Send`` / ``Recv``), and the
 coordination plane (``quorum``: the majority-lease arbiters and their
 client, behind every quorum route of ``pserver``, ``haven`` and ``ark``;
 ``master``: the elastic data master, a quorum-fenced primary / standby
-pair, and its ``MasterClient``).
+pair, and its ``MasterClient``), and the serving fleet (``fleet``: the
+router, its replicas, the serve-time sparse read path; ``torrent``: the
+KV stream between a prefill and a decode replica of a disaggregated
+generation).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)
@@ -126,6 +129,7 @@ from . import distributed, parallel  # noqa: F401
 from . import pserver  # noqa: F401
 from . import haven  # noqa: F401  (fluid-haven replicated PS plane)
 from . import master, quorum  # noqa: F401  (the coordination plane)
+from . import fleet, torrent  # noqa: F401  (the serving fleet)
 from .parallel import (BuildStrategy, ExecutionStrategy,  # noqa: F401
                        ParallelExecutor)
 

@@ -240,12 +240,18 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], place: Place,
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, scope=None, extra_programs=None,
-                         manifest_extra=None):
+                         manifest_extra=None, exclude_vars=None):
     """Prune to the inference slice and persist program + params
     (reference io.py:551). `extra_programs` ({filename: json-able meta})
     lands more program files in the same dir (the decode-step program of
     a generative model); `manifest_extra` is merged into MANIFEST.json
     (its decode signature).
+
+    `exclude_vars` (a set of names) skips persistables whose VALUES must
+    not land in the dir — distributed lookup tables, whose rows live only
+    in pserver shards and are pulled at serve time (``fleet/sparse.py``).
+    The program keeps the var (the lookup op needs its declared shape); a
+    loader must feed or skip it (`load_inference_model(skip_vars=)`).
 
     The dir is staged in a same-parent tmp dir and swapped in at the end,
     so a crash mid-save never leaves a torn dir."""
@@ -276,7 +282,13 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         for extra_name, extra_meta in (extra_programs or {}).items():
             with open(os.path.join(stage, extra_name), "w") as f:
                 json.dump(extra_meta, f)
-        save_persistables(executor, stage, pruned, scope=scope)
+        excl = set(exclude_vars or ())
+        if excl:
+            save_vars(executor, stage, pruned,
+                      predicate=lambda v: _is_persistable(v)
+                      and v.name not in excl, scope=scope)
+        else:
+            save_persistables(executor, stage, pruned, scope=scope)
         files = {}
         for name in sorted(os.listdir(stage)):
             path = os.path.join(stage, name)
@@ -304,17 +316,27 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     return target_names
 
 
-def load_inference_model(dirname, executor, scope=None, verify=True):
+def load_inference_model(dirname, executor, scope=None, verify=True,
+                         skip_vars=None):
     """reference io.py:654 — returns (program, feed_names, fetch_vars),
     the params loaded into `scope` on the executor's device. `verify`
-    checks the dir against its MANIFEST.json before reading anything."""
+    checks the dir against its MANIFEST.json before reading anything.
+    `skip_vars` names persistables the dir deliberately does not carry
+    (saved with `exclude_vars=`); they are neither loaded nor required,
+    and the caller feeds them at run time."""
     if verify:
         verify_inference_model(dirname)
     with open(os.path.join(dirname, MODEL_FILENAME)) as f:
         meta = json.load(f)
     program = ir.Program.from_dict(meta["program"])
     program._is_inference = True
-    load_persistables(executor, dirname, program, scope=scope)
+    skip = set(skip_vars or ())
+    if skip:
+        load_vars(executor, dirname, program,
+                  vars=[v for v in _collect(program, _is_persistable)
+                        if v.name not in skip], scope=scope)
+    else:
+        load_persistables(executor, dirname, program, scope=scope)
     fetch_vars = [program.global_block().var(n) for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
 

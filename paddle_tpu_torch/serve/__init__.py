@@ -15,8 +15,9 @@ Mirror of ``paddle_tpu/serve``:
 - `serve.decode` — DecodeEngine: prefill + fixed-slot decode steps with
   continuous batching over the paged KV cache (`serve.kvcache`).
 
-`serve.InferenceServer` fronts them. Disaggregated prefill / decode
-(``torrent/``) is not ported.
+`serve.InferenceServer` fronts them. Its `submit_prefill` /
+`submit_prefilled` are the two halves of a disaggregated generation
+(``torrent/`` streams the KV rows between them; ``fleet/`` routes).
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ from .bucketing import (DEFAULT_ROWS_LADDER, BucketLadder,  # noqa: F401
 from .decode import (DecodeEngine, GenerationResult,  # noqa: F401
                      GenerationStream)
 from .errors import (BadRequestError, CacheExhaustedError,  # noqa: F401
-                     DeadlineExceededError, ModelNotFoundError,
-                     ModelUnavailableError, QueueFullError, ServeError)
+                     DeadlineExceededError, KVTransferError,
+                     ModelNotFoundError, ModelUnavailableError,
+                     QueueFullError, ServeError)
 from .kvcache import (PagedKVCache, block_residency_nbytes,  # noqa: F401
                       blocks_for_budget)
 from .registry import (DecodeModel, ModelRegistry,  # noqa: F401

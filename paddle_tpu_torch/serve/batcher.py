@@ -440,18 +440,38 @@ class MicroBatcher:
             # coalesced requests. Parented to the oldest request's trace
             # (the one that waited longest for this batch); the other
             # members are linked through `traces` and each request's own
-            # lifecycle span carries `batch_span` back to it
+            # lifecycle span carries `batch_span` back to it. Computed
+            # BEFORE the sparse augment and made AMBIENT around it: the
+            # augment's PSClient row pulls run on THIS executor thread,
+            # and without the activation they would start fresh traces
+            # instead of joining the router -> replica -> pserver chain
             bctx = None
             for r in batch:
                 if r.ctx is not None:
                     bctx = _xray.child_of(r.ctx)
                     break
-            ts_wall = time.time()
-            t0 = time.perf_counter()
-            # numpy fetches: one device-to-host copy a fetch, for the
-            # whole padded batch; the rows are sliced on the host below
-            fetches = ver.prepared.run(padded)
-            dt = time.perf_counter() - t0
+            # the activation exists FOR the sparse augment's PSClient
+            # spans; a dense model runs nothing that reads the ambient
+            # context, so skip the ContextVar set/reset on its hot path
+            token = (_xray.set_current(bctx)
+                     if bctx is not None and ver.sparse_plan is not None
+                     else None)
+            try:
+                if ver.sparse_plan is not None:
+                    # pull this BATCH's unique embedding rows from the
+                    # pserver shards (row cache first) and feed them as
+                    # fixed-shape sub-tables with ids remapped — after
+                    # padding, so the fed shapes match the warmed ones
+                    padded = ver.sparse_plan.augment(padded)
+                ts_wall = time.time()
+                t0 = time.perf_counter()
+                # numpy fetches: one device-to-host copy a fetch, for the
+                # whole padded batch; the rows are sliced on the host
+                fetches = ver.prepared.run(padded)
+                dt = time.perf_counter() - t0
+            finally:
+                if token is not None:
+                    _xray.unset_current(token)
             # a version loaded with warm=False becomes "warmed" by
             # serving
             ver.warmed = True

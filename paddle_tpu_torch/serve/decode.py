@@ -33,8 +33,15 @@ whenever it goes idle); when a new version is published the engine stops
 admitting, lets the active slots drain on the old version, releases it
 and binds the new one — the swap costs one drain, never a wrong-version
 token. With the `observe` flag on, each generation closes a
-``serve_generate`` span. KV export/import between replicas (and with it
-requantize-on-admit) is not ported.
+``serve_generate`` span.
+
+Disaggregation (``torrent/``): `submit(prefill_only=True)` runs the
+prompt's prefill step only and resolves with the prompt's KV block rows
+copied to host numpy (`GenerationResult.kv`); `submit_prefilled` admits
+such a payload, prefilled elsewhere, by copying its rows into this
+engine's cache at its own block ids on the card (`index_copy_` on the
+engine thread) and entering decode directly. A payload's residency must
+equal the model's: nothing requantizes on admit.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from concurrent.futures import TimeoutError as _FuturesTimeout
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .. import flags as _flags
 from ..observe import metrics as _metrics
@@ -63,15 +71,19 @@ class GenerationResult:
     """What a finished generation resolves to."""
 
     __slots__ = ("tokens", "prompt_len", "finish_reason", "ttft_us",
-                 "version_id")
+                 "version_id", "kv")
 
     def __init__(self, tokens, prompt_len, finish_reason, ttft_us,
-                 version_id):
+                 version_id, kv=None):
         self.tokens = tokens              # generated tokens (no prompt)
         self.prompt_len = prompt_len
-        self.finish_reason = finish_reason  # "eos" | "length"
+        self.finish_reason = finish_reason  # "eos" | "length" | "prefill"
         self.ttft_us = ttft_us
         self.version_id = version_id
+        # prefill_only submits resolve with the prompt's extracted KV
+        # blocks here, as host numpy (torrent/ streams them to a decode
+        # replica)
+        self.kv = kv
 
     def __repr__(self):
         return (f"GenerationResult({len(self.tokens)} tokens, "
@@ -102,10 +114,12 @@ class GenerationStream:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "future", "stream", "deadline",
-                 "t_enq", "ctx", "ts_wall", "resolved")
+                 "t_enq", "ctx", "ts_wall", "resolved", "prefill_only",
+                 "premat", "first_token")
 
     def __init__(self, prompt, max_new, future, stream, deadline, ctx,
-                 ts_wall):
+                 ts_wall, prefill_only=False, premat=None,
+                 first_token=None):
         self.prompt = prompt
         self.max_new = max_new
         self.future = future
@@ -115,6 +129,13 @@ class _GenRequest:
         self.ctx = ctx                    # span context (observe on)
         self.ts_wall = ts_wall
         self.resolved = False             # guarded by the engine cond
+        # disaggregation: prefill_only stops after the first token and
+        # resolves with the extracted KV payload; premat is the inverse —
+        # a KV payload prefilled elsewhere, injected at admission with
+        # `first_token` seeding the first decode step
+        self.prefill_only = prefill_only
+        self.premat = premat
+        self.first_token = first_token
 
 
 class _Slot:
@@ -138,9 +159,17 @@ class DecodeEngine:
     """One generative model's slots + engine thread."""
 
     def __init__(self, registry, name: str, max_queue: int = 256,
-                 admission: str = "continuous"):
+                 admission: str = "continuous",
+                 simulate_prefill_us_per_token: float = 0.0,
+                 simulate_decode_step_us: float = 0.0):
         self._registry = registry
         self._name = name
+        # rehearsal-rig knobs: model the compute-bound prefill (us per
+        # PADDED token of the chunk) and memory-bound decode (us per
+        # fixed-slot STEP) as sleeps on the engine thread, so topology
+        # effects show on the host; 0 (the default) in any real run
+        self._sim_prefill_us = float(simulate_prefill_us_per_token)
+        self._sim_decode_us = float(simulate_decode_step_us)
         self._requant_seen = 0            # engine thread only
         sig = registry.get(name).decode.signature
         self._sched = SlotScheduler(sig["max_slots"], max_queue=max_queue,
@@ -173,11 +202,61 @@ class DecodeEngine:
     # -- producer side ----------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
-               deadline_ms: Optional[float] = None, stream: bool = False):
+               deadline_ms: Optional[float] = None, stream: bool = False,
+               prefill_only: bool = False):
         """Enqueue one generation. Returns its Future (stream=False) or a
         GenerationStream (stream=True). Rejections are immediate:
         QueueFullError / CacheExhaustedError are retriable backpressure,
-        BadRequestError means the prompt can never run."""
+        BadRequestError means the prompt can never run.
+
+        `prefill_only=True` is the prefill half of a disaggregated
+        generation: run the prompt's prefill step, resolve the Future
+        with a GenerationResult carrying the first token AND the prompt's
+        extracted KV payload (`result.kv`), and vacate immediately — the
+        generation continues wherever `submit_prefilled` injects it."""
+        ver = self._registry.get(self._name)
+        if ver.decode is None:
+            raise BadRequestError(
+                f"model {self._name!r} has no decode program — "
+                f"a one-shot model cannot generate")
+        if prefill_only and stream:
+            raise BadRequestError(
+                "prefill_only produces one token — streaming does not "
+                "apply")
+        sig = ver.decode.signature
+        prompt = [int(t) for t in prompt]
+        self._validate_prompt(prompt, sig)
+        max_new = int(max_new_tokens)
+        if not prefill_only:
+            if max_new < 1:
+                raise BadRequestError("max_new_tokens must be >= 1")
+            if len(prompt) + max_new > sig["max_context"]:
+                raise BadRequestError(
+                    f"prompt {len(prompt)} + max_new_tokens {max_new} "
+                    f"exceeds max_context {sig['max_context']}")
+        ctx = _xray.child_of() if _flags.get_flag("observe") else None
+        ts_wall = time.time() if ctx is not None else 0.0
+        fut: Future = Future()
+        gstream = GenerationStream(fut) if stream else None
+        deadline = (time.monotonic() + deadline_ms / 1e3
+                    if deadline_ms is not None else None)
+        req = _GenRequest(prompt, max_new, fut, gstream, deadline, ctx,
+                          ts_wall, prefill_only=prefill_only)
+        self._enqueue(req)
+        return gstream if stream else fut
+
+    def submit_prefilled(self, prompt: Sequence[int], first_token: int,
+                         kv: dict, max_new_tokens: int = 16,
+                         deadline_ms: Optional[float] = None,
+                         stream: bool = False):
+        """Admit a generation whose prefill ran ELSEWHERE: `kv` is the
+        payload a `prefill_only` submit resolved with — the prompt's
+        cache-block rows (plus int8 per-block scales when the residency
+        is quantized), host numpy. The engine copies those rows into this
+        engine's cache tensors at its own block ids and enters decode
+        directly; `first_token` (the remote prefill's argmax) counts as
+        generated token #1 exactly like the local prefill path, so
+        `max_new_tokens` means the same thing in both modes."""
         ver = self._registry.get(self._name)
         if ver.decode is None:
             raise BadRequestError(
@@ -185,6 +264,52 @@ class DecodeEngine:
                 f"a one-shot model cannot generate")
         sig = ver.decode.signature
         prompt = [int(t) for t in prompt]
+        self._validate_prompt(prompt, sig)
+        max_new = int(max_new_tokens)
+        if max_new < 1:
+            raise BadRequestError("max_new_tokens must be >= 1")
+        if len(prompt) + max_new > sig["max_context"]:
+            raise BadRequestError(
+                f"prompt {len(prompt)} + max_new_tokens {max_new} "
+                f"exceeds max_context {sig['max_context']}")
+        first_token = int(first_token)
+        if first_token < 0 or first_token >= sig["vocab"]:
+            raise BadRequestError(
+                f"first_token out of range for vocab {sig['vocab']}")
+        if not isinstance(kv, dict) or not isinstance(kv.get("cache"),
+                                                      dict):
+            raise BadRequestError(
+                "kv payload must be a dict with a 'cache' mapping "
+                "(cache var -> [n_blocks, ...] rows)")
+        if str(kv.get("kv_dtype", "fp32")) != \
+                str(sig.get("kv_dtype", "fp32")):
+            raise BadRequestError(
+                f"kv payload residency {kv.get('kv_dtype')!r} does not "
+                f"match this model's {sig.get('kv_dtype', 'fp32')!r}")
+        need = -(-len(prompt) // sig["block_size"])
+        for cname in sig["cache_vars"]:
+            rows = kv["cache"].get(cname)
+            if rows is None or len(rows) < need:
+                raise BadRequestError(
+                    f"kv payload is missing block rows for {cname!r} "
+                    f"({need} needed)")
+        if sig.get("scale_vars") and not isinstance(kv.get("scales"),
+                                                    dict):
+            raise BadRequestError(
+                "int8 kv payload must carry per-block 'scales'")
+        ctx = _xray.child_of() if _flags.get_flag("observe") else None
+        ts_wall = time.time() if ctx is not None else 0.0
+        fut: Future = Future()
+        gstream = GenerationStream(fut) if stream else None
+        deadline = (time.monotonic() + deadline_ms / 1e3
+                    if deadline_ms is not None else None)
+        req = _GenRequest(prompt, max_new, fut, gstream, deadline, ctx,
+                          ts_wall, premat=kv, first_token=first_token)
+        self._enqueue(req)
+        return gstream if stream else fut
+
+    @staticmethod
+    def _validate_prompt(prompt, sig):
         if not prompt:
             raise BadRequestError("empty prompt")
         if any(t < 0 or t >= sig["vocab"] for t in prompt):
@@ -195,21 +320,8 @@ class DecodeEngine:
             raise BadRequestError(
                 f"prompt of {len(prompt)} tokens exceeds the largest "
                 f"prefill rung {max_rung}")
-        max_new = int(max_new_tokens)
-        if max_new < 1:
-            raise BadRequestError("max_new_tokens must be >= 1")
-        if len(prompt) + max_new > sig["max_context"]:
-            raise BadRequestError(
-                f"prompt {len(prompt)} + max_new_tokens {max_new} "
-                f"exceeds max_context {sig['max_context']}")
-        ctx = _xray.child_of() if _flags.get_flag("observe") else None
-        ts_wall = time.time() if ctx is not None else 0.0
-        fut: Future = Future()
-        gstream = GenerationStream(fut) if stream else None
-        deadline = (time.monotonic() + deadline_ms / 1e3
-                    if deadline_ms is not None else None)
-        req = _GenRequest(prompt, max_new, fut, gstream, deadline, ctx,
-                          ts_wall)
+
+    def _enqueue(self, req: _GenRequest):
         with self._cond:
             if self._closed:
                 raise ModelUnavailableError(
@@ -224,7 +336,6 @@ class DecodeEngine:
                     f"{len(self._sched.pending)} generations queued "
                     f"(max_queue={self._sched.max_queue}) — retry with "
                     f"backoff") from None
-        return gstream if stream else fut
 
     def generate(self, prompt, max_new_tokens: int = 16,
                  deadline_ms: Optional[float] = None) -> GenerationResult:
@@ -387,8 +498,11 @@ class DecodeEngine:
                 if not self._sched.pending:
                     break
                 req = self._sched.pending[0]
+                # prefill_only never decodes: reserve just the prompt
+                total = len(req.prompt) + \
+                    (0 if req.prefill_only else req.max_new)
                 try:
-                    dec.kvcache.reserve(slot, len(req.prompt) + req.max_new)
+                    dec.kvcache.reserve(slot, total)
                 except CacheExhaustedError as e:
                     if self._sched.active_count() == 0 and not admitted:
                         # nothing running will ever free blocks: this
@@ -405,10 +519,20 @@ class DecodeEngine:
                              exc=rejected[1])
         if not admitted:
             return
+        # injected (premat) admissions skip prefill entirely: copy the
+        # wire-delivered KV rows into the cache and go straight to decode
+        fresh = []
+        for slot, state in admitted:
+            if state.req.premat is not None:
+                self._inject_premat(dec, sig, slot, state)
+            else:
+                fresh.append((slot, state))
+        if not fresh:
+            return
         # group by prompt-length rung; each group is one prefill step
         ladder = self._ver.ladder
         groups: Dict[int, List] = {}
-        for slot, state in admitted:
+        for slot, state in fresh:
             rung = ladder.dim_rung("tokens", 1, len(state.req.prompt))
             groups.setdefault(rung, []).append((slot, state))
         for rung, members in groups.items():
@@ -430,6 +554,11 @@ class DecodeEngine:
         t0 = time.perf_counter()
         logits, = self._ver.prepared.run({
             "tokens": tokens, "block_tables": bt, "seq_lens": seq_lens})
+        if self._sim_prefill_us > 0.0:
+            # compute-bound phase: cost scales with the chunk's padded
+            # token area (the engine thread stands in for the card, so
+            # this stall delays everything behind it)
+            time.sleep(self._sim_prefill_us * rows * rung / 1e6)
         self._m_prefill_latency.observe(
             (time.perf_counter() - t0) * 1e6, model=self._name)
         # a warm=False version becomes "warmed" by serving
@@ -440,6 +569,19 @@ class DecodeEngine:
             state.ttft_us = (done - state.req.t_enq) * 1e6
             self._m_ttft.observe(state.ttft_us, model=self._name)
             self._m_tokens.inc(model=self._name)
+            if state.req.prefill_only:
+                # the prefill half: hand the prompt's KV rows (still
+                # allocated this instant) to the caller, then vacate — a
+                # decode replica owns the rest
+                kv = self._extract_kv(dec, sig, slot,
+                                      len(state.req.prompt))
+                self._vacate(slot)
+                self._finish_req(state.req, "ok",
+                                 result=GenerationResult(
+                                     [tok], len(state.req.prompt),
+                                     "prefill", state.ttft_us,
+                                     self._ver.version_id, kv=kv))
+                continue
             state.ctx_len = len(state.req.prompt)
             state.last_token = tok
             state.generated = [tok]
@@ -447,6 +589,82 @@ class DecodeEngine:
             if state.req.stream is not None:
                 state.req.stream._push(tok)
             self._maybe_finish(slot, state, tok, sig)
+
+    # -- KV extraction / injection (disaggregation) -------------------------
+
+    def _extract_kv(self, dec, sig, slot: int, prompt_len: int) -> dict:
+        """Copy the slot's resident KV block rows (plus int8 per-block
+        scales) out of the bound version's scope: `index_select` at the
+        slot's block ids on the cache's device, then only those rows to
+        the host. Rows are position-ordered, so they can be written at
+        ANY replica's block ids — the block table is the only
+        indirection. Runs on the engine thread between steps, after the
+        prefill's logits came back, so the cache is quiescent. The
+        payload is host numpy only (int8 rows as int8, scales as
+        float32): it may be pickled onto the wire."""
+        ids = dec.kvcache.slot_blocks(slot)
+        scope = self._ver.scope
+        index = None
+        cache = {}
+        for cname in sig["cache_vars"]:
+            var = scope.find_var(cname)
+            if index is None:
+                index = torch.as_tensor(ids, dtype=torch.long,
+                                        device=var.device)
+            cache[cname] = var.index_select(0, index).cpu().numpy()
+        out = {"cache": cache, "prompt_len": int(prompt_len),
+               "n_blocks": len(ids),
+               "kv_dtype": str(sig.get("kv_dtype", "fp32"))}
+        smap = sig.get("scale_vars") or {}
+        if smap:
+            out["scales"] = {
+                c: scope.find_var(s).index_select(0, index).cpu().numpy()
+                .astype(np.float32)
+                for c, s in smap.items()}
+        return out
+
+    def _inject_premat(self, dec, sig, slot: int, state: _Slot):
+        """Write a wire-delivered KV payload into this engine's cache at
+        the slot's freshly allocated block ids and seed decode state —
+        the injected sequence's next step is an ordinary decode append
+        at position prompt_len. Engine thread only: `index_copy_` writes
+        the scope's own cache tensors in place on this thread's stream,
+        so the prepared decode step reads the injected rows through the
+        tensor it already holds."""
+        req = state.req
+        n = len(req.prompt)
+        dec.kvcache.ensure(slot, n)
+        ids = dec.kvcache.slot_blocks(slot)
+        scope = self._ver.scope
+        smap = sig.get("scale_vars") or {}
+        scales = req.premat.get("scales") or {}
+        for cname in sig["cache_vars"]:
+            var = scope.find_var(cname)
+            index = torch.as_tensor(ids, dtype=torch.long,
+                                    device=var.device)
+            rows = np.asarray(req.premat["cache"][cname])[:len(ids)]
+            var.index_copy_(0, index, torch.from_numpy(
+                np.ascontiguousarray(rows)).to(device=var.device,
+                                               dtype=var.dtype))
+            sname = smap.get(cname)
+            if sname is not None and cname in scales:
+                svar = scope.find_var(sname)
+                svals = np.asarray(scales[cname], np.float32)[:len(ids)]
+                svar.index_copy_(0, index, torch.from_numpy(
+                    np.ascontiguousarray(svals)).to(device=svar.device,
+                                                    dtype=svar.dtype))
+        tok = int(req.first_token)
+        # local TTFT covers admit + copy only; the end-to-end (wire
+        # included) TTFT is metered at the torrent layer
+        state.ttft_us = (time.monotonic() - req.t_enq) * 1e6
+        self._m_ttft.observe(state.ttft_us, model=self._name)
+        state.ctx_len = n
+        state.last_token = tok
+        state.generated = [tok]
+        state.started = True
+        if req.stream is not None:
+            req.stream._push(tok)
+        self._maybe_finish(slot, state, tok, sig)
 
     def _sample_requant(self, sig):
         """Meter int8 whole-block requantize events: the decode step
@@ -486,6 +704,10 @@ class DecodeEngine:
             "tokens": tokens,
             "block_tables": dec.kvcache.block_tables,
             "seq_lens": seq_lens})
+        if self._sim_decode_us > 0.0:
+            # memory-bound phase: a fixed-slot step pays the whole-cache
+            # read however many lanes are live — a per-STEP cost
+            time.sleep(self._sim_decode_us / 1e6)
         self._m_step_latency.observe(
             (time.perf_counter() - t0) * 1e6, model=self._name)
         self._m_steps.inc(model=self._name)

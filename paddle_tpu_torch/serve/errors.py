@@ -51,6 +51,17 @@ class DeadlineExceededError(ServeError):
     retriable = True
 
 
+class KVTransferError(ServeError):
+    """A wire-streamed KV transfer could not complete — the receiving
+    decode replica is gone, lost its staging state, or the transfer was
+    superseded by a newer attempt. The generation itself is intact on the
+    client's side of the contract: re-prefill on any replica (greedy
+    decoding is deterministic, so a re-prefill reproduces the same
+    tokens) and stream again."""
+
+    retriable = True
+
+
 class CacheExhaustedError(ServeError):
     """Admission control: the paged KV cache cannot reserve enough blocks
     to guarantee the generation completes. The request was NOT admitted;

@@ -37,8 +37,10 @@ every warmed feed signature pre-seeded into the shape tracker, so served
 traffic on warmed shapes records no unexpected plan event and an
 unwarmed shape attributes as `padding_bucket`.
 
-Not ported: the serve-time distributed sparse read path (a manifest with
-a `sparse` key needs ``fleet/``).
+A dir whose manifest carries a `sparse` key keeps its lookup tables in
+pserver shards (``fleet/sparse.py``): it loads only with
+`load(sparse=fleet.SparseServeConfig(...))`, skips the tables' values,
+and gets a per-version `sparse_plan` that feeds each batch its rows.
 """
 
 from __future__ import annotations
@@ -134,6 +136,11 @@ class ModelVersion:
         # (which names every payload file's sha), equal for two loads of
         # the same push wherever they run; None for a manifest-less dir
         self.manifest_sha: Optional[str] = None
+        # the serve-time distributed sparse read path (a
+        # fleet.sparse.SparseLookupPlan): feeds prefetched pserver rows
+        # under the table names per batch; owns the version-keyed row
+        # cache, so a hot swap invalidates by retirement
+        self.sparse_plan = None
         # False until every ladder rung (and the decode step) ran once
         self.warmed = False
         self._refs = 0
@@ -173,6 +180,10 @@ class _Slot:
         # a fully loaded, verified and warmed version staged by prepare()
         # and published only by commit()
         self.staged: Optional[ModelVersion] = None
+        # the sparse read path's config (duck-typed factory with
+        # .build(sparse_meta, version) -> SparseLookupPlan); sticky per
+        # slot so the watcher's reloads keep the same wiring
+        self.sparse = None
 
 
 class ModelRegistry:
@@ -189,7 +200,7 @@ class ModelRegistry:
 
     # -- loading / swapping ----------------------------------------------
 
-    def _slot_for_load(self, name, dirname, ladder):
+    def _slot_for_load(self, name, dirname, ladder, sparse):
         """Resolve (and update) the slot + the manifest-driven load plan."""
         dirname = os.path.abspath(dirname)
         # ONE manifest read per load: the ladder below and the cache
@@ -209,16 +220,21 @@ class ModelRegistry:
                 slot.dirname = dirname
                 if ladder is not None:
                     slot.ladder = ladder
+            if sparse is not None:
+                slot.sparse = sparse
         return slot, dirname, manifest
 
     def load(self, name: str, dirname: str,
              ladder: Optional[BucketLadder] = None,
-             warm: bool = True) -> ModelVersion:
+             warm: bool = True, sparse=None) -> ModelVersion:
         """Load (first call) or hot-swap (subsequent calls) `name` from
         `dirname`. Blocks until the new version is verified, loaded and
-        warmed; only then does the published pointer flip."""
-        slot, dirname, manifest = self._slot_for_load(name, dirname, ladder)
-        ver = self._load_version(name, dirname, slot.ladder, warm, manifest)
+        warmed; only then does the published pointer flip. `sparse` wires
+        the serve-time sparse read path (see _Slot.sparse)."""
+        slot, dirname, manifest = self._slot_for_load(
+            name, dirname, ladder, sparse)
+        ver = self._load_version(name, dirname, slot.ladder, warm,
+                                 manifest, slot.sparse)
         self._publish(name, slot, ver)
         return ver
 
@@ -246,7 +262,8 @@ class ModelRegistry:
         commit() is a pure pointer flip. Re-staging replaces (and
         releases) a previously staged version.
 
-        The slot's published config (dirname, ladder) is NOT touched
+        The slot's published config (dirname, ladder, sparse wiring) is
+        NOT touched
         until commit(): a dir watcher ticking between prepare and commit
         keeps fingerprinting the PUBLISHED dir. `name` must already be
         loaded. A generative dir's NEW decode signature re-derives the
@@ -258,7 +275,8 @@ class ModelRegistry:
         sig = manifest.get("decode")
         ladder = ladder_from_signature(sig) if sig is not None \
             else slot.ladder
-        ver = self._load_version(name, dirname, ladder, warm, manifest)
+        ver = self._load_version(name, dirname, ladder, warm, manifest,
+                                 slot.sparse)
         with self._lock:
             prev, slot.staged = slot.staged, ver
         if prev is not None:
@@ -298,6 +316,8 @@ class ModelRegistry:
         ver._fully_retired.set()
         if ver.decode is not None:
             ver.decode.kvcache.close()
+        if ver.sparse_plan is not None:
+            ver.sparse_plan.close()
 
     def staged(self, name: str) -> Optional[ModelVersion]:
         with self._lock:
@@ -305,24 +325,36 @@ class ModelRegistry:
             return slot.staged if slot is not None else None
 
     def _load_version(self, name, dirname, ladder, warm,
-                      manifest=None) -> ModelVersion:
+                      manifest=None, sparse=None) -> ModelVersion:
         t0 = time.perf_counter()
         manifest = manifest if manifest is not None \
             else read_model_manifest(dirname)
         sig = manifest.get("decode")
-        if manifest.get("sparse") is not None:
+        sparse_meta = manifest.get("sparse")
+        if sparse_meta is not None and sig is not None:
+            raise ModelUnavailableError(
+                f"model dir {dirname}: generative + distributed-sparse "
+                f"is not a supported combination")
+        if sparse_meta is not None and sparse is None:
             raise ModelUnavailableError(
                 f"model dir {dirname} holds its lookup tables "
-                f"{sorted(manifest['sparse'].get('tables', {}))} in "
-                f"pserver shards (manifest `sparse` key): the serve-time "
-                f"sparse read path (fleet/) is not ported")
+                f"{sorted(sparse_meta.get('tables', {}))} in pserver "
+                f"shards (manifest `sparse` key) — pass "
+                f"sparse=fleet.SparseServeConfig(endpoints=...) to "
+                f"add_model/load so the replica can prefetch rows")
         fp = _fingerprint(dirname)
         scope = Scope()
         # verify=True: sha256 the whole dir against its MANIFEST before
         # deserializing — a bit-rotted dir raises ModelIntegrityError
         # here and the previously published version keeps serving
         program, feed_names, fetch_vars = _io.load_inference_model(
-            dirname, self._exe, scope=scope, verify=True)
+            dirname, self._exe, scope=scope, verify=True,
+            # skip exactly what the saver excluded (the manifest records
+            # it: tables + their table-sized optimizer slots); sparse
+            # manifests without the list fall back to the tables
+            skip_vars=(set(sparse_meta.get("skip_vars")
+                           or sparse_meta["tables"])
+                       if sparse_meta else None))
         spec = feed_spec(program, feed_names)
         if sig is not None:
             self._materialize_cache(scope, sig)
@@ -337,6 +369,10 @@ class ModelRegistry:
             ver.manifest_sha = _io.file_sha256(manifest_path)
         if sig is not None:
             ver.decode = self._load_decode(ver, sig)
+        if sparse_meta is not None:
+            # the plan (and its row cache) belongs to THIS version: a hot
+            # swap retires the plan with the version
+            ver.sparse_plan = sparse.build(sparse_meta, ver)
         if warm:
             self._warm(ver)
             if ver.decode is not None:
@@ -414,6 +450,10 @@ class ModelRegistry:
         tracker first, so steady-state traffic on warmed shapes records
         no event — with the `observe` flag on or off while warming."""
         warm_feeds = warm_feed_shapes(ver.spec, ver.ladder)
+        if ver.sparse_plan is not None:
+            # the steady-state feed set includes the fed sub-tables: warm
+            # with the SAME feed set (zero tables, no RPC)
+            warm_feeds = [ver.sparse_plan.warm_feeds(f) for f in warm_feeds]
         obs = _steplog.observatory()
         for i, feeds in enumerate(warm_feeds):
             if i > 0:
@@ -481,6 +521,10 @@ class ModelRegistry:
         ver._fully_retired.set()
         if ver.decode is not None:
             ver.decode.kvcache.close()
+        if ver.sparse_plan is not None:
+            # drop the retired version's row cache (and its gauges): the
+            # swap IS the invalidation — the new version re-pulls rows
+            ver.sparse_plan.close()
 
     def release(self, ver: ModelVersion):
         with self._lock:

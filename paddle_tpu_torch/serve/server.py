@@ -21,9 +21,10 @@ Without a place the server runs on `CUDAPlace(0)`, which raises when no
 card is visible; pass `CPUPlace()` to serve on the host.
 `ServeConfig(pulse_port=0)` starts the process's health plane
 (``observe/pulse``; the `observe` flag must be on) with this server's
-queue and warm-version check on `/readyz`. Not ported: the distributed
-sparse read path (`sparse=`, ``fleet/``) and disaggregated prefill /
-decode (``torrent/``).
+queue and warm-version check on `/readyz`. `add_model(sparse=)` wires
+the serve-time distributed sparse read path (``fleet/sparse.py``);
+`submit_prefill` / `submit_prefilled` are the two halves of a
+disaggregated generation (``torrent/``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,11 @@ class ServeConfig:
     # slot-admission policy: "continuous" (finished sequences vacate
     # mid-batch, default) or "drain" (classic drain-and-refill)
     decode_admission: str = "continuous"
+    # rehearsal knobs: model the compute-bound prefill / memory-bound
+    # decode cost split as engine-thread sleeps — 0.0 disables (see
+    # DecodeEngine); 0 in any real deployment
+    simulate_prefill_us_per_token: float = 0.0
+    simulate_decode_step_us: float = 0.0
     # expose this process's health plane and this server's
     # queue-saturation readiness check on it (0 = ephemeral port;
     # requires the observe flag — start_pulse refuses otherwise)
@@ -135,14 +141,18 @@ class InferenceServer:
     def add_model(self, name: str, dirname: str,
                   ladder: Optional[BucketLadder] = None,
                   batch_timeout_ms: Optional[float] = None,
-                  max_queue: Optional[int] = None, warm: bool = True):
+                  max_queue: Optional[int] = None, warm: bool = True,
+                  sparse=None):
         """Load, verify, warm and publish a model, then start its
         executor thread. Calling again with the same name hot-swaps (and
         applies any explicitly passed batcher settings to the live
         batcher). A generative dir (decode signature in its MANIFEST)
         gets a DecodeEngine — generate/submit_stream — instead of a
-        one-shot MicroBatcher."""
-        ver = self.registry.load(name, dirname, ladder=ladder, warm=warm)
+        one-shot MicroBatcher. `sparse` (fleet.SparseServeConfig) wires
+        the serve-time distributed embedding read path for dirs whose
+        manifest declares pserver-resident lookup tables."""
+        ver = self.registry.load(name, dirname, ladder=ladder, warm=warm,
+                                 sparse=sparse)
         # a re-register may change the model's KIND (one-shot <->
         # generative): the stale request path must go, or infer() would
         # keep routing one-shot feeds at a prefill program (and
@@ -157,7 +167,11 @@ class InferenceServer:
                     self.registry, name,
                     max_queue=(max_queue if max_queue is not None
                                else self.config.max_queue),
-                    admission=self.config.decode_admission)
+                    admission=self.config.decode_admission,
+                    simulate_prefill_us_per_token=(
+                        self.config.simulate_prefill_us_per_token),
+                    simulate_decode_step_us=(
+                        self.config.simulate_decode_step_us))
             return ver
         if name not in self._batchers:
             self._batchers[name] = MicroBatcher(
@@ -277,6 +291,31 @@ class InferenceServer:
         return self._engine(name).submit(
             prompt, max_new_tokens=max_new_tokens, deadline_ms=deadline_ms,
             stream=True)
+
+    # -- disaggregated halves ----------------------------------------------
+
+    def submit_prefill(self, name: str, prompt,
+                       deadline_ms: Optional[float] = None) -> Future:
+        """Prefill half: run the prompt's prefill step only. The Future
+        resolves to a GenerationResult whose `kv` carries the extracted
+        KV payload (host numpy) and whose single token seeds the decode
+        half."""
+        if deadline_ms is None:
+            deadline_ms = self.config.default_deadline_ms
+        return self._engine(name).submit(
+            prompt, deadline_ms=deadline_ms, prefill_only=True)
+
+    def submit_prefilled(self, name: str, prompt, first_token: int,
+                         kv: dict, max_new_tokens: int = 16,
+                         deadline_ms: Optional[float] = None) -> Future:
+        """Decode half: inject a KV payload prefilled elsewhere and run
+        the rest of the generation here. Returns the Future of the full
+        GenerationResult (its tokens start with `first_token`)."""
+        if deadline_ms is None:
+            deadline_ms = self.config.default_deadline_ms
+        return self._engine(name).submit_prefilled(
+            prompt, first_token, kv, max_new_tokens=max_new_tokens,
+            deadline_ms=deadline_ms)
 
     # -- introspection ---------------------------------------------------
 

@@ -910,13 +910,14 @@ def test_graphviz_and_net_drawer_write_the_reference_dot(tmp_path):
 # paddle_tpu.layers names whose ops or modules the port has not yet: none
 LAYERS_WAITING = set()
 # top-level names waiting: item 8's host planes still to port (pserver
-# and haven came with item 8.4, master and quorum with item 8.5), and the
-# TPU names, which the port does not take. A submodule the JAX package does not import itself
+# and haven came with item 8.4, master and quorum with item 8.5, fleet
+# and torrent with items 8.6 and 8.7), and the TPU names, which the port
+# does not take. A submodule the JAX package does not import itself
 # (`capi_runtime`) is a name only once something imports it, so
 # the lists say what may be missing, and the test that nothing else is
 # and that no listed name has been ported
 TOP_WAITING = {
-    "fleet", "torrent", "capi_runtime",
+    "capi_runtime",
     "TPUPlace", "tpu_device_count", "is_compiled_with_tpu",
 }
 # paddle_tpu.transpiler names waiting: none (DistributeTranspiler and its

@@ -36,7 +36,10 @@ kernels counted, and the pulled parameters landing in the scope's card
 tensors; and the coordination plane: train-base-sized steps on the card
 fed by a quorum-fenced master pair whose primary is killed, bit-equal to
 their replay with the flash kernels counted, and a quorum-armed haven
-pair under a `SyncPSTrainer` on the card.
+pair under a `SyncPSTrainer` on the card; and the serving fleet: KV rows
+extracted on one card server and injected into a second one bit for bit,
+the first decode step after an inject equal to the step after a local
+prefill, and a replica's replies free of card tensors.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -2832,3 +2835,186 @@ def test_quorum_armed_haven_pair_under_sync_ps_trainer_on_card(dev,
     assert {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv",
                                      "flash_delta")} == {
         "flash_fwd": 30, "flash_dq": 15, "flash_dkv": 15, "flash_delta": 15}
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet: KV extraction and injection on the card
+# ---------------------------------------------------------------------------
+
+def _small_lm(tmp_path, kv_dtype):
+    from paddle_tpu_torch.models import tiny_lm
+    mdir = str(tmp_path / f"lm_{kv_dtype}")
+    sig = tiny_lm.save_tiny_lm(mdir, vocab=64, d_model=64, n_heads=2,
+                               n_layers=2, max_slots=4, block_size=4,
+                               max_context=96, prefill_seq_rungs=(32, 64),
+                               kv_dtype=kv_dtype)
+    return mdir, sig
+
+
+def _rows_at(scope, names, ids):
+    return {n: scope.find_var(n)[torch.as_tensor(ids,
+                                                 device="cuda")].cpu().numpy()
+            for n in names}
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_extract_then_inject_into_a_second_servers_cache_bit_for_bit(
+        dev, tmp_path, kv_dtype):
+    """`submit_prefill` on one card server gives host numpy rows (int8 as
+    int8, scales float32) equal to its cache at the slot's blocks;
+    `submit_prefilled` on a second card server writes them into its cache
+    at its own blocks, bit for bit, and the generation runs there with no
+    prefill step and the second server's tokens equal the first's."""
+    mdir, sig = _small_lm(tmp_path, kv_dtype)
+    names = list(sig["cache_vars"]) + list(
+        (sig.get("scale_vars") or {}).values())
+    prompt = np.random.RandomState(5).randint(0, 64, size=45).tolist()
+    src = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+    dst = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+    try:
+        src.add_model("m", mdir)
+        dst.add_model("m", mdir)
+        want = src.generate("m", prompt, max_new_tokens=8).tokens
+        seen = {}
+        eng = src._engine("m")
+        orig_extract = eng._extract_kv
+
+        def extract(dec, s, slot, n):
+            ids = dec.kvcache.slot_blocks(slot)
+            seen["src"] = (ids, _rows_at(eng._ver.scope, names, ids))
+            return orig_extract(dec, s, slot, n)
+        eng._extract_kv = extract
+        r = src.submit_prefill("m", prompt).result(timeout=120)
+        kv = r.kv
+        for rows in list(kv["cache"].values()) + list(
+                (kv.get("scales") or {}).values()):
+            assert isinstance(rows, np.ndarray)
+        assert {a.dtype for a in kv["cache"].values()} == {
+            np.dtype(np.int8 if kv_dtype == "int8" else np.float32)}
+        ids, src_rows = seen["src"]
+        for c in sig["cache_vars"]:
+            assert kv["cache"][c].tobytes() == src_rows[c].tobytes()
+        for c, s in (sig.get("scale_vars") or {}).items():
+            assert kv["scales"][c].dtype == np.float32
+            assert kv["scales"][c].tobytes() == src_rows[s].tobytes()
+        deng = dst._engine("m")
+        orig_inject = deng._inject_premat
+
+        def inject(dec, s, slot, state):
+            orig_inject(dec, s, slot, state)
+            dids = dec.kvcache.slot_blocks(slot)
+            seen["dst"] = (dids, _rows_at(deng._ver.scope, names, dids))
+        deng._inject_premat = inject
+        prefills = {}
+        ver = dst.registry.get("m")
+        orig_run = ver.prepared.run
+
+        def counted(feed, *a, **k):
+            prefills["n"] = prefills.get("n", 0) + 1
+            return orig_run(feed, *a, **k)
+        ver.prepared.run = counted
+        got = dst.submit_prefilled("m", prompt, r.tokens[0], kv,
+                                   max_new_tokens=8).result(timeout=120)
+        dids, dst_rows = seen["dst"]
+        assert len(dids) == len(ids) == kv["n_blocks"]
+        for n in names:
+            assert dst_rows[n].tobytes() == src_rows[n].tobytes(), n
+        assert got.tokens == want and not prefills
+    finally:
+        src.close()
+        dst.close()
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_decode_step_after_inject_equals_it_after_a_local_prefill(
+        dev, tmp_path, kv_dtype):
+    """The first decode step of an injected sequence gives exactly the
+    logits the same step gives after a local prefill of the same prompt
+    (the injected rows are the local prefill's rows)."""
+    mdir, _ = _small_lm(tmp_path, kv_dtype)
+    prompt = np.random.RandomState(6).randint(0, 64, size=37).tolist()
+    servers = {k: ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+               for k in ("local", "prefill", "inject")}
+    logits = {}
+    try:
+        for k, srv in servers.items():
+            srv.add_model("m", mdir)
+            dec = srv.registry.get("m").decode
+            run = dec.prepared.run
+
+            def first(feed, *a, _k=k, _run=run, **kw):
+                out = _run(feed, *a, **kw)
+                slot = int(np.flatnonzero(feed["seq_lens"])[0])
+                logits.setdefault(_k, np.array(out[0][slot]))
+                return out
+            dec.prepared.run = first
+        want = servers["local"].generate("m", prompt, max_new_tokens=2)
+        r = servers["prefill"].submit_prefill("m", prompt).result(timeout=120)
+        got = servers["inject"].submit_prefilled(
+            "m", prompt, r.tokens[0], r.kv, max_new_tokens=2).result(
+                timeout=120)
+    finally:
+        for srv in servers.values():
+            srv.close()
+    assert got.tokens == want.tokens
+    assert "prefill" not in logits
+    assert logits["inject"].tobytes() == logits["local"].tobytes()
+
+
+def _no_tensor(obj, path="reply"):
+    """Every leaf of a reply is host data: no torch.Tensor anywhere."""
+    assert not isinstance(obj, torch.Tensor), path
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _no_tensor(v, f"{path}[{k!r}]")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _no_tensor(v, f"{path}[{i}]")
+
+
+def test_replica_replies_hold_no_card_tensor(dev, tmp_path):
+    """A ReplicaServer over a card InferenceServer: its infer, generate
+    and prefill-half replies, and the KV records it would stream, are host
+    data only, and they cross the wire's restricted unpickler."""
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.torrent import build_records
+    mlp = str(tmp_path / "mlp")
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data(name="x", shape=[16], dtype="float32")
+        pred = ptt.layers.fc(input=ptt.layers.fc(input=x, size=32,
+                                                 act="relu"),
+                             size=8, act="softmax")
+    exe = ptt.Executor(ptt.CPUPlace())
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    ptt.io.save_inference_model(mlp, ["x"], [pred], exe, main_program=main,
+                                scope=scope)
+    lm, _ = _small_lm(tmp_path, "int8")
+    srv = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+    srv.add_model("mlp", mlp)
+    srv.add_model("lm", lm)
+    rep = fleet.ReplicaServer(srv).start()
+    pool = fleet.ConnPool(rep.endpoint)
+    try:
+        feed = {"x": np.random.RandomState(1).randn(3, 16).astype(
+            np.float32)}
+        reply = rep._h_infer("mlp", feed)
+        _no_tensor(reply)
+        wire = fleet.wire.call(pool, "infer", {"model": "mlp", "feed": feed})
+        _no_tensor(wire)
+        assert isinstance(wire["outs"][0], np.ndarray)
+        np.testing.assert_array_equal(wire["outs"][0], reply[1]["outs"][0])
+        reply = rep._h_generate("lm", [1, 2, 3, 4, 5], max_new_tokens=4)
+        _no_tensor(reply)
+        wire = fleet.wire.call(pool, "generate",
+                               {"model": "lm", "prompt": [1, 2, 3, 4, 5],
+                                "max_new_tokens": 4})
+        assert wire["tokens"] == reply[1]["tokens"]
+        r = srv.submit_prefill("lm", [1, 2, 3, 4, 5]).result(timeout=120)
+        _no_tensor(r.kv)
+        _no_tensor(build_records("lm", "s", "n", [1, 2, 3, 4, 5],
+                                 r.tokens[0], 4, r.kv))
+    finally:
+        pool.close()
+        rep.close()

@@ -11,9 +11,9 @@ zero failed pushes across a planned handover, checkpoint x replication
 consistency, the ps_replication_* metrics), and the cross-package check:
 the port's replicated pair is bit-identical to its unreplicated baseline
 AND to the JAX package's pair fed the same records (dense, sparse,
-optimizer slots, watermarks). One case waits:
-``test_fleet_sparse_row_pulls_survive_primary_kill`` for fluid-fleet,
-ROADMAP Queue 1 item 8.6 (`fleet/`).
+optimizer slots, watermarks). Its fleet case,
+``test_fleet_sparse_row_pulls_survive_primary_kill``, runs in
+``tests/test_torch_fleet.py`` beside the rest of ``fleet/``.
 
 Every wait is on a condition with a generous timeout (`_wait`), never a
 bare sleep race against a lease; servers bind ``127.0.0.1:0``.

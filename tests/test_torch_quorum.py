@@ -4,10 +4,11 @@
 
 Every case of ``tests/test_quorum.py`` runs here against the port's
 copies with the same assertions, but
-``test_fleet_router_quorum_backed_membership``, which waits for the
-port's ``fleet/`` (ROADMAP Queue 1 item 8.6). Then the interop: the
-port's client against the JAX package's arbiters and the reverse give
-the same replies, and both packages' stores persist the same bytes.
+``test_fleet_router_quorum_backed_membership``, which runs in
+``tests/test_torch_fleet.py`` beside the rest of ``fleet/``. Then the
+interop: the port's client against the JAX package's arbiters and the
+reverse give the same replies, and both packages' stores persist the
+same bytes.
 
 The cases pin the arbiter protocol (docs/FAULT_TOLERANCE.md §Quorum arbiter):
 strict-majority grants at a persisted monotone fencing epoch, arbiter

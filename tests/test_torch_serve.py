@@ -540,6 +540,30 @@ with tempfile.TemporaryDirectory() as qdir:
     m.stop()
     for a in arbiters:
         a.stop()
+for name in ("fleet", "fleet.replica", "fleet.router", "fleet.sparse",
+             "fleet.wire", "torrent", "torrent.prefill", "torrent.stream"):
+    assert "paddle_tpu_torch." + name in sys.modules, name
+with tempfile.TemporaryDirectory() as t:
+    d8 = os.path.join(t, "lm8")
+    tiny_lm.save_tiny_lm(d8, prefill_seq_rungs=(8,), max_context=16,
+                         kv_dtype="int8")
+    router = ptt.fleet.FleetRouter(ptt.fleet.RouterConfig(
+        lease_s=1.0, poll_interval_s=0.1)).start()
+    reps = []
+    for rid, role in (("p0", "prefill"), ("d0", "decode")):
+        srv = ptt.serve.InferenceServer(ptt.CPUPlace())
+        srv.add_model("m", d8)
+        reps.append(ptt.fleet.ReplicaServer(
+            srv, replica_id=rid, router_endpoint=router.control_endpoint,
+            lease_s=1.0, role=role).start())
+    import time
+    while len(router.ready_members("m")) < 2:
+        time.sleep(0.05)
+    res = router.generate_torrent("m", [1, 2, 3], max_new_tokens=3)
+    assert len(res.tokens) == 3 and res.outs["prefill"]["bytes"] > 0
+    for rep in reps:
+        rep.close()
+    router.close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)
@@ -585,14 +609,19 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
         "torch_wire_bench.py", "torch_quorum_node.py",
         "torch_master_node.py", "torch_ps_worker.py",
         "torch_haven_bench.py", "torch_elastic_bench.py",
-        "torch_quorum_bench.py", "torch_chaos_drill.py")]
+        "torch_quorum_bench.py", "torch_chaos_drill.py",
+        "torch_fleet_replica.py", "torch_fleet_router.py",
+        "torch_torrent_bench.py", "torch_serve_loadgen.py")]
     assert len(files) > 20
     for part in ("dataset/mnist.py", "dataset/common.py",
                  "ops/loss_extra.py", "layers/loss_layers.py",
                  "wire/graph.py", "transpiler/distribute_transpiler.py",
                  "pserver/trainer.py", "haven/replication.py",
                  "ark/chaos.py", "quorum/node.py", "quorum/client.py",
-                 "master/service.py", "master/client.py"):
+                 "master/service.py", "master/client.py",
+                 "fleet/replica.py", "fleet/router.py", "fleet/sparse.py",
+                 "fleet/wire.py", "torrent/prefill.py",
+                 "torrent/stream.py"):
         assert os.path.join(PORT, part) in files, part
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}

@@ -36,8 +36,8 @@ Each tool runs in a subprocess beside its counterpart on the same input:
   failover verdicts (their wall-clock overhead gates, and so their exit
   codes, are each host's own and not held);
   ``torch_chaos_drill.py --cpu`` passes ``master_kill``,
-  ``master_partition`` and ``trainer_churn`` at seed 7, and
-  ``replica_kill`` / ``decode_kill`` exit 2 naming items 8.6 / 8.7; every
+  ``master_partition`` and ``trainer_churn`` at seed 7 (``replica_kill``
+  and ``decode_kill`` run in ``tests/test_torch_fleet_tools.py``); every
   scenario at three seeds is ``slow``.
 
 Everything else is held exactly: the tools' JSON documents and exit
@@ -228,11 +228,6 @@ def test_tools_import_no_jax_or_paddle_tpu(tmp_path):
 # the observe CLIs (item 8.2b)
 # ---------------------------------------------------------------------------
 
-# metric families of planes the port has not ported yet (ROADMAP Queue 1
-# items 8.6 and 8.7): the JAX package registers some of them at import
-UNPORTED_PLANES = ("torrent_", "fleet_")
-
-
 @pytest.mark.parametrize("two_shapes", [False, True])
 def test_telemetry_dump_asserts_as_telemetry_dumps(two_shapes):
     args = ["--assert-no-recompiles"] + (["--two-shapes"] if two_shapes
@@ -259,9 +254,8 @@ def test_telemetry_dump_prom_families_are_telemetry_dumps():
     trc, tout, terr = _run("torch_telemetry_dump.py", "--cpu", "--format",
                            "prom")
     assert jrc == trc == 0, (jerr, terr)
-    ported = {f for f in families(jout) if not f.startswith(UNPORTED_PLANES)}
-    assert families(tout) == ported
-    assert "executor_recompiles_total" in ported
+    assert families(tout) == families(jout)
+    assert "executor_recompiles_total" in families(tout)
 
 
 def test_telemetry_dump_table_and_json_render_the_status_document(tmp_path):
@@ -350,9 +344,9 @@ def test_metrics_lint_passes_the_port_against_the_catalog():
     for name in ("executor_recompiles_total", "pserver_wire_bytes_raw",
                  "pserver_wire_bytes_encoded"):
         assert name in names
-    # the catalog rows of planes not yet ported are stale, so --strict
-    # fails, as the JAX lint would on a tree without those planes
-    assert _run("torch_metrics_lint.py", "--strict")[0] == 1
+    # every plane is ported: no catalog row is stale, so --strict passes
+    rc, out, _ = _run("torch_metrics_lint.py", "--strict")
+    assert rc == 0 and out.strip().endswith("0 missing, 0 stale"), out
 
 
 def test_metrics_lint_flags_a_name_missing_from_the_catalog(tmp_path):
@@ -584,14 +578,6 @@ def test_chaos_drill_master_scenario_passes_on_the_cpu(tmp_path, scenario):
     if rc != 0 or "DRILL PASSED" not in out:
         pytest.fail(f"{scenario}: exit {rc}\n{out}\n{err[-4000:]}",
                     pytrace=False)
-
-
-def test_chaos_drill_fleet_scenarios_name_their_items():
-    """The fleet and torrent drills exit 2 naming their ROADMAP items."""
-    runs = _together(("torch_chaos_drill.py", ["--scenario", "replica_kill"]),
-                     ("torch_chaos_drill.py", ["--scenario", "decode_kill"]))
-    for (rc, out, _), items in zip(runs, ("item 8.6", "items 8.6 and 8.7")):
-        assert rc == 2 and "DRILL NOT PORTED" in out and items in out, out
 
 
 DRILL_SCENARIOS = ("flaky_rpc", "quant_flaky_rpc", "pserver_kill",

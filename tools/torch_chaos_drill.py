@@ -8,8 +8,8 @@ succeeds (tools/chaos_drill.py's scenarios and checks, on the port).
 
 The trainers' steps run through the port's `Executor` on `CUDAPlace(0)`,
 or on the host with `--cpu`; servers, masters and arbiters are host
-code. `replica_kill` and `decode_kill` need the port's `fleet/` and
-`torrent/` (ROADMAP Queue 1 items 8.6 and 8.7): they exit 2 naming them.
+code; `replica_kill` and `decode_kill` spawn serving replica processes
+(tools/torch_fleet_replica.py), on the card unless `--cpu`.
 
 Scenarios (all seed-deterministic through ark.chaos):
 
@@ -114,8 +114,10 @@ spans. This is the fluid-xray "one coherent picture of a chaos drill"
 artifact — open the merged file in chrome://tracing or perfetto.
 
 `tests/test_torch_tools.py` runs `master_kill`, `master_partition` and
-`trainer_churn` once each with `--cpu`; its three-seed sweep of every
-scenario is marked `slow` (`pytest -m slow tests/test_torch_tools.py`).
+`trainer_churn` once each with `--cpu`, and
+`tests/test_torch_fleet_tools.py` runs `replica_kill` and `decode_kill`;
+their three-seed sweeps are marked `slow` (`pytest -m slow
+tests/test_torch_tools.py tests/test_torch_fleet_tools.py`).
 """
 
 import argparse
@@ -146,10 +148,6 @@ def _place():
 
 class DrillFailure(Exception):
     pass
-
-
-class NotPorted(Exception):
-    """A scenario whose modules the port has not yet (exit code 2)."""
 
 
 def _check(ok, what):
@@ -625,15 +623,305 @@ def drill_health_alerts(seed, workdir, trace_out=None):
 
 
 def drill_replica_kill(seed, workdir, trace_out=None):
-    raise NotPorted("replica_kill drives fluid-fleet's serving replicas, "
-                    "and the port's fleet/ comes with ROADMAP Queue 1 "
-                    "item 8.6")
+    """fluid-fleet: SIGKILL one of three serving replicas mid-traffic.
+
+    PASS requires: zero FAILED requests (the kill's in-flight and
+    subsequent dispatches fail over to live replicas — availability is
+    preserved, p99 degrades and is recorded), router failovers metered,
+    the dead replica's membership lease expires (it stops renewing),
+    and the survivors keep serving with zero steady-state recompiles.
+    Emits a JSON line (fleet_p99_pre_kill_us / fleet_p99_post_kill_us /
+    fleet_kill_failed)."""
+    import json
+    import random
+    import signal
+    import threading
+
+    from paddle_tpu_torch import fleet
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_fleet_router import spawn_replicas
+    from torch_serve_loadgen import build_and_save
+
+    fluid.set_flag("observe", True)
+    obs_metrics.default_registry().reset()
+    mdir = os.path.join(workdir, "model")
+    build_and_save(fluid, np, mdir)
+    # poll_interval 0.5: wide enough that the victim is still marked
+    # ready when the post-kill burst below lands (the failover path,
+    # not the poller, must be what saves those requests)
+    router = fleet.FleetRouter(fleet.RouterConfig(
+        lease_s=1.0, poll_interval_s=0.5)).start()
+    workers = []
+    try:
+        workers = spawn_replicas(3, mdir, router.control_endpoint,
+                                 device_ms=2.0, lease_s=1.0,
+                                 cpu=_ON_CPU[0])
+        deadline = time.time() + 60
+        while len(router.ready_members("m")) < 3:
+            if time.time() > deadline:
+                raise DrillFailure("fleet never became ready")
+            time.sleep(0.1)
+        print("  3 replica processes ready behind the router")
+
+        DURATION, QPS, THREADS = 6.0, 90.0, 6
+        stop = threading.Event()
+        lock = threading.Lock()
+        failures, rejected, lats = [], [0], []   # (t, us)
+        kill_at = [None]
+
+        def client(tid):
+            r = random.Random(seed * 100 + tid)
+            lam = QPS / THREADS
+            nxt = time.perf_counter()
+            while not stop.is_set():
+                nxt += r.expovariate(lam)
+                d = nxt - time.perf_counter()
+                if d > 0:
+                    time.sleep(d)
+                t0 = time.perf_counter()
+                feed = {"x": np.random.randn(
+                    r.randint(1, 4), 16).astype(np.float32)}
+                try:
+                    router.infer("m", feed)
+                except Exception as e:      # noqa: BLE001
+                    with lock:
+                        if getattr(e, "retriable", False):
+                            rejected[0] += 1
+                        else:
+                            failures.append(repr(e))
+                    continue
+                with lock:
+                    lats.append((time.perf_counter(),
+                                 (time.perf_counter() - t0) * 1e6))
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(DURATION / 2)
+        victim = workers[1]
+        kill_at[0] = time.perf_counter()
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(timeout=10)
+        print("  SIGKILL'd replica r1 mid-traffic")
+        # deterministic failover exposure: a tight burst INSIDE the poll
+        # window, while the router still believes r1 is ready — the
+        # requests routed at the corpse must be saved by per-request
+        # failover, not by the poller having already removed it
+        for _ in range(30):
+            t_b = time.perf_counter()
+            try:
+                router.infer("m", {"x": np.random.randn(
+                    2, 16).astype(np.float32)})
+            except Exception as e:      # noqa: BLE001
+                with lock:
+                    if getattr(e, "retriable", False):
+                        rejected[0] += 1
+                    else:
+                        failures.append(repr(e))
+                continue
+            with lock:
+                lats.append((time.perf_counter(),
+                             (time.perf_counter() - t_b) * 1e6))
+        time.sleep(DURATION / 2)
+        stop.set()
+        for t in threads:
+            t.join(timeout=20)
+
+        def p99(window):
+            vals = sorted(us for t, us in window)
+            return vals[min(len(vals) - 1,
+                            int(0.99 * len(vals)))] if vals else 0.0
+
+        pre = [(t, us) for t, us in lats if t < kill_at[0]]
+        post = [(t, us) for t, us in lats if t >= kill_at[0]]
+        _check(not failures,
+               f"zero failed requests across the kill "
+               f"({len(lats)} served, first failure: "
+               f"{failures[0] if failures else None})")
+        _check(len(post) > 0, f"traffic kept flowing after the kill "
+                              f"({len(post)} post-kill responses)")
+        fo = obs_metrics.default_registry().get("fleet_failovers_total")
+        _check(fo is not None and fo.total() >= 1,
+               f"failovers metered ({fo.total() if fo else 0:.0f})")
+        time.sleep(2.5)   # > 2 lease periods
+        mem = router.members()
+        _check("r1" not in mem or not mem["r1"]["lease_live"],
+               "dead replica's membership lease expired")
+        recompiles = 0
+        for rid in ("r0", "r2"):
+            st = fleet.wire.call(router._members[rid].pool,
+                                 "fleet_stats", {}, deadline_s=10.0)
+            recompiles += int(st.get("unexpected_recompiles", 0))
+        _check(recompiles == 0,
+               "zero steady-state recompiles on the survivors")
+        out = {
+            "fleet_kill_failed": len(failures),
+            "fleet_kill_rejected": rejected[0],
+            "fleet_p99_pre_kill_us": round(p99(pre), 1),
+            "fleet_p99_post_kill_us": round(p99(post), 1),
+            "fleet_kill_requests_ok": len(lats),
+            "fleet_kill_failovers": fo.total() if fo else 0,
+        }
+        print(json.dumps(out))
+        print(f"  p99 {out['fleet_p99_pre_kill_us']:.0f} us pre-kill -> "
+              f"{out['fleet_p99_post_kill_us']:.0f} us post-kill "
+              f"(degraded, never failed)")
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.terminate()
+        for w in workers:
+            try:
+                w.wait(timeout=10)
+            except Exception:
+                w.kill()
+        router.close()
+        fluid.set_flag("observe", False)
 
 
 def drill_decode_kill(seed, workdir, trace_out=None):
-    raise NotPorted("decode_kill drives a fluid-torrent disaggregated "
-                    "fleet, and the port's fleet/ and torrent/ come with "
-                    "ROADMAP Queue 1 items 8.6 and 8.7")
+    """fluid-torrent: SIGKILL a decode replica of a disaggregated fleet
+    mid-generation (see module docstring)."""
+    import json
+    import random
+    import signal
+    import threading
+
+    from paddle_tpu_torch import fleet, serve
+    from paddle_tpu_torch.models import tiny_lm
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_fleet_router import spawn_replicas
+
+    fluid.set_flag("observe", True)
+    obs_metrics.default_registry().reset()
+    mdir = os.path.join(workdir, "model")
+    # tools/chaos_drill.py's tiny LM at head dim 32 (d_model 64 over 2
+    # heads) where it has 8: the card's flash kernel takes head dims 32,
+    # 64 and 128
+    tiny_lm.save_tiny_lm(mdir, kv_dtype="int8", d_model=64, n_heads=2,
+                         max_slots=4, block_size=4, max_context=32,
+                         prefill_rows=(1, 2), prefill_seq_rungs=(8, 16))
+
+    rng = random.Random(seed)
+    prompts = [[rng.randrange(32) for _ in range(rng.randint(1, 7))]
+               for _ in range(10)]
+    MAX_NEW = 10
+
+    # solo no-fault reference: the token sequences every disaggregated
+    # generation must reproduce EXACTLY, kill or no kill
+    solo = serve.InferenceServer(_place(), serve.ServeConfig())
+    solo.add_model("m", mdir)
+    ref = {i: solo.generate("m", p, max_new_tokens=MAX_NEW).tokens
+           for i, p in enumerate(prompts)}
+    solo.close()
+    print(f"  solo reference computed ({len(ref)} prompts)")
+
+    router = fleet.FleetRouter(fleet.RouterConfig(
+        lease_s=1.0, poll_interval_s=0.5)).start()
+    workers = []
+    try:
+        # 1 prefill + 2 decode; the decode pool simulates memory-bound
+        # device time per step so generations are in flight long enough
+        # for the SIGKILL to land mid-decode
+        workers += spawn_replicas(
+            1, mdir, router.control_endpoint, rid_prefix="p",
+            lease_s=1.0, extra_args=("--role", "prefill"),
+            cpu=_ON_CPU[0])
+        workers += spawn_replicas(
+            2, mdir, router.control_endpoint, rid_prefix="d",
+            lease_s=1.0, extra_args=("--role", "decode",
+                                     "--sim-decode-step-us", "20000"),
+            cpu=_ON_CPU[0])
+        deadline = time.time() + 120
+        while len(router.ready_members("m")) < 3:
+            if time.time() > deadline:
+                raise DrillFailure("fleet never became ready")
+            time.sleep(0.1)
+        print("  1 prefill + 2 decode replica processes ready")
+
+        DURATION, THREADS = 8.0, 4
+        stop = threading.Event()
+        lock = threading.Lock()
+        results, failures = [], []   # (prompt_idx, tokens), repr(e)
+        kill_at = [None]
+
+        def client(tid):
+            r = random.Random(seed * 100 + tid)
+            while not stop.is_set():
+                i = r.randrange(len(prompts))
+                try:
+                    res = router.generate_torrent(
+                        "m", prompts[i], max_new_tokens=MAX_NEW)
+                except Exception as e:      # noqa: BLE001
+                    with lock:
+                        failures.append(repr(e))
+                    continue
+                with lock:
+                    results.append((i, res.tokens,
+                                    kill_at[0] is not None))
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(THREADS)]
+        for t in threads:
+            t.start()
+        time.sleep(DURATION / 2)
+        victim = workers[1]          # first decode replica (d0)
+        kill_at[0] = time.perf_counter()
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(timeout=10)
+        print("  SIGKILL'd decode replica d0 mid-generation")
+        time.sleep(DURATION / 2)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+
+        post = [x for x in results if x[2]]
+        _check(not failures,
+               f"every generation completed across the kill "
+               f"({len(results)} ok, first failure: "
+               f"{failures[0] if failures else None})")
+        _check(len(post) > 0,
+               f"traffic kept flowing after the kill ({len(post)} "
+               f"post-kill generations)")
+        bad = [(i, toks) for i, toks, _ in results if toks != ref[i]]
+        _check(not bad,
+               f"zero lost completed tokens: all {len(results)} "
+               f"generations token-identical to the solo reference "
+               f"(first divergence: {bad[0] if bad else None})")
+        reg = obs_metrics.default_registry()
+        fo = reg.get("torrent_failovers_total")
+        _check(fo is not None and fo.total() >= 1,
+               f"torrent failovers metered "
+               f"({fo.total() if fo else 0:.0f})")
+        pins = reg.get("fleet_affinity_sessions")
+        _check(pins is not None and pins.value() == 0.0,
+               "every session pin released")
+        time.sleep(2.5)   # > 2 lease periods
+        mem = router.members()
+        _check("d0" not in mem or not mem["d0"]["lease_live"],
+               "dead decode replica's membership lease expired")
+
+        out = {
+            "decode_kill_failed": len(failures),
+            "decode_kill_generations_ok": len(results),
+            "decode_kill_post_kill_ok": len(post),
+            "decode_kill_failovers": fo.total() if fo else 0,
+            "decode_kill_divergent": len(bad),
+        }
+        print(json.dumps(out))
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.terminate()
+        for w in workers:
+            try:
+                w.wait(timeout=10)
+            except Exception:
+                w.kill()
+        router.close()
+        fluid.set_flag("observe", False)
 
 
 def _haven_pair(lease_s=1.0, auto_promote=True):
@@ -1729,9 +2017,6 @@ def main(argv=None):
         else:
             SCENARIOS[args.scenario](args.seed, workdir,
                                      trace_out=args.trace_out)
-    except NotPorted as e:
-        print(f"DRILL NOT PORTED: {e}")
-        return 2
     except DrillFailure as e:
         print(f"DRILL FAILED: {e}")
         return 1
