@@ -449,6 +449,22 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    tokens a second, KV bytes a request, the stream's ms and each
    re-prefill after the kill printed, with the later tokens' share equal
    to phase 4's in the fp32 arm;
+7t. the C inference ABI (``capi/``, ``capi_runtime``): infer-base (7m's
+   saved float32 dir) through libpaddle_tpu_capi.so built from the
+   checkout, the place variable unset (CUDAPlace(0)): in this process by
+   ctypes, CAPI_BATCHES batches of CAPI_BATCH x seq from DATA_SEED
+   through `PD_PredictorRun`, the logits bit for bit those of
+   `capi_runtime.Predictor.run` and of the Executor's prepared run of the
+   loaded program, and 18 flash forward launches a batch (one a fused
+   attention) and no other kernel; then a pure-C client compiled with
+   gcc against the port's header, in a process of its own: it starts its
+   interpreter through the ABI, creates the predictor on its main thread
+   and runs the first batch from a second pthread, and its first row of
+   logits equals the in-process run's bit for bit (where this machine's
+   Python has no shared libpython to embed, that fact is printed and the
+   client is not run); the ms a batch through the ABI against the
+   prepared run, the library's build and the client's time to its first
+   result printed;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -613,7 +629,8 @@ DELTA_TOL = 1e-5
 # flags. Each of its 18 attentions keeps [B, 8, 256, 256] scores, weights
 # and dropped weights, and under `pallas` its weight dropout (a minor dim
 # of 256) launches the dropout kernel in the forward and again in the grad
-UNFUSED_STEPS = 10
+# (5 steps: 10 until phase 7t came; the gates hold a step)
+UNFUSED_STEPS = 5
 # train-se_resnext50: SE-ResNeXt-50 32x4d as the JAX package builds it,
 # 224 x 224 NHWC, 1000 classes, float32 with TF32 off, at train-resnet50's
 # batch; trained by the PaddlePaddle/models image-classification recipe,
@@ -5109,13 +5126,11 @@ def _on_card(torch, scope, program):
     return out
 
 
-def run_infer_base_bf16(torch, ptt, native, tmp):
-    """infer-base-bf16 (INFER_BASE_*): returns the numbers and the two
-    prepared runs (for the traced batches)."""
-    import numpy as np
-    from paddle_tpu_torch.core.executor import to_numpy
+def save_infer_base(ptt, path):
+    """infer-base: Transformer-base at TRAIN_BASE's widths built `is_test`
+    with fused attention, initialized on the host from SEED and saved by
+    save_inference_model to `path` (target `logits`)."""
     from paddle_tpu_torch.models import transformer
-    t0 = time.perf_counter()
     main, startup = ptt.Program(), ptt.Program()
     startup.random_seed = SEED
     with ptt.program_guard(main, startup), ptt.unique_name.guard():
@@ -5124,11 +5139,21 @@ def run_infer_base_bf16(torch, ptt, native, tmp):
     host = ptt.Executor(ptt.CPUPlace())
     hscope = ptt.Scope()
     host.run(startup, scope=hscope)
-    path = os.path.join(tmp, "infer_base")
     ptt.io.save_inference_model(path, ["src_word", "trg_word"],
                                 [fetches["logits"]], host, main_program=main,
                                 scope=hscope)
-    del hscope
+
+
+def run_infer_base_bf16(torch, ptt, native, tmp):
+    """infer-base-bf16 (INFER_BASE_*) on the infer-base dir it saves under
+    `tmp` (phase 7t reads it too): returns the numbers and the two
+    prepared runs (for the traced batches)."""
+    import numpy as np
+    from paddle_tpu_torch.core.executor import to_numpy
+    t0 = time.perf_counter()
+    host = ptt.Executor(ptt.CPUPlace())
+    path = os.path.join(tmp, "infer_base")
+    save_infer_base(ptt, path)
     build_s = time.perf_counter() - t0
     rng = np.random.RandomState(DATA_SEED)
     feed = {n: rng.randint(0, TRAIN_BASE["trg_vocab_size"],
@@ -5489,8 +5514,9 @@ def run_train_base_memopt(torch, ptt, native):
 # PE_RTOL / PE_ATOL (the JAX package's parallel tests' tolerance); (e)
 # Trainer(parallel=True) against Trainer(parallel=False), PE_TRAINER_STEPS
 # steps, bit-equal. The kernels also run at a rank's offsets (bh0, base).
-# pe-base-1's steps: 5 (10 until phase 7s came; the gates hold a step)
-PE_STEPS, PE_RANK_STEPS, PE_TRAINER_STEPS = 5, 3, 3
+# pe-base-1's steps: 5 (10 until phase 7s came), a rank's: 2 (3 until
+# phase 7t came); the gates hold a step
+PE_STEPS, PE_RANK_STEPS, PE_TRAINER_STEPS = 5, 2, 3
 PE_RTOL, PE_ATOL = 2e-4, 2e-5
 PE_RANK_TIMEOUT = 300
 PE_CASES = (("pe-base-dp2", "dp", 0.1), ("pe-base-sp2", "sp", 0.0),
@@ -8157,6 +8183,261 @@ def run_serve_base_torrent(torch, ptt, native, q8, fp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7t: the C inference ABI (``capi/``, ``capi_runtime``)
+# ---------------------------------------------------------------------------
+# infer-base (7m's saved float32 dir) through libpaddle_tpu_capi.so, built
+# from the checkout's capi.cc: in this process by ctypes, CAPI_BATCHES
+# batches of CAPI_BATCH x seq from DATA_SEED, each through PD_PredictorRun,
+# capi_runtime.Predictor.run and the Executor's prepared run of the loaded
+# program, their logits bit for bit alike, and each ABI run launching one
+# flash forward a fused attention (18) and no other kernel of csrc/; then
+# CAPI_CLIENT_SRC, a pure-C client compiled with gcc against the port's
+# header, which starts its own interpreter, creates the predictor on its
+# main thread, runs the first batch from a second pthread and writes that
+# batch's first row of logits to a file: equal to the in-process run's
+CAPI_BATCH, CAPI_BATCHES = 8, 3
+CAPI_CLIENT_TIMEOUT = 300
+CAPI_CLIENT_SRC = r"""
+#include "paddle_tpu_capi.h"
+#include <pthread.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <time.h>
+
+/* usage: client MODEL_DIR FEED_FILE BATCH SEQ OUT_FILE
+   FEED_FILE: src_word then trg_word, int64 [BATCH, SEQ] each */
+static PD_Predictor pred;
+static int64_t shape[2];
+static int64_t* feed;
+static const char* out_path;
+static int worker_rc = 1;
+
+static double now(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec + t.tv_nsec * 1e-9;
+}
+
+static void* worker(void* arg) {
+  (void)arg;
+  size_t n = (size_t)(shape[0] * shape[1]);
+  PD_Tensor in[2] = {{"src_word", PD_INT64, shape, 2, feed},
+                     {"trg_word", PD_INT64, shape, 2, feed + n}};
+  PD_Results r = PD_PredictorRun(pred, in, 2);
+  if (!r) { fprintf(stderr, "run: %s\n", PD_LastError()); return 0; }
+  if (PD_ResultsNum(r) != 1 || PD_ResultsDType(r, 0) != PD_FLOAT32 ||
+      PD_ResultsRank(r, 0) != 3) {
+    fprintf(stderr, "unexpected results\n");
+    PD_DestroyResults(r);
+    return 0;
+  }
+  const int64_t* s = PD_ResultsShape(r, 0);
+  printf("logits %s [%lld, %lld, %lld]\n", PD_ResultsName(r, 0),
+         (long long)s[0], (long long)s[1], (long long)s[2]);
+  size_t row = (size_t)(s[1] * s[2]) * sizeof(float);
+  FILE* f = fopen(out_path, "wb");
+  if (f && fwrite(PD_ResultsData(r, 0), 1, row, f) == row) worker_rc = 0;
+  if (f) fclose(f);
+  PD_DestroyResults(r);
+  return 0;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 6) { fprintf(stderr, "usage\n"); return 2; }
+  double t0 = now();
+  shape[0] = atoll(argv[3]);
+  shape[1] = atoll(argv[4]);
+  out_path = argv[5];
+  size_t n = (size_t)(shape[0] * shape[1]);
+  feed = (int64_t*)malloc(2 * n * sizeof(int64_t));
+  FILE* f = fopen(argv[2], "rb");
+  if (!f || fread(feed, sizeof(int64_t), 2 * n, f) != 2 * n) return 2;
+  fclose(f);
+  pred = PD_CreatePredictor(argv[1]);
+  if (!pred) { fprintf(stderr, "create: %s\n", PD_LastError()); return 3; }
+  printf("created %.3f s\n", now() - t0);
+  pthread_t th;
+  pthread_create(&th, 0, worker, 0);
+  pthread_join(th, 0);
+  printf("first result %.3f s\n", now() - t0);
+  PD_DestroyPredictor(pred);
+  free(feed);
+  return worker_rc;
+}
+"""
+
+
+def _capi_run(lib, pred, feed):
+    """One PD_PredictorRun of `feed` ({name: int64 [B, T]}): (its
+    seconds, the logits copied out of the results)."""
+    import ctypes
+    import numpy as np
+    from paddle_tpu_torch.capi import PD_FLOAT32, PD_INT64, PDTensor
+
+    names = ("src_word", "trg_word")
+    shape = (ctypes.c_int64 * 2)(*feed[names[0]].shape)
+    tensors = (PDTensor * 2)(*[PDTensor(n.encode(), PD_INT64, shape, 2,
+                                        feed[n].ctypes.data) for n in names])
+    t0 = time.perf_counter()
+    res = lib.PD_PredictorRun(pred, ctypes.addressof(tensors), 2)
+    s = time.perf_counter() - t0
+    if not res:
+        raise AssertionError(f"PD_PredictorRun: {lib.PD_LastError()}")
+    try:
+        if lib.PD_ResultsNum(res) != 1 or \
+                lib.PD_ResultsDType(res, 0) != PD_FLOAT32:
+            raise AssertionError("PD_PredictorRun: not one float32 result")
+        shp = lib.PD_ResultsShape(res, 0)
+        dims = [shp[i] for i in range(lib.PD_ResultsRank(res, 0))]
+        out = np.empty(dims, np.float32)
+        if lib.PD_ResultsByteSize(res, 0) != out.nbytes:
+            raise AssertionError("PD_ResultsByteSize disagrees with the "
+                                 "shape")
+        ctypes.memmove(out.ctypes.data, lib.PD_ResultsData(res, 0),
+                       out.nbytes)
+    finally:
+        lib.PD_DestroyResults(res)
+    return s, out
+
+
+def _bits_or_diff(np, tag, got, want):
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = (float(np.abs(got - want).max())
+                if got.shape == want.shape else "shapes differ")
+        raise AssertionError(f"phase 7t: {tag}: {got.shape} against "
+                             f"{want.shape}, max abs difference {diff}")
+
+
+def run_capi(torch, ptt, native, model_dir, root, tmp):
+    """Phase 7t on the infer-base dir `model_dir`; `root` is the checkout
+    (the client's interpreter imports paddle_tpu_torch from it)."""
+    import sysconfig
+
+    import numpy as np
+    from paddle_tpu_torch import capi, capi_runtime
+    from paddle_tpu_torch.capi.build import python_link_flags
+    from paddle_tpu_torch.core.executor import to_numpy
+    out = {}
+    try:
+        python_link_flags()
+        out["embed_missing"] = None
+    except capi.BuildError as e:
+        out["embed_missing"] = str(e)
+    t0 = time.perf_counter()
+    so = capi.build(embed=out["embed_missing"] is None)
+    out["build_s"] = time.perf_counter() - t0
+    out["library"] = os.path.relpath(so, root)
+    lib = capi.load(so)
+    # the C signature has no place: the default, CUDAPlace(0)
+    os.environ.pop(capi_runtime.PLACE_ENV, None)
+    T, V = TRAIN_BASE["seq_len"], TRAIN_BASE["trg_vocab_size"]
+    rng = np.random.RandomState(DATA_SEED)
+    batches = [{n: rng.randint(0, V, (CAPI_BATCH, T)).astype(np.int64)
+                for n in ("src_word", "trg_word")}
+               for _ in range(CAPI_BATCHES)]
+    t0 = time.perf_counter()
+    pred = lib.PD_CreatePredictor(model_dir.encode())
+    if not pred:
+        raise AssertionError(f"PD_CreatePredictor: {lib.PD_LastError()}")
+    out["create_s"] = time.perf_counter() - t0
+    try:
+        rt = capi_runtime.Predictor(model_dir)
+        if rt.exe.place.torch_device().type != "cuda":
+            raise AssertionError(f"capi_runtime placed on {rt.exe.place}")
+        exe, scope = ptt.Executor(ptt.CUDAPlace(0)), ptt.Scope()
+        prog, _, targets = ptt.io.load_inference_model(model_dir, exe,
+                                                       scope=scope)
+        attentions = sum(op.type == "fused_attention"
+                         for op in prog.global_block().ops)
+        handle = exe.prepare(prog, fetch_list=targets, scope=scope)
+
+        def runtime(feed):
+            return rt.run([(n, v.shape, "int64", v.tobytes())
+                           for n, v in feed.items()])[0][2]
+
+        # warm-up: each path once on the first batch
+        _capi_run(lib, pred, batches[0])
+        runtime(batches[0])
+        handle.run(batches[0])
+        abi_ms, fetch_ms, card_ms, launches, first = [], [], [], [], None
+        for feed in batches:
+            native.reset_launches()
+            torch.cuda.synchronize()
+            s, got = _capi_run(lib, pred, feed)
+            launches.append({k: v for k, v in native.launches.items() if v})
+            abi_ms.append(s * 1e3)
+            first = got if first is None else first
+            if got.shape != (CAPI_BATCH, T, V) or not np.isfinite(got).all():
+                raise AssertionError(f"phase 7t: logits {got.shape}, or not "
+                                     f"finite")
+            _bits_or_diff(np, "the ABI against capi_runtime.Predictor.run",
+                          got, runtime(feed))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = handle.run(feed)[0]
+            fetch_ms.append((time.perf_counter() - t0) * 1e3)
+            _bits_or_diff(np, "the ABI against the prepared run", got, want)
+            t0 = time.perf_counter()
+            handle.run(feed, return_numpy=False)
+            torch.cuda.synchronize()
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+        if attentions != 18 or any(l != {"flash_fwd": attentions}
+                                   for l in launches):
+            raise AssertionError(f"phase 7t: launches a batch {launches}, "
+                                 f"expected flash_fwd x {attentions} (18)")
+        out.update(abi_ms=abi_ms, prepared_fetch_ms=fetch_ms,
+                   prepared_card_ms=card_ms, launches=launches,
+                   attentions=attentions, logits_bytes=first.nbytes)
+        del rt, handle, scope
+    finally:
+        lib.PD_DestroyPredictor(pred)
+    if out["embed_missing"] is not None:
+        return out
+    # the pure-C client, in a process of its own
+    src = os.path.join(tmp, "client.c")
+    with open(src, "w") as f:
+        f.write(CAPI_CLIENT_SRC)
+    exe_path = os.path.join(tmp, "client")
+    t0 = time.perf_counter()
+    subprocess.run(["gcc", "-O2", src, f"-I{capi.INCLUDE_DIR}", so,
+                    "-lpthread", "-o", exe_path], check=True,
+                   capture_output=True, text=True)
+    out["client_build_s"] = time.perf_counter() - t0
+    feed_path = os.path.join(tmp, "feed.bin")
+    with open(feed_path, "wb") as f:
+        f.write(batches[0]["src_word"].tobytes())
+        f.write(batches[0]["trg_word"].tobytes())
+    rows_path = os.path.join(tmp, "rows.bin")
+    site = [p for p in sys.path if p.endswith(("site-packages",
+                                               "dist-packages"))]
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + site + [os.environ.get("PYTHONPATH", "")]),
+               LD_LIBRARY_PATH=os.pathsep.join(
+                   [os.path.dirname(so),
+                    sysconfig.get_config_var("LIBDIR") or "",
+                    os.environ.get("LD_LIBRARY_PATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe_path, model_dir, feed_path, str(CAPI_BATCH),
+                           str(T), rows_path], env=env, capture_output=True,
+                          text=True, timeout=CAPI_CLIENT_TIMEOUT)
+    out["client_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 7t: the C client exited "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+    said = dict(re.findall(r"^(created|first result) ([\d.]+) s$",
+                           proc.stdout, re.M))
+    out["client_create_s"] = float(said["created"])
+    out["client_first_result_s"] = float(said["first result"])
+    rows = np.fromfile(rows_path, np.float32).reshape(T, V)
+    _bits_or_diff(np, "the C client's first row against the in-process "
+                  "ABI's", rows, first[0])
+    out["client_rows"] = 1
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9074,8 +9355,10 @@ def main() -> int:
     # against unfolded, train-base with memory_optimize's marks, and
     # validate="error" on the transpiled program (inside run_infer_base_bf16)
     t0 = time.perf_counter()
+    # the infer-base dir lives on to phase 7t, which reads it too
+    infer_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_infer_base_")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_7m_") as tmp:
-        infer16 = run_infer_base_bf16(torch, ptt, native, tmp)
+        infer16 = run_infer_base_bf16(torch, ptt, native, infer_tmp.name)
         log(f"infer-base-bf16 (Transformer-base is_test, fused attention, "
             f"saved, loaded on the card, Float16Transpiler bfloat16; "
             f"{infer16['n_params']} parameters, every one bf16 on the card; "
@@ -9471,6 +9754,46 @@ def main() -> int:
     phase7r_s = time.perf_counter() - t0
     log(f"phase 7r: {phase7r_s:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # 7t. the C inference ABI: infer-base through PD_PredictorRun, in this
+    # process and from a pure-C client
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capi_") as c_tmp:
+        cab = run_capi(torch, ptt, native,
+                       os.path.join(infer_tmp.name, "infer_base"), here,
+                       c_tmp)
+    infer_tmp.cleanup()
+    cab["s"] = time.perf_counter() - t0
+    if cab["embed_missing"] is not None:
+        log(f"phase 7t: this machine's Python cannot be embedded "
+            f"({cab['embed_missing']}): the pure-C client was not run")
+    log(f"C inference ABI (infer-base, 7m's saved dir, through "
+        f"{cab['library']} by ctypes on CUDAPlace(0), the place variable "
+        f"unset) [{card}]: {CAPI_BATCHES} batches of {CAPI_BATCH} x "
+        f"{TRAIN_BASE['seq_len']}, logits {cab['logits_bytes'] / 1e6:.1f} MB "
+        f"a batch, bit for bit those of capi_runtime.Predictor.run and of "
+        f"the Executor's prepared run of the loaded program; launches a "
+        f"batch {cab['launches']} ({cab['attentions']} fused attentions); "
+        f"ms a batch through the ABI "
+        f"{[round(x, 2) for x in cab['abi_ms']]} against the prepared "
+        f"run's {[round(x, 2) for x in cab['prepared_fetch_ms']]} with the "
+        f"logits fetched to numpy and "
+        f"{[round(x, 2) for x in cab['prepared_card_ms']]} with them left "
+        f"on the card; library built in {cab['build_s']:.2f} s, "
+        f"PD_CreatePredictor {cab['create_s']:.2f} s")
+    if cab["embed_missing"] is None:
+        log(f"C inference ABI, pure-C client (gcc against the port's "
+            f"header, its own embedded interpreter; predictor made on its "
+            f"main thread, the first batch run from a second pthread) "
+            f"[{card}]: its first row of logits bit for bit the in-process "
+            f"run's; built in {cab['client_build_s']:.2f} s, predictor "
+            f"made at {cab['client_create_s']:.2f} s and first result at "
+            f"{cab['client_first_result_s']:.2f} s of its run, "
+            f"{cab['client_wall_s']:.2f} s wall")
+    log(f"phase 7t: {cab['s']:.1f} s; total so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -9637,7 +9960,9 @@ def main() -> int:
                               **obs_launches("flash_fwd"),
                               **wire_launches("flash_fwd"),
                               **ps_launches("flash_fwd"),
-                              **el_launches("flash_fwd")},
+                              **el_launches("flash_fwd"),
+                              "capi_infer_base_a_batch":
+                                  cab["launches"][0]["flash_fwd"]},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
                             + list(fwd_edges.values())),
@@ -9923,6 +10248,7 @@ def main() -> int:
                                           "phase_s": phase7r_s},
                    "fleet_plane": {"serve_base_torrent": tor,
                                    "phase_s": tor["s"]},
+                   "capi": cab,
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,7 +54,9 @@ client, behind every quorum route of ``pserver``, ``haven`` and ``ark``;
 pair, and its ``MasterClient``), and the serving fleet (``fleet``: the
 router, its replicas, the serve-time sparse read path; ``torrent``: the
 KV stream between a prefill and a decode replica of a disaggregated
-generation).
+generation), and the C inference ABI (``capi``: ``libpaddle_tpu_capi.so``,
+which embeds CPython and drives ``capi_runtime``; neither is imported
+here, as the JAX package imports neither).
 
     import paddle_tpu_torch as fluid
     srv = fluid.serve.InferenceServer()            # CUDAPlace(0)

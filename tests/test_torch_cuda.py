@@ -39,7 +39,9 @@ their replay with the flash kernels counted, and a quorum-armed haven
 pair under a `SyncPSTrainer` on the card; and the serving fleet: KV rows
 extracted on one card server and injected into a second one bit for bit,
 the first decode step after an inject equal to the step after a local
-prefill, and a replica's replies free of card tensors.
+prefill, and a replica's replies free of card tensors; and the C inference
+ABI: a tiny Transformer's logits through `PD_PredictorRun` on the card
+equal to the in-process predictor's, with the flash forward counted.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -3018,3 +3020,57 @@ def test_replica_replies_hold_no_card_tensor(dev, tmp_path):
     finally:
         pool.close()
         rep.close()
+
+
+def test_c_abi_logits_on_the_card_equal_the_in_process_predictors(dev,
+                                                                  tmp_path,
+                                                                  monkeypatch):
+    """A tiny fused-attention Transformer saved for inference, through the
+    port's libpaddle_tpu_capi.so by ctypes with the place variable unset
+    (CUDAPlace(0)): its logits equal capi_runtime.Predictor.run's bit for
+    bit, and each ABI run launches one flash forward a fused attention."""
+    import ctypes
+    from paddle_tpu_torch import capi, capi_runtime
+    from paddle_tpu_torch.models import transformer
+    monkeypatch.delenv(capi_runtime.PLACE_ENV, raising=False)
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = 3
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        _, fetches = transformer.build(
+            src_vocab_size=64, trg_vocab_size=64, seq_len=16, n_layer=1,
+            n_head=2, d_model=64, d_inner=64, is_test=True,
+            fused_attention=True)
+    host, scope = ptt.Executor(ptt.CPUPlace()), ptt.Scope()
+    host.run(startup, scope=scope)
+    mdir = str(tmp_path / "model")
+    ptt.io.save_inference_model(mdir, ["src_word", "trg_word"],
+                                [fetches["logits"]], host,
+                                main_program=main, scope=scope)
+    lib = capi.load(capi.build(str(tmp_path / "lib")))
+    rng = np.random.RandomState(5)
+    feed = {n: rng.randint(0, 64, (2, 16)).astype(np.int64)
+            for n in ("src_word", "trg_word")}
+    shape = (ctypes.c_int64 * 2)(2, 16)
+    tensors = (capi.PDTensor * 2)(*[
+        capi.PDTensor(n.encode(), capi.PD_INT64, shape, 2, v.ctypes.data)
+        for n, v in feed.items()])
+    pred = lib.PD_CreatePredictor(mdir.encode())
+    assert pred, lib.PD_LastError()
+    try:
+        native.reset_launches()
+        res = lib.PD_PredictorRun(pred, ctypes.addressof(tensors), 2)
+        assert res, lib.PD_LastError()
+        assert {k: v for k, v in native.launches.items() if v} == \
+            {"flash_fwd": 3}
+        got = np.frombuffer(ctypes.string_at(
+            lib.PD_ResultsData(res, 0), lib.PD_ResultsByteSize(res, 0)),
+            np.float32).reshape(2, 16, 64)
+        lib.PD_DestroyResults(res)
+    finally:
+        lib.PD_DestroyPredictor(pred)
+    rt = capi_runtime.Predictor(mdir)
+    assert rt.exe.place.torch_device() == dev
+    want = rt.run([(n, v.shape, "int64", v.tobytes())
+                   for n, v in feed.items()])[0][2]
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)

@@ -10,6 +10,7 @@ tests here check that.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -564,6 +565,20 @@ with tempfile.TemporaryDirectory() as t:
     for rep in reps:
         rep.close()
     router.close()
+import paddle_tpu_torch.capi_runtime as capi_runtime
+with tempfile.TemporaryDirectory() as t:
+    cmain, cstart = ptt.Program(), ptt.Program()
+    with ptt.program_guard(cmain, cstart), ptt.unique_name.guard():
+        cy = ptt.layers.fc(ptt.layers.data(name="x", shape=[4],
+                                           dtype="float32"), size=3)
+    c_scope = ptt.Scope()
+    exe.run(cstart, scope=c_scope)
+    ptt.io.save_inference_model(t, ["x"], [cy], exe, main_program=cmain,
+                                scope=c_scope)
+    os.environ[capi_runtime.PLACE_ENV] = "cpu"
+    (cname, cdtype, cout), = capi_runtime.create(t).run(
+        [("x", (2, 4), "float32", np.ones((2, 4), np.float32).tobytes())])
+    assert cname == cy.name and cdtype == "float32" and cout.shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print("FOREIGN", bad)
@@ -611,7 +626,8 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
         "torch_haven_bench.py", "torch_elastic_bench.py",
         "torch_quorum_bench.py", "torch_chaos_drill.py",
         "torch_fleet_replica.py", "torch_fleet_router.py",
-        "torch_torrent_bench.py", "torch_serve_loadgen.py")]
+        "torch_torrent_bench.py", "torch_serve_loadgen.py",
+        "torch_step_overhead_bench.py", "torch_yardstick_transformer.py")]
     assert len(files) > 20
     for part in ("dataset/mnist.py", "dataset/common.py",
                  "ops/loss_extra.py", "layers/loss_layers.py",
@@ -621,10 +637,32 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
                  "master/service.py", "master/client.py",
                  "fleet/replica.py", "fleet/router.py", "fleet/sparse.py",
                  "fleet/wire.py", "torrent/prefill.py",
-                 "torrent/stream.py"):
+                 "torrent/stream.py", "capi_runtime.py",
+                 "capi/build.py"):
         assert os.path.join(PORT, part) in files, part
     found = {os.path.relpath(f, REPO): _foreign_imports(f) for f in files}
     assert {f: b for f, b in found.items() if b} == {}
+
+
+# a module named to the embedded interpreter by a C source
+_PY_IMPORT = re.compile(r'PyImport_\w*\(\s*"([^"]*)"')
+
+
+def test_port_native_sources_import_only_the_port():
+    """The port's C, C++ and CUDA sources name no module to an embedded
+    interpreter but the port's own: `capi.cc` imports
+    `paddle_tpu_torch.capi_runtime`, never the JAX package's."""
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
+             if f.endswith((".cc", ".h", ".cu", ".cuh"))]
+    assert os.path.join(PORT, "capi", "capi.cc") in files
+    assert os.path.join(PORT, "csrc", "flash_fwd.cu") in files
+    named = {os.path.relpath(f, REPO): _PY_IMPORT.findall(open(f).read())
+             for f in files}
+    assert named["paddle_tpu_torch/capi/capi.cc"] == [
+        "paddle_tpu_torch.capi_runtime"]
+    bad = {f: [m for m in ms if m.split(".")[0] != "paddle_tpu_torch"]
+           for f, ms in named.items()}
+    assert {f: ms for f, ms in bad.items() if ms} == {}
 
 
 def test_chip_smoke_kernels_line_reads_serve_bases_launches():

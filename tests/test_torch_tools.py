@@ -371,8 +371,164 @@ def test_step_profile_prints_its_tables_on_the_cpu(tmp_path):
     names = [e.get("name") for e in host["traceEvents"]]
     assert names.count("train_step") == 3
     assert os.path.exists(tmp_path / "trace.json")
-    rc, _, err = _run("torch_step_profile.py", "--yardstick")
-    assert rc == 2 and "not ported" in err
+
+
+def test_step_profile_traces_the_yardstick_on_the_cpu(tmp_path):
+    rc, out, err = _run("torch_step_profile.py", "--yardstick", "--cpu",
+                        "--tiny", "--top", "10", "--out", str(tmp_path))
+    assert rc == 0, err
+    assert "yardstick (hand-written PyTorch, tiny)" in out
+    assert "Event" in out and "train_step" in out and "fetch_sync" in out
+    assert "top 10 ops by self CPU time:" in out and "aten::mm" in out
+    host = json.load(open(tmp_path / "host_timeline.json"))
+    names = [e.get("name") for e in host["traceEvents"]]
+    assert names.count("train_step") == 3
+
+
+# ---------------------------------------------------------------------------
+# the host-overhead tools (item 8.9)
+# ---------------------------------------------------------------------------
+
+def test_step_overhead_bench_reports_as_the_jax_one():
+    """Both benches at 20 steps a window, 2 rounds (the port's on the
+    host): the same keys, every wall time positive, every overhead at
+    least 0. The times are each package's own."""
+    env = dict(os.environ, STEP_OVERHEAD_STEPS="20", STEP_OVERHEAD_ROUNDS="2")
+    docs = {}
+    for tool, args in (("step_overhead_bench.py", ()),
+                       ("torch_step_overhead_bench.py", ("--cpu",))):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(TOOLS, tool), *args], cwd=REPO,
+            env=dict(env, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                     OMP_NUM_THREADS="1"),
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr
+        docs[tool] = json.loads(proc.stdout.strip().splitlines()[-1])
+    jdoc, tdoc = docs["step_overhead_bench.py"], \
+        docs["torch_step_overhead_bench.py"]
+    assert sorted(tdoc) == sorted(jdoc)
+    assert tdoc["steps_per_window"] == jdoc["steps_per_window"] == 20
+    for k in ("floor_us", "legacy_us", "run_us", "prepared_us"):
+        assert tdoc[k] > 0 and jdoc[k] > 0, k
+    for k in ("step_overhead_us_unprepared", "step_overhead_us_run",
+              "step_overhead_us", "step_overhead_reduction_x"):
+        assert tdoc[k] >= 0 and jdoc[k] >= 0, k
+
+
+def _yardsticks():
+    sys.path.insert(0, TOOLS)
+    try:
+        import torch_yardstick_transformer as ty
+        import yardstick_transformer as jy
+    finally:
+        sys.path.remove(TOOLS)
+    return jy, ty
+
+
+# the JAX yardstick's tiny widths and batch
+YD_WIDTHS = dict(src_vocab=64, trg_vocab=64, n_layer=1, n_head=4,
+                 d_model=32, d_inner=64)
+YD_BATCH = dict(batch_size=4, seq_len=8, vocab=64)
+# the port's AMP tolerances (tests/test_torch_amp.py): losses to
+# LOSS_RTOL relative; the state after a step, for each kind of state,
+# within NOISE_FACTOR x the relative L2 distance bf16 puts between the
+# JAX step's own bf16 and float32 runs from the same state
+YD_LOSS_RTOL, YD_NOISE_FACTOR = 5e-3, 2.0
+
+
+def _yd_port_params(jy, ty, jparams):
+    """The JAX tool's parameters carried into the port as numpy."""
+    import numpy as np
+    import torch
+    tmpl = ty.init_params(0, **YD_WIDTHS)
+    return ty.tree_map(lambda _, j: torch.from_numpy(np.array(j)), tmpl,
+                       jparams)
+
+
+class _Float32Jnp:
+    """jax.numpy with bfloat16 standing for float32: the JAX tool's step
+    computed in float32 throughout, for its own bf16 noise."""
+
+    def __init__(self, jnp):
+        self._jnp = jnp
+        self.bfloat16 = jnp.float32
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, name)
+
+
+def test_yardstick_matches_the_jax_one_at_rate_0(monkeypatch):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    jy, ty = _yardsticks()
+    jparams = jy.init_params(0, **YD_WIDTHS)
+    tparams = _yd_port_params(jy, ty, jparams)
+    # the same draws: the port's own init_params gives the same values
+    for a, b in zip(ty.tree_leaves(tparams),
+                    ty.tree_leaves(ty.init_params(0, **YD_WIDTHS))):
+        assert (a.numpy() == b.numpy()).all()
+    jbatch, tbatch = jy.make_batch(**YD_BATCH), ty.make_batch(**YD_BATCH)
+    key = jax.random.key(0)
+    kw = dict(seq_len=YD_BATCH["seq_len"], n_head=YD_WIDTHS["n_head"],
+              rate=0.0)
+    jloss = float(jy.loss_fn(jparams, jbatch, key, **kw))
+    tloss = float(ty.loss_fn(tparams, tbatch, 0, **kw))
+    assert tloss > 1.0
+    np.testing.assert_allclose(tloss, jloss, rtol=YD_LOSS_RTOL, atol=0)
+
+    def jax_step():
+        # a fresh function each call: jit traces it anew, under whichever
+        # jnp the JAX tool's module holds then
+        def step(params):
+            loss, grads = jax.value_and_grad(jy.loss_fn)(params, jbatch,
+                                                         key, **kw)
+            return jy.adam_update(params, grads, jy.adam_init(params))[0]
+        return jax.jit(step)(jparams)
+
+    j1 = jax_step()
+    monkeypatch.setattr(jy, "jnp", _Float32Jnp(jnp))
+    j32 = jax_step()
+    t1, _, loss1 = ty.train_step(tparams, ty.adam_init(tparams), tbatch, 0,
+                                 **kw)
+    np.testing.assert_allclose(float(loss1), jloss, rtol=YD_LOSS_RTOL)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    dist, noise = {}, {}
+    for t, j, j_32 in zip(*(ty.tree_leaves(ty.tree_map(
+            lambda _, x: np.asarray(x, np.float32), tparams, tree))
+            for tree in (t1, j1, j32))):
+        kind = "matrices" if t.ndim == 2 else "vectors"
+        dist[kind] = max(dist.get(kind, 0.0), rel(t, j))
+        noise[kind] = max(noise.get(kind, 0.0), rel(j_32, j))
+    assert set(dist) == {"matrices", "vectors"}
+    for kind in dist:
+        assert dist[kind] <= YD_NOISE_FACTOR * noise[kind], \
+            (kind, dist[kind], noise[kind])
+
+
+def test_yardstick_keep_mask_is_the_jax_ones_at_rate_0_1():
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    jy, ty = _yardsticks()
+    for k in (0, 7, 12345):
+        key = jax.random.key(k)
+        x = jnp.ones((4, 8, 32), jnp.bfloat16)
+        jout = np.asarray(jy._dropout(key, x, 0.1).astype(jnp.float32))
+        # the seed the JAX `_dropout` derives from its key
+        kd = np.asarray(jax.random.key_data(key)).reshape(-1).astype(
+            np.uint32)
+        seed = int(kd[0]) ^ ((int(kd[-1]) * 0x9E3779B9) & 0xFFFFFFFF)
+        keep = ty.keep_mask(seed, x.shape, 0.1, "cpu").numpy()
+        assert (keep == (jout != 0)).all()
+        assert 0.8 < keep.mean() < 0.95
+        tout = ty._dropout(seed, torch.ones(x.shape, dtype=torch.bfloat16),
+                           0.1).float().numpy()
+        assert (tout == jout).all()
 
 
 # ---------------------------------------------------------------------------

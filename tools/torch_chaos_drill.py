@@ -622,6 +622,39 @@ def drill_health_alerts(seed, workdir, trace_out=None):
         fluid.set_flag("observe", False)
 
 
+def _await_fresh_empty_poll(router, rid, model, timeout_s=60.0):
+    """Block until the router's next readiness poll of `rid` finds it
+    ready with an empty `model` queue (depth 0, the least any member can
+    have). That poll renewed its lease; a kill right after it leaves the
+    replica in dispatch for a whole lease."""
+    m = router._members[rid]
+    seen = m.last_poll
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        time.sleep(0.002)
+        if m.last_poll == seen:
+            continue
+        seen = m.last_poll
+        d = m.models.get(model) or {}
+        if m.ready and not m.suspect and not d.get("depth"):
+            return
+    raise DrillFailure(f"no poll found {rid} ready with an empty queue "
+                       f"in {timeout_s:.0f} s")
+
+
+def _await_pinned(router, rid, timeout_s=60.0):
+    """Block until a generation is pinned to decode replica `rid`: a
+    kill then lands on a session whose tokens it still owes."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        with router._lock:
+            if any(p[0] == rid for p in router._affinity.values()):
+                return
+        time.sleep(0.001)
+    raise DrillFailure(f"no generation was pinned to {rid} in "
+                       f"{timeout_s:.0f} s")
+
+
 def drill_replica_kill(seed, workdir, trace_out=None):
     """fluid-fleet: SIGKILL one of three serving replicas mid-traffic.
 
@@ -646,11 +679,12 @@ def drill_replica_kill(seed, workdir, trace_out=None):
     obs_metrics.default_registry().reset()
     mdir = os.path.join(workdir, "model")
     build_and_save(fluid, np, mdir)
-    # poll_interval 0.5: wide enough that the victim is still marked
-    # ready when the post-kill burst below lands (the failover path,
+    # poll_interval 2.0, twice the lease: after the kill below only the
+    # lease (1 s) can take the victim out of dispatch, so it is still
+    # marked ready when the post-kill burst lands (the failover path,
     # not the poller, must be what saves those requests)
     router = fleet.FleetRouter(fleet.RouterConfig(
-        lease_s=1.0, poll_interval_s=0.5)).start()
+        lease_s=1.0, poll_interval_s=2.0)).start()
     workers = []
     try:
         workers = spawn_replicas(3, mdir, router.control_endpoint,
@@ -701,14 +735,15 @@ def drill_replica_kill(seed, workdir, trace_out=None):
             t.start()
         time.sleep(DURATION / 2)
         victim = workers[1]
+        _await_fresh_empty_poll(router, "r1", "m")
         kill_at[0] = time.perf_counter()
         victim.send_signal(signal.SIGKILL)
-        victim.wait(timeout=10)
         print("  SIGKILL'd replica r1 mid-traffic")
-        # deterministic failover exposure: a tight burst INSIDE the poll
-        # window, while the router still believes r1 is ready — the
-        # requests routed at the corpse must be saved by per-request
-        # failover, not by the poller having already removed it
+        # deterministic failover exposure: the kill came right after a
+        # poll that renewed r1's lease and found its queue empty, so for
+        # a lease r1 is ready and the least loaded (ties go round-robin):
+        # among this burst's first picks some land on the corpse, and
+        # per-request failover, not the poller, must save them
         for _ in range(30):
             t_b = time.perf_counter()
             try:
@@ -724,6 +759,7 @@ def drill_replica_kill(seed, workdir, trace_out=None):
             with lock:
                 lats.append((time.perf_counter(),
                              (time.perf_counter() - t_b) * 1e6))
+        victim.wait(timeout=10)
         time.sleep(DURATION / 2)
         stop.set()
         for t in threads:
@@ -868,6 +904,7 @@ def drill_decode_kill(seed, workdir, trace_out=None):
             t.start()
         time.sleep(DURATION / 2)
         victim = workers[1]          # first decode replica (d0)
+        _await_pinned(router, "d0")
         kill_at[0] = time.perf_counter()
         victim.send_signal(signal.SIGKILL)
         victim.wait(timeout=10)

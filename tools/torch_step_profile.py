@@ -22,12 +22,15 @@ inside `record_event("fetch_sync")`. It prints
 
 Runs on `CUDAPlace(0)`; `--cpu` runs on the host, where the table ranks
 the operators by self CPU time instead. `--tiny` builds a 1-layer,
-d_model 16 Transformer for a quick host run. `--yardstick` (the JAX
-tool's hand-written JAX step, tools/yardstick_transformer.py) is not
-ported and exits 2.
+d_model 16 Transformer for a quick host run. `--yardstick` traces the
+hand-written PyTorch step of tools/torch_yardstick_transformer.py (the
+JAX tool's `--yardstick`, tools/yardstick_transformer.py) instead of the
+framework's: at train-base-unfused-amp's shapes (batch 64, seq 256,
+Transformer-base widths, bf16 products), or with `--tiny` at 1 + 1
+layers, d_model 32, batch 4 x seq 8; the same tables.
 
-Usage: python3 tools/torch_step_profile.py [--cpu] [--tiny] [--batch N]
-           [--top K] [--out DIR]
+Usage: python3 tools/torch_step_profile.py [--cpu] [--tiny] [--yardstick]
+           [--batch N] [--top K] [--out DIR]
 """
 
 from __future__ import annotations
@@ -80,6 +83,47 @@ def summarize(prof, cuda, top=30):
     return rows[:top]
 
 
+def _framework_step(args):
+    """train-base through the port's Executor: (step, fetch), after the
+    startup program."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.executor import to_numpy
+    widths = TINY if args.tiny else {}
+    cfg = dict(TRAIN_BASE, **widths)
+    batch = args.batch or TRAIN_BATCH
+    main_p, startup, loss = build_train(ptt, **widths)
+    rng = np.random.RandomState(DATA_SEED)
+    feed = {n: rng.randint(0, cfg["trg_vocab_size"],
+                           (batch, cfg["seq_len"])).astype(np.int64)
+            for n in ("src_word", "trg_word", "lbl_word")}
+    place = ptt.CPUPlace() if args.cpu else ptt.CUDAPlace(0)
+    scope = ptt.Scope()
+    exe = ptt.Executor(place)
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(main_p, fetch_list=[loss], scope=scope)
+    print(f"train-base{' (tiny)' if args.tiny else ''} on {place}: batch "
+          f"{batch}, seq {cfg['seq_len']}, {cfg['n_layer']} + "
+          f"{cfg['n_layer']} layers, d_model {cfg['d_model']}")
+    return (lambda i: prepared.run(feed, return_numpy=False)[0],
+            lambda t: float(to_numpy(t).reshape(-1)[0]))
+
+
+def _yardstick_step(args):
+    """The hand-written PyTorch step: (step, fetch)."""
+    import torch_yardstick_transformer as yd
+    cfg = dict(yd.TINY if args.tiny else yd.BASE)
+    if args.batch:
+        cfg["batch_size"] = args.batch
+    device = "cpu" if args.cpu else "cuda"
+    step = yd.setup(cfg, device)
+    print(f"yardstick (hand-written PyTorch{', tiny' if args.tiny else ''}) "
+          f"on {device}: batch {cfg['batch_size']}, seq {cfg['seq_len']}, "
+          f"{cfg['n_layer']} + {cfg['n_layer']} layers, d_model "
+          f"{cfg['d_model']}, bf16 products, dropout 0.1")
+    return step, float
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="torch.profiler trace of train-base steps of "
@@ -89,58 +133,38 @@ def main(argv=None) -> int:
                     help="run on the host (default: CUDAPlace(0))")
     ap.add_argument("--tiny", action="store_true",
                     help="a 1-layer, d_model 16 Transformer")
-    ap.add_argument("--batch", type=int, default=TRAIN_BATCH)
+    ap.add_argument("--batch", type=int, default=None,
+                    help=f"rows a step (default {TRAIN_BATCH}; the "
+                         f"yardstick's 64, or 4 with --tiny)")
     ap.add_argument("--top", type=int, default=30)
     ap.add_argument("--out", help="directory for the traces (default: a "
                                   "new temporary one)")
     ap.add_argument("--yardstick", action="store_true",
-                    help="not ported: exits 2")
+                    help="trace the hand-written PyTorch step "
+                         "(tools/torch_yardstick_transformer.py)")
     args = ap.parse_args(argv)
-    if args.yardstick:
-        print("--yardstick: tools/yardstick_transformer.py (a hand-written "
-              "JAX step) is not ported to paddle_tpu_torch (ROADMAP Queue 1 "
-              "item 8)", file=sys.stderr)
-        return 2
-    import numpy as np
     import torch
     if not args.cpu and not torch.cuda.is_available():
         print("no CUDA device is visible (torch.cuda.is_available() is "
               "False); pass --cpu to profile on the host", file=sys.stderr)
         return 2
-    import paddle_tpu_torch as ptt
     from paddle_tpu_torch import profiler as prof
-    from paddle_tpu_torch.core.executor import to_numpy
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    widths = TINY if args.tiny else {}
-    cfg = dict(TRAIN_BASE, **widths)
-    main_p, startup, loss = build_train(ptt, **widths)
-    rng = np.random.RandomState(DATA_SEED)
-    feed = {n: rng.randint(0, cfg["trg_vocab_size"],
-                           (args.batch, cfg["seq_len"])).astype(np.int64)
-            for n in ("src_word", "trg_word", "lbl_word")}
-    place = ptt.CPUPlace() if args.cpu else ptt.CUDAPlace(0)
-    scope = ptt.Scope()
-    exe = ptt.Executor(place)
-    exe.run(startup, scope=scope)
-    prepared = exe.prepare(main_p, fetch_list=[loss], scope=scope)
-    first = prepared.run(feed)[0]
-    print(f"train-base{' (tiny)' if args.tiny else ''} on {place}: batch "
-          f"{args.batch}, seq {cfg['seq_len']}, {cfg['n_layer']} + "
-          f"{cfg['n_layer']} layers, d_model {cfg['d_model']}; warm-up loss "
-          f"{float(np.asarray(first).reshape(-1)[0]):.6f}")
+    step, fetch = (_yardstick_step if args.yardstick else _framework_step)(
+        args)
+    print(f"warm-up loss {fetch(step(0)):.6f}")
 
     trace_dir = args.out or tempfile.mkdtemp(prefix="torch_stepprof_")
     prof.reset_profiler()
     with prof.profiler(state="CPU" if args.cpu else "All",
                        profile_path=trace_dir) as p:
-        for _ in range(STEPS):
+        for i in range(STEPS):
             with prof.record_event(SPANS[0]):
-                out = prepared.run(feed, return_numpy=False)
+                out = step(i + 1)
         with prof.record_event(SPANS[1]):
-            last = to_numpy(out[0])
-    print(f"last loss {float(last.reshape(-1)[0]):.6f}")
+            last = fetch(out)
+    print(f"last loss {last:.6f}")
     print("trace dir:", trace_dir)
     host_path = os.path.join(trace_dir, "host_timeline.json")
     prof.export_chrome_tracing(host_path)
