@@ -465,6 +465,23 @@ the kernels are built for sm_90a). Phases, each of which fails the run:
    client is not run); the ms a batch through the ABI against the
    prepared run, the library's build and the client's time to its first
    result printed;
+7u. the serving kernels at every head dim the JAX kernels take (a
+   multiple of 8 up to 256): the float32 flash forward and both paged
+   decode kernels at D 8, 16, 24, 80, 96, 136 and 256 (the padded
+   instantiations' widths and head dims padded into them) as phase 3
+   checks them at D 64 (within TOL, two launches bit-equal, the paged
+   poison and seq_len 0; kernel, plain, SDPA and bound), at serve-base's
+   width (H = 512 // D) and on a ragged T 200, and at T 8192 (flash) and
+   seq_lens up to 8192 (paged) at D 8 and 256; then serve-base-d8 (64
+   heads of 8, the JAX tiny LM's head dim) and serve-base-d256 (2 heads of
+   256), each with fp32 KV (phase 4's requests and gates: launches, tokens
+   and prefill logits against the host) and int8 KV (serve-base-int8's
+   slots, blocks, requests and gates: launches, the longest request
+   teacher-forced against the host, first tokens equal to the float32
+   run's), through `InferenceServer.submit_generate` as phase 4 serves.
+   Their host side (the saves
+   and host runs) runs in a child process from before phase 3 on, so that
+   it overlaps the kernel checks;
 8. print one JSON line with every kernel's numbers (the bf16
    instantiations beside the float32 ones), and write the runs' numbers
    to ``chiprun_out/chip_smoke_train.json``.
@@ -616,8 +633,10 @@ AMP_FLOAT32_DROPOUT_OPS = 2
 AMP_LOSS_RTOL = 5e-5
 AMP_NOISE_FACTOR = 2.0
 # forward, dQ and dK/dV x D 32/64/128 x rate 0/dropout x float32/bf16,
-# and the bf16 forward's causal instantiations (D x rate 0/dropout)
-FLASH_INSTANTIATIONS = 42
+# the bf16 forward's causal instantiations (D x rate 0/dropout), and the
+# float32 forward's padded ones (widths 8/16/32/64/96/128/256 x rate
+# 0/dropout)
+FLASH_INSTANTIATIONS = 56
 # the JAX package computes delta in XLA, outside its Pallas kernels
 DELTA_REPLACES = "paddle_tpu/ops/pallas_attention.py:387 (XLA, no Pallas kernel)"
 # the delta kernel vs its plain version: the same float32 sum of D exact
@@ -913,18 +932,22 @@ def _assert_repeats(torch, tag, first, second):
                                  f"differ")
 
 
-def check_flash_forward_edges(torch, fa):
-    """The forward where its tiling and its arithmetic are pressed: peaked
-    scores (q and k scaled by 4, so W is near one-hot and S's error goes
-    through exp() at 16 times the spread) at the train shape, and a ragged
-    T 200 (a multiple of neither the 64-row query tile nor the 32-row K/V
-    tile) at D 32, 64 and 128; causal and not, rate 0.1. Each within TOL
-    on out and lse, two launches bit-equal. Returns the max errors."""
+FORWARD_EDGE_CASES = (("peaked", TRAIN_BATCH, 256, 64, 4.0),
+                      ("ragged_d32", 4, 200, 32, 1.0),
+                      ("ragged_d64", 4, 200, 64, 1.0),
+                      ("ragged_d128", 4, 200, 128, 1.0))
+
+
+def check_flash_forward_edges(torch, fa, cases=FORWARD_EDGE_CASES):
+    """The forward where its tiling and its arithmetic are pressed: by
+    default peaked scores (q and k scaled by 4, so W is near one-hot and
+    S's error goes through exp() at 16 times the spread) at the train
+    shape, and a ragged T 200 (a multiple of neither the 64-row query tile
+    nor the 32-row K/V tile) at D 32, 64 and 128; causal and not, rate 0.1.
+    `cases`: (name, B, T, D, scale) each. Each within TOL on out and lse,
+    two launches bit-equal. Returns the max errors."""
     errs = {}
-    for name, B, T, D, scale in (("peaked", TRAIN_BATCH, 256, 64, 4.0),
-                                 ("ragged_d32", 4, 200, 32, 1.0),
-                                 ("ragged_d64", 4, 200, 64, 1.0),
-                                 ("ragged_d128", 4, 200, 128, 1.0)):
+    for name, B, T, D, scale in cases:
         for causal in (False, True):
             g = torch.Generator(device="cuda").manual_seed(SEED + 11 * D + T)
             q, k, v = (torch.randn(B, 8, T, D, device="cuda", generator=g)
@@ -1068,14 +1091,16 @@ def check_train_kernels(torch, fa, flush, B, H, T, D, causal, rate):
 def _flash_instantiation(mangled):
     """'flash_dq<64,drop>' (float32) or 'flash_dq_bf16<64,drop>' for a
     mangled flash kernel name ('flash_fwd_bf16<64,drop,causal>' for the
-    bf16 forward's causal instantiation), else None."""
+    bf16 forward's causal instantiation, 'flash_fwd<96,rate0,pad>' for a
+    padded one of the float32 forward, which serves the head dims up to
+    its width), else None."""
     m = re.search(r"flash_(fwd|dq|dkv)(_bf16)?_kernelILi(\d+)ELb([01])E"
                   r"(?:Lb([01])E)?", mangled)
     if m is None:
         return None
+    flag = (",causal" if m.group(2) else ",pad") if m.group(5) == "1" else ""
     return (f"flash_{m.group(1)}{m.group(2) or ''}<{m.group(3)},"
-            f"{'drop' if m.group(4) == '1' else 'rate0'}"
-            f"{',causal' if m.group(5) == '1' else ''}>")
+            f"{'drop' if m.group(4) == '1' else 'rate0'}{flag}>")
 
 
 def flash_build_report(native, n_expected=FLASH_INSTANTIATIONS):
@@ -1140,8 +1165,9 @@ def flash_build_report(native, n_expected=FLASH_INSTANTIATIONS):
     if n_expected is not None and len(rep) != n_expected:
         raise AssertionError(f"expected {n_expected} flash instantiations "
                              f"(forward, dQ and dK/dV x D 32/64/128 x rate "
-                             f"0/dropout x float32/bf16, and the bf16 "
-                             f"forward's causal ones), found {sorted(rep)}")
+                             f"0/dropout x float32/bf16, the bf16 "
+                             f"forward's causal ones and the float32 "
+                             f"forward's padded ones), found {sorted(rep)}")
     return rep
 
 
@@ -1434,16 +1460,21 @@ def check_paged_q8(torch, pa, flush, S=INT8_SLOTS, H=8, Dh=64, BS=16,
 
 def _paged_instantiation(src, mangled):
     """'paged_decode.cu:paged_split_kernel<64>' for a mangled paged kernel
-    name compiled from `src`, else None."""
-    m = re.search(r"(paged_(?:q8_)?split_kernel|paged_merge_kernel)ILi(\d+)E",
-                  mangled)
-    return f"{src}:{m.group(1)}<{m.group(2)}>" if m else None
+    name compiled from `src` ('...<64,pad>' for a padded instantiation,
+    which serves the head dims up to its width), else None."""
+    m = re.search(r"(paged_(?:q8_)?split_kernel|paged_merge_kernel)ILi(\d+)E"
+                  r"(?:Lb([01])E)?", mangled)
+    if m is None:
+        return None
+    return (f"{src}:{m.group(1)}<{m.group(2)}"
+            f"{',pad' if m.group(3) == '1' else ''}>")
 
 
-def paged_build_report(native):
+def paged_build_report(native, n_expected=36):
     """Per instantiation of the two paged decode sources' split and merge
     kernels: registers, spill bytes and static shared memory a block, from
-    the build's -Xptxas -v report. Raises unless all twelve are there."""
+    the build's -Xptxas -v report. Raises unless all `n_expected` are there
+    (None: any number, for a tool that reports another checkout's build)."""
     rep, src, current = {}, None, None
     for line in native.build_info.log.splitlines():
         m = re.match(r"== nvcc (\S+)", line)
@@ -1467,9 +1498,11 @@ def paged_build_report(native):
             sm = re.search(r"(\d+) bytes smem", line)
             rep[current]["smem_bytes"] = int(sm.group(1)) if sm else 0
             current = None
-    if len(rep) != 12:
-        raise AssertionError(f"expected 12 paged instantiations (split and "
-                             f"merge x D 32/64/128 x float32 and int8), "
+    if n_expected is not None and len(rep) != n_expected:
+        raise AssertionError(f"expected {n_expected} paged instantiations "
+                             f"(split and "
+                             f"merge x (D 32/64/128, and the padded widths "
+                             f"8/16/32/64/128/256) x float32 and int8), "
                              f"found {sorted(rep)}")
     return rep
 
@@ -1590,17 +1623,19 @@ def teacher_forced(ver, prompt, forced, slots):
 
 
 def compare_teacher_forced(i, prompt, card_tokens, host_tokens, ver, hver,
-                           slots):
+                           slots, host_forced=None):
     """Replay request `i` on the card and on the host, both teacher-forced
     on the host's tokens, and hold the two to what int8 rounding flips can
     explain: logits within Q8_LOGIT_TOL, block scales equal to summation
     order, int8 values at most Q8_MAX_BIN_DIFF bins apart. Where the card
     generated other tokens than the host, the host's logits of the two
     picks at the first differing step must be a near-tie. Raises
-    otherwise; returns a one-line account."""
+    otherwise; returns a one-line account. `host_forced`: the host's
+    replay (logits, residency) made elsewhere, in place of `hver`'s."""
     import numpy as np
     card_logits, card_kv = teacher_forced(ver, prompt, host_tokens, slots)
-    host_logits, host_kv = teacher_forced(hver, prompt, host_tokens, slots)
+    host_logits, host_kv = (teacher_forced(hver, prompt, host_tokens, slots)
+                            if host_forced is None else host_forced)
     if host_logits.argmax(-1).tolist() != list(host_tokens):
         raise AssertionError(f"request {i}: the host's teacher-forced replay "
                              f"does not reproduce its own tokens")
@@ -8438,6 +8473,317 @@ def run_capi(torch, ptt, native, model_dir, root, tmp):
     return out
 
 
+# phase 7u: the serving kernels at every head dim the JAX kernels take.
+# serve-base with its heads changed only: serve-base-d8 (64 heads of 8, the
+# JAX package's tiny LM's head dim) and serve-base-d256 (2 heads of 256),
+# each with fp32 KV (phase 4's requests) and int8 KV (serve-base-int8's
+# slots, blocks and requests), under phase 4's and 4b's gates. Their host
+# references (the saves, the host's tokens and prefill logits, and the
+# host side of the int8 arms' teacher-forced replay of the longest
+# request) run in a child process on the host's cores alone
+# (SERVE_HEADS_CHILD_THREADS torch threads), started before the build
+# and waited for before phase 4: they overlap only the build and phase 3,
+# whose times are CUDA-event times of the card, and no phase that times
+# the host. The kernel checks run at SERVE_CHECK_DIMS: the widths of the
+# padded instantiations (8, 16, 96, 256) and head dims padded into one
+# (24 -> 32, 80 -> 96, 136 -> 256), at serve-base's width (H = 512 // D)
+# and at T 8192 / seq_lens up to 8192 at D 8 and 256.
+SERVE_HEADS = {8: 64, 256: 2}
+SERVE_CHECK_DIMS = (8, 16, 24, 80, 96, 136, 256)
+SERVE_LONG_T = 8192
+SERVE_HEADS_CHILD_THREADS = 6
+SERVE_HEADS_CHILD_TIMEOUT = 900
+
+
+def _serve_heads_kw(head_dim, kv_dtype):
+    """serve-base's signature with `head_dim`'s heads and `kv_dtype`'s
+    residency (the int8 arm at serve-base-int8's slots)."""
+    kw = dict(SERVE_BASE, n_heads=SERVE_HEADS[head_dim], kv_dtype=kv_dtype)
+    if kv_dtype == "int8":
+        kw["max_slots"] = INT8_SLOTS
+    return kw
+
+
+def _serve_heads_child_main(workdir):
+    """The host side of phase 7u, in a process of its own (no card): save
+    each arm's dir under `workdir` (written to saved.json when all are),
+    then serve each on CPUPlace: the tokens, the fp32 arms' prefill
+    logits, the int8 arms' requantize events and the host side of the
+    teacher-forced replay of the longest request (host.json and one .npz
+    an arm)."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(SERVE_HEADS_CHILD_THREADS)
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import tiny_lm
+    arms = {}
+    for hd in SERVE_HEADS:
+        fp_kw = _serve_heads_kw(hd, "fp32")
+        fp_sig = tiny_lm.default_signature(**fp_kw)
+        budget = fp_sig["num_blocks"] * ptt.serve.block_residency_nbytes(
+            fp_sig)
+        for kv in ("fp32", "int8"):
+            kw = _serve_heads_kw(hd, kv)
+            if kv == "int8":
+                kw["num_blocks"] = 1 + ptt.serve.blocks_for_budget(
+                    tiny_lm.default_signature(**kw), budget)
+            name = f"d{hd}_{kv}"
+            mdir = os.path.join(workdir, name)
+            sig = tiny_lm.save_tiny_lm(mdir, seed=WEIGHT_SEED, **kw)
+            arms[name] = dict(mdir=mdir, head_dim=hd, kv_dtype=kv,
+                              num_blocks=sig["num_blocks"],
+                              budget_bytes=budget,
+                              cache_bytes=sig["num_blocks"]
+                              * ptt.serve.block_residency_nbytes(sig))
+    with open(os.path.join(workdir, "saved.json.tmp"), "w") as f:
+        json.dump(arms, f)
+    os.replace(os.path.join(workdir, "saved.json.tmp"),
+               os.path.join(workdir, "saved.json"))
+    out = {}
+    for name, arm in arms.items():
+        t0 = time.perf_counter()
+        int8 = arm["kv_dtype"] == "int8"
+        prompts = prompts_for(SERVE_BASE["vocab"],
+                              n=INT8_REQUESTS if int8 else N_REQUESTS)
+        host = ptt.serve.InferenceServer(ptt.CPUPlace())
+        try:
+            hver = host.add_model(name, arm["mdir"], warm=False)
+            res = serve_all(host, name, prompts, timeout=1800)
+            rec = dict(tokens=[r.tokens for r in res])
+            arrays = {}
+            if int8:
+                rec["requants"] = host.stats()["models"][name][
+                    "kv_requant_events"]
+                i = len(prompts) - 1
+                logits, kv = teacher_forced(hver, prompts[i], res[i].tokens,
+                                            INT8_SLOTS)
+                arrays["tf_logits"] = logits
+                rec["tf_vars"] = sorted(kv)
+                for j, cname in enumerate(rec["tf_vars"]):
+                    arrays[f"tf_q_{j}"], arrays[f"tf_s_{j}"] = kv[cname]
+            else:
+                arrays["prefill_logits"] = prefill_logits(hver, prompts[0],
+                                                          128)
+        finally:
+            host.close()
+        np.savez(os.path.join(workdir, f"{name}.npz"), **arrays)
+        rec["s"] = time.perf_counter() - t0
+        out[name] = rec
+    with open(os.path.join(workdir, "host.json.tmp"), "w") as f:
+        json.dump(out, f)
+    os.replace(os.path.join(workdir, "host.json.tmp"),
+               os.path.join(workdir, "host.json"))
+    return 0
+
+
+def start_serve_heads_child():
+    """Start phase 7u's host child (no card visible to it) on a temporary
+    directory; the exit of this script stops it and removes the directory.
+    Returns (process, directory, its log file)."""
+    import atexit
+    import shutil
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_heads_")
+    logf = tempfile.TemporaryFile("w+")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-heads-child",
+         workdir], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=logf, stderr=subprocess.STDOUT, env=env)
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    atexit.register(stop)
+    return proc, workdir, logf
+
+
+def _read_serve_heads_child(child, what):
+    """Wait for the child's `what` ('saved' or 'host'); raise with its
+    output if it failed."""
+    proc, workdir, logf = child
+    path = os.path.join(workdir, f"{what}.json")
+    deadline = time.perf_counter() + SERVE_HEADS_CHILD_TIMEOUT
+    while not os.path.exists(path):
+        if proc.poll() is not None and not os.path.exists(path):
+            logf.seek(0)
+            raise AssertionError(f"phase 7u: the host child exited "
+                                 f"{proc.returncode}:\n{logf.read()[-4000:]}")
+        if time.perf_counter() > deadline:
+            proc.kill()
+            raise AssertionError("phase 7u: the host child timed out")
+        time.sleep(0.2)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _serve_heads_arm(torch, ptt, native, name, arm, host, fp32_tokens):
+    """One arm of phase 7u on the card, held to phase 4's (fp32) or 4b's
+    (int8) gates against the child's host run `host`. Returns its numbers
+    and, for an fp32 arm, its tokens for serve-base-int8's prompts."""
+    import numpy as np
+    int8 = arm["kv_dtype"] == "int8"
+    prompts = prompts_for(SERVE_BASE["vocab"],
+                          n=INT8_REQUESTS if int8 else N_REQUESTS)
+    kname = "paged_decode_q8" if int8 else "paged_decode"
+    srv = ptt.serve.InferenceServer(ptt.CUDAPlace(0))
+    try:
+        ver = srv.add_model(name, arm["mdir"])
+        sig = ver.decode.signature
+        if int8:
+            for cname in sig["cache_vars"]:
+                if ver.scope.find_var(cname).dtype != torch.int8:
+                    raise AssertionError(f"{name}: {cname} is not resident "
+                                         f"as int8")
+        before = srv.stats()["models"][name]
+        native.reset_launches()
+        t0 = time.perf_counter()
+        results = serve_all(srv, name, prompts, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(native.launches)
+        after = srv.stats()["models"][name]
+        n_prefill = after["prefill_steps"] - before["prefill_steps"]
+        n_decode = after["steps"] - before["steps"]
+        want = dict.fromkeys(launches, 0)
+        want.update({"flash_fwd": sig["n_layers"] * n_prefill,
+                     kname: sig["n_layers"] * n_decode})
+        if launches != want or n_prefill < 1 or n_decode < 1:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        for p, r in zip(prompts, results):
+            if len(r.tokens) != NEW_TOKENS or r.finish_reason != "length" \
+                    or not all(0 <= t < sig["vocab"] for t in r.tokens):
+                raise AssertionError(f"{name}: bad generation for a "
+                                     f"{len(p)}-token prompt: {r}")
+        out = dict(launches=launches, n_prefill=n_prefill, n_decode=n_decode,
+                   wall_s=wall, head_dim=sig["head_dim"],
+                   heads=sig["num_heads"],
+                   tokens_per_s=sum(len(r.tokens) for r in results) / wall,
+                   ttft_ms_median=sorted(r.ttft_us / 1e3 for r in results)[
+                       len(results) // 2],
+                   host_s=host["s"])
+        arrays = np.load(os.path.join(os.path.dirname(arm["mdir"]),
+                                      f"{name}.npz"))
+        differing = [i for i, (r, h) in enumerate(zip(results,
+                                                      host["tokens"]))
+                     if r.tokens != h]
+        if not int8:
+            if differing:
+                raise AssertionError(f"{name}: card tokens differ from the "
+                                     f"host's for requests {differing}")
+            card_logits = prefill_logits(ver, prompts[0], 128)
+            if not np.isfinite(card_logits).all() \
+                    or card_logits.shape != (1, sig["vocab"]):
+                raise AssertionError(f"{name}: prefill logits not finite / "
+                                     f"wrong shape")
+            out["logit_err"] = float(np.abs(
+                card_logits - arrays["prefill_logits"]).max())
+            if not out["logit_err"] <= LOGIT_TOL:
+                raise AssertionError(f"{name}: prefill logits card vs host "
+                                     f"{out['logit_err']} > {LOGIT_TOL}")
+            # what the float32 residency generates for the int8 prompts
+            out["int8_prompt_tokens"] = [r.tokens for r in serve_all(
+                srv, name, prompts_for(SERVE_BASE["vocab"],
+                                       n=INT8_REQUESTS), timeout=600)]
+            return out
+        out["requants"] = after["kv_requant_events"] \
+            - before["kv_requant_events"]
+        out["host_requants"] = host["requants"]
+        out["host_token_mismatches"] = len(differing)
+        i = INT8_REQUESTS - 1
+        hkv = {cname: (arrays[f"tf_q_{j}"], arrays[f"tf_s_{j}"])
+               for j, cname in enumerate(host["tf_vars"])}
+        accounts = [compare_teacher_forced(
+            i, prompts[i], results[i].tokens, host["tokens"][i], ver, None,
+            INT8_SLOTS, host_forced=(arrays["tf_logits"], hkv))]
+        if differing:
+            # a near-tie moved by an int8 rounding flip: replay it on a
+            # host server here
+            hsrv = ptt.serve.InferenceServer(ptt.CPUPlace())
+            try:
+                hver = hsrv.add_model(name + "_host", arm["mdir"], warm=False)
+                accounts += [compare_teacher_forced(
+                    k, prompts[k], results[k].tokens, host["tokens"][k], ver,
+                    hver, INT8_SLOTS) for k in differing if k != i]
+            finally:
+                hsrv.close()
+        out["teacher_forced"] = accounts
+        firsts = sum(r.tokens[0] == t[0]
+                     for r, t in zip(results, fp32_tokens))
+        out["equal_to_fp32"] = sum(r.tokens == t
+                                   for r, t in zip(results, fp32_tokens))
+        if firsts != INT8_REQUESTS:
+            raise AssertionError(f"{name}: an int8 request's first token "
+                                 f"differs from the float32 run's: prefill "
+                                 f"attends over exact K/V")
+        return out
+    finally:
+        srv.close()
+
+
+def finish_serve_heads_child(child):
+    """Wait for phase 7u's host child to end; returns (arms, host)."""
+    arms = _read_serve_heads_child(child, "saved")
+    host = _read_serve_heads_child(child, "host")
+    child[0].wait(timeout=60)
+    return arms, host
+
+
+def run_serve_heads(torch, ptt, native, arms, host):
+    """Phase 7u's serving: each arm on the card against the child's host
+    run. Returns {arm: numbers}."""
+    out = {}
+    for hd in SERVE_HEADS:
+        fp = _serve_heads_arm(torch, ptt, native, f"d{hd}_fp32",
+                              arms[f"d{hd}_fp32"], host[f"d{hd}_fp32"],
+                              None)
+        q8 = _serve_heads_arm(torch, ptt, native, f"d{hd}_int8",
+                              arms[f"d{hd}_int8"], host[f"d{hd}_int8"],
+                              fp.pop("int8_prompt_tokens"))
+        q8.update(cache_bytes=arms[f"d{hd}_int8"]["cache_bytes"],
+                  budget_bytes=arms[f"d{hd}_int8"]["budget_bytes"])
+        out[f"serve-base-d{hd}"] = fp
+        out[f"serve-base-d{hd}-int8"] = q8
+    return out
+
+
+def check_serving_head_dims(torch, fa, pa, flush):
+    """The three serving kernels at SERVE_CHECK_DIMS, as phase 3 checks
+    them at D 64: the flash forward at serve-base's prefill shape (4 rows,
+    T 512, causal, H = 512 // D) and on a ragged T 200 causal and not
+    (rate 0.1); the paged pair at serve-base's and serve-base-int8's
+    slots; then the long cases at D 8 and 256 (flash at T 8192, the paged
+    pair over seq_lens up to 8192). Returns {kernel: {case: numbers}}."""
+    out = {"flash_fwd": {}, "paged_decode": {}, "paged_decode_q8": {}}
+    for D in SERVE_CHECK_DIMS:
+        H = max(1, 512 // D)
+        out["flash_fwd"][f"D{D}"] = dict(
+            check_flash(torch, fa, flush, 4, 512, H=H, D=D), D=D, H=H)
+        out["paged_decode"][f"D{D}"] = dict(
+            check_paged(torch, pa, flush, H=H, Dh=D), D=D, H=H)
+        out["paged_decode_q8"][f"D{D}"] = dict(
+            check_paged_q8(torch, pa, flush, H=H, Dh=D), D=D, H=H)
+    edges = check_flash_forward_edges(
+        torch, fa, cases=tuple((f"ragged_d{D}", 4, 200, D, 1.0)
+                               for D in SERVE_CHECK_DIMS))
+    out["flash_fwd"]["ragged_T200"] = edges
+    for D, H in ((8, 8), (256, 2)):
+        out["flash_fwd"][f"D{D}_T{SERVE_LONG_T}"] = dict(
+            check_flash(torch, fa, flush, 1, SERVE_LONG_T, H=H, D=D), D=D,
+            H=H)
+        H = 512 // D
+        long_seq = (0, 1, 1000, 2049, 4096, 6000, 8000, SERVE_LONG_T)
+        out["paged_decode"][f"D{D}_ctx{SERVE_LONG_T}"] = dict(
+            check_paged(torch, pa, flush, seq=long_seq, H=H, Dh=D,
+                        max_ctx=SERVE_LONG_T), D=D, H=H)
+        out["paged_decode_q8"][f"D{D}_ctx{SERVE_LONG_T}"] = dict(
+            check_paged_q8(torch, pa, flush, S=8, H=H, Dh=D,
+                           max_ctx=SERVE_LONG_T,
+                           NB=1 + 8 * (SERVE_LONG_T // 16)), D=D, H=H)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8479,6 +8825,10 @@ def main() -> int:
     log(f"device: {kind} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
 
+    # phase 7u's host side, beside the build and the kernel checks and
+    # over before phase 4
+    heads_child = start_serve_heads_child()
+
     # 2. build
     native.lib()
     info = native.build_info
@@ -8514,6 +8864,8 @@ def main() -> int:
         log(f"{inst}: {r.get('registers', 'not reported')} registers, "
             f"{r.get('spill_bytes', 'not reported')} bytes spilled, "
             f"{r['smem_bytes']} bytes of static shared memory a block")
+
+    t_phase3 = time.perf_counter()
 
     # 3. kernels vs their plain versions
     flush = _l2_flusher(torch)
@@ -8656,6 +9008,14 @@ def main() -> int:
             f"with Mask {c['fwd_ms']:.4f} ms (bound {c['fwd_bound_ms']:.4f} "
             f"ms), on dy {c['bwd_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
             f"F.dropout bf16 {c['library_ms']:.4f} ms [{card}]")
+
+    t0 = time.perf_counter()
+    heads_arms, heads_host = finish_serve_heads_child(heads_child)
+    log(f"phase 3: {t0 - t_phase3:.1f} s; phase 7u's host child, started "
+        f"before the build, ended {time.perf_counter() - t0:.1f} s after it "
+        f"(arms "
+        + ", ".join(f"{k} {v['s']:.1f} s" for k, v in heads_host.items())
+        + f"); total so far {time.perf_counter() - t_start:.1f} s")
 
     # 4. the serving path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -9794,6 +10154,51 @@ def main() -> int:
             f"{cab['client_wall_s']:.2f} s wall")
     log(f"phase 7t: {cab['s']:.1f} s; total so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # 7u. the serving kernels at every head dim the JAX kernels take
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    heads_checks = check_serving_head_dims(torch, fa, pa, flush)
+    for kname, cases in heads_checks.items():
+        for case, c in cases.items():
+            if case == "ragged_T200":
+                log(f"{kname} at T 200, causal and not, rate 0.1, B 4 H 8: "
+                    f"max_abs_err {c} (tol {TOL}), two launches bit-equal")
+                continue
+            extra = (f" sdpa {c['library_ms']:.4f} ms"
+                     if c.get("library_ms") is not None else "")
+            shape = (f"rows={c['rows']} H={c['H']} T={c['T']} D={c['D']} "
+                     f"causal" if kname == "flash_fwd" else
+                     f"S={c['S']} H={c['H']} Dh={c['D']} BS=16 seq_lens "
+                     f"sum {c['total']}, seq_len 0 zeros, poisoned rows "
+                     f"unread")
+            log(f"{kname} {shape}: max_abs_err {c['err']:.3g} (tol {TOL}), "
+                f"two launches bit-equal, kernel {c['ms']:.4f} ms plain "
+                f"{c['plain_ms']:.4f} ms{extra} bound {c['bound_ms']:.4f} ms "
+                f"({c['bound_by']}) [{card}]")
+    t_serve = time.perf_counter()
+    heads_serve = run_serve_heads(torch, ptt, native, heads_arms,
+                                  heads_host)
+    for name, r in heads_serve.items():
+        log(f"{name} ({r['heads']} heads of {r['head_dim']}) on the card "
+            f"[{card}]: TTFT median {r['ttft_ms_median']:.1f} ms; "
+            f"{r['tokens_per_s']:.1f} tokens/s; {r['n_prefill']} prefill "
+            f"and {r['n_decode']} decode steps, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }; tokens equal "
+            f"to the host's"
+            + (f" for {INT8_REQUESTS - r['host_token_mismatches']} of "
+               f"{INT8_REQUESTS} requests ({r['requants']} requantize "
+               f"events, host {r['host_requants']}); "
+               + "; ".join(r["teacher_forced"]) + f"; first tokens equal to "
+               f"the float32 run's ({r['equal_to_fp32']} of {INT8_REQUESTS} "
+               f"requests whole)" if "requants" in r else
+               f"; prefill logits max_abs_err {r['logit_err']:.3g} (tol "
+               f"{LOGIT_TOL})")
+            + f"; host child {r['host_s']:.1f} s")
+    log(f"phase 7u: {time.perf_counter() - t0:.1f} s (kernel checks "
+        f"{t_serve - t0:.1f} s, serving {time.perf_counter() - t_serve:.1f} "
+        f"s); total so far {time.perf_counter() - t_start:.1f} s")
     for tr in lstm_trains.values():
         trace_train_stacked_lstm(torch, tr)
         log(f"{tr['tag']}, one traced step after every timed one: "
@@ -9923,6 +10328,16 @@ def main() -> int:
         """A kernel's launches on phase 7r's path (the replay apart)."""
         return {"train_base_elastic": el["launches"].get(kname, 0)}
 
+    def heads_launches(kname):
+        """A kernel's launches on phase 7u's serving arms."""
+        return {name.replace("-", "_"): r["launches"].get(kname, 0)
+                for name, r in heads_serve.items()}
+
+    def heads_err(kname):
+        """A kernel's largest error over phase 7u's checks."""
+        return max(max(c.values()) if k == "ragged_T200" else c["err"]
+                   for k, c in heads_checks[kname].items())
+
     big = max(flash_cases, key=lambda c: (c["rows"] * c["T"] ** 2))
     head = train_cases[0]          # B 32, T 256, non-causal, rate 0.1
     causal_head = train_cases[1]   # the same, causal
@@ -9962,10 +10377,12 @@ def main() -> int:
                               **ps_launches("flash_fwd"),
                               **el_launches("flash_fwd"),
                               "capi_infer_base_a_batch":
-                                  cab["launches"][0]["flash_fwd"]},
+                                  cab["launches"][0]["flash_fwd"],
+                              **heads_launches("flash_fwd")},
          "max_abs_err": max([c["err"] for c in flash_cases]
                             + [c["fwd_err"] for c in train_cases]
-                            + list(fwd_edges.values())),
+                            + list(fwd_edges.values())
+                            + [heads_err("flash_fwd")]),
          "ms": head["fwd_ms"], "plain_ms": head["fwd_plain_ms"],
          "bound_ms": head["fwd_bound_ms"], "bound_by": head["fwd_bound_by"],
          "bound_rate": "3xTF32 on the tensor cores, 495e12 / 3 op/s",
@@ -9980,7 +10397,8 @@ def main() -> int:
                    "bound_cuda_core_ms": big["bound_cuda_core_ms"],
                    "library_ms": big["library_ms"],
                    "shape": f"rows={big['rows']} H=8 T={big['T']} D=64 "
-                            f"causal f32"}},
+                            f"causal f32"},
+         "head_dims": heads_checks["flash_fwd"]},
         *({"name": f"flash_{name}", "route": "cuda",
            "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
            "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
@@ -10043,8 +10461,10 @@ def main() -> int:
              "serve_base_torrent_fp32":
                  tor["fp32"]["launches"]["paged_decode"],
              "serve_resnet50": rn50["launches"]["paged_decode"],
-             **obs_launches("paged_decode")},
-         "max_abs_err": max(paged["err"], paged_s1["err"]),
+             **obs_launches("paged_decode"),
+             **heads_launches("paged_decode")},
+         "max_abs_err": max(paged["err"], paged_s1["err"],
+                            heads_err("paged_decode")),
          "ms": paged["ms"], "plain_ms": paged["plain_ms"],
          "bound_ms": paged["bound_ms"], "bound_by": paged["bound_by"],
          "library_ms": None, "split": paged["split"],
@@ -10055,6 +10475,7 @@ def main() -> int:
          "dead_grid_ms": paged_dead["ms"], "timing_floor_ms": floor_ms,
          "build": {k: v for k, v in paged_build.items()
                    if k.startswith("paged_decode.cu:")},
+         "head_dims": heads_checks["paged_decode"],
          "note": "library_ms null: no single PyTorch call computes "
                  "attention through a block table"},
         {"name": "paged_decode_q8", "route": "cuda",
@@ -10064,8 +10485,10 @@ def main() -> int:
          "launches_by_path": {
              "serve_int8": serve8["launches"]["paged_decode_q8"],
              "serve_base_torrent":
-                 tor["int8"]["launches"]["paged_decode_q8"]},
-         "max_abs_err": max(paged_q8["err"], paged_q8_s1["err"]),
+                 tor["int8"]["launches"]["paged_decode_q8"],
+             **heads_launches("paged_decode_q8")},
+         "max_abs_err": max(paged_q8["err"], paged_q8_s1["err"],
+                            heads_err("paged_decode_q8")),
          "ms": paged_q8["ms"], "plain_ms": paged_q8["plain_ms"],
          "bound_ms": paged_q8["bound_ms"], "bound_by": paged_q8["bound_by"],
          "library_ms": None, "split": paged_q8["split"],
@@ -10077,6 +10500,7 @@ def main() -> int:
          "dead_grid_ms": paged_q8_dead["ms"], "timing_floor_ms": floor_ms,
          "build": {k: v for k, v in paged_build.items()
                    if k.startswith("paged_decode_q8.cu:")},
+         "head_dims": heads_checks["paged_decode_q8"],
          "note": "library_ms null: no single PyTorch call computes "
                  "attention through a block table"},
         {"name": "dropout", "route": "cuda",
@@ -10249,6 +10673,8 @@ def main() -> int:
                    "fleet_plane": {"serve_base_torrent": tor,
                                    "phase_s": tor["s"]},
                    "capi": cab,
+                   "serve_head_dims": {"checks": heads_checks,
+                                       "serve": heads_serve},
                    "flash_build": flash_build, "kernels": kernels}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -10265,4 +10691,6 @@ if __name__ == "__main__":
         sys.exit(_flight_child_main(*sys.argv[2:]))
     if len(sys.argv) == 5 and sys.argv[1] == "--pserver-child":
         sys.exit(_pserver_child_main(*sys.argv[2:]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-heads-child":
+        sys.exit(_serve_heads_child_main(sys.argv[2]))
     sys.exit(main())

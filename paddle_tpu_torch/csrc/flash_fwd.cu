@@ -58,6 +58,29 @@
 // - No atomics and a fixed order of every sum: two launches on the same
 //   inputs give equal bits.
 //
+// Head dims (the TPU kernel takes any D <= 256): every multiple of 8 from
+// 8 to 256. D 32, 64 and 128 run in their exact instantiations (PAD
+// false), the design above instruction for instruction. Any other D runs
+// in the padded instantiation of the smallest width DP in {8, 16, 32, 64,
+// 96, 128, 256} that covers it (fwd_width; worst case D 136 in DP 256,
+// 1.88x the products). The copy zero-fills columns D..DP of each Q, K and
+// V row (cp.async with src-size 0, as for rows past T), so they add exact
+// zeros to S and to O's dead columns; global rows keep their stride D and
+// nothing is copied outside the kernel. O's n-tiles past D are not
+// stored. What each end of the range needed:
+// - DP 8 and 16: ND = 1 or 2 k-steps of S and n-tiles of O; a 32-row K/V
+//   tile at DP 8 is 64 16-byte chunks for 128 threads, so the copy loop
+//   guards its last round (a no-op test at the exact widths).
+// - DP 96: Q's hi/lo in shared memory, as at D 128 (105,472 B a block).
+// - DP 256: Q's hi/lo (2 x 64 x 264 floats, 135 KB) and the K/V ring
+//   (134 KB) would be 269 KB, over the 227 KB a block may have. Q stays
+//   float32 in shared memory (67.6 KB) and each warp splits its Q values
+//   per use, as it splits K's; with the two-stage ring the block takes
+//   201,728 B, one block an SM. O's accumulator is 128 floats a thread;
+//   the block keeps 4 warps of 16 rows so that S, P and O stay in the
+//   registers of the warp that owns the rows (no exchange through shared
+//   memory), at 1 block of 4 warps an SM.
+//
 // The bf16 kernel (flash_fwd_bf16_kernel, for bf16 mixed precision) is a
 // kernel of its own on Hopper's wgmma, TMA and mbarriers (wgmma_bf16.cuh,
 // as the bf16 dQ and dK/dV kernels of flash_bwd.cu), so the float32 kernel
@@ -161,17 +184,23 @@ constexpr int min_blocks() { return D <= 64 ? 2 : 1; }
 // rows [r0, r0 + ROWS) of a [T, D] slice -> shared (row stride SD),
 // asynchronously; rows >= T are zero-filled and not read. Thread tid
 // copies chunks tid, tid + 128, ... (split_tile walks the same ones).
-template <int D, int ROWS, int SD>
+// PAD: the slice is [T, d] (row stride d), and columns d..D are
+// zero-filled and not read.
+template <int D, int ROWS, int SD, bool PAD>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
-                                          int T, int tid) {
+                                          int T, int tid, int d) {
   constexpr int CPR = D / 4;  // 16-byte chunks a row
-  static_assert((ROWS * CPR) % FWD_THREADS == 0, "tile / thread mismatch");
+  constexpr int N = ROWS * CPR;
+  const int ld = PAD ? d : D;
 #pragma unroll
-  for (int it = 0; it < ROWS * CPR / FWD_THREADS; ++it) {
+  for (int it = 0; it < (N + FWD_THREADS - 1) / FWD_THREADS; ++it) {
     const int i = tid + it * FWD_THREADS;
+    if (N % FWD_THREADS != 0 && i >= N) break;  // DP 8's K/V tile
     const int r = i / CPR, c = (i % CPR) * 4;
-    const bool ok = r0 + r < T;
-    cp_async16(dst + r * SD + c, src + (size_t)(ok ? r0 + r : 0) * D + c, ok);
+    const bool ok = r0 + r < T && (!PAD || c < d);
+    cp_async16(dst + r * SD + c,
+               src + (size_t)(ok ? r0 + r : 0) * ld + (PAD && !ok ? 0 : c),
+               ok);
   }
 }
 
@@ -219,24 +248,42 @@ __device__ __forceinline__ void load_pair(const uint32_t* hi, const uint32_t* lo
   h0 = h.x; h1 = h.y; l0 = l.x; l1 = l.y;
 }
 
+// Q's hi/lo split: in registers at D <= 64, in shared memory at 64 < D
+// <= 128 (hi in place, lo beside), per use from float32 in shared memory
+// above (DP 256, where hi/lo and the K/V ring would not fit)
+template <int D>
+__host__ __device__ constexpr bool q_split_smem() { return D > 64 && D <= 128; }
+
 template <int D>
 constexpr size_t smem_floats() {
   constexpr size_t q = (size_t)BR * (D + 8);
   constexpr size_t kv = 2 * (size_t)BS * (D + 8) + 2 * (size_t)BS * (D + 4);
-  return q + kv + (D > 64 ? q : 0);
+  return q + kv + (q_split_smem<D>() ? q : 0);
 }
 
-template <int D, bool DROP>
+// The instantiation width that serves head dim d: d itself at 32, 64 and
+// 128 (exact), else the smallest of 8, 16, 32, 64, 96, 128, 256 that
+// covers it (padded); 0 for a head dim no instantiation takes.
+inline int fwd_width(int d) {
+  if (d < 8 || d > 256 || d % 8 != 0) return 0;
+  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
+       : d <= 96 ? 96 : d <= 128 ? 128 : 256;
+}
+
+// d: the head dim (D unless PAD); q, k, v and o are [B*H, T, d]
+template <int D, bool DROP, bool PAD>
 __global__ void __launch_bounds__(FWD_THREADS, min_blocks<D>())
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int T, float sm_scale, int causal,
-                 uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale) {
+                 uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale,
+                 int d) {
   constexpr int SK = D + 8;          // row stride of Q and K
   constexpr int SV = D + 4;          // row stride of V
   constexpr int NS = BS / 8;         // 8-key n-tiles of S, k-tiles of P V
   constexpr int ND = D / 8;          // 8-wide k-tiles of S, n-tiles of O
   constexpr bool Q_REGS = D <= 64;   // Q's split in registers
+  constexpr bool Q_SPLIT = q_split_smem<D>();
   extern __shared__ float smem[];
   float* Qs = smem;                  // [BR][SK]; at D 128 Q's hi after the split
   float* Ks = Qs + BR * SK;          // [2][BS][SK]
@@ -247,17 +294,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;  // heaviest first
-  const size_t base = (size_t)blockIdx.y * T * D;
+  const int ld = PAD ? d : D;        // global row stride
+  const size_t base = (size_t)blockIdx.y * T * ld;
 
   const int n_kv = (T + BS - 1) / BS;
   const int n_tiles = causal ? min(n_kv, (q0 + BR - 1) / BS + 1) : n_kv;
 
-  load_tile<D, BR, SK>(Qs, q + base, q0, T, tid);
-  load_tile<D, BS, SK>(Ks, k + base, 0, T, tid);
-  load_tile<D, BS, SV>(Vs, v + base, 0, T, tid);
+  load_tile<D, BR, SK, PAD>(Qs, q + base, q0, T, tid, d);
+  load_tile<D, BS, SK, PAD>(Ks, k + base, 0, T, tid, d);
+  load_tile<D, BS, SV, PAD>(Vs, v + base, 0, T, tid, d);
   cp_async_commit();
   cp_async_wait<0>();
-  if constexpr (!Q_REGS) split_tile<D, BR, SK>(Qs, Qlo, tid);
+  if constexpr (Q_SPLIT) split_tile<D, BR, SK>(Qs, Qlo, tid);
   __syncthreads();
 
   // this thread's query rows: wr and wr + 8 of the tile
@@ -301,8 +349,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (kt + 1 < n_tiles) {
       const int nx = (kt + 1) & 1;
-      load_tile<D, BS, SK>(Ks + nx * BS * SK, k + base, (kt + 1) * BS, T, tid);
-      load_tile<D, BS, SV>(Vs + nx * BS * SV, v + base, (kt + 1) * BS, T, tid);
+      load_tile<D, BS, SK, PAD>(Ks + nx * BS * SK, k + base, (kt + 1) * BS,
+                                T, tid, d);
+      load_tile<D, BS, SV, PAD>(Vs + nx * BS * SV, v + base, (kt + 1) * BS,
+                                T, tid, d);
       cp_async_commit();
     }
     const int k0 = kt * BS;
@@ -325,11 +375,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           ah[e] = qh[kk][e];
           al[e] = ql[kk][e];
         }
-      } else {
+      } else if constexpr (Q_SPLIT) {
         const uint32_t* Qh = reinterpret_cast<const uint32_t*>(Qs);
         load_pair<SK>(Qh, Qlo, wr, 8 * kk + 2 * t, ah[0], al[0], ah[2], al[2]);
         load_pair<SK>(Qh, Qlo, wr + 8, 8 * kk + 2 * t, ah[1], al[1], ah[3],
                       al[3]);
+      } else {  // DP 256: float32 Q, split here
+        load_pair<SK>(Qs, wr, 8 * kk + 2 * t, ah[0], al[0], ah[2], al[2]);
+        load_pair<SK>(Qs, wr + 8, 8 * kk + 2 * t, ah[1], al[1], ah[3], al[3]);
       }
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
@@ -402,29 +455,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row[h] < T) {
       const float lsafe = fmaxf(l[h], 1e-20f);
       const float inv = 1.f / lsafe;
-      float* dst = o + base + (size_t)row[h] * D + 2 * t;
+      float* dst = o + base + (size_t)row[h] * ld + 2 * t;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<float2*>(dst + 8 * n) =
-            make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+        if (!PAD || 8 * n < d)   // a padded width's columns past d: not stored
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
       if (t == 0) lse[(size_t)blockIdx.y * T + row[h]] = m[h] + logf(lsafe);
     }
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   float* lse, int bh, int T, float sm_scale, int causal,
+                   float* lse, int bh, int T, int d, float sm_scale, int causal,
                    uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
-  auto kernel = thresh ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+  auto kernel = thresh ? flash_fwd_kernel<D, true, PAD>
+                       : flash_fwd_kernel<D, false, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T + BR - 1) / BR, bh);
   kernel<<<grid, FWD_THREADS, smem, stream>>>(
-      q, k, v, o, lse, T, sm_scale, causal, seed, bh0, thresh, drop_scale);
+      q, k, v, o, lse, T, sm_scale, causal, seed, bh0, thresh, drop_scale, d);
   return cudaGetLastError();
 }
 
@@ -846,7 +901,8 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // q, k, v, o: [bh, T, d] float32, contiguous; lse: [bh, T] float32.
 // Dropout keeps a weight when its hash >= thresh (thresh = rate * 2^32;
 // 0 = no dropout) and scales it by drop_scale = 1 / (1 - rate).
-// Returns a cudaError_t (0 on success); d must be 32, 64 or 128.
+// Returns a cudaError_t (0 on success); d must be a multiple of 8 from 8
+// to 256.
 extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int bh, int T, int d,
                                  float sm_scale, int causal, uint32_t seed, uint32_t bh0,
@@ -860,24 +916,39 @@ extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTT_FWD_F32(D, PAD)                                                  \
+  return (int)launch<D, PAD>(qf, kf, vf, of, lf, bh, T, d, sm_scale, causal, \
+                             seed, bh0, thresh, drop_scale, s)
   switch (d) {
-    case 32: return (int)launch<32>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
-                                       seed, bh0, thresh, drop_scale, s);
-    case 64: return (int)launch<64>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
-                                       seed, bh0, thresh, drop_scale, s);
-    case 128: return (int)launch<128>(qf, kf, vf, of, lf, bh, T, sm_scale, causal,
-                                       seed, bh0, thresh, drop_scale, s);
+    case 32: PTT_FWD_F32(32, false);
+    case 64: PTT_FWD_F32(64, false);
+    case 128: PTT_FWD_F32(128, false);
+  }
+  switch (fwd_width(d)) {
+    case 8: PTT_FWD_F32(8, true);
+    case 16: PTT_FWD_F32(16, true);
+    case 32: PTT_FWD_F32(32, true);
+    case 64: PTT_FWD_F32(64, true);
+    case 96: PTT_FWD_F32(96, true);
+    case 128: PTT_FWD_F32(128, true);
+    case 256: PTT_FWD_F32(256, true);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PTT_FWD_F32
 }
 
 // Dynamic shared memory a block of the forward kernel takes at head dim
-// d, in bytes; -1 for another d.
+// d (that of the instantiation serving d), in bytes; -1 for a d no
+// instantiation takes.
 extern "C" int ptt_flash_fwd_smem_bytes(int d) {
-  switch (d) {
+  switch (fwd_width(d)) {
+    case 8: return (int)(sizeof(float) * smem_floats<8>());
+    case 16: return (int)(sizeof(float) * smem_floats<16>());
     case 32: return (int)(sizeof(float) * smem_floats<32>());
     case 64: return (int)(sizeof(float) * smem_floats<64>());
+    case 96: return (int)(sizeof(float) * smem_floats<96>());
     case 128: return (int)(sizeof(float) * smem_floats<128>());
+    case 256: return (int)(sizeof(float) * smem_floats<256>());
     default: return -1;
   }
 }

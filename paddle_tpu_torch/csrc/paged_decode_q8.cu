@@ -52,7 +52,14 @@
 //   group's lanes with warp shuffles in U independent chains;
 // - the groups' states are merged through shared memory into the chunk's
 //   record, which the merge kernel combines with the slot's other chunks
-//   in split order: no atomics, reruns give equal bits.
+//   in split order: no atomics, reruns give equal bits;
+// - head dims (paged_split.cuh): Dh 32, 64 and 128 in the layout above,
+//   exactly as before; every other multiple of 8 up to 256 in a padded
+//   instantiation of width DH = 8, 16, 32, 64, 128 or 256, each with a
+//   row of DH / 8 lanes (1 to 32: a row fits a warp at every width). At
+//   DH 8 and 16 a block is 32 or 64 threads (32 groups of U = 2
+//   positions: 128 threads would make 128 or 64 groups, more than a
+//   64-position pass); at DH 256, 256 threads in 8 groups of U = 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,8 +71,18 @@ namespace {
 using ptt_paged::NEG_INF;
 using ptt_paged::PASS;
 
-constexpr int NTHREADS = 128;
 constexpr int VPL = 8;             // int8 values per lane: one 8-byte load
+
+// The lane layout of instantiation width DH: LP lanes a row, NT threads
+// in G = NT / LP groups of U positions, a pass of PASS positions.
+template <int DH>
+struct Layout {
+  static constexpr int LP = DH / VPL;
+  static constexpr int NT = DH < 32 ? 4 * DH : DH == 256 ? 256 : 128;
+  static constexpr int G = NT / LP;
+  static constexpr int U = PASS / G;
+  static_assert(LP <= 32 && U * G == PASS && U >= 2, "layout");
+};
 
 // value i (0..7) of one 8-byte load of int8, as a float
 __device__ __forceinline__ float q8_at(const int2& w, int i) {
@@ -73,21 +90,23 @@ __device__ __forceinline__ float q8_at(const int2& w, int i) {
   return (float)(int8_t)((word >> (8 * (i & 3))) & 0xff);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(NTHREADS)
+// d: the head dim (DH unless PAD); q, the caches and the record are d wide
+template <int DH, bool PAD>
+__global__ void __launch_bounds__(Layout<DH>::NT)
 paged_q8_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
                       const int8_t* __restrict__ vc, const float* __restrict__ ks,
                       const float* __restrict__ vs, const int* __restrict__ bt,
                       const int* __restrict__ sl, float* __restrict__ part,
                       int H, int BS, int max_b, int P, int nsplit,
-                      float sm_scale) {
-  constexpr int LP = DH / VPL;        // lanes per position row
-  constexpr int G = NTHREADS / LP;    // position groups per block
-  constexpr int U = PASS / G;         // positions a group loads at once
-  static_assert(U * G == PASS, "a pass is PASS positions");
+                      float sm_scale, int d) {
+  constexpr int NTHREADS = Layout<DH>::NT;
+  constexpr int LP = Layout<DH>::LP;  // lanes per position row
+  constexpr int G = Layout<DH>::G;    // position groups per block
+  constexpr int U = Layout<DH>::U;    // positions a group loads at once
   __shared__ float ms[G], ls[G], ws[G];
   __shared__ __align__(16) float accs[G][DH];
 
+  const int D = PAD ? d : DH;
   const int tid = threadIdx.x;
   const int h = blockIdx.x;
   const int slot = blockIdx.y;
@@ -99,13 +118,15 @@ paged_q8_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc
   const int p_end = min(seq_len, p_begin + P);
   const int lane = tid % LP;
   const int g = tid / LP;
+  // a padded instantiation's lanes past d read nothing and hold zeros
+  const bool col = !PAD || lane * VPL < D;
   float qv[VPL];
   {
     const float4* qp = reinterpret_cast<const float4*>(
-        q + ((size_t)slot * H + h) * DH + lane * VPL);
+        q + ((size_t)slot * H + h) * D + lane * VPL);
 #pragma unroll
     for (int i = 0; i < VPL / 4; ++i) {
-      const float4 t = __ldg(qp + i);
+      const float4 t = col ? __ldg(qp + i) : make_float4(0.f, 0.f, 0.f, 0.f);
       qv[4 * i + 0] = t.x;
       qv[4 * i + 1] = t.y;
       qv[4 * i + 2] = t.z;
@@ -131,9 +152,11 @@ paged_q8_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc
       if (p < p_end) {
         const int blk = __ldg(row_bt + p / BS);
         const size_t off =
-            (((size_t)blk * BS + (p % BS)) * H + h) * DH + lane * VPL;
-        kw[u] = __ldg(reinterpret_cast<const int2*>(kc + off));
-        vw[u] = __ldg(reinterpret_cast<const int2*>(vc + off));
+            (((size_t)blk * BS + (p % BS)) * H + h) * D + lane * VPL;
+        if (col) {
+          kw[u] = __ldg(reinterpret_cast<const int2*>(kc + off));
+          vw[u] = __ldg(reinterpret_cast<const int2*>(vc + off));
+        }
         k_mul[u] = __ldg(ks + blk);
         v_mul[u] = __ldg(vs + blk);
       }
@@ -186,23 +209,25 @@ paged_q8_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc
     reinterpret_cast<float4*>(&accs[g][lane * VPL])[i] =
         make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
   __syncthreads();
-  ptt_paged::write_record<DH, G, NTHREADS>(
+  ptt_paged::write_record<DH, G, NTHREADS, PAD>(
       ms, ls, ws, &accs[0][0],
-      part + (((size_t)slot * H + h) * nsplit + split) * (DH + 2));
+      part + (((size_t)slot * H + h) * nsplit + split) * (D + 2), D);
 }
 
-template <int DH>
+template <int DH, bool PAD>
 cudaError_t launch(const float* q, const int8_t* kc, const int8_t* vc,
                    const float* ks, const float* vs, const int* bt,
                    const int* sl, float* part, float* out, int S, int H,
-                   int BS, int max_b, int P, int nsplit, float sm_scale,
+                   int d, int BS, int max_b, int P, int nsplit, float sm_scale,
                    cudaStream_t stream) {
-  paged_q8_split_kernel<DH><<<dim3(H, S, nsplit), NTHREADS, 0, stream>>>(
-      q, kc, vc, ks, vs, bt, sl, part, H, BS, max_b, P, nsplit, sm_scale);
+  paged_q8_split_kernel<DH, PAD>
+      <<<dim3(H, S, nsplit), Layout<DH>::NT, 0, stream>>>(
+          q, kc, vc, ks, vs, bt, sl, part, H, BS, max_b, P, nsplit, sm_scale,
+          d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return ptt_paged::launch_merge<DH>(part, sl, out, S, H, BS, max_b, P, nsplit,
-                                     stream);
+  return ptt_paged::launch_merge<DH, PAD>(part, sl, out, S, H, BS, max_b, P,
+                                          nsplit, d, stream);
 }
 
 }  // namespace
@@ -213,7 +238,7 @@ cudaError_t launch(const float* q, const int8_t* kc, const int8_t* vc,
 // workspace, nsplit = max(1, ceil(max_b * bs / split)), split a positive
 // multiple of 64; all contiguous, q 16-byte and the caches 8-byte aligned.
 // Launches the split kernel and then the merge kernel on `stream`. Returns
-// a cudaError_t (0 on success); dh must be 32, 64 or 128.
+// a cudaError_t (0 on success); dh must be a multiple of 8 from 8 to 256.
 extern "C" int ptt_paged_decode_q8(const void* q, const void* k_cache,
                                    const void* v_cache, const void* k_scale,
                                    const void* v_scale, const void* block_tables,
@@ -235,10 +260,22 @@ extern "C" int ptt_paged_decode_q8(const void* q, const void* k_cache,
   float* pp = static_cast<float*>(partials);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTT_PAGED_Q8(DH, PAD)                                                \
+  return (int)launch<DH, PAD>(qf, kq, vq, ksf, vsf, btp, slp, pp, of, S, H, \
+                              dh, bs, max_b, split, nsplit, sm_scale, s)
   switch (dh) {
-    case 32: return (int)launch<32>(qf, kq, vq, ksf, vsf, btp, slp, pp, of, S, H, bs, max_b, split, nsplit, sm_scale, s);
-    case 64: return (int)launch<64>(qf, kq, vq, ksf, vsf, btp, slp, pp, of, S, H, bs, max_b, split, nsplit, sm_scale, s);
-    case 128: return (int)launch<128>(qf, kq, vq, ksf, vsf, btp, slp, pp, of, S, H, bs, max_b, split, nsplit, sm_scale, s);
+    case 32: PTT_PAGED_Q8(32, false);
+    case 64: PTT_PAGED_Q8(64, false);
+    case 128: PTT_PAGED_Q8(128, false);
+  }
+  switch (ptt_paged::padded_head_dim(dh)) {
+    case 8: PTT_PAGED_Q8(8, true);
+    case 16: PTT_PAGED_Q8(16, true);
+    case 32: PTT_PAGED_Q8(32, true);
+    case 64: PTT_PAGED_Q8(64, true);
+    case 128: PTT_PAGED_Q8(128, true);
+    case 256: PTT_PAGED_Q8(256, true);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PTT_PAGED_Q8
 }

@@ -18,8 +18,11 @@ dK/dV kernels. Each of them dispatches on where its tensors lie:
   ``_flash_dkv_kernel``; see those files for what bounds them and how
   their designs answer it). They take float32 or bf16 (each dtype its
   own instantiation, counted under its own name: `flash_fwd` and
-  `flash_fwd_bf16`, ...), D in {32, 64, 128}, any T, and as many keys as
-  queries; anything else raises — there is no fallback. The bf16
+  `flash_fwd_bf16`, ...), any T, and as many keys as queries. The float32
+  forward takes every head dim D that is a multiple of 8 from 8 to 256
+  (`SERVE_HEAD_DIMS`, the JAX kernel's D <= 256); the backward kernels,
+  the delta kernel and the bf16 forward take D in {32, 64, 128}
+  (`_HEAD_DIMS`). Anything else raises — there is no fallback. The bf16
   forward, dQ and dK/dV kernels load through TMA tensor maps, which want
   16-byte-aligned bases, as every wrapper checks;
 - CPU: the plain PyTorch versions (`_attention_reference`,
@@ -62,6 +65,13 @@ from .nn import M32, _fmix32, _mul32, seed32
 
 NEG_INF = -1e30
 
+# Head dims the serving kernels take (the float32 forward here, both paged
+# decode kernels): every multiple of 8 from 8 to 256, as the JAX package's
+# flash kernel takes any D <= 256 and its paged kernels any D. ROADMAP
+# Queue 1 item 9.4 holds the rest.
+SERVE_HEAD_DIMS = tuple(range(8, 257, 8))
+# Head dims of the backward kernels, the delta kernel and the bf16
+# forward; ROADMAP Queue 1 item 9.2 brings them to SERVE_HEAD_DIMS.
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -177,11 +187,26 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, sm_scale,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_shape(q, what):
+def serve_head_dim_error(what, D):
+    """The error of a serving kernel (the float32 forward, either paged
+    decode kernel) refused head dim D."""
+    return ValueError(f"{what} takes a head dim that is a multiple of 8 "
+                      f"from 8 to 256, got {D} (ROADMAP Queue 1 item 9.4)")
+
+
+def _check_head_dim(D, what, serve):
+    """`serve`: the float32 forward's set, else the backward's."""
+    if serve:
+        if D not in SERVE_HEAD_DIMS:
+            raise serve_head_dim_error(f"flash attention {what} kernel", D)
+    elif D not in _HEAD_DIMS:
+        raise ValueError(f"flash attention {what} kernel takes head dim "
+                         f"{_HEAD_DIMS}, got {D} (ROADMAP Queue 1 item 9.2)")
+
+
+def _check_shape(q, what, serve=False):
     B, H, T, D = q.shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head dim "
-                         f"{_HEAD_DIMS}, got {D}")
+    _check_head_dim(D, what, serve)
     if B * H > native.MAX_GRID_Y:
         raise ValueError(f"flash attention {what}: B*H = {B * H} exceeds "
                          f"the grid's y limit {native.MAX_GRID_Y}")
@@ -216,7 +241,7 @@ def _instantiation(q, what):
 def _flash_forward(q, k, v, causal, sm_scale, rate=0.0, seed=0, bh0=0):
     """Launch the forward kernel of q's dtype: returns (out [B, H, T, D]
     in that dtype, lse [B, H, T] float32)."""
-    B, H, T, D = _check_shape(q, "forward")
+    B, H, T, D = _check_shape(q, "forward", q.dtype == torch.float32)
     entry, counter = _instantiation(q, "forward")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -309,9 +334,7 @@ def flash_delta(o, do):
     if dev.type != "cuda":
         raise _no_path(o)
     D = o.shape[-1]
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash attention delta kernel takes head dim "
-                         f"{_HEAD_DIMS}, got {D}")
+    _check_head_dim(D, "delta", False)
     entry, counter = _instantiation(o, "delta")
     for name, t in (("o", o), ("do", do)):
         native.check_operand(t, name, o.dtype, dev, o.shape)

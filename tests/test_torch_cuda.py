@@ -99,7 +99,13 @@ def test_flash_kernel_matches_plain(dev, B, H, T, D, causal):
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(dev):
-    q = torch.randn(1, 2, 128, 48, device=dev)
+    # the float32 forward takes every multiple of 8 up to 256, no other
+    for D in (264, 12):
+        q = torch.randn(1, 2, 128, D, device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(q, q, q, True, 0.1)
+    # the bf16 forward keeps D 32, 64 and 128
+    q = torch.randn(1, 2, 128, 16, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, True, 0.1)
     q = torch.randn(1, 2, 128, 64, device=dev, dtype=torch.float16)
@@ -108,6 +114,55 @@ def test_flash_wrapper_raises_instead_of_falling_back(dev):
     q = torch.randn(1, 128, 2, 64, device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q, q, True, 0.1)
+
+
+# head dims of the serving kernels' padded instantiations and at their
+# edges: every width (8, 16, 96, 256 exact; 24, 80, 136 padded)
+HEAD_DIM_CASES = [8, 16, 24, 80, 96, 136, 256]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [128, 200])
+@pytest.mark.parametrize("D", HEAD_DIM_CASES)
+def test_flash_forward_at_every_serving_head_dim(dev, D, T, causal):
+    """The float32 forward at a head dim of a padded instantiation (or at
+    its width), at a whole and a ragged T: within TOL of the plain version,
+    one launch counted, two launches bit-equal, and nothing written past
+    the head dim (the output is allocated by the wrapper at width D)."""
+    q, k, v = _qkv(dev, 2, 3, T, D, seed=D * 10 + T + causal)
+    sm = D ** -0.5
+    native.reset_launches()
+    out, lse = fa._flash_forward(q, k, v, causal, sm)
+    assert native.launches["flash_fwd"] == 1
+    torch.testing.assert_close(out, fa._attention_reference(q, k, v, causal,
+                                                            sm),
+                               atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=TOL, rtol=TOL)
+    again = fa._flash_forward(q, k, v, causal, sm)
+    assert torch.equal(out.view(torch.int32), again[0].view(torch.int32))
+    assert torch.equal(lse.view(torch.int32), again[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("D", [16, 80, 256])
+def test_flash_dropout_forward_at_a_serving_head_dim(dev, D):
+    """The forward's dropout instantiation at padded widths: the plain
+    version's mask and values."""
+    q, k, v = _qkv(dev, 2, 2, 200, D, seed=D)
+    sm = D ** -0.5
+    out, _ = fa._flash_forward(q, k, v, True, sm, 0.1, 12345)
+    torch.testing.assert_close(
+        out, fa._attention_reference(q, k, v, True, sm, 0.1, 12345),
+        atol=TOL, rtol=TOL)
+
+
+def test_flash_backward_still_refuses_a_serving_head_dim(dev):
+    """dQ and dK/dV keep D 32, 64 and 128 (ROADMAP Queue 1 item 9.2): the
+    forward at D 16 runs, its backward raises."""
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 2, 64, 16, seed=3))
+    out = fa.flash_attention(q, k, v, True, 0.25)
+    with pytest.raises(ValueError, match="9.2"):
+        out.sum().backward()
 
 
 def _paged_case(dev, S, H, Dh, BS, max_b, seq, seed):
@@ -608,6 +663,26 @@ def test_split_kernels_at_chunk_edges(dev, kind, Dh):
     assert (max_b * BS) % P != 0 and 3 * P < max_b * BS
     _assert_split_launch(dev, kind, len(seq), 4, Dh, BS, max_b, seq,
                          seed=Dh + len(kind))
+
+
+@pytest.mark.parametrize("kind", ["f32", "q8"])
+@pytest.mark.parametrize("Dh", HEAD_DIM_CASES)
+def test_split_kernels_at_every_serving_head_dim(dev, kind, Dh):
+    """Both paged kernels at the head dims of their padded instantiations
+    (and at widths 8, 16, 256): chunk edges, seq_len 0 and 1, the NaN
+    poison, bit-equal reruns."""
+    P = pa.DECODE_SPLIT_Q8 if kind == "q8" else pa.DECODE_SPLIT
+    seq = [P - 1, P + 1, 3 * P, 29 * 16, 1, 0]
+    _assert_split_launch(dev, kind, len(seq), 3, Dh, 16, 29, seq,
+                         seed=Dh + len(kind))
+
+
+@pytest.mark.parametrize("kind", ["f32", "q8"])
+def test_split_kernels_refuse_a_head_dim_off_the_set(dev, kind):
+    for Dh in (12, 264):
+        args, _ = _split_case(dev, kind, 2, 2, Dh, 4, 3, [5, 0], seed=Dh)
+        with pytest.raises(ValueError, match="head dim"):
+            _decode(kind)(*args)
 
 
 @pytest.mark.parametrize("kind", ["f32", "q8"])

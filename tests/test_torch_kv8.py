@@ -249,9 +249,10 @@ def test_q8_wrapper_paths_without_a_card():
             q, c, c, torch.ones(2), torch.ones(2),
             torch.zeros(n, 1, dtype=torch.int32),
             torch.zeros(n, dtype=torch.int32), 1.0)
+    # head dim 12: not a multiple of 8 (every multiple of 8 up to 256 runs)
     with pytest.raises(ValueError, match="head dim"):
         pa._paged_attention_q8_cuda(
-            torch.empty(1, 1, 24), c, c, torch.ones(2), torch.ones(2),
+            torch.empty(1, 1, 12), c, c, torch.ones(2), torch.ones(2),
             torch.zeros(1, 1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), 1.0)
     assert not any(native.launches.values())

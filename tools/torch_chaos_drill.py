@@ -833,11 +833,8 @@ def drill_decode_kill(seed, workdir, trace_out=None):
     fluid.set_flag("observe", True)
     obs_metrics.default_registry().reset()
     mdir = os.path.join(workdir, "model")
-    # tools/chaos_drill.py's tiny LM at head dim 32 (d_model 64 over 2
-    # heads) where it has 8: the card's flash kernel takes head dims 32,
-    # 64 and 128
-    tiny_lm.save_tiny_lm(mdir, kv_dtype="int8", d_model=64, n_heads=2,
-                         max_slots=4, block_size=4, max_context=32,
+    tiny_lm.save_tiny_lm(mdir, kv_dtype="int8", max_slots=4,
+                         block_size=4, max_context=32,
                          prefill_rows=(1, 2), prefill_seq_rungs=(8, 16))
 
     rng = random.Random(seed)

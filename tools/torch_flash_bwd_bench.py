@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""The bf16 flash kernels of paddle_tpu_torch on one card (the forward, the
-delta kernel, dQ and dK/dV): the build report of every flash
-instantiation, the forward's times beside SDPA's bf16 forward, the
-delta kernel's beside its plain version, and the backward pair's beside
-SDPA's bf16 backward. Their checks against the plain versions are
-tests/test_torch_cuda.py's (-m cuda) and chip_smoke.py's.
+"""The flash and paged kernels of paddle_tpu_torch on one card: by default
+the bf16 training kernels (the forward, the delta kernel, dQ and dK/dV),
+with --serve the serving kernels (the float32 flash forward, the float32
+and int8 paged decode kernels).
 
     python tools/torch_flash_bwd_bench.py [--root DIR] [--reps N]
-        [--out FILE]
+        [--serve [--nvcc]] [--out FILE]
 
 --root DIR  import paddle_tpu_torch from the checkout DIR (for example a
             parent commit unpacked with `git archive`), so that two
-            versions can be compared on one card in one run; default:
-            the checkout that holds this script. Its kernels build under
-            DIR.
---reps N    host-time repetitions (default 200)
+            versions can be compared on one card in one run (parent,
+            change, change, parent); default: the checkout that holds
+            this script. Its kernels build under DIR.
+--reps N    host-time repetitions (default 200; bf16 mode)
+--serve     time the serving kernels instead (below)
+--nvcc      with --serve, before building, compile each of the three
+            serving kernels' sources alone with the package's nvcc
+            flags, one after another, and report each one's wall
+            seconds and exit code (nothing else runs beside it, so the
+            seconds are comparable across checkouts in one run)
 
-At train-base-amp's attention shape (B 64, H 8, T 256, D 64), causal or
+The bf16 mode reports the build report of every flash instantiation, the
+forward's times beside SDPA's bf16 forward, the delta kernel's beside its
+plain version, and the backward pair's beside SDPA's bf16 backward. Their
+checks against the plain versions are tests/test_torch_cuda.py's (-m
+cuda) and chip_smoke.py's. At train-base-amp's attention shape (B 64, H 8, T 256, D 64), causal or
 not, rate 0.1 or 0: the median CUDA-event time on a cold L2
 (chip_smoke.time_ms) of the bf16 forward and of SDPA's bf16 forward at
 the case's dropout_p, of dQ, of dK/dV, of `flash_delta` and of its plain
@@ -27,6 +35,19 @@ dropout_p and at 0, each kernel's bound (bytes, or products at 989
 TFLOP/s); and the host time of one wrapper call of the forward, dQ and
 dK/dV (an enqueue: its tensor maps, attribute and launch), averaged over
 --reps calls.
+
+The --serve mode times head dims 32, 64 and 128 (which every checkout
+since the paged split takes; chip_smoke.py's phase 7u times the others)
+with chip_smoke.py's checks, which also hold each kernel against its
+plain version (within TOL, two launches bit-equal, the paged poison and
+seq_len 0): the flash forward at phase 3's serving shape (4 rows, T 512,
+causal) with H = 512 // D and at train-base's attention (B 32, H 8,
+T 256, non-causal, rate 0.1) where D is 64; the paged kernel at
+serve-base's 8 slots and the int8 one at serve-base-int8's 32,
+H = 512 // D. Reported: the median CUDA-event time on a cold L2
+(chip_smoke.time_ms) of the kernel, its plain version and, for the
+forward, SDPA; the bound; the build's registers, spills and shared
+memory of each float32 flash and paged instantiation.
 
 Prints one JSON object a line (the build report, each case) and, with
 --out, writes them all to FILE. Needs a card; exits 2 without one.
@@ -48,6 +69,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIME_CASES = [(64, 8, 256, 64, causal, rate)
               for causal, rate in ((False, 0.1), (True, 0.1), (False, 0.0),
                                    (True, 0.0))]
+SERVE_DIMS = (32, 64, 128)
+NVCC_SOURCES = ("flash_fwd.cu", "paged_decode.cu", "paged_decode_q8.cu")
 
 
 def _chip_smoke():
@@ -73,6 +96,51 @@ def build_report(cs, native):
                 if re.search(r"warning|wgmma|setmaxnreg", line, re.I)]
     return {"build": rep, "seconds": native.build_info.seconds,
             "warnings": warnings[:40]}
+
+
+def nvcc_seconds(native):
+    """Each source of NVCC_SOURCES compiled alone, in turn: {source:
+    {seconds, exit}}."""
+    out = {}
+    nvcc = native._nvcc()
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    for src in NVCC_SOURCES:
+        obj = os.path.join(native.BUILD_DIR, f".nvcc_seconds_{os.getpid()}.o")
+        t0 = time.perf_counter()
+        p = subprocess.run([nvcc, *native.NVCC_FLAGS, "-c",
+                            os.path.join(native.CSRC, src), "-o", obj],
+                           capture_output=True, text=True)
+        out[src] = {"seconds": time.perf_counter() - t0,
+                    "exit": p.returncode}
+        if os.path.exists(obj):
+            os.unlink(obj)
+    return out
+
+
+def serve_rows(torch, cs, native, fa, rows):
+    """The --serve mode: the serving kernels at SERVE_DIMS."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(rows, {"flash_build": {
+        k: v for k, v in cs.flash_build_report(native, n_expected=None)
+        .items() if k.startswith("flash_fwd<")},
+        "paged_build": cs.paged_build_report(native, n_expected=None)})
+    flush = cs._l2_flusher(torch)
+    for D in SERVE_DIMS:
+        H = 512 // D
+        emit(rows, {"kernel": "flash_fwd", "D": D, "H": H,
+                    **cs.check_flash(torch, fa, flush, 4, 512, H=H, D=D)})
+        if D == 64:
+            train = cs.check_train_kernels(torch, fa, flush, cs.TRAIN_BATCH,
+                                           8, 256, 64, False, 0.1)
+            emit(rows, {"kernel": "flash_fwd", "D": 64, "H": 8,
+                        "case": "B=32 T=256 non-causal rate 0.1",
+                        **{k: v for k, v in train.items()
+                           if k.startswith("fwd")}})
+        emit(rows, {"kernel": "paged_decode", "D": D, "H": H,
+                    **cs.check_paged(torch, pa, flush, H=H, Dh=D)})
+        emit(rows, {"kernel": "paged_decode_q8", "D": D, "H": H,
+                    **cs.check_paged_q8(torch, pa, flush, H=H, Dh=D)})
 
 
 def host_us(torch, fn, reps):
@@ -141,8 +209,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
+    if args.nvcc and not args.serve:
+        ap.error("--nvcc times the serving kernels' sources: give --serve")
     import torch
     if not torch.cuda.is_available():
         print("torch_flash_bwd_bench: no CUDA device", file=sys.stderr)
@@ -158,11 +230,20 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
-    native.lib()
-    emit(rows, {"root": root, "card": card, **build_report(cs, native)})
-    flush = cs._l2_flusher(torch)
-    for case in TIME_CASES:
-        emit(rows, time_case(torch, fa, cs, flush, *case, args.reps))
+    if args.serve:
+        head = {"root": root, "card": card}
+        if args.nvcc:
+            head["nvcc"] = nvcc_seconds(native)
+        native.lib()
+        emit(rows, dict(head, build_s=native.build_info.seconds))
+        serve_rows(torch, cs, native, fa, rows)
+    else:
+        native.lib()
+        emit(rows, {"root": root, "card": card,
+                    **build_report(cs, native)})
+        flush = cs._l2_flusher(torch)
+        for case in TIME_CASES:
+            emit(rows, time_case(torch, fa, cs, flush, *case, args.reps))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

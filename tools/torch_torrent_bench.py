@@ -181,12 +181,10 @@ def main(argv=None):
                     help="closed-loop client threads (the concurrent "
                     "sequence population)")
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--kv-budget-bytes", type=int, default=80 * 1024,
+    ap.add_argument("--kv-budget-bytes", type=int, default=20 * 1024,
                     help="per-chip device byte budget for KV residency; "
                     "each arm's max_slots is what its layout affords "
-                    "(fp32 baseline vs int8 torrent); the default is "
-                    "tools/torrent_bench.py's 20 KiB scaled by this "
-                    "model's 4x wider head")
+                    "(fp32 baseline vs int8 torrent)")
     ap.add_argument("--prefill-us-per-token", type=float, default=500.0,
                     help="simulated compute-bound prefill device time")
     ap.add_argument("--decode-step-us", type=float, default=10000.0,
@@ -212,11 +210,8 @@ def main(argv=None):
     # size each arm's slot count from the SHARED per-chip KV byte
     # budget: slots = blocks the layout affords / blocks a max-context
     # sequence needs
-    # tools/torrent_bench.py's tiny LM at head dim 32 (d_model 64 over 2
-    # heads) where it has 8: the card's flash kernel takes head dims 32,
-    # 64 and 128
-    geo = dict(d_model=64, n_heads=2, block_size=4, max_context=32,
-               prefill_rows=(1, 2), prefill_seq_rungs=(8, 16))
+    geo = dict(block_size=4, max_context=32, prefill_rows=(1, 2),
+               prefill_seq_rungs=(8, 16))
     slots = {}
     dirs = {}
     for kv_dtype in ("fp32", "int8"):
