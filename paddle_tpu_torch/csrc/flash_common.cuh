@@ -1,5 +1,5 @@
-// Shared by flash_fwd.cu and flash_bwd.cu: tile sizes and the
-// attention-weight dropout hash.
+// Shared by flash_fwd.cu and the backward's kernels (flash_bwd_f32.cuh,
+// flash_bwd_bf16.cu): tile sizes and the attention-weight dropout hash.
 //
 // The mask is keyed per weight on (seed, bh, query row, key column), not
 // per tile, so the forward, dQ and dK/dV kernels, whatever their tiling

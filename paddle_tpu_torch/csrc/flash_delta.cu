@@ -22,6 +22,19 @@
 // its chunk's products in order, then the L lanes of the row reduce by
 // __shfl_xor_sync in a fixed order: every lane ends with the same value,
 // and two launches give equal bits.
+//
+// Head dims: every multiple of 8 from 8 to 256, as the flash kernels take.
+// D 32, 64 and 128 run in their exact instantiations (PAD false), the
+// design above instruction for instruction. Any other D runs in the padded
+// instantiation of the smallest power-of-two width DW from 8 to 256 that
+// covers it: a row gets the lanes of DW, L = min(32, DW x (element bytes)
+// / 16), a power of two, so that 32 / L rows share a warp and the xor
+// shuffles stay within a row; a lane takes NC = DW x (element bytes) /
+// (16 L) chunks (2 only at float32 DW 256, whose 1 KB row is two warps'
+// loads), and lanes whose chunk lies past D load nothing and add 0. The
+// padding costs idle lanes, never bytes: a row of D 24 float32 is 6 chunks
+// on 8 lanes, D 136 bf16 17 on 32. bf16 DW 8 is one lane a row (L 1, no
+// shuffle); the row stride stays D, and nothing is copied.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,33 +82,49 @@ __device__ __forceinline__ uint4 ld_stream(const void* p) {
   return r;
 }
 
-template <typename E, int D>
+// lanes a row at width DW: the chunks of a DW-wide row, at most a warp
+template <typename E, int DW>
+__host__ __device__ constexpr int row_lanes() {
+  return DW * (int)sizeof(E) / 16 < 32 ? DW * (int)sizeof(E) / 16 : 32;
+}
+
+// DW: the width (D itself unless PAD); PAD: rows are [rows, d], and the
+// chunks of a lane past d load nothing
+template <typename E, int DW, bool PAD>
 __device__ __forceinline__ void delta_rows(const E* __restrict__ o,
                                            const E* __restrict__ dout,
                                            float* __restrict__ delta,
-                                           int rows) {
-  constexpr int L = D * (int)sizeof(E) / 16;   // lanes a row: 2 .. 32
+                                           int rows, int d) {
+  constexpr int L = row_lanes<E, DW>();        // lanes a row: 1 .. 32
+  constexpr int NC = DW * (int)sizeof(E) / 16 / L;   // chunks a lane: 1, 2
   constexpr int RPW = 32 / L;                  // rows a warp loads at once
   constexpr int EPC = 16 / (int)sizeof(E);     // elements a chunk
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = lane % L;
+  const int ld = PAD ? d : DW;                 // the row stride
   const long first = ((long)blockIdx.x * (THREADS / 32) + warp) * RPW * UNROLL
                      + lane / L;
-  uint4 dv[UNROLL], ov[UNROLL];
+  uint4 dv[UNROLL][NC], ov[UNROLL][NC];
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     const long r = first + u * RPW;
-    if (r < rows) {
-      const size_t off = (size_t)r * D + c * EPC;
-      dv[u] = ld_stream(dout + off);
-      ov[u] = ld_stream(o + off);
-    } else {
-      dv[u] = ov[u] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int e0 = (c + n * L) * EPC;        // the chunk's first column
+      if (r < rows && (!PAD || e0 < d)) {
+        const size_t off = (size_t)r * ld + e0;
+        dv[u][n] = ld_stream(dout + off);
+        ov[u][n] = ld_stream(o + off);
+      } else {
+        dv[u][n] = ov[u][n] = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   }
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
-    float s = chunk_dot(dv[u], ov[u], o);
+    float s = chunk_dot(dv[u][0], ov[u][0], o);
+#pragma unroll
+    for (int n = 1; n < NC; ++n) s += chunk_dot(dv[u][n], ov[u][n], o);
 #pragma unroll
     for (int x = L / 2; x >= 1; x >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, x);
@@ -105,55 +134,72 @@ __device__ __forceinline__ void delta_rows(const E* __restrict__ o,
 }
 
 // rows handled by one block
-template <typename E, int D>
+template <typename E, int DW>
 constexpr int block_rows() {
-  return THREADS / 32 * (32 / (D * (int)sizeof(E) / 16)) * UNROLL;
+  return THREADS / 32 * (32 / row_lanes<E, DW>()) * UNROLL;
 }
 
-template <int D>
+template <int DW, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 flash_delta_f32_kernel(const float* __restrict__ o,
                        const float* __restrict__ dout,
-                       float* __restrict__ delta, int rows) {
-  delta_rows<float, D>(o, dout, delta, rows);
+                       float* __restrict__ delta, int rows, int d) {
+  delta_rows<float, DW, PAD>(o, dout, delta, rows, d);
 }
 
-template <int D>
+template <int DW, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 flash_delta_bf16_kernel(const bf16* __restrict__ o,
                         const bf16* __restrict__ dout,
-                        float* __restrict__ delta, int rows) {
-  delta_rows<bf16, D>(o, dout, delta, rows);
+                        float* __restrict__ delta, int rows, int d) {
+  delta_rows<bf16, DW, PAD>(o, dout, delta, rows, d);
 }
 
-template <typename E, int D, typename K>
+template <typename E, int DW, typename K>
 int launch(K kernel, const void* o, const void* dout, void* delta, int rows,
-           cudaStream_t stream) {
-  constexpr int R = block_rows<E, D>();
+           int d, cudaStream_t stream) {
+  constexpr int R = block_rows<E, DW>();
   const int blocks = (int)(((long)rows + R - 1) / R);
   kernel<<<blocks, THREADS, 0, stream>>>(static_cast<const E*>(o),
                                          static_cast<const E*>(dout),
-                                         static_cast<float*>(delta), rows);
+                                         static_cast<float*>(delta), rows, d);
   return (int)cudaGetLastError();
+}
+
+// The padded width that serves head dim d: the smallest power of two from
+// 8 to 256 that covers it; 0 for a d no instantiation takes.
+inline int delta_width(int d) {
+  if (d < 8 || d > 256 || d % 8 != 0) return 0;
+  int w = 8;
+  while (w < d) w *= 2;
+  return w;
 }
 
 }  // namespace
 
 // o, dout: [rows, d] float32, contiguous, 16-byte aligned; delta: [rows]
-// float32. Returns a cudaError_t (0 on success); d must be 32, 64 or 128.
+// float32. Returns a cudaError_t (0 on success); d must be a multiple of 8
+// from 8 to 256.
 extern "C" int ptt_flash_delta_f32(const void* o, const void* dout,
                                    void* delta, int rows, int d, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTT_DELTA(E, K, DW, PAD) \
+  return launch<E, DW>(K<DW, PAD>, o, dout, delta, rows, d, s)
   switch (d) {
-    case 32: return launch<float, 32>(flash_delta_f32_kernel<32>, o, dout,
-                                      delta, rows, s);
-    case 64: return launch<float, 64>(flash_delta_f32_kernel<64>, o, dout,
-                                      delta, rows, s);
-    case 128: return launch<float, 128>(flash_delta_f32_kernel<128>, o, dout,
-                                        delta, rows, s);
+    case 32: PTT_DELTA(float, flash_delta_f32_kernel, 32, false);
+    case 64: PTT_DELTA(float, flash_delta_f32_kernel, 64, false);
+    case 128: PTT_DELTA(float, flash_delta_f32_kernel, 128, false);
+  }
+  switch (delta_width(d)) {
+    case 8: PTT_DELTA(float, flash_delta_f32_kernel, 8, true);
+    case 16: PTT_DELTA(float, flash_delta_f32_kernel, 16, true);
+    case 32: PTT_DELTA(float, flash_delta_f32_kernel, 32, true);
+    case 64: PTT_DELTA(float, flash_delta_f32_kernel, 64, true);
+    case 128: PTT_DELTA(float, flash_delta_f32_kernel, 128, true);
+    case 256: PTT_DELTA(float, flash_delta_f32_kernel, 256, true);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -166,12 +212,18 @@ extern "C" int ptt_flash_delta_bf16(const void* o, const void* dout,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch<bf16, 32>(flash_delta_bf16_kernel<32>, o, dout,
-                                     delta, rows, s);
-    case 64: return launch<bf16, 64>(flash_delta_bf16_kernel<64>, o, dout,
-                                     delta, rows, s);
-    case 128: return launch<bf16, 128>(flash_delta_bf16_kernel<128>, o, dout,
-                                       delta, rows, s);
+    case 32: PTT_DELTA(bf16, flash_delta_bf16_kernel, 32, false);
+    case 64: PTT_DELTA(bf16, flash_delta_bf16_kernel, 64, false);
+    case 128: PTT_DELTA(bf16, flash_delta_bf16_kernel, 128, false);
+  }
+  switch (delta_width(d)) {
+    case 8: PTT_DELTA(bf16, flash_delta_bf16_kernel, 8, true);
+    case 16: PTT_DELTA(bf16, flash_delta_bf16_kernel, 16, true);
+    case 32: PTT_DELTA(bf16, flash_delta_bf16_kernel, 32, true);
+    case 64: PTT_DELTA(bf16, flash_delta_bf16_kernel, 64, true);
+    case 128: PTT_DELTA(bf16, flash_delta_bf16_kernel, 128, true);
+    case 256: PTT_DELTA(bf16, flash_delta_bf16_kernel, 256, true);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PTT_DELTA
 }

@@ -16,7 +16,7 @@
 // 11 significant bits, and out or lse then misses the 1e-4 tolerance
 // (tests/test_torch_tf32_split.py).
 //
-// Design (the backward's, flash_bwd.cu, turned around):
+// Design (the backward's, flash_bwd_f32.cuh, turned around):
 // - grid (ceil(T/64), B*H), 4 warps, one block per 64 query rows, 16 rows
 //   a warp. blockIdx.x counts q-tiles from the last: under a causal mask
 //   the last q-tile walks the most K/V tiles, and it starts first.
@@ -83,7 +83,7 @@
 //
 // The bf16 kernel (flash_fwd_bf16_kernel, for bf16 mixed precision) is a
 // kernel of its own on Hopper's wgmma, TMA and mbarriers (wgmma_bf16.cuh,
-// as the bf16 dQ and dK/dV kernels of flash_bwd.cu), so the float32 kernel
+// as the bf16 dQ and dK/dV kernels of flash_bwd_bf16.cu), so the float32 kernel
 // above stays as it was instruction for instruction. It rounds where the
 // TPU kernel rounds in bf16: S, m, l, lse and the dropout are float32
 // (bf16 x bf16 products are exact in float32, and sm_scale applies to the
@@ -144,7 +144,19 @@
 //   with flash_common.cuh's hash, as above, so the dQ and dK/dV kernels
 //   regenerate the mask bit for bit; its first xor-shift is split between
 //   the row and the column (keep_split). No atomics and a fixed order of
-//   every sum: two launches give equal bits. Any T >= 1; D 32, 64 or 128.
+//   every sum: two launches give equal bits. Any T >= 1.
+// - Head dims: every multiple of 8 from 8 to 256, in tiles of width 32,
+//   64, 128 or 256 (ptt_hopper::bf16_width; flash_bwd_bf16.cu says why no
+//   other widths): the kernel of width D serves every head dim d it
+//   covers unchanged, its tensor maps' inner dimension d making TMA fill
+//   columns d..D with zeros on the way in and clip them on the way out;
+//   D 32, 64 and 128 are the exact instantiations. At D 256 O is 128
+//   floats a thread: a block is one consumer warpgroup and the producer
+//   (256 threads, 255 registers, no setmaxnreg, no ping-pong:
+//   consumer_wgs), 64-key tiles, and Q's two 32 KB buffers with a
+//   two-stage K/V ring take 197,696 B, where two warpgroups' Q (128 KB)
+//   and the 128 KB ring would have been 256 KB. O += P V is one m64n256
+//   product a k-step.
 // - Tried on an H100 and not kept (PERF.md, section 6): each
 //   warpgroup issuing tile t + 1's S beside tile t's P V (it spilled under
 //   dropout, and gained little at rate 0); the keep bits hashed while S
@@ -494,24 +506,39 @@ namespace fwd16 {
 using namespace ptt_hopper;
 
 constexpr int WG_ROWS = 64;       // query rows a consumer warpgroup owns
-constexpr int CONSUMER_WGS = 2;
-constexpr int BLOCK_ROWS = CONSUMER_WGS * WG_ROWS;   // rows of a work item
-constexpr int CONSUMERS = 128 * CONSUMER_WGS;
-constexpr int THREADS = CONSUMERS + 128;   // + a producer warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Consumer warpgroups a block: 2, and 1 at D 256, whose O (128 registers a
+// thread) does not fit the 168 that ptxas gives a thread of a 384-thread
+// block; a block of one consumer and the producer (256 threads) compiles
+// for 255.
+template <int D>
+__host__ __device__ constexpr int consumer_wgs() { return D > 128 ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int block_rows() {   // rows of a work item
+  return consumer_wgs<D>() * WG_ROWS;
+}
+template <int D>
+__host__ __device__ constexpr int consumers() { return 128 * consumer_wgs<D>(); }
+template <int D>
+__host__ __device__ constexpr int threads() {   // + a producer warpgroup
+  return consumers<D>() + 128;
+}
 
 // One block an SM: 168 registers a thread at launch (65536 / 384); the
 // producer warpgroup gives most of its share to the consumers:
-// 2 x 128 x 232 + 128 x 32 <= 384 x 168.
+// 2 x 128 x 232 + 128 x 32 <= 384 x 168. (A block of one consumer
+// warpgroup has 255 from the start and moves none.)
 constexpr int PRODUCER_REGS = 32;
 constexpr int CONSUMER_REGS = 232;
 
 // keys of a streamed K or V tile: 128; 64 under a causal mask (a
 // warpgroup's 64 rows then end on a tile's last key, so no tile is half
-// above the diagonal) and at D 128 (where O takes 64 registers a thread)
+// above the diagonal) and at D 128 and 256 (where O takes 64 and 128
+// registers a thread)
 template <int D, bool CAUSAL>
 __host__ __device__ constexpr int bn() {
-  return CAUSAL || D == 128 ? 64 : 128;
+  return CAUSAL || D >= 128 ? 64 : 128;
 }
 
 // K/V ring stages: 128 KB of K and V tiles (the whole K and V of two work
@@ -525,10 +552,11 @@ __host__ __device__ constexpr int stages() {
 }
 
 // Q: two buffers (an item's and the next one's) x the warpgroups' 64
-// rows; then the K and V ring; then the barriers
+// rows; then the K and V ring; then the barriers. D 256: 64 KB of Q and a
+// ring of two stages (128 KB), 197,696 B in all.
 template <int D, bool CAUSAL>
 __host__ __device__ constexpr size_t smem_size() {
-  return 1024 + 2 * CONSUMER_WGS * tile_bytes<D>(WG_ROWS) +
+  return 1024 + 2 * consumer_wgs<D>() * tile_bytes<D>(WG_ROWS) +
          2 * stages<D, CAUSAL>() * tile_bytes<D>(bn<D, CAUSAL>()) +
          8 * (4 + 2 * stages<D, CAUSAL>());
 }
@@ -550,10 +578,10 @@ __device__ __forceinline__ void work_item(int w, int n_rb, int& rb,
     rb = n_rb - 1 - rb;
 }
 
-// key tiles an item whose rows start at q0 reads
+// key tiles an item of `rows` rows that start at q0 reads
 template <bool CAUSAL>
-__device__ __forceinline__ int item_tiles(int q0, int n_kv, int bn) {
-  return CAUSAL ? min(n_kv, (q0 + BLOCK_ROWS - 1) / bn + 1) : n_kv;
+__device__ __forceinline__ int item_tiles(int q0, int rows, int n_kv, int bn) {
+  return CAUSAL ? min(n_kv, (q0 + rows - 1) / bn + 1) : n_kv;
 }
 
 // The dropout hash of flash_common.cuh, keep(rk, col) = fmix32(rk ^ col
@@ -670,7 +698,7 @@ __device__ __forceinline__ void fwd_tile(
 }  // namespace fwd16
 
 template <int D, bool DROP, bool CAUSAL>
-__global__ void __launch_bounds__(fwd16::THREADS, 1)
+__global__ void __launch_bounds__(fwd16::threads<D>(), 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
@@ -681,6 +709,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   using namespace fwd16;
   constexpr int BN = bn<D, CAUSAL>(), ST = stages<D, CAUSAL>();
   constexpr int PW = panel_cols<D>();
+  constexpr int CONSUMER_WGS = consumer_wgs<D>(), CONSUMERS = consumers<D>();
+  constexpr int BLOCK_ROWS = block_rows<D>();
   constexpr int RES = tile_bytes<D>(WG_ROWS), STR = tile_bytes<D>(BN);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align1024(smem_raw);          // [2][CONSUMER_WGS][RES]
@@ -713,7 +743,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     // producer: per item, each warpgroup's Q into the item's buffer (the
     // next item's lands while this one computes), then K and V tiles
     // through the ring
-    setmaxnreg_dec<PRODUCER_REGS>();
+    if constexpr (CONSUMER_WGS == 2) setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == CONSUMERS) {
       int g = 0;   // tiles issued
       for (int w = blockIdx.x, it = 0; w < n_items; w += gridDim.x, ++it) {
@@ -721,7 +751,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         work_item<CAUSAL>(w, n_rb, rb, bh);
         const int q0 = rb * BLOCK_ROWS;
         // causal: key tiles past the item's last query row are not loaded
-        const int n_tiles = item_tiles<CAUSAL>(q0, n_kv, BN);
+        const int n_tiles = item_tiles<CAUSAL>(q0, BLOCK_ROWS, n_kv, BN);
         const int b = it & 1;
         mbar_wait(q_empty + b, ((it >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(q_full + b, CONSUMER_WGS * RES);
@@ -738,7 +768,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    setmaxnreg_inc<CONSUMER_REGS>();
+    if constexpr (CONSUMER_WGS == 2) setmaxnreg_inc<CONSUMER_REGS>();
     const int wg = tid >> 7;
     const int warp = (tid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -747,15 +777,17 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Ping-pong: the two warpgroups take turns issuing a tile's S (named
     // barriers 1 and 2), so that one's softmax runs on the CUDA cores
     // while the other's products use the tensor cores. Every tile,
-    // computed or skipped, takes a turn; warpgroup 0 has the first.
-    if (wg == 1) named_bar_arrive(1, CONSUMERS);
+    // computed or skipped, takes a turn; warpgroup 0 has the first. (One
+    // consumer warpgroup, D 256: no turns.)
+    constexpr bool TURNS = CONSUMER_WGS == 2;
+    if (TURNS && wg == 1) named_bar_arrive(1, CONSUMERS);
     int gt = 0;   // tiles consumed
 
     for (int w = blockIdx.x, it = 0; w < n_items; w += gridDim.x, ++it) {
       int rb, bh;
       work_item<CAUSAL>(w, n_rb, rb, bh);
       const int q0 = rb * BLOCK_ROWS;
-      const int n_tiles = item_tiles<CAUSAL>(q0, n_kv, BN);
+      const int n_tiles = item_tiles<CAUSAL>(q0, BLOCK_ROWS, n_kv, BN);
       const int r0 = q0 + wg * WG_ROWS;   // this warpgroup's first row
       // key tiles this warpgroup reads; it only releases the others.
       // Each one it reads holds column k0 <= r0, so no row of it is wholly
@@ -786,7 +818,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       float s[BN / 2];   // S, then P: 64 x BN
       for (int kt = 0; kt < my_tiles; ++kt) {
         const int i = gt + kt, st = i % ST;
-        named_bar_sync(1 + wg, CONSUMERS);   // this warpgroup's turn
+        if (TURNS) named_bar_sync(1 + wg, CONSUMERS);   // this warpgroup's turn
         mbar_wait(full + st, (i / ST) & 1);
         wgmma_fence();
 #pragma unroll
@@ -794,7 +826,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_ss<0>(s, desc_k<D>(Qw, WG_ROWS, kk),
                       desc_k<D>(Ks + st * STR, BN, kk), kk);
         wgmma_commit();
-        named_bar_arrive(2 - wg, CONSUMERS);   // the other's turn
+        if (TURNS) named_bar_arrive(2 - wg, CONSUMERS);   // the other's turn
         fwd_tile<D, BN, DROP, CAUSAL>(s, o, m, l, Vs + st * STR, empty + st,
                                       kt, r0, t, lim, rkey, T, sl2, thresh,
                                       drop_scale);
@@ -803,8 +835,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       // turns are taken all the same
       for (int kt = my_tiles; kt < n_tiles; ++kt) {
         const int i = gt + kt, st = i % ST;
-        named_bar_sync(1 + wg, CONSUMERS);
-        named_bar_arrive(2 - wg, CONSUMERS);
+        if (TURNS) {
+          named_bar_sync(1 + wg, CONSUMERS);
+          named_bar_arrive(2 - wg, CONSUMERS);
+        }
         mbar_wait(full + st, (i / ST) & 1);
         mbar_arrive(empty + st);
       }
@@ -858,28 +892,31 @@ int launch_bf16_kernel(const CUtensorMap (&maps)[4], float* lse, int bh,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int blocks, err;
-  if ((err = persistent_blocks((T + BLOCK_ROWS - 1) / BLOCK_ROWS, bh,
-                               &blocks)))
+  if ((err = persistent_blocks((T + block_rows<D>() - 1) / block_rows<D>(),
+                               bh, &blocks)))
     return err;
-  kernel<<<blocks, THREADS, smem, stream>>>(maps[0], maps[1], maps[2],
+  kernel<<<blocks, threads<D>(), smem, stream>>>(maps[0], maps[1], maps[2],
                                             maps[3], lse, bh, T, sm_scale,
                                             seed, bh0, thresh, drop_scale);
   return (int)cudaGetLastError();
 }
 
+// D: the instantiation's width; d: the head dim (d < D: a padded width,
+// whose columns d..D the tensor maps zero-fill on the way in and clip on
+// the way out; the kernel is the exact one of width D)
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                float* lse, int bh, int T, float sm_scale, int causal,
+                float* lse, int bh, int T, int d, float sm_scale, int causal,
                 uint32_t seed, uint32_t bh0, uint32_t thresh, float drop_scale,
                 cudaStream_t stream) {
   using namespace fwd16;
   const int kv_rows = causal ? bn<D, true>() : bn<D, false>();
   CUtensorMap maps[4];
   int err;
-  if ((err = encode_bf16_map<D>(&maps[0], q, bh, T, WG_ROWS)) ||
-      (err = encode_bf16_map<D>(&maps[1], k, bh, T, kv_rows)) ||
-      (err = encode_bf16_map<D>(&maps[2], v, bh, T, kv_rows)) ||
-      (err = encode_bf16_map<D>(&maps[3], o, bh, T, WG_ROWS)))
+  if ((err = encode_bf16_map<D>(&maps[0], q, bh, T, WG_ROWS, d)) ||
+      (err = encode_bf16_map<D>(&maps[1], k, bh, T, kv_rows, d)) ||
+      (err = encode_bf16_map<D>(&maps[2], v, bh, T, kv_rows, d)) ||
+      (err = encode_bf16_map<D>(&maps[3], o, bh, T, WG_ROWS, d)))
     return err;
   if (causal)
     return thresh ? launch_bf16_kernel<D, true, true>(
@@ -954,7 +991,7 @@ extern "C" int ptt_flash_fwd_smem_bytes(int d) {
 }
 
 // As ptt_flash_fwd_f32, with q, k, v and o bf16 ([bh, T, d]); lse stays
-// float32.
+// float32. d: any multiple of 8 from 8 to 256 (ptt_hopper::bf16_width).
 extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int bh, int T, int d,
                                   float sm_scale, int causal, uint32_t seed, uint32_t bh0,
@@ -968,34 +1005,38 @@ extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k, const void* v,
   bf16* ob = static_cast<bf16*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch_bf16<32>(qb, kb, vb, ob, lf, bh, T, sm_scale,
-                                    causal, seed, bh0, thresh, drop_scale, s);
-    case 64: return launch_bf16<64>(qb, kb, vb, ob, lf, bh, T, sm_scale,
-                                    causal, seed, bh0, thresh, drop_scale, s);
-    case 128: return launch_bf16<128>(qb, kb, vb, ob, lf, bh, T, sm_scale,
-                                      causal, seed, bh0, thresh, drop_scale, s);
+#define PTT_FWD_BF16(D)                                                     \
+  return launch_bf16<D>(qb, kb, vb, ob, lf, bh, T, d, sm_scale, causal, seed, \
+                        bh0, thresh, drop_scale, s)
+  switch (ptt_hopper::bf16_width(d)) {
+    case 32: PTT_FWD_BF16(32);
+    case 64: PTT_FWD_BF16(64);
+    case 128: PTT_FWD_BF16(128);
+    case 256: PTT_FWD_BF16(256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PTT_FWD_BF16
 }
 
 // Dynamic shared memory a block of the bf16 forward kernel takes at head
 // dim d, in bytes (its causal instantiation: ..._causal_smem_bytes); -1
 // for another d.
 extern "C" int ptt_flash_fwd_bf16_smem_bytes(int d) {
-  switch (d) {
+  switch (ptt_hopper::bf16_width(d)) {
     case 32: return (int)fwd16::smem_size<32, false>();
     case 64: return (int)fwd16::smem_size<64, false>();
     case 128: return (int)fwd16::smem_size<128, false>();
+    case 256: return (int)fwd16::smem_size<256, false>();
     default: return -1;
   }
 }
 
 extern "C" int ptt_flash_fwd_bf16_causal_smem_bytes(int d) {
-  switch (d) {
+  switch (ptt_hopper::bf16_width(d)) {
     case 32: return (int)fwd16::smem_size<32, true>();
     case 64: return (int)fwd16::smem_size<64, true>();
     case 128: return (int)fwd16::smem_size<128, true>();
+    case 256: return (int)fwd16::smem_size<256, true>();
     default: return -1;
   }
 }

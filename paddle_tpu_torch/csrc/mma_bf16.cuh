@@ -1,5 +1,5 @@
 // The bf16 type and its packing, shared by the bf16 kernels: dropout.cu,
-// flash_delta.cu and the wgmma kernels of flash_fwd.cu and flash_bwd.cu
+// flash_delta.cu and the wgmma kernels of flash_fwd.cu and flash_bwd_bf16.cu
 // (through wgmma_bf16.cuh, whose acc_to_a and store_acc_tile pack float32
 // accumulators into bf16 operands and tiles).
 //

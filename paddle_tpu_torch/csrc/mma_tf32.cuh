@@ -1,5 +1,5 @@
 // Tensor-core float32 products in the 3xTF32 scheme, and cp.async copies,
-// for flash_bwd.cu.
+// for flash_bwd_f32.cuh.
 //
 // An fp32 value x is split in registers into two TF32 values,
 //   hi = to_tf32(x),  lo = to_tf32(x - hi)   (cvt.rna.tf32.f32 rounding),

@@ -2,7 +2,7 @@
 // and stores, shared-memory matrix descriptors and warpgroup matrix
 // multiplies (wgmma), and on the host the TMA tensor maps and the size of
 // a persistent grid; used by the bf16 forward (flash_fwd.cu) and the bf16
-// dQ and dK/dV kernels (flash_bwd.cu).
+// dQ and dK/dV kernels (flash_bwd_bf16.cu).
 //
 // The pattern they serve: one producer thread keeps TMA loads of tiles in
 // flight into a ring of shared-memory stages; a "full" mbarrier of each
@@ -13,8 +13,10 @@
 // go on, until wgmma_wait.
 //
 // Tiles are row-major [rows x D] bf16 as TMA writes them with the 128-byte
-// swizzle (rows of 64 elements; D 128 as two 64-column panels, one after
-// the other) or, at D 32, the 64-byte swizzle (rows of 32 elements). Each
+// swizzle (rows of 64 elements; D 128 and 256 as two or four 64-column
+// panels, one after the other) or, at D 32, the 64-byte swizzle (rows of
+// 32 elements). A head dim d below the tile's width D (a padded width)
+// reaches the kernels as a tile whose columns d..D TMA has zero-filled. Each
 // tile starts on a 1024-byte boundary, so the swizzle pattern, which is
 // a function of the address, is the one the descriptors assume (base
 // offset 0). A tile feeds wgmma in two orientations:
@@ -339,7 +341,7 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[R], int jj,
 // d (m64 x N float32) = A B (+ d when `accumulate`), bf16 operands: A
 // (64 x 16) and B (16 x N) from shared memory by descriptor (wgmma_ss),
 // or A from registers (wgmma_rs, acc_to_a's layout); TB = 1 reads B
-// MN-major. N = 32, 64 or 128, by the size of d.
+// MN-major. N = 32, 64 or 128, by the size of d; wgmma_rs also 256.
 template <int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
                                          int accumulate) {
@@ -515,6 +517,83 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "n"(TB));
 }
 
+// m64n256 (register A only): O += P V, dQ += dS K, dV += W_drop^T dO and
+// dK += dS^T Q at D 256
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3,"
+      "%4, %5, %6, %7,"
+      "%8, %9, %10, %11,"
+      "%12, %13, %14, %15,"
+      "%16, %17, %18, %19,"
+      "%20, %21, %22, %23,"
+      "%24, %25, %26, %27,"
+      "%28, %29, %30, %31,"
+      "%32, %33, %34, %35,"
+      "%36, %37, %38, %39,"
+      "%40, %41, %42, %43,"
+      "%44, %45, %46, %47,"
+      "%48, %49, %50, %51,"
+      "%52, %53, %54, %55,"
+      "%56, %57, %58, %59,"
+      "%60, %61, %62, %63,"
+      "%64, %65, %66, %67,"
+      "%68, %69, %70, %71,"
+      "%72, %73, %74, %75,"
+      "%76, %77, %78, %79,"
+      "%80, %81, %82, %83,"
+      "%84, %85, %86, %87,"
+      "%88, %89, %90, %91,"
+      "%92, %93, %94, %95,"
+      "%96, %97, %98, %99,"
+      "%100, %101, %102, %103,"
+      "%104, %105, %106, %107,"
+      "%108, %109, %110, %111,"
+      "%112, %113, %114, %115,"
+      "%116, %117, %118, %119,"
+      "%120, %121, %122, %123,"
+      "%124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TB));
+}
+
 // ---- host: tensor maps and persistent grids ---------------------------------
 
 // A failed cuTensorMapEncodeTiled returns PTT_ERR_TENSOR_MAP + its
@@ -550,18 +629,20 @@ inline int encode_tiled_fn(EncodeTiledFn* fn) {
   return 0;
 }
 
-// [bh, T, D] bf16 at `base` as a 3-D map (innermost first: D, T, bh) with
-// boxes of `rows` rows by one panel: rows >= T of a head come as zeros,
-// never the next head's rows (and a store clips them)
+// [bh, T, d] bf16 at `base` as a 3-D map (innermost first: d, T, bh) with
+// boxes of `rows` rows by one panel of a D-wide tile: rows >= T of a head
+// come as zeros, never the next head's rows, and so do columns >= d where
+// the tile is wider than the head dim (a padded width D > d: a box partly
+// or wholly past d lands as zeros, and a store clips it at d)
 template <int D>
 int encode_bf16_map(CUtensorMap* map, const void* base, int bh, int T,
-                    int rows) {
+                    int rows, int d) {
   EncodeTiledFn fn;
   int err = encode_tiled_fn(&fn);
   if (err) return err;
   constexpr int PW = panel_cols<D>();
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)T, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)T * d * 2};
   const cuuint32_t box[3] = {(cuuint32_t)PW, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(
@@ -570,6 +651,19 @@ int encode_bf16_map(CUtensorMap* map, const void* base, int bh, int T,
       PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : PTT_ERR_TENSOR_MAP + (int)r;
+}
+
+// The tile width that serves head dim d in the bf16 kernels: d itself at
+// 32, 64 and 128 (the exact instantiations), else the smallest of 32, 64,
+// 128 and 256 that covers it, whose tiles are one 64-byte-swizzled panel or
+// 64-column 128-byte-swizzled ones; 0 for a head dim no width takes. A
+// width between (16, 48, 80, 96, ...) would need the 32-byte swizzle or
+// panels of mixed width: the padding costs products instead (D 8 in width
+// 32, 4x; D 72 in 128, 1.78x; D 136 in 256, 1.88x), never bytes, since
+// TMA fills the columns past d without reading them.
+inline int bf16_width(int d) {
+  if (d < 8 || d > 256 || d % 8 != 0) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
 // Blocks of a persistent kernel that holds a whole SM: one an SM, no more

@@ -11,6 +11,16 @@ is enforced by backpressure, not hoped for (tests pin it by freezing
 the forwarder and counting exactly which updates a promoted backup is
 missing).
 
+Before a full sync's snapshot cut (a fresh pair's first, or a
+resync's) nothing is in flight: the snapshot will hold every update up
+to the cut, so `append` only numbers the update and keeps no record,
+and the window holds no appender back. The cut is taken under a
+quiesce that waits out the in-flight mutators; an appender blocked on
+the window would be one of them, and only the forwarder, waiting in
+that quiesce, could release it. The backup holds no snapshot yet, so
+there is no failover target to lose updates to; `needs_resync` stays
+set and `lag()` at least 1 until the snapshot lands.
+
 Degradation beats deadlock: when the backup is gone (no ack moves the
 watermark for `stall_timeout_s` while the window is full), the log
 DEGRADES — recording stops, the ring clears, and `needs_resync` is set
@@ -47,6 +57,9 @@ class UpdateLog:
         self._degraded = False  # guarded_by: self._cond
         # a fresh pair always starts with a sync
         self._needs_resync = True  # guarded_by: self._cond
+        # that sync's snapshot cut (or a resync's) is still to be taken:
+        # appends are numbered and not recorded (see the module docstring)
+        self._before_cut = True  # guarded_by: self._cond
 
     # -- primary write path ----------------------------------------------
     def append(self, cmd: str, payload: dict,
@@ -61,6 +74,10 @@ class UpdateLog:
         with self._cond:
             if self._degraded:
                 return None
+            if self._before_cut:
+                # the snapshot at the cut will hold this update
+                self._head += 1
+                return self._head
             while self._head - self._acked >= self.window:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
@@ -165,6 +182,7 @@ class UpdateLog:
     def _degrade_locked(self):
         self._degraded = True
         self._needs_resync = True
+        self._before_cut = True
         self._records.clear()
         self._acked = self._head
         self._cond.notify_all()
@@ -188,6 +206,7 @@ class UpdateLog:
         the snapshot actually lands on the backup. Records appended
         after the cut are KEPT — they must still stream."""
         with self._cond:
+            self._before_cut = False
             self._advance_locked(seq)
 
     def rebase(self, seq: Optional[int] = None):
@@ -196,3 +215,4 @@ class UpdateLog:
         with self._cond:
             self._advance_locked(self._head if seq is None else seq)
             self._needs_resync = False
+            self._before_cut = False

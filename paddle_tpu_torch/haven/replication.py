@@ -980,9 +980,12 @@ class Replicator:
                 if hv.log.needs_resync:
                     self._full_sync()
                 self._kick.clear()
-                if not hv.log.wait_pending(timeout=beat):
-                    if self._stop.is_set():
-                        return
+                hv.log.wait_pending(timeout=beat)
+                # stopped while idle, or as a record came in: a stopped
+                # forwarder sends nothing more, so a record appended
+                # after stop() stays in flight, unacknowledged
+                if self._stop.is_set():
+                    return
                 records = hv.log.batch(self.MAX_RECORDS)
                 reply = self._client._call(
                     self.backup, "haven_replicate", records=records,

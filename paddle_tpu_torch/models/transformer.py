@@ -4,8 +4,8 @@ Copy of ``paddle_tpu/models/transformer.py`` with its imports rewired: the
 standard Transformer encoder-decoder built from framework layers, so the
 programs it builds (main and startup) are the JAX package's op for op.
 With ``fused_attention=True`` (the default) every attention is one
-``fused_attention`` op: the flash kernels of ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` on the card, with attention-weight dropout inside
+``fused_attention`` op: the flash kernels of ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd_f32.cuh`` and ``csrc/flash_bwd_bf16.cu`` on the card, with attention-weight dropout inside
 them. With ``fused_attention=False`` it is the op chain matmul ->
 (`causal_mask` + elementwise_add) -> softmax -> dropout -> matmul, the
 [B, H, T, T] weights in memory; their `upscale_in_train` dropout takes

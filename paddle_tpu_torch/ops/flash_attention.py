@@ -13,18 +13,24 @@ rowsum(dO * O), which the JAX package computes in XLA), then the dQ and
 dK/dV kernels. Each of them dispatches on where its tensors lie:
 
 - CUDA: the hand-written kernels of ``csrc/flash_fwd.cu``,
-  ``csrc/flash_delta.cu`` and ``csrc/flash_bwd.cu`` (they replace
-  ``_flash_fwd_kernel``, the XLA delta, ``_flash_dq_kernel`` and
-  ``_flash_dkv_kernel``; see those files for what bounds them and how
-  their designs answer it). They take float32 or bf16 (each dtype its
+  ``csrc/flash_delta.cu``, ``csrc/flash_bwd_f32.cuh`` (the float32 dQ
+  and dK/dV, built from four sources) and ``csrc/flash_bwd_bf16.cu``
+  (they replace ``_flash_fwd_kernel``, the XLA delta,
+  ``_flash_dq_kernel`` and ``_flash_dkv_kernel``; see those files for
+  what bounds them and how their designs answer it). They take float32 or bf16 (each dtype its
   own instantiation, counted under its own name: `flash_fwd` and
-  `flash_fwd_bf16`, ...), any T, and as many keys as queries. The float32
-  forward takes every head dim D that is a multiple of 8 from 8 to 256
-  (`SERVE_HEAD_DIMS`, the JAX kernel's D <= 256); the backward kernels,
-  the delta kernel and the bf16 forward take D in {32, 64, 128}
-  (`_HEAD_DIMS`). Anything else raises — there is no fallback. The bf16
-  forward, dQ and dK/dV kernels load through TMA tensor maps, which want
-  16-byte-aligned bases, as every wrapper checks;
+  `flash_fwd_bf16`, ...), any T, and as many keys as queries. Every one
+  of them, the forward, dQ, dK/dV and the delta kernel in either dtype,
+  takes every head dim D that is a multiple of 8 from 8 to 256
+  (`HEAD_DIMS`, the JAX kernels' D <= 256): D 32, 64 and 128 in exact
+  instantiations, any other D in the smallest padded width that covers
+  it (the float32 flash kernels 8, 16, 32, 64, 96, 128 or 256; the bf16
+  ones 32, 64, 128 or 256; the delta kernel a power of two), whose
+  columns past D the kernel fills with zeros as it loads and never
+  stores. Any other D raises, citing ROADMAP Queue 1 item 9.4 — there is
+  no fallback. Past D 128 dK/dV runs as two grids, dV's and then dK's,
+  and counts both (`dkv_grids`). The bf16 forward, dQ and dK/dV kernels load through TMA
+  tensor maps, which want 16-byte-aligned bases, as every wrapper checks;
 - CPU: the plain PyTorch versions (`_attention_reference`,
   `_lse_reference`, `_flash_delta_reference`,
   `_flash_backward_reference`), which write out the kernels' own
@@ -65,14 +71,11 @@ from .nn import M32, _fmix32, _mul32, seed32
 
 NEG_INF = -1e30
 
-# Head dims the serving kernels take (the float32 forward here, both paged
-# decode kernels): every multiple of 8 from 8 to 256, as the JAX package's
-# flash kernel takes any D <= 256 and its paged kernels any D. ROADMAP
-# Queue 1 item 9.4 holds the rest.
-SERVE_HEAD_DIMS = tuple(range(8, 257, 8))
-# Head dims of the backward kernels, the delta kernel and the bf16
-# forward; ROADMAP Queue 1 item 9.2 brings them to SERVE_HEAD_DIMS.
-_HEAD_DIMS = (32, 64, 128)
+# Head dims every kernel takes (the flash forward, dQ, dK/dV and delta in
+# either dtype, both paged decode kernels): every multiple of 8 from 8 to
+# 256, as the JAX package's flash kernels take any D <= 256 and its paged
+# kernels any D. ROADMAP Queue 1 item 9.4 holds the rest.
+HEAD_DIMS = tuple(range(8, 257, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -187,26 +190,22 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, sm_scale,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def serve_head_dim_error(what, D):
-    """The error of a serving kernel (the float32 forward, either paged
-    decode kernel) refused head dim D."""
+def head_dim_error(what, D):
+    """The error of a kernel (either flash or paged kernel) refused head
+    dim D."""
     return ValueError(f"{what} takes a head dim that is a multiple of 8 "
                       f"from 8 to 256, got {D} (ROADMAP Queue 1 item 9.4)")
 
 
-def _check_head_dim(D, what, serve):
-    """`serve`: the float32 forward's set, else the backward's."""
-    if serve:
-        if D not in SERVE_HEAD_DIMS:
-            raise serve_head_dim_error(f"flash attention {what} kernel", D)
-    elif D not in _HEAD_DIMS:
-        raise ValueError(f"flash attention {what} kernel takes head dim "
-                         f"{_HEAD_DIMS}, got {D} (ROADMAP Queue 1 item 9.2)")
+def _check_head_dim(D, what):
+    """Raise unless the flash `what` kernel takes head dim D (HEAD_DIMS)."""
+    if D not in HEAD_DIMS:
+        raise head_dim_error(f"flash attention {what} kernel", D)
 
 
-def _check_shape(q, what, serve=False):
+def _check_shape(q, what):
     B, H, T, D = q.shape
-    _check_head_dim(D, what, serve)
+    _check_head_dim(D, what)
     if B * H > native.MAX_GRID_Y:
         raise ValueError(f"flash attention {what}: B*H = {B * H} exceeds "
                          f"the grid's y limit {native.MAX_GRID_Y}")
@@ -241,7 +240,7 @@ def _instantiation(q, what):
 def _flash_forward(q, k, v, causal, sm_scale, rate=0.0, seed=0, bh0=0):
     """Launch the forward kernel of q's dtype: returns (out [B, H, T, D]
     in that dtype, lse [B, H, T] float32)."""
-    B, H, T, D = _check_shape(q, "forward", q.dtype == torch.float32)
+    B, H, T, D = _check_shape(q, "forward")
     entry, counter = _instantiation(q, "forward")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -287,6 +286,13 @@ def _flash_dq(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0,
     return dq
 
 
+def dkv_grids(D):
+    """Grids a dK/dV launch runs at head dim D, in either dtype: one, or at
+    the width 256 (D > 128), where dK and dV together would take 256
+    registers a thread, a dV grid and then a dK grid. Each is counted."""
+    return 2 if D > 128 else 1
+
+
 def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0,
                bh0=0):
     """Launch the dK/dV kernel of q's dtype: returns (dk, dv), each
@@ -307,7 +313,7 @@ def _flash_dkv(q, k, v, do, lse, delta, causal, sm_scale, rate=0.0, seed=0,
         B * H, T, D, float(sm_scale), int(bool(causal)),
         *_dropout_args(rate, seed, bh0), *_device_args(dev))
     native.check(err, "flash_dkv launch")
-    native.count_launch("flash_dkv" + counter)
+    native.count_launch("flash_dkv" + counter, dkv_grids(D))
     return dk, dv
 
 
@@ -323,9 +329,9 @@ def _flash_delta_reference(o, do):
 
 def flash_delta(o, do):
     """delta = rowsum(dO * O) over [..., D] tensors, float32: the delta
-    kernel for CUDA tensors (float32 or bf16, D in {32, 64, 128}; it sums
-    in float32, in another order than the plain version), the plain
-    version on the CPU, an empty result on meta."""
+    kernel for CUDA tensors (float32 or bf16, D in HEAD_DIMS; it sums in
+    float32, in another order than the plain version), the plain version
+    on the CPU, an empty result on meta."""
     dev = o.device
     if dev.type == "cpu":
         return _flash_delta_reference(o, do)
@@ -334,7 +340,7 @@ def flash_delta(o, do):
     if dev.type != "cuda":
         raise _no_path(o)
     D = o.shape[-1]
-    _check_head_dim(D, "delta", False)
+    _check_head_dim(D, "delta")
     entry, counter = _instantiation(o, "delta")
     for name, t in (("o", o), ("do", do)):
         native.check_operand(t, name, o.dtype, dev, o.shape)

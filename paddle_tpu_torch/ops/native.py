@@ -22,9 +22,9 @@ Nothing here runs at import: a host without `nvcc` or a card imports this
 module fine and only fails when a kernel is asked for.
 
 `launches` counts kernel launches per kernel name. Each wrapper adds one
-(`count_launch`) right after its launch succeeded and nowhere else, so a
-caller can zero the counts, drive a path, and see which kernels it went
-through.
+a grid it launched (`count_launch`) right after its launch succeeded and
+nowhere else, so a caller can zero the counts, drive a path, and see
+which kernels it went through.
 """
 
 from __future__ import annotations
@@ -40,10 +40,13 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_delta.cu",
-           "paged_decode.cu", "paged_decode_q8.cu", "dropout.cu")
+# the float32 flash backward is four sources (flash_bwd_f32.cuh says why)
+SOURCES = ("flash_fwd.cu", "flash_dq_f32.cu", "flash_dq_f32_wide.cu",
+           "flash_dkv_f32.cu", "flash_dkv_f32_wide.cu", "flash_bwd_bf16.cu",
+           "flash_delta.cu", "paged_decode.cu", "paged_decode_q8.cu",
+           "dropout.cu")
 HEADERS = ("flash_common.cuh", "mma_tf32.cuh", "mma_bf16.cuh",
-           "wgmma_bf16.cuh", "paged_split.cuh")
+           "wgmma_bf16.cuh", "paged_split.cuh", "flash_bwd_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,9 +66,11 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_delta": 0,
 _launch_lock = threading.Lock()   # engines of two models launch from two threads
 
 
-def count_launch(name: str):
+def count_launch(name: str, grids: int = 1):
+    """Count `grids` launches of kernel `name` (a wrapper whose work runs
+    as several grids counts each)."""
     with _launch_lock:
-        launches[name] += 1
+        launches[name] += grids
 
 
 def reset_launches():

@@ -26,7 +26,7 @@ chunks of `DECODE_SPLIT` positions, one block per (head, slot, chunk), and
 merges the chunks in a second kernel; its launch plan
 (`decode_split_plan`) comes from shapes alone, so the wrapper reads no
 seq_lens value on the host and never synchronizes. Both kernels take
-every head dim that is a multiple of 8 from 8 to 256 (`SERVE_HEAD_DIMS`).
+every head dim that is a multiple of 8 from 8 to 256 (`HEAD_DIMS`).
 
 The int8 residency (`kv_dtype="int8"`): the cache tensors are int8 with
 one float32 scale per block ([NB], separate K and V scales), value =
@@ -59,8 +59,8 @@ import torch
 
 from ..core.registry import register_op
 from . import native
-from .flash_attention import (NEG_INF, SERVE_HEAD_DIMS, flash_attention,
-                              serve_head_dim_error)
+from .flash_attention import (HEAD_DIMS, NEG_INF, flash_attention,
+                              head_dim_error)
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +156,8 @@ def decode_split_plan(S, H, Dh, BS, max_b, split):
 def _check_split_launch(what, S, H, Dh, BS, max_b, split):
     """Refuse what the kernels do not take: grid (H, S, NSPLIT) puts the
     slots on y and the chunks on z. Returns `decode_split_plan`'s pair."""
-    if Dh not in SERVE_HEAD_DIMS:
-        raise serve_head_dim_error(what, Dh)
+    if Dh not in HEAD_DIMS:
+        raise head_dim_error(what, Dh)
     if S > native.MAX_GRID_Y:
         raise ValueError(f"{what}: {S} slots exceed the grid's y limit "
                          f"{native.MAX_GRID_Y}")

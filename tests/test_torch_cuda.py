@@ -41,7 +41,11 @@ extracted on one card server and injected into a second one bit for bit,
 the first decode step after an inject equal to the step after a local
 prefill, and a replica's replies free of card tensors; and the C inference
 ABI: a tiny Transformer's logits through `PD_PredictorRun` on the card
-equal to the in-process predictor's, with the flash forward counted.
+equal to the in-process predictor's, with the flash forward counted; and
+every flash kernel at every head dim the JAX kernels take (a multiple of
+8 up to 256): the serving kernels, and the training kernels (dQ, dK/dV,
+delta, the bf16 forward) in float32 and bf16, with the refusal of any
+other head dim.
 
 Every test here needs an NVIDIA card (sm_90a) and skips without one. On
 the card, run (this file imports neither jax nor paddle_tpu, so the repo
@@ -99,15 +103,13 @@ def test_flash_kernel_matches_plain(dev, B, H, T, D, causal):
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(dev):
-    # the float32 forward takes every multiple of 8 up to 256, no other
-    for D in (264, 12):
-        q = torch.randn(1, 2, 128, D, device=dev)
-        with pytest.raises(ValueError, match="head dim"):
-            fa.flash_attention(q, q, q, True, 0.1)
-    # the bf16 forward keeps D 32, 64 and 128
-    q = torch.randn(1, 2, 128, 16, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q, q, q, True, 0.1)
+    # the forward takes every multiple of 8 up to 256, no other, in either
+    # dtype
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (264, 12):
+            q = torch.randn(1, 2, 128, D, device=dev, dtype=dtype)
+            with pytest.raises(ValueError, match="head dim"):
+                fa.flash_attention(q, q, q, True, 0.1)
     q = torch.randn(1, 2, 128, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q, q, q, True, 0.1)
@@ -156,13 +158,141 @@ def test_flash_dropout_forward_at_a_serving_head_dim(dev, D):
         atol=TOL, rtol=TOL)
 
 
-def test_flash_backward_still_refuses_a_serving_head_dim(dev):
-    """dQ and dK/dV keep D 32, 64 and 128 (ROADMAP Queue 1 item 9.2): the
-    forward at D 16 runs, its backward raises."""
-    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 2, 64, 16, seed=3))
-    out = fa.flash_attention(q, k, v, True, 0.25)
-    with pytest.raises(ValueError, match="9.2"):
-        out.sum().backward()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [12, 264])
+def test_flash_kernels_refuse_a_head_dim_off_the_set(dev, D, dtype):
+    """Every flash kernel, the forward, dQ, dK/dV and delta, refuses a head
+    dim that is not a multiple of 8 from 8 to 256, citing ROADMAP Queue 1
+    item 9.4, and launches nothing."""
+    q, k, v, do = (t.to(dtype) for t in _qkv(dev, 1, 2, 64, D, seed=3, n=4))
+    lse = torch.zeros(1, 2, 64, device=dev)
+    native.reset_launches()
+    for call in (lambda: fa._flash_forward(q, k, v, True, 0.25),
+                 lambda: fa._flash_dq(q, k, v, do, lse, lse, True, 0.25),
+                 lambda: fa._flash_dkv(q, k, v, do, lse, lse, True, 0.25),
+                 lambda: fa.flash_delta(q, do)):
+        with pytest.raises(ValueError, match="9.4"):
+            call()
+    assert sum(native.launches.values()) == 0
+
+
+def _launches(names):
+    return {n: native.launches[n] for n in names}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [128, 200])
+@pytest.mark.parametrize("D", HEAD_DIM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_at_every_head_dim(dev, dtype, D, T, causal, rate):
+    """dQ and dK/dV (and the delta kernel before them, as the autograd
+    backward launches them) at a width of a padded instantiation or a head
+    dim padded into one, at a whole and a ragged T: float32 within
+    BWD_TOL (1 + |plain|), bf16 within the bf16 rule, one launch of each
+    counted (dK/dV past D 128 is two grids, dV's and dK's, each counted),
+    two runs bit-equal, and nothing written past the head dim (the outputs
+    are allocated at width D)."""
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    q, k, v, do = (t.to(dtype) for t in _qkv(dev, 2, 3, T, D,
+                                             seed=D * 7 + T + causal, n=4))
+    sm = D ** -0.5
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, 23)
+    native.reset_launches()
+    got = fa._flash_backward(q, k, v, out, lse, do, causal, sm, rate, 23)
+    grids = fa.dkv_grids(D)
+    assert grids == (2 if D > 128 else 1)
+    assert _launches(["flash_delta" + sfx, "flash_dq" + sfx,
+                      "flash_dkv" + sfx]) == {
+        "flash_delta" + sfx: 1, "flash_dq" + sfx: 1,
+        "flash_dkv" + sfx: grids}
+    assert sum(native.launches.values()) == 2 + grids
+    ref = fa._flash_backward_reference(q, k, v, out, lse, do, causal, sm,
+                                       rate, 23)
+    if bf16:
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            _bf16_close(a, b, name)
+    else:
+        _assert_within_bwd_tol(got, ref)
+    again = fa._flash_backward(q, k, v, out, lse, do, causal, sm, rate, 23)
+    view = torch.int16 if bf16 else torch.int32
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("T", [1, 200, 256])
+@pytest.mark.parametrize("D", HEAD_DIM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_delta_at_every_head_dim(dev, dtype, D, T):
+    """The delta kernel at every padded width (lanes past the head dim
+    load nothing; float32 D 256 takes two chunks a lane, bf16 D 8 one lane
+    a row): each row within DELTA_TOL of its sum of |dO O|, one launch,
+    two launches bit-equal."""
+    o, do = (t.to(dtype) for t in _qkv(dev, 2, 3, T, D, seed=T + 3 * D, n=2))
+    native.reset_launches()
+    got = fa.flash_delta(o, do)
+    counter = "flash_delta" + ("_bf16" if dtype == torch.bfloat16 else "")
+    assert native.launches[counter] == 1
+    assert sum(native.launches.values()) == 1
+    assert got.dtype == torch.float32 and got.shape == (2, 3, T)
+    want = fa._flash_delta_reference(o, do)
+    scale = (do.float() * o.float()).abs().sum(-1)
+    assert bool(((got - want).abs() <= DELTA_TOL * scale).all()), \
+        float(((got - want).abs() / scale).max())
+    assert torch.equal(got, fa.flash_delta(o, do))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [128, 200])
+@pytest.mark.parametrize("D", HEAD_DIM_CASES)
+def test_bf16_forward_at_every_head_dim(dev, D, T, causal, rate):
+    """The bf16 forward at every width (32, 64, 128 and 256) and head dims
+    padded into one (TMA fills the columns past D with zeros and the
+    store clips them): within the bf16 rule, lse within LSE_TOL, one
+    launch, two launches bit-equal."""
+    q, k, v = _qkv_bf16(dev, 2, 3, T, D, seed=D * 5 + T + causal)
+    sm = D ** -0.5
+    native.reset_launches()
+    out, lse = fa._flash_forward(q, k, v, causal, sm, rate, 29)
+    assert native.launches["flash_fwd_bf16"] == 1
+    assert sum(native.launches.values()) == 1
+    _bf16_close(out, fa._attention_reference(q, k, v, causal, sm, rate, 29),
+                "out")
+    torch.testing.assert_close(lse, fa._lse_reference(q, k, causal, sm),
+                               atol=LSE_TOL, rtol=0)
+    again = fa._flash_forward(q, k, v, causal, sm, rate, 29)
+    assert torch.equal(out.view(torch.int16), again[0].view(torch.int16))
+    assert torch.equal(lse.view(torch.int32), again[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 256])
+def test_autograd_function_trains_at_the_head_dim_ends(dev, D, dtype):
+    """flash_attention's autograd backward at D 8 and 256: the forward,
+    delta, dQ and dK/dV kernels of the dtype, once each (dK/dV at 256 as
+    its two grids), and grads equal to the plain backward's (float32
+    within BWD_TOL, bf16 by the bf16 rule)."""
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    q, k, v, do = (t.to(dtype) for t in _qkv(dev, 2, 2, 256, D, seed=D, n=4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    native.reset_launches()
+    out = fa.flash_attention(*leaves, True, D ** -0.5, 0.1, 9)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert _launches([n + sfx for n in ("flash_fwd", "flash_delta",
+                                        "flash_dq", "flash_dkv")]) == {
+        "flash_fwd" + sfx: 1, "flash_delta" + sfx: 1, "flash_dq" + sfx: 1,
+        "flash_dkv" + sfx: 2 if D == 256 else 1}
+    _, lse = fa._flash_forward(q, k, v, True, D ** -0.5, 0.1, 9)
+    ref = fa._flash_backward_reference(q, k, v, out.detach(), lse, do, True,
+                                       D ** -0.5, 0.1, 9)
+    if bf16:
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+            _bf16_close(a, b, name)
+    else:
+        _assert_within_bwd_tol(grads, ref)
 
 
 def _paged_case(dev, S, H, Dh, BS, max_b, seq, seed):

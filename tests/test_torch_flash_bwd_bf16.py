@@ -1,5 +1,5 @@
-"""The host side of the bf16 flash backward kernels (csrc/flash_bwd.cu on
-`wgmma` + TMA, csrc/wgmma_bf16.cuh), on the CPU: `flash_delta`, which
+"""The host side of the bf16 flash backward kernels
+(csrc/flash_bwd_bf16.cu on `wgmma` + TMA, csrc/wgmma_bf16.cuh), on the CPU: `flash_delta`, which
 `_flash_backward` computes in PyTorch before the two launches, against
 the JAX package's delta and against its own upcast formula bit for bit;
 the operand checks that a TMA tensor map relies on (16-byte alignment);

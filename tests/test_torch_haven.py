@@ -173,6 +173,27 @@ def test_update_log_lag_is_nonzero_while_resync_pending():
     assert log.lag() == 0
 
 
+def test_update_log_keeps_no_record_before_the_first_cut():
+    """Before a fresh pair's first snapshot cut the window holds no
+    appender back (the cut's quiesce waits out the mutators, a blocked
+    appender among them) and the log keeps no record: the snapshot will
+    hold every update to the cut. So a primary whose backup is out of
+    reach keeps numbering pushes in bounded memory; after the cut the
+    window and its records work as before."""
+    log = UpdateLog(window=4, stall_timeout_s=0.2)
+    t0 = time.monotonic()
+    assert [log.append("push_grad", {"i": i}) for i in range(100)] \
+        == list(range(1, 101))
+    assert time.monotonic() - t0 < 0.2   # no append waited on the window
+    assert len(log._records) == 0 and log.batch() == []
+    assert not log.degraded and log.needs_resync and log.lag() >= 1
+    log.resume(log.head_seq)          # the quiesced cut at seq 100
+    assert log.append("push_grad", {}) == 101
+    assert [s for s, _c, _p, _tr in log.batch()] == [101]
+    log.rebase(100)
+    assert log.lag() == 1 and len(log._records) == 1
+
+
 # -- replication ----------------------------------------------------------
 
 def test_replicated_pair_is_bit_identical_to_unreplicated_baseline():

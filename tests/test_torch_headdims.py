@@ -152,22 +152,23 @@ def test_the_serving_kernels_take_every_multiple_of_8_up_to_256():
     """The shape checks of the float32 forward and both paged decode
     kernels, which run here on CPU tensors before any launch: every
     multiple of 8 from 8 to 256 passes them; 12 and 264 raise, naming the
-    ROADMAP item that holds them; the backward's check keeps D 32, 64 and
-    128 and raises at 16."""
+    ROADMAP item that holds them. The training kernels' check is the same
+    one (tests/test_torch_headdims_train.py holds it for each), and so
+    the bf16 forward refuses 12 as the float32 one does."""
     for D in range(8, 257, 8):
-        fa._check_shape(torch.empty(1, 1, 1, D), "forward", serve=True)
+        fa._check_shape(torch.empty(1, 1, 1, D), "forward")
+        fa._check_shape(torch.empty(1, 1, 1, D), "dQ")
         assert pa._check_split_launch("paged", 1, 1, D, 4, 2,
                                       pa.DECODE_SPLIT)[1][-1] == D + 2
     for D in (12, 264):
         with pytest.raises(ValueError, match="head dim.*ROADMAP"):
-            fa._check_shape(torch.empty(1, 1, 1, D), "forward", serve=True)
+            fa._check_shape(torch.empty(1, 1, 1, D), "forward")
         for what in ("paged decode kernel", "int8 paged decode kernel"):
             with pytest.raises(ValueError, match="head dim.*ROADMAP"):
                 pa._check_split_launch(what, 1, 1, D, 4, 2, pa.DECODE_SPLIT)
-    with pytest.raises(ValueError, match="head dim.*ROADMAP"):
-        fa._check_shape(torch.empty(1, 1, 1, 16), "dQ")
-    # the bf16 forward keeps the backward's set
+        with pytest.raises(ValueError, match="head dim.*ROADMAP"):
+            fa._check_shape(torch.empty(1, 1, 1, D), "dQ")
     with pytest.raises(ValueError, match="head dim"):
-        fa._flash_forward(*(torch.empty(1, 1, 4, 16, dtype=torch.bfloat16),)
+        fa._flash_forward(*(torch.empty(1, 1, 4, 12, dtype=torch.bfloat16),)
                           * 3, True, 0.25)
     assert not any(native.launches.values())

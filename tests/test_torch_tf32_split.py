@@ -1,7 +1,7 @@
 """Why the flash kernels take each fp32 product as three TF32 products
 (3xTF32), pinned on the CPU.
 
-``paddle_tpu_torch/csrc/flash_bwd.cu`` runs its seven products per tile
+``paddle_tpu_torch/csrc/flash_bwd_f32.cuh`` runs its seven products per tile
 on the H100's tensor cores, which multiply TF32 (10 explicit mantissa
 bits). One TF32 product per fp32 product (1xTF32) keeps about 3 decimal
 digits: the scores S = Q K^T pass through exp(), so their error becomes a

@@ -2,10 +2,11 @@
 """The flash and paged kernels of paddle_tpu_torch on one card: by default
 the bf16 training kernels (the forward, the delta kernel, dQ and dK/dV),
 with --serve the serving kernels (the float32 flash forward, the float32
-and int8 paged decode kernels).
+and int8 paged decode kernels), with --train32 the float32 training
+kernels (dQ, dK/dV and the delta kernel).
 
     python tools/torch_flash_bwd_bench.py [--root DIR] [--reps N]
-        [--serve [--nvcc]] [--out FILE]
+        [--serve [--nvcc] | --train32] [--out FILE]
 
 --root DIR  import paddle_tpu_torch from the checkout DIR (for example a
             parent commit unpacked with `git archive`), so that two
@@ -19,6 +20,7 @@ and int8 paged decode kernels).
             flags, one after another, and report each one's wall
             seconds and exit code (nothing else runs beside it, so the
             seconds are comparable across checkouts in one run)
+--train32   time the float32 dQ, dK/dV and delta kernels instead (below)
 
 The bf16 mode reports the build report of every flash instantiation, the
 forward's times beside SDPA's bf16 forward, the delta kernel's beside its
@@ -48,6 +50,15 @@ H = 512 // D. Reported: the median CUDA-event time on a cold L2
 (chip_smoke.time_ms) of the kernel, its plain version and, for the
 forward, SDPA; the bound; the build's registers, spills and shared
 memory of each float32 flash and paged instantiation.
+
+The --train32 mode times head dims 32, 64 and 128 with chip_smoke.py's
+check_train_kernels, which also holds each kernel against its plain
+version (within TOL / BWD_TOL, two launches bit-equal): at train-base's
+attention (B 32, T 256, H = 512 // D), non-causal and causal, rate 0.1,
+and non-causal at rate 0. Reported: the median CUDA-event time on a
+cold L2 of dQ, dK/dV and the delta kernel, the plain backward's, SDPA's
+float32 backward at rate 0, each bound; and the build report of every
+float32 dQ and dK/dV instantiation with the build's seconds.
 
 Prints one JSON object a line (the build report, each case) and, with
 --out, writes them all to FILE. Needs a card; exits 2 without one.
@@ -143,6 +154,28 @@ def serve_rows(torch, cs, native, fa, rows):
                     **cs.check_paged_q8(torch, pa, flush, H=H, Dh=D)})
 
 
+TRAIN32_CASES = [(False, 0.1), (True, 0.1), (False, 0.0)]
+
+
+def train32_rows(torch, cs, native, fa, rows):
+    """The --train32 mode: the float32 training kernels at SERVE_DIMS."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(rows, {"flash_build": {
+        k: v for k, v in cs.flash_build_report(native, n_expected=None)
+        .items() if k.startswith(("flash_dq<", "flash_dkv<"))},
+        "build_s": native.build_info.seconds})
+    flush = cs._l2_flusher(torch)
+    keys = ("dq_", "dkv_", "delta_", "bwd_")
+    for D in SERVE_DIMS:
+        for causal, rate in TRAIN32_CASES:
+            res = cs.check_train_kernels(torch, fa, flush, cs.TRAIN_BATCH,
+                                         512 // D, 256, D, causal, rate)
+            emit(rows, {"kernel": "flash_bwd_f32", **{
+                k: v for k, v in res.items()
+                if k in ("B", "H", "T", "D", "causal", "rate")
+                or k.startswith(keys)}})
+
+
 def host_us(torch, fn, reps):
     """Host microseconds of one call of `fn` (an enqueue), over `reps`."""
     torch.cuda.synchronize()
@@ -211,10 +244,13 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--nvcc", action="store_true")
+    ap.add_argument("--train32", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
     if args.nvcc and not args.serve:
         ap.error("--nvcc times the serving kernels' sources: give --serve")
+    if args.train32 and args.serve:
+        ap.error("--train32 and --serve are two modes: give one")
     import torch
     if not torch.cuda.is_available():
         print("torch_flash_bwd_bench: no CUDA device", file=sys.stderr)
@@ -237,6 +273,10 @@ def main() -> int:
         native.lib()
         emit(rows, dict(head, build_s=native.build_info.seconds))
         serve_rows(torch, cs, native, fa, rows)
+    elif args.train32:
+        native.lib()
+        emit(rows, {"root": root, "card": card})
+        train32_rows(torch, cs, native, fa, rows)
     else:
         native.lib()
         emit(rows, {"root": root, "card": card,
